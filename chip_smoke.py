@@ -32,12 +32,51 @@ exits non-zero without printing a result:
   5. profile  one train step at the slice configuration under
               torch.profiler: device time by kernel.
 
+GraphSAGE minibatch training (slice 2), graphsage-reddit at the
+minibatch_lg widths: 1024 seed nodes, fanout 15-10, 602 features,
+hidden 128, 47 classes, adam:
+
+  2. kernels  (also) sage_aggregate_fwd and _bwd against their plain
+              versions at the three shapes a train step gives them
+              (neigh2 (15360, 10, 602) x (602, 128), neigh1 (1024, 15,
+              602) x (602, 128), h1 (1024, 15, 128) x (128, 47)) and at
+              ragged ones (B 37, F 1, D 5, H 7; H 130 over two column
+              tiles; B 4225 with D 33: 32 rows a block, scalar loads).
+              Tolerances: the aggregate bitwise; out and d_neigh rtol
+              1e-5 / atol 1e-5 against f32 cuBLAS with TF32 off; d_w
+              within 1e-5 of max |d_w| (a sum over up to 15360 rows in
+              another order). Timed as above; the library call is
+              torch.einsum("bfd,dh->bh") (the sum without the 1/F) for
+              the forward and torch.mm(agg^T, d_out) for d_w.
+  6. graph    the synthetic graph of minibatch_lg (232,965 nodes,
+              114,615,892 edges, 602 random features a node), built once
+              from seed 0 and shared by the phases below.
+  7. gnn_model  the GraphSAGE loss and every gradient through the
+              kernels against the same model through the plain versions,
+              same parameters and batch: loss rtol 1e-5, each gradient
+              within 1e-4 of its L2 norm over the seeds whose ReLU inputs
+              and L2-norm clamps agree on both paths (phase_gnn_model).
+  8. gnn_loop  the port's generic driver (repro_torch.launch.train.run)
+              for 20 steps with InTune ticking: loss finite,
+              sage_aggregate_fwd and _bwd launched at least 3 times a
+              step; prints seed nodes/s, the loop step's time split into
+              sampling + copy and the train step (host clock,
+              synchronised; gnn_profile reads device time) and peak device
+              memory.
+  9. gnn_profile  one GNN train step under torch.profiler: device time
+              by kernel.
+
+Launch counts are set to 0 just before each main path (the DLRM loop,
+the GNN loop) and read just after it; the `kernels` line reports each
+kernel's count from its own path.
+
 It prints a `kernels` JSON line, the card's name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. It needs one CUDA card
 and exits non-zero when there is none.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -55,6 +94,11 @@ PEAK_F32_FLOPS = 67e12
 
 STEPS = 40
 TUNE_EVERY = 2
+GNN_STEPS = 20
+
+DLRM_KERNELS = ("embedding_bag_fwd", "embedding_bag_bwd", "dot_interact_fwd",
+                "dot_interact_bwd")
+GNN_KERNELS = ("sage_aggregate_fwd", "sage_aggregate_bwd")
 
 
 def card_line() -> str:
@@ -349,7 +393,7 @@ def phase_model(cfg):
     _allclose("model loss", loss_k.mean(), loss_p.mean(), 1e-5, 0.0)
     keep = (~flips).float() / float((~flips).sum())
     grads_k = torch.autograd.grad((loss_k * keep).sum(), params)
-    counts = ops.launch_counts()
+    counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
     if min(counts.values()) < 1:
         raise AssertionError(f"model pass skipped a kernel: {counts}")
     grads_p = torch.autograd.grad((loss_p * keep).sum(), params)
@@ -376,7 +420,7 @@ def phase_loop(cfg) -> dict:
                            finetune_ticks=90, device="cuda", seed=0)
     ops.reset_launch_counts()
     res = run_proc(args, cfg)
-    counts = ops.launch_counts()
+    counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
     if not all(math.isfinite(x) for x in res["losses"]):
         raise AssertionError(f"loss not finite: {res['losses']}")
     short = {k: n for k, n in counts.items() if n < STEPS}
@@ -432,6 +476,304 @@ def phase_profile(cfg):
     for name, ms in rows[:10]:
         print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
 
+def _gnn_path_shapes(shape, cfg):
+    """(tag, B, F, D, H, d_neigh needed) of the three sage_aggregate calls
+    of one GraphSAGE train step (repro_torch.models.gnn)."""
+    b, (f1, f2), d = shape.batch_nodes, shape.fanout, shape.d_feat
+    return (("neigh2", b * f1, f2, d, cfg.d_hidden, False),
+            ("neigh1", b, f1, d, cfg.d_hidden, False),
+            ("h1", b, f1, cfg.d_hidden, cfg.n_classes, True))
+
+
+def _check_sage(neigh, w, tag) -> dict:
+    """Kernel vs plain on one input: the aggregate bitwise, out and
+    d_neigh allclose, d_w within 1e-5 of max |d_w|."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_aggregate as sa
+    b, f, _ = neigh.shape
+    out, agg = sa.sage_aggregate_fwd(neigh, w, save_agg=True)
+    agg_p = ref.sage_mean_ref(neigh)
+    if not torch.equal(agg, agg_p):
+        raise AssertionError(f"sage_aggregate_fwd {tag}: aggregate not "
+                             f"bitwise equal to the plain version")
+    out_only, none = sa.sage_aggregate_fwd(neigh, w)
+    if none is not None or not torch.equal(out_only, out):
+        raise AssertionError(f"sage_aggregate_fwd {tag}: out differs "
+                             f"without the saved aggregate")
+    e_f = _allclose(f"sage_aggregate_fwd {tag}", out,
+                    ref.sage_aggregate_ref(neigh, w), 1e-5, 1e-5)
+    d_out = torch.randn_like(out)
+    d_neigh, d_w = sa.sage_aggregate_bwd(d_out, w, agg, f, True)
+    want_n, want_w = ref.sage_aggregate_bwd_ref(d_out, w, agg_p, f)
+    e_n = _allclose(f"sage_aggregate_bwd d_neigh {tag}", d_neigh, want_n,
+                    1e-5, 1e-5)
+    e_w = _allclose(f"sage_aggregate_bwd d_w {tag}", d_w, want_w, 0.0,
+                    1e-5 * float(want_w.abs().max()))
+    only_w = sa.sage_aggregate_bwd(d_out, w, agg, f, False)
+    if only_w[0] is not None or not torch.equal(only_w[1], d_w):
+        raise AssertionError(f"sage_aggregate_bwd {tag}: d_w differs "
+                             f"without d_neigh")
+    return {"sage_aggregate_fwd": e_f, "sage_aggregate_bwd": max(e_n, e_w)}
+
+
+def phase_sage_kernels(shape, cfg) -> dict:
+    """sage_aggregate_fwd and _bwd against their plain versions at the
+    GNN path's three shapes and at ragged ones, then timed at the path's
+    shapes. Returns one record per kernel: the top-level numbers are those
+    of the main shape (neigh2); `per_shape` lists all three."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_aggregate as sa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = {k: 0.0 for k in GNN_KERNELS}
+
+    def inputs(b, f, d, h):
+        neigh = torch.randn((b, f, d), device=dev, generator=gen)
+        w = torch.randn((d, h), device=dev, generator=gen) * d ** -0.5
+        return neigh, w
+
+    path = _gnn_path_shapes(shape, cfg)
+    # ragged shapes reach every variant of the forward: 8 or 32 rows a
+    # block, float or float2 loads, one or two column tiles
+    for tag, b, f, d, h in (("ragged", 37, 1, 5, 7),
+                            ("ragged-h", 37, 3, 33, 130),
+                            ("ragged-wide", 4225, 2, 33, 7),
+                            *[(t, b, f, d, h) for t, b, f, d, h, _ in path]):
+        for k, v in _check_sage(*inputs(b, f, d, h), tag).items():
+            errs[k] = max(errs[k], v)
+        torch.cuda.empty_cache()
+
+    per = {k: [] for k in GNN_KERNELS}
+    for tag, b, f, d, h, need_neigh in path:
+        # enough input sets to cycle through more than the 50 MB L2
+        n_sets = max(1, min(8, -(-64 * 2 ** 20 // (4 * b * f * d))))
+        sets = [inputs(b, f, d, h) for _ in range(n_sets)]
+        ms, wall = time_ms(lambda n, w: sa.sage_aggregate_fwd(n, w, True),
+                           sets)
+        plain, _ = time_ms(ref.sage_aggregate_ref, sets)
+        lib, _ = time_ms(lambda n, w: torch.einsum("bfd,dh->bh", n, w), sets)
+        bms, by = bound_ms(4 * (b * f * d + d * h + b * h + b * d),
+                           b * f * d + 2 * b * d * h)
+        per["sage_aggregate_fwd"].append(
+            {"shape": tag, "B": b, "F": f, "D": d, "H": h, "ms": ms,
+             "wall_ms": wall, "plain_ms": plain, "library_ms": lib,
+             "bound_ms": bms, "bound_by": by})
+        bsets = [(torch.randn((b, h), device=dev, generator=gen), w,
+                  sa.sage_aggregate_fwd(n, w, True)[1]) for n, w in sets]
+        del sets
+        ms, wall = time_ms(
+            lambda g, w, a: sa.sage_aggregate_bwd(g, w, a, f, need_neigh),
+            bsets)
+        plain, _ = time_ms(lambda g, w, a: ref.sage_aggregate_bwd_ref(
+            g, w, a, f, need_neigh=need_neigh), bsets)
+        # one library call computes d_w alone; none computes both outputs
+        lib = None if need_neigh else time_ms(
+            lambda g, w, a: torch.mm(a.t(), g), bsets)[0]
+        n_bytes = 4 * (b * h + b * d + d * h)
+        flops = 2 * b * d * h
+        if need_neigh:
+            n_bytes += 4 * (d * h + b * f * d)
+            flops += 2 * b * d * h
+        bms, by = bound_ms(n_bytes, flops)
+        per["sage_aggregate_bwd"].append(
+            {"shape": tag, "B": b, "F": f, "D": d, "H": h,
+             "d_neigh": need_neigh, "ms": ms, "wall_ms": wall,
+             "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+             "bound_by": by})
+        del bsets
+        torch.cuda.empty_cache()
+
+    out = {}
+    for name in GNN_KERNELS:
+        main = per[name][0]
+        out[name] = {k: main[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by", "wall_ms")}
+        out[name]["max_abs_err"] = errs[name]
+        out[name]["per_step_ms"] = sum(r["ms"] for r in per[name])
+        out[name]["per_step_bound_ms"] = sum(r["bound_ms"] for r in per[name])
+        out[name]["per_shape"] = per[name]
+        for r in per[name]:
+            lib = "none" if r["library_ms"] is None \
+                else f"{r['library_ms']:.4f}"
+            print(f"  {name} {r['shape']} ({r['B']}, {r['F']}, {r['D']}) x "
+                  f"({r['D']}, {r['H']}): {r['ms']:.4f} ms on the card, "
+                  f"{r['wall_ms']:.4f} ms launch to launch (plain "
+                  f"{r['plain_ms']:.4f}, library {lib}, bound "
+                  f"{r['bound_ms']:.4f} by {r['bound_by']})")
+        print(f"  {name}: {out[name]['per_step_ms']:.4f} ms a train step "
+              f"(bound {out[name]['per_step_bound_ms']:.4f}), max abs err "
+              f"{errs[name]:.3e}")
+    return out
+
+
+def build_graph(shape, cfg):
+    """The synthetic graph of `shape` and its sampler, as the port's
+    driver builds it (repro_torch.launch.train.make_sampler)."""
+    import numpy as np
+    from repro_torch.launch.train import make_sampler
+    t0 = time.monotonic()
+    sampler = make_sampler(cfg, shape, np.random.RandomState(0))
+    print(f"  {shape.n_nodes} nodes, {len(sampler.g.nbr)} edges, features "
+          f"{sampler.x.shape} {sampler.x.dtype} "
+          f"({sampler.x.nbytes / 1e6:.1f} MB) in "
+          f"{time.monotonic() - t0:.1f} s")
+    return sampler
+
+
+def _gnn_batch(sampler, shape, dev):
+    import torch
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in sampler.sample(shape.batch_nodes).items()}
+
+
+@contextlib.contextmanager
+def recording_combine(gnn, rec):
+    """Within the block, each hidden layer's combine of `gnn` also appends
+    its pre-activation and its norm to `rec` (recomputed by the same
+    operations on the same inputs, so with the same bits)."""
+    import torch
+    combine = gnn._sage_combine
+
+    def wrapped(h_self, proj, layer, *, final):
+        if not final:
+            with torch.no_grad():
+                pre = torch.matmul(h_self, layer.w_self) + proj + layer.b
+                rec.append(pre)
+                rec.append(torch.linalg.vector_norm(torch.relu(pre), dim=-1,
+                                                    keepdim=True))
+        return combine(h_self, proj, layer, final=final)
+    gnn._sage_combine = wrapped
+    try:
+        yield
+    finally:
+        gnn._sage_combine = combine
+
+
+def phase_gnn_model(shape, cfg, sampler):
+    """GraphSAGE loss and gradients through the kernels vs the plain
+    versions on the card, same parameters and batch, full width.
+
+    As in phase_model, a ReLU input within rounding of 0 (or an L2 norm
+    within rounding of its 1e-6 clamp) can fall on the other side on one
+    path, which moves that seed's gradients by their full size. Such seeds
+    are found from the recorded pre-activations and norms and given loss
+    weight 0; every gradient of the remaining seeds' loss must then agree
+    within 1e-4 of its L2 norm, and the full-batch loss within rtol
+    1e-5."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import gnn
+
+    dev = torch.device("cuda")
+    model = gnn.init_params(cfg, shape.d_feat, seed=0, device=dev)
+    batch = _gnn_batch(sampler, shape, dev)
+    names, params = zip(*model.named_parameters())
+    rec_k, rec_p = [], []
+    ops.reset_launch_counts()
+    with recording_combine(gnn, rec_k):
+        nll_k = gnn.minibatch_nll(model, batch)
+    with recording_combine(gnn, rec_p):
+        nll_p = gnn.minibatch_nll(model, batch,
+                                  agg_fn=ref.sage_aggregate_ref)
+    b = nll_k.shape[0]
+    flips = torch.zeros(b, dtype=torch.bool, device=dev)
+    # rec alternates pre-activation (threshold 0) and norm (1e-6)
+    for i, (a, p) in enumerate(zip(rec_k, rec_p)):
+        t = 0.0 if i % 2 == 0 else 1e-6
+        flips |= ((a > t) != (p > t)).reshape(b, -1).any(dim=1)
+    n_flip = int(flips.sum())
+    if n_flip > b // 100:
+        raise AssertionError(f"{n_flip} seeds flip a ReLU or a norm clamp "
+                             f"between the two paths")
+    if not bool(torch.isfinite(nll_k).all()):
+        raise AssertionError("GNN loss not finite")
+    _allclose("GNN loss", nll_k.mean(), nll_p.mean(), 1e-5, 0.0)
+    keep = (~flips).float() / float((~flips).sum())
+    grads_k = torch.autograd.grad((nll_k * keep).sum(), params)
+    counts = {k: ops.launch_counts()[k] for k in GNN_KERNELS}
+    if min(counts.values()) < 3:
+        raise AssertionError(f"GNN pass skipped a kernel call: {counts}")
+    grads_p = torch.autograd.grad((nll_p * keep).sum(), params)
+    worst = 0.0
+    for n, gk, gp in zip(names, grads_k, grads_p):
+        rel = float(torch.linalg.vector_norm(gk - gp)
+                    / torch.linalg.vector_norm(gp))
+        if not rel <= 1e-4:
+            raise AssertionError(f"GNN grad {n}: relative L2 error "
+                                 f"{rel:.3e}")
+        worst = max(worst, rel)
+    print(f"  loss kernels {float(nll_k.detach().mean()):.7f} plain "
+          f"{float(nll_p.detach().mean()):.7f}; {n_flip} of {b} seeds flip "
+          f"a ReLU or norm clamp and are left out of the gradients; "
+          f"{len(names)} gradients agree (worst relative L2 error "
+          f"{worst:.3e}); launches {counts}")
+
+
+def phase_gnn_loop(shape, sampler) -> dict:
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    res = train.run("graphsage-reddit", steps=GNN_STEPS, shape=shape,
+                    full=True, device="cuda", sampler=sampler, log_every=5)
+    counts = {k: ops.launch_counts()[k] for k in GNN_KERNELS}
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"GNN loss not finite: {res['losses']}")
+    short = {k: n for k, n in counts.items() if n < 3 * GNN_STEPS}
+    if short:
+        raise AssertionError(f"kernels launched fewer than {3 * GNN_STEPS} "
+                             f"times on the GNN path: {short}")
+    summary = {k: res[k] for k in ("seed_nodes_per_s", "loop_step_s",
+                                   "fetch_step_s", "train_step_s",
+                                   "max_memory_allocated")}
+    summary["loss_first"], summary["loss_last"] = res["losses"][0], \
+        res["losses"][-1]
+    summary["launches"] = counts
+    print("  gnn_loop " + json.dumps(summary))
+    torch.cuda.synchronize()
+    return counts
+
+
+def phase_gnn_profile(shape, cfg, sampler):
+    """Where one GNN train step's device time goes: torch.profiler over 3
+    steps on one sampled block already on the card (after 2 warm-up
+    steps), device time summed by kernel, against the host-clock step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import gnn
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    model = gnn.init_params(cfg, shape.d_feat, seed=0, device=dev)
+    opt = make_optimizer("adam", lr=1e-3)
+    state = opt.init(dict(model.named_parameters()))
+    step_fn = make_train_step(gnn.minibatch_loss, opt)
+    batch = _gnn_batch(sampler, shape, dev)
+    for k in range(2):
+        step_fn(model, state, k, batch)
+    torch.cuda.synchronize()
+    steps = 3
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for k in range(steps):
+            step_fn(model, state, 2 + k, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3 / steps
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms in rows)
+    sage_ms = sum(ms for name, ms in rows if "sage_" in name)
+    print(f"  GNN train step: {device_ms:.3f} ms of device time in "
+          f"{wall_ms:.3f} ms of host-clock time (profiled); sage_aggregate "
+          f"kernels {sage_ms:.3f} ms ({100 * sage_ms / device_ms:.1f}%)")
+    for name, ms in rows[:12]:
+        print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
+
 
 SOURCES = {
     "embedding_bag_fwd": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
@@ -442,6 +784,10 @@ SOURCES = {
                          "src/repro/kernels/dot_interact.py:51"),
     "dot_interact_bwd": ("src/repro_torch/kernels/csrc/dot_interact.cu",
                          "src/repro/kernels/dot_interact.py:51"),
+    "sage_aggregate_fwd": ("src/repro_torch/kernels/csrc/sage_aggregate.cu",
+                           "src/repro/kernels/sage_aggregate.py:32"),
+    "sage_aggregate_bwd": ("src/repro_torch/kernels/csrc/sage_aggregate.cu",
+                           "src/repro/kernels/sage_aggregate.py:32"),
 }
 
 
@@ -452,6 +798,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.configs.dlrm_criteo import MODEL
+    from repro_torch.configs.graphsage_reddit import ARCH as GNN_ARCH
+    gnn_shape = GNN_ARCH.shape("minibatch_lg")
+    gnn_cfg = GNN_ARCH.model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -462,6 +811,8 @@ def main() -> int:
         phase_build()
     with Phase("kernels"):
         recs = phase_kernels(MODEL)
+        torch.cuda.empty_cache()
+        recs.update(phase_sage_kernels(gnn_shape, gnn_cfg))
     torch.cuda.empty_cache()
     with Phase("model"):
         phase_model(MODEL)
@@ -471,6 +822,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("profile"):
         phase_profile(MODEL)
+    torch.cuda.empty_cache()
+    with Phase("graph"):
+        sampler = build_graph(gnn_shape, gnn_cfg)
+    with Phase("gnn_model"):
+        phase_gnn_model(gnn_shape, gnn_cfg, sampler)
+    torch.cuda.empty_cache()
+    with Phase("gnn_loop"):
+        launches.update(phase_gnn_loop(gnn_shape, sampler))
+    torch.cuda.empty_cache()
+    with Phase("gnn_profile"):
+        phase_gnn_profile(gnn_shape, gnn_cfg, sampler)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]

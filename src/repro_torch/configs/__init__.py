@@ -1,1 +1,1 @@
-"""Model configurations the port runs."""
+"""Model configurations the port runs, and its arch registry."""

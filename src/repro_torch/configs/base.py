@@ -1,4 +1,6 @@
-"""Config dataclasses of the port (copied from repro.configs.base).
+"""Config dataclasses of the port (copied from repro.configs.base, with
+the fields of regimes the port does not run dropped: sharding overrides,
+lookup and partitioning knobs, skipped cells).
 
 Frozen so configs are hashable. `reduced` lists every cut a config
 makes against its published source, each with its reason.
@@ -24,3 +26,61 @@ class DLRMConfig:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+# ----------------------------------------------------------------- GNN -----
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int = 2
+    d_hidden: int = 128
+    n_classes: int = 47
+    aggregator: str = "mean"
+    sample_sizes: Tuple[int, ...] = (25, 10)
+    param_dtype: str = "float32"
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class GNNShape:
+    name: str
+    kind: str                  # "full_graph" | "minibatch" | "batched_small"
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    n_graphs: int = 0          # batched_small: graphs per batch
+
+
+GNN_SHAPES = (
+    GNNShape("full_graph_sm", "full_graph", n_nodes=2708, n_edges=10556,
+             d_feat=1433),
+    GNNShape("minibatch_lg", "minibatch", n_nodes=232965, n_edges=114615892,
+             d_feat=602, batch_nodes=1024, fanout=(15, 10)),
+    GNNShape("ogb_products", "full_graph", n_nodes=2449029, n_edges=61859140,
+             d_feat=100),
+    GNNShape("molecule", "batched_small", n_nodes=30, n_edges=64, d_feat=32,
+             n_graphs=128),
+)
+
+
+# ------------------------------------------------------------- registry ----
+@dataclass(frozen=True)
+class ArchSpec:
+    """One architecture: model config + its shape set + metadata."""
+    arch_id: str
+    family: str                     # "lm" | "gnn" | "recsys" | "dlrm"
+    model: object                   # one of the configs above
+    shapes: Tuple[object, ...]
+    source: str = ""
+    optimizer: str = "adam"
+
+    def shape(self, name: str):
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id} has no shape {name!r} "
+                       f"(have {[s.name for s in self.shapes]})")

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("embedding_bag", "dot_interact")
+SOURCES = ("embedding_bag", "dot_interact", "sage_aggregate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +45,11 @@ SIGNATURES = {
     "dot_interact": {
         "dot_interact_fwd": (_P, _P, _I64, _I32, _I32, _P),
         "dot_interact_bwd": (_P, _P, _P, _I64, _I32, _I32, _P),
+    },
+    "sage_aggregate": {
+        "sage_aggregate_fwd": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
+        "sage_aggregate_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
+                               _I32, _I32, _P),
     },
 }
 

@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import dot_interact as _di
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import ref
+from repro_torch.kernels import sage_aggregate as _sa
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -70,6 +71,43 @@ class _DotInteract(torch.autograd.Function):
         return ref.dot_interact_bwd_ref(d_out, feats)
 
 
+class _SageAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, neigh, w):
+        # d_w = agg^T d_out: the forward keeps the (B, D) aggregate only
+        # when w needs a gradient
+        save_agg = ctx.needs_input_grad[1]
+        if _on_cuda(neigh):
+            out, agg = _sa.sage_aggregate_fwd(neigh, w, save_agg)
+        else:
+            agg = ref.sage_mean_ref(neigh)
+            out = (agg @ w.float()).to(neigh.dtype)
+            agg = agg if save_agg else None
+        ctx.save_for_backward(agg, w)
+        ctx.f = neigh.shape[1]
+        ctx.neigh_dtype = neigh.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        agg, w = ctx.saved_tensors
+        need_neigh, need_w = ctx.needs_input_grad
+        if not (need_neigh or need_w):
+            return None, None
+        d_out = d_out.contiguous()
+        if _on_cuda(d_out):
+            d_neigh, d_w = _sa.sage_aggregate_bwd(d_out, w, agg, ctx.f,
+                                                  need_neigh)
+        else:
+            d_neigh, d_w = ref.sage_aggregate_bwd_ref(
+                d_out, w, agg, ctx.f, need_neigh=need_neigh)
+        if d_neigh is not None:
+            d_neigh = d_neigh.to(ctx.neigh_dtype)
+        if d_w is not None:
+            d_w = d_w.to(w.dtype)
+        return d_neigh, d_w
+
+
 def embedding_bag(tables: torch.Tensor, ids: torch.Tensor, *,
                   combiner: str = "sum") -> torch.Tensor:
     """Stacked multi-feature bag: tables (F, V, D), ids (B, F, bag) ->
@@ -83,12 +121,19 @@ def dot_interact(feats: torch.Tensor) -> torch.Tensor:
     return _DotInteract.apply(feats)
 
 
+def sage_aggregate(neigh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """GraphSAGE's neighbour term: neigh (B, F, D), w (D, H) -> mean over
+    F, then @ w: (B, H), differentiable in both. The backward writes
+    d_neigh only when neigh needs a gradient."""
+    return _SageAggregate.apply(neigh, w)
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of every CUDA kernel in this process, by kernel name."""
-    return {**_eb.LAUNCHES, **_di.LAUNCHES}
+    return {**_eb.LAUNCHES, **_di.LAUNCHES, **_sa.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_eb.LAUNCHES, _di.LAUNCHES):
+    for counts in (_eb.LAUNCHES, _di.LAUNCHES, _sa.LAUNCHES):
         for name in counts:
             counts[name] = 0

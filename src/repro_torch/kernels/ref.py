@@ -81,3 +81,35 @@ def dot_interact_bwd_ref(d_out: torch.Tensor,
     s = torch.zeros((b, f, f), dtype=torch.float32, device=feats.device)
     s[:, ii, jj] = d_out.float()
     return torch.bmm(s + s.transpose(1, 2), feats.float()).to(feats.dtype)
+
+
+def sage_mean_ref(neigh: torch.Tensor) -> torch.Tensor:
+    """neigh (B, F, D) -> mean over F (B, D) f32: an explicit left fold
+    over f ascending, then an IEEE division by F, as the kernel does (the
+    f32 aggregate is bit-equal to the CUDA kernel's)."""
+    out = neigh[:, 0].float()
+    for f in range(1, neigh.shape[1]):
+        out = out + neigh[:, f].float()
+    return _div(out, neigh.shape[1])
+
+
+def sage_aggregate_ref(neigh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """neigh (B, F, D); w (D, H) -> mean over F, then an f32 product with
+    w: (B, H) in neigh's dtype."""
+    return (sage_mean_ref(neigh) @ w.float()).to(neigh.dtype)
+
+
+def sage_aggregate_bwd_ref(d_out: torch.Tensor, w: torch.Tensor,
+                           agg, f: int, *, need_neigh: bool = True):
+    """Gradients of `sage_aggregate_ref` from d_out (B, H): (d_neigh
+    (B, F, D) f32 = (d_out w^T) / F broadcast over f, or None unless
+    `need_neigh`; d_w (D, H) f32 = agg^T d_out, or None when `agg`, the
+    forward's (B, D) aggregate, is None)."""
+    g = d_out.float()
+    d_w = None if agg is None else agg.t() @ g
+    d_neigh = None
+    if need_neigh:
+        d_agg = _div(g @ w.float().t(), f)
+        d_neigh = d_agg[:, None, :].expand(
+            d_agg.shape[0], f, d_agg.shape[1]).contiguous()
+    return d_neigh, d_w

@@ -1,1 +1,1 @@
-"""The DLRM of the paper's Criteo workload, in PyTorch."""
+"""The DLRM of the paper's Criteo workload and GraphSAGE, in PyTorch."""

@@ -1,1 +1,1 @@
-"""Optimizer and train step of the closed training loop."""
+"""Optimizers, train step and checkpointing."""

@@ -1,9 +1,9 @@
-"""Adagrad, the classic DLRM embedding optimizer, in PyTorch (port of
-the adagrad path of repro/train/optim.py).
+"""Adagrad (the classic DLRM embedding optimizer) and Adam, in PyTorch
+(port of the adagrad and adam paths of repro/train/optim.py).
 
 API, as in the JAX package:
 
-    opt = make_optimizer("adagrad", lr=0.02)
+    opt = make_optimizer("adagrad", lr=0.02)       # or "adam"
     state = opt.init(params)                      # params: {name: tensor}
     params, state, stats = opt.update(grads, state, params, step)
 
@@ -75,6 +75,19 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+# ------------------------------------------------------------- clipping ----
+@torch.no_grad()
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+    """Scale every gradient by min(1, max_norm / max(norm, 1e-9)) in
+    place, as the JAX package does (in f32, on the device: no host
+    sync). Returns (grads, global norm before clipping)."""
+    gn = global_norm(grads.values())
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    for g in grads.values():
+        g.mul_(scale.to(g.dtype))
+    return grads, gn
+
+
 # -------------------------------------------------------------- adagrad ----
 def adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10) -> Optimizer:
     """p -= lr * g / (sqrt(acc + g^2) + eps), acc += g^2, elementwise."""
@@ -97,12 +110,59 @@ def adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10) -> Optimizer:
     return Optimizer("adagrad", init, update)
 
 
+# ----------------------------------------------------------------- adam ----
+def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
+         eps: float = 1e-8, weight_decay: float = 0.0,
+         grad_clip: float = 1.0) -> Optimizer:
+    """AdamW with the JAX package's defaults and evaluation order:
+    m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2,
+    p -= lr (m / bc1) / (sqrt(v / bc2) + eps) [+ lr wd p], with the bias
+    corrections bc = 1 - b^t, t = step + 1, computed in float32. The
+    gradients are clipped to `grad_clip` global norm first (0: off). The
+    update runs in place on the parameters and the state, and consumes
+    the gradients."""
+    f32 = np.float32
+
+    def init(params: Dict[str, torch.Tensor]):
+        return {"m": {k: torch.zeros_like(p, dtype=torch.float32)
+                      for k, p in params.items()},
+                "v": {k: torch.zeros_like(p, dtype=torch.float32)
+                      for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        if grad_clip:
+            grads, gn = clip_by_global_norm(grads, grad_clip)
+        else:
+            gn = global_norm(grads.values())
+        lr = lr_fn(step)
+        t = f32(step) + f32(1.0)
+        bc1 = float(f32(1.0) - f32(b1) ** t)
+        bc2 = float(f32(1.0) - f32(b2) ** t)
+        for k, p in params.items():
+            for p_s, g_s, m_s, v_s in _slices(p, grads[k], state["m"][k],
+                                              state["v"][k]):
+                g32 = g_s.float()
+                m_s.mul_(b1).add_(g32 * (1 - b1))
+                v_s.mul_(b2).add_(g32.square_().mul_(1 - b2))
+                denom = (v_s / bc2).sqrt_().add_(eps)
+                upd = (m_s / bc1).mul_(lr).div_(denom)
+                if weight_decay:
+                    upd.add_(p_s.float() * (lr * weight_decay))
+                p_s.sub_(upd.to(p_s.dtype))
+        return params, state, {"lr": lr, "grad_norm": gn}
+    return Optimizer("adam", init, update)
+
+
 # -------------------------------------------------------------- factory ----
 def make_optimizer(name: str, *, lr: float = 1e-3, total_steps: int = 10000,
                    warmup: int = 100, **kw) -> Optimizer:
-    """The JAX factory's contract (warmup-cosine schedule); only adagrad,
-    the closed loop's optimizer, is ported so far."""
-    if name != "adagrad":
-        raise ValueError(f"optimizer {name!r} is not ported to repro_torch; "
-                         f"the port has 'adagrad'")
-    return adagrad(warmup_cosine(lr, warmup, total_steps), **kw)
+    """The JAX factory's contract (warmup-cosine schedule); adagrad (the
+    closed loop's) and adam (the generic driver's) are ported so far."""
+    lr_fn = warmup_cosine(lr, warmup, total_steps)
+    if name == "adagrad":
+        return adagrad(lr_fn, **kw)
+    if name == "adam":
+        return adam(lr_fn, **kw)
+    raise ValueError(f"optimizer {name!r} is not ported to repro_torch; "
+                     f"the port has 'adagrad' and 'adam'")

@@ -2,7 +2,8 @@
 package's Pallas kernels (interpret mode) and oracles, their autograd
 gradients against jax.grad, the device dispatch of the ops, and the
 build's contract. The CUDA kernels themselves run only on the card
-(`gpu` marker; chip_smoke.py holds them against these plain versions).
+(tests/test_torch_gpu.py; chip_smoke.py holds them against these plain
+versions).
 """
 import numpy as np
 import pytest
@@ -17,11 +18,16 @@ from repro.models.embedding import multifeature_bag as j_multifeature_bag  # noq
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import dot_interact as di  # noqa: E402
 from repro_torch.kernels import embedding_bag as eb  # noqa: E402
+from repro_torch.kernels import sage_aggregate as sa  # noqa: E402
 from repro_torch.models.embedding import embedding_bag as t_embedding_bag  # noqa: E402
 
 BAG_CASES = [(64, 8, 4, 1), (512, 32, 16, 4), (1024, 128, 32, 8),
              (128, 10, 8, 3)]
 DOT_CASES = [(64, 27, 16, 32), (32, 8, 8, 8), (48, 13, 32, 16)]
+# the JAX package's sweep (tests/test_kernels.py), then a ragged case the
+# TPU kernel's tiling does not take
+SAGE_CASES = [(64, 15, 64, 128, 32), (128, 10, 602, 128, 64),
+              (32, 25, 32, 16, 32), (37, 1, 5, 7, 37)]
 
 
 @pytest.mark.parametrize("combiner", ["sum", "mean"])
@@ -102,14 +108,91 @@ def test_dot_interact_grad_matches_jax():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("b,f,d,h,tile", SAGE_CASES)
+def test_sage_aggregate_plain_matches_pallas_and_ref(b, f, d, h, tile):
+    """rtol 1e-5 / atol 1e-5 in f32, the JAX package's own tolerance: the
+    same f32 mean over F, then an f32 product summed in another order."""
+    rng = np.random.RandomState(b)
+    neigh = rng.randn(b, f, d).astype(np.float32)
+    w = (rng.randn(d, h) * d ** -0.5).astype(np.float32)
+    tn, tw = torch.from_numpy(neigh), torch.from_numpy(w)
+    got = ops.sage_aggregate(tn, tw).numpy()
+    plain = ref.sage_aggregate_ref(tn, tw).numpy()
+    pallas = jops.sage_aggregate(jnp.asarray(neigh), jnp.asarray(w),
+                                 tile_b=tile, interpret=True)
+    oracle = jref.sage_aggregate_ref(jnp.asarray(neigh), jnp.asarray(w))
+    assert got.shape == (b, h) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, plain)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("b,f,d,h", [(16, 5, 12, 7), (37, 1, 5, 7),
+                                     (8, 10, 602, 128)])
+def test_sage_aggregate_grads_match_jax(b, f, d, h):
+    """d_neigh and d_w of the autograd.Function (plain versions on the
+    CPU) against jax.grad of the oracle."""
+    rng = np.random.RandomState(d)
+    neigh = rng.randn(b, f, d).astype(np.float32)
+    w = (rng.randn(d, h) * d ** -0.5).astype(np.float32)
+    cot = rng.randn(b, h).astype(np.float32)
+    want_n, want_w = jax.grad(
+        lambda n, w_: jnp.sum(jref.sage_aggregate_ref(n, w_) * cot),
+        argnums=(0, 1))(jnp.asarray(neigh), jnp.asarray(w))
+    x = torch.from_numpy(neigh).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    (ops.sage_aggregate(x, tw) * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_n),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(want_w),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_sage_aggregate_writes_d_neigh_only_when_needed(monkeypatch):
+    """The backward asks for d_neigh only when neigh needs a gradient,
+    and keeps the aggregate (for d_w) only when w does."""
+    calls = []
+    plain = ref.sage_aggregate_bwd_ref
+
+    def spy(d_out, w, agg, f, *, need_neigh):
+        calls.append((need_neigh, agg is not None))
+        return plain(d_out, w, agg, f, need_neigh=need_neigh)
+    monkeypatch.setattr(ref, "sage_aggregate_bwd_ref", spy)
+    w = torch.randn(5, 2, requires_grad=True)
+    ops.sage_aggregate(torch.randn(4, 3, 5), w).sum().backward()
+    x = torch.randn(4, 3, 5, requires_grad=True)
+    ops.sage_aggregate(x, w.detach()).sum().backward()
+    assert calls == [(False, True), (True, False)]
+    assert x.grad.shape == (4, 3, 5)
+
+
+def test_sage_dw_splits_cover_the_card():
+    # main path: d_w (602, 128) is 5 x 1 tiles of 128 -> 52 row ranges,
+    # 260 blocks: one wave at two blocks an SM
+    assert sa.dw_splits(15360, 602, 128) == 52
+    assert sa.dw_splits(1024, 128, 47) == 16 == 1024 // 64
+    assert sa.dw_splits(37, 5, 7) == 1
+    assert sa.dw_splits(0, 5, 7) == 1
+
+
+def test_sage_aggregate_fwd_refuses_too_wide_features(monkeypatch):
+    monkeypatch.setattr(sa, "_check", lambda *a: None)   # device, dtype
+    with pytest.raises(ValueError, match="D <= 4480"):
+        sa._check_pair(torch.zeros(2, 3, 4481), torch.zeros(4481, 5))
+
+
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     before = ops.launch_counts()
     ops.dot_interact(torch.zeros(2, 3, 4))
     ops.embedding_bag(torch.zeros(2, 5, 4), torch.zeros(3, 2, 1,
                                                         dtype=torch.int32))
+    w = torch.zeros(4, 2, requires_grad=True)
+    ops.sage_aggregate(torch.zeros(2, 3, 4), w).sum().backward()
     assert ops.launch_counts() == before
     assert set(before) == {"embedding_bag_fwd", "embedding_bag_bwd",
-                           "dot_interact_fwd", "dot_interact_bwd"}
+                           "dot_interact_fwd", "dot_interact_bwd",
+                           "sage_aggregate_fwd", "sage_aggregate_bwd"}
 
 
 def test_other_devices_raise():
@@ -125,6 +208,9 @@ def test_other_devices_raise():
                                      torch.zeros(2, 5, 4)),
     lambda: di.dot_interact_fwd(torch.zeros(2, 3, 4)),
     lambda: di.dot_interact_bwd(torch.zeros(2, 3), torch.zeros(2, 3, 4)),
+    lambda: sa.sage_aggregate_fwd(torch.zeros(2, 3, 4), torch.zeros(4, 5)),
+    lambda: sa.sage_aggregate_bwd(torch.zeros(2, 5), torch.zeros(4, 5),
+                                  torch.zeros(2, 4), 3, True),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A CUDA wrapper checks its inputs before it builds or launches
@@ -144,32 +230,3 @@ def test_build_targets_sm90a_and_fails_loudly_without_nvcc(monkeypatch):
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
-
-
-@pytest.mark.gpu
-def test_cuda_kernels_match_plain_versions():
-    """On the card: every kernel against its plain version (embedding
-    forward bitwise; backward and interaction allclose)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    tables = torch.randn((3, 100, 12), device="cuda", generator=gen)
-    ids = torch.randint(0, 100, (37, 3, 2), device="cuda", generator=gen,
-                        dtype=torch.int32)
-    for combiner in ("sum", "mean"):
-        assert torch.equal(eb.embedding_bag_fwd(tables, ids, combiner),
-                           ref.embedding_bag_ref(tables, ids,
-                                                 combiner=combiner))
-        g = torch.randn((37, 3, 12), device="cuda", generator=gen)
-        torch.testing.assert_close(
-            eb.embedding_bag_bwd(g, ids, 100, combiner),
-            ref.embedding_bag_bwd_ref(g, ids, 100, combiner=combiner),
-            rtol=1e-5, atol=1e-6)
-    feats = torch.randn((37, 27, 16), device="cuda", generator=gen)
-    torch.testing.assert_close(di.dot_interact_fwd(feats),
-                               ref.dot_interact_ref(feats),
-                               rtol=1e-5, atol=1e-4)
-    d_out = torch.randn((37, 351), device="cuda", generator=gen)
-    torch.testing.assert_close(di.dot_interact_bwd(d_out, feats),
-                               ref.dot_interact_bwd_ref(d_out, feats),
-                               rtol=1e-5, atol=1e-4)
