@@ -66,9 +66,45 @@ hidden 128, 47 classes, adam:
   9. gnn_profile  one GNN train step under torch.profiler: device time
               by kernel.
 
+wide-deep training (slice 3) at its published widths: 40 sparse features,
+embed_dim 32, MLP 1024-512-256, 2^20 rows a table, bags of 4, row-wise
+adagrad; the deep tables (40, 2^20, 32) go through embedding_bag_fwd and
+the wide arm (40, 2^20) viewed as (40, 2^20, 1) through
+embedding_bag_fused_fwd, both with embedding_bag_bwd as their backward:
+
+ 10. recsys_kernels  embedding_bag_fused_fwd bit-equal to
+              embedding_bag_fwd and to the plain version at the wide
+              arm's train shape (ids (65536, 40, 4) of the synthetic Criteo
+              stream over (40, 2^20, 1)), at serve_p99 (batch 512), at a
+              reduced table (8, 512, 8), at F not a multiple of its walk's
+              group of 4, with bag 1, bag 16 and mean, and with one
+              out-of-range id (its row NaN in both kernels, the rest
+              equal); embedding_bag_fwd bitwise and embedding_bag_bwd per
+              feature at rtol 1e-5 / atol 1e-6 against their plain
+              versions with the train shape's ids, on the wide arm (D = 1)
+              and on the deep tables (40, 2^20, 32). Times at the train
+              shape: the fused kernel, embedding_bag_fwd, the plain version
+              and F.embedding_bag over the flattened (F*V, 1) table with
+              offset ids; and embedding_bag_bwd at D = 1 (library:
+              index_add_).
+ 11. recsys_model  wide-deep's loss and every gradient at the published
+              widths (batch 4096) through the kernels against the plain
+              versions, same parameters and batch: loss rtol 1e-5, each
+              gradient within 1e-4 of its L2 norm over the samples whose
+              ReLU inputs agree on both paths (as phase_model).
+ 12. recsys_loop  the generic driver (repro_torch.launch.train.run,
+              --full --shape train_batch) for 20 steps: loss finite,
+              embedding_bag_fused_fwd, embedding_bag_fwd and
+              embedding_bag_bwd each launched at least 20 times; prints
+              samples/s, the loop step split into batch + copy and the
+              train step, peak device memory, the first and last loss.
+ 13. recsys_profile  one wide-deep train step under torch.profiler:
+              device time by kernel.
+
 Launch counts are set to 0 just before each main path (the DLRM loop,
-the GNN loop) and read just after it; the `kernels` line reports each
-kernel's count from its own path.
+the GNN loop, the wide-deep loop) and read just after it; the `kernels`
+line reports each kernel's count from its own path (embedding_bag_fwd
+and _bwd from the DLRM loop, with their wide-deep counts beside).
 
 It prints a `kernels` JSON line, the card's name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. It needs one CUDA card
@@ -96,9 +132,13 @@ STEPS = 40
 TUNE_EVERY = 2
 GNN_STEPS = 20
 
+RECSYS_STEPS = 20
+
 DLRM_KERNELS = ("embedding_bag_fwd", "embedding_bag_bwd", "dot_interact_fwd",
                 "dot_interact_bwd")
 GNN_KERNELS = ("sage_aggregate_fwd", "sage_aggregate_bwd")
+RECSYS_KERNELS = ("embedding_bag_fused_fwd", "embedding_bag_fwd",
+                  "embedding_bag_bwd")
 
 
 def card_line() -> str:
@@ -133,14 +173,20 @@ def time_ms(fn, args_list, iters: int = 20):
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*args_list[i % len(args_list)])
-        torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if device_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return device_us / 1e3 / iters, wall
+    # the profiler now and then returns a window with no device events
+    # (seen once in many calls on the H100); such a window is profiled
+    # again, and three empty ones in a row fail
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*args_list[i % len(args_list)])
+            torch.cuda.synchronize()
+        device_us = sum(e.self_device_time_total
+                        for e in prof.key_averages())
+        if device_us > 0:
+            return device_us / 1e3 / iters, wall
+        print("  torch.profiler recorded no device time; profiling again")
+    raise RuntimeError("torch.profiler recorded no device time in 3 tries")
 
 
 class Phase:
@@ -775,11 +821,281 @@ def phase_gnn_profile(shape, cfg, sampler):
         print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
 
 
+def _criteo_batch(cfg, n, seed):
+    """n synthetic Criteo records of the wide-deep widths through the
+    driver's online feature work (numpy, on the host)."""
+    from repro_torch.data.synthetic import CriteoStream
+    stream = CriteoStream(n_sparse=cfg.n_sparse, n_dense=cfg.n_dense,
+                          vocab=cfg.vocab_sizes[0], multi_hot=cfg.multi_hot,
+                          seed=seed)
+    return stream.feature_udf(stream.raw_block(n))
+
+
+def _check_fused(tables, ids, combiner, tag):
+    """embedding_bag_fused_fwd, embedding_bag_fwd and the plain version:
+    all bit-equal (or, with an out-of-range id, NaN in the same rows and
+    bit-equal elsewhere)."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb, ref
+    row = eb.embedding_bag_fwd(tables, ids, combiner)
+    nan = torch.isnan(row)
+    if not nan.any() and not torch.equal(
+            row, ref.embedding_bag_fused_ref(tables, ids, combiner=combiner)):
+        raise AssertionError(f"embedding_bag_fwd {tag} {combiner}: not "
+                             f"bitwise equal to the plain version")
+    got = eb.embedding_bag_fused_fwd(tables, ids, combiner)
+    if not (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], row[~nan])):
+        raise AssertionError(f"embedding_bag_fused_fwd {tag} {combiner}: "
+                             f"not bitwise equal to embedding_bag_fwd")
+    return int(nan.any(dim=-1).sum())
+
+
+def phase_recsys_kernels(cfg) -> dict:
+    """embedding_bag_fused_fwd against embedding_bag_fwd and the plain
+    version (bitwise) at the wide arm's shapes and at ragged ones;
+    embedding_bag_fwd/_bwd against their plain versions at the train
+    shape on the wide arm and the deep tables; then the fused kernel
+    timed at the wide arm's train shape beside the row kernel, the plain
+    version and F.embedding_bag, and embedding_bag_bwd timed at D = 1.
+    Returns the fused kernel's record and the row kernels' errors on
+    this path."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_f, rows = cfg.n_sparse, cfg.vocab_sizes[0]
+    # the wide arm: (F, V) viewed as (F, V, 1), weights ~ 0.01 N(0, 1)
+    wide = torch.empty((n_f, rows, 1), device=dev)
+    wide.normal_(generator=gen).mul_(0.01)
+    main = torch.as_tensor(_criteo_batch(cfg, 65536, 1)["sparse_ids"]) \
+        .to(dev)
+    serve = torch.as_tensor(_criteo_batch(cfg, 512, 2)["sparse_ids"]).to(dev)
+    for combiner in ("sum", "mean"):
+        _check_fused(wide, main, combiner, "train_batch (65536, 40, 4)")
+        _check_fused(wide, serve, combiner, "serve_p99 (512, 40, 4)")
+    for f, v, d, b, bag in ((8, 512, 8, 4096, 4), (8, 512, 8, 37, 1),
+                            (3, 1000, 5, 37, 16), (40, 4096, 1, 300, 16),
+                            (6, 256, 32, 33, 3)):
+        tables = torch.randn((f, v, d), device=dev, generator=gen)
+        ids = torch.randint(0, v, (b, f, bag), device=dev, generator=gen,
+                            dtype=torch.int32)
+        for combiner in ("sum", "mean"):
+            _check_fused(tables, ids, combiner, f"({f},{v},{d}) b{b} "
+                                                f"bag{bag}")
+        ids[b // 2, f - 1, 0] = v
+        if _check_fused(tables, ids, "sum", f"({f},{v},{d}) out of "
+                                            f"range") != 1:
+            raise AssertionError("an out-of-range id must poison exactly "
+                                 "its own row")
+    bad = serve.clone()
+    bad[7, 3, 2] = -1
+    if _check_fused(wide, bad, "sum", "serve_p99 out of range") != 1:
+        raise AssertionError("an out-of-range id must poison exactly its "
+                             "own row")
+    print("  embedding_bag_fused_fwd bit-equal to embedding_bag_fwd and "
+          "the plain version at every shape")
+
+    # the row kernels at the path's train shape: the wide arm's D = 1
+    # (262,144 ids a feature scattered over 2^20 rows) and the deep tables
+    path_errs = _check_bag(wide, main, "sum", "wide arm train_batch")
+    deep = torch.empty((n_f, rows, cfg.embed_dim), device=dev)
+    deep.normal_(generator=gen).mul_(0.01)
+    for name, err in _check_bag(deep, main, "sum",
+                                "deep tables train_batch").items():
+        path_errs[name] = max(path_errs[name], err)
+    del deep
+    torch.cuda.empty_cache()
+    print(f"  embedding_bag_fwd/_bwd at (65536, 40, 4) x (40, 2^20, 1) and "
+          f"x (40, 2^20, {cfg.embed_dim}): forward bit-equal, backward max "
+          f"abs err {path_errs['embedding_bag_bwd']:.3e}")
+
+    # timed at the train shape, cycling two id sets (84 MB) so the ids do
+    # not sit in the 50 MB L2 from one launch to the next
+    b, _, bag = main.shape
+    sets = [(main,), (torch.as_tensor(_criteo_batch(cfg, 65536, 3)
+                                      ["sparse_ids"]).to(dev),)]
+    ms, wall = time_ms(lambda i: eb.embedding_bag_fused_fwd(wide, i), sets)
+    row_ms, _ = time_ms(lambda i: eb.embedding_bag_fwd(wide, i), sets)
+    plain, _ = time_ms(lambda i: ref.embedding_bag_fused_ref(wide, i), sets)
+    offs = (torch.arange(n_f, device=dev) * rows).view(1, n_f, 1)
+    flat_sets = [((i.long() + offs).reshape(b * n_f, bag),) for (i,) in sets]
+    wide_flat = wide.view(n_f * rows, 1)
+    lib, _ = time_ms(lambda x: F.embedding_bag(x, wide_flat, mode="sum"),
+                     flat_sets)
+    uniq = int(torch.unique(flat_sets[0][0]).numel())
+    bms, by = bound_ms(main.numel() * 4 + uniq * 4 + b * n_f * 4,
+                       b * n_f * bag)
+    rec = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+           "bound_by": by, "max_abs_err": 0.0, "wall_ms": wall,
+           "embedding_bag_fwd_ms": row_ms, "distinct_rows": uniq}
+    print(f"  embedding_bag_fused_fwd (65536, 40, 4) x (40, 2^20, 1): "
+          f"{ms:.4f} ms on the card, {wall:.4f} ms launch to launch; "
+          f"embedding_bag_fwd {row_ms:.4f}, plain {plain:.4f}, "
+          f"F.embedding_bag {lib:.4f}, bound {bms:.4f} by {by} ({uniq} "
+          f"distinct rows of {n_f * rows})")
+
+    # embedding_bag_bwd at the wide arm's D = 1 (checked above; here grad
+    # piles up over the timed calls, which changes no memory traffic)
+    d_out = torch.randn((b, n_f, 1), device=dev, generator=gen)
+    grad = torch.zeros_like(wide)
+    bwd_ms, _ = time_ms(lambda: eb.embedding_bag_scatter(d_out, main, grad),
+                        [()])
+    bwd_plain, _ = time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, main,
+                                                             rows), [()])
+    upd = d_out.expand(b, n_f, bag).reshape(-1, 1).contiguous()
+    idx = flat_sets[0][0].reshape(-1)
+    bwd_lib, _ = time_ms(lambda: grad.view(n_f * rows, 1).index_add_(
+        0, idx, upd), [()])
+    bwd_bms, bwd_by = bound_ms(d_out.numel() * 4 + main.numel() * 4
+                               + 2 * uniq * 4, b * n_f * bag)
+    rec["embedding_bag_bwd_d1"] = {
+        "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
+        "bound_ms": bwd_bms, "bound_by": bwd_by}
+    print(f"  embedding_bag_bwd at D = 1 (wide arm): {bwd_ms:.4f} ms on the "
+          f"card (plain {bwd_plain:.4f}, index_add_ {bwd_lib:.4f}, bound "
+          f"{bwd_bms:.4f} by {bwd_by})")
+    return {"embedding_bag_fused_fwd": rec}, path_errs
+
+
+def phase_recsys_model(cfg):
+    """wide-deep's loss and gradients through the kernels vs the plain
+    versions on the card, same parameters and batch, published widths,
+    batch 4096. As in phase_model, samples whose MLP pre-activations take
+    the other side of a ReLU on one path are given loss weight 0; every
+    gradient of the others' loss must agree within 1e-4 of its L2 norm,
+    and the full-batch loss within rtol 1e-5."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys
+
+    dev = torch.device("cuda")
+    model = recsys.init_wide_deep(cfg, seed=0, device=dev)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in _criteo_batch(cfg, 4096, 4).items()}
+    names, params = zip(*model.named_parameters())
+    preacts = []
+    for lin in list(model.mlp)[:-1]:
+        lin.register_forward_hook(lambda m, i, o: preacts.append(o.detach()))
+
+    def per_sample_loss(**kw):
+        z = model(batch, **kw)
+        y = batch["label"].float()
+        return torch.clamp(z, min=0) - z * y \
+            + torch.log1p(torch.exp(-torch.abs(z)))
+
+    ops.reset_launch_counts()
+    loss_k = per_sample_loss()
+    n_hooked = len(preacts)
+    loss_p = per_sample_loss(bag_fn=ref.embedding_bag_fused_ref)
+    flips = torch.zeros_like(loss_k, dtype=torch.bool)
+    for a, b in zip(preacts[:n_hooked], preacts[n_hooked:]):
+        flips |= ((a > 0) != (b > 0)).any(dim=1)
+    n_flip = int(flips.sum())
+    if n_flip > loss_k.numel() // 100:
+        raise AssertionError(f"{n_flip} samples flip a ReLU between the "
+                             f"two paths")
+    if not bool(torch.isfinite(loss_k).all()):
+        raise AssertionError("wide-deep loss not finite")
+    _allclose("wide-deep loss", loss_k.mean(), loss_p.mean(), 1e-5, 0.0)
+    keep = (~flips).float() / float((~flips).sum())
+    grads_k = torch.autograd.grad((loss_k * keep).sum(), params)
+    counts = {k: ops.launch_counts()[k] for k in RECSYS_KERNELS}
+    if counts["embedding_bag_fused_fwd"] < 1 or \
+            counts["embedding_bag_fwd"] < 1 or counts["embedding_bag_bwd"] < 2:
+        raise AssertionError(f"wide-deep pass skipped a kernel: {counts}")
+    worst = 0.0
+    for n, gk, gp in zip(names, grads_k, torch.autograd.grad(
+            (loss_p * keep).sum(), params)):
+        rel = float(torch.linalg.vector_norm(gk - gp)
+                    / torch.linalg.vector_norm(gp))
+        if not rel <= 1e-4:
+            raise AssertionError(f"wide-deep grad {n}: relative L2 error "
+                                 f"{rel:.3e}")
+        worst = max(worst, rel)
+    print(f"  loss kernels {float(loss_k.detach().mean()):.7f} plain "
+          f"{float(loss_p.detach().mean()):.7f}; {n_flip} of {loss_k.numel()} "
+          f"samples flip a ReLU and are left out of the gradients; "
+          f"{len(names)} gradients agree (worst relative L2 error "
+          f"{worst:.3e}); launches {counts}")
+
+
+def phase_recsys_loop(arch) -> dict:
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    res = train.run("wide-deep", steps=RECSYS_STEPS, full=True,
+                    shape=arch.shape("train_batch"), device="cuda",
+                    log_every=5)
+    counts = {k: ops.launch_counts()[k] for k in RECSYS_KERNELS}
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"wide-deep loss not finite: {res['losses']}")
+    short = {k: n for k, n in counts.items() if n < RECSYS_STEPS}
+    if short:
+        raise AssertionError(f"kernels launched fewer than {RECSYS_STEPS} "
+                             f"times on the wide-deep path: {short}")
+    summary = {k: res[k] for k in ("samples_per_s", "loop_step_s",
+                                   "fetch_step_s", "train_step_s",
+                                   "max_memory_allocated")}
+    summary["loss_first"], summary["loss_last"] = res["losses"][0], \
+        res["losses"][-1]
+    summary["launches"] = counts
+    print("  recsys_loop " + json.dumps(summary))
+    torch.cuda.synchronize()
+    return counts
+
+
+def phase_recsys_profile(arch):
+    """Where one wide-deep train step's device time goes: torch.profiler
+    over 3 steps on one batch already on the card (after 2 warm-up
+    steps), device time summed by kernel, against the host-clock step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import recsys
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = arch.model
+    model = recsys.init_wide_deep(cfg, seed=0, device=dev)
+    opt = make_optimizer(arch.optimizer, lr=1e-3)
+    state = opt.init(dict(model.named_parameters()))
+    step_fn = make_train_step(recsys.ctr_loss, opt)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in _criteo_batch(
+        cfg, arch.shape("train_batch").batch, 6).items()}
+    for k in range(2):
+        step_fn(model, state, k, batch)
+    torch.cuda.synchronize()
+    steps = 3
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for k in range(steps):
+            step_fn(model, state, 2 + k, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3 / steps
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms in rows)
+    bag_ms = sum(ms for name, ms in rows if "embedding_bag" in name)
+    print(f"  wide-deep train step: {device_ms:.3f} ms of device time in "
+          f"{wall_ms:.3f} ms of host-clock time (profiled); embedding_bag "
+          f"kernels {bag_ms:.3f} ms ({100 * bag_ms / device_ms:.1f}%)")
+    for name, ms in rows[:14]:
+        print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
+
+
 SOURCES = {
     "embedding_bag_fwd": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                           "src/repro/kernels/embedding_bag.py:75"),
     "embedding_bag_bwd": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                           "src/repro/kernels/embedding_bag.py:75"),
+    "embedding_bag_fused_fwd": (
+        "src/repro_torch/kernels/csrc/embedding_bag_fused.cu",
+        "src/repro/kernels/embedding_bag.py:135"),
     "dot_interact_fwd": ("src/repro_torch/kernels/csrc/dot_interact.cu",
                          "src/repro/kernels/dot_interact.py:51"),
     "dot_interact_bwd": ("src/repro_torch/kernels/csrc/dot_interact.cu",
@@ -799,6 +1115,7 @@ def main() -> int:
         return 2
     from repro_torch.configs.dlrm_criteo import MODEL
     from repro_torch.configs.graphsage_reddit import ARCH as GNN_ARCH
+    from repro_torch.configs.wide_deep import ARCH as WD_ARCH
     gnn_shape = GNN_ARCH.shape("minibatch_lg")
     gnn_cfg = GNN_ARCH.model
 
@@ -833,6 +1150,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("gnn_profile"):
         phase_gnn_profile(gnn_shape, gnn_cfg, sampler)
+    del sampler
+    torch.cuda.empty_cache()
+    with Phase("recsys_kernels"):
+        fused_rec, wd_errs = phase_recsys_kernels(WD_ARCH.model)
+        recs.update(fused_rec)
+    torch.cuda.empty_cache()
+    with Phase("recsys_model"):
+        phase_recsys_model(WD_ARCH.model)
+    torch.cuda.empty_cache()
+    with Phase("recsys_loop"):
+        wd_launches = phase_recsys_loop(WD_ARCH)
+    launches["embedding_bag_fused_fwd"] = wd_launches.pop(
+        "embedding_bag_fused_fwd")
+    for name, n in wd_launches.items():
+        recs[name]["wide_deep_launches"] = n
+        recs[name]["wide_deep_max_abs_err"] = wd_errs[name]
+    torch.cuda.empty_cache()
+    with Phase("recsys_profile"):
+        phase_recsys_profile(WD_ARCH)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]

@@ -6,7 +6,9 @@ from the measured device idle time — runs here on an NVIDIA H100. The
 DLRM's two hot ops go through kernels written by hand for Hopper
 (`repro_torch.kernels`). The generic driver (`repro_torch.launch.train`)
 trains GraphSAGE on sampled minibatches, its neighbour aggregations
-through a third such kernel. Everything else is plain PyTorch or copied
+through a third such kernel, and wide-deep, its wide arm through a
+fourth (the fused embedding bag) and its deep tables through the
+DLRM's. Everything else is plain PyTorch or copied
 numpy code. Importing this package (or `repro_torch.data`) imports
 neither torch nor CUDA, so forked or spawned pipeline workers stay cheap.
 """

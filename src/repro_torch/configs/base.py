@@ -67,6 +67,54 @@ GNN_SHAPES = (
 )
 
 
+# -------------------------------------------------------------- recsys -----
+@dataclass(frozen=True)
+class RecsysConfig:
+    """repro.configs.base.RecsysConfig without `tp_lookup` and
+    `sharding_overrides` (the port runs on one device, unsharded, as its
+    DLRMConfig does), with `reduced` added."""
+    name: str
+    interaction: str                    # "concat" | "cin" | "augru" | "bidir-seq" | "dot"
+    n_sparse: int = 0
+    embed_dim: int = 32
+    mlp_dims: Tuple[int, ...] = ()
+    n_dense: int = 13
+    # per-table vocab sizes (hashed); len == n_sparse
+    vocab_sizes: Tuple[int, ...] = ()
+    multi_hot: int = 1                  # lookups per sparse feature (bag size)
+    # xDeepFM
+    cin_dims: Tuple[int, ...] = ()
+    # DIEN / BERT4Rec sequence settings
+    seq_len: int = 0
+    gru_dim: int = 0
+    n_blocks: int = 0
+    n_heads: int = 0
+    n_items: int = 0                    # item vocab for sequence models
+    n_mask: int = 0                     # BERT4Rec: masked positions per seq
+    n_negatives: int = 0                # BERT4Rec: sampled-softmax negatives
+    param_dtype: str = "float32"
+    reduced: Tuple[str, ...] = ()
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class RecsysShape:
+    name: str
+    kind: str            # "train" | "serve" | "retrieval"
+    batch: int
+    n_candidates: int = 0
+
+
+RECSYS_SHAPES = (
+    RecsysShape("train_batch", "train", 65536),
+    RecsysShape("serve_p99", "serve", 512),
+    RecsysShape("serve_bulk", "serve", 262144),
+    RecsysShape("retrieval_cand", "retrieval", 1, n_candidates=1_000_000),
+)
+
+
 # ------------------------------------------------------------- registry ----
 @dataclass(frozen=True)
 class ArchSpec:

@@ -13,6 +13,7 @@ from repro_torch.configs.base import ArchSpec
 
 _ARCH_MODULES = {
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
+    "wide-deep": "repro_torch.configs.wide_deep",
 }
 
 # arch -> where it waits (ROADMAP.md, "Queue 1: modules to port")
@@ -20,10 +21,9 @@ _NOT_PORTED = {
     "dlrm-criteo": "queue 1, item 2 (dlrm-criteo through the generic "
                    "driver; its closed loop runs as "
                    "repro_torch.launch.train_dlrm_criteo)",
-    "wide-deep": "queue 1, item 6 (other recsys models)",
-    "xdeepfm": "queue 1, item 6 (other recsys models)",
-    "dien": "queue 1, item 6 (other recsys models)",
-    "bert4rec": "queue 1, item 6 (other recsys models)",
+    "xdeepfm": "queue 1, item 6 (xDeepFM, DIEN and BERT4Rec)",
+    "dien": "queue 1, item 6 (xDeepFM, DIEN and BERT4Rec)",
+    "bert4rec": "queue 1, item 6 (xDeepFM, DIEN and BERT4Rec)",
     "qwen2-moe-a2.7b": "queue 1, item 7 (LLM family)",
     "kimi-k2-1t-a32b": "queue 1, item 7 (LLM family)",
     "smollm-135m": "queue 1, item 7 (LLM family)",

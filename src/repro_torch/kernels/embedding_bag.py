@@ -1,8 +1,12 @@
-"""CUDA wrappers of the stacked embedding-bag kernels (csrc/embedding_bag.cu).
+"""CUDA wrappers of the stacked embedding-bag kernels.
 
-Replaces the Pallas TPU kernel `repro/kernels/embedding_bag.py::
-embedding_bag` (pallas_call at :75) and adds the backward the TPU kernel
-lacks. See the source for the design; it is bound by bytes.
+`embedding_bag_fwd` / `embedding_bag_bwd` (csrc/embedding_bag.cu) replace
+the Pallas TPU kernel `repro/kernels/embedding_bag.py::embedding_bag`
+(pallas_call at :75) and add the backward the TPU kernel lacks.
+`embedding_bag_fused_fwd` (csrc/embedding_bag_fused.cu) replaces
+`embedding_bag_fused` (pallas_call at :135), the resident-table variant
+for small tables and bags. See the sources for the designs; all are
+bound by bytes.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
@@ -17,7 +21,11 @@ import torch
 
 from repro_torch.kernels.build import LIBRARIES
 
-LAUNCHES = {"embedding_bag_fwd": 0, "embedding_bag_bwd": 0}
+LAUNCHES = {"embedding_bag_fwd": 0, "embedding_bag_bwd": 0,
+            "embedding_bag_fused_fwd": 0}
+
+# the fused kernel's unroll bound (csrc/embedding_bag_fused.cu, kMaxBag)
+FUSED_MAX_BAG = 16
 
 _COMBINERS = {"sum": 0, "mean": 1}
 
@@ -46,10 +54,8 @@ def _status(name: str, status: int):
     LAUNCHES[name] += 1
 
 
-def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
-                      combiner: str = "sum") -> torch.Tensor:
-    """tables (F, V, D) f32, ids (B, F, bag) int32 -> (B, F, D) f32."""
-    mean = _mean_flag(combiner)
+def _check_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Checks a forward's inputs; returns its (B, F, D) f32 output."""
     _check(tables, "tables", torch.float32, 3)
     _check(ids, "ids", torch.int32, 3)
     f, v, d = tables.shape
@@ -58,13 +64,44 @@ def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"ids {tuple(ids.shape)} on {ids.device} do not "
                          f"index tables {tuple(tables.shape)} on "
                          f"{tables.device}")
-    out = torch.empty((b, f, d), dtype=torch.float32, device=tables.device)
+    return torch.empty((b, f, d), dtype=torch.float32, device=tables.device)
+
+
+def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
+                      combiner: str = "sum") -> torch.Tensor:
+    """tables (F, V, D) f32, ids (B, F, bag) int32 -> (B, F, D) f32."""
+    mean = _mean_flag(combiner)
+    out = _check_lookup(tables, ids)
+    f, v, d = tables.shape
+    b, _, bag = ids.shape
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_bag_fwd", LIBRARIES.get("embedding_bag")
                 .embedding_bag_fwd(tables.data_ptr(), ids.data_ptr(),
                                    out.data_ptr(), b, f, v, d, bag, mean,
                                    stream))
+    return out
+
+
+def embedding_bag_fused_fwd(tables: torch.Tensor, ids: torch.Tensor,
+                            combiner: str = "sum") -> torch.Tensor:
+    """tables (F, V, D) f32, ids (B, F, bag <= 16) int32 -> (B, F, D)
+    f32, bit-equal to `embedding_bag_fwd`. The kernel refuses (and this
+    raises) more than 2^31 - 1 threads: B * F rows times the threads a
+    row, 1-32 (csrc/embedding_bag_fused.cu)."""
+    mean = _mean_flag(combiner)
+    out = _check_lookup(tables, ids)
+    f, v, d = tables.shape
+    b, _, bag = ids.shape
+    if bag > FUSED_MAX_BAG:
+        raise ValueError(f"embedding_bag_fused_fwd takes bags of at most "
+                         f"{FUSED_MAX_BAG} ids, got {bag}")
+    with torch.cuda.device(tables.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _status("embedding_bag_fused_fwd",
+                LIBRARIES.get("embedding_bag_fused").embedding_bag_fused_fwd(
+                    tables.data_ptr(), ids.data_ptr(), out.data_ptr(), b, f,
+                    v, d, bag, mean, stream))
     return out
 
 

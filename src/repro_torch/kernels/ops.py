@@ -28,13 +28,34 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+# the reference's dispatch limits (repro/kernels/embedding_bag.py:86-88):
+# the fused kernel runs when one feature's table is at most 8 MiB and a
+# bag at most 16 ids (re-derived for the H100 in
+# csrc/embedding_bag_fused.cu)
+FUSED_MAX_TABLE_BYTES = 8 * 1024 * 1024
+FUSED_MAX_BAG = _eb.FUSED_MAX_BAG
+
+
+def fused_fires(tables: torch.Tensor, bag: int) -> bool:
+    """Whether `embedding_bag_fused` takes its resident-table kernel for
+    stacked tables (F, V, D) and bags of `bag` ids (else the row kernel
+    `embedding_bag_fwd`), as the reference function decides per table."""
+    _, v, d = tables.shape
+    return (v * d * tables.element_size() <= FUSED_MAX_TABLE_BYTES
+            and bag <= FUSED_MAX_BAG)
+
+
+def _save_bag(ctx, tables, ids, combiner):
+    ctx.save_for_backward(ids)
+    ctx.combiner = combiner
+    ctx.num_rows = tables.shape[1]
+    ctx.table_dtype = tables.dtype
+
+
 class _EmbeddingBag(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tables, ids, combiner):
-        ctx.save_for_backward(ids)
-        ctx.combiner = combiner
-        ctx.num_rows = tables.shape[1]
-        ctx.table_dtype = tables.dtype
+        _save_bag(ctx, tables, ids, combiner)
         if _on_cuda(tables):
             return _eb.embedding_bag_fwd(tables, ids, combiner)
         return ref.embedding_bag_ref(tables, ids, combiner=combiner)
@@ -52,6 +73,21 @@ class _EmbeddingBag(torch.autograd.Function):
             grad = ref.embedding_bag_bwd_ref(d_out, ids, ctx.num_rows,
                                              combiner=ctx.combiner)
         return grad.to(ctx.table_dtype), None, None
+
+
+class _EmbeddingBagFused(_EmbeddingBag):
+    """The fused function's forward; its backward is `_EmbeddingBag`'s
+    scatter (the TPU kernel has none, and the fused function's gradient
+    is `embedding_bag`'s)."""
+
+    @staticmethod
+    def forward(ctx, tables, ids, combiner):
+        _save_bag(ctx, tables, ids, combiner)
+        if _on_cuda(tables):
+            if fused_fires(tables, ids.shape[-1]):
+                return _eb.embedding_bag_fused_fwd(tables, ids, combiner)
+            return _eb.embedding_bag_fwd(tables, ids, combiner)
+        return ref.embedding_bag_fused_ref(tables, ids, combiner=combiner)
 
 
 class _DotInteract(torch.autograd.Function):
@@ -113,6 +149,15 @@ def embedding_bag(tables: torch.Tensor, ids: torch.Tensor, *,
     """Stacked multi-feature bag: tables (F, V, D), ids (B, F, bag) ->
     (B, F, D) f32, differentiable in `tables`."""
     return _EmbeddingBag.apply(tables, ids, combiner)
+
+
+def embedding_bag_fused(tables: torch.Tensor, ids: torch.Tensor, *,
+                        combiner: str = "sum") -> torch.Tensor:
+    """`embedding_bag` through the fused kernel where `fused_fires` (one
+    feature's table at most 8 MiB, bag at most 16), through the row
+    kernel otherwise: tables (F, V, D), ids (B, F, bag) -> (B, F, D)
+    f32, bit-equal either way, differentiable in `tables`."""
+    return _EmbeddingBagFused.apply(tables, ids, combiner)
 
 
 def dot_interact(feats: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,11 @@ def embedding_bag_ref(tables: torch.Tensor, ids: torch.Tensor, *,
     return out
 
 
+# The fused kernel computes the same function with the same left fold
+# over j (bit-equal to both CUDA forwards): its plain version is this one.
+embedding_bag_fused_ref = embedding_bag_ref
+
+
 def embedding_bag_bwd_ref(d_out: torch.Tensor, ids: torch.Tensor,
                           num_rows: int, *,
                           combiner: str = "sum") -> torch.Tensor:

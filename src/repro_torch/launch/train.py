@@ -1,26 +1,35 @@
 """Generic training driver of the port: --arch <id> on one device (port of
-repro/launch/train.py; the `gnn` family so far).
+repro/launch/train.py; the `gnn` and `recsys` families so far).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-reddit \
-        [--steps 50] [--batch 32] [--full] [--shape minibatch_lg] \
+        [--steps 50] [--batch N] [--full] [--shape minibatch_lg] \
         [--ckpt-dir DIR] [--ckpt-every 25] [--lr 1e-3] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wide-deep \
+        [--full] [--shape train_batch] ...
 
 Runs real training steps on synthetic data, as the JAX driver does:
-  - without `--full` it runs the family's small config (d_hidden 16)
-    on the JAX driver's small graph (512 nodes, 4096
-    edges, 32 features, fanout 5-3), so that the two drivers can be held
+  - without `--full` it runs the family's small config, the JAX
+    driver's `reduced_model` (GraphSAGE: d_hidden 16 on the JAX driver's
+    small graph, 512 nodes, 4096 edges, 32 features, fanout 5-3;
+    wide-deep: 8 features, embed_dim 8, MLP 64-32, 512 rows a table) at
+    the JAX driver's batch of 32, so that the two drivers can be held
     together on the CPU; `--full` uses the arch's published config and
-    `--shape <name>` one of its minibatch shapes (minibatch_lg: 1024 seed
-    nodes, fanout 15-10, 602 features on 232,965 nodes);
+    `--shape <name>` one of its shapes (graphsage-reddit: a minibatch
+    shape, minibatch_lg: 1024 seed nodes, fanout 15-10, 602 features on
+    232,965 nodes; wide-deep: a train shape, train_batch: 65536 samples
+    of synthetic Criteo records, `data/synthetic.CriteoStream`);
   - checkpoints every --ckpt-every steps in the JAX package's on-disk
     layout (atomic, resumable, restorable by either package);
   - an InTune controller tunes the (simulated-machine) ingestion pipeline
     alongside, as a per-host controller would in production.
 
-The neighbour aggregations run through the hand-written Hopper kernel
-`sage_aggregate` on a CUDA device (`--device cuda`, the default) and
-through its plain PyTorch version with `--device cpu`. Archs the port
-does not run yet raise KeyError naming the ROADMAP item that ports them.
+On a CUDA device (`--device cuda`, the default) GraphSAGE's neighbour
+aggregations run through the hand-written Hopper kernel
+`sage_aggregate`, and wide-deep's lookups through `embedding_bag_fused`
+(its wide arm) and `embedding_bag` (its deep tables), with the
+`embedding_bag` scatter as their backward; `--device cpu` runs their
+plain PyTorch versions. Archs the port does not run yet raise KeyError
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -31,13 +40,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchSpec, GNNShape
+from repro_torch.configs.base import ArchSpec, GNNShape, RecsysShape
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.controller import InTune
 from repro_torch.data.pipeline import criteo_pipeline
 from repro_torch.data.sampler import CSRGraph, NeighborSampler
 from repro_torch.data.simulator import MachineSpec
+from repro_torch.data.synthetic import CriteoStream
 from repro_torch.models import gnn as gnn_lib
+from repro_torch.models import recsys as recsys_lib
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optim import make_optimizer
 from repro_torch.train.train_step import make_train_step
@@ -46,18 +57,38 @@ from repro_torch.train.train_step import make_train_step
 DRIVER_SHAPE = GNNShape("driver_small", "minibatch", n_nodes=512,
                         n_edges=4096, d_feat=32, batch_nodes=32,
                         fanout=(5, 3))
+# the JAX driver's default batch for the recsys family (--batch 32)
+RECSYS_DRIVER_SHAPE = RecsysShape("driver_small", "train", 32)
+
+# per family: the shape without --shape, the kind --shape may name, the
+# model module that maps parameter names to the JAX tree, and the name
+# of the driver's rate
+_FAMILIES = {
+    "gnn": (DRIVER_SHAPE, "minibatch", gnn_lib, "seed_nodes_per_s"),
+    "recsys": (RECSYS_DRIVER_SHAPE, "train", recsys_lib, "samples_per_s"),
+}
 
 
-def _family(arch: ArchSpec):
-    if arch.family != "gnn":
+def _family(arch: ArchSpec) -> str:
+    if arch.family not in _FAMILIES:
         raise KeyError(f"family {arch.family!r} of {arch.arch_id!r} is not "
                        f"ported to repro_torch.launch.train")
+    return arch.family
 
 
 # ------------------------------------------------------- reduced configs ---
 def reduced_model(arch: ArchSpec):
-    _family(arch)
-    return arch.model.replace(d_hidden=16)
+    """The JAX driver's CPU-sized config of the arch's family
+    (repro/launch/train.py:39-67)."""
+    m = arch.model
+    if _family(arch) == "gnn":
+        return m.replace(d_hidden=16)
+    n = min(m.n_sparse, 8)
+    return m.replace(n_sparse=n, embed_dim=8, mlp_dims=(64, 32),
+                     vocab_sizes=(512,) * n,
+                     reduced=("the JAX driver's reduced_model: 8 sparse "
+                              "features, embed_dim 8, MLP 64-32, 512 rows "
+                              "a table, for a CPU run",))
 
 
 # ------------------------------------------------------- batch factories ---
@@ -73,10 +104,18 @@ def make_sampler(cfg, shape: GNNShape,
 
 
 def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
-                  *, shape: GNNShape = DRIVER_SHAPE, device="cuda",
+                  *, shape=DRIVER_SHAPE, device="cuda",
                   sampler: Optional[NeighborSampler] = None):
-    """A function returning the next sampled block on `device`."""
-    _family(arch)
+    """A function returning the next batch on `device`: a sampled block
+    of `shape`'s graph (gnn), or synthetic Criteo records from seed 0
+    through the online feature work (recsys), as the JAX driver makes
+    them."""
+    if _family(arch) == "recsys":
+        stream = CriteoStream(n_sparse=cfg.n_sparse, n_dense=cfg.n_dense,
+                              vocab=cfg.vocab_sizes[0],
+                              multi_hot=cfg.multi_hot)
+        return lambda: {k: torch.from_numpy(v).to(device) for k, v in
+                        stream.feature_udf(stream.raw_block(batch)).items()}
     sampler = sampler if sampler is not None else make_sampler(cfg, shape,
                                                                rng)
     return lambda: {k: torch.from_numpy(v).to(device)
@@ -84,13 +123,15 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
 
 
 def make_loss_fn(arch: ArchSpec, cfg):
-    _family(arch)
+    if _family(arch) == "recsys":
+        return lambda model, b: recsys_lib.ctr_loss(model, b)
     return lambda model, b: gnn_lib.minibatch_loss(model, b)
 
 
 def init_params_for(arch: ArchSpec, cfg, seed: int, *,
-                    shape: GNNShape = DRIVER_SHAPE, device="cuda"):
-    _family(arch)
+                    shape=DRIVER_SHAPE, device="cuda"):
+    if _family(arch) == "recsys":
+        return recsys_lib.init_wide_deep(cfg, seed=seed, device=device)
     return gnn_lib.init_params(cfg, d_feat=shape.d_feat, seed=seed,
                                device=device)
 
@@ -100,32 +141,35 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def _state_tree(model, opt_state) -> dict:
+def _state_tree(lib, model, opt_state) -> dict:
     named = {k: p.detach() for k, p in model.named_parameters()}
-    return {"params": gnn_lib.tree_from_named(named),
-            "opt_state": {k: gnn_lib.tree_from_named(v)
+    return {"params": lib.tree_from_named(named),
+            "opt_state": {k: lib.tree_from_named(v)
                           for k, v in opt_state.items()}}
 
 
 # ---------------------------------------------------------------- driver ---
 def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
-        shape: GNNShape = DRIVER_SHAPE, full: bool = False, lr: float = 1e-3,
+        shape=None, full: bool = False, lr: float = 1e-3,
         device="cuda", ckpt_dir: Optional[str] = None,
         ckpt_every: int = 25, sampler: Optional[NeighborSampler] = None,
         log_every: int = 10) -> dict:
-    """Train `steps` steps of `arch_id` on `shape`'s synthetic graph and
-    return what the run measured. `sampler` is a prebuilt graph of
-    `shape` (one built once can serve several runs). Parameters,
-    features, labels, the graph and the sampled neighbourhoods all come
-    from seed 0, as in the JAX driver."""
+    """Train `steps` steps of `arch_id` on `shape`'s synthetic data (the
+    family's driver shape if None) and return what the run measured.
+    `sampler` is a prebuilt graph of a GNN `shape` (one built once can
+    serve several runs). Parameters and data all come from seed 0, as in
+    the JAX driver."""
     arch = get_arch(arch_id)
+    family = _family(arch)
+    default_shape, _, lib, rate_key = _FAMILIES[family]
+    shape = shape or default_shape
     cfg = arch.model if full else reduced_model(arch)
     device = torch.device(device)
-    batch = batch or shape.batch_nodes
+    batch = batch or (shape.batch_nodes if family == "gnn" else shape.batch)
     rng = np.random.RandomState(0)
     model = init_params_for(arch, cfg, 0, shape=shape, device=device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch={arch_id} family={arch.family} params={n_params/1e6:.2f}M "
+    print(f"arch={arch_id} family={family} params={n_params/1e6:.2f}M "
           f"optimizer={arch.optimizer} shape={shape.name} batch={batch} "
           f"device={device}")
 
@@ -140,8 +184,8 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
     start = 0
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         tree, manifest = ckpt.restore(ckpt_dir, device=device)
-        model.load_state_dict(gnn_lib.named_from_tree(tree["params"]))
-        opt_state = {k: gnn_lib.named_from_tree(v)
+        model.load_state_dict(lib.named_from_tree(tree["params"]))
+        opt_state = {k: lib.named_from_tree(v)
                      for k, v in tree["opt_state"].items()}
         start = manifest["step"] + 1
         print(f"resumed from step {start - 1}")
@@ -165,13 +209,13 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
             print(f"step {i:4d} loss {losses[-1]:.4f} "
                   f"pipeline {tuner.history[-1]['throughput']:.1f} b/s")
         if ckpt_dir and ((i + 1) % ckpt_every == 0 or i == steps - 1):
-            ckpt.save(ckpt_dir, i, _state_tree(model, opt_state))
+            ckpt.save(ckpt_dir, i, _state_tree(lib, model, opt_state))
     wall = time.monotonic() - t0
     n = len(losses)
     res = {
         "arch": arch_id, "shape": shape.name, "batch": batch, "steps": n,
         "losses": losses,
-        "seed_nodes_per_s": n * batch / wall if n else None,
+        rate_key: n * batch / wall if n else None,
         "loop_step_s": wall / n if n else None,
         "fetch_step_s": fetch_s / n if n else None,
         "train_step_s": train_s / n if n else None,
@@ -179,11 +223,12 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
                                  if device.type == "cuda" else None),
     }
     if n:
+        unit = rate_key[:-len("_per_s")].replace("_", " ")
         print(f"done: {n} steps in {wall:.1f}s; loss {losses[0]:.4f} -> "
-              f"{np.mean(losses[-5:]):.4f}; {res['seed_nodes_per_s']:.1f} "
-              f"seed nodes/s, {res['loop_step_s']*1e3:.1f} ms/step "
-              f"(sampling + copy {res['fetch_step_s']*1e3:.1f} ms, train "
-              f"step {res['train_step_s']*1e3:.1f} ms)")
+              f"{np.mean(losses[-5:]):.4f}; {res[rate_key]:.1f} {unit}/s, "
+              f"{res['loop_step_s']*1e3:.1f} ms/step (batch + copy "
+              f"{res['fetch_step_s']*1e3:.1f} ms, train step "
+              f"{res['train_step_s']*1e3:.1f} ms)")
     return res
 
 
@@ -192,25 +237,28 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=None,
-                    help="seed nodes per step (default: the shape's; 32 "
-                         "on the driver's small graph)")
+                    help="seed nodes or samples per step (default: the "
+                         "shape's; 32 without --shape)")
     ap.add_argument("--full", action="store_true",
-                    help="use the published config (d_hidden 128)")
+                    help="use the published config")
     ap.add_argument("--shape", default=None,
-                    help="a minibatch shape of the arch (minibatch_lg); "
-                         "default the JAX driver's small graph")
+                    help="a minibatch shape of a GNN (minibatch_lg) or a "
+                         "train shape of a recsys model (train_batch); "
+                         "default the JAX driver's small run")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    shape = DRIVER_SHAPE
+    shape = None
     if args.shape is not None:
-        shape = get_arch(args.arch).shape(args.shape)
-        if shape.kind != "minibatch":
+        arch = get_arch(args.arch)
+        shape = arch.shape(args.shape)
+        kind = _FAMILIES[_family(arch)][1]
+        if shape.kind != kind:
             raise KeyError(f"shape {args.shape!r} is {shape.kind}: only the "
-                           f"minibatch regime is ported (ROADMAP.md queue "
-                           f"1, item 1)")
+                           f"{kind} regime of {args.arch} is ported "
+                           f"(ROADMAP.md queue 1)")
     return run(args.arch, steps=args.steps, batch=args.batch, shape=shape,
                full=args.full, lr=args.lr, device=args.device,
                ckpt_dir=args.ckpt_dir,

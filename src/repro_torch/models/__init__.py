@@ -1,1 +1,2 @@
-"""The DLRM of the paper's Criteo workload and GraphSAGE, in PyTorch."""
+"""The DLRM of the paper's Criteo workload, GraphSAGE and wide-deep, in
+PyTorch."""

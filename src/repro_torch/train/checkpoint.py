@@ -16,7 +16,11 @@ always resolves the newest *complete* step. Arrays bigger than
 `MAX_SHARD_BYTES` are split across shard files along axis 0, as the JAX
 package splits them; restore reads split arrays from either package.
 `extras` is written empty (the JAX package keeps controller state there;
-the port's driver keeps none).
+the port's driver keeps none). The tree is the JAX package's: each
+model module maps its parameter names to it (`tree_from_named` /
+`named_from_tree` of models/gnn.py and models/recsys.py), for the
+parameters and for the optimizer state alike (adam's `m`/`v`, row-wise
+adagrad's `acc`).
 """
 from __future__ import annotations
 

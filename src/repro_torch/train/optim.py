@@ -1,9 +1,9 @@
-"""Adagrad (the classic DLRM embedding optimizer) and Adam, in PyTorch
-(port of the adagrad and adam paths of repro/train/optim.py).
+"""Adagrad (the classic DLRM embedding optimizer), row-wise adagrad and
+Adam, in PyTorch (port of those paths of repro/train/optim.py).
 
 API, as in the JAX package:
 
-    opt = make_optimizer("adagrad", lr=0.02)       # or "adam"
+    opt = make_optimizer("adagrad", lr=0.02)  # or "rowwise_adagrad", "adam"
     state = opt.init(params)                      # params: {name: tensor}
     params, state, stats = opt.update(grads, state, params, step)
 
@@ -31,8 +31,9 @@ class Optimizer(NamedTuple):
 
 
 def _slices(*ts: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
-    """Axis-0 slices of same-shaped tensors when they are huge stacked
-    tensors, else the tensors themselves."""
+    """Axis-0 slices of tensors that share axis 0 (a parameter, its
+    gradient and its state, which may lack the last axis) when the first
+    is a huge stacked tensor, else the tensors themselves."""
     p = ts[0]
     if p.dim() < 3 or p.numel() <= _CHUNK_ELEMS:
         yield ts
@@ -110,6 +111,51 @@ def adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10) -> Optimizer:
     return Optimizer("adagrad", init, update)
 
 
+# ------------------------------------------------------ rowwise adagrad ----
+def rowwise_adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
+                    rowwise_min_elems: int = 1 << 24) -> Optimizer:
+    """FBGEMM-style row-wise adagrad, as the JAX package has it: a tensor
+    of two or more axes and more than `rowwise_min_elems` elements keeps
+    one accumulator per row (over its last axis), acc += mean(g^2), and
+    p -= lr * g * rsqrt(acc + eps); every other tensor is elementwise,
+    acc += g^2, p -= lr * g * rsqrt(acc + eps).
+
+    The rule goes by shape alone, quirk included: wide-deep's (F, V) wide
+    table is "row-wise" over its vocab axis, one accumulator a feature.
+    It reads each tensor in its own layout, so an `nn.Linear` weight,
+    held (out, in), would take rows over the other axis than the JAX
+    (in, out) weight; no linear layer of the ported models comes near
+    2^24 elements (wide-deep's largest is 1293 x 1024)."""
+    def _rowwise(p: torch.Tensor) -> bool:
+        return p.dim() >= 2 and p.numel() > rowwise_min_elems
+
+    def init(params: Dict[str, torch.Tensor]):
+        return {"acc": {k: torch.zeros(p.shape[:-1] if _rowwise(p)
+                                       else p.shape, dtype=torch.float32,
+                                       device=p.device)
+                        for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        gn = global_norm(grads.values())
+        lr = lr_fn(step)
+        for k, p in params.items():
+            acc = state["acc"][k]
+            rowwise = acc.shape != p.shape
+            for p_s, g_s, a_s in _slices(p, grads[k], acc):
+                g32 = g_s.float()
+                if rowwise:
+                    a_s.add_(g32.square().mean(dim=-1))
+                    scale = torch.rsqrt(a_s + eps).unsqueeze(-1)
+                else:
+                    a_s.addcmul_(g32, g32)
+                    scale = torch.rsqrt(a_s + eps)
+                # (lr * g) * scale, the JAX evaluation order, in g's memory
+                p_s.sub_(g32.mul_(lr).mul_(scale).to(p_s.dtype))
+        return params, state, {"lr": lr, "grad_norm": gn}
+    return Optimizer("rowwise_adagrad", init, update)
+
+
 # ----------------------------------------------------------------- adam ----
 def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
          eps: float = 1e-8, weight_decay: float = 0.0,
@@ -158,11 +204,14 @@ def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
 def make_optimizer(name: str, *, lr: float = 1e-3, total_steps: int = 10000,
                    warmup: int = 100, **kw) -> Optimizer:
     """The JAX factory's contract (warmup-cosine schedule); adagrad (the
-    closed loop's) and adam (the generic driver's) are ported so far."""
+    closed loop's), rowwise_adagrad (wide-deep's) and adam (GraphSAGE's)
+    are ported so far."""
     lr_fn = warmup_cosine(lr, warmup, total_steps)
     if name == "adagrad":
         return adagrad(lr_fn, **kw)
+    if name == "rowwise_adagrad":
+        return rowwise_adagrad(lr_fn, **kw)
     if name == "adam":
         return adam(lr_fn, **kw)
     raise ValueError(f"optimizer {name!r} is not ported to repro_torch; "
-                     f"the port has 'adagrad' and 'adam'")
+                     f"the port has 'adagrad', 'rowwise_adagrad' and 'adam'")

@@ -80,7 +80,10 @@ def test_gnn_configs_match_jax():
 def test_registry_runs_graphsage_and_names_the_roadmap_for_the_rest(arch_id):
     if arch_id == "graphsage-reddit":
         assert registry.get_arch(arch_id) is ARCH
-        assert registry.list_archs() == [arch_id]
+        assert registry.list_archs() == [arch_id, "wide-deep"]
+        return
+    if arch_id == "wide-deep":              # slice 3, tests/test_torch_recsys.py
+        assert registry.get_arch(arch_id).arch_id == arch_id
         return
     with pytest.raises(KeyError, match="ROADMAP.md queue 1, item"):
         registry.get_arch(arch_id)

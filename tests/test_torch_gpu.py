@@ -67,3 +67,54 @@ def test_cuda_sage_aggregate_matches_plain_version():
         torch.testing.assert_close(d_neigh, want_n, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(d_w, want_w, rtol=0,
                                    atol=1e-5 * float(want_w.abs().max()))
+
+
+@pytest.mark.gpu
+def test_cuda_embedding_bag_fused_matches_row_kernel_and_plain_version():
+    """On the card: embedding_bag_fused_fwd bit-equal to embedding_bag_fwd
+    and to the plain version at the wide arm's D = 1, the reduced
+    tables' D = 8, a ragged D (scalar loads) and the deep tables' D = 32;
+    F a multiple of its walk's group of 4 features and not (40, 8; 3, 6);
+    bags 1, 4 and 16; sum and mean; and an out-of-range id poisons its
+    row with NaN in both kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for f, v, d, b, bag in ((40, 4096, 1, 300, 4), (8, 512, 8, 64, 4),
+                            (3, 100, 5, 37, 16), (6, 256, 32, 33, 1)):
+        tables = torch.randn((f, v, d), device="cuda", generator=gen)
+        ids = torch.randint(0, v, (b, f, bag), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        for combiner in ("sum", "mean"):
+            row = eb.embedding_bag_fwd(tables, ids, combiner)
+            assert torch.equal(row, ref.embedding_bag_fused_ref(
+                tables, ids, combiner=combiner))
+            got = eb.embedding_bag_fused_fwd(tables, ids, combiner)
+            assert torch.equal(got, row), (f, v, d, bag, combiner)
+        ids[b // 2, f - 1, bag - 1] = v
+        got = eb.embedding_bag_fused_fwd(tables, ids)
+        row = eb.embedding_bag_fwd(tables, ids)
+        assert torch.isnan(got[b // 2, f - 1]).all()
+        assert torch.isnan(row[b // 2, f - 1]).all()
+        nan = torch.isnan(got)
+        assert int(nan.sum()) == d
+        assert torch.equal(got[~nan], row[~nan])
+
+
+@pytest.mark.gpu
+def test_cuda_embedding_bag_fused_refuses_more_than_int32_threads():
+    """The fused kernel walks its output with 32-bit indices: a call of
+    more than 2^31 - 1 threads (B * F rows, 32 threads a row at D = 33)
+    is refused and raises, launching nothing; one row fewer fits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lanes = 32
+    rows = (2 ** 31 - 1) // lanes + 1            # 2^26
+    tables = torch.ones((1, 1, 33), device="cuda")
+    ids = torch.zeros((rows, 1, 1), dtype=torch.int32, device="cuda")
+    before = eb.LAUNCHES["embedding_bag_fused_fwd"]
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        eb.embedding_bag_fused_fwd(tables, ids)
+    assert eb.LAUNCHES["embedding_bag_fused_fwd"] == before
+    out = eb.embedding_bag_fused_fwd(tables, ids[1:])
+    assert out.shape == (rows - 1, 1, 33) and bool((out == 1).all())

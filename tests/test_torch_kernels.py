@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import embedding_bag as jeb  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models.embedding import multifeature_bag as j_multifeature_bag  # noqa: E402
@@ -46,6 +47,156 @@ def test_embedding_bag_plain_matches_pallas_and_ref(v, d, b, bag, combiner):
     np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-6, atol=0)
     np.testing.assert_allclose(got, np.asarray(oracle), rtol=1e-6,
                                atol=1e-6)
+
+
+# (F, V, D, B, bag): wide-deep's deep tables and wide arm (D = 1) at
+# small widths, a ragged D, and the fused kernel's largest bag
+FUSED_CASES = [(6, 256, 8, 16, 2), (6, 512, 1, 64, 4), (3, 300, 5, 37, 3),
+               (2, 64, 4, 9, 16)]
+
+
+def _jax_bags(fn, tables, ids, combiner, **kw):
+    """A JAX per-table function over stacked tables: (B, F, D)."""
+    return np.stack([np.asarray(fn(jnp.asarray(tables[f]),
+                                   jnp.asarray(ids[:, f]),
+                                   combiner=combiner, **kw))
+                     for f in range(tables.shape[0])], axis=1)
+
+
+def _check_fused(got, want, combiner):
+    """Bit-equal for sum (the same left fold over j in f32 on both
+    sides); within 1e-6 for mean, whose division XLA may compile as a
+    multiplication by the reciprocal."""
+    if combiner == "sum":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("f,v,d,b,bag", FUSED_CASES)
+def test_embedding_bag_fused_plain_matches_pallas_and_ref(f, v, d, b, bag,
+                                                          combiner):
+    """ops.embedding_bag_fused on the CPU (the plain version) against the
+    JAX package's Pallas `embedding_bag` (interpret mode) and its oracle.
+    (The reference's fused kernel itself does not run on the installed
+    JAX: ROADMAP queue 3.)"""
+    rng = np.random.RandomState(v + d + bag)
+    tables = rng.randn(f, v, d).astype(np.float32)
+    ids = rng.randint(0, v, (b, f, bag)).astype(np.int32)
+    got = ops.embedding_bag_fused(torch.from_numpy(tables),
+                                  torch.from_numpy(ids),
+                                  combiner=combiner).numpy()
+    assert got.shape == (b, f, d) and got.dtype == np.float32
+    np.testing.assert_array_equal(
+        got, ref.embedding_bag_ref(torch.from_numpy(tables),
+                                   torch.from_numpy(ids),
+                                   combiner=combiner).numpy())
+    _check_fused(got, _jax_bags(jops.embedding_bag, tables, ids, combiner,
+                                interpret=True), combiner)
+    _check_fused(got, _jax_bags(jref.embedding_bag_ref, tables, ids,
+                                combiner), combiner)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("f,v,d,b,bag", [
+    (2, 64, 4, 9, 17),                 # bag over 16
+    (1, 65536, 33, 5, 2),              # one table of 8.65 MB, over 8 MiB
+])
+def test_embedding_bag_fused_matches_jax_fused_fallback(f, v, d, b, bag,
+                                                        combiner):
+    """Where the reference's `embedding_bag_fused` falls back to its row
+    kernel (which runs on the installed JAX), the port's op equals it."""
+    rng = np.random.RandomState(bag)
+    tables = rng.randn(f, v, d).astype(np.float32)
+    ids = rng.randint(0, v, (b, f, bag)).astype(np.int32)
+    t = torch.from_numpy(tables)
+    assert not ops.fused_fires(t, bag)
+    got = ops.embedding_bag_fused(t, torch.from_numpy(ids),
+                                  combiner=combiner).numpy()
+    _check_fused(got, _jax_bags(jops.embedding_bag_fused, tables, ids,
+                                combiner, interpret=True), combiner)
+
+
+def test_fused_fires_at_the_reference_limits():
+    """Both sides of each limit of the reference's dispatch
+    (repro/kernels/embedding_bag.py: _FUSED_MAX_TABLE_BYTES,
+    _FUSED_MAX_BAG), for f32 tables."""
+    limit, max_bag = jeb._FUSED_MAX_TABLE_BYTES, jeb._FUSED_MAX_BAG
+    assert (ops.FUSED_MAX_TABLE_BYTES, ops.FUSED_MAX_BAG) == (limit, max_bag)
+    rows_at_limit = limit // 4
+    for v, d, bag in ((rows_at_limit, 1, 4), (rows_at_limit + 1, 1, 4),
+                      (rows_at_limit // 32, 32, 4),
+                      (rows_at_limit // 32 + 1, 32, 4),
+                      (512, 8, max_bag), (512, 8, max_bag + 1),
+                      (1 << 20, 1, 4), (1 << 20, 32, 4)):
+        want = not (v * d * 4 > limit or bag > max_bag)
+        tables = torch.empty((3, v, d), device="meta")
+        assert ops.fused_fires(tables, bag) == want, (v, d, bag)
+    # wide-deep at its published widths: the wide arm fires, the deep
+    # tables do not
+    assert ops.fused_fires(torch.empty((40, 1 << 20, 1), device="meta"), 4)
+    assert not ops.fused_fires(torch.empty((40, 1 << 20, 32),
+                                           device="meta"), 4)
+
+
+def test_embedding_bag_fused_dispatches_like_the_reference(monkeypatch):
+    """On a CUDA tensor the op launches the fused kernel where
+    `fused_fires` and the row kernel otherwise (kernels replaced by spies
+    here, the tensors on the CPU), and its backward is the scatter."""
+    calls = []
+
+    def spy(name):
+        def fn(tables, ids, combiner, **kw):
+            calls.append((name, tuple(tables.shape), combiner))
+            return ref.embedding_bag_ref(tables, ids, combiner=combiner)
+        return fn
+
+    def bwd(d_out, ids, num_rows, combiner):
+        calls.append(("bwd", num_rows, combiner))
+        return ref.embedding_bag_bwd_ref(d_out, ids, num_rows,
+                                         combiner=combiner)
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(eb, "embedding_bag_fused_fwd",
+                        spy("embedding_bag_fused_fwd"))
+    monkeypatch.setattr(eb, "embedding_bag_fwd", spy("embedding_bag_fwd"))
+    monkeypatch.setattr(eb, "embedding_bag_bwd", bwd)
+    small = torch.zeros((2, 64, 4), requires_grad=True)
+    ids = torch.zeros((3, 2, 4), dtype=torch.int32)
+    ops.embedding_bag_fused(small, ids, combiner="mean").sum().backward()
+    ops.embedding_bag_fused(small, torch.zeros((3, 2, 17),
+                                               dtype=torch.int32))
+    monkeypatch.setattr(ops, "FUSED_MAX_TABLE_BYTES", 64 * 4 * 4 - 1)
+    ops.embedding_bag_fused(small, ids)
+    assert calls == [("embedding_bag_fused_fwd", (2, 64, 4), "mean"),
+                     ("bwd", 64, "mean"),
+                     ("embedding_bag_fwd", (2, 64, 4), "sum"),
+                     ("embedding_bag_fwd", (2, 64, 4), "sum")]
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_fused_grad_matches_jax(combiner):
+    """The fused op's backward (the plain scatter on the CPU) against
+    jax.grad of the oracle, at the wide arm's D = 1 and at D = 8,
+    duplicate ids included."""
+    rng = np.random.RandomState(3)
+    for d in (1, 8):
+        tables = rng.randn(3, 20, d).astype(np.float32)
+        ids = rng.randint(0, 20, (16, 3, 4)).astype(np.int32)
+        w = rng.randn(16, 3, d).astype(np.float32)
+
+        def j_loss(t):
+            out = jnp.stack([jref.embedding_bag_ref(t[f], ids[:, f],
+                                                    combiner=combiner)
+                             for f in range(3)], axis=1)
+            return jnp.sum(out * w)
+
+        want = jax.grad(j_loss)(jnp.asarray(tables))
+        t = torch.from_numpy(tables).requires_grad_(True)
+        (ops.embedding_bag_fused(t, torch.from_numpy(ids), combiner=combiner)
+         * torch.from_numpy(w)).sum().backward()
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_multifeature_bag_matches_jax_model():
@@ -187,10 +338,14 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.dot_interact(torch.zeros(2, 3, 4))
     ops.embedding_bag(torch.zeros(2, 5, 4), torch.zeros(3, 2, 1,
                                                         dtype=torch.int32))
+    t = torch.zeros(2, 5, 1, requires_grad=True)
+    ops.embedding_bag_fused(t, torch.zeros(3, 2, 4, dtype=torch.int32)) \
+        .sum().backward()
     w = torch.zeros(4, 2, requires_grad=True)
     ops.sage_aggregate(torch.zeros(2, 3, 4), w).sum().backward()
     assert ops.launch_counts() == before
     assert set(before) == {"embedding_bag_fwd", "embedding_bag_bwd",
+                           "embedding_bag_fused_fwd",
                            "dot_interact_fwd", "dot_interact_bwd",
                            "sage_aggregate_fwd", "sage_aggregate_bwd"}
 
@@ -203,6 +358,9 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("call", [
     lambda: eb.embedding_bag_fwd(torch.zeros(2, 5, 4),
                                  torch.zeros(3, 2, 1, dtype=torch.int32)),
+    lambda: eb.embedding_bag_fused_fwd(torch.zeros(2, 5, 1),
+                                       torch.zeros(3, 2, 4,
+                                                   dtype=torch.int32)),
     lambda: eb.embedding_bag_scatter(torch.zeros(3, 2, 4),
                                      torch.zeros(3, 2, 1, dtype=torch.int32),
                                      torch.zeros(2, 5, 4)),
@@ -217,6 +375,13 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
     anything: a CPU tensor is an error there, never a silent CPU run."""
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         call()
+
+
+def test_embedding_bag_fused_fwd_refuses_bags_over_16(monkeypatch):
+    monkeypatch.setattr(eb, "_check", lambda *a: None)   # device, dtype
+    with pytest.raises(ValueError, match="at most 16 ids"):
+        eb.embedding_bag_fused_fwd(torch.zeros(2, 5, 1),
+                                   torch.zeros(3, 2, 17, dtype=torch.int32))
 
 
 def test_build_targets_sm90a_and_fails_loudly_without_nvcc(monkeypatch):

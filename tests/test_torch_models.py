@@ -153,9 +153,12 @@ def test_warmup_cosine_matches_jax(step):
 
 
 def test_make_optimizer_is_adagrad_only():
-    """adagrad (the closed loop's) and, since slice 2, adam (the generic
-    driver's) are ported; every other optimizer raises."""
+    """adagrad (the closed loop's) and, since slices 2 and 3, adam
+    (GraphSAGE's) and rowwise_adagrad (wide-deep's) are ported; every
+    other optimizer raises."""
     assert optim.make_optimizer("adagrad", lr=0.02).name == "adagrad"
     assert optim.make_optimizer("adam", lr=1e-3).name == "adam"
-    with pytest.raises(ValueError, match="not ported.*'adagrad' and 'adam'"):
+    assert optim.make_optimizer("rowwise_adagrad").name == "rowwise_adagrad"
+    with pytest.raises(ValueError, match="not ported.*'adagrad', "
+                                         "'rowwise_adagrad' and 'adam'"):
         optim.make_optimizer("adafactor")
