@@ -41,13 +41,19 @@ hidden 128, 47 classes, adam:
               (neigh2 (15360, 10, 602) x (602, 128), neigh1 (1024, 15,
               602) x (602, 128), h1 (1024, 15, 128) x (128, 47)) and at
               ragged ones (B 37, F 1, D 5, H 7; H 130 over two column
-              tiles; B 4225 with D 33: 32 rows a block, scalar loads).
-              Tolerances: the aggregate bitwise; out and d_neigh rtol
-              1e-5 / atol 1e-5 against f32 cuBLAS with TF32 off; d_w
-              within 1e-5 of max |d_w| (a sum over up to 15360 rows in
-              another order). Timed as above; the library call is
-              torch.einsum("bfd,dh->bh") (the sum without the 1/F) for
-              the forward and torch.mm(agg^T, d_out) for d_w.
+              tiles; B 4225 with D 33: 32-row tiles, 4-byte copies; B
+              1023 at F 15, D 602; F 43; D 300 at H 130; F 44 and 25
+              at D 602; a neigh 8- or 4- but not 16-byte aligned, a
+              slice of a larger buffer).
+              Tolerances: the aggregate (rows padded to a multiple of 4
+              floats) bitwise; out and d_neigh rtol 1e-5 / atol 1e-5
+              against f32 cuBLAS with TF32 off; d_w within 1e-5 of max
+              |d_w| (a sum over up to 15360 rows in another order); a
+              second run, out without the saved aggregate and d_w
+              without d_neigh bitwise equal. Timed as above, each shape
+              with its share of the bound and its ratio to the library
+              call: torch.einsum("bfd,dh->bh") (the sum without the 1/F)
+              for the forward and torch.mm(agg^T, d_out) for d_w.
   6. graph    the synthetic graph of minibatch_lg (232,965 nodes,
               114,615,892 edges, 602 random features a node), built once
               from seed 0 and shared by the phases below.
@@ -532,14 +538,20 @@ def _gnn_path_shapes(shape, cfg):
 
 
 def _check_sage(neigh, w, tag) -> dict:
-    """Kernel vs plain on one input: the aggregate bitwise, out and
-    d_neigh allclose, d_w within 1e-5 of max |d_w|."""
+    """Kernel vs plain on one input: the aggregate (its rows padded to a
+    multiple of 4 floats) bitwise, out and d_neigh allclose, d_w within
+    1e-5 of max |d_w|; out without the saved aggregate, d_w without
+    d_neigh and a second run of each bitwise equal."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import sage_aggregate as sa
-    b, f, _ = neigh.shape
+    b, f, d = neigh.shape
     out, agg = sa.sage_aggregate_fwd(neigh, w, save_agg=True)
     agg_p = ref.sage_mean_ref(neigh)
+    if b > 1 and agg.stride(0) != sa.agg_stride(d):
+        raise AssertionError(f"sage_aggregate_fwd {tag}: aggregate rows "
+                             f"{agg.stride(0)} floats apart, not "
+                             f"{sa.agg_stride(d)}")
     if not torch.equal(agg, agg_p):
         raise AssertionError(f"sage_aggregate_fwd {tag}: aggregate not "
                              f"bitwise equal to the plain version")
@@ -547,6 +559,9 @@ def _check_sage(neigh, w, tag) -> dict:
     if none is not None or not torch.equal(out_only, out):
         raise AssertionError(f"sage_aggregate_fwd {tag}: out differs "
                              f"without the saved aggregate")
+    if not torch.equal(sa.sage_aggregate_fwd(neigh, w, save_agg=True)[0],
+                       out):
+        raise AssertionError(f"sage_aggregate_fwd {tag}: two runs differ")
     e_f = _allclose(f"sage_aggregate_fwd {tag}", out,
                     ref.sage_aggregate_ref(neigh, w), 1e-5, 1e-5)
     d_out = torch.randn_like(out)
@@ -560,6 +575,9 @@ def _check_sage(neigh, w, tag) -> dict:
     if only_w[0] is not None or not torch.equal(only_w[1], d_w):
         raise AssertionError(f"sage_aggregate_bwd {tag}: d_w differs "
                              f"without d_neigh")
+    again = sa.sage_aggregate_bwd(d_out, w, agg, f, True)
+    if not (torch.equal(again[0], d_neigh) and torch.equal(again[1], d_w)):
+        raise AssertionError(f"sage_aggregate_bwd {tag}: two runs differ")
     return {"sage_aggregate_fwd": e_f, "sage_aggregate_bwd": max(e_n, e_w)}
 
 
@@ -576,24 +594,44 @@ def phase_sage_kernels(shape, cfg) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4)
     errs = {k: 0.0 for k in GNN_KERNELS}
 
-    def inputs(b, f, d, h):
-        neigh = torch.randn((b, f, d), device=dev, generator=gen)
+    def inputs(b, f, d, h, shift=0):
+        # shift > 0: neigh is a slice `shift` floats into a larger buffer
+        buf = torch.randn(b * f * d + shift, device=dev, generator=gen)
+        neigh = buf[shift:].view(b, f, d)
         w = torch.randn((d, h), device=dev, generator=gen) * d ** -0.5
         return neigh, w
 
     path = _gnn_path_shapes(shape, cfg)
-    # ragged shapes reach every variant of the forward: 8 or 32 rows a
-    # block, float or float2 loads, one or two column tiles
-    for tag, b, f, d, h in (("ragged", 37, 1, 5, 7),
-                            ("ragged-h", 37, 3, 33, 130),
-                            ("ragged-wide", 4225, 2, 33, 7),
-                            *[(t, b, f, d, h) for t, b, f, d, h, _ in path]):
-        for k, v in _check_sage(*inputs(b, f, d, h), tag).items():
+    # ragged shapes reach every variant of the forward: tiles of 8 or 32
+    # rows, 4-, 8- or 16-byte loads of neigh (D odd, a base 4- or 8- but
+    # not 16-byte aligned), w's rows 16-byte aligned or not (H 47, 7,
+    # 130), one or two column tiles, B not a multiple of 4, F D = 2 mod 4
+    # (neigh1's 15 x 602), many neighbours (F 44; the sampler's default
+    # fanout 25), several tiles a CTA; and d_w's clusters of 2 and 8 with
+    # one or more clusters a tile
+    for tag, b, f, d, h, shift in (
+            ("ragged", 37, 1, 5, 7, 0),
+            ("ragged-h", 37, 3, 33, 130, 0),
+            ("ragged-wide", 4225, 2, 33, 7, 0),
+            ("ragged-b", 1023, 15, 602, 128, 0),
+            ("ragged-f", 5, 43, 6, 47, 0),
+            ("ragged-h2", 600, 10, 300, 130, 0),
+            ("ragged-fc", 300, 44, 602, 128, 0),
+            ("fanout25", 1024, 25, 602, 128, 0),
+            ("ragged-8b", 300, 15, 128, 47, 2),
+            ("ragged-4b", 300, 10, 602, 128, 1),
+            ("ragged-8b-wide", 5000, 10, 602, 128, 2),
+            *[(t, b, f, d, h, 0) for t, b, f, d, h, _ in path]):
+        for k, v in _check_sage(*inputs(b, f, d, h, shift), tag).items():
             errs[k] = max(errs[k], v)
         torch.cuda.empty_cache()
 
     per = {k: [] for k in GNN_KERNELS}
+    print(f"  d_w clusters that fit the card at once, by size: "
+          f"{ {c: sa.dw_active_clusters(dev, c) for c in (1, 2, 4, 8)} }")
     for tag, b, f, d, h, need_neigh in path:
+        print(f"  {tag}: {sa.fwd_plan(b, f, d, h)}, "
+              f"{sa.dw_plan(b, d, h, lambda c: sa.dw_active_clusters(dev, c))}")
         # enough input sets to cycle through more than the 50 MB L2
         n_sets = max(1, min(8, -(-64 * 2 ** 20 // (4 * b * f * d))))
         sets = [inputs(b, f, d, h) for _ in range(n_sets)]
@@ -644,11 +682,14 @@ def phase_sage_kernels(shape, cfg) -> dict:
         for r in per[name]:
             lib = "none" if r["library_ms"] is None \
                 else f"{r['library_ms']:.4f}"
+            vs_lib = "" if r["library_ms"] is None \
+                else f", {r['ms'] / r['library_ms']:.2f}x the library's"
             print(f"  {name} {r['shape']} ({r['B']}, {r['F']}, {r['D']}) x "
                   f"({r['D']}, {r['H']}): {r['ms']:.4f} ms on the card, "
                   f"{r['wall_ms']:.4f} ms launch to launch (plain "
                   f"{r['plain_ms']:.4f}, library {lib}, bound "
-                  f"{r['bound_ms']:.4f} by {r['bound_by']})")
+                  f"{r['bound_ms']:.4f} by {r['bound_by']}; "
+                  f"{r['bound_ms'] / r['ms']:.0%} of the bound{vs_lib})")
         print(f"  {name}: {out[name]['per_step_ms']:.4f} ms a train step "
               f"(bound {out[name]['per_step_bound_ms']:.4f}), max abs err "
               f"{errs[name]:.3e}")

@@ -52,9 +52,11 @@ SIGNATURES = {
         "dot_interact_bwd": (_P, _P, _P, _I64, _I32, _I32, _P),
     },
     "sage_aggregate": {
-        "sage_aggregate_fwd": (_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P),
-        "sage_aggregate_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
-                               _I32, _I32, _P),
+        "sage_aggregate_fwd": (_P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                               _I32, _I32, _I32, _I32, _I32, _I32, _P),
+        "sage_dw_max_clusters": (_I32, _P),
+        "sage_aggregate_bwd": (_P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
+                               _I32, _I32, _I32, _I32, _P),
     },
 }
 

@@ -3,16 +3,26 @@
 
 Replaces the Pallas TPU kernel `repro/kernels/sage_aggregate.py::
 sage_aggregate` (pallas_call at :32) and adds the backward the TPU kernel
-lacks. See the source for the design; it is bound by bytes.
+lacks. See the source for the design: the forward is bound by bytes,
+d_w by f32 operations.
+
+The host side of each launch is a plan computed here, in plain Python
+that the CPU tests reach: `fwd_plan` (rows a tile and its buffers, persistent
+CTAs, slices of w in the ring, the width of the loads of neigh),
+`agg_stride` (the saved aggregate's padded rows) and `dw_plan` (the
+ranges of rows a d_w tile is split into, and their clusters; on the
+card it asks the occupancy query how many clusters fit).
 
 Same wrapper contract as repro_torch.kernels.embedding_bag: CUDA f32
-contiguous tensors only, outputs and scratch from `torch.empty`, launch
-on the current stream, raise on a refused launch, count it in
-`LAUNCHES`.
+tensors only (contiguous, except the saved aggregate, whose rows may be
+padded), outputs and scratch from `torch.empty`, launch on the current
+stream, raise on a refused launch, count it in `LAUNCHES`.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -21,17 +31,18 @@ from repro_torch.kernels.embedding_bag import _check
 
 LAUNCHES = {"sage_aggregate_fwd": 0, "sage_aggregate_bwd": 0}
 
-# d_w's reduction over rows is split into at most 2 x 132 blocks (two
-# waves on an H100's 132 SMs: the kernel's 205 registers a thread leave
-# room for one 256-thread block an SM), each over at least 64 rows; the
-# kernel's d_w tile is 128 x 128
-_TARGET_BLOCKS = 2 * 132
+SMS = 132                     # an H100's SMs
+SMEM = 232448                 # shared memory a block can opt into
+
+# the forward (csrc/sage_aggregate.cu): tiles of 32 rows (8 where a CTA has
+# fewer) x 128 columns in one or two buffers of the aggregate, the
+# multipliers' partial tiles at 8 rows, and a ring of slices of 32 rows of
+# w (one piece and 128 floats more when H <= 128, else rows of 128 floats)
+_COLS, _W_ROWS = 128, 32
+_MIN_STAGES, _FEW_STAGES, _MAX_STAGES = 3, 2, 8
+# d_w: 128 x 128 tiles, at least 32 rows a range, clusters of up to 8
 _DW_TILE = 128
-_DW_MIN_ROWS = 64
-# the forward stages the aggregate of 8 rows, (D rounded up to 32) x 12
-# floats, and a 32 x 128 slice of w in the 227 KB of shared memory a
-# block can have
-_MAX_D = 4480
+_DW_MIN_ROWS = 32
 
 
 def _status(name: str, status: int):
@@ -44,12 +55,114 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def dw_splits(rows: int, d: int, h: int) -> int:
-    """Ranges of rows the d_w reduction is split into (one block each per
-    128 x 128 tile of d_w); their partials are summed in range order."""
+def fwd_smem(rows: int, bufs: int, d: int, h: int, stages: int) -> int:
+    """Bytes of shared memory of a forward CTA (as csrc's fwd_smem)."""
+    lda = _cdiv(d, _W_ROWS) * _W_ROWS + 4
+    slot = (_cdiv(_W_ROWS * h, 4) * 4 + _COLS if h <= _COLS
+            else _W_ROWS * _COLS)
+    return 4 * (bufs * rows * lda + (4 * 8 * _COLS if rows == 8 else 0)
+                + stages * slot)
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    rows: int         # rows of a tile: 32, or 8 where a CTA has fewer
+    bufs: int         # tiles of the aggregate: 2 lets the next one stream
+    ctas: int         # persistent CTAs along the rows, a column tile each
+    col_tiles: int    # tiles of 128 output columns
+    stages: int       # slices of w in the ring
+    vec: int          # floats a load of neigh: 4, 2 or 1
+
+
+def fwd_plan(b: int, f: int, d: int, h: int, ptr: int = 0) -> FwdPlan:
+    """The forward's launch for neigh (b, f, d) at address `ptr` and w
+    (d, h): one CTA an SM (at most b), shared by the column tiles, each
+    walking its ~b / 132 rows in tiles of 32 rows (8 where it has fewer),
+    in two buffers where shared memory holds them and a ring of at least
+    3 slices of w (so that the next tile streams in while this one is
+    multiplied), else one; loads of neigh as wide as both a row of d
+    floats and `ptr` allow."""
+    if f < 1 or d < 1:
+        raise ValueError(f"the mean needs F >= 1 and D >= 1, got {f}, {d}")
+    col_tiles = max(1, _cdiv(h, _COLS))
+    ctas = max(1, min(b, SMS // col_tiles))
+    rows = 32 if _cdiv(b, ctas) >= 32 else 8
+    choice = None
+    for least in (_MIN_STAGES, _FEW_STAGES):
+        for r, bufs in dict.fromkeys(((rows, 2), (8, 2), (rows, 1), (8, 1))):
+            fixed = fwd_smem(r, bufs, d, h, 0)
+            stages = min(_MAX_STAGES, (SMEM - fixed) //
+                         (fwd_smem(r, bufs, d, h, 1) - fixed))
+            if stages >= least:
+                choice = (r, bufs, stages)
+                break
+        if choice:
+            break
+    if choice is None:
+        raise ValueError(f"sage_aggregate_fwd takes D that fits its shared "
+                         f"memory (an 8-row tile of the aggregate and "
+                         f"{_FEW_STAGES} slices of w); D = {d}, F = {f} do "
+                         f"not")
+    rows, bufs, stages = choice
+    vec = (4 if d % 4 == 0 and ptr % 16 == 0 else
+           2 if d % 2 == 0 and ptr % 8 == 0 else 1)
+    return FwdPlan(rows, bufs, ctas, col_tiles, stages, vec)
+
+
+def agg_stride(d: int) -> int:
+    """Floats between the saved aggregate's rows: d rounded up to a
+    multiple of 4, so that every row starts 16-byte aligned."""
+    return _cdiv(d, 4) * 4
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    cluster: int      # CTAs of a cluster: consecutive ranges of one tile
+    clusters: int     # clusters a tile; > 1 sums them in a second pass
+
+    @property
+    def splits(self) -> int:
+        return self.cluster * self.clusters
+
+
+def dw_plan(rows: int, d: int, h: int,
+            max_clusters: Callable[[int], int] = lambda c: SMS // c
+            ) -> DwPlan:
+    """How d_w = agg^T d_out over `rows` rows is split: each 128 x 128
+    tile's rows into cluster x clusters ranges of at least 32 rows, one CTA
+    each. Of clusters of 1, 2, 4 and 8, the one that runs the most CTAs at
+    once (`max_clusters(cluster)` clusters fit on the card), the larger on
+    a tie, so that most partials meet in distributed shared memory."""
     tiles = _cdiv(d, _DW_TILE) * _cdiv(h, _DW_TILE)
-    # rounded down: one block past a full wave would run alone
-    return max(1, min(_TARGET_BLOCKS // tiles, _cdiv(rows, _DW_MIN_ROWS)))
+    ranges = max(1, _cdiv(rows, _DW_MIN_ROWS))
+    best = DwPlan(1, 1)
+    for cluster in (1, 2, 4, 8):
+        if cluster > ranges:
+            break
+        clusters = max(1, min(max_clusters(cluster) // tiles,
+                              ranges // cluster))
+        if cluster * clusters >= best.splits:
+            best = DwPlan(cluster, clusters)
+    return best
+
+
+_DW_ACTIVE: Dict[Tuple[int, int], int] = {}
+
+
+def dw_active_clusters(device: torch.device, cluster: int) -> int:
+    """Clusters of `cluster` d_w CTAs that fit the card at once (the
+    occupancy query, asked once a device and size)."""
+    key = (device.index or 0, cluster)
+    if key not in _DW_ACTIVE:
+        n = ctypes.c_int32(0)
+        with torch.cuda.device(device):
+            status = LIBRARIES.get("sage_aggregate").sage_dw_max_clusters(
+                cluster, ctypes.addressof(n))
+        if status != 0 or n.value < 1:
+            raise RuntimeError(f"occupancy query for clusters of {cluster} "
+                               f"failed: CUDA error {status}, {n.value}")
+        _DW_ACTIVE[key] = n.value
+    return _DW_ACTIVE[key]
 
 
 def _check_pair(neigh: torch.Tensor, w: torch.Tensor):
@@ -61,22 +174,21 @@ def _check_pair(neigh: torch.Tensor, w: torch.Tensor):
     if neigh.shape[1] < 1 or neigh.shape[2] < 1:
         raise ValueError(f"neigh {tuple(neigh.shape)}: the mean needs F >= 1 "
                          f"and D >= 1")
-    if neigh.shape[2] > _MAX_D:
-        raise ValueError(f"sage_aggregate_fwd takes D <= {_MAX_D} (its "
-                         f"aggregate tile in shared memory), got "
-                         f"{neigh.shape[2]}")
 
 
 def sage_aggregate_fwd(neigh: torch.Tensor, w: torch.Tensor,
                        save_agg: bool = False
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """neigh (B, F, D) f32, w (D, H) f32 -> (out (B, H) f32, the aggregate
-    mean_f(neigh) (B, D) f32 if `save_agg`, else None)."""
+    mean_f(neigh) (B, D) f32 if `save_agg`, else None). The aggregate is a
+    view of rows `agg_stride(D)` floats apart."""
     _check_pair(neigh, w)
     b, f, d = neigh.shape
     h = w.shape[1]
+    plan = fwd_plan(b, f, d, h, neigh.data_ptr())
     out = torch.empty((b, h), dtype=torch.float32, device=neigh.device)
-    agg = (torch.empty((b, d), dtype=torch.float32, device=neigh.device)
+    ld = agg_stride(d)
+    agg = (torch.empty((b, ld), dtype=torch.float32, device=neigh.device)
            if save_agg else None)
     with torch.cuda.device(neigh.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -84,8 +196,23 @@ def sage_aggregate_fwd(neigh: torch.Tensor, w: torch.Tensor,
                 .sage_aggregate_fwd(neigh.data_ptr(), w.data_ptr(),
                                     out.data_ptr(),
                                     None if agg is None else agg.data_ptr(),
-                                    b, f, d, h, stream))
-    return out, agg
+                                    b, f, d, h, ld, plan.rows, plan.bufs,
+                                    plan.ctas, plan.stages, plan.vec,
+                                    stream))
+    return out, None if agg is None else agg[:, :d]
+
+
+def _check_agg(agg: torch.Tensor, b: int, d: int, dev: torch.device):
+    """The saved aggregate: (B, D) f32 on `dev` with unit column stride and
+    rows at least D floats apart (the forward pads them)."""
+    if agg.device != dev or agg.dtype != torch.float32 \
+            or tuple(agg.shape) != (b, d):
+        raise ValueError(f"agg {tuple(agg.shape)} {agg.dtype} on "
+                         f"{agg.device} is not the ({b}, {d}) f32 aggregate "
+                         f"on {dev}")
+    if b > 0 and (agg.stride(1) != 1 or agg.stride(0) < d):
+        raise ValueError(f"agg's rows must be at least {d} contiguous "
+                         f"floats apart, got strides {agg.stride()}")
 
 
 def sage_aggregate_bwd(d_out: torch.Tensor, w: torch.Tensor,
@@ -93,9 +220,9 @@ def sage_aggregate_bwd(d_out: torch.Tensor, w: torch.Tensor,
                        need_neigh: bool
                        ) -> Tuple[Optional[torch.Tensor],
                                   Optional[torch.Tensor]]:
-    """d_out (B, H) f32, w (D, H) f32, agg (B, D) f32 or None ->
-    (d_neigh (B, F, D) if `need_neigh` else None, d_w (D, H) if `agg` is
-    given else None)."""
+    """d_out (B, H) f32, w (D, H) f32, agg (B, D) f32 (rows may be padded)
+    or None -> (d_neigh (B, F, D) if `need_neigh` else None, d_w (D, H) if
+    `agg` is given else None)."""
     _check(d_out, "d_out", torch.float32, 2)
     _check(w, "w", torch.float32, 2)
     b, h = d_out.shape
@@ -104,18 +231,16 @@ def sage_aggregate_bwd(d_out: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"d_out {tuple(d_out.shape)} on {d_out.device} and "
                          f"w {tuple(w.shape)} on {w.device} (F = {f}) do not "
                          f"match")
-    if agg is not None:
-        _check(agg, "agg", torch.float32, 2)
-        if agg.shape != (b, d) or agg.device != d_out.device:
-            raise ValueError(f"agg {tuple(agg.shape)} does not match d_out "
-                             f"{tuple(d_out.shape)} and w {tuple(w.shape)}")
     dev = d_out.device
-    splits = dw_splits(b, d, h)
-    d_w = partial = d_neigh = None
+    if agg is not None:
+        _check_agg(agg, b, d, dev)
+    plan = dw_plan(b, d, h, lambda c: dw_active_clusters(dev, c))
+    d_w = scratch = d_neigh = None
     if agg is not None:
         d_w = torch.empty((d, h), dtype=torch.float32, device=dev)
-        partial = torch.empty((splits, d, h), dtype=torch.float32,
-                              device=dev)
+        if plan.clusters > 1:
+            scratch = torch.empty((plan.clusters, d, h), dtype=torch.float32,
+                                  device=dev)
     if need_neigh:
         d_neigh = torch.empty((b, f, d), dtype=torch.float32, device=dev)
     if d_w is None and d_neigh is None:
@@ -126,8 +251,9 @@ def sage_aggregate_bwd(d_out: torch.Tensor, w: torch.Tensor,
                 .sage_aggregate_bwd(
                     d_out.data_ptr(), w.data_ptr(),
                     None if agg is None else agg.data_ptr(),
+                    d if agg is None else max(d, agg.stride(0)),
                     None if d_w is None else d_w.data_ptr(),
-                    None if partial is None else partial.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(),
                     None if d_neigh is None else d_neigh.data_ptr(),
-                    b, f, d, h, splits, stream))
+                    b, f, d, h, plan.splits, plan.cluster, stream))
     return d_neigh, d_w

@@ -44,29 +44,75 @@ def test_cuda_kernels_match_plain_versions():
                                rtol=1e-5, atol=1e-4)
 
 
+def _check_sage(neigh, w, gen):
+    """sage_aggregate_fwd and _bwd against their plain versions: the saved
+    aggregate (rows padded to a multiple of 4 floats) bitwise, out rtol /
+    atol 1e-5 against f32 cuBLAS with TF32 off, d_neigh rtol / atol 1e-5,
+    d_w within 1e-5 of max |d_w|; out without the saved aggregate, d_w
+    without d_neigh and a second run of each bitwise equal."""
+    b, f, d = neigh.shape
+    h = w.shape[1]
+    out, agg = sa.sage_aggregate_fwd(neigh, w, save_agg=True)
+    assert agg.shape == (b, d) and agg.stride() == (sa.agg_stride(d), 1)
+    assert torch.equal(agg, ref.sage_mean_ref(neigh))
+    torch.testing.assert_close(out, ref.sage_aggregate_ref(neigh, w),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(sa.sage_aggregate_fwd(neigh, w)[0], out)
+    assert torch.equal(sa.sage_aggregate_fwd(neigh, w, save_agg=True)[0],
+                       out)
+    d_out = torch.randn((b, h), device="cuda", generator=gen)
+    d_neigh, d_w = sa.sage_aggregate_bwd(d_out, w, agg, f, True)
+    want_n, want_w = ref.sage_aggregate_bwd_ref(d_out, w, agg, f)
+    torch.testing.assert_close(d_neigh, want_n, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d_w, want_w, rtol=0,
+                               atol=1e-5 * float(want_w.abs().max()))
+    none, d_w2 = sa.sage_aggregate_bwd(d_out, w, agg, f, False)
+    assert none is None and torch.equal(d_w2, d_w)
+    # a contiguous aggregate (rows not padded) gives the same d_w
+    assert torch.equal(
+        sa.sage_aggregate_bwd(d_out, w, agg.contiguous(), f, False)[1], d_w)
+
+
 @pytest.mark.gpu
 def test_cuda_sage_aggregate_matches_plain_version():
-    """On the card: sage_aggregate_fwd (aggregate bitwise, output rtol /
-    atol 1e-5 against f32 cuBLAS with TF32 off) and sage_aggregate_bwd
-    (d_neigh rtol / atol 1e-5; d_w within 1e-5 of max |d_w|) at a ragged
-    shape and at the GNN's hidden-layer shape."""
+    """On the card, at ragged shapes and the GNN's hidden-layer shape:
+    B 37 with F 1, D 5, H 7; H 130 over two column tiles; B 4225 (tiles
+    of 32 rows) at D 33 (4-byte loads); B 1023 (not a multiple of 4) at F
+    15, D 602 (F D = 2 mod 4: 8-byte loads, every other row 8- but not
+    16-byte aligned) and H 128; F 43 at H 47; D 300 at H 130; F 44 at D
+    602; and h1's (1024, 15, 128) x (128, 47) with 16-byte loads."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, f, d, h in ((37, 1, 5, 7), (1024, 15, 128, 47)):
+    for b, f, d, h in ((37, 1, 5, 7), (37, 3, 33, 130), (4225, 2, 33, 7),
+                       (1023, 15, 602, 128), (5, 43, 6, 47),
+                       (600, 10, 300, 130), (300, 44, 602, 128),
+                       (1024, 15, 128, 47)):
         neigh = torch.randn((b, f, d), device="cuda", generator=gen)
         w = torch.randn((d, h), device="cuda", generator=gen) * d ** -0.5
-        out, agg = sa.sage_aggregate_fwd(neigh, w, save_agg=True)
-        assert torch.equal(agg, ref.sage_mean_ref(neigh))
-        torch.testing.assert_close(out, ref.sage_aggregate_ref(neigh, w),
-                                   rtol=1e-5, atol=1e-5)
-        d_out = torch.randn((b, h), device="cuda", generator=gen)
-        d_neigh, d_w = sa.sage_aggregate_bwd(d_out, w, agg, f, True)
-        want_n, want_w = ref.sage_aggregate_bwd_ref(d_out, w, agg, f)
-        torch.testing.assert_close(d_neigh, want_n, rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(d_w, want_w, rtol=0,
-                                   atol=1e-5 * float(want_w.abs().max()))
+        _check_sage(neigh, w, gen)
+
+
+@pytest.mark.gpu
+def test_cuda_sage_aggregate_takes_neigh_at_any_alignment():
+    """A neigh that is a slice of a larger buffer, 8- or 4- but not
+    16-byte aligned, at D 128 (16-byte copies when aligned) and D 602:
+    the plan narrows the copies and the results hold as in
+    _check_sage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b, f, d, h in ((300, 15, 128, 47), (300, 10, 602, 128)):
+        for shift in (2, 1):
+            buf = torch.randn(b * f * d + shift, device="cuda",
+                              generator=gen)
+            neigh = buf[shift:].view(b, f, d)
+            assert neigh.data_ptr() % 16 != 0
+            assert sa.fwd_plan(b, f, d, h, neigh.data_ptr()).vec == shift
+            w = torch.randn((d, h), device="cuda", generator=gen) * d ** -0.5
+            _check_sage(neigh, w, gen)
 
 
 @pytest.mark.gpu

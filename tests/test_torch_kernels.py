@@ -318,19 +318,98 @@ def test_sage_aggregate_writes_d_neigh_only_when_needed(monkeypatch):
     assert x.grad.shape == (4, 3, 5)
 
 
+# the GNN train step's three calls (B, F, D, H): neigh2, neigh1, h1
+SAGE_PATH = [(15360, 10, 602, 128), (1024, 15, 602, 128),
+             (1024, 15, 128, 47)]
+# ragged ones: tiles of 8 and 32 rows, two column tiles, B not a multiple
+# of 4, F D = 2 mod 4, many neighbours (F 44; the sampler's default fanout
+# 25), no rows, the widest features
+SAGE_RAGGED = [(37, 1, 5, 7), (37, 3, 33, 130), (4225, 2, 33, 7),
+               (1023, 15, 602, 128), (5, 43, 6, 47), (600, 10, 300, 130),
+               (300, 44, 602, 128), (1024, 25, 602, 128), (0, 3, 4, 5),
+               (2, 10, 4481, 5)]
+# clusters of each size that fit at one d_w CTA an SM, as the occupancy
+# query reports them on an NVIDIA H100 80GB HBM3 (chip_smoke.py prints it)
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+
+
 def test_sage_dw_splits_cover_the_card():
-    # main path: d_w (602, 128) is 5 x 1 tiles of 128 -> 52 row ranges,
-    # 260 blocks: one wave at two blocks an SM
-    assert sa.dw_splits(15360, 602, 128) == 52
-    assert sa.dw_splits(1024, 128, 47) == 16 == 1024 // 64
-    assert sa.dw_splits(37, 5, 7) == 1
-    assert sa.dw_splits(0, 5, 7) == 1
+    # main path: d_w (602, 128) is 5 x 1 tiles of 128; clusters of 2
+    # ranges, 13 a tile: 130 CTAs of 591 rows, one wave at one CTA an SM
+    # (clusters of 8 would place 15 x 8 = 120); the 13 clusters' sums meet
+    # in a (13, 602, 128) scratch, 4.0 MB instead of 52 partials' 16 MB
+    plan = sa.dw_plan(15360, 602, 128, H100_CLUSTERS.get)
+    assert (plan.cluster, plan.clusters, plan.splits) == (2, 13, 26)
+    assert sa.dw_plan(1024, 602, 128, H100_CLUSTERS.get).splits == 26
+    assert sa.dw_plan(1024, 128, 47, H100_CLUSTERS.get) == sa.DwPlan(8, 4)
+    assert sa.dw_plan(37, 5, 7) == sa.DwPlan(2, 1)
+    assert sa.dw_plan(0, 5, 7) == sa.DwPlan(1, 1)
+
+
+@pytest.mark.parametrize("b,f,d,h", SAGE_PATH + SAGE_RAGGED)
+def test_sage_dw_plan_fits_the_card(b, f, d, h):
+    """Clusters of 1-8 CTAs (a power of 2), no more at once than fit the
+    card unless the tiles alone are more, and at most one range of rows
+    for each 32 rows of B."""
+    plan = sa.dw_plan(b, d, h, H100_CLUSTERS.get)
+    tiles = -(-d // 128) * -(-h // 128)
+    assert plan.cluster in (1, 2, 4, 8) and plan.clusters >= 1
+    assert tiles * plan.clusters <= max(H100_CLUSTERS[plan.cluster], tiles)
+    assert plan.splits <= max(1, -(-b // 32))
+
+
+@pytest.mark.parametrize("ptr", [0, 8, 4])
+@pytest.mark.parametrize("b,f,d,h", SAGE_PATH + SAGE_RAGGED)
+def test_sage_fwd_plan_aligns_every_load_and_fills_the_card(b, f, d, h, ptr):
+    """Every load of `vec` floats of neigh, at every (row, f) and value of
+    d a vector starts at, is aligned to its width; the CTAs' row ranges
+    cover B once and differ by at most one row; the 1024-row calls give
+    every SM a CTA; two buffers of the aggregate where they fit with a
+    ring of at least 3 slices of w; shared memory fits."""
+    plan = sa.fwd_plan(b, f, d, h, ptr)
+    assert plan.vec in (1, 2, 4) and plan.rows in (8, 32)
+    width = 4 * plan.vec
+    for row in range(min(b, 9)):
+        for ff in range(f):
+            for j in range(0, d, plan.vec):
+                assert (ptr + 4 * ((row * f + ff) * d + j)) % width == 0
+    # each CTA's rows [begin, end), as the kernel splits B
+    ranges = [(b * c // plan.ctas, b * (c + 1) // plan.ctas)
+              for c in range(plan.ctas)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == b
+    assert all(r0[1] == r1[0] for r0, r1 in zip(ranges, ranges[1:]))
+    sizes = {e - s for s, e in ranges}
+    assert max(sizes) - min(sizes) <= 1
+    assert plan.ctas * plan.col_tiles <= sa.SMS or b == 0
+    if b == 1024:
+        assert plan.ctas >= 132
+    assert plan.rows == 8 or b >= 32 * plan.ctas
+    assert plan.bufs in (1, 2) and 2 <= plan.stages <= 8
+    assert plan.bufs == 2 or d > 2000
+    assert sa.fwd_smem(plan.rows, plan.bufs, d, h, plan.stages) <= sa.SMEM
+
+
+def test_sage_fwd_plan_at_the_path_shapes():
+    # neigh2: 32-row tiles in two buffers over 132 ranges of 116-117 rows,
+    # a ring of 4 slices of w, 8-byte loads (602 floats a row); neigh1:
+    # 8-row tiles, 8 slices; h1: 8-row tiles, 16-byte loads
+    assert sa.fwd_plan(15360, 10, 602, 128) == sa.FwdPlan(32, 2, 132, 1, 4, 2)
+    assert sa.fwd_plan(1024, 15, 602, 128) == sa.FwdPlan(8, 2, 132, 1, 8, 2)
+    assert sa.fwd_plan(1024, 15, 128, 47) == sa.FwdPlan(8, 2, 132, 1, 8, 4)
+    # a base 8- but not 16-byte aligned loads 8 bytes at a time
+    assert sa.fwd_plan(1024, 15, 128, 47, ptr=8).vec == 2
+    assert sa.agg_stride(602) == 604 and sa.agg_stride(128) == 128
+    assert sa.agg_stride(5) == 8
 
 
 def test_sage_aggregate_fwd_refuses_too_wide_features(monkeypatch):
+    """A CTA keeps an 8-row tile of the aggregate and at least 2 slices of
+    w in shared memory: wider features are refused before anything is
+    built or launched. D = 4480 still fits, in one buffer."""
     monkeypatch.setattr(sa, "_check", lambda *a: None)   # device, dtype
-    with pytest.raises(ValueError, match="D <= 4480"):
-        sa._check_pair(torch.zeros(2, 3, 4481), torch.zeros(4481, 5))
+    with pytest.raises(ValueError, match="D = 7000, F = 10 do not"):
+        sa.sage_aggregate_fwd(torch.zeros(2, 10, 7000), torch.zeros(7000, 5))
+    assert sa.fwd_plan(2, 10, 4480, 5).bufs == 1
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
