@@ -14,7 +14,13 @@ exits non-zero without printing a result:
               card, at the main path's shapes (DLRM-Criteo: 26 tables of
               2^20 x 128 f32, batch 2048, bag 4; interaction (2048, 27,
               128)) and at ragged ones (batch 37, bag 1, mean, D not a
-              multiple of 4). Tolerances: embedding_bag_fwd bitwise;
+              multiple of 4; the scatter at D 1, 2, 3, 5, 8, 32, 128 and
+              132 over 5 features, walked in groups of 2, at B 1 and 300
+              and bags of 1, 4 and 17, with bags whose ids all repeat,
+              bags padded by repeating their head id and ids of -1 and V;
+              the interaction's backward at B 1, 37 and 2051, (F, D) (2,
+              4), (27, 128), (27, 10) and (60, 32), and a feats 4- but not
+              16-byte aligned). Tolerances: embedding_bag_fwd bitwise;
               embedding_bag_bwd rtol 1e-5 / atol 1e-6 (atomic order
               varies); dot_interact_fwd/bwd rtol 1e-5 / atol 1e-4 against
               f32 cuBLAS with TF32 off. Times each kernel, its plain
@@ -91,8 +97,11 @@ embedding_bag_fused_fwd, both with embedding_bag_bwd as their backward:
               and on the deep tables (40, 2^20, 32). Times at the train
               shape: the fused kernel, embedding_bag_fwd, the plain version
               and F.embedding_bag over the flattened (F*V, 1) table with
-              offset ids; and embedding_bag_bwd at D = 1 (library:
-              index_add_).
+              offset ids; embedding_bag_bwd at D = 1 (library: index_add_);
+              and on the deep tables (D = 32) embedding_bag_fwd (library:
+              F.embedding_bag over the flattened (F*V, 32) table) and
+              embedding_bag_bwd (library: index_add_ into a (F*V, 32)
+              gradient), each with its plain version and bound.
  11. recsys_model  wide-deep's loss and every gradient at the published
               widths (batch 4096) through the kernels against the plain
               versions, same parameters and batch: loss rtol 1e-5, each
@@ -105,7 +114,7 @@ embedding_bag_fused_fwd, both with embedding_bag_bwd as their backward:
               samples/s, the loop step split into batch + copy and the
               train step, peak device memory, the first and last loss.
  13. recsys_profile  one wide-deep train step under torch.profiler:
-              device time by kernel.
+              device time by kernel, and each scatter's time in the step.
 
 Launch counts are set to 0 just before each main path (the DLRM loop,
 the GNN loop, the wide-deep loop) and read just after it; the `kernels`
@@ -264,6 +273,65 @@ def _check_dot(feats, tag) -> dict:
     return {"dot_interact_fwd": e_f, "dot_interact_bwd": e_b}
 
 
+def _check_scatter(d_out, ids, v, combiner, tag) -> float:
+    """embedding_bag_bwd against its plain version feature by feature at
+    rtol 1e-5 / atol 1e-6, any id out of [0, V) adding nothing (the plain
+    version sends it to one of two rows past V, which are dropped).
+    Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb, ref
+    got = eb.embedding_bag_bwd(d_out, ids, v, combiner)
+    ext = torch.where(ids < 0, v + 1, torch.where(ids >= v, v, ids))
+    want = ref.embedding_bag_bwd_ref(d_out, ext, v + 2,
+                                     combiner=combiner)[:, :v]
+    return max(_allclose(f"embedding_bag_bwd {tag} {combiner} f={i}",
+                         got[i], want[i], 1e-5, 1e-6)
+               for i in range(got.shape[0]))
+
+
+def _ragged_scatters(gen) -> float:
+    """The scatter at every D the models use and around it, over 5
+    features (its walk's groups of 2 leave one over), at B 1 and 300 and
+    bags of 1, 4 and 17: random ids (with the forward, bitwise), bags
+    whose ids all repeat, bags padded by repeating their head id (the
+    DLRM featurizer's padding), and ids of -1 and V. The repeated ids
+    get non-negative gradients: a row then sums many of them, and with
+    signs a nearly cancelling row differs between any two orders of f32
+    atomics by more than atol. Returns the max abs error."""
+    import torch
+    dev = torch.device("cuda")
+    err = 0.0
+    for d in (1, 2, 3, 5, 8, 32, 128, 132):
+        f, v = 5, 2 ** 20 // d
+        tables = torch.randn((f, v, d), device=dev, generator=gen)
+        for b in (1, 300):
+            for bag in (1, 4, 17):
+                ids = torch.randint(0, v, (b, f, bag), device=dev,
+                                    generator=gen, dtype=torch.int32)
+                tag = f"({f},{v},{d}) b{b} bag{bag}"
+                for combiner in ("sum", "mean"):
+                    err = max(err, _check_bag(tables, ids, combiner,
+                                              tag)["embedding_bag_bwd"])
+                d_out = torch.randn((b, f, d), device=dev,
+                                    generator=gen).abs()
+                lengths = torch.randint(1, bag + 1, (b, f, 1), device=dev,
+                                        generator=gen)
+                bad = ids.clone()
+                bad[0, f - 1, 0] = -1
+                bad[b - 1, 0, bag - 1] = v
+                for name, i in (
+                        ("repeated", ids[..., :1].expand(b, f, bag)
+                         .contiguous()),
+                        ("head-padded", torch.where(
+                            torch.arange(bag, device=dev) < lengths, ids,
+                            ids[..., :1])),
+                        ("out of range", bad)):
+                    for combiner in ("sum", "mean"):
+                        err = max(err, _check_scatter(d_out, i, v, combiner,
+                                                      f"{tag} {name}"))
+    return err
+
+
 def phase_kernels(cfg) -> dict:
     """Every kernel against its plain version, then timed, at the main
     path's shapes. Returns one record per kernel."""
@@ -293,9 +361,18 @@ def phase_kernels(cfg) -> dict:
                             dtype=torch.int32)
         for combiner in ("sum", "mean"):
             note(_check_bag(tables, ids, combiner, f"({f},{v},{d}) b{b}"))
+    note({"embedding_bag_bwd": _ragged_scatters(gen)})
     for b, f, d in ((37, 5, 10), (37, 27, 128), (1, 2, 4), (3, 60, 32)):
         note(_check_dot(torch.randn((b, f, d), device=dev, generator=gen),
                         f"({b},{f},{d})"))
+    # the backward's persistent CTAs at B 1, 37 and 2051, and 4-byte copies
+    # from a feats at a 4-byte offset
+    for b in (1, 37, 2048 + 3):
+        for f, d in ((2, 4), (27, 128), (27, 10), (60, 32)):
+            buf = torch.randn(b * f * d + 1, device=dev, generator=gen)
+            for shift in (0, 1):
+                note(_check_dot(buf[shift:shift + b * f * d].view(b, f, d),
+                                f"({b},{f},{d}) offset {4 * shift} B"))
 
     # the main path's shapes: batch from the featurizer, full tables
     n_f, rows, dim = cfg.n_sparse, cfg.vocab_sizes[0], cfg.embed_dim
@@ -942,12 +1019,12 @@ def phase_recsys_kernels(cfg) -> dict:
     # the row kernels at the path's train shape: the wide arm's D = 1
     # (262,144 ids a feature scattered over 2^20 rows) and the deep tables
     path_errs = _check_bag(wide, main, "sum", "wide arm train_batch")
-    deep = torch.empty((n_f, rows, cfg.embed_dim), device=dev)
+    dim = cfg.embed_dim
+    deep = torch.empty((n_f, rows, dim), device=dev)
     deep.normal_(generator=gen).mul_(0.01)
     for name, err in _check_bag(deep, main, "sum",
                                 "deep tables train_batch").items():
         path_errs[name] = max(path_errs[name], err)
-    del deep
     torch.cuda.empty_cache()
     print(f"  embedding_bag_fwd/_bwd at (65536, 40, 4) x (40, 2^20, 1) and "
           f"x (40, 2^20, {cfg.embed_dim}): forward bit-equal, backward max "
@@ -998,6 +1075,51 @@ def phase_recsys_kernels(cfg) -> dict:
     print(f"  embedding_bag_bwd at D = 1 (wide arm): {bwd_ms:.4f} ms on the "
           f"card (plain {bwd_plain:.4f}, index_add_ {bwd_lib:.4f}, bound "
           f"{bwd_bms:.4f} by {bwd_by})")
+    del grad, upd
+    torch.cuda.empty_cache()
+
+    # the deep tables (D = 32) with the same ids: embedding_bag_fwd against
+    # F.embedding_bag over the flattened (F*V, 32) table, embedding_bag_bwd
+    # against index_add_ into a (F*V, 32) gradient
+    fwd_ms, fwd_wall = time_ms(lambda i: eb.embedding_bag_fwd(deep, i), sets)
+    fwd_plain, _ = time_ms(lambda i: ref.embedding_bag_ref(deep, i), sets,
+                           iters=5)
+    deep_flat = deep.view(n_f * rows, dim)
+    fwd_lib, _ = time_ms(lambda x: F.embedding_bag(x, deep_flat, mode="sum"),
+                         flat_sets)
+    fwd_bms, fwd_by = bound_ms(main.numel() * 4 + uniq * dim * 4
+                               + b * n_f * dim * 4, b * n_f * bag * dim)
+    rec["embedding_bag_fwd_d32"] = {
+        "ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
+        "bound_ms": fwd_bms, "bound_by": fwd_by, "wall_ms": fwd_wall}
+    print(f"  embedding_bag_fwd at D = 32 (deep tables): {fwd_ms:.4f} ms on "
+          f"the card, {fwd_wall:.4f} ms launch to launch (plain "
+          f"{fwd_plain:.4f}, F.embedding_bag {fwd_lib:.4f}, bound "
+          f"{fwd_bms:.4f} by {fwd_by})")
+    d_out = torch.randn((b, n_f, dim), device=dev, generator=gen)
+    grad = torch.zeros_like(deep)
+    del deep, deep_flat
+    bwd_ms, bwd_wall = time_ms(
+        lambda: eb.embedding_bag_scatter(d_out, main, grad), [()])
+    bwd_plain, _ = time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, main,
+                                                             rows), [()],
+                           iters=3)
+    torch.cuda.empty_cache()
+    upd = d_out[:, :, None, :].expand(b, n_f, bag, dim).reshape(-1, dim) \
+        .contiguous()
+    bwd_lib, _ = time_ms(lambda: grad.view(n_f * rows, dim).index_add_(
+        0, idx, upd), [()])
+    bwd_bms, bwd_by = bound_ms(d_out.numel() * 4 + main.numel() * 4
+                               + 2 * uniq * dim * 4, b * n_f * bag * dim)
+    rec["embedding_bag_bwd_d32"] = {
+        "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
+        "bound_ms": bwd_bms, "bound_by": bwd_by, "wall_ms": bwd_wall}
+    print(f"  embedding_bag_bwd at D = 32 (deep tables): {bwd_ms:.4f} ms on "
+          f"the card, {bwd_wall:.4f} ms launch to launch (plain "
+          f"{bwd_plain:.4f}, index_add_ {bwd_lib:.4f}, bound {bwd_bms:.4f} "
+          f"by {bwd_by})")
+    del grad, upd, d_out
+    torch.cuda.empty_cache()
     return {"embedding_bag_fused_fwd": rec}, path_errs
 
 
@@ -1127,6 +1249,11 @@ def phase_recsys_profile(arch):
           f"kernels {bag_ms:.3f} ms ({100 * bag_ms / device_ms:.1f}%)")
     for name, ms in rows[:14]:
         print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
+    # the scatters in the step: <false, 4> is the wide arm's D = 1, <true,
+    # 4> the deep tables' D = 32 (float4 atomics)
+    for name, ms in rows:
+        if "embedding_bag_bwd_kernel" in name:
+            print(f"  scatter in the step: {ms:.4f} ms  {name[:70]}")
 
 
 SOURCES = {

@@ -5,20 +5,64 @@
 // (`embedding_bag`, pallas_call at :75), which reduces one (V, D) table
 // over a (B, bag) id block with a sequential (B, bag) grid that DMAs one
 // row per step and accumulates in f32, j ascending. The TPU kernel has no
-// backward; the JAX trainer differentiates `jnp.take` instead, whose
-// transpose is a dense (F, V, D) scatter-add. Both directions live here.
+// backward; the JAX trainer differentiates the pure-jnp form of
+// `embedding_bag` (src/repro/kernels/embedding_bag.py:52, a `jnp.take`),
+// whose transpose is a dense (F, V, D) scatter-add. Both directions live
+// here.
 //
 // Layout: tables (F, V, D) f32, ids (B, F, bag) int32, out (B, F, D) f32.
 // F*V*D exceeds 2^31 at the DLRM-Criteo widths (26 x 2^20 x 128), so every
 // offset into the tables is 64-bit.
 //
-// Bound on this card: bytes. Each output row reads `bag` table rows and
-// writes one, a handful of adds per byte. The design keeps the row loads
-// wide and independent: one warp per (b, f) output row, each lane holding
-// one float4 column slice (D = 128 is exactly 32 lanes x 4 floats), and
-// the bag loop unrolled so the `bag` row loads are in flight together.
-// The sum runs j ascending from 0.0f, so the f32 result is bit-equal to
-// the plain PyTorch version (a left fold over j).
+// Forward, bound on this card by bytes. Each output row reads `bag` table
+// rows and writes one, a handful of adds per byte. The design keeps the
+// row loads wide and independent: one warp per (b, f) output row, each
+// lane holding one float4 column slice (D = 128 is exactly 32 lanes x 4
+// floats), and the bag loop unrolled so the `bag` row loads are in flight
+// together. The sum runs j ascending from 0.0f, so the f32 result is
+// bit-equal to the plain PyTorch version (a left fold over j).
+//
+// Backward, bound by bytes on paper: d_out and ids read once, each
+// distinct gradient row read and written once (the atomics'
+// read-modify-write in L2). On the card what holds it is the L2's
+// throughput of reductions: the adds alone, in this kernel's order and
+// with nothing else read, take about nine tenths of the kernel's time; a
+// plain load-add-store of the same rows takes about a quarter less; TMA
+// bulk reductions (cp.reduce.async.bulk, one a row) were no faster
+// (kernel_probes.py, PERF.md).
+// What held the first version (a warp a row, lanes over D) back, and what
+// this one does about it:
+//  - Idle lanes at narrow rows. A group of `lanes` threads covers one
+//    (b, f) row, `lanes` the power of two covering its float4s (or floats
+//    on the scalar path), at most 32: D = 128 takes 32 lanes, wide-deep's
+//    D = 32 takes 8 (4 rows a warp) and its wide arm's D = 1 one thread
+//    (32 rows a warp). Every lane works at the widths in use.
+//  - Atomics spread over every feature's gradient. The blocks walk the
+//    rows in groups of `group` features, the group the slowest index
+//    (gridDim.y), and within a group row b after row b, the group's
+//    features innermost. The host plan (embedding_bag.py, `bwd_plan`)
+//    sizes the group so that its gradient slices (V x D x 4 bytes each)
+//    fit an L2 budget of 8 MiB: 2 features at D = 1 (4 MiB each), so the
+//    4-byte atomics of the wide arm meet their 32-byte sectors in the 50
+//    MB L2 instead of missing to HBM over a 168 MB gradient (groups of 1,
+//    2, 4, 8 and 40 were timed; 2 was the fastest, 40 as slow as the
+//    first version). At D = 32 and 128 one feature's slice exceeds L2 and
+//    the group is 1: the rows one feature's batch touches stay in L2
+//    while it is walked.
+//  - A repeated id paid an atomic each time. Each thread compares its
+//    bag's ids in registers (bags of up to 4 and 16 unrolled, larger ones
+//    looped) and issues one atomic for each distinct valid id, with the
+//    gradient times the id's count in the bag. The DLRM featurizer pads a
+//    short list by repeating its head id, so its bags repeat ids often.
+//  - Ids were loaded 4 bytes at a time: a bag of a multiple of 4 aligned
+//    ids is loaded as int4s.
+//  - The adds are fire-and-forget: `atomicAdd(float4*, float4)` with its
+//    result unused compiles to one REDG.E.ADD.F32x4 a float4 on sm_90a
+//    (the scalar path's to REDG.E.ADD.F32), no ATOM waiting on a return.
+// The zero fill is the gradient's allocation's, not this kernel's.
+// Atomic order varies between runs, and a repeated id adds count x g
+// where the plain version adds g count times, so the result matches the
+// plain version to rounding (chip_smoke.py: rtol 1e-5, atol 1e-6).
 //
 // An id outside [0, V) reads nothing and poisons its output row with NaN
 // (the fill semantics of jnp.take); in the backward it adds nothing.
@@ -26,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -93,60 +139,172 @@ embedding_bag_fwd_kernel(const float* __restrict__ tables,
   }
 }
 
-// dOut (B, F, D) scatter-added into the zeroed dense gradient (F, V, D):
-// one warp per (b, f) row, the row's gradient loaded once, then f32
-// atomic adds into each of the `bag` destination rows (a float4 atomic
-// per lane on the vector path). Atomic order varies between runs, so the
-// sum over duplicate ids is exact only to rounding.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-embedding_bag_bwd_kernel(const float* __restrict__ d_out,
-                         const int32_t* __restrict__ ids,
-                         float* __restrict__ grad, int64_t rows, int64_t F,
-                         int64_t V, int64_t D, int bag, int mean) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
-                      (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int64_t f = row % F;
-  const int32_t* row_ids = ids + row * bag;
-  float* table_grad = grad + f * V * D;
-  const float* src = d_out + row * D;
-  const float n = static_cast<float>(bag);
-  if (kVec) {
-    const int64_t d4 = D / 4;
-    for (int64_t c = lane; c < d4; c += 32) {
-      float4 g = __ldg(reinterpret_cast<const float4*>(src) + c);
-      if (mean) {
-        g.x /= n;
-        g.y /= n;
-        g.z /= n;
-        g.w /= n;
+constexpr int kBwdThreads = 256;
+constexpr int kMaxUnrolledBag = 16;
+
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
+}
+
+// The weight of bag slot j: how many slots of the bag name its id if j is
+// the first of them and the id is valid, else 0. ids[0, n) in registers.
+template <int kUnroll>
+__device__ __forceinline__ void bag_weights(const int32_t (&id)[kUnroll],
+                                            int n, int64_t V,
+                                            float (&w)[kUnroll]) {
+#pragma unroll
+  for (int j = 0; j < kUnroll; ++j) {
+    float c = 0.f;
+    if (j < n && valid_id(id[j], V)) {
+      bool first = true;
+#pragma unroll
+      for (int k = 0; k < j; ++k) first = first && id[k] != id[j];
+      if (first) {
+        c = 1.f;
+#pragma unroll
+        for (int k = j + 1; k < kUnroll; ++k) {
+          if (k < n && id[k] == id[j]) c += 1.f;
+        }
       }
-      for (int j = 0; j < bag; ++j) {
-        const int32_t id = __ldg(row_ids + j);
-        if (!valid_id(id, V)) continue;
-        // one vector atomic per float4 (sm_90: each element atomic on
-        // its own), a quarter of the atomic instructions of scalar adds
-        atomicAdd(reinterpret_cast<float4*>(
-                      table_grad + static_cast<int64_t>(id) * D) + c, g);
+    }
+    w[j] = c;
+  }
+}
+
+// The gradient row of (b, f), divided by the bag for "mean", scatter-added
+// into the rows its bag names: lane `lane` of `lanes` takes the row's
+// float4s (floats) lane, lane + lanes, ...; slot j adds w[j] times it.
+template <bool kVec, int kUnroll>
+__device__ __forceinline__ void scatter_row(const float* src, float* dst,
+                                            const int32_t (&id)[kUnroll],
+                                            const float (&w)[kUnroll],
+                                            int64_t D, int lane, int lanes,
+                                            int n, float bag, int mean) {
+  if (kVec) {
+    for (int64_t c = lane; c < D / 4; c += lanes) {
+      float4 g = __ldg(reinterpret_cast<const float4*>(src) + c);
+      if (mean) g = make_float4(g.x / bag, g.y / bag, g.z / bag, g.w / bag);
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (j < n && w[j] != 0.f) {
+          atomicAdd(reinterpret_cast<float4*>(
+                        dst + static_cast<int64_t>(id[j]) * D) + c,
+                    scale4(g, w[j]));
+        }
       }
     }
   } else {
-    for (int64_t d = lane; d < D; d += 32) {
+    for (int64_t d = lane; d < D; d += lanes) {
       float g = __ldg(src + d);
-      if (mean) g /= n;
-      for (int j = 0; j < bag; ++j) {
-        const int32_t id = __ldg(row_ids + j);
-        if (!valid_id(id, V)) continue;
-        atomicAdd(table_grad + static_cast<int64_t>(id) * D + d, g);
+      if (mean) g /= bag;
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (j < n && w[j] != 0.f) {
+          atomicAdd(dst + static_cast<int64_t>(id[j]) * D + d, g * w[j]);
+        }
       }
+    }
+  }
+}
+
+// dOut (B, F, D) scatter-added into the zeroed dense gradient (F, V, D).
+// Block (x, y) walks feature group y (features y * group onwards, the
+// last group holding what is left), rows x * kBwdThreads / lanes onwards
+// in the group's order: row b after row b, the group's features
+// innermost. kUnroll 4 or 16 keeps a bag of at most that many ids in
+// registers; kUnroll 0 takes any bag, comparing ids from memory.
+template <bool kVec, int kUnroll>
+__global__ void __launch_bounds__(kBwdThreads)
+embedding_bag_bwd_kernel(const float* __restrict__ d_out,
+                         const int32_t* __restrict__ ids,
+                         float* __restrict__ grad, int64_t B, int64_t F,
+                         int64_t V, int64_t D, int bag, int mean,
+                         int lanes_log2, int64_t group) {
+  const int64_t f0 = static_cast<int64_t>(blockIdx.y) * group;
+  const int64_t size = F - f0 < group ? F - f0 : group;
+  const int64_t t =
+      static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  const int64_t slot = t >> lanes_log2;
+  if (slot >= B * size) return;
+  const int lanes = 1 << lanes_log2;
+  const int lane = static_cast<int>(t & (lanes - 1));
+  int64_t b = slot, fi = 0;
+  if (size > 1) {
+    if (slot <= INT32_MAX) {
+      b = static_cast<uint32_t>(slot) / static_cast<uint32_t>(size);
+    } else {
+      b = slot / size;
+    }
+    fi = slot - b * size;
+  }
+  const int64_t f = f0 + fi;
+  const int64_t row = b * F + f;
+  const int32_t* row_ids = ids + row * bag;
+  const float* src = d_out + row * D;
+  float* dst = grad + f * V * D;
+  const float bag_f = static_cast<float>(bag);
+  if constexpr (kUnroll > 0) {
+    int32_t id[kUnroll];
+    if (bag % 4 == 0 && (reinterpret_cast<uintptr_t>(ids) & 15u) == 0) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; j += 4) {
+        if (j < bag) {
+          const int4 v = __ldg(reinterpret_cast<const int4*>(row_ids + j));
+          id[j] = v.x;
+          id[j + 1] = v.y;
+          id[j + 2] = v.z;
+          id[j + 3] = v.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (j < bag) id[j] = __ldg(row_ids + j);
+      }
+    }
+    float w[kUnroll];
+    bag_weights<kUnroll>(id, bag, V, w);
+    scatter_row<kVec, kUnroll>(src, dst, id, w, D, lane, lanes, bag, bag_f,
+                               mean);
+  } else {
+    // a bag over kMaxUnrolledBag ids: slot by slot, each id compared with
+    // the bag's others in memory (L1)
+    for (int j = 0; j < bag; ++j) {
+      const int32_t idj = __ldg(row_ids + j);
+      if (!valid_id(idj, V)) continue;
+      bool first = true;
+      for (int k = 0; k < j && first; ++k) first = __ldg(row_ids + k) != idj;
+      if (!first) continue;
+      float c = 1.f;
+      for (int k = j + 1; k < bag; ++k) c += __ldg(row_ids + k) == idj;
+      const int32_t id1[1] = {idj};
+      const float w1[1] = {c};
+      scatter_row<kVec, 1>(src, dst, id1, w1, D, lane, lanes, 1, bag_f,
+                           mean);
     }
   }
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <bool kVec>
+void launch_bwd(dim3 grid, cudaStream_t s, const float* d_out,
+                const int32_t* ids, float* grad, int64_t B, int64_t F,
+                int64_t V, int64_t D, int bag, int mean, int lanes_log2,
+                int64_t group) {
+  if (bag <= 4) {
+    embedding_bag_bwd_kernel<kVec, 4><<<grid, kBwdThreads, 0, s>>>(
+        d_out, ids, grad, B, F, V, D, bag, mean, lanes_log2, group);
+  } else if (bag <= kMaxUnrolledBag) {
+    embedding_bag_bwd_kernel<kVec, kMaxUnrolledBag>
+        <<<grid, kBwdThreads, 0, s>>>(d_out, ids, grad, B, F, V, D, bag,
+                                      mean, lanes_log2, group);
+  } else {
+    embedding_bag_bwd_kernel<kVec, 0><<<grid, kBwdThreads, 0, s>>>(
+        d_out, ids, grad, B, F, V, D, bag, mean, lanes_log2, group);
+  }
 }
 
 }  // namespace
@@ -174,23 +332,34 @@ extern "C" int embedding_bag_fwd(const float* tables, const int32_t* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward launches the host plan (embedding_bag.py, `bwd_plan`):
+// `vec` 1 for float4 atomics (D % 4 == 0, d_out and grad 16-byte
+// aligned) else 0, 2^lanes_log2 threads a row, feature groups of `group`,
+// a grid of (blocks, groups). A plan that does not fit the call (a grid
+// that misses rows among them) returns cudaErrorInvalidValue without
+// launching.
 extern "C" int embedding_bag_bwd(const float* d_out, const int32_t* ids,
                                  float* grad, int64_t B, int64_t F, int64_t V,
                                  int64_t D, int32_t bag, int32_t mean,
-                                 void* stream) {
-  const int64_t rows = B * F;
-  if (rows == 0 || D == 0) return 0;
-  const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+                                 int32_t vec, int32_t lanes_log2,
+                                 int64_t group, int64_t blocks,
+                                 int64_t groups, void* stream) {
+  if (B * F == 0 || D == 0) return 0;
+  if (bag < 1 || lanes_log2 < 0 || lanes_log2 > 5 || group < 1 ||
+      (vec && !(D % 4 == 0 && aligned16(d_out) && aligned16(grad))) ||
+      groups * group < F || groups > 65535 || blocks > INT32_MAX ||
+      blocks * kBwdThreads < (B * std::min(group, F) << lanes_log2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(groups));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D % 4 == 0 && aligned16(d_out) && aligned16(grad)) {
-    embedding_bag_bwd_kernel<true><<<static_cast<unsigned>(blocks), kThreads,
-                                     0, s>>>(d_out, ids, grad, rows, F, V, D,
-                                             bag, mean);
+  if (vec) {
+    launch_bwd<true>(grid, s, d_out, ids, grad, B, F, V, D, bag, mean,
+                     lanes_log2, group);
   } else {
-    embedding_bag_bwd_kernel<false><<<static_cast<unsigned>(blocks),
-                                      kThreads, 0, s>>>(d_out, ids, grad,
-                                                        rows, F, V, D, bag,
-                                                        mean);
+    launch_bwd<false>(grid, s, d_out, ids, grad, B, F, V, D, bag, mean,
+                      lanes_log2, group);
   }
   return static_cast<int>(cudaGetLastError());
 }

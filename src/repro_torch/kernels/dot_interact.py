@@ -2,7 +2,11 @@
 
 Replaces the Pallas TPU kernel `repro/kernels/dot_interact.py::
 dot_interact` (pallas_call at :51) and adds the backward the TPU kernel
-lacks. See the source for the design; it is bound by bytes.
+lacks. See the source for the design; both are bound by bytes.
+
+The backward's launch is a plan computed here, in plain Python that the
+CPU tests reach (`bwd_plan`: the width of its copies, warps a CTA,
+persistent CTAs, shared memory).
 
 Same wrapper contract as repro_torch.kernels.embedding_bag: CUDA f32
 contiguous tensors only, outputs from `torch.empty`, launch on the
@@ -10,17 +14,63 @@ current stream, raise on a refused launch, count it in `LAUNCHES`.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from repro_torch.kernels.build import LIBRARIES
 from repro_torch.kernels.embedding_bag import _check
+from repro_torch.kernels.sage_aggregate import SMEM, SMS
 
 LAUNCHES = {"dot_interact_fwd": 0, "dot_interact_bwd": 0}
 
-# the kernels stage their tile in the 48 KB shared-memory window; the
-# backward gives each warp 4 rows, in at most 32 warps
+# the forward stages its tile in the 48 KB shared-memory window, and the
+# wrappers take the (F, D) whose tile (and, for the backward, F x F
+# coefficients) fits it; the backward takes at most 128 features
 _MAX_SHARED_BYTES = 48 * 1024
-_MAX_BWD_FEATURES = 4 * 32
+_MAX_BWD_FEATURES = 128
+
+# the backward (csrc/dot_interact.cu): 7 rows of dFeats a warp, 8
+# coefficient slots; about 4 persistent CTAs an SM of an H100, within its
+# threads and shared memory (228 KB an SM, 1 KB of it reserved a block;
+# SMEM, 227 KB, a block)
+BWD_ROWS, BWD_SLOTS = 7, 8
+BWD_CTAS_PER_SM = 4
+SM_SHARED_BYTES = 233472
+SM_THREADS = 2048
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def bwd_smem(f: int, d: int, warps: int) -> int:
+    """Bytes of shared memory of a backward CTA (as csrc's bwd_smem): two
+    stages of the feats tile and dOut row, each rounded up to 4 floats,
+    and the (F, 8 x warps) coefficients."""
+    stage = _round4(f * d) + _round4(f * (f - 1) // 2)
+    return 4 * (2 * stage + f * BWD_SLOTS * warps)
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    vec: int          # floats a copy and an FMA step: 4 or 1
+    warps: int        # warps a CTA, 7 rows each
+    ctas: int         # persistent CTAs, each walking every ctas-th sample
+    smem: int         # shared-memory bytes a CTA
+
+
+def bwd_plan(b: int, f: int, d: int, ptr: int = 0) -> BwdPlan:
+    """The backward's launch for feats (b, f, d) at address `ptr`: 16-byte
+    copies and float4 FMAs where D % 4 == 0 and `ptr` is 16-byte aligned;
+    ceil(f / 7) warps; BWD_CTAS_PER_SM CTAs an SM, or as many as the SM's
+    threads and shared memory hold, at most b."""
+    warps = max(1, -(-f // BWD_ROWS))
+    smem = bwd_smem(f, d, warps)
+    per_sm = max(1, min(BWD_CTAS_PER_SM, SM_THREADS // (32 * warps),
+                        SM_SHARED_BYTES // (smem + 1024)))
+    vec = 4 if d % 4 == 0 and ptr % 16 == 0 else 1
+    return BwdPlan(vec, warps, max(1, min(b, SMS * per_sm)), smem)
 
 
 def _status(name: str, status: int):
@@ -68,9 +118,13 @@ def dot_interact_bwd(d_out: torch.Tensor,
     out = torch.empty_like(feats)
     if out.numel() == 0:
         return out
+    # either pointer unaligned leaves their OR unaligned
+    plan = bwd_plan(b, f, d, feats.data_ptr() | out.data_ptr())
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("dot_interact_bwd", LIBRARIES.get("dot_interact")
                 .dot_interact_bwd(d_out.data_ptr(), feats.data_ptr(),
-                                  out.data_ptr(), b, f, d, stream))
+                                  out.data_ptr(), b, f, d,
+                                  int(plan.vec == 4), plan.warps, plan.ctas,
+                                  plan.smem, stream))
     return out

@@ -8,6 +8,10 @@ the Pallas TPU kernel `repro/kernels/embedding_bag.py::embedding_bag`
 for small tables and bags. See the sources for the designs; all are
 bound by bytes.
 
+The backward's launch is a plan computed here, in plain Python that the
+CPU tests reach (`bwd_plan`: floats an atomic, threads a row, the
+feature groups of its walk).
+
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
 `torch.empty` / `torch.zeros`, launches on the current stream, raises if
@@ -16,6 +20,8 @@ path lives in repro_torch.kernels.ops, which picks the plain version
 for CPU tensors.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -28,6 +34,50 @@ LAUNCHES = {"embedding_bag_fwd": 0, "embedding_bag_bwd": 0,
 FUSED_MAX_BAG = 16
 
 _COMBINERS = {"sum": 0, "mean": 1}
+
+# the backward (csrc/embedding_bag.cu): blocks of 256 threads; a feature
+# group's gradient slices fit 8 MiB of the H100's 50 MB L2 (at D = 1, of
+# groups of 1, 2, 4, 8 and 40 features, 2 was the fastest on the card:
+# PERF.md); the grid's y dimension (one feature group each) is at most
+# 65535
+BWD_THREADS = 256
+BWD_L2_BYTES = 8 * 2 ** 20
+_MAX_GROUPS = 65535
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    vec: int          # floats an atomic: 4, or 1 (D % 4 != 0, unaligned)
+    lanes: int        # threads a (b, f) row, a power of two <= 32
+    group: int        # features a group of the walk
+    groups: int       # feature groups: the grid's y
+    blocks: int       # blocks a group: the grid's x
+
+    @property
+    def lanes_log2(self) -> int:
+        return self.lanes.bit_length() - 1
+
+
+def bwd_plan(b: int, f: int, v: int, d: int, aligned: bool = True
+             ) -> BwdPlan:
+    """The scatter's launch for d_out (b, f, d) into grad (f, v, d): float4
+    atomics where D % 4 == 0 and both tensors are 16-byte `aligned`;
+    lanes the power of two covering a row's vectors, at most 32; feature
+    groups of as many features as have gradient slices (v x d x 4 bytes)
+    within BWD_L2_BYTES, at least 1 (and few enough groups for the
+    grid); blocks enough for b rows of a group's features."""
+    vec = 4 if d % 4 == 0 and aligned else 1
+    lanes = 1
+    while lanes < 32 and lanes * vec < d:
+        lanes *= 2
+    group = max(1, min(f, BWD_L2_BYTES // max(1, 4 * v * d)),
+                _cdiv(f, _MAX_GROUPS))
+    return BwdPlan(vec, lanes, group, _cdiv(f, group),
+                   _cdiv(b * min(group, f) * lanes, BWD_THREADS))
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
@@ -120,11 +170,15 @@ def embedding_bag_scatter(d_out: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"d_out {tuple(d_out.shape)}, ids "
                          f"{tuple(ids.shape)} and grad {tuple(grad.shape)} "
                          f"do not match")
+    plan = bwd_plan(b, f, v, d, (d_out.data_ptr() | grad.data_ptr()) % 16
+                    == 0)
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_bag_bwd", LIBRARIES.get("embedding_bag")
                 .embedding_bag_bwd(d_out.data_ptr(), ids.data_ptr(),
                                    grad.data_ptr(), b, f, v, d, bag, mean,
+                                   int(plan.vec == 4), plan.lanes_log2,
+                                   plan.group, plan.blocks, plan.groups,
                                    stream))
     return grad
 

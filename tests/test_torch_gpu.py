@@ -44,6 +44,103 @@ def test_cuda_kernels_match_plain_versions():
                                rtol=1e-5, atol=1e-4)
 
 
+def _check_scatter(d_out, ids, v, combiner):
+    """embedding_bag_bwd against its plain version, feature by feature, at
+    rtol 1e-5 / atol 1e-6 (atomic order and count x g for a repeated id
+    vary the rounding); the call launches the kernel once."""
+    before = eb.LAUNCHES["embedding_bag_bwd"]
+    got = eb.embedding_bag_bwd(d_out, ids, v, combiner)
+    assert eb.LAUNCHES["embedding_bag_bwd"] == before + 1
+    # an out-of-range id adds nothing: the plain version sends it to one
+    # of two rows past V, which are then dropped
+    ext = torch.where(ids < 0, v + 1, torch.where(ids >= v, v, ids))
+    want = ref.embedding_bag_bwd_ref(d_out, ext, v + 2,
+                                     combiner=combiner)[:, :v]
+    for f in range(got.shape[0]):
+        torch.testing.assert_close(got[f], want[f], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 8, 32, 128, 132])
+def test_cuda_embedding_bag_bwd_matches_plain_version(d):
+    """At every D in use and around it: (5, 2^20 / D, D) tables, whose
+    plan walks groups of 2 features, so 5 is not a multiple of the group,
+    and (5, 50, D) tables, where most ids repeat across bags; B 1 and 300;
+    bags of 1, 3, 4, 16 and 17 (the unrolled bounds and past them); sum
+    and mean; bags whose ids all repeat, and bags padded by repeating
+    their head id as the DLRM featurizer pads them. The gradients are
+    non-negative: a row of the (5, 50) tables sums about a hundred of
+    them, and with signs a row that nearly cancels differs between any
+    two orders of f32 atomics (the plain version's index_add_ among them)
+    by more than atol."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for v in (2 ** 20 // d, 50):
+        f = 5
+        assert v == 50 or eb.bwd_plan(300, f, v, d).group == 2
+        for b in (1, 300):
+            for bag in (1, 3, 4, 16, 17):
+                ids = torch.randint(0, v, (b, f, bag), device="cuda",
+                                    generator=gen, dtype=torch.int32)
+                d_out = torch.randn((b, f, d), device="cuda",
+                                    generator=gen).abs()
+                same = ids[..., :1].expand(b, f, bag).contiguous()
+                lengths = torch.randint(1, bag + 1, (b, f, 1), device="cuda",
+                                        generator=gen)
+                padded = torch.where(torch.arange(bag, device="cuda")
+                                     < lengths, ids, ids[..., :1])
+                for combiner in ("sum", "mean"):
+                    for i in (ids, same, padded):
+                        _check_scatter(d_out, i, v, combiner)
+
+
+@pytest.mark.gpu
+def test_cuda_embedding_bag_bwd_skips_out_of_range_ids():
+    """An id of -1 or V adds nothing, with sum and mean, on the float4
+    (D = 32) and scalar (D = 1, 5) paths, in bags of 4 and 17."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for d in (1, 5, 32):
+        for bag in (4, 17):
+            v = 1000
+            ids = torch.randint(0, v, (37, 3, bag), device="cuda",
+                                generator=gen, dtype=torch.int32)
+            ids[5, 1, 0] = -1
+            ids[9, 2, bag - 1] = v
+            ids[20, 0, :] = v
+            d_out = torch.randn((37, 3, d), device="cuda", generator=gen)
+            for combiner in ("sum", "mean"):
+                _check_scatter(d_out, ids, v, combiner)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,d", [(2, 4), (27, 128), (27, 10), (60, 32)])
+def test_cuda_dot_interact_bwd_matches_plain_version(f, d):
+    """dot_interact_bwd against its plain version (rtol 1e-5, atol 1e-4,
+    against f32 cuBLAS with TF32 off) at B 1, 37 and 2048 + 3 (more
+    samples than persistent CTAs, not a multiple of them), and with a
+    feats that is a slice of a larger buffer at a 4-byte offset (4-byte
+    copies)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(f + d)
+    p = f * (f - 1) // 2
+    for b in (1, 37, 2048 + 3):
+        d_out = torch.randn((b, p), device="cuda", generator=gen)
+        buf = torch.randn(b * f * d + 1, device="cuda", generator=gen)
+        for feats in (buf[:-1].view(b, f, d), buf[1:].view(b, f, d)):
+            before = di.LAUNCHES["dot_interact_bwd"]
+            got = di.dot_interact_bwd(d_out, feats)
+            assert di.LAUNCHES["dot_interact_bwd"] == before + 1
+            torch.testing.assert_close(
+                got, ref.dot_interact_bwd_ref(d_out, feats), rtol=1e-5,
+                atol=1e-4)
+        assert buf[1:].data_ptr() % 16 == 4
+
+
 def _check_sage(neigh, w, gen):
     """sage_aggregate_fwd and _bwd against their plain versions: the saved
     aggregate (rows padded to a multiple of 4 floats) bitwise, out rtol /

@@ -402,6 +402,101 @@ def test_sage_fwd_plan_at_the_path_shapes():
     assert sa.agg_stride(5) == 8
 
 
+# (b, f, v, d): the wide-deep arms and the DLRM at small batches, every D
+# the card tests take, F not a multiple of the group, a feature group
+# holding every feature, B = 1
+EB_BWD_CASES = [(33, 40, 2 ** 20, 1), (5, 6, 2 ** 20, 32),
+                (7, 26, 2 ** 16, 128), (37, 3, 1000, 10), (1, 7, 5, 132),
+                (4, 7, 2 ** 20, 1), (16, 9, 2 ** 18, 1), (9, 5, 300, 2),
+                (9, 5, 300, 3), (9, 5, 300, 5), (9, 5, 300, 8)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b,f,v,d", EB_BWD_CASES)
+def test_embedding_bag_bwd_plan_covers_every_row_once(b, f, v, d, aligned):
+    """The scatter's index map, simulated as csrc/embedding_bag.cu walks
+    it: every (b, f) row is taken by exactly `lanes` threads, lanes 0 ..
+    lanes - 1 once each; the lanes times the vector width cover D (or are
+    32); a feature group's gradient slices fit the L2 budget unless the
+    group is 1; float4 atomics only where D % 4 == 0 and aligned."""
+    plan = eb.bwd_plan(b, f, v, d, aligned)
+    assert plan.vec == (4 if d % 4 == 0 and aligned else 1)
+    assert plan.lanes in (1, 2, 4, 8, 16, 32)
+    assert plan.lanes * plan.vec >= d or plan.lanes == 32
+    assert plan.lanes == 1 or plan.lanes * plan.vec < 2 * d
+    assert 1 <= plan.group <= f
+    assert plan.group == 1 or plan.group * v * d * 4 <= eb.BWD_L2_BYTES
+    assert plan.group == f or (plan.group + 1) * v * d * 4 > eb.BWD_L2_BYTES
+    seen = np.zeros((b, f, plan.lanes), dtype=np.int64)
+    t = np.arange(plan.blocks * eb.BWD_THREADS)
+    slot, lane = t >> plan.lanes_log2, t & (plan.lanes - 1)
+    assert plan.groups == -(-f // plan.group)
+    for gy in range(plan.groups):
+        f0 = gy * plan.group
+        size = min(plan.group, f - f0)
+        live = slot < b * size
+        np.add.at(seen, (slot[live] // size, f0 + slot[live] % size,
+                         lane[live]), 1)
+    assert (seen == 1).all()
+
+
+def test_embedding_bag_bwd_plan_at_the_path_shapes():
+    # wide-deep's wide arm: a thread a row, groups of 2 features (8 MiB
+    # of its 4 MiB slices), 20 groups of 512 blocks; its deep tables: 8
+    # lanes (4 rows a warp), one feature a group (128 MiB a slice); the
+    # DLRM's D = 128: a warp a row
+    assert eb.bwd_plan(65536, 40, 2 ** 20, 1) == eb.BwdPlan(1, 1, 2, 20, 512)
+    assert eb.bwd_plan(65536, 40, 2 ** 20, 32) == eb.BwdPlan(4, 8, 1, 40,
+                                                             2048)
+    assert eb.bwd_plan(2048, 26, 2 ** 20, 128) == eb.BwdPlan(4, 32, 1, 26,
+                                                             256)
+    # unaligned: scalar atomics, 32 lanes over 128 floats
+    assert eb.bwd_plan(2048, 26, 2 ** 20, 128, False).lanes == 32
+
+
+# (b, f, d, ptr): the DLRM shape and the card tests' (F, D) pairs, at B 1,
+# 37 and 2048 + 3, 16- and 4-byte aligned
+DOT_BWD_CASES = [(2048, 27, 128, 0), (2051, 27, 128, 4), (1, 2, 4, 0),
+                 (37, 27, 10, 0), (2051, 60, 32, 0), (37, 60, 32, 4),
+                 (1, 27, 128, 0), (300, 110, 1, 0), (5, 64, 128, 0)]
+
+
+@pytest.mark.parametrize("b,f,d,ptr", DOT_BWD_CASES)
+def test_dot_interact_bwd_plan_walks_every_sample_once(b, f, d, ptr):
+    """The persistent CTAs' walk (CTA c takes samples c, c + ctas, ...)
+    covers every sample once; the grid covers the SMs without exceeding
+    B; every row of F has a warp (7 rows each, at most 640 threads); the
+    CTAs an SM fit its threads and shared memory; 16-byte copies only
+    where D % 4 == 0 and the pointer is aligned."""
+    plan = di.bwd_plan(b, f, d, ptr)
+    walked = sorted(s for c in range(plan.ctas)
+                    for s in range(c, b, plan.ctas))
+    assert walked == list(range(b))
+    assert plan.ctas <= b and plan.ctas >= min(b, di.SMS)
+    assert plan.warps * di.BWD_ROWS >= f > (plan.warps - 1) * di.BWD_ROWS
+    assert 32 * plan.warps <= 640
+    assert plan.smem == di.bwd_smem(f, d, plan.warps) <= di.SMEM
+    per_sm = -(-plan.ctas // di.SMS)
+    assert per_sm * (plan.smem + 1024) <= di.SM_SHARED_BYTES
+    assert per_sm * 32 * plan.warps <= di.SM_THREADS
+    assert plan.vec == (4 if d % 4 == 0 and ptr % 16 == 0 else 1)
+
+
+def test_dot_interact_bwd_plan_takes_every_tile_the_wrapper_takes():
+    """Every (F <= 128, D) that passes the wrapper's tile check has a plan
+    whose shared memory fits a block (opted in above 48 KB); at the DLRM
+    shape: 4 warps, 4 CTAs an SM, 33,920 bytes."""
+    for f in range(1, 129):
+        for d in range(1, 4097):
+            try:
+                di._check_tile(f, d, extra=f * f)
+            except ValueError:
+                break
+            plan = di.bwd_plan(2048, f, d)
+            assert plan.smem <= di.SMEM, (f, d)
+    assert di.bwd_plan(2048, 27, 128) == di.BwdPlan(4, 4, 528, 33920)
+
+
 def test_sage_aggregate_fwd_refuses_too_wide_features(monkeypatch):
     """A CTA keeps an 8-row tile of the aggregate and at least 2 slices of
     w in shared memory: wider features are refused before anything is
