@@ -20,12 +20,19 @@ exits non-zero without printing a result:
               bags padded by repeating their head id and ids of -1 and V;
               the interaction's backward at B 1, 37 and 2051, (F, D) (2,
               4), (27, 128), (27, 10) and (60, 32), and a feats 4- but not
-              16-byte aligned). Tolerances: embedding_bag_fwd bitwise;
-              embedding_bag_bwd rtol 1e-5 / atol 1e-6 (atomic order
-              varies); dot_interact_fwd/bwd rtol 1e-5 / atol 1e-4 against
-              f32 cuBLAS with TF32 off. Times each kernel, its plain
-              version and one PyTorch library call (device time from
-              torch.profiler; launch-to-launch time from CUDA events).
+              16-byte aligned); the forwards also with bf16 inputs (the
+              TPU kernels' other dtype): embedding_bag_fwd at the main
+              shape, dot_interact_fwd at F 2, 5, 27 and 60, B 1, 37 and
+              2051, D 4, 7, 10, 32 and 128, feats 16-, 2- and 4-byte
+              aligned. Tolerances: embedding_bag_fwd bitwise (f32 and
+              bf16 tables); embedding_bag_bwd rtol 1e-5 / atol 1e-6
+              (atomic order varies); dot_interact_fwd/bwd rtol 1e-5 / atol
+              1e-4 against f32 cuBLAS with TF32 off, a bf16 out within 2
+              bf16 ulps (rtol 2^-7, atol 1e-4). Times each kernel, its
+              plain version and one PyTorch library call (device time
+              from torch.profiler, from a window that holds every launch
+              of the kernel: see time_ms; launch-to-launch time from CUDA
+              events), in f32 and, for the forwards, in bf16.
   3. model    DLRM forward + loss + backward through the kernels against
               the same model through the plain versions (2^16 rows, same
               parameters and batch): loss rtol 1e-5, each gradient within
@@ -51,9 +58,12 @@ hidden 128, 47 classes, adam:
               1023 at F 15, D 602; F 43; D 300 at H 130; F 44 and 25
               at D 602; a neigh 8- or 4- but not 16-byte aligned, a
               slice of a larger buffer).
-              Tolerances: the aggregate (rows padded to a multiple of 4
-              floats) bitwise; out and d_neigh rtol 1e-5 / atol 1e-5
-              against f32 cuBLAS with TF32 off; d_w within 1e-5 of max
+              The forward also with neigh and w bf16, or either alone, at
+              every load width (16-, 4- and 2-byte loads of bf16) and at
+              neigh2, timed there. Tolerances: the f32 aggregate (rows
+              padded to a multiple of 4 floats) bitwise; out and d_neigh
+              rtol 1e-5 / atol 1e-5 against f32 cuBLAS with TF32 off, a
+              bf16 out within 2 bf16 ulps; d_w within 1e-5 of max
               |d_w| (a sum over up to 15360 rows in another order); a
               second run, out without the saved aggregate and d_w
               without d_neigh bitwise equal. Timed as above, each shape
@@ -87,17 +97,21 @@ embedding_bag_fused_fwd, both with embedding_bag_bwd as their backward:
  10. recsys_kernels  embedding_bag_fused_fwd bit-equal to
               embedding_bag_fwd and to the plain version at the wide
               arm's train shape (ids (65536, 40, 4) of the synthetic Criteo
-              stream over (40, 2^20, 1)), at serve_p99 (batch 512), at a
-              reduced table (8, 512, 8), at F not a multiple of its walk's
-              group of 4, with bag 1, bag 16 and mean, and with one
-              out-of-range id (its row NaN in both kernels, the rest
-              equal); embedding_bag_fwd bitwise and embedding_bag_bwd per
-              feature at rtol 1e-5 / atol 1e-6 against their plain
+              stream over (40, 2^20, 1), f32 and bf16), at serve_p99
+              (batch 512), at reduced tables (8, 512, 8) and others with
+              f32 and bf16 tables (bf16 also 2- and 4-byte aligned), with
+              bag 1, bag 16 and mean, and with one out-of-range id (its
+              row NaN in both kernels, the rest equal); embedding_bag_fwd
+              bitwise and embedding_bag_bwd per feature at rtol 1e-5 /
+              atol 1e-6 against their plain
               versions with the train shape's ids, on the wide arm (D = 1)
               and on the deep tables (40, 2^20, 32). Times at the train
               shape: the fused kernel, embedding_bag_fwd, the plain version
               and F.embedding_bag over the flattened (F*V, 1) table with
-              offset ids; embedding_bag_bwd at D = 1 (library: index_add_);
+              offset ids, f32 and bf16, with the bound by 32-byte sectors
+              (`sector_bound_ms`: the distinct sectors the gathers touch,
+              counted on the card); embedding_bag_bwd at D = 1 (library:
+              index_add_);
               and on the deep tables (D = 32) embedding_bag_fwd (library:
               F.embedding_bag over the flattened (F*V, 32) table) and
               embedding_bag_bwd (library: index_add_ into a (F*V, 32)
@@ -114,16 +128,20 @@ embedding_bag_fused_fwd, both with embedding_bag_bwd as their backward:
               samples/s, the loop step split into batch + copy and the
               train step, peak device memory, the first and last loss.
  13. recsys_profile  one wide-deep train step under torch.profiler:
-              device time by kernel, and each scatter's time in the step.
+              device time by kernel, and each embedding kernel's time in
+              the step (the fused forward's goes into its record).
 
 Launch counts are set to 0 just before each main path (the DLRM loop,
 the GNN loop, the wide-deep loop) and read just after it; the `kernels`
 line reports each kernel's count from its own path (embedding_bag_fwd
 and _bwd from the DLRM loop, with their wide-deep counts beside).
 
-It prints a `kernels` JSON line, the card's name and power limit, and as
-its last line `{"ok": true, "device": {...}}`. It needs one CUDA card
-and exits non-zero when there is none.
+It prints a `kernels` JSON line (each record with the profiler events it
+was read from; the forwards with a `bf16` sub-record), the card's name
+and power limit, and as its last line `{"ok": true, "device": {...}}`.
+It needs one CUDA card and exits 2 when there is none. It runs from the
+root of the repository, whose kernel sources it builds: a copy of the
+script elsewhere prints that src/repro_torch is missing and exits 2.
 """
 from __future__ import annotations
 
@@ -135,6 +153,7 @@ import subprocess
 import sys
 import time
 from types import SimpleNamespace
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -142,6 +161,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 (non-tensor-core) peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+
+# a bf16 output (dot_interact_fwd, sage_aggregate_fwd) against its plain
+# version: within 2 bf16 ulps (two roundings of f32 sums taken in another
+# order), with the atol of the f32 check for sums that cancel
+BF16_RTOL = 2.0 ** -7
 
 STEPS = 40
 TUNE_EVERY = 2
@@ -169,15 +193,64 @@ def bound_ms(n_bytes: float, flops: float):
                                        else "operations")
 
 
-def time_ms(fn, args_list, iters: int = 20):
-    """(device ms, wall ms) per call over `iters` calls, cycling through
-    `args_list` (several input sets, so small inputs do not sit in the
-    50 MB L2). Device ms is the summed duration of every kernel, memset
-    and copy the call put on the card (torch.profiler, CUPTI); wall ms is
-    CUDA events around the whole run, which for a call shorter than its
-    host-side launch cost measures the launch, not the card."""
+# Late in a long process torch.profiler has recorded only 15 of 20
+# launches of a kernel in a window, the missing ones at one end of it,
+# whatever the window's length or a wait before and after it (H100, this
+# script's recsys phase). So each window opens and closes with a few
+# launches of a short spin kernel of PyTorch's (torch.cuda._sleep), left
+# out of every sum, and a window that still holds too few events of the
+# kernel under test is taken again.
+SENTINEL = "spin_kernel"
+
+
+def settle(attempt: int = 0):
+    """The sentinel launches at either end of a profiled window, on an
+    idle card."""
     import torch
+    torch.cuda.synchronize()
+    for _ in range(8 * (1 + attempt)):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+class Timing(NamedTuple):
+    ms: float         # device time a call (torch.profiler)
+    wall: float       # launch to launch a call (CUDA events)
+    events: int       # device events of the kernel under test (or of the
+                      # call) in the profiled window
+
+
+def _profiled(fn, args_list, calls: int, attempt: int):
+    """(device events, {name: events}, summed device us) of `calls` calls
+    cycling through `args_list`, in one torch.profiler window opened and
+    closed by the sentinel launches (left out)."""
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        settle(attempt)
+        for i in range(calls):
+            fn(*args_list[i % len(args_list)])
+        settle(attempt)
+    device = [e for e in prof.key_averages()
+              if e.self_device_time_total > 0 and SENTINEL not in e.key]
+    return (prof, {e.key: e.count for e in device},
+            sum(e.self_device_time_total for e in device))
+
+
+def time_ms(fn, args_list, iters: int = 20, kernel: str = None) -> Timing:
+    """Times `iters` calls, cycling through `args_list` (several input
+    sets, so small inputs do not sit in the 50 MB L2). Device ms is the
+    summed duration of every kernel, memset and copy the calls put on the
+    card (torch.profiler, CUPTI), over `iters`; wall ms is CUDA events
+    around the whole run, which for a call shorter than its host-side
+    launch cost measures the launch, not the card. The profiled window
+    must hold its full count of device events: at least `iters` named
+    `kernel`, or, where `kernel` is None (a plain version or a library
+    call, which may launch several kernels a call), `iters` times the
+    events of one call, counted in two windows of one call each (the
+    larger count). The profiler has lost events (a window with none, or
+    with 14 of 20 launches, whose sum then read low; see SENTINEL), and a
+    short window is profiled again; three short ones in a row fail."""
+    import torch
     for a in args_list[:2]:
         fn(*a)
     torch.cuda.synchronize()
@@ -188,20 +261,51 @@ def time_ms(fn, args_list, iters: int = 20):
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
-    # the profiler now and then returns a window with no device events
-    # (seen once in many calls on the H100); such a window is profiled
-    # again, and three empty ones in a row fail
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(*args_list[i % len(args_list)])
-            torch.cuda.synchronize()
-        device_us = sum(e.self_device_time_total
-                        for e in prof.key_averages())
-        if device_us > 0:
-            return device_us / 1e3 / iters, wall
-        print("  torch.profiler recorded no device time; profiling again")
-    raise RuntimeError("torch.profiler recorded no device time in 3 tries")
+    if kernel is None:
+        per_call = max(sum(_profiled(fn, args_list, 1, 0)[1].values())
+                       for _ in range(2))
+        if per_call < 1:
+            raise RuntimeError("torch.profiler recorded no device event of "
+                               "one call in 2 tries")
+        need, what = iters * per_call, f"the call ({per_call} a call)"
+    else:
+        need, what = iters, kernel
+    for attempt in range(3):
+        prof, counts, device_us = _profiled(fn, args_list, iters, attempt)
+        events = sum(n for k, n in counts.items()
+                     if kernel is None or kernel in k)
+        if events >= need:
+            return Timing(device_us / 1e3 / iters, wall, events)
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if kernel is not None and kernel in e.name
+                       and e.device_type.name == "CUDA")
+        span = (f"; the recorded ones span {spans[-1][1] - spans[0][0]:.1f}"
+                f" us, {sum(b - a for a, b in spans) / len(spans):.1f} us "
+                f"each" if spans else "")
+        print(f"  torch.profiler recorded {events} of {need} events of "
+              f"{what} in {iters} calls{span}; profiling again", flush=True)
+    raise RuntimeError(f"torch.profiler recorded fewer than {need} events "
+                       f"of {what} in 3 tries")
+
+
+def kernel_record(tag, t: Timing, plain: Timing, lib, bound, err,
+                  **extra) -> dict:
+    """A kernel's record for the `kernels` line, printed: its device time
+    and the events it was read from, launch to launch, its plain version's
+    and library call's (a Timing, or None) times and the events each was
+    read from, its bound, its max abs error."""
+    bms, by = bound
+    lib_s = "none" if lib is None else f"{lib.ms:.4f}"
+    print(f"  {tag}: {t.ms:.4f} ms on the card ({t.events} events), "
+          f"{t.wall:.4f} ms launch to launch (plain {plain.ms:.4f}, library "
+          f"{lib_s}, bound {bms:.4f} by {by}; {bms / t.ms:.0%} of the "
+          f"bound), max abs err {err:.3e}", flush=True)
+    return {"ms": t.ms, "wall_ms": t.wall, "events": t.events,
+            "plain_ms": plain.ms, "plain_events": plain.events,
+            "library_ms": None if lib is None else lib.ms,
+            "library_events": None if lib is None else lib.events,
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err, **extra}
 
 
 class Phase:
@@ -271,6 +375,30 @@ def _check_dot(feats, tag) -> dict:
                     di.dot_interact_bwd(d_out, feats),
                     ref.dot_interact_bwd_ref(d_out, feats), 1e-5, 1e-4)
     return {"dot_interact_fwd": e_f, "dot_interact_bwd": e_b}
+
+
+def _ragged_dots_bf16(gen) -> float:
+    """dot_interact_fwd with bf16 feats against its plain version (within
+    2 bf16 ulps) at F 2, 5, 27 and 60, B 1, 37 and 2051, D odd, 10, 32 and
+    128, and feats at an offset of 0, 1 and 2 elements into a larger buffer
+    (16-, 2- and 4-byte aligned: 16-byte copies, loads lane by lane,
+    4-byte copies). Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import dot_interact as di, ref
+    err = 0.0
+    for b, f, d in ((37, 5, 10), (1, 2, 4), (3, 60, 32), (37, 27, 128),
+                    (2048 + 3, 27, 128), (37, 27, 7)):
+        buf = torch.randn(b * f * d + 2, device="cuda", generator=gen) \
+            .to(torch.bfloat16)
+        for shift in (0, 1, 2):
+            x = buf[shift:shift + b * f * d].view(b, f, d)
+            got = di.dot_interact_fwd(x)
+            if got.dtype != torch.bfloat16:
+                raise AssertionError(f"dot_interact_fwd bf16: out {got.dtype}")
+            err = max(err, _allclose(
+                f"dot_interact_fwd bf16 ({b},{f},{d}) offset {2 * shift} B",
+                got, ref.dot_interact_ref(x), BF16_RTOL, 1e-4))
+    return err
 
 
 def _check_scatter(d_out, ids, v, combiner, tag) -> float:
@@ -373,6 +501,7 @@ def phase_kernels(cfg) -> dict:
             for shift in (0, 1):
                 note(_check_dot(buf[shift:shift + b * f * d].view(b, f, d),
                                 f"({b},{f},{d}) offset {4 * shift} B"))
+    dot16_err = _ragged_dots_bf16(gen)
 
     # the main path's shapes: batch from the featurizer, full tables
     n_f, rows, dim = cfg.n_sparse, cfg.vocab_sizes[0], cfg.embed_dim
@@ -388,7 +517,7 @@ def phase_kernels(cfg) -> dict:
     note(_check_dot(feats, "main"))
     torch.cuda.empty_cache()
 
-    recs = []
+    out = {}
     ids_l = ids.long()
     flat = (ids_l + (torch.arange(n_f, device=dev) * rows)
             .view(1, n_f, 1)).reshape(b * n_f, bag)
@@ -396,38 +525,61 @@ def phase_kernels(cfg) -> dict:
     table_flat = tables.view(n_f * rows, dim)
 
     # embedding_bag_fwd
-    ms, wall = time_ms(lambda: eb.embedding_bag_fwd(tables, ids), [()])
-    plain, _ = time_ms(lambda: ref.embedding_bag_ref(tables, ids), [()])
-    lib, _ = time_ms(lambda: F.embedding_bag(flat, table_flat, mode="sum"),
-                     [()])
-    bnd = bound_ms(ids.numel() * 4 + uniq * dim * 4 + b * n_f * dim * 4,
-                   b * n_f * bag * dim)
-    recs.append(("embedding_bag_fwd", ms, plain, lib, bnd,
-                 {"wall_ms": wall}))
+    t = time_ms(lambda: eb.embedding_bag_fwd(tables, ids), [()],
+                kernel="embedding_bag_fwd_kernel")
+    plain = time_ms(lambda: ref.embedding_bag_ref(tables, ids), [()])
+    lib = time_ms(lambda: F.embedding_bag(flat, table_flat, mode="sum"),
+                  [()])
+    out["embedding_bag_fwd"] = kernel_record(
+        "embedding_bag_fwd", t, plain, lib,
+        bound_ms(ids.numel() * 4 + uniq * dim * 4 + b * n_f * dim * 4,
+                 b * n_f * bag * dim), errs["embedding_bag_fwd"])
 
     # embedding_bag_bwd: the kernel scatter-adds into a zeroed gradient;
     # the zero fill belongs to the gradient's allocation and is timed
     # apart
     d_out = torch.randn((b, n_f, dim), device=dev, generator=gen)
     grad = torch.zeros_like(tables)
-    ms, wall = time_ms(lambda: eb.embedding_bag_scatter(d_out, ids, grad),
-                       [()])
-    zero_ms, _ = time_ms(lambda: grad.zero_(), [()], iters=5)
+    t = time_ms(lambda: eb.embedding_bag_scatter(d_out, ids, grad), [()],
+                kernel="embedding_bag_bwd_kernel")
+    zero_ms = time_ms(lambda: grad.zero_(), [()], iters=5).ms
     del grad
-    plain, _ = time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, ids, rows),
-                       [()], iters=5)
+    plain = time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, ids, rows),
+                    [()], iters=5)
     torch.cuda.empty_cache()
     upd = d_out[:, :, None, :].expand(b, n_f, bag, dim).reshape(-1, dim) \
         .contiguous()
     flat1 = flat.reshape(-1)
     grad_flat = torch.zeros((n_f * rows, dim), device=dev)
-    lib, _ = time_ms(lambda: grad_flat.index_add_(0, flat1, upd), [()])
+    lib = time_ms(lambda: grad_flat.index_add_(0, flat1, upd), [()])
     del grad_flat, upd
-    bnd = bound_ms(d_out.numel() * 4 + ids.numel() * 4 + 2 * uniq * dim * 4,
-                   b * n_f * bag * dim)
-    recs.append(("embedding_bag_bwd", ms, plain, lib, bnd,
-                 {"wall_ms": wall, "zero_fill_ms": zero_ms}))
+    out["embedding_bag_bwd"] = kernel_record(
+        "embedding_bag_bwd", t, plain, lib,
+        bound_ms(d_out.numel() * 4 + ids.numel() * 4 + 2 * uniq * dim * 4,
+                 b * n_f * bag * dim), errs["embedding_bag_bwd"],
+        zero_fill_ms=zero_ms)
+    del d_out
+    torch.cuda.empty_cache()
+
+    # embedding_bag_fwd at the reference's bf16 tables (the same values,
+    # rounded): bitwise to the plain version; bound at 2-byte elements
+    tables16 = tables.to(torch.bfloat16)
     del tables, table_flat
+    torch.cuda.empty_cache()
+    if not torch.equal(eb.embedding_bag_fwd(tables16, ids),
+                       ref.embedding_bag_ref(tables16, ids)):
+        raise AssertionError("embedding_bag_fwd bf16 main: not bitwise "
+                             "equal to the plain version")
+    flat16 = tables16.view(n_f * rows, dim)
+    out["embedding_bag_fwd"]["bf16"] = kernel_record(
+        "embedding_bag_fwd bf16",
+        time_ms(lambda: eb.embedding_bag_fwd(tables16, ids), [()],
+                kernel="embedding_bag_fwd_kernel"),
+        time_ms(lambda: ref.embedding_bag_ref(tables16, ids), [()]),
+        time_ms(lambda: F.embedding_bag(flat, flat16, mode="sum"), [()]),
+        bound_ms(ids.numel() * 4 + uniq * dim * 2 + b * n_f * dim * 4,
+                 b * n_f * bag * dim), 0.0)
+    del tables16, flat16
     torch.cuda.empty_cache()
 
     # dot_interact: three input sets (85 MB) so the feats do not stay in L2
@@ -435,14 +587,32 @@ def phase_kernels(cfg) -> dict:
           for _ in range(3)]
     n_pairs = (n_f + 1) * n_f // 2
     ii, jj = ref.tril_pairs(n_f + 1, dev)
-    ms, wall = time_ms(di.dot_interact_fwd, fs)
-    plain, _ = time_ms(ref.dot_interact_ref, fs)
-    lib, _ = time_ms(lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj],
-                     fs)
-    bnd = bound_ms(b * (n_f + 1) * dim * 4 + b * n_pairs * 4,
-                   2 * b * n_pairs * dim)
-    recs.append(("dot_interact_fwd", ms, plain, lib, bnd,
-                 {"wall_ms": wall}))
+    print(f"  dot_interact_fwd plan: {di.fwd_plan(b, n_f + 1, dim)}")
+    out["dot_interact_fwd"] = kernel_record(
+        "dot_interact_fwd",
+        time_ms(di.dot_interact_fwd, fs, kernel="dot_interact_fwd_kernel"),
+        time_ms(ref.dot_interact_ref, fs),
+        time_ms(lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj],
+                fs),
+        bound_ms(b * (n_f + 1) * dim * 4 + b * n_pairs * 4,
+                 2 * b * n_pairs * dim), errs["dot_interact_fwd"])
+    # bf16 feats: bf16 out within 2 ulps of the plain version's
+    fs16 = [(x.to(torch.bfloat16),) for (x,) in fs]
+    err16 = max(_allclose("dot_interact_fwd bf16 main",
+                          di.dot_interact_fwd(x), ref.dot_interact_ref(x),
+                          BF16_RTOL, 1e-4) for (x,) in fs16)
+    print(f"  dot_interact_fwd bf16 plan: "
+          f"{di.fwd_plan(b, n_f + 1, dim, 2)}")
+    out["dot_interact_fwd"]["bf16"] = kernel_record(
+        "dot_interact_fwd bf16",
+        time_ms(di.dot_interact_fwd, fs16, kernel="dot_interact_fwd_kernel"),
+        time_ms(ref.dot_interact_ref, fs16),
+        time_ms(lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj],
+                fs16),
+        bound_ms(b * (n_f + 1) * dim * 2 + b * n_pairs * 2,
+                 2 * b * n_pairs * dim), err16)
+    out["dot_interact_fwd"]["bf16"]["max_abs_err"] = max(err16, dot16_err)
+    del fs16
 
     gs = [(torch.randn((b, n_pairs), device=dev, generator=gen), x)
           for (x,) in fs]
@@ -451,22 +621,13 @@ def phase_kernels(cfg) -> dict:
         s = torch.zeros((b, n_f + 1, n_f + 1), device=dev)
         s[:, ii, jj] = g
         sym.append((s + s.transpose(1, 2), x))
-    ms, wall = time_ms(di.dot_interact_bwd, gs)
-    plain, _ = time_ms(ref.dot_interact_bwd_ref, gs)
-    lib, _ = time_ms(torch.bmm, sym)
-    bnd = bound_ms(b * n_pairs * 4 + 2 * b * (n_f + 1) * dim * 4,
-                   2 * b * (n_f + 1) ** 2 * dim)
-    recs.append(("dot_interact_bwd", ms, plain, lib, bnd,
-                 {"wall_ms": wall}))
-
-    out = {}
-    for name, ms, plain, lib, (bms, by), extra in recs:
-        out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bms, "bound_by": by,
-                     "max_abs_err": errs[name], **extra}
-        print(f"  {name}: {ms:.4f} ms on the card, {extra['wall_ms']:.4f}"
-              f" ms launch to launch (plain {plain:.4f}, library {lib:.4f},"
-              f" bound {bms:.4f} by {by}), max abs err {errs[name]:.3e}")
+    out["dot_interact_bwd"] = kernel_record(
+        "dot_interact_bwd",
+        time_ms(di.dot_interact_bwd, gs, kernel="dot_interact_bwd_kernel"),
+        time_ms(ref.dot_interact_bwd_ref, gs),
+        time_ms(torch.bmm, sym),
+        bound_ms(b * n_pairs * 4 + 2 * b * (n_f + 1) * dim * 4,
+                 2 * b * (n_f + 1) ** 2 * dim), errs["dot_interact_bwd"])
     return out
 
 
@@ -569,13 +730,44 @@ def phase_loop(cfg) -> dict:
     return counts
 
 
+def profile_steps(step, steps: int, kernels=()):
+    """Device time by kernel of `steps` calls of step(k), k = 0, 1, ...:
+    torch.profiler over a window that opens and closes with the sentinel
+    launches (as time_ms's), taken again (up to 3 times) until it holds
+    `steps` events of each name in `kernels`. Returns ([(kernel, device ms
+    a step)] by time, host-clock ms a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            settle(attempt)
+            t0 = time.monotonic()
+            for k in range(steps):
+                step(k)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3 / steps
+            settle(attempt)
+        events = prof.key_averages()
+        short = {k: n for k in kernels
+                 for n in [sum(e.count for e in events if k in e.key)]
+                 if n < steps}
+        if not short:
+            rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
+                           for e in events if SENTINEL not in e.key),
+                          key=lambda r: -r[1])
+            return rows, wall_ms
+        print(f"  torch.profiler recorded {short} events in {steps} steps; "
+              f"profiling again", flush=True)
+    raise RuntimeError(f"torch.profiler recorded too few events in {steps} "
+                       f"steps in 3 tries: {short}")
+
+
 def phase_profile(cfg):
     """Where one train step's device time goes at the slice configuration:
     torch.profiler over 3 steps on one featurized batch (after 2 warm-up
     steps), device time summed by kernel, against the host-clock step."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.featurize import (RecordSpec, featurize_block,
                                             raw_block)
     from repro_torch.launch.train_dlrm_criteo import build_model
@@ -590,15 +782,9 @@ def phase_profile(cfg):
     for k in range(2):
         step_fn(model, state, k, batch)
     torch.cuda.synchronize()
-    steps = 3
-    t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for k in range(steps):
-            step_fn(model, state, 2 + k, batch)
-        torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - t0) * 1e3 / steps
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
-                   for e in prof.key_averages()), key=lambda r: -r[1])
+    rows, wall_ms = profile_steps(
+        lambda k: step_fn(model, state, 2 + k, batch), 3,
+        ("embedding_bag_fwd_kernel", "dot_interact_fwd_kernel"))
     device_ms = sum(ms for _, ms in rows)
     print(f"  train step: {device_ms:.3f} ms of device time in "
           f"{wall_ms:.3f} ms of host-clock time (profiled)")
@@ -658,6 +844,61 @@ def _check_sage(neigh, w, tag) -> dict:
     return {"sage_aggregate_fwd": e_f, "sage_aggregate_bwd": max(e_n, e_w)}
 
 
+def _check_sage_bf16(neigh, w, tag) -> float:
+    """sage_aggregate_fwd with neigh or w (or both) bf16 against its plain
+    version: the f32 aggregate bitwise, out (neigh's dtype) within 2 bf16
+    ulps where it is bf16, rtol 1e-5 / atol 1e-5 where it is f32 (a bf16 w
+    keeps the f32 tolerance of phase_sage_kernels); a bf16 w's widening
+    kernel bitwise to w.float(). Returns the max abs error of out."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_aggregate as sa
+    if w.dtype == torch.bfloat16 and not torch.equal(sa.widen_w(w),
+                                                     w.float()):
+        raise AssertionError(f"widen_w {tag}: not w.float() bit for bit")
+    out, agg = sa.sage_aggregate_fwd(neigh, w, save_agg=True)
+    if out.dtype != neigh.dtype or agg.dtype != torch.float32:
+        raise AssertionError(f"sage_aggregate_fwd {tag}: out {out.dtype}, "
+                             f"aggregate {agg.dtype}")
+    if not torch.equal(agg, ref.sage_mean_ref(neigh)):
+        raise AssertionError(f"sage_aggregate_fwd {tag}: aggregate not "
+                             f"bitwise equal to the plain version")
+    if not torch.equal(sa.sage_aggregate_fwd(neigh, w)[0], out):
+        raise AssertionError(f"sage_aggregate_fwd {tag}: out differs "
+                             f"without the saved aggregate")
+    rtol, atol = ((BF16_RTOL, 1e-5) if out.dtype == torch.bfloat16
+                  else (1e-5, 1e-5))
+    return _allclose(f"sage_aggregate_fwd {tag}", out,
+                     ref.sage_aggregate_ref(neigh, w), rtol, atol)
+
+
+def _ragged_sage_bf16(gen) -> float:
+    """_check_sage_bf16 at every load width of a bf16 neigh (D 602: 4-byte
+    loads; D 128: 16-byte; D 5 and a neigh 2-byte aligned: one element),
+    w whole (H <= 128, rows 16-byte aligned or not) and in column tiles
+    (H 130), tiles of 8 and 32 rows, and neigh or w alone in bf16."""
+    import torch
+    dev = torch.device("cuda")
+    err = 0.0
+    for tag, b, f, d, h, shift, dtypes in (
+            ("ragged", 37, 1, 5, 7, 0, "bb"),
+            ("ragged-h", 37, 3, 33, 130, 0, "bb"),
+            ("ragged-b", 1023, 15, 602, 128, 0, "bb"),
+            ("ragged-wide", 4225, 2, 34, 7, 0, "bb"),
+            ("h1", 1024, 15, 128, 47, 0, "bb"),
+            ("ragged-2b", 300, 10, 602, 128, 1, "bb"),
+            ("ragged-4b", 300, 15, 128, 47, 2, "bb"),
+            ("neigh only", 300, 10, 602, 128, 0, "bf"),
+            ("w only", 300, 10, 602, 128, 0, "fb")):
+        buf = torch.randn(b * f * d + shift, device=dev, generator=gen)
+        neigh = buf.to(torch.bfloat16 if dtypes[0] == "b"
+                       else torch.float32)[shift:].view(b, f, d)
+        w = (torch.randn((d, h), device=dev, generator=gen) * d ** -0.5).to(
+            torch.bfloat16 if dtypes[1] == "b" else torch.float32)
+        err = max(err, _check_sage_bf16(neigh, w, f"{tag} {dtypes}"))
+    return err
+
+
 def phase_sage_kernels(shape, cfg) -> dict:
     """sage_aggregate_fwd and _bwd against their plain versions at the
     GNN path's three shapes and at ragged ones, then timed at the path's
@@ -702,6 +943,7 @@ def phase_sage_kernels(shape, cfg) -> dict:
         for k, v in _check_sage(*inputs(b, f, d, h, shift), tag).items():
             errs[k] = max(errs[k], v)
         torch.cuda.empty_cache()
+    sage16_err = _ragged_sage_bf16(gen)
 
     per = {k: [] for k in GNN_KERNELS}
     print(f"  d_w clusters that fit the card at once, by size: "
@@ -712,27 +954,53 @@ def phase_sage_kernels(shape, cfg) -> dict:
         # enough input sets to cycle through more than the 50 MB L2
         n_sets = max(1, min(8, -(-64 * 2 ** 20 // (4 * b * f * d))))
         sets = [inputs(b, f, d, h) for _ in range(n_sets)]
-        ms, wall = time_ms(lambda n, w: sa.sage_aggregate_fwd(n, w, True),
-                           sets)
-        plain, _ = time_ms(ref.sage_aggregate_ref, sets)
-        lib, _ = time_ms(lambda n, w: torch.einsum("bfd,dh->bh", n, w), sets)
+        t = time_ms(lambda n, w: sa.sage_aggregate_fwd(n, w, True), sets,
+                    kernel="sage_fwd_kernel")
+        plain = time_ms(ref.sage_aggregate_ref, sets)
+        lib = time_ms(lambda n, w: torch.einsum("bfd,dh->bh", n, w), sets)
         bms, by = bound_ms(4 * (b * f * d + d * h + b * h + b * d),
                            b * f * d + 2 * b * d * h)
         per["sage_aggregate_fwd"].append(
-            {"shape": tag, "B": b, "F": f, "D": d, "H": h, "ms": ms,
-             "wall_ms": wall, "plain_ms": plain, "library_ms": lib,
-             "bound_ms": bms, "bound_by": by})
+            {"shape": tag, "B": b, "F": f, "D": d, "H": h, "ms": t.ms,
+             "wall_ms": t.wall, "events": t.events, "plain_ms": plain.ms,
+             "plain_events": plain.events, "library_ms": lib.ms,
+             "library_events": lib.events, "bound_ms": bms, "bound_by": by})
+        if tag == path[0][0]:
+            # bf16 neigh and w at the main shape: the aggregate bitwise,
+            # out within 2 bf16 ulps; bound at 2-byte inputs and outputs
+            sets16 = [(n.to(torch.bfloat16), w.to(torch.bfloat16))
+                      for n, w in sets]
+            err16 = max(_check_sage_bf16(n, w, f"{tag} bf16")
+                        for n, w in sets16[:1])
+            bf16 = kernel_record(
+                f"sage_aggregate_fwd {tag} bf16",
+                time_ms(lambda n, w: sa.sage_aggregate_fwd(n, w, True),
+                        sets16, kernel="sage_fwd_kernel"),
+                time_ms(ref.sage_aggregate_ref, sets16),
+                time_ms(lambda n, w: torch.einsum("bfd,dh->bh", n, w),
+                        sets16),
+                bound_ms(2 * (b * f * d + d * h + b * h) + 4 * b * d,
+                         b * f * d + 2 * b * d * h), err16)
+            # the bf16 w's widening, a kernel of its own that the call
+            # above launches first (its time is in the call's)
+            wt = time_ms(sa.widen_w, [(w,) for _, w in sets16],
+                         kernel="widen_w_kernel")
+            bf16["widen_w"] = {"ms": wt.ms, "wall_ms": wt.wall,
+                               "events": wt.events}
+            print(f"    widen_w ({d}, {h}) bf16: {wt.ms:.4f} ms on the card "
+                  f"({wt.events} events), {wt.wall:.4f} launch to launch")
+            del sets16
         bsets = [(torch.randn((b, h), device=dev, generator=gen), w,
                   sa.sage_aggregate_fwd(n, w, True)[1]) for n, w in sets]
         del sets
-        ms, wall = time_ms(
+        t = time_ms(
             lambda g, w, a: sa.sage_aggregate_bwd(g, w, a, f, need_neigh),
-            bsets)
-        plain, _ = time_ms(lambda g, w, a: ref.sage_aggregate_bwd_ref(
+            bsets, kernel="sage_dw_kernel")
+        plain = time_ms(lambda g, w, a: ref.sage_aggregate_bwd_ref(
             g, w, a, f, need_neigh=need_neigh), bsets)
         # one library call computes d_w alone; none computes both outputs
         lib = None if need_neigh else time_ms(
-            lambda g, w, a: torch.mm(a.t(), g), bsets)[0]
+            lambda g, w, a: torch.mm(a.t(), g), bsets)
         n_bytes = 4 * (b * h + b * d + d * h)
         flops = 2 * b * d * h
         if need_neigh:
@@ -741,9 +1009,12 @@ def phase_sage_kernels(shape, cfg) -> dict:
         bms, by = bound_ms(n_bytes, flops)
         per["sage_aggregate_bwd"].append(
             {"shape": tag, "B": b, "F": f, "D": d, "H": h,
-             "d_neigh": need_neigh, "ms": ms, "wall_ms": wall,
-             "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-             "bound_by": by})
+             "d_neigh": need_neigh, "ms": t.ms, "wall_ms": t.wall,
+             "events": t.events, "plain_ms": plain.ms,
+             "plain_events": plain.events,
+             "library_ms": None if lib is None else lib.ms,
+             "library_events": None if lib is None else lib.events,
+             "bound_ms": bms, "bound_by": by})
         del bsets
         torch.cuda.empty_cache()
 
@@ -751,7 +1022,9 @@ def phase_sage_kernels(shape, cfg) -> dict:
     for name in GNN_KERNELS:
         main = per[name][0]
         out[name] = {k: main[k] for k in ("ms", "plain_ms", "library_ms",
-                                          "bound_ms", "bound_by", "wall_ms")}
+                                          "bound_ms", "bound_by", "wall_ms",
+                                          "events", "plain_events",
+                                          "library_events")}
         out[name]["max_abs_err"] = errs[name]
         out[name]["per_step_ms"] = sum(r["ms"] for r in per[name])
         out[name]["per_step_bound_ms"] = sum(r["bound_ms"] for r in per[name])
@@ -770,6 +1043,8 @@ def phase_sage_kernels(shape, cfg) -> dict:
         print(f"  {name}: {out[name]['per_step_ms']:.4f} ms a train step "
               f"(bound {out[name]['per_step_bound_ms']:.4f}), max abs err "
               f"{errs[name]:.3e}")
+    bf16["max_abs_err"] = max(bf16["max_abs_err"], sage16_err)
+    out["sage_aggregate_fwd"]["bf16"] = bf16
     return out
 
 
@@ -907,7 +1182,6 @@ def phase_gnn_profile(shape, cfg, sampler):
     steps on one sampled block already on the card (after 2 warm-up
     steps), device time summed by kernel, against the host-clock step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import gnn
     from repro_torch.train.optim import make_optimizer
     from repro_torch.train.train_step import make_train_step
@@ -921,15 +1195,9 @@ def phase_gnn_profile(shape, cfg, sampler):
     for k in range(2):
         step_fn(model, state, k, batch)
     torch.cuda.synchronize()
-    steps = 3
-    t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for k in range(steps):
-            step_fn(model, state, 2 + k, batch)
-        torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - t0) * 1e3 / steps
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
-                   for e in prof.key_averages()), key=lambda r: -r[1])
+    rows, wall_ms = profile_steps(
+        lambda k: step_fn(model, state, 2 + k, batch), 3,
+        ("sage_fwd_kernel",))
     device_ms = sum(ms for _, ms in rows)
     sage_ms = sum(ms for name, ms in rows if "sage_" in name)
     print(f"  GNN train step: {device_ms:.3f} ms of device time in "
@@ -994,27 +1262,37 @@ def phase_recsys_kernels(cfg) -> dict:
     for combiner in ("sum", "mean"):
         _check_fused(wide, main, combiner, "train_batch (65536, 40, 4)")
         _check_fused(wide, serve, combiner, "serve_p99 (512, 40, 4)")
+    for combiner in ("sum", "mean"):
+        _check_fused(wide.to(torch.bfloat16), main, combiner,
+                     "train_batch bf16")
+    # ragged shapes, f32 and bf16 tables; the bf16 ones also 2- and 4-byte
+    # aligned (a slice 1 or 2 elements into a larger buffer): every load
+    # width of both kernels
     for f, v, d, b, bag in ((8, 512, 8, 4096, 4), (8, 512, 8, 37, 1),
                             (3, 1000, 5, 37, 16), (40, 4096, 1, 300, 16),
-                            (6, 256, 32, 33, 3)):
-        tables = torch.randn((f, v, d), device=dev, generator=gen)
+                            (6, 256, 32, 33, 3), (3, 1000, 10, 37, 3),
+                            (26, 4096, 128, 37, 4)):
+        buf = torch.randn(f * v * d + 2, device=dev, generator=gen)
         ids = torch.randint(0, v, (b, f, bag), device=dev, generator=gen,
                             dtype=torch.int32)
-        for combiner in ("sum", "mean"):
-            _check_fused(tables, ids, combiner, f"({f},{v},{d}) b{b} "
-                                                f"bag{bag}")
-        ids[b // 2, f - 1, 0] = v
-        if _check_fused(tables, ids, "sum", f"({f},{v},{d}) out of "
-                                            f"range") != 1:
-            raise AssertionError("an out-of-range id must poison exactly "
-                                 "its own row")
+        for dtype, shift in ((torch.float32, 0), (torch.bfloat16, 0),
+                             (torch.bfloat16, 1), (torch.bfloat16, 2)):
+            tables = buf.to(dtype)[shift:shift + f * v * d].view(f, v, d)
+            tag = f"({f},{v},{d}) b{b} bag{bag} {str(dtype)[6:]} +{shift}"
+            for combiner in ("sum", "mean"):
+                _check_fused(tables, ids, combiner, tag)
+            bad = ids.clone()
+            bad[b // 2, f - 1, 0] = v
+            if _check_fused(tables, bad, "sum", f"{tag} out of range") != 1:
+                raise AssertionError("an out-of-range id must poison "
+                                     "exactly its own row")
     bad = serve.clone()
     bad[7, 3, 2] = -1
     if _check_fused(wide, bad, "sum", "serve_p99 out of range") != 1:
         raise AssertionError("an out-of-range id must poison exactly its "
                              "own row")
     print("  embedding_bag_fused_fwd bit-equal to embedding_bag_fwd and "
-          "the plain version at every shape")
+          "the plain version at every shape, f32 and bf16")
 
     # the row kernels at the path's train shape: the wide arm's D = 1
     # (262,144 ids a feature scattered over 2^20 rows) and the deep tables
@@ -1035,89 +1313,112 @@ def phase_recsys_kernels(cfg) -> dict:
     b, _, bag = main.shape
     sets = [(main,), (torch.as_tensor(_criteo_batch(cfg, 65536, 3)
                                       ["sparse_ids"]).to(dev),)]
-    ms, wall = time_ms(lambda i: eb.embedding_bag_fused_fwd(wide, i), sets)
-    row_ms, _ = time_ms(lambda i: eb.embedding_bag_fwd(wide, i), sets)
-    plain, _ = time_ms(lambda i: ref.embedding_bag_fused_ref(wide, i), sets)
     offs = (torch.arange(n_f, device=dev) * rows).view(1, n_f, 1)
     flat_sets = [((i.long() + offs).reshape(b * n_f, bag),) for (i,) in sets]
-    wide_flat = wide.view(n_f * rows, 1)
-    lib, _ = time_ms(lambda x: F.embedding_bag(x, wide_flat, mode="sum"),
-                     flat_sets)
     uniq = int(torch.unique(flat_sets[0][0]).numel())
-    bms, by = bound_ms(main.numel() * 4 + uniq * 4 + b * n_f * 4,
-                       b * n_f * bag)
-    rec = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-           "bound_by": by, "max_abs_err": 0.0, "wall_ms": wall,
-           "embedding_bag_fwd_ms": row_ms, "distinct_rows": uniq}
-    print(f"  embedding_bag_fused_fwd (65536, 40, 4) x (40, 2^20, 1): "
-          f"{ms:.4f} ms on the card, {wall:.4f} ms launch to launch; "
-          f"embedding_bag_fwd {row_ms:.4f}, plain {plain:.4f}, "
-          f"F.embedding_bag {lib:.4f}, bound {bms:.4f} by {by} ({uniq} "
-          f"distinct rows of {n_f * rows})")
+    print(f"  embedding_bag_fused_fwd plan: "
+          f"{eb.fused_plan(b, n_f, rows, 1, bag)} (f32), "
+          f"{eb.fused_plan(b, n_f, rows, 1, bag, 2)} (bf16); {uniq} "
+          f"distinct rows of "
+          f"{n_f * rows}")
+    rec = None
+    for dtype in (torch.float32, torch.bfloat16):
+        table = wide.to(dtype)
+        elem = table.element_size()
+        # the 32-byte sectors the gathers touch (8 rows of f32, 16 of bf16)
+        sectors = int(torch.unique(flat_sets[0][0] // (32 // elem)).numel())
+        r = kernel_record(
+            f"embedding_bag_fused_fwd (65536, 40, 4) x (40, 2^20, 1) "
+            f"{str(dtype)[6:]}",
+            time_ms(lambda i: eb.embedding_bag_fused_fwd(table, i), sets,
+                    kernel="embedding_bag_fused_fwd_kernel"),
+            time_ms(lambda i: ref.embedding_bag_fused_ref(table, i), sets),
+            time_ms(lambda x: F.embedding_bag(x, table.view(n_f * rows, 1),
+                                              mode="sum"), flat_sets),
+            bound_ms(main.numel() * 4 + uniq * elem + b * n_f * 4,
+                     b * n_f * bag), 0.0,
+            embedding_bag_fwd_ms=time_ms(
+                lambda i: eb.embedding_bag_fwd(table, i), sets,
+                kernel="embedding_bag_fwd_kernel").ms,
+            distinct_rows=uniq, sectors=sectors,
+            sector_bound_ms=bound_ms(main.numel() * 4 + sectors * 32
+                                     + b * n_f * 4, 0)[0])
+        print(f"    {sectors} sectors of 32 B touched: sector bound "
+              f"{r['sector_bound_ms']:.4f} ms; embedding_bag_fwd "
+              f"{r['embedding_bag_fwd_ms']:.4f} ms")
+        if rec is None:
+            rec = r
+        else:
+            rec["bf16"] = r
+        del table
 
     # embedding_bag_bwd at the wide arm's D = 1 (checked above; here grad
     # piles up over the timed calls, which changes no memory traffic)
     d_out = torch.randn((b, n_f, 1), device=dev, generator=gen)
     grad = torch.zeros_like(wide)
-    bwd_ms, _ = time_ms(lambda: eb.embedding_bag_scatter(d_out, main, grad),
-                        [()])
-    bwd_plain, _ = time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, main,
-                                                             rows), [()])
+    t = time_ms(lambda: eb.embedding_bag_scatter(d_out, main, grad), [()],
+                kernel="embedding_bag_bwd_kernel")
+    plain = time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, main, rows),
+                    [()])
     upd = d_out.expand(b, n_f, bag).reshape(-1, 1).contiguous()
     idx = flat_sets[0][0].reshape(-1)
-    bwd_lib, _ = time_ms(lambda: grad.view(n_f * rows, 1).index_add_(
-        0, idx, upd), [()])
-    bwd_bms, bwd_by = bound_ms(d_out.numel() * 4 + main.numel() * 4
-                               + 2 * uniq * 4, b * n_f * bag)
-    rec["embedding_bag_bwd_d1"] = {
-        "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
-        "bound_ms": bwd_bms, "bound_by": bwd_by}
-    print(f"  embedding_bag_bwd at D = 1 (wide arm): {bwd_ms:.4f} ms on the "
-          f"card (plain {bwd_plain:.4f}, index_add_ {bwd_lib:.4f}, bound "
-          f"{bwd_bms:.4f} by {bwd_by})")
+    lib = time_ms(lambda: grad.view(n_f * rows, 1).index_add_(0, idx, upd),
+                  [()])
+    rec["embedding_bag_bwd_d1"] = kernel_record(
+        "embedding_bag_bwd at D = 1 (wide arm)", t, plain, lib,
+        bound_ms(d_out.numel() * 4 + main.numel() * 4 + 2 * uniq * 4,
+                 b * n_f * bag), path_errs["embedding_bag_bwd"])
     del grad, upd
     torch.cuda.empty_cache()
 
     # the deep tables (D = 32) with the same ids: embedding_bag_fwd against
     # F.embedding_bag over the flattened (F*V, 32) table, embedding_bag_bwd
     # against index_add_ into a (F*V, 32) gradient
-    fwd_ms, fwd_wall = time_ms(lambda i: eb.embedding_bag_fwd(deep, i), sets)
-    fwd_plain, _ = time_ms(lambda i: ref.embedding_bag_ref(deep, i), sets,
-                           iters=5)
     deep_flat = deep.view(n_f * rows, dim)
-    fwd_lib, _ = time_ms(lambda x: F.embedding_bag(x, deep_flat, mode="sum"),
-                         flat_sets)
-    fwd_bms, fwd_by = bound_ms(main.numel() * 4 + uniq * dim * 4
-                               + b * n_f * dim * 4, b * n_f * bag * dim)
-    rec["embedding_bag_fwd_d32"] = {
-        "ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
-        "bound_ms": fwd_bms, "bound_by": fwd_by, "wall_ms": fwd_wall}
-    print(f"  embedding_bag_fwd at D = 32 (deep tables): {fwd_ms:.4f} ms on "
-          f"the card, {fwd_wall:.4f} ms launch to launch (plain "
-          f"{fwd_plain:.4f}, F.embedding_bag {fwd_lib:.4f}, bound "
-          f"{fwd_bms:.4f} by {fwd_by})")
+    rec["embedding_bag_fwd_d32"] = kernel_record(
+        "embedding_bag_fwd at D = 32 (deep tables)",
+        time_ms(lambda i: eb.embedding_bag_fwd(deep, i), sets,
+                kernel="embedding_bag_fwd_kernel"),
+        time_ms(lambda i: ref.embedding_bag_ref(deep, i), sets, iters=5),
+        time_ms(lambda x: F.embedding_bag(x, deep_flat, mode="sum"),
+                flat_sets),
+        bound_ms(main.numel() * 4 + uniq * dim * 4 + b * n_f * dim * 4,
+                 b * n_f * bag * dim), 0.0)
+    # the deep tables in bf16 (the same values, rounded): bitwise to the
+    # plain version; bound at 2-byte elements. A warp a row leaves most
+    # of its lanes idle at 64-byte rows (PERF.md)
+    deep16 = deep.to(torch.bfloat16)
+    if not torch.equal(eb.embedding_bag_fwd(deep16, main),
+                       ref.embedding_bag_ref(deep16, main)):
+        raise AssertionError("embedding_bag_fwd bf16 deep arm: not bitwise "
+                             "equal to the plain version")
+    deep16_flat = deep16.view(n_f * rows, dim)
+    rec["embedding_bag_fwd_d32"]["bf16"] = kernel_record(
+        "embedding_bag_fwd at D = 32 (deep tables) bf16",
+        time_ms(lambda i: eb.embedding_bag_fwd(deep16, i), sets,
+                kernel="embedding_bag_fwd_kernel"),
+        time_ms(lambda i: ref.embedding_bag_ref(deep16, i), sets, iters=5),
+        time_ms(lambda x: F.embedding_bag(x, deep16_flat, mode="sum"),
+                flat_sets),
+        bound_ms(main.numel() * 4 + uniq * dim * 2 + b * n_f * dim * 4,
+                 b * n_f * bag * dim), 0.0)
+    del deep16, deep16_flat
     d_out = torch.randn((b, n_f, dim), device=dev, generator=gen)
     grad = torch.zeros_like(deep)
     del deep, deep_flat
-    bwd_ms, bwd_wall = time_ms(
-        lambda: eb.embedding_bag_scatter(d_out, main, grad), [()])
-    bwd_plain, _ = time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, main,
-                                                             rows), [()],
-                           iters=3)
+    t = time_ms(lambda: eb.embedding_bag_scatter(d_out, main, grad), [()],
+                kernel="embedding_bag_bwd_kernel")
+    plain = time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, main, rows),
+                    [()], iters=3)
     torch.cuda.empty_cache()
     upd = d_out[:, :, None, :].expand(b, n_f, bag, dim).reshape(-1, dim) \
         .contiguous()
-    bwd_lib, _ = time_ms(lambda: grad.view(n_f * rows, dim).index_add_(
+    lib = time_ms(lambda: grad.view(n_f * rows, dim).index_add_(
         0, idx, upd), [()])
-    bwd_bms, bwd_by = bound_ms(d_out.numel() * 4 + main.numel() * 4
-                               + 2 * uniq * dim * 4, b * n_f * bag * dim)
-    rec["embedding_bag_bwd_d32"] = {
-        "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
-        "bound_ms": bwd_bms, "bound_by": bwd_by, "wall_ms": bwd_wall}
-    print(f"  embedding_bag_bwd at D = 32 (deep tables): {bwd_ms:.4f} ms on "
-          f"the card, {bwd_wall:.4f} ms launch to launch (plain "
-          f"{bwd_plain:.4f}, index_add_ {bwd_lib:.4f}, bound {bwd_bms:.4f} "
-          f"by {bwd_by})")
+    rec["embedding_bag_bwd_d32"] = kernel_record(
+        "embedding_bag_bwd at D = 32 (deep tables)", t, plain, lib,
+        bound_ms(d_out.numel() * 4 + main.numel() * 4 + 2 * uniq * dim * 4,
+                 b * n_f * bag * dim), path_errs["embedding_bag_bwd"])
     del grad, upd, d_out
     torch.cuda.empty_cache()
     return {"embedding_bag_fused_fwd": rec}, path_errs
@@ -1215,9 +1516,9 @@ def phase_recsys_loop(arch) -> dict:
 def phase_recsys_profile(arch):
     """Where one wide-deep train step's device time goes: torch.profiler
     over 3 steps on one batch already on the card (after 2 warm-up
-    steps), device time summed by kernel, against the host-clock step."""
+    steps), device time summed by kernel, against the host-clock step.
+    Returns each embedding kernel's device ms a step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import recsys
     from repro_torch.train.optim import make_optimizer
     from repro_torch.train.train_step import make_train_step
@@ -1233,15 +1534,10 @@ def phase_recsys_profile(arch):
     for k in range(2):
         step_fn(model, state, k, batch)
     torch.cuda.synchronize()
-    steps = 3
-    t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for k in range(steps):
-            step_fn(model, state, 2 + k, batch)
-        torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - t0) * 1e3 / steps
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
-                   for e in prof.key_averages()), key=lambda r: -r[1])
+    rows, wall_ms = profile_steps(
+        lambda k: step_fn(model, state, 2 + k, batch), 3,
+        ("embedding_bag_fused_fwd_kernel", "embedding_bag_fwd_kernel",
+         "embedding_bag_bwd_kernel"))
     device_ms = sum(ms for _, ms in rows)
     bag_ms = sum(ms for name, ms in rows if "embedding_bag" in name)
     print(f"  wide-deep train step: {device_ms:.3f} ms of device time in "
@@ -1249,11 +1545,19 @@ def phase_recsys_profile(arch):
           f"kernels {bag_ms:.3f} ms ({100 * bag_ms / device_ms:.1f}%)")
     for name, ms in rows[:14]:
         print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
-    # the scatters in the step: <false, 4> is the wide arm's D = 1, <true,
-    # 4> the deep tables' D = 32 (float4 atomics)
+    # the embedding kernels in the step: the scatter's <false, 4> is the
+    # wide arm's D = 1, <true, 4> the deep tables' D = 32 (float4
+    # atomics); the fused forward is the wide arm's
+    in_step = {}
     for name, ms in rows:
-        if "embedding_bag_bwd_kernel" in name:
-            print(f"  scatter in the step: {ms:.4f} ms  {name[:70]}")
+        for kernel in ("embedding_bag_bwd_kernel",
+                       "embedding_bag_fused_fwd_kernel",
+                       "embedding_bag_fwd_kernel"):
+            if kernel in name:
+                print(f"  {kernel[:-7]} in the step: {ms:.4f} ms  "
+                      f"{name[:70]}")
+                in_step[kernel[:-7]] = in_step.get(kernel[:-7], 0.0) + ms
+    return in_step
 
 
 SOURCES = {
@@ -1276,6 +1580,13 @@ SOURCES = {
 
 
 def main() -> int:
+    # the kernels are built from the checkout's sources: a copy of this
+    # script elsewhere has none to build and exits as without a card
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip_smoke: {os.path.join(ROOT, 'src', 'repro_torch')} is "
+              f"missing; run this script from the root of the repository",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -1336,7 +1647,9 @@ def main() -> int:
         recs[name]["wide_deep_max_abs_err"] = wd_errs[name]
     torch.cuda.empty_cache()
     with Phase("recsys_profile"):
-        phase_recsys_profile(WD_ARCH)
+        in_step = phase_recsys_profile(WD_ARCH)
+    recs["embedding_bag_fused_fwd"]["in_step_ms"] = \
+        in_step["embedding_bag_fused_fwd"]
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]

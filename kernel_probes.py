@@ -1,34 +1,53 @@
 #!/usr/bin/env python3
-"""Probes behind the designs of the port's two backward kernels on one GPU.
+"""Probes behind the designs of the port's kernels on one GPU.
 
-    python3 kernel_probes.py
+    python3 kernel_probes.py [--src DIR] [section ...]
 
 `chip_smoke.py` times each kernel as the port builds it. This script
 times what its designs were chosen against, on the same card and in one
 process, and prints one line a measurement (device time a call from
-torch.profiler, as chip_smoke.time_ms takes it):
+torch.profiler, as chip_smoke.time_ms takes it, and where it says so
+CUDA events launch to launch). Sections (all when none is named):
 
+  fused     embedding_bag_fused_fwd at wide-deep's wide arm, ids (65536,
+            40, 4) of the synthetic Criteo stream into (40, 2^20, 1) f32
+            and bf16 tables: its walk's feature groups (2, 4, 8, 16); 2
+            and 4 rows a thread (a probe kernel built on its source, at
+            the plan's group); variants without its L2 hints (the
+            evict-last policy on the gathers, evict-first on the id and
+            output streams, or both); the bound by 32-byte sectors; the
+            gathers alone, over the ids in the kernel's walk order and
+            sorted; a device sort of the (id, position) pairs, the first
+            step of bucketing the ids.
+  dot_fwd   dot_interact_fwd at the DLRM shape (2048, 27, 128), f32 and
+            bf16, at 1, 2, 4 and 8 warps a CTA and each count of CTAs an
+            SM that shared memory allows; bmm + index beside it.
+  sage      sage_aggregate_fwd at the GNN train step's three shapes,
+            neigh and w each f32 or bf16.
+  embedding embedding_bag_fwd at wide-deep's deep arm (65536, 40, 4) x
+            (40, 2^20, 32) and the DLRM's (2048, 26, 4) x (26, 2^20, 128),
+            f32 and bf16 tables.
   scatter   embedding_bag_bwd at wide-deep's two arms, ids (65536, 40, 4)
-            of the synthetic Criteo stream into (40, 2^20, D) at D = 1
-            and 32, and at the DLRM's (2048, 26, 4) into (26, 2^20, 128),
-            with its walk's feature group overridden (1, 2, 4, 8, 40 at
-            D = 1); beside it index_add_ and the bound of chip_smoke.py.
-  limits    the atomics alone: one float4 (D = 32) or float (D = 1)
-            reduction a row of the same ids in the kernel's order, of the
-            distinct ids sorted and shuffled; a plain load-add-store and a
-            gather of the same rows.
-  sass      the reductions each backward kernel of the built library
-            issues (cuobjdump -sass): REDG, fire-and-forget, or ATOMG,
-            which waits for the old value.
-  variants  the scatter with streaming (evict-first) loads of d_out and
-            ids, and with TMA bulk reductions (cp.reduce.async.bulk, one
-            a row) in place of RED; dot_interact_bwd at 1-6 persistent
-            CTAs an SM, with streaming stores, with an L2 prefetch hint on
-            its copies and with its k loop unrolled by 8, against bmm.
+            into (40, 2^20, D) at D = 1 and 32, and at the DLRM's (2048,
+            26, 4) into (26, 2^20, 128), with its walk's feature group
+            overridden (1, 2, 4, 8, 40 at D = 1); beside it index_add_ and
+            the bound of chip_smoke.py. The atomics alone: one float4 (D =
+            32) or float (D = 1) reduction a row of the same ids in the
+            kernel's order, of the distinct ids sorted and shuffled; a
+            plain load-add-store and a gather of the same rows. The
+            reductions each backward kernel of the built library issues
+            (cuobjdump -sass): REDG, fire-and-forget, or ATOMG. Variants:
+            streaming loads of d_out and ids, TMA bulk reductions
+            (cp.reduce.async.bulk, one a row) in place of RED.
+  dot_bwd   dot_interact_bwd at 1-6 persistent CTAs an SM, with streaming
+            stores, with an L2 prefetch hint on its copies and with its k
+            loop unrolled by 8, against bmm.
 
 Each variant is a copy of a kernel source under src/repro_torch/kernels/
-csrc with one edit, built with nvcc into build/kernel_probes/. It needs
-one CUDA card and nvcc, and exits non-zero without them.
+csrc with one edit, built with nvcc into build/kernel_probes/. `--src
+DIR` imports repro_torch from DIR (say, the src of an unpacked earlier
+commit) for the sections that call only its wrappers (sage, embedding).
+It needs one CUDA card and nvcc, and exits non-zero without them.
 """
 from __future__ import annotations
 
@@ -39,7 +58,11 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "src"))
+# `--src DIR` times the repro_torch under DIR instead (another checkout's
+# src, for the same probes on two versions in one process's conditions)
+SRC = (sys.argv[2] if sys.argv[1:2] == ["--src"]
+       else os.path.join(ROOT, "src"))
+sys.path.insert(0, SRC)
 OUT = os.path.join(ROOT, "build", "kernel_probes")
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
 
@@ -150,6 +173,14 @@ SCATTER_VARIANTS = {
          "__ldcs(reinterpret_cast<const int4*>(row_ids + j))")),
     "bulk": BULK,
 }
+# the forward's d loop unrolled by 2
+DOT_FWD_VARIANTS = {
+    "unroll2": (("        for (int d = 0; d < D; d += 4) {\n"
+                 "          float4 vj[kBlk];",
+                 "#pragma unroll 2\n"
+                 "        for (int d = 0; d < D; d += 4) {\n"
+                 "          float4 vj[kBlk];"),),
+}
 DOT_VARIANTS = {
     "stcs": (("reinterpret_cast<float4*>(dst + (i0 + r) * D)[col] = acc[r];",
               "__stcs(reinterpret_cast<float4*>(dst + (i0 + r) * D) + col, "
@@ -162,17 +193,143 @@ DOT_VARIANTS = {
                  "          const float4 v"),),
 }
 
+# the fused forward's gathers alone: a thread a row of 4 flat ids (f V +
+# id, 32-bit) read as one int4, the 4 table elements summed into one
+# output; over the ids in the kernel's walk order, or sorted (the same
+# accesses a bucketing of the ids would give, its own cost aside)
+GATHER = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void gather4(const float* t, const int4* idx, float* out,
+                        int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int4 v = __ldg(idx + i);
+  out[i] = ((__ldg(t + v.x) + __ldg(t + v.y)) + __ldg(t + v.z)) +
+           __ldg(t + v.w);
+}
+extern "C" int gather(const float* t, const int* idx, float* out, int64_t n,
+                      void* stream) {
+  gather4<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      t, reinterpret_cast<const int4*>(idx), out, n);
+  return (int)cudaGetLastError();
+}
+'''
+
+# the fused forward without its L2 hints: the gathers without the
+# evict-last policy, the id and output streams without evict-first, or
+# neither
+_NO_KEEP = (("    u.r = ld_keep(reinterpret_cast<const R*>(p));",
+             "    u.r = __ldg(reinterpret_cast<const R*>(p));"),)
+_NO_STREAM = (
+    ("  return __ldcs(reinterpret_cast<const int4*>(p));",
+     "  return __ldg(reinterpret_cast<const int4*>(p));"),
+    ("  return __ldcs(p);", "  return __ldg(p);"),
+    ("    __stcs(p, v[0]);", "    *p = v[0];"),
+)
+FUSED_VARIANTS = {"no_keep": _NO_KEEP, "no_stream": _NO_STREAM,
+                  "no_hints": _NO_KEEP + _NO_STREAM}
+
+# the fused forward with R rows a thread (consecutive places of its walk,
+# every row's 4 gathers in flight before the adds) at D = 1, bags of 4,
+# "sum": its source's helpers (place, the L2-hinted gathers and streams)
+# with a kernel of its own
+FUSED_ROWS = r'''
+#include "embedding_bag_fused.cu"
+namespace {
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+rows_kernel(const T* __restrict__ tables, const int32_t* __restrict__ ids,
+            float* __restrict__ out, int64_t B, int64_t F, int64_t V,
+            int group) {
+  const int64_t slot0 =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * R;
+  if (slot0 >= B * F) return;
+  int64_t row[R];
+  const T* table[R];
+  int32_t id[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (slot0 + r >= B * F) continue;
+    int64_t b, f;
+    place(static_cast<uint32_t>(slot0 + r), static_cast<uint32_t>(B),
+          static_cast<uint32_t>(F), static_cast<uint32_t>(group), &b, &f);
+    row[r] = b * F + f;
+    table[r] = tables + f * V;
+    const int4 v = ld_ids4(ids + row[r] * 4);
+    id[r][0] = v.x;
+    id[r][1] = v.y;
+    id[r][2] = v.z;
+    id[r][3] = v.w;
+  }
+  float x[R][4][1];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (slot0 + r >= B * F) continue;
+      if (valid_id(id[r][j], V)) {
+        gather_f32<T, 1>(table[r] + id[r][j], x[r][j]);
+      } else {
+        x[r][j][0] = __int_as_float(0x7fc00000);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (slot0 + r >= B * F) continue;
+    float acc[1] = {0.f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[0] += x[r][j][0];
+    st_out<1>(out + row[r], acc);
+  }
+}
+template <typename T, int R>
+void rows_launch(const void* t, const int32_t* ids, float* out, int64_t B,
+                 int64_t F, int64_t V, int group, cudaStream_t s) {
+  const int64_t threads = (B * F + R - 1) / R;
+  rows_kernel<T, R><<<(unsigned)((threads + kThreads - 1) / kThreads),
+                      kThreads, 0, s>>>(static_cast<const T*>(t), ids, out,
+                                        B, F, V, group);
+}
+}  // namespace
+extern "C" int fused_rows(const void* tables, const int32_t* ids, float* out,
+                          int64_t B, int64_t F, int64_t V, int32_t bf16,
+                          int32_t rows, int32_t group, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 2 && !bf16)
+    rows_launch<float, 2>(tables, ids, out, B, F, V, group, s);
+  else if (rows == 4 && !bf16)
+    rows_launch<float, 4>(tables, ids, out, B, F, V, group, s);
+  else if (rows == 2)
+    rows_launch<__nv_bfloat16, 2>(tables, ids, out, B, F, V, group, s);
+  else if (rows == 4)
+    rows_launch<__nv_bfloat16, 4>(tables, ids, out, B, F, V, group, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+'''
+
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 
 
-def build_variants():
-    """nvcc for the micro kernels and every variant, started together;
-    returns their loaded libraries."""
+def build_variants(sections):
+    """nvcc for the micro kernels and the variants of `sections`, started
+    together; returns their loaded libraries."""
     from repro_torch.kernels import build
     os.makedirs(OUT, exist_ok=True)
-    sources = {"micro": MICRO}
-    for src, variants in (("embedding_bag", SCATTER_VARIANTS),
-                          ("dot_interact", DOT_VARIANTS)):
+    sources = {"micro": MICRO} if "scatter" in sections else {}
+    if "fused" in sections:
+        sources["gather"] = GATHER
+        sources["fused_rows"] = FUSED_ROWS
+    for src, variants, section in (
+            ("embedding_bag", SCATTER_VARIANTS, "scatter"),
+            ("dot_interact", DOT_VARIANTS, "dot_bwd"),
+            ("dot_interact", DOT_FWD_VARIANTS, "dot_fwd"),
+            ("embedding_bag_fused", FUSED_VARIANTS, "fused")):
+        if section not in sections:
+            continue
         text = open(os.path.join(CSRC, f"{src}.cu")).read()
         for name, edits in variants.items():
             out = text
@@ -188,7 +345,8 @@ def build_variants():
         with open(path, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", path[:-3] + ".so", path],
+            [build.nvcc(), *build.NVCC_FLAGS, "-I", CSRC, "-o",
+             path[:-3] + ".so", path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -198,8 +356,15 @@ def build_variants():
         lib = ctypes.CDLL(os.path.join(OUT, f"{name}.so"))
         if name == "micro":
             lib.micro.argtypes = (_I32, _P, _P, _P, _I64, _P)
+        elif name == "gather":
+            lib.gather.argtypes = (_P, _P, _P, _I64, _P)
+        elif name == "fused_rows":
+            lib.fused_rows.argtypes = (_P, _P, _P, _I64, _I64, _I64, _I32,
+                                       _I32, _I32, _P)
         else:
-            src = name.split("_")[0] + "_" + name.split("_")[1]
+            src = next(k for k in sorted(build.SIGNATURES, key=len,
+                                         reverse=True)
+                       if name.startswith(k + "_"))
             for fn, argtypes in build.SIGNATURES[src].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
@@ -224,13 +389,230 @@ def sass_reductions(path: str) -> dict:
     return counts
 
 
-def main() -> int:
+def probe_fused(cs, libs, ids, cfg, gen):
+    """The fused forward at the wide arm: plan sweeps and variants, f32 and
+    bf16, two rounds in turns (the second in reverse order); the sector
+    bound; a device sort of the (id, position) pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels.build import LIBRARIES
+    dev = ids.device
+    b, n_f, bag = ids.shape
+    rows = cfg.vocab_sizes[0]
+    ids2 = torch.as_tensor(cs._criteo_batch(cfg, 65536, 3)["sparse_ids"]) \
+        .to(dev)
+    sets = [(ids,), (ids2,)]
+    offs = (torch.arange(n_f, device=dev) * rows).view(1, n_f, 1)
+    flat = (ids.long() + offs).reshape(-1)
+    uniq = int(torch.unique(flat).numel())
+    wide = torch.empty((n_f, rows, 1), device=dev)
+    wide.normal_(generator=gen).mul_(0.01)
+    out = torch.empty((b, n_f, 1), device=dev)
+
+    def fused(lib, table, r, g):
+        # the plan with its walk's group overridden; r rows a thread
+        # through the probe kernel
+        plan = eb.fused_plan(b, n_f, rows, 1, bag, table.element_size())
+        bf16 = int(table.dtype == torch.bfloat16)
+
+        def call(i):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = lib.embedding_bag_fused_fwd(
+                table.data_ptr(), i.data_ptr(), out.data_ptr(), b, n_f, rows,
+                1, bag, 0, bf16, plan.vec, plan.lanes_log2, g, plan.blocks,
+                stream) if r == 1 else libs["fused_rows"].fused_rows(
+                table.data_ptr(), i.data_ptr(), out.data_ptr(), b, n_f, rows,
+                bf16, r, g, stream)
+            if status != 0:
+                raise RuntimeError(f"embedding_bag_fused_fwd: CUDA error "
+                                   f"{status}")
+        return call
+
+    variants = [("kernel", LIBRARIES.get("embedding_bag_fused"))] + [
+        (n, libs[f"embedding_bag_fused_{n}"]) for n in FUSED_VARIANTS]
+    for dtype in (torch.float32, torch.bfloat16):
+        table = wide.to(dtype)
+        elem = table.element_size()
+        sectors = int(torch.unique(flat // (32 // elem)).numel())
+        bnd, _ = cs.bound_ms(ids.numel() * 4 + uniq * elem + b * n_f * 4, 0)
+        sbnd, _ = cs.bound_ms(ids.numel() * 4 + sectors * 32 + b * n_f * 4,
+                              0)
+        lib_t = cs.time_ms(lambda x: F.embedding_bag(
+            x, table.view(n_f * rows, 1), mode="sum"),
+            [((i.long() + offs).reshape(b * n_f, bag),) for (i,) in sets])
+        print(f"fused {str(dtype)[6:]}: bound {bnd:.4f} ms ({uniq} rows), "
+              f"by sectors {sbnd:.4f} ms ({sectors} sectors of 32 B); "
+              f"F.embedding_bag {lib_t.ms:.4f} ms", flush=True)
+        g0 = eb.fused_plan(b, n_f, rows, 1, bag, elem).group
+        want = eb.embedding_bag_fused_fwd(table, ids)
+        for r in (2, 4):
+            fused(None, table, r, g0)(ids)
+            if not torch.equal(out, want):
+                raise AssertionError(f"{r} rows a thread: not bit-equal to "
+                                     f"embedding_bag_fused_fwd")
+        for rnd in range(2):
+            for name, lib in variants[::1 if rnd == 0 else -1]:
+                sweep = ([(1, g) for g in (2, 4, 8, 16)]
+                         + [(2, g0), (4, g0)] if name == "kernel"
+                         else [(1, g0)])
+                for r, g in sweep:
+                    t = cs.time_ms(fused(lib, table, r, g), sets,
+                                   kernel="embedding_bag_fused_fwd_kernel"
+                                   if r == 1 else "rows_kernel")
+                    print(f"  {name} rows {r} group {g}: {t.ms:.4f} ms, "
+                          f"{t.wall:.4f} launch to launch", flush=True)
+        del table
+    # the gathers alone, in the walk order of groups of 4 features and
+    # sorted
+    walk = (ids.long() + offs).view(b, n_f // 4, 4, bag).permute(1, 0, 2, 3) \
+        .reshape(-1).int()
+    for order, idx in (("walk order", walk),
+                       ("sorted", torch.sort(walk).values)):
+        t = cs.time_ms(lambda: libs["gather"].gather(
+            wide.data_ptr(), idx.data_ptr(), out.data_ptr(), b * n_f,
+            torch.cuda.current_stream().cuda_stream), [()], kernel="gather4")
+        print(f"  gathers alone (f32), {order}: {t.ms:.4f} ms, {t.wall:.4f} "
+              f"launch to launch", flush=True)
+    # bucketing the ids would start with a sort of the (id, position)
+    # pairs: one device radix sort of the 10.5 M flat ids with their
+    # positions (torch.sort returns both)
+    t = cs.time_ms(lambda: torch.sort(flat), [()])
+    t32 = cs.time_ms(lambda: torch.sort(flat.int()), [()])
+    print(f"sort of {flat.numel()} (id, position) pairs: int64 ids "
+          f"{t.ms:.4f} ms, int32 ids {t32.ms:.4f} ms", flush=True)
+
+
+def probe_dot_fwd(cs, libs, model, gen):
+    """dot_interact_fwd at the DLRM shape, f32 and bf16: warps a CTA 1, 2,
+    4, 8 at every count of CTAs an SM up to what shared memory allows,
+    against bmm + index, two rounds in turns."""
+    import torch
+    from repro_torch.kernels import dot_interact as di
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import LIBRARIES
+    lib = LIBRARIES.get("dot_interact")
+    b, f, d = 2048, model.n_sparse + 1, model.embed_dim
+    p = f * (f - 1) // 2
+    ii, jj = ref.tril_pairs(f, torch.device("cuda"))
+    for dtype in (torch.float32, torch.bfloat16):
+        sets = [(torch.randn((b, f, d), device="cuda", generator=gen)
+                 .to(dtype),) for _ in range(3)]
+        out = torch.empty((b, p), device="cuda", dtype=dtype)
+        elem = sets[0][0].element_size()
+        plan = di.fwd_plan(b, f, d, elem)
+        per_warp = di.fwd_warp_smem(f, d, elem)
+        bnd, _ = cs.bound_ms(b * f * d * elem + b * p * elem, 2 * b * p * d)
+        print(f"dot_interact_fwd {str(dtype)[6:]} ({b}, {f}, {d}): plan "
+              f"{plan}, bound {bnd:.4f} ms", flush=True)
+
+        def call_for(warps, ctas, lib=lib):
+            def call(x):
+                status = lib.dot_interact_fwd(
+                    x.data_ptr(), out.data_ptr(), b, f, d,
+                    int(dtype == torch.bfloat16), plan.copy, warps, ctas,
+                    warps * per_warp, torch.cuda.current_stream().cuda_stream)
+                if status != 0:
+                    raise RuntimeError(f"dot_interact_fwd: CUDA error "
+                                       f"{status}")
+            return call
+        grid = [(w, n) for w in (1, 2, 4, 8)
+                for n in range(1, min(di.SM_SHARED_BYTES
+                                      // (w * per_warp + 1024),
+                                      di.SM_CTAS, 64 // w) + 1)]
+        for rnd in range(2):
+            t = cs.time_ms(
+                lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj], sets)
+            print(f"  bmm + index {t.ms:.4f} ms", flush=True)
+            for w, n in grid[::1 if rnd == 0 else -1]:
+                t = cs.time_ms(call_for(w, min(-(-b // w), di.SMS * n)),
+                               sets, kernel="dot_interact_fwd_kernel")
+                print(f"  {w} warps a CTA, {n} CTAs an SM ({w * n} warps): "
+                      f"{t.ms:.4f} ms, {t.wall:.4f} launch to launch",
+                      flush=True)
+            for name in DOT_FWD_VARIANTS:
+                t = cs.time_ms(call_for(plan.warps, plan.ctas,
+                                        libs[f"dot_interact_{name}"]),
+                               sets, kernel="dot_interact_fwd_kernel")
+                print(f"  {name} at the plan: {t.ms:.4f} ms, {t.wall:.4f} "
+                      f"launch to launch", flush=True)
+        del sets
+
+
+def probe_sage(cs, gen):
+    """sage_aggregate_fwd at the GNN step's three shapes with neigh and w
+    f32 or bf16 (each combination), two rounds in turns."""
+    import torch
+    from repro_torch.configs.graphsage_reddit import ARCH
+    from repro_torch.kernels import sage_aggregate as sa
+    shape, cfg = ARCH.shape("minibatch_lg"), ARCH.model
+    path = cs._gnn_path_shapes(shape, cfg)
+    combos = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+    print(f"sage: repro_torch from {os.path.dirname(sa.__file__)}")
+    for tag, b, f, d, h, _ in path:
+        n_sets = max(1, min(8, -(-64 * 2 ** 20 // (4 * b * f * d))))
+        base = [(torch.randn((b, f, d), device="cuda", generator=gen),
+                 torch.randn((d, h), device="cuda", generator=gen)
+                 * d ** -0.5) for _ in range(n_sets)]
+        for rnd in range(2):
+            for nd, wd in combos[::1 if rnd == 0 else -1]:
+                sets = [(n.to(nd), w.to(wd)) for n, w in base]
+                try:
+                    t = cs.time_ms(
+                        lambda n, w: sa.sage_aggregate_fwd(n, w, True), sets,
+                        kernel="sage_fwd_kernel")
+                except TypeError as e:      # a version without bf16
+                    print(f"sage_aggregate_fwd {tag} neigh {str(nd)[6:]} w "
+                          f"{str(wd)[6:]}: refused ({e})", flush=True)
+                    continue
+                print(f"sage_aggregate_fwd {tag} neigh {str(nd)[6:]} w "
+                      f"{str(wd)[6:]}: {t.ms:.4f} ms, {t.wall:.4f} launch to "
+                      f"launch", flush=True)
+                del sets
+        del base
+
+
+def probe_embedding(cs, wd, dlrm, model, cfg, gen):
+    """embedding_bag_fwd at wide-deep's deep arm, ids (65536, 40, 4) into
+    (40, 2^20, 32), and at the DLRM's (2048, 26, 4) into (26, 2^20, 128),
+    f32 and bf16 tables, two rounds in turns."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb
+    print(f"embedding: repro_torch from {os.path.dirname(eb.__file__)}")
+    for tag, ids, rows, d in (("deep arm", wd, cfg.vocab_sizes[0],
+                               cfg.embed_dim),
+                              ("DLRM", dlrm, model.vocab_sizes[0],
+                               model.embed_dim)):
+        tables = torch.empty((ids.shape[1], rows, d), device="cuda")
+        tables.normal_(generator=gen)
+        for rnd in range(2):
+            for dtype in (torch.float32, torch.bfloat16)[::1 - 2 * rnd]:
+                table = tables.to(dtype)
+                try:
+                    t = cs.time_ms(lambda: eb.embedding_bag_fwd(table, ids),
+                                   [()], kernel="embedding_bag_fwd_kernel")
+                except TypeError as e:      # a version without bf16
+                    print(f"embedding_bag_fwd {tag} {str(dtype)[6:]}: "
+                          f"refused ({e})", flush=True)
+                    continue
+                finally:
+                    del table
+                print(f"embedding_bag_fwd {tag} {str(dtype)[6:]}: "
+                      f"{t.ms:.4f} ms, {t.wall:.4f} launch to launch",
+                      flush=True)
+        del tables
+        torch.cuda.empty_cache()
+
+
+def main(sections) -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_probes: no CUDA device", file=sys.stderr)
         return 2
     import numpy as np
     import chip_smoke as cs
+    sys.path.insert(0, SRC)        # ahead of the src chip_smoke put first
     from repro_torch.configs.dlrm_criteo import MODEL
     from repro_torch.configs.wide_deep import ARCH
     from repro_torch.data.featurize import (RecordSpec, featurize_block,
@@ -242,12 +624,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.phase_build()
-    libs = build_variants()
+    libs = build_variants(sections)
     from repro_torch.kernels import build
-    for name, ops in sass_reductions(
-            str(build.library_path("embedding_bag"))).items():
-        if "bwd" in name:
-            print(f"sass {name}: {ops}")
+    if "scatter" in sections:
+        for name, ops in sass_reductions(
+                str(build.library_path("embedding_bag"))).items():
+            if "bwd" in name:
+                print(f"sass {name}: {ops}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -279,102 +662,122 @@ def main() -> int:
     dlrm = torch.as_tensor(featurize_block(
         raw_block(np.random.RandomState(1), rec), rec)["sparse_ids"]).to(dev)
     print(f"card: {cs.card_line()}")
-    row_lib = LIBRARIES.get("embedding_bag")
-    cases = (("wide arm", wd, cfg.vocab_sizes[0], 1, (1, 2, 4, 8, 40)),
-             ("deep tables", wd, cfg.vocab_sizes[0], 32, (1, 2, 40)),
-             ("DLRM", dlrm, MODEL.vocab_sizes[0], MODEL.embed_dim,
-              (1, 2, 26)))
-    for tag, ids, rows, d, groups in cases:
-        b, n_f, bag = ids.shape
-        flat = (ids.long() + (torch.arange(n_f, device=dev) * rows)
-                .view(1, n_f, 1)).reshape(-1)
-        uniq = int(torch.unique(flat).numel())
-        d_out = torch.randn((b, n_f, d), device=dev, generator=gen)
-        grad = torch.zeros((n_f, rows, d), device=dev)
-        upd = d_out[:, :, None, :].expand(b, n_f, bag, d).reshape(-1, d) \
-            .contiguous()
-        lib_ms, _ = cs.time_ms(lambda: grad.view(n_f * rows, d).index_add_(
-            0, flat, upd), [()])
-        bnd, _ = cs.bound_ms(d_out.numel() * 4 + ids.numel() * 4
-                             + 2 * uniq * d * 4, 0)
-        print(f"scatter {tag} D = {d}: index_add_ {lib_ms:.4f} ms, bound "
-              f"{bnd:.4f} ms; plan {eb.bwd_plan(b, n_f, rows, d)}")
-        del upd
-        variants = [("kernel", row_lib)]
-        if d > 1:
-            variants += [(n, libs[f"embedding_bag_{n}"])
-                         for n in SCATTER_VARIANTS]
-        # two rounds in turns, the second in reverse order
-        for rnd in range(2):
-            for name, lib in variants[::1 if rnd == 0 else -1]:
-                for group in groups if name == "kernel" else groups[:1]:
-                    ms, _ = cs.time_ms(scatter(lib, d_out, ids, grad, group),
-                                       [()])
-                    print(f"  {name} group {group}: {ms:.4f} ms", flush=True)
-        if d in (1, 32):
-            # the limits, over the same rows: in the kernel's walk order
-            # (feature by feature), the distinct rows sorted and shuffled
-            walk = (ids.long() + (torch.arange(n_f, device=dev) * rows)
-                    .view(1, n_f, 1)).permute(1, 0, 2).reshape(-1) \
+    if "scatter" in sections:
+        row_lib = LIBRARIES.get("embedding_bag")
+        cases = (("wide arm", wd, cfg.vocab_sizes[0], 1, (1, 2, 4, 8, 40)),
+                 ("deep tables", wd, cfg.vocab_sizes[0], 32, (1, 2, 40)),
+                 ("DLRM", dlrm, MODEL.vocab_sizes[0], MODEL.embed_dim,
+                  (1, 2, 26)))
+        for tag, ids, rows, d, groups in cases:
+            b, n_f, bag = ids.shape
+            flat = (ids.long() + (torch.arange(n_f, device=dev) * rows)
+                    .view(1, n_f, 1)).reshape(-1)
+            uniq = int(torch.unique(flat).numel())
+            d_out = torch.randn((b, n_f, d), device=dev, generator=gen)
+            grad = torch.zeros((n_f, rows, d), device=dev)
+            upd = d_out[:, :, None, :].expand(b, n_f, bag, d).reshape(-1, d) \
                 .contiguous()
-            distinct = torch.unique(walk)
-            shuffled = distinct[torch.randperm(distinct.numel(), device=dev,
-                                               generator=gen)]
-            out = torch.empty((walk.numel() * 32 if d == 32 else 1,),
-                              device=dev)
-            kinds = (((0, "float4 reductions"), (1, "load-add-store"),
-                      (2, "gather")) if d == 32 else
-                     ((3, "float reductions"),))
-            for order, r in (("walk order", walk), ("distinct sorted",
-                                                     distinct),
-                             ("distinct shuffled", shuffled)):
-                for which, kind in kinds:
-                    ms, _ = cs.time_ms(lambda: libs["micro"].micro(
-                        which, grad.data_ptr(), r.data_ptr(),
-                        out.data_ptr(), r.numel(), stream()), [()])
-                    print(f"  limit D = {d} {kind}, {order} ({r.numel()} "
-                          f"rows): {ms:.4f} ms", flush=True)
-            del out, walk, distinct, shuffled
-        del d_out, grad
-        torch.cuda.empty_cache()
+            lib_ms = cs.time_ms(lambda: grad.view(n_f * rows, d).index_add_(
+                0, flat, upd), [()]).ms
+            bnd, _ = cs.bound_ms(d_out.numel() * 4 + ids.numel() * 4
+                                 + 2 * uniq * d * 4, 0)
+            print(f"scatter {tag} D = {d}: index_add_ {lib_ms:.4f} ms, bound "
+                  f"{bnd:.4f} ms; plan {eb.bwd_plan(b, n_f, rows, d)}")
+            del upd
+            variants = [("kernel", row_lib)]
+            if d > 1:
+                variants += [(n, libs[f"embedding_bag_{n}"])
+                             for n in SCATTER_VARIANTS]
+            # two rounds in turns, the second in reverse order
+            for rnd in range(2):
+                for name, lib in variants[::1 if rnd == 0 else -1]:
+                    for group in groups if name == "kernel" else groups[:1]:
+                        ms = cs.time_ms(scatter(lib, d_out, ids, grad,
+                                                group), [()]).ms
+                        print(f"  {name} group {group}: {ms:.4f} ms",
+                              flush=True)
+            if d in (1, 32):
+                # the limits, over the same rows: in the kernel's walk order
+                # (feature by feature), the distinct rows sorted and shuffled
+                walk = (ids.long() + (torch.arange(n_f, device=dev) * rows)
+                        .view(1, n_f, 1)).permute(1, 0, 2).reshape(-1) \
+                    .contiguous()
+                distinct = torch.unique(walk)
+                shuffled = distinct[torch.randperm(
+                    distinct.numel(), device=dev, generator=gen)]
+                out = torch.empty((walk.numel() * 32 if d == 32 else 1,),
+                                  device=dev)
+                kinds = (((0, "float4 reductions"), (1, "load-add-store"),
+                          (2, "gather")) if d == 32 else
+                         ((3, "float reductions"),))
+                for order, r in (("walk order", walk), ("distinct sorted",
+                                                         distinct),
+                                 ("distinct shuffled", shuffled)):
+                    for which, kind in kinds:
+                        ms, _, _ = cs.time_ms(lambda: libs["micro"].micro(
+                            which, grad.data_ptr(), r.data_ptr(),
+                            out.data_ptr(), r.numel(), stream()), [()])
+                        print(f"  limit D = {d} {kind}, {order} ({r.numel()} "
+                              f"rows): {ms:.4f} ms", flush=True)
+                del out, walk, distinct, shuffled
+            del d_out, grad
+            torch.cuda.empty_cache()
 
-    # dot_interact_bwd at the DLRM shape, three input sets (85 MB)
-    b, f, d = 2048, MODEL.n_sparse + 1, MODEL.embed_dim
-    p = f * (f - 1) // 2
-    sets = [(torch.randn((b, p), device=dev, generator=gen),
-             torch.randn((b, f, d), device=dev, generator=gen))
-            for _ in range(3)]
-    ii, jj = ref.tril_pairs(f, dev)
-    sym = []
-    for g, x in sets:
-        s = torch.zeros((b, f, f), device=dev)
-        s[:, ii, jj] = g
-        sym.append((s + s.transpose(1, 2), x))
-    out = torch.empty((b, f, d), device=dev)
-    plan = di.bwd_plan(b, f, d)
+    if "dot_bwd" in sections:
+        # dot_interact_bwd at the DLRM shape, three input sets (85 MB)
+        b, f, d = 2048, MODEL.n_sparse + 1, MODEL.embed_dim
+        p = f * (f - 1) // 2
+        sets = [(torch.randn((b, p), device=dev, generator=gen),
+                 torch.randn((b, f, d), device=dev, generator=gen))
+                for _ in range(3)]
+        ii, jj = ref.tril_pairs(f, dev)
+        sym = []
+        for g, x in sets:
+            s = torch.zeros((b, f, f), device=dev)
+            s[:, ii, jj] = g
+            sym.append((s + s.transpose(1, 2), x))
+        out = torch.empty((b, f, d), device=dev)
+        plan = di.bwd_plan(b, f, d)
 
-    def dot(lib, ctas):
-        def call(g, x):
-            status = lib.dot_interact_bwd(
-                g.data_ptr(), x.data_ptr(), out.data_ptr(), b, f, d, 1,
-                plan.warps, ctas, plan.smem, stream())
-            if status != 0:
-                raise RuntimeError(f"dot_interact_bwd: CUDA error {status}")
-        return call
-    variants = [("kernel", LIBRARIES.get("dot_interact"))] + [
-        (n, libs[f"dot_interact_{n}"]) for n in DOT_VARIANTS]
-    print(f"dot_interact_bwd ({b}, {f}, {d}): plan {plan}")
-    for rnd in range(2):
-        bmm_ms, _ = cs.time_ms(torch.bmm, sym)
-        print(f"  bmm {bmm_ms:.4f} ms")
-        for name, lib in variants[::1 if rnd == 0 else -1]:
-            for per_sm in (range(1, 7) if name == "kernel" else (4, 5)):
-                ms, _ = cs.time_ms(dot(lib, di.SMS * per_sm), sets)
-                print(f"  {name} {per_sm} CTAs an SM: {ms:.4f} ms",
-                      flush=True)
+        def dot(lib, ctas):
+            def call(g, x):
+                status = lib.dot_interact_bwd(
+                    g.data_ptr(), x.data_ptr(), out.data_ptr(), b, f, d, 1,
+                    plan.warps, ctas, plan.smem, stream())
+                if status != 0:
+                    raise RuntimeError(f"dot_interact_bwd: CUDA error "
+                                       f"{status}")
+            return call
+        variants = [("kernel", LIBRARIES.get("dot_interact"))] + [
+            (n, libs[f"dot_interact_{n}"]) for n in DOT_VARIANTS]
+        print(f"dot_interact_bwd ({b}, {f}, {d}): plan {plan}")
+        for rnd in range(2):
+            bmm_ms, _, _ = cs.time_ms(torch.bmm, sym)
+            print(f"  bmm {bmm_ms:.4f} ms")
+            for name, lib in variants[::1 if rnd == 0 else -1]:
+                for per_sm in (range(1, 7) if name == "kernel" else (4, 5)):
+                    ms, _, _ = cs.time_ms(dot(lib, di.SMS * per_sm), sets)
+                    print(f"  {name} {per_sm} CTAs an SM: {ms:.4f} ms",
+                          flush=True)
+    if "fused" in sections:
+        probe_fused(cs, libs, wd, cfg, gen)
+    if "dot_fwd" in sections:
+        probe_dot_fwd(cs, libs, MODEL, gen)
+    if "sage" in sections:
+        probe_sage(cs, gen)
+    if "embedding" in sections:
+        probe_embedding(cs, wd, dlrm, MODEL, cfg, gen)
     print(f"card: {cs.card_line()}")
     return 0
 
 
+SECTIONS = ("fused", "dot_fwd", "sage", "embedding", "scatter", "dot_bwd")
+
 if __name__ == "__main__":
-    sys.exit(main())
+    names = sys.argv[3:] if sys.argv[1:2] == ["--src"] else sys.argv[1:]
+    names = names or list(SECTIONS)
+    unknown = set(names) - set(SECTIONS)
+    if unknown:
+        sys.exit(f"kernel_probes: no section {sorted(unknown)}; the sections "
+                 f"are {list(SECTIONS)}")
+    sys.exit(main(names))

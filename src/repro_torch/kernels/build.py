@@ -39,22 +39,26 @@ _I32 = ctypes.c_int32
 SIGNATURES = {
     "embedding_bag": {
         "embedding_bag_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
-                              _I32, _P),
+                              _I32, _I32, _P),
         "embedding_bag_bwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                               _I32, _I32, _I32, _I64, _I64, _I64, _P),
     },
     "embedding_bag_fused": {
         "embedding_bag_fused_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
-                                    _I32, _P),
+                                    _I32, _I32, _I32, _I32, _I32, _I64,
+                                    _P),
     },
     "dot_interact": {
-        "dot_interact_fwd": (_P, _P, _I64, _I32, _I32, _P),
+        "dot_interact_fwd": (_P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                             _I32, _I64, _P),
         "dot_interact_bwd": (_P, _P, _P, _I64, _I32, _I32, _I32, _I32,
                              _I32, _I64, _P),
     },
     "sage_aggregate": {
+        "sage_widen_w": (_P, _P, _I64, _P),
         "sage_aggregate_fwd": (_P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                               _I32, _I32, _I32, _I32, _I32, _I32, _P),
+                               _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                               _P),
         "sage_dw_max_clusters": (_I32, _P),
         "sage_aggregate_bwd": (_P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
                                _I32, _I32, _I32, _I32, _P),

@@ -9,22 +9,47 @@
 // form of `dot_interact` (src/repro/kernels/dot_interact.py:44), and the
 // backward here is that function's transpose.
 //
-// Forward: feats (B, F, D) f32 -> out (B, P) f32, P = F(F-1)/2, pair
-// p = i(i-1)/2 + j for i > j (np.tril_indices(F, -1) order). One warp per
-// sample stages the sample's (F, D) tile in shared memory (27 x 132 x 4 B
-// = 14.3 KB at the DLRM-Criteo widths, rows padded to 132 floats). Each
-// lane then owns a 7 x 4 block of the Gram matrix (rows a, a+4, ..., a+24
-// for a = lane % 4; columns c, c+8, c+16, c+24 for c = lane / 4): per
-// 4-wide step over D it loads 11 float4 and does 112 FMAs, so shared
-// memory, not the FMA pipe, is what a pair of rows costs once. The
-// padding puts the rows one lane group reads in distinct banks. The
-// block covers the full 28 x 32 tile and only the strict lower triangle
-// is stored: no selection matmul, no Gram matrix in device memory, and B
-// needs to divide nothing. Each (i, j) sums d in ascending order.
-// Bound on this card: bytes (about 184 MFLOP against 31 MB at the main
-// path's shapes; the f32 rate is not reached before the memory rate).
+// Forward: feats (B, F, D) f32 or bf16 -> out (B, P) in feats' dtype, P =
+// F(F-1)/2, pair p = i(i-1)/2 + j for i > j (np.tril_indices(F, -1)
+// order); each dot sums d ascending from 0.0f in f32 FMAs and a bf16 out
+// is that f32 rounded to nearest even, as the TPU kernel casts to f32
+// inside and back at the end. Bound by bytes: at the DLRM shape (2048,
+// 27, 128) f32 it reads 28.3 MB and writes 2.9 MB (0.0093 ms at 3.35
+// TB/s) against 92 M FMAs of the 351 pairs. The first version gave a
+// sample a one-warp CTA that staged its tile, then computed a 28 x 32
+// square of dots of which 351 were kept: 2.55x the FMAs, load and compute
+// in series, and B = 2048 CTAs in two waves at 15 a SM, the second of 68.
+// This one:
+//  - Persistent warps. The host plan (dot_interact.py, `fwd_plan`) gives
+//    each warp its own samples (warp w of the grid takes samples w, w + W,
+//    ..., W the warps of the grid) and its own shared memory, and puts as
+//    many warps on an SM as their shared memory allows (8 at the DLRM
+//    shape): one wave, no tail of CTAs.
+//  - The next sample copied while this one is computed: cp.async brings
+//    sample b + W into the warp's second stage (16-byte copies where D %
+//    4 == 0 and feats is 16-byte aligned, else 4-byte ones).
+//  - Only the lower triangle: the F x F products are cut into 4 x 4
+//    blocks, and only the nb (nb + 1) / 2 blocks (I, J) with I >= J are
+//    computed, nb = ceil(F / 4), a lane a block: 448 dots at F = 27 for
+//    the 351 kept (1.28x). A lane reads 4 rows i and 4 rows j per step of
+//    4 in d (8 float4 loads for 64 FMAs).
+//  - Bank-conflict-free reads: the tile's row r lives in slot (r % 4) nb
+//    + r / 4, so the rows that the lanes of a quarter warp read at once
+//    (4I + a for neighbouring I, or 4J + q) are neighbouring slots, and
+//    slots start ld = 4 x odd floats apart (D % 4 == 0; ld odd for the
+//    scalar path), in different banks; lanes of one I share its rows'
+//    addresses (broadcast).
+//  - bf16: cp.async copies the sample's raw bytes (16-, or 4-byte copies
+//    where only those fit; a feats only 2-byte aligned is loaded lane by
+//    lane instead), and the warp widens them once into an f32 tile of the
+//    same layout before it computes. Widening at every read instead would
+//    cost an integer op per element per use (nb uses), on the pipe the
+//    FMAs issue from; once costs F x D per sample, a tenth of the FMAs.
+// No tensor cores: TF32 would break the f32 tolerance (1e-5 against f32
+// cuBLAS), and the kernel is bound by bytes.
 //
-// Backward: dFeats[b] = C_b feats[b], C_b = S + S^T, where S scatters
+// Backward (f32; the wrapper's autograd hands it a bf16 input's d_out and
+// feats in f32): dFeats[b] = C_b feats[b], C_b = S + S^T, where S scatters
 // dOut[b] into the strict lower triangle. Bound by bytes: at the DLRM
 // shape (2048, 27, 128) it reads feats and dOut and writes dFeats, 59.5
 // MB (0.0178 ms at 3.35 TB/s), against 0.38 GFLOP of FMAs (6 us at 67
@@ -55,24 +80,22 @@
 // Every input element is read from device memory once and every output
 // element written once, in both directions.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxSharedBytes = 48 * 1024;
 constexpr int64_t kMaxOptInSharedBytes = 232448;   // a block's, on sm_90
-// forward lane tile: rows a + 4r (r < 7), columns c + 8q (q < 4)
-constexpr int kRowGroups = 4;
-constexpr int kRowsPerLane = 7;
-constexpr int kColGroups = 8;
-constexpr int kColsPerLane = 4;
-constexpr int kTileRows = kRowGroups * kRowsPerLane;   // 28
-constexpr int kTileCols = kColGroups * kColsPerLane;   // 32
 // backward: rows of dFeats a warp, and its coefficient slots (7 + 1 pad)
 constexpr int kBwdRows = 7;
 constexpr int kBwdSlots = 8;
 constexpr int kBwdMaxThreads = 640;          // ceil(128 / 7) warps, rounded
+// forward: a lane's block of the triangle, 4 rows i x 4 rows j
+constexpr int kBlk = 4;
+constexpr int kFwdMaxWarps = 8;           // dot_interact.py FWD_MAX_WARPS
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -85,101 +108,8 @@ __device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
   return fmaf(x.w, y.w, acc);
 }
 
-// Row stride of the staged tile: D + 4 keeps float4 alignment and moves
-// consecutive rows 4 banks apart; D + 1 (scalar path) moves them by one.
-__host__ __device__ __forceinline__ int tile_ld(int D, bool vec) {
-  return vec ? D + 4 : D + 1;
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(32)
-dot_interact_fwd_kernel(const float* __restrict__ feats,
-                        float* __restrict__ out, int F, int D, int P) {
-  extern __shared__ float xs[];                        // (F, ld)
-  const int ld = tile_ld(D, kVec);
-  const int lane = threadIdx.x;
-  const int64_t b = blockIdx.x;
-  const float* x = feats + b * F * D;
-  if (kVec) {
-    const int n4 = F * D / 4;
-    for (int t = lane; t < n4; t += 32) {
-      const int r = (4 * t) / D;
-      *reinterpret_cast<float4*>(xs + r * ld + 4 * t - r * D) =
-          __ldg(reinterpret_cast<const float4*>(x) + t);
-    }
-  } else {
-    for (int t = lane; t < F * D; t += 32) {
-      const int r = t / D;
-      xs[r * ld + t - r * D] = __ldg(x + t);
-    }
-  }
-  __syncwarp();
-  const int a = lane % kRowGroups;
-  const int c = lane / kRowGroups;
-  float* dst = out + b * P;
-  for (int i0 = 0; i0 < F; i0 += kTileRows) {
-    // column tiles that can hold a pair j < i of this row tile
-    for (int j0 = 0; j0 < F && j0 < i0 + kTileRows - 1; j0 += kTileCols) {
-      const float* xi[kRowsPerLane];
-      const float* xj[kColsPerLane];
-#pragma unroll
-      for (int r = 0; r < kRowsPerLane; ++r)
-        xi[r] = xs + min(i0 + a + kRowGroups * r, F - 1) * ld;
-#pragma unroll
-      for (int q = 0; q < kColsPerLane; ++q)
-        xj[q] = xs + min(j0 + c + kColGroups * q, F - 1) * ld;
-      float acc[kRowsPerLane][kColsPerLane];
-#pragma unroll
-      for (int r = 0; r < kRowsPerLane; ++r)
-#pragma unroll
-        for (int q = 0; q < kColsPerLane; ++q) acc[r][q] = 0.f;
-      if (kVec) {
-        for (int d = 0; d < D; d += 4) {
-          float4 vj[kColsPerLane];
-#pragma unroll
-          for (int q = 0; q < kColsPerLane; ++q) vj[q] = ld4(xj[q] + d);
-#pragma unroll
-          for (int r = 0; r < kRowsPerLane; ++r) {
-            const float4 vi = ld4(xi[r] + d);
-#pragma unroll
-            for (int q = 0; q < kColsPerLane; ++q)
-              acc[r][q] = dot4(vi, vj[q], acc[r][q]);
-          }
-        }
-      } else {
-        for (int d = 0; d < D; ++d) {
-          float vj[kColsPerLane];
-#pragma unroll
-          for (int q = 0; q < kColsPerLane; ++q) vj[q] = xj[q][d];
-#pragma unroll
-          for (int r = 0; r < kRowsPerLane; ++r) {
-            const float vi = xi[r][d];
-#pragma unroll
-            for (int q = 0; q < kColsPerLane; ++q)
-              acc[r][q] = fmaf(vi, vj[q], acc[r][q]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerLane; ++r) {
-        const int i = i0 + a + kRowGroups * r;
-#pragma unroll
-        for (int q = 0; q < kColsPerLane; ++q) {
-          const int j = j0 + c + kColGroups * q;
-          if (i < F && j < i) dst[i * (i - 1) / 2 + j] = acc[r][q];
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float4 fma4(float c, float4 v, float4 acc) {
-  return make_float4(fmaf(c, v.x, acc.x), fmaf(c, v.y, acc.y),
-                     fmaf(c, v.z, acc.z), fmaf(c, v.w, acc.w));
-}
-
 template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   if (kBytes == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -199,6 +129,221 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+__device__ __forceinline__ float bf16_bits_to_f32(unsigned short h) {
+  return __bfloat162float(__ushort_as_bfloat16(h));
+}
+
+// The forward's f32 tile of a sample: row r in slot (r % 4) nb + r / 4,
+// nb = ceil(F / 4), so that the rows a quarter warp reads at once (4I + a
+// for a few neighbouring I, or 4J + q) lie in neighbouring slots; slots
+// `fwd_ld` floats apart, ld / 4 odd for float4 reads (D % 4 == 0) or ld
+// odd for scalar ones, so that neighbouring slots start in different
+// banks. The tile holds the slots up to the last row's.
+__host__ __device__ __forceinline__ int fwd_ld(int D) {
+  return D % 4 == 0 ? 4 * ((D / 4) | 1) : (D | 1);
+}
+__host__ __device__ __forceinline__ int fwd_slot(int r, int nb) {
+  return (r % kBlk) * nb + r / kBlk;
+}
+__host__ __device__ __forceinline__ int fwd_slots(int F) {
+  const int nb = (F + kBlk - 1) / kBlk;
+  int n = 0;
+  for (int a = 0; a < kBlk && a < F; ++a) {
+    const int last = a * nb + (F - 1 - a) / kBlk;     // slot of the last row
+    n = last + 1 > n ? last + 1 : n;
+  }
+  return n;
+}
+__host__ __device__ __forceinline__ int fwd_tile_floats(int F, int D) {
+  return round4(fwd_slots(F) * fwd_ld(D));
+}
+// The raw bf16 stage of a sample, in bytes: the (F, D) block as it lies
+// in memory, rounded up to 16 bytes.
+__host__ __device__ __forceinline__ int fwd_raw_bytes(int F, int D) {
+  return (2 * F * D + 15) & ~15;
+}
+// Shared memory of one forward warp: two f32 tiles (f32 feats, copied
+// straight into them), or two raw bf16 stages and one f32 tile (bf16).
+// Mirrored by dot_interact.py's `fwd_warp_smem`.
+__host__ __device__ __forceinline__ int fwd_warp_smem(int F, int D,
+                                                      bool bf16) {
+  return bf16 ? 2 * fwd_raw_bytes(F, D) + 4 * fwd_tile_floats(F, D)
+              : 8 * fwd_tile_floats(F, D);
+}
+
+// Persistent warps; see the header. T the feats' element type, kVec
+// float4 math (D % 4 == 0), kCopy bytes a cp.async (16 or 4), or 0: a
+// bf16 feats only 2-byte aligned, loaded by each lane and widened into
+// the tile without cp.async.
+template <typename T, bool kVec, int kCopy>
+__global__ void __launch_bounds__(32 * kFwdMaxWarps)
+dot_interact_fwd_kernel(const T* __restrict__ feats, T* __restrict__ out,
+                        int64_t B, int F, int D, int P) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char fwd_sm[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ld = fwd_ld(D);
+  const int nb = (F + kBlk - 1) / kBlk;
+  const int tile_floats = fwd_tile_floats(F, D);
+  const int raw_bytes = fwd_raw_bytes(F, D);
+  unsigned char* my = fwd_sm + warp * fwd_warp_smem(F, D, kBf16);
+  // f32: stage s is tile s; bf16: raw stage s, then the one f32 tile
+  float* tile = reinterpret_cast<float*>(my + 2 * raw_bytes);
+  const int64_t fd = static_cast<int64_t>(F) * D;
+
+  // stage `st` <- sample b, one commit group of this warp's copies
+  auto issue = [&](int64_t b, int st) {
+    const T* x = feats + b * fd;
+    if constexpr (!kBf16) {
+      float* xs = reinterpret_cast<float*>(my) + st * tile_floats;
+      for (int r = 0; r < F; ++r) {
+        float* dst = xs + fwd_slot(r, nb) * ld;
+        const float* src = reinterpret_cast<const float*>(x) + r * D;
+        if constexpr (kCopy == 16) {
+          for (int c = 4 * lane; c < D; c += 128)
+            cp_async<16>(dst + c, src + c);
+        } else {
+          for (int c = lane; c < D; c += 32) cp_async<4>(dst + c, src + c);
+        }
+      }
+    } else {
+      unsigned char* raw = my + st * raw_bytes;
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(x);
+      for (int k = kCopy * lane; k < 2 * fd; k += 32 * kCopy)
+        cp_async<kCopy>(raw + k, src + k);
+    }
+    cp_async_commit();
+  };
+
+  const int64_t n_workers =
+      static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
+  int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (kCopy != 0 && b < B) issue(b, 0);
+  const int n_blocks = nb * (nb + 1) / 2;
+  for (int st = 0; b < B; st ^= 1, b += n_workers) {
+    // this sample's stage has landed, and every lane is done with the
+    // stage (and tile) of the sample before
+    if constexpr (kCopy != 0) cp_async_wait_all();
+    __syncwarp();
+    if (kCopy != 0 && b + n_workers < B) issue(b + n_workers, st ^ 1);
+    const float* xs;
+    if constexpr (kBf16) {
+      // widen the bf16 sample into the f32 tile, once
+      if constexpr (kCopy != 0) {
+        const unsigned short* raw =
+            reinterpret_cast<const unsigned short*>(my + st * raw_bytes);
+        if (D % 8 == 0) {
+          // 8 elements a lane: one 16-byte read, two float4 writes
+          for (int r = 0; r < F; ++r) {
+            float* dst = tile + fwd_slot(r, nb) * ld;
+            for (int c = 8 * lane; c < D; c += 256) {
+              const uint4 v = *reinterpret_cast<const uint4*>(raw + r * D + c);
+              const unsigned w[4] = {v.x, v.y, v.z, v.w};
+              float e[8];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                e[2 * k] = __uint_as_float(w[k] << 16);
+                e[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+              }
+              *reinterpret_cast<float4*>(dst + c) =
+                  make_float4(e[0], e[1], e[2], e[3]);
+              *reinterpret_cast<float4*>(dst + c + 4) =
+                  make_float4(e[4], e[5], e[6], e[7]);
+            }
+          }
+        } else {
+          for (int r = 0; r < F; ++r) {
+            float* dst = tile + fwd_slot(r, nb) * ld;
+            for (int c = lane; c < D; c += 32)
+              dst[c] = bf16_bits_to_f32(raw[r * D + c]);
+          }
+        }
+      } else {
+        const unsigned short* g =
+            reinterpret_cast<const unsigned short*>(feats + b * fd);
+        for (int r = 0; r < F; ++r) {
+          float* dst = tile + fwd_slot(r, nb) * ld;
+          for (int c = lane; c < D; c += 32)
+            dst[c] = bf16_bits_to_f32(__ldg(g + r * D + c));
+        }
+      }
+      __syncwarp();
+      xs = tile;
+    } else {
+      xs = reinterpret_cast<const float*>(my) + st * tile_floats;
+    }
+    T* dst = out + b * P;
+    // the blocks (I, J), I >= J, of the triangle in 4 x 4 blocks: block t
+    // = I (I + 1) / 2 + J
+    for (int t = lane; t < n_blocks; t += 32) {
+      int I = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+      while (I * (I + 1) / 2 > t) --I;
+      while ((I + 1) * (I + 2) / 2 <= t) ++I;
+      const int J = t - I * (I + 1) / 2;
+      const float* xi[kBlk];
+      const float* xj[kBlk];
+#pragma unroll
+      for (int a = 0; a < kBlk; ++a) {
+        // rows past F read row F - 1 (their dots are not stored)
+        xi[a] = xs + fwd_slot(min(kBlk * I + a, F - 1), nb) * ld;
+        xj[a] = xs + fwd_slot(min(kBlk * J + a, F - 1), nb) * ld;
+      }
+      float acc[kBlk][kBlk];
+#pragma unroll
+      for (int a = 0; a < kBlk; ++a)
+#pragma unroll
+        for (int q = 0; q < kBlk; ++q) acc[a][q] = 0.f;
+      if constexpr (kVec) {
+        for (int d = 0; d < D; d += 4) {
+          float4 vj[kBlk];
+#pragma unroll
+          for (int q = 0; q < kBlk; ++q) vj[q] = ld4(xj[q] + d);
+#pragma unroll
+          for (int a = 0; a < kBlk; ++a) {
+            const float4 vi = ld4(xi[a] + d);
+#pragma unroll
+            for (int q = 0; q < kBlk; ++q)
+              acc[a][q] = dot4(vi, vj[q], acc[a][q]);
+          }
+        }
+      } else {
+        for (int d = 0; d < D; ++d) {
+          float vj[kBlk];
+#pragma unroll
+          for (int q = 0; q < kBlk; ++q) vj[q] = xj[q][d];
+#pragma unroll
+          for (int a = 0; a < kBlk; ++a) {
+            const float vi = xi[a][d];
+#pragma unroll
+            for (int q = 0; q < kBlk; ++q)
+              acc[a][q] = fmaf(vi, vj[q], acc[a][q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kBlk; ++a) {
+        const int i = kBlk * I + a;
+        if (i >= F) break;
+        T* row = dst + i * (i - 1) / 2;
+#pragma unroll
+        for (int q = 0; q < kBlk; ++q) {
+          const int j = kBlk * J + q;
+          if (j < i) {
+            if constexpr (kBf16) row[j] = __float2bfloat16_rn(acc[a][q]);
+            else row[j] = acc[a][q];
+          }
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float4 fma4(float c, float4 v, float4 acc) {
+  return make_float4(fmaf(c, v.x, acc.x), fmaf(c, v.y, acc.y),
+                     fmaf(c, v.z, acc.z), fmaf(c, v.w, acc.w));
+}
 
 // Floats of one stage of the ring: the feats tile (F, D), then the dOut
 // row (P), each rounded up to a multiple of 4 floats.
@@ -324,29 +469,74 @@ dot_interact_bwd_kernel(const float* __restrict__ d_out,
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
+
+bool aligned16(const void* p) { return aligned(p, 16); }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Each launches on `stream` and returns
-// cudaGetLastError() of the launch (0 = launched). The forward refuses a
-// tile over the 48 KB shared-memory window with cudaErrorInvalidValue.
-extern "C" int dot_interact_fwd(const float* feats, float* out, int64_t B,
-                                int32_t F, int32_t D, void* stream) {
+// cudaGetLastError() of the launch (0 = launched).
+//
+// The forward launches the host plan (dot_interact.py, `fwd_plan`): feats
+// and out f32 (`bf16` 0) or bf16 (1); `copy` bytes a cp.async (16: D % 4
+// == 0 for f32, F D % 8 == 0 for bf16, feats 16-byte aligned; 4: f32, or
+// bf16 with F D even and feats 4-byte aligned; 0: bf16 loaded lane by
+// lane); `ctas` CTAs of `warps` persistent warps with `smem` bytes of
+// shared memory each. A plan that does not fit the call returns
+// cudaErrorInvalidValue without launching.
+extern "C" int dot_interact_fwd(const void* feats, void* out, int64_t B,
+                                int32_t F, int32_t D, int32_t bf16,
+                                int32_t copy, int32_t warps, int32_t ctas,
+                                int64_t smem, void* stream) {
   if (B == 0 || F < 2) return 0;
-  const bool vec = D % 4 == 0 && aligned16(feats);
-  const size_t smem = sizeof(float) * static_cast<size_t>(F) * tile_ld(D, vec);
-  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t fd = static_cast<int64_t>(F) * D;
+  const bool copy_ok =
+      copy == 16 ? fd % (bf16 ? 8 : 4) == 0 && D % (bf16 ? 1 : 4) == 0 &&
+                       aligned(feats, 16)
+      : copy == 4 ? !bf16 || (fd % 2 == 0 && aligned(feats, 4))
+      : copy == 0 && bf16;
+  if (!copy_ok || D < 1 || warps < 1 || warps > kFwdMaxWarps || ctas < 1 ||
+      smem < static_cast<int64_t>(warps) * fwd_warp_smem(F, D, bf16) ||
+      smem > kMaxOptInSharedBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int P = F * (F - 1) / 2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    dot_interact_fwd_kernel<true><<<static_cast<unsigned>(B), 32, smem, s>>>(
-        feats, out, F, D, P);
+  const bool vec = D % 4 == 0;
+  void (*kernel)(const float*, float*, int64_t, int, int, int) = nullptr;
+  void (*kernel16)(const __nv_bfloat16*, __nv_bfloat16*, int64_t, int, int,
+                   int) = nullptr;
+  if (!bf16) {
+    kernel = copy == 16 ? dot_interact_fwd_kernel<float, true, 16>
+             : vec      ? dot_interact_fwd_kernel<float, true, 4>
+                        : dot_interact_fwd_kernel<float, false, 4>;
+  } else if (vec) {
+    kernel16 = copy == 16 ? dot_interact_fwd_kernel<__nv_bfloat16, true, 16>
+               : copy == 4 ? dot_interact_fwd_kernel<__nv_bfloat16, true, 4>
+                           : dot_interact_fwd_kernel<__nv_bfloat16, true, 0>;
   } else {
-    dot_interact_fwd_kernel<false><<<static_cast<unsigned>(B), 32, smem, s>>>(
-        feats, out, F, D, P);
+    kernel16 = copy == 16 ? dot_interact_fwd_kernel<__nv_bfloat16, false, 16>
+               : copy == 4 ? dot_interact_fwd_kernel<__nv_bfloat16, false, 4>
+                           : dot_interact_fwd_kernel<__nv_bfloat16, false, 0>;
+  }
+  const void* fn = bf16 ? reinterpret_cast<const void*>(kernel16)
+                        : reinterpret_cast<const void*>(kernel);
+  if (smem > kMaxSharedBytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    kernel16<<<ctas, 32 * warps, static_cast<size_t>(smem), s>>>(
+        static_cast<const __nv_bfloat16*>(feats),
+        static_cast<__nv_bfloat16*>(out), B, F, D, P);
+  } else {
+    kernel<<<ctas, 32 * warps, static_cast<size_t>(smem), s>>>(
+        static_cast<const float*>(feats), static_cast<float*>(out), B, F, D,
+        P);
   }
   return static_cast<int>(cudaGetLastError());
 }

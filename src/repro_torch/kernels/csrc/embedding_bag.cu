@@ -10,9 +10,11 @@
 // whose transpose is a dense (F, V, D) scatter-add. Both directions live
 // here.
 //
-// Layout: tables (F, V, D) f32, ids (B, F, bag) int32, out (B, F, D) f32.
-// F*V*D exceeds 2^31 at the DLRM-Criteo widths (26 x 2^20 x 128), so every
-// offset into the tables is 64-bit.
+// Layout: tables (F, V, D) f32 or bf16 (the forward; the TPU kernel takes
+// both and sums in f32), ids (B, F, bag) int32, out (B, F, D) f32; the
+// backward is f32 throughout (the TPU kernel has none). F*V*D exceeds
+// 2^31 at the DLRM-Criteo widths (26 x 2^20 x 128), so every offset into
+// the tables is 64-bit.
 //
 // Forward, bound on this card by bytes. Each output row reads `bag` table
 // rows and writes one, a handful of adds per byte. The design keeps the
@@ -20,7 +22,11 @@
 // lane holding one float4 column slice (D = 128 is exactly 32 lanes x 4
 // floats), and the bag loop unrolled so the `bag` row loads are in flight
 // together. The sum runs j ascending from 0.0f, so the f32 result is
-// bit-equal to the plain PyTorch version (a left fold over j).
+// bit-equal to the plain PyTorch version (a left fold over j). A bf16
+// table is loaded as bf16 (16-byte loads of 8 where D % 8 == 0 and the
+// pointer allows, 4-byte loads of 2 where D is even, else one at a time),
+// widened to f32 in registers (exact) and summed in f32 as above: one
+// template on the element type, the f32 instantiation unchanged.
 //
 // Backward, bound by bytes on paper: d_out and ids read once, each
 // distinct gradient row read and written once (the atomics'
@@ -67,6 +73,7 @@
 // An id outside [0, V) reads nothing and poisons its output row with NaN
 // (the fill semantics of jnp.take); in the backward it adds nothing.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -82,9 +89,48 @@ __device__ __forceinline__ bool valid_id(int32_t id, int64_t V) {
   return id >= 0 && static_cast<int64_t>(id) < V;
 }
 
-template <bool kVec>
+// N bf16 at p (aligned to their 2 N bytes: 2, 4 or 16), widened to f32
+// in registers: each one's 16 bits moved to the top of an f32 (exact)
+template <int kBytes> struct Bits;
+template <> struct Bits<2> { using T = unsigned short; };
+template <> struct Bits<4> { using T = unsigned int; };
+template <> struct Bits<16> { using T = uint4; };
+
+template <int N>
+__device__ __forceinline__ void ldg_bf16(const __nv_bfloat16* p,
+                                         float (&v)[N]) {
+  using R = typename Bits<2 * N>::T;
+  union { R r; unsigned short e[N]; } u;
+  u.r = __ldg(reinterpret_cast<const R*>(p));
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    v[i] = __bfloat162float(__ushort_as_bfloat16(u.e[i]));
+}
+
+// N f32 values to p (aligned to 4 N bytes, or 16 for N = 8)
+template <int N>
+__device__ __forceinline__ void st_f32(float* p, const float (&v)[N]) {
+  if constexpr (N == 1) {
+    *p = v[0];
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  }
+}
+
+// T is the tables' element type (float or __nv_bfloat16); VEC elements a
+// load: 16 bytes (4 floats, 8 bf16) where D allows it and the tables are
+// 16-byte aligned, 2 bf16 where D is even and they are 4-byte aligned,
+// else 1. The f32 body is the f32-only kernel's that came before (float4
+// or float loads and sums; a generic body measured 17% slower at D = 32,
+// PERF.md); the bf16 body widens each load's elements in registers.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-embedding_bag_fwd_kernel(const float* __restrict__ tables,
+embedding_bag_fwd_kernel(const T* __restrict__ tables,
                          const int32_t* __restrict__ ids,
                          float* __restrict__ out, int64_t rows, int64_t F,
                          int64_t V, int64_t D, int bag, int mean) {
@@ -94,10 +140,10 @@ embedding_bag_fwd_kernel(const float* __restrict__ tables,
   if (row >= rows) return;
   const int64_t f = row % F;
   const int32_t* row_ids = ids + row * bag;
-  const float* table = tables + f * V * D;
+  const T* table = tables + f * V * D;
   float* dst = out + row * D;
   const float nan = __int_as_float(0x7fc00000);
-  if (kVec) {
+  if constexpr (sizeof(T) == 4 && VEC == 4) {
     const int64_t d4 = D / 4;
     for (int64_t c = lane; c < d4; c += 32) {
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -125,16 +171,42 @@ embedding_bag_fwd_kernel(const float* __restrict__ tables,
       }
       reinterpret_cast<float4*>(dst)[c] = acc;
     }
-  } else {
+  } else if constexpr (sizeof(T) == 4) {
     for (int64_t d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < bag; ++j) {
         const int32_t id = __ldg(row_ids + j);
-        acc += valid_id(id, V) ? __ldg(table + static_cast<int64_t>(id) * D + d)
-                               : nan;
+        acc += valid_id(id, V)
+                   ? __ldg(table + static_cast<int64_t>(id) * D + d)
+                   : nan;
       }
       if (mean) acc /= static_cast<float>(bag);
       dst[d] = acc;
+    }
+  } else {
+    for (int64_t c = lane; c < D / VEC; c += 32) {
+      float acc[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < bag; ++j) {
+        const int32_t id = __ldg(row_ids + j);
+        float r[VEC];
+        if (valid_id(id, V)) {
+          ldg_bf16<VEC>(table + static_cast<int64_t>(id) * D + c * VEC, r);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) r[k] = nan;
+        }
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] += r[k];
+      }
+      if (mean) {
+        const float n = static_cast<float>(bag);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] /= n;
+      }
+      st_f32<VEC>(dst + c * VEC, acc);
     }
   }
 }
@@ -285,9 +357,11 @@ embedding_bag_bwd_kernel(const float* __restrict__ d_out,
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
+
+bool aligned16(const void* p) { return aligned(p, 16); }
 
 template <bool kVec>
 void launch_bwd(dim3 grid, cudaStream_t s, const float* d_out,
@@ -307,27 +381,44 @@ void launch_bwd(dim3 grid, cudaStream_t s, const float* d_out,
   }
 }
 
+template <typename T, int VEC>
+void launch_fwd(const void* tables, const int32_t* ids, float* out,
+                int64_t rows, int64_t F, int64_t V, int64_t D, int bag,
+                int mean, cudaStream_t s) {
+  const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  embedding_bag_fwd_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads,
+                                     0, s>>>(static_cast<const T*>(tables),
+                                             ids, out, rows, F, V, D, bag,
+                                             mean);
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. Each launches on `stream` and returns
-// cudaGetLastError() of the launch (0 = launched).
-extern "C" int embedding_bag_fwd(const float* tables, const int32_t* ids,
+// cudaGetLastError() of the launch (0 = launched). The forward's tables
+// are f32 (`bf16` 0) or bf16 (`bf16` 1); its output is f32 either way.
+extern "C" int embedding_bag_fwd(const void* tables, const int32_t* ids,
                                  float* out, int64_t B, int64_t F, int64_t V,
                                  int64_t D, int32_t bag, int32_t mean,
-                                 void* stream) {
+                                 int32_t bf16, void* stream) {
   const int64_t rows = B * F;
   if (rows == 0 || D == 0) return 0;
-  const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D % 4 == 0 && aligned16(tables) && aligned16(out)) {
-    embedding_bag_fwd_kernel<true><<<static_cast<unsigned>(blocks), kThreads,
-                                     0, s>>>(tables, ids, out, rows, F, V, D,
-                                             bag, mean);
+  if (!bf16) {
+    if (D % 4 == 0 && aligned16(tables) && aligned16(out)) {
+      launch_fwd<float, 4>(tables, ids, out, rows, F, V, D, bag, mean, s);
+    } else {
+      launch_fwd<float, 1>(tables, ids, out, rows, F, V, D, bag, mean, s);
+    }
+  } else if (D % 8 == 0 && aligned16(tables) && aligned16(out)) {
+    launch_fwd<__nv_bfloat16, 8>(tables, ids, out, rows, F, V, D, bag, mean,
+                                 s);
+  } else if (D % 2 == 0 && aligned(tables, 4) && aligned(out, 8)) {
+    launch_fwd<__nv_bfloat16, 2>(tables, ids, out, rows, F, V, D, bag, mean,
+                                 s);
   } else {
-    embedding_bag_fwd_kernel<false><<<static_cast<unsigned>(blocks),
-                                      kThreads, 0, s>>>(tables, ids, out,
-                                                        rows, F, V, D, bag,
-                                                        mean);
+    launch_fwd<__nv_bfloat16, 1>(tables, ids, out, rows, F, V, D, bag, mean,
+                                 s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,9 +7,12 @@
 // (tile_b, D) aggregate never reaches HBM; B must divide by tile_b. The
 // TPU kernel has no backward.
 //
-// Forward: neigh (B, F, D) f32, w (D, H) f32 -> out (B, H) f32,
+// Forward: neigh (B, F, D), w (D, H), each f32 or bf16 (the TPU kernel
+// casts both to f32 inside) -> out (B, H) in neigh's dtype,
 // out[b] = (sum_f neigh[b, f] / F) @ w: a GEMM (M = B, K = D, N = H) whose
-// A operand is made on the fly. Bound by bytes: at the main shape, neigh2
+// A operand is made on the fly. The mean and the product are f32 for
+// either dtype and a bf16 out is their f32 result rounded to nearest
+// even; the saved aggregate is f32. Bound by bytes: at the main shape, neigh2
 // (15360, 10, 602) x (602, 128), it reads 369.9 MB of neigh and writes
 // 7.9 MB of out (+ 37.0 MB of aggregate when training), about 0.113 ms
 // (0.124 ms) at 3.35 TB/s against 2.46 GFLOP, 0.037 ms at 67 TFLOP/s.
@@ -40,15 +43,25 @@
 //    by bytes.
 //  - Alignment. A row of D = 602 floats is 2408 bytes, 8- but not 16-byte
 //    aligned, so neigh is loaded as the widest vectors that divide both a
-//    row and the base pointer (the host plan picks 4, 2 or 1 floats); any
-//    contiguous f32 tensor is taken. The saved aggregate's rows are padded
-//    to a multiple of 4 floats (604 at D = 602) so that d_w copies them 16
-//    bytes at a time. The ragged edge (rows past a range, d past D, columns
-//    past H) is masked or zero-filled, never refused.
+//    row and the base pointer, counted in bytes (the host plan picks 16,
+//    8 or 4 bytes of f32, 16, 4 or 2 of bf16: a bf16 row of 602 is 1204
+//    bytes, 4-byte loads); any contiguous tensor is taken. The saved
+//    aggregate's rows are padded to a multiple of 4 floats (604 at D =
+//    602) so that d_w copies them 16 bytes at a time. The ragged edge
+//    (rows past a range, d past D, columns past H) is masked or
+//    zero-filled, never refused.
+//  - bf16: the loaders keep a load's raw bits in registers until its add
+//    and widen them there (exact), 32 bytes a thread in flight per value
+//    of f as in f32. A bf16 w is widened to f32 first by a kernel of its
+//    own (`sage_widen_w`, launched and counted by the wrapper; cp.async
+//    cannot widen, and widening it slice by slice in the multipliers'
+//    registers was twice as slow, PERF.md), so the tiles, the ring and
+//    the product are the f32 kernel's.
 //  Staging neigh in a shared-memory ring (cp.async or 1-D bulk copies)
 //  was measured slower than loading it into registers (PERF.md).
 //
-// Backward, two parts, each only when its input needs a gradient:
+// Backward (f32; for bf16 inputs ops.py hands it d_out and w in f32),
+// two parts, each only when its input needs a gradient:
 //  - d_w (D, H) = agg^T d_out, a reduction over all B rows, bound by f32
 //    operations (2.37 GFLOP, 0.035 ms, against 45 MB at the main shape).
 //    A CTA owns a 128 x 128 tile of d_w (an 8 x 8 register tile a thread,
@@ -72,6 +85,7 @@
 // The versions before this one, and their times, are in PERF.md.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -167,67 +181,88 @@ __host__ __device__ __forceinline__ size_t fwd_smem(int R, int bufs, int D,
           static_cast<size_t>(stages) * fwd_slot(H));
 }
 
-template <int VEC> struct Vec;
-template <> struct Vec<1> {
-  using T = float;
-  static __device__ __forceinline__ T load(const float* p) {
-    return __ldg(p);
-  }
-  static __device__ __forceinline__ void add(T& s, T v) { s += v; }
-  static __device__ __forceinline__ float get(const T& v, int) { return v; }
+// N elements of T loaded as one access of N * sizeof(T) bytes (f32 as
+// float, float2 or float4; bf16 as raw bits of 2, 4 or 16 bytes), and
+// their widening to f32 in registers: f32 as it is, bf16 by its 16 bits
+// moved to the top of an f32 (exact).
+template <int kBytes> struct Bits;
+template <> struct Bits<2> { using T = unsigned short; };
+template <> struct Bits<4> { using T = unsigned int; };
+template <> struct Bits<8> { using T = uint2; };
+template <> struct Bits<16> { using T = uint4; };
+
+template <int N> struct Floats;
+template <> struct Floats<1> { using T = float; };
+template <> struct Floats<2> { using T = float2; };
+template <> struct Floats<4> { using T = float4; };
+
+// f32: the float, float2 or float4 itself; bf16: N elements' raw bits
+template <typename T, int N> struct RawType {
+  using R = typename Bits<N * sizeof(T)>::T;
 };
-template <> struct Vec<2> {
-  using T = float2;
-  static __device__ __forceinline__ T load(const float* p) {
-    return __ldg(reinterpret_cast<const float2*>(p));
-  }
-  static __device__ __forceinline__ void add(T& s, T v) {
-    s.x += v.x;
-    s.y += v.y;
-  }
-  static __device__ __forceinline__ float get(const T& v, int j) {
-    return j == 0 ? v.x : v.y;
-  }
+template <int N> struct RawType<float, N> {
+  using R = typename Floats<N>::T;
 };
-template <> struct Vec<4> {
-  using T = float4;
-  static __device__ __forceinline__ T load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
+
+template <typename T, int N>
+struct Raw {
+  using R = typename RawType<T, N>::R;
+  static __device__ __forceinline__ R load(const T* p) {
+    return __ldg(reinterpret_cast<const R*>(p));
   }
-  static __device__ __forceinline__ void add(T& s, T v) {
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  static __device__ __forceinline__ float get(const T& v, int j) {
-    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+  static __device__ __forceinline__ void widen(const R& r, float (&v)[N]) {
+    if constexpr (sizeof(T) == 4) {
+      if constexpr (N == 1) {
+        v[0] = r;
+      } else if constexpr (N == 2) {
+        v[0] = r.x;
+        v[1] = r.y;
+      } else {
+        v[0] = r.x;
+        v[1] = r.y;
+        v[2] = r.z;
+        v[3] = r.w;
+      }
+    } else {
+      union { R r; unsigned short e[N]; } u;
+      u.r = r;
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        v[i] = __bfloat162float(__ushort_as_bfloat16(u.e[i]));
+    }
   }
 };
 
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (sizeof(T) == 4) return x;
+  else return __float2bfloat16_rn(x);
+}
+
 // The loaders' part of a tile: the mean over f of rows row0 .. row0 + rows,
 // read from neigh straight into registers (each loader thread kBatch
-// vectors of VEC values of d at a time, the loads of kFUnroll values of f
-// issued before their adds), f ascending in f32 from neigh[b, 0], then an
-// IEEE division by F (bit-equal to ref.sage_mean_ref), into the tile
-// `a_t` (R, lda) and, when training, the saved aggregate.
-template <int R, int VEC>
-__device__ __forceinline__ void load_tile(const float* __restrict__ neigh,
+// vectors of VEC elements of d at a time, 32 bytes, the loads of kFUnroll
+// values of f issued before their adds, kept as raw bits until the add),
+// f ascending in f32 from neigh[b, 0], then an IEEE division by F
+// (bit-equal to ref.sage_mean_ref), into the tile `a_t` (R, lda) and,
+// when training, the saved aggregate.
+template <typename T, int R, int VEC>
+__device__ __forceinline__ void load_tile(const T* __restrict__ neigh,
                                           float* a_t, float* agg_out,
                                           int64_t row0, int rows, int F,
                                           int D, int lda, int ld_agg,
                                           int ltid) {
-  using V = Vec<VEC>;
-  constexpr int kBatch = 8 / VEC;
+  using L = Raw<T, VEC>;
+  constexpr int kBatch = 32 / static_cast<int>(sizeof(T)) / VEC;
   constexpr int kFUnroll = 5;
   const int dv = D / VEC;
   const int n_vec = rows * dv;
   const int64_t fd = static_cast<int64_t>(F) * D;
-  const float* base = neigh + row0 * fd;
+  const T* base = neigh + row0 * fd;
   const float f_div = static_cast<float>(F);
   for (int v0 = 0; v0 < n_vec; v0 += kLoaders * kBatch) {
     int64_t off[kBatch];
-    typename V::T s[kBatch];
+    float s[kBatch][VEC];
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
       const int v = v0 + (ltid / 32) * 32 * kBatch + 32 * i + ltid % 32;
@@ -239,21 +274,26 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ neigh,
     // adds; the first group starts each sum at f = 0
     for (int f = 0; f < F; f += kFUnroll) {
       const int nf = F - f < kFUnroll ? F - f : kFUnroll;
-      typename V::T x[kFUnroll][kBatch];
+      typename L::R x[kFUnroll][kBatch];
 #pragma unroll
       for (int u = 0; u < kFUnroll; ++u) {
         const int64_t fo = static_cast<int64_t>(f + u) * D;
 #pragma unroll
         for (int i = 0; i < kBatch; ++i)
-          if (u < nf && off[i] >= 0) x[u][i] = V::load(base + off[i] + fo);
+          if (u < nf && off[i] >= 0) x[u][i] = L::load(base + off[i] + fo);
       }
 #pragma unroll
       for (int u = 0; u < kFUnroll; ++u)
 #pragma unroll
         for (int i = 0; i < kBatch; ++i) {
           if (u >= nf || off[i] < 0) continue;
-          if (f + u == 0) s[i] = x[u][i];
-          else V::add(s[i], x[u][i]);
+          float e[VEC];
+          L::widen(x[u][i], e);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            if (f + u == 0) s[i][j] = e[j];
+            else s[i][j] += e[j];
+          }
         }
     }
 #pragma unroll
@@ -264,7 +304,7 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ neigh,
       const int d = (v - r * dv) * VEC;
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        const float a = V::get(s[i], j) / f_div;
+        const float a = s[i][j] / f_div;
         a_t[r * lda + d + j] = a;
         if (agg_out != nullptr) agg_out[(row0 + r) * ld_agg + d + j] = a;
       }
@@ -274,12 +314,13 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ neigh,
   for (int i = rows * lda + ltid; i < R * lda; i += kLoaders) a_t[i] = 0.f;
 }
 
-// See the header. R rows a tile (32, or 8 where a CTA has fewer), VEC
-// floats a load of neigh, WVEC whether w's rows are 16-byte aligned.
-template <int R, int VEC, bool WVEC>
+// See the header. T neigh's and out's element type (float or
+// __nv_bfloat16), R rows a tile (32, or 8 where a CTA has fewer), VEC
+// elements a load of neigh, WVEC whether w's rows are 16-byte aligned.
+template <typename T, int R, int VEC, bool WVEC>
 __global__ void __launch_bounds__(kLoaders + kMults, 1)
-sage_fwd_kernel(const float* __restrict__ neigh, const float* __restrict__ w,
-                float* __restrict__ out, float* __restrict__ agg_out,
+sage_fwd_kernel(const T* __restrict__ neigh, const float* __restrict__ w,
+                T* __restrict__ out, float* __restrict__ agg_out,
                 int64_t B, int F, int D, int H, int ld_agg, int bufs,
                 int stages) {
   // multipliers: R = 32, each warp all of a slice's kWRows rows of w for
@@ -315,7 +356,7 @@ sage_fwd_kernel(const float* __restrict__ neigh, const float* __restrict__ w,
       const int64_t row0 = row_begin + static_cast<int64_t>(t) * R;
       const int rows = static_cast<int>(row_end - row0 < R ? row_end - row0
                                                             : R);
-      load_tile<R, VEC>(neigh, agg_s + b * R * lda,
+      load_tile<T, R, VEC>(neigh, agg_s + b * R * lda,
                         blockIdx.y == 0 ? agg_out : nullptr, row0, rows, F,
                         D, lda, ld_agg, tid);
       bar_arrive(kBarFull + b, kAll);
@@ -432,7 +473,7 @@ sage_fwd_kernel(const float* __restrict__ neigh, const float* __restrict__ w,
         const float sum = ((red[e] + red[8 * kCols + e]) +
                            red[16 * kCols + e]) + red[24 * kCols + e];
         if (tile0 + r < row_end && h < cols)
-          out[(tile0 + r) * H + col0 + h] = sum;
+          out[(tile0 + r) * H + col0 + h] = from_f32<T>(sum);
       }
     } else {
 #pragma unroll
@@ -442,7 +483,7 @@ sage_fwd_kernel(const float* __restrict__ neigh, const float* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int h = 4 * tx + (j / 4) * 64 + j % 4;
-          if (h < cols) out[row * H + col0 + h] = acc[i][j];
+          if (h < cols) out[row * H + col0 + h] = from_f32<T>(acc[i][j]);
         }
       }
     }
@@ -705,17 +746,28 @@ cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid,
 
 constexpr size_t kDwSmem = sizeof(float) * kDwStages * 2 * kDwRows * kDwTile;
 
-template <int R, int VEC, bool WVEC>
+// w (n bf16) widened into w32 (n floats), 4 elements a thread
+__global__ void __launch_bounds__(256)
+widen_w_kernel(const __nv_bfloat16* __restrict__ w, float* __restrict__ w32,
+               int64_t n) {
+  const int64_t i = 4 * (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (i + k < n) w32[i + k] = __bfloat162float(w[i + k]);
+}
+
+template <typename T, int R, int VEC, bool WVEC>
 cudaError_t launch_fwd(dim3 grid, size_t smem, cudaStream_t s,
-                       const float* neigh, const float* w, float* out,
+                       const void* neigh, const float* w, void* out,
                        float* agg, int64_t B, int F, int D, int H, int ld_agg,
                        int bufs, int stages) {
   cudaError_t err = cudaFuncSetAttribute(
-      sage_fwd_kernel<R, VEC, WVEC>,
+      sage_fwd_kernel<T, R, VEC, WVEC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  sage_fwd_kernel<R, VEC, WVEC><<<grid, kLoaders + kMults, smem, s>>>(
-      neigh, w, out, agg, B, F, D, H, ld_agg, bufs, stages);
+  sage_fwd_kernel<T, R, VEC, WVEC><<<grid, kLoaders + kMults, smem, s>>>(
+      static_cast<const T*>(neigh), w, static_cast<T*>(out), agg, B, F, D, H,
+      ld_agg, bufs, stages);
   return cudaGetLastError();
 }
 
@@ -753,39 +805,66 @@ extern "C" int sage_dw_max_clusters(int32_t cluster, int32_t* n) {
   return static_cast<int>(err);
 }
 
+// w32 (n floats) = w (n bf16), widened (exact): the f32 w that
+// sage_aggregate_fwd reads for a bf16 w.
+extern "C" int sage_widen_w(const void* w, float* w32, int64_t n,
+                            void* stream) {
+  if (n == 0) return 0;
+  if (n < 0 || !aligned(w, 2) || !aligned(w32, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  widen_w_kernel<<<blocks(n, 4 * 256), 256, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(w), w32, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out (B, H) = mean_f(neigh) @ w over `ctas` x ceil(H / 128) CTAs of
 // tiles of `rows` rows (8 or 32) in `bufs` (1 or 2) buffers, a ring of
-// `stages` slices of w and loads of `vec` floats of neigh (4, 2 or 1;
-// D % vec == 0 and neigh vec-float aligned); `agg` (B rows of ld_agg
-// floats) receives the aggregate when it is not null.
-extern "C" int sage_aggregate_fwd(const float* neigh, const float* w,
-                                  float* out, float* agg, int64_t B,
+// `stages` slices of w and loads of `vec` elements of neigh; neigh and
+// out f32 (`neigh_bf16` 0) or bf16 (1); vec 4, 2 or 1 for f32, 8, 2 or 1
+// for bf16 (16-, 4- or 2-byte loads of bf16), D % vec == 0 and neigh
+// aligned to a load; `agg` (B rows of ld_agg floats) receives the f32
+// aggregate when it is not null. w is f32 (a bf16 w is widened first by
+// sage_widen_w).
+extern "C" int sage_aggregate_fwd(const void* neigh, const float* w,
+                                  void* out, float* agg, int64_t B,
                                   int32_t F, int32_t D, int32_t H,
                                   int32_t ld_agg, int32_t rows, int32_t bufs,
                                   int32_t ctas, int32_t stages, int32_t vec,
-                                  void* stream) {
+                                  int32_t neigh_bf16, void* stream) {
   if (B == 0 || H == 0) return 0;
+  const int elem = neigh_bf16 ? 2 : 4;
+  const bool vec_ok = neigh_bf16 ? (vec == 8 || vec == 2 || vec == 1)
+                                 : (vec == 4 || vec == 2 || vec == 1);
   if (F < 1 || D < 1 || (rows != 8 && rows != 32) ||
       (bufs != 1 && bufs != 2) || ctas < 1 || ctas > B || stages < 2 ||
-      stages > kMaxStages || (vec != 1 && vec != 2 && vec != 4) ||
-      D % vec != 0 || !aligned(neigh, 4 * vec) ||
+      stages > kMaxStages || !vec_ok || D % vec != 0 ||
+      !aligned(neigh, elem * vec) || !aligned(w, 4) ||
       (agg != nullptr && ld_agg < D))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem(rows, bufs, D, H, stages);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(ctas, blocks(H, kCols));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wvec = H % 4 == 0 && aligned(w, 16);
-#define SAGE_FWD(R_, V_)                                                   \
-  if (rows == R_ && vec == V_)                                             \
-    return static_cast<int>(                                               \
-        wvec ? launch_fwd<R_, V_, true>(grid, smem, s, neigh, w, out, agg, \
-                                        B, F, D, H, ld_agg, bufs, stages)  \
-             : launch_fwd<R_, V_, false>(grid, smem, s, neigh, w, out,     \
-                                         agg, B, F, D, H, ld_agg, bufs,    \
-                                         stages));
-  SAGE_FWD(32, 4) SAGE_FWD(32, 2) SAGE_FWD(32, 1)
-  SAGE_FWD(8, 4) SAGE_FWD(8, 2) SAGE_FWD(8, 1)
+  const float* wf = w;
+  const dim3 grid(ctas, blocks(H, kCols));
+  const bool wvec = H % 4 == 0 && aligned(wf, 16);
+#define SAGE_FWD(T_, R_, V_)                                                \
+  if (rows == R_ && vec == V_)                                              \
+    return static_cast<int>(                                                \
+        wvec ? launch_fwd<T_, R_, V_, true>(grid, smem, s, neigh, wf, out,  \
+                                            agg, B, F, D, H, ld_agg, bufs,  \
+                                            stages)                         \
+             : launch_fwd<T_, R_, V_, false>(grid, smem, s, neigh, wf, out, \
+                                             agg, B, F, D, H, ld_agg, bufs, \
+                                             stages));
+  if (neigh_bf16) {
+    SAGE_FWD(__nv_bfloat16, 32, 8) SAGE_FWD(__nv_bfloat16, 32, 2)
+    SAGE_FWD(__nv_bfloat16, 32, 1) SAGE_FWD(__nv_bfloat16, 8, 8)
+    SAGE_FWD(__nv_bfloat16, 8, 2) SAGE_FWD(__nv_bfloat16, 8, 1)
+  } else {
+    SAGE_FWD(float, 32, 4) SAGE_FWD(float, 32, 2) SAGE_FWD(float, 32, 1)
+    SAGE_FWD(float, 8, 4) SAGE_FWD(float, 8, 2) SAGE_FWD(float, 8, 1)
+  }
 #undef SAGE_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

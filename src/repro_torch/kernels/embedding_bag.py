@@ -6,11 +6,13 @@ the Pallas TPU kernel `repro/kernels/embedding_bag.py::embedding_bag`
 `embedding_bag_fused_fwd` (csrc/embedding_bag_fused.cu) replaces
 `embedding_bag_fused` (pallas_call at :135), the resident-table variant
 for small tables and bags. See the sources for the designs; all are
-bound by bytes.
+bound by bytes. The forwards take f32 or bf16 tables, as the TPU
+kernels do, and return f32; the backward is f32.
 
-The backward's launch is a plan computed here, in plain Python that the
-CPU tests reach (`bwd_plan`: floats an atomic, threads a row, the
-feature groups of its walk).
+The launches of the fused forward and of the backward are plans
+computed here, in plain Python that the CPU tests reach (`fused_plan`:
+elements a load, threads a row, the feature groups of its walk; `bwd_plan`: floats an atomic, threads a row, the feature
+groups of its walk).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
@@ -21,6 +23,7 @@ for CPU tensors.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -80,11 +83,64 @@ def bwd_plan(b: int, f: int, v: int, d: int, aligned: bool = True
                    _cdiv(b * min(group, f) * lanes, BWD_THREADS))
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
+# the fused forward (csrc/embedding_bag_fused.cu): blocks of 256 threads;
+# the walk in groups of features whose tables fit 16 MiB of the 50 MB L2
+# (at the wide arm, of groups of 2, 4, 8 and 16 features 4 was the
+# fastest with f32 tables, 4 MiB each, and 8 with bf16 ones, 2 MiB each:
+# PERF.md)
+FUSED_THREADS = 256
+FUSED_L2_BYTES = 16 * 2 ** 20
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    vec: int          # elements a load: 4 or 1 (f32); 8, 2 or 1 (bf16)
+    lanes: int        # threads a (b, f) row, a power of two <= 32
+    group: int        # features a group of the walk
+    blocks: int       # blocks of FUSED_THREADS
+
+    @property
+    def lanes_log2(self) -> int:
+        return self.lanes.bit_length() - 1
+
+
+def load_width(d: int, elem: int, ptr: int) -> int:
+    """Elements a load of a row of d elements of `elem` bytes at address
+    `ptr` (and every row after it): 16 bytes where d and ptr allow it; for
+    bf16 4 bytes next; else one element."""
+    for width in ((16, 4) if elem == 2 else (16,)):
+        n = width // elem
+        if d % n == 0 and ptr % width == 0:
+            return n
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def fused_plan(b: int, f: int, v: int, d: int, bag: int, elem: int = 4,
+               ptr: int = 0) -> FusedPlan:
+    """The fused forward's launch for ids (b, f, bag) into tables (f, v,
+    d) of `elem`-byte elements at address `ptr` (or'd with the output's):
+    loads as wide as `load_width` allows; lanes the power of two covering
+    a row's loads, at most 32; feature groups of as many features as have
+    tables within FUSED_L2_BYTES (at least 1, at most f); blocks enough
+    for every row."""
+    vec = load_width(d, elem, ptr)
+    lanes = 1
+    while lanes < 32 and lanes * vec < d:
+        lanes *= 2
+    group = max(1, min(f, FUSED_L2_BYTES // max(1, v * d * elem)))
+    return FusedPlan(vec, lanes, group,
+                     _cdiv(b * f * lanes, FUSED_THREADS))
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int):
+    """`dtype` is one dtype or a tuple of the dtypes taken."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
@@ -104,9 +160,13 @@ def _status(name: str, status: int):
     LAUNCHES[name] += 1
 
 
+# the forwards' table dtypes: the TPU kernels' "f32/bf16"
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Checks a forward's inputs; returns its (B, F, D) f32 output."""
-    _check(tables, "tables", torch.float32, 3)
+    _check(tables, "tables", TABLE_DTYPES, 3)
     _check(ids, "ids", torch.int32, 3)
     f, v, d = tables.shape
     b, f_ids, bag = ids.shape
@@ -119,7 +179,8 @@ def _check_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
                       combiner: str = "sum") -> torch.Tensor:
-    """tables (F, V, D) f32, ids (B, F, bag) int32 -> (B, F, D) f32."""
+    """tables (F, V, D) f32 or bf16, ids (B, F, bag) int32 -> (B, F, D)
+    f32, summed in f32."""
     mean = _mean_flag(combiner)
     out = _check_lookup(tables, ids)
     f, v, d = tables.shape
@@ -129,16 +190,17 @@ def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
         _status("embedding_bag_fwd", LIBRARIES.get("embedding_bag")
                 .embedding_bag_fwd(tables.data_ptr(), ids.data_ptr(),
                                    out.data_ptr(), b, f, v, d, bag, mean,
+                                   int(tables.dtype == torch.bfloat16),
                                    stream))
     return out
 
 
 def embedding_bag_fused_fwd(tables: torch.Tensor, ids: torch.Tensor,
                             combiner: str = "sum") -> torch.Tensor:
-    """tables (F, V, D) f32, ids (B, F, bag <= 16) int32 -> (B, F, D)
-    f32, bit-equal to `embedding_bag_fwd`. The kernel refuses (and this
-    raises) more than 2^31 - 1 threads: B * F rows times the threads a
-    row, 1-32 (csrc/embedding_bag_fused.cu)."""
+    """tables (F, V, D) f32 or bf16, ids (B, F, bag <= 16) int32 -> (B, F,
+    D) f32, bit-equal to `embedding_bag_fwd`. The kernel refuses (and
+    this raises) a walk of more than 2^31 - 1 threads or rows
+    (csrc/embedding_bag_fused.cu)."""
     mean = _mean_flag(combiner)
     out = _check_lookup(tables, ids)
     f, v, d = tables.shape
@@ -146,12 +208,16 @@ def embedding_bag_fused_fwd(tables: torch.Tensor, ids: torch.Tensor,
     if bag > FUSED_MAX_BAG:
         raise ValueError(f"embedding_bag_fused_fwd takes bags of at most "
                          f"{FUSED_MAX_BAG} ids, got {bag}")
+    plan = fused_plan(b, f, v, d, bag, tables.element_size(),
+                      (tables.data_ptr() | out.data_ptr()) % 16)
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_bag_fused_fwd",
                 LIBRARIES.get("embedding_bag_fused").embedding_bag_fused_fwd(
                     tables.data_ptr(), ids.data_ptr(), out.data_ptr(), b, f,
-                    v, d, bag, mean, stream))
+                    v, d, bag, mean, int(tables.dtype == torch.bfloat16),
+                    plan.vec, plan.lanes_log2, plan.group, plan.blocks,
+                    stream))
     return out
 
 

@@ -7,6 +7,11 @@ by the tensor's device: a CUDA tensor launches the hand-written kernel
 version (repro_torch.kernels.ref), and any other device raises. There
 is no other fallback: a CUDA kernel that fails to build or launch
 raises.
+
+The forwards take f32 or bf16 inputs, as the TPU kernels do. The
+backward kernels are f32 (the TPU kernels have none): a bf16 input's
+backward hands them its d_out and inputs in f32 and casts the gradients
+back to the inputs' dtypes.
 """
 from __future__ import annotations
 
@@ -103,7 +108,8 @@ class _DotInteract(torch.autograd.Function):
         (feats,) = ctx.saved_tensors
         d_out = d_out.contiguous()
         if _on_cuda(d_out):
-            return _di.dot_interact_bwd(d_out, feats)
+            return _di.dot_interact_bwd(d_out.float(), feats.float()) \
+                .to(feats.dtype)
         return ref.dot_interact_bwd_ref(d_out, feats)
 
 
@@ -132,8 +138,8 @@ class _SageAggregate(torch.autograd.Function):
             return None, None
         d_out = d_out.contiguous()
         if _on_cuda(d_out):
-            d_neigh, d_w = _sa.sage_aggregate_bwd(d_out, w, agg, ctx.f,
-                                                  need_neigh)
+            d_neigh, d_w = _sa.sage_aggregate_bwd(
+                d_out.float(), w.float(), agg, ctx.f, need_neigh)
         else:
             d_neigh, d_w = ref.sage_aggregate_bwd_ref(
                 d_out, w, agg, ctx.f, need_neigh=need_neigh)
@@ -146,8 +152,8 @@ class _SageAggregate(torch.autograd.Function):
 
 def embedding_bag(tables: torch.Tensor, ids: torch.Tensor, *,
                   combiner: str = "sum") -> torch.Tensor:
-    """Stacked multi-feature bag: tables (F, V, D), ids (B, F, bag) ->
-    (B, F, D) f32, differentiable in `tables`."""
+    """Stacked multi-feature bag: tables (F, V, D) f32 or bf16, ids (B, F,
+    bag) -> (B, F, D) f32, differentiable in `tables`."""
     return _EmbeddingBag.apply(tables, ids, combiner)
 
 
@@ -161,14 +167,15 @@ def embedding_bag_fused(tables: torch.Tensor, ids: torch.Tensor, *,
 
 
 def dot_interact(feats: torch.Tensor) -> torch.Tensor:
-    """feats (B, F, D) -> (B, F(F-1)/2) lower-triangle pairwise dots,
-    differentiable."""
+    """feats (B, F, D) f32 or bf16 -> (B, F(F-1)/2) lower-triangle
+    pairwise dots summed in f32, in feats' dtype, differentiable."""
     return _DotInteract.apply(feats)
 
 
 def sage_aggregate(neigh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """GraphSAGE's neighbour term: neigh (B, F, D), w (D, H) -> mean over
-    F, then @ w: (B, H), differentiable in both. The backward writes
+    """GraphSAGE's neighbour term: neigh (B, F, D), w (D, H), each f32 or
+    bf16 -> mean over F, then @ w, in f32: (B, H) in neigh's dtype,
+    differentiable in both. The backward writes
     d_neigh only when neigh needs a gradient."""
     return _SageAggregate.apply(neigh, w)
 

@@ -4,17 +4,21 @@
 Replaces the Pallas TPU kernel `repro/kernels/sage_aggregate.py::
 sage_aggregate` (pallas_call at :32) and adds the backward the TPU kernel
 lacks. See the source for the design: the forward is bound by bytes,
-d_w by f32 operations.
+d_w by f32 operations. The forward takes f32 or bf16 neigh and w (each
+either), as the TPU kernel does, sums and multiplies in f32 and returns
+neigh's dtype; the saved aggregate is f32, and the backward is f32. A
+bf16 w is widened to f32 by a kernel of its own first (`widen_w`,
+counted apart as `sage_widen_w`).
 
 The host side of each launch is a plan computed here, in plain Python
 that the CPU tests reach: `fwd_plan` (rows a tile and its buffers, persistent
-CTAs, slices of w in the ring, the width of the loads of neigh),
+CTAs, slices of w in the ring, the width in bytes of the loads of neigh),
 `agg_stride` (the saved aggregate's padded rows) and `dw_plan` (the
 ranges of rows a d_w tile is split into, and their clusters; on the
 card it asks the occupancy query how many clusters fit).
 
-Same wrapper contract as repro_torch.kernels.embedding_bag: CUDA f32
-tensors only (contiguous, except the saved aggregate, whose rows may be
+Same wrapper contract as repro_torch.kernels.embedding_bag: CUDA tensors
+only (contiguous, except the saved aggregate, whose rows may be
 padded), outputs and scratch from `torch.empty`, launch on the current
 stream, raise on a refused launch, count it in `LAUNCHES`.
 """
@@ -29,7 +33,8 @@ import torch
 from repro_torch.kernels.build import LIBRARIES
 from repro_torch.kernels.embedding_bag import _check
 
-LAUNCHES = {"sage_aggregate_fwd": 0, "sage_aggregate_bwd": 0}
+LAUNCHES = {"sage_aggregate_fwd": 0, "sage_aggregate_bwd": 0,
+            "sage_widen_w": 0}
 
 SMS = 132                     # an H100's SMs
 SMEM = 232448                 # shared memory a block can opt into
@@ -71,17 +76,32 @@ class FwdPlan:
     ctas: int         # persistent CTAs along the rows, a column tile each
     col_tiles: int    # tiles of 128 output columns
     stages: int       # slices of w in the ring
-    vec: int          # floats a load of neigh: 4, 2 or 1
+    vec: int          # elements a load of neigh: 16, 8 or 4 bytes of f32
+                      # (4, 2, 1), 16, 4 or 2 bytes of bf16 (8, 2, 1)
 
 
-def fwd_plan(b: int, f: int, d: int, h: int, ptr: int = 0) -> FwdPlan:
-    """The forward's launch for neigh (b, f, d) at address `ptr` and w
-    (d, h): one CTA an SM (at most b), shared by the column tiles, each
-    walking its ~b / 132 rows in tiles of 32 rows (8 where it has fewer),
-    in two buffers where shared memory holds them and a ring of at least
-    3 slices of w (so that the next tile streams in while this one is
-    multiplied), else one; loads of neigh as wide as both a row of d
-    floats and `ptr` allow."""
+def load_width(d: int, elem: int, ptr: int) -> int:
+    """Elements a load of neigh's rows of d elements of `elem` bytes from
+    address `ptr`: the widest of 16, 8 and 4 bytes (f32) or 16, 4 and 2
+    bytes (bf16) that divides both a row and `ptr`."""
+    for width in ((16, 8, 4) if elem == 4 else (16, 4, 2)):
+        n = width // elem
+        if d % n == 0 and ptr % width == 0:
+            return n
+    raise ValueError(f"neigh at {ptr:#x} is not aligned to its "
+                     f"{elem}-byte elements")
+
+
+def fwd_plan(b: int, f: int, d: int, h: int, ptr: int = 0, elem: int = 4
+             ) -> FwdPlan:
+    """The forward's launch for neigh (b, f, d) of `elem`-byte elements at
+    address `ptr` and w (d, h): one CTA an SM (at most b), shared by the
+    column tiles, each walking its ~b / 132 rows in tiles of 32 rows (8
+    where it has fewer), in two buffers where shared memory holds them and
+    a ring of at least 3 slices of w (so that the next tile streams in
+    while this one is multiplied), else one; loads of neigh as wide as
+    both a row and `ptr` allow (`load_width`). The shared memory is the
+    same for either dtype: the tiles and the ring hold f32."""
     if f < 1 or d < 1:
         raise ValueError(f"the mean needs F >= 1 and D >= 1, got {f}, {d}")
     col_tiles = max(1, _cdiv(h, _COLS))
@@ -104,9 +124,8 @@ def fwd_plan(b: int, f: int, d: int, h: int, ptr: int = 0) -> FwdPlan:
                          f"{_FEW_STAGES} slices of w); D = {d}, F = {f} do "
                          f"not")
     rows, bufs, stages = choice
-    vec = (4 if d % 4 == 0 and ptr % 16 == 0 else
-           2 if d % 2 == 0 and ptr % 8 == 0 else 1)
-    return FwdPlan(rows, bufs, ctas, col_tiles, stages, vec)
+    return FwdPlan(rows, bufs, ctas, col_tiles, stages,
+                   load_width(d, elem, ptr))
 
 
 def agg_stride(d: int) -> int:
@@ -165,9 +184,13 @@ def dw_active_clusters(device: torch.device, cluster: int) -> int:
     return _DW_ACTIVE[key]
 
 
+# the forward's input dtypes: the TPU kernel's f32 and bf16
+FWD_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_pair(neigh: torch.Tensor, w: torch.Tensor):
-    _check(neigh, "neigh", torch.float32, 3)
-    _check(w, "w", torch.float32, 2)
+    _check(neigh, "neigh", FWD_DTYPES, 3)
+    _check(w, "w", FWD_DTYPES, 2)
     if w.shape[0] != neigh.shape[2] or w.device != neigh.device:
         raise ValueError(f"w {tuple(w.shape)} on {w.device} does not project "
                          f"neigh {tuple(neigh.shape)} on {neigh.device}")
@@ -176,17 +199,31 @@ def _check_pair(neigh: torch.Tensor, w: torch.Tensor):
                          f"and D >= 1")
 
 
+def widen_w(w: torch.Tensor) -> torch.Tensor:
+    """w (D, H) bf16 -> the same values in f32, by the widening kernel."""
+    _check(w, "w", torch.bfloat16, 2)
+    w32 = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        _status("sage_widen_w", LIBRARIES.get("sage_aggregate").sage_widen_w(
+            w.data_ptr(), w32.data_ptr(), w.numel(),
+            torch.cuda.current_stream().cuda_stream))
+    return w32
+
+
 def sage_aggregate_fwd(neigh: torch.Tensor, w: torch.Tensor,
                        save_agg: bool = False
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """neigh (B, F, D) f32, w (D, H) f32 -> (out (B, H) f32, the aggregate
-    mean_f(neigh) (B, D) f32 if `save_agg`, else None). The aggregate is a
-    view of rows `agg_stride(D)` floats apart."""
+    """neigh (B, F, D) f32 or bf16, w (D, H) f32 or bf16 -> (out (B, H) in
+    neigh's dtype, the aggregate mean_f(neigh) (B, D) f32 if `save_agg`,
+    else None). The aggregate is a view of rows `agg_stride(D)` floats
+    apart. A bf16 w takes two launches: `widen_w`, then the forward."""
     _check_pair(neigh, w)
+    if w.dtype == torch.bfloat16:
+        w = widen_w(w)
     b, f, d = neigh.shape
     h = w.shape[1]
-    plan = fwd_plan(b, f, d, h, neigh.data_ptr())
-    out = torch.empty((b, h), dtype=torch.float32, device=neigh.device)
+    plan = fwd_plan(b, f, d, h, neigh.data_ptr(), neigh.element_size())
+    out = torch.empty((b, h), dtype=neigh.dtype, device=neigh.device)
     ld = agg_stride(d)
     agg = (torch.empty((b, ld), dtype=torch.float32, device=neigh.device)
            if save_agg else None)
@@ -198,6 +235,7 @@ def sage_aggregate_fwd(neigh: torch.Tensor, w: torch.Tensor,
                                     None if agg is None else agg.data_ptr(),
                                     b, f, d, h, ld, plan.rows, plan.bufs,
                                     plan.ctas, plan.stages, plan.vec,
+                                    int(neigh.dtype == torch.bfloat16),
                                     stream))
     return out, None if agg is None else agg[:, :d]
 

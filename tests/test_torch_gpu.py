@@ -261,3 +261,240 @@ def test_cuda_embedding_bag_fused_refuses_more_than_int32_threads():
     assert eb.LAUNCHES["embedding_bag_fused_fwd"] == before
     out = eb.embedding_bag_fused_fwd(tables, ids[1:])
     assert out.shape == (rows - 1, 1, 33) and bool((out == 1).all())
+
+
+# SHA-256 of the f32 outputs of embedding_bag_fwd and sage_aggregate_fwd
+# at one shape each, inputs made with numpy from a seed, as the kernels
+# gave them before they took bf16 (NVIDIA H100 80GB HBM3): the f32
+# instantiations must keep every bit
+F32_DIGESTS = {
+    "embedding_bag_fwd":
+        "e58536944def53d1d954e19e0386b311ce2971cc43ab97257c8f9a9380633afd",
+    "sage_aggregate_fwd":
+        "da82b499cf69dba7ad19ebcb7bda5b2e21d0b4016326f44e12ab990f7373f302"}
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.gpu
+def test_cuda_f32_forwards_keep_their_bits():
+    """embedding_bag_fwd at (5, 1000, 32) tables, ids (37, 5, 4), sum and
+    mean; sage_aggregate_fwd at (4225, 10, 602) x (602, 128) (32-row
+    tiles, 8-byte loads): the same bits as before the kernels took
+    bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(16)
+    tables = torch.from_numpy(rng.randn(5, 1000, 32).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(0, 1000, (37, 5, 4)).astype(np.int32))
+    bags = torch.cat([eb.embedding_bag_fwd(tables.cuda(), ids.cuda(), c)
+                      for c in ("sum", "mean")])
+    neigh = torch.from_numpy(rng.randn(4225, 10, 602).astype(np.float32))
+    w = torch.from_numpy((rng.randn(602, 128) / 602 ** 0.5)
+                         .astype(np.float32))
+    out = sa.sage_aggregate_fwd(neigh.cuda(), w.cuda())[0]
+    got = {"embedding_bag_fwd": _digest(bags),
+           "sage_aggregate_fwd": _digest(out)}
+    assert got == F32_DIGESTS, got
+
+
+# ---- bf16 forwards and the redesigned kernels --------------------------
+
+BF16 = torch.bfloat16
+# a bf16 output against its plain version: within 2 bf16 ulps (rtol
+# 2^-7) of two roundings of f32 sums taken in another order, with the f32
+# checks' atol for sums that cancel
+BF16_RTOL = 2.0 ** -7
+
+
+def _slice(n, dtype, shift, gen):
+    """n values of `dtype`, `shift` elements into a larger buffer."""
+    buf = torch.randn(n + shift, device="cuda", generator=gen).to(dtype)
+    return buf[shift:]
+
+
+def _check_bags(tables, ids, fused):
+    """embedding_bag_fwd (and embedding_bag_fused_fwd where `fused`)
+    bitwise to the plain version, sum and mean; an out-of-range id makes
+    exactly its own row NaN in both and leaves the rest equal."""
+    for combiner in ("sum", "mean"):
+        row = eb.embedding_bag_fwd(tables, ids, combiner)
+        assert row.dtype == torch.float32
+        assert torch.equal(row, ref.embedding_bag_ref(tables, ids,
+                                                      combiner=combiner))
+        if fused:
+            assert torch.equal(eb.embedding_bag_fused_fwd(tables, ids,
+                                                          combiner), row)
+    b, f, bag = ids.shape
+    bad = ids.clone()
+    bad[b // 2, f - 1, bag - 1] = tables.shape[1]
+    row = eb.embedding_bag_fwd(tables, bad)
+    nan = torch.isnan(row)
+    assert int(nan.sum()) == tables.shape[2] and nan[b // 2, f - 1].all()
+    if fused:
+        got = eb.embedding_bag_fused_fwd(tables, bad)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan], row[~nan])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 5, 8, 10, 32, 128])
+def test_cuda_embedding_forwards_take_bf16_tables(d):
+    """bf16 tables through both embedding forwards at every load width:
+    16-byte (D % 8 == 0), 4-byte (D even) and 2-byte loads (odd D, or a
+    table only 2-byte aligned: a slice 1 element into a buffer; 2
+    elements: 4-byte aligned); B 1 and 37; bags 1, 4, 16 (both kernels)
+    and 17 (the row kernel); 3 and 5 features; and the f32 tables of the
+    same values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for f, v in ((3, 1000), (5, 300)):
+        for shift in (0, 1, 2):
+            tables = _slice(f * v * d, BF16, shift, gen).view(f, v, d)
+            assert shift == 0 or tables.data_ptr() % 16 != 0
+            for b in (1, 37):
+                for bag in (1, 4, 16, 17):
+                    ids = torch.randint(0, v, (b, f, bag), device="cuda",
+                                        generator=gen, dtype=torch.int32)
+                    _check_bags(tables, ids, fused=bag <= 16)
+                    if shift == 0:
+                        _check_bags(tables.float(), ids, fused=bag <= 16)
+
+
+@pytest.mark.gpu
+def test_cuda_embedding_bag_fused_walks_feature_groups():
+    """Tables of 8 MiB (f32) or 4 MiB (bf16) a feature: the fused plan
+    walks groups of 2 or 4 features, 5 and 6 features leave a short last
+    group; both kernels bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    v = 2 ** 21
+    for dtype, group in ((torch.float32, 2), (BF16, 4)):
+        for f in (5, 6):
+            tables = torch.randn((f, v, 1), device="cuda", generator=gen) \
+                .to(dtype)
+            plan = eb.fused_plan(300, f, v, 1, 4, tables.element_size())
+            assert plan.group == group and plan.lanes == 1
+            ids = torch.randint(0, v, (300, f, 4), device="cuda",
+                                generator=gen, dtype=torch.int32)
+            _check_bags(tables, ids, fused=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,d", [(2, 4), (5, 7), (27, 128), (27, 10),
+                                 (60, 32)])
+def test_cuda_dot_interact_fwd_matches_plain_version(f, d):
+    """The persistent-warp dot_interact_fwd against its plain version:
+    f32 at rtol 1e-5 / atol 1e-4 (against f32 cuBLAS with TF32 off), bf16
+    within 2 bf16 ulps; B 1, 37 and 2051 (more samples than warps, not a
+    multiple of them); feats at an offset of 0, 1 and 2 elements into a
+    buffer (f32: 16- or 4-byte copies; bf16: 16-byte copies, none (2-byte
+    aligned) and 4-byte copies); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(f * d)
+    for b in (1, 37, 2048 + 3):
+        for dtype, rtol in ((torch.float32, 1e-5), (BF16, BF16_RTOL)):
+            for shift in (0, 1, 2):
+                feats = _slice(b * f * d, dtype, shift, gen).view(b, f, d)
+                before = di.LAUNCHES["dot_interact_fwd"]
+                got = di.dot_interact_fwd(feats)
+                assert di.LAUNCHES["dot_interact_fwd"] == before + 1
+                assert got.dtype == dtype
+                torch.testing.assert_close(
+                    got.float(), ref.dot_interact_ref(feats).float(),
+                    rtol=rtol, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_sage_aggregate_fwd_takes_bf16():
+    """sage_aggregate_fwd with neigh and w bf16, or either alone: the f32
+    aggregate bitwise to the plain version; out in neigh's dtype, within
+    2 bf16 ulps when bf16, rtol / atol 1e-5 when f32; at D 602 (4-byte
+    loads), 128 (16-byte), 5 and a neigh 2-byte aligned (2-byte), w whole
+    (H 7, 47, 128) and in column tiles (H 130), tiles of 8 and 32 rows.
+    A bf16 w's widening kernel gives w.float() bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for b, f, d, h, shift in ((37, 1, 5, 7, 0), (37, 3, 33, 130, 0),
+                              (1023, 15, 602, 128, 0), (4225, 2, 34, 7, 0),
+                              (1024, 15, 128, 47, 0), (300, 10, 602, 128, 1),
+                              (300, 15, 128, 47, 2)):
+        for nd, wd in ((BF16, BF16), (BF16, torch.float32),
+                       (torch.float32, BF16)):
+            neigh = _slice(b * f * d, nd, shift if nd == BF16 else 0,
+                           gen).view(b, f, d)
+            w = (torch.randn((d, h), device="cuda", generator=gen)
+                 * d ** -0.5).to(wd)
+            if wd == BF16:
+                assert torch.equal(sa.widen_w(w), w.float())
+            out, agg = sa.sage_aggregate_fwd(neigh, w, save_agg=True)
+            assert out.dtype == nd and agg.dtype == torch.float32
+            assert torch.equal(agg, ref.sage_mean_ref(neigh))
+            rtol, atol = (BF16_RTOL, 1e-5) if nd == BF16 else (1e-5, 1e-5)
+            torch.testing.assert_close(
+                out.float(), ref.sage_aggregate_ref(neigh, w).float(),
+                rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_cuda_ops_differentiate_bf16_inputs():
+    """ops.dot_interact, ops.sage_aggregate and ops.embedding_bag on bf16
+    inputs on the card: the kernels run forward and backward (the
+    backward kernels in f32), and the gradients, cast to bf16, are
+    within 2 bf16 ulps of those of the plain versions on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def grads(fn, inputs, cot):
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        (fn(*xs).float() * cot).sum().backward()
+        return [x.grad for x in xs]
+
+    feats = torch.randn((37, 27, 128), device="cuda", generator=gen).to(BF16)
+    cot = torch.randn((37, 351), device="cuda", generator=gen).to(BF16) \
+        .float()
+    before = dict(ops.launch_counts())
+    (got,) = grads(ops.dot_interact, [feats], cot)
+    (want,) = grads(ref.dot_interact_ref, [feats], cot)
+    neigh = torch.randn((300, 10, 602), device="cuda", generator=gen) \
+        .to(BF16)
+    w = (torch.randn((602, 128), device="cuda", generator=gen)
+         * 602 ** -0.5).to(BF16)
+    cot2 = torch.randn((300, 128), device="cuda", generator=gen).to(BF16) \
+        .float()
+    got2 = grads(ops.sage_aggregate, [neigh, w], cot2)
+    want2 = grads(ref.sage_aggregate_ref, [neigh, w], cot2)
+    tables = torch.randn((3, 100, 32), device="cuda", generator=gen).to(BF16)
+    ids = torch.randint(0, 100, (37, 3, 4), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    cot3 = torch.randn((37, 3, 32), device="cuda", generator=gen)
+    (got3,) = grads(lambda t: ops.embedding_bag(t, ids), [tables], cot3)
+    # the plain version's own backward on bf16 rows would accumulate the
+    # repeated ids in bf16: its f32 form, cast back once, is the contract
+    (want3,) = grads(lambda t: ref.embedding_bag_ref(t.float(), ids),
+                     [tables], cot3)
+    after = ops.launch_counts()
+    for name in ("dot_interact_fwd", "dot_interact_bwd",
+                 "sage_aggregate_fwd", "sage_aggregate_bwd",
+                 "embedding_bag_fwd", "embedding_bag_bwd"):
+        assert after[name] == before[name] + 1, name
+    # the bf16 w is widened by its own kernel, once a forward
+    assert after["sage_widen_w"] == before["sage_widen_w"] + 1
+    for g, wnt in zip([got, *got2, got3], [want, *want2, want3]):
+        assert g.dtype == BF16
+        torch.testing.assert_close(g.float(), wnt.float(), rtol=BF16_RTOL,
+                                   atol=1e-5)

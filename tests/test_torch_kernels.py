@@ -521,7 +521,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert set(before) == {"embedding_bag_fwd", "embedding_bag_bwd",
                            "embedding_bag_fused_fwd",
                            "dot_interact_fwd", "dot_interact_bwd",
-                           "sage_aggregate_fwd", "sage_aggregate_bwd"}
+                           "sage_aggregate_fwd", "sage_aggregate_bwd",
+                           "sage_widen_w"}
 
 
 def test_other_devices_raise():
@@ -541,6 +542,7 @@ def test_other_devices_raise():
     lambda: di.dot_interact_fwd(torch.zeros(2, 3, 4)),
     lambda: di.dot_interact_bwd(torch.zeros(2, 3), torch.zeros(2, 3, 4)),
     lambda: sa.sage_aggregate_fwd(torch.zeros(2, 3, 4), torch.zeros(4, 5)),
+    lambda: sa.widen_w(torch.zeros(4, 5, dtype=torch.bfloat16)),
     lambda: sa.sage_aggregate_bwd(torch.zeros(2, 5), torch.zeros(4, 5),
                                   torch.zeros(2, 4), 3, True),
 ])
@@ -569,3 +571,343 @@ def test_build_targets_sm90a_and_fails_loudly_without_nvcc(monkeypatch):
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
+
+
+# ---- bf16 inputs, as the TPU kernels take them ------------------------
+
+BF16 = torch.bfloat16
+# a bf16 output against the reference's: within 2 bf16 ulps of the f32
+# sums rounded on both sides (rtol 2^-7), and the f32 tests' atol for
+# sums that cancel
+BF16_RTOL = 2.0 ** -7
+
+
+def _bf16(a: np.ndarray):
+    """(the bf16 torch tensor, the same values as a bf16 jax array)."""
+    t = torch.from_numpy(a).to(BF16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("f,v,d,b,bag", FUSED_CASES + [(2, 64, 4, 9, 17)])
+def test_embedding_bags_take_bf16_tables_as_the_reference(f, v, d, b, bag,
+                                                          combiner):
+    """ops.embedding_bag and ops.embedding_bag_fused with bf16 tables: f32
+    out, bitwise the plain version, bitwise the JAX package's Pallas
+    `embedding_bag` (interpret mode, bf16 table, f32 sums j ascending) for
+    sum and within 1e-6 for mean (XLA may multiply by the reciprocal).
+    (The reference's fused kernel does not run on the installed JAX:
+    ROADMAP queue 3.)"""
+    rng = np.random.RandomState(v + d + bag + 1)
+    tables, jtables = _bf16(rng.randn(f, v, d).astype(np.float32))
+    ids = rng.randint(0, v, (b, f, bag)).astype(np.int32)
+    tids = torch.from_numpy(ids)
+    plain = ref.embedding_bag_ref(tables, tids, combiner=combiner)
+    want = np.stack([np.asarray(jops.embedding_bag(
+        jtables[i], jnp.asarray(ids[:, i]), combiner=combiner,
+        interpret=True)) for i in range(f)], axis=1)
+    for op in (ops.embedding_bag, ops.embedding_bag_fused):
+        got = op(tables, tids, combiner=combiner)
+        assert got.dtype == torch.float32 and got.shape == (b, f, d)
+        assert torch.equal(got, plain)
+        _check_fused(got.numpy(), want, combiner)
+
+
+@pytest.mark.parametrize("b,f,d,tile", DOT_CASES)
+def test_dot_interact_takes_bf16_as_the_reference(b, f, d, tile):
+    """ops.dot_interact with bf16 feats: bf16 out (the f32 dots rounded),
+    against the JAX package's Pallas kernel (interpret mode) and oracle on
+    the same bf16 values, within 2 bf16 ulps."""
+    rng = np.random.RandomState(b + f + 1)
+    feats, jfeats = _bf16(rng.randn(b, f, d).astype(np.float32))
+    got = ops.dot_interact(feats)
+    assert got.dtype == BF16 and got.shape == (b, f * (f - 1) // 2)
+    assert torch.equal(got, ref.dot_interact_ref(feats))
+    for want in (jops.dot_interact(jfeats, tile_b=tile, interpret=True),
+                 jref.dot_interact_ref(jfeats)):
+        assert want.dtype == jnp.bfloat16
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=BF16_RTOL,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("dtypes", ["bb", "bf", "fb"])
+@pytest.mark.parametrize("b,f,d,h,tile", SAGE_CASES)
+def test_sage_aggregate_takes_bf16_as_the_reference(b, f, d, h, tile,
+                                                    dtypes):
+    """ops.sage_aggregate with neigh and w bf16 (or either alone): out in
+    neigh's dtype, the f32 mean and product of the reference, against the
+    JAX package's Pallas kernel (interpret mode) and oracle on the same
+    values: within 2 bf16 ulps for a bf16 out, the f32 tolerance (rtol /
+    atol 1e-5) for an f32 one."""
+    rng = np.random.RandomState(b + 7)
+    neigh = rng.randn(b, f, d).astype(np.float32)
+    w = (rng.randn(d, h) * d ** -0.5).astype(np.float32)
+    tn, jn = _bf16(neigh) if dtypes[0] == "b" else (
+        torch.from_numpy(neigh), jnp.asarray(neigh))
+    tw, jw = _bf16(w) if dtypes[1] == "b" else (
+        torch.from_numpy(w), jnp.asarray(w))
+    got = ops.sage_aggregate(tn, tw)
+    assert got.dtype == tn.dtype and got.shape == (b, h)
+    assert torch.equal(got, ref.sage_aggregate_ref(tn, tw))
+    rtol, atol = (BF16_RTOL, 1e-5) if dtypes[0] == "b" else (1e-5, 1e-5)
+    for want in (jops.sage_aggregate(jn, jw, tile_b=tile, interpret=True),
+                 jref.sage_aggregate_ref(jn, jw)):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_grad_of_bf16_tables_matches_jax(combiner, fused):
+    """The backward of a bf16 table (the f32 scatter, cast to bf16) against
+    jax.grad of the reference's f32 sums of the bf16 table, duplicate ids
+    included: within 2 bf16 ulps."""
+    rng = np.random.RandomState(5)
+    tables, jtables = _bf16(rng.randn(3, 20, 8).astype(np.float32))
+    ids = rng.randint(0, 20, (16, 3, 4)).astype(np.int32)
+    w = rng.randn(16, 3, 8).astype(np.float32)
+
+    def j_loss(t):
+        out = jnp.stack([jref.embedding_bag_ref(t[f].astype(jnp.float32),
+                                                ids[:, f],
+                                                combiner=combiner)
+                         for f in range(3)], axis=1)
+        return jnp.sum(out * w)
+
+    want = jax.grad(j_loss)(jtables)
+    assert want.dtype == jnp.bfloat16
+    t = tables.clone().requires_grad_(True)
+    op = ops.embedding_bag_fused if fused else ops.embedding_bag
+    (op(t, torch.from_numpy(ids), combiner=combiner)
+     * torch.from_numpy(w)).sum().backward()
+    assert t.grad.dtype == BF16
+    np.testing.assert_allclose(_f32(t.grad), _f32(want), rtol=BF16_RTOL,
+                               atol=1e-6)
+
+
+def test_dot_interact_grad_of_bf16_matches_jax():
+    """The backward of bf16 feats (the f32 (S + S^T) x, cast to bf16)
+    against jax.grad of the reference taken in f32 on the same bf16
+    values and cast to bf16 at the input: within 2 bf16 ulps. (jax.grad
+    of the reference's bf16 einsum rounds each of the Gram product's two
+    cotangent halves to bf16 before adding them, which loses up to a few
+    percent where they cancel; the TPU kernel has no backward.) The
+    weights are bf16 values, so the cotangent of the bf16 out is the same
+    on both sides."""
+    rng = np.random.RandomState(6)
+    feats, jfeats = _bf16(rng.randn(6, 7, 16).astype(np.float32))
+    w = _f32(_bf16(rng.randn(6, 21).astype(np.float32))[0])
+    want = jax.grad(lambda x: jnp.sum(
+        jref.dot_interact_ref(x.astype(jnp.float32)) * w))(jfeats)
+    assert want.dtype == jnp.bfloat16
+    x = feats.clone().requires_grad_(True)
+    (ops.dot_interact(x).float() * torch.from_numpy(w)).sum().backward()
+    assert x.grad.dtype == BF16
+    np.testing.assert_allclose(_f32(x.grad), _f32(want), rtol=BF16_RTOL,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("b,f,d,h", [(16, 5, 12, 7), (8, 10, 602, 128)])
+def test_sage_aggregate_grads_of_bf16_match_jax(b, f, d, h):
+    """d_neigh and d_w of bf16 neigh and w (the f32 backward, cast to
+    bf16) against jax.grad of the reference: within 2 bf16 ulps."""
+    rng = np.random.RandomState(d + 1)
+    neigh, jneigh = _bf16(rng.randn(b, f, d).astype(np.float32))
+    w, jw = _bf16((rng.randn(d, h) * d ** -0.5).astype(np.float32))
+    cot = rng.randn(b, h).astype(np.float32)
+    want_n, want_w = jax.grad(
+        lambda n, w_: jnp.sum(jref.sage_aggregate_ref(n, w_)
+                              .astype(jnp.float32) * cot),
+        argnums=(0, 1))(jneigh, jw)
+    x = neigh.clone().requires_grad_(True)
+    tw = w.clone().requires_grad_(True)
+    (ops.sage_aggregate(x, tw).float() * torch.from_numpy(cot)).sum() \
+        .backward()
+    assert x.grad.dtype == BF16 and tw.grad.dtype == BF16
+    np.testing.assert_allclose(_f32(x.grad), _f32(want_n), rtol=BF16_RTOL,
+                               atol=1e-6)
+    np.testing.assert_allclose(_f32(tw.grad), _f32(want_w), rtol=BF16_RTOL,
+                               atol=1e-5)
+
+
+def test_wrappers_take_bf16_and_refuse_other_dtypes(monkeypatch):
+    """The forwards' dtype checks take f32 and bf16 (the TPU kernels') and
+    refuse f16; the backward kernels take f32 only (ops hands them f32)."""
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda t: torch.device("cuda")))
+    for dtype in (torch.float32, BF16):
+        eb._check(torch.zeros(2, 3, 4, dtype=dtype), "tables",
+                  eb.TABLE_DTYPES, 3)
+        eb._check(torch.zeros(2, 3, 4, dtype=dtype), "neigh",
+                  sa.FWD_DTYPES, 3)
+    for dtypes in (eb.TABLE_DTYPES, sa.FWD_DTYPES, torch.float32):
+        with pytest.raises(TypeError, match="must be"):
+            eb._check(torch.zeros(2, 3, 4, dtype=torch.float16), "x",
+                      dtypes, 3)
+
+
+# ---- the redesigned forwards' host plans -------------------------------
+
+def _tri_block(t: int):
+    """(I, J) of triangle block t, as csrc/dot_interact.cu computes it: an
+    f32 square root, then corrected."""
+    i = int((np.sqrt(np.float32(8 * t + 1), dtype=np.float32)
+             - np.float32(1)) * np.float32(0.5))
+    while i * (i + 1) // 2 > t:
+        i -= 1
+    while (i + 1) * (i + 2) // 2 <= t:
+        i += 1
+    return i, t - i * (i + 1) // 2
+
+
+# (b, f, d, elem, ptr): the DLRM shape f32 and bf16, the card tests'
+# (F, D) at B 1, 37 and 2051, 16-, 4- and 2-byte aligned feats
+DOT_FWD_CASES = [(2048, 27, 128, 4, 0), (2048, 27, 128, 2, 0),
+                 (2051, 27, 128, 2, 2), (37, 27, 128, 2, 4),
+                 (1, 2, 4, 4, 0), (37, 5, 7, 4, 4), (37, 5, 7, 2, 0),
+                 (2051, 60, 32, 4, 4), (37, 60, 32, 2, 0),
+                 (37, 27, 10, 2, 4), (3, 110, 1, 4, 0), (5, 2, 6140, 2, 0)]
+
+
+@pytest.mark.parametrize("b,f,d,elem,ptr", DOT_FWD_CASES)
+def test_dot_interact_fwd_plan_walks_every_sample_and_pair_once(b, f, d,
+                                                                elem, ptr):
+    """The forward's index maps, simulated as csrc/dot_interact.cu walks
+    them: warp w of the grid takes samples w, w + W, ..., every sample
+    once; its lanes take the triangle's 4 x 4 blocks (I >= J) by the f32
+    square-root formula, every block once, and the pairs they store
+    (i = 4I + a < F, j = 4J + q < i) land on every output index i(i-1)/2
+    + j once; the tile's slots are distinct and within the tile; the copy
+    width follows D, F D and the pointer; shared memory fits a block and
+    the CTAs an SM fit its shared memory, threads and CTA limit."""
+    plan = di.fwd_plan(b, f, d, elem, ptr)
+    walked = sorted(s for w in range(plan.workers)
+                    for s in range(w, b, plan.workers))
+    assert walked == list(range(b))
+    blocks = [_tri_block(t) for t in range(len(di.fwd_blocks(f)))]
+    assert blocks == di.fwd_blocks(f)
+    stored = [i * (i - 1) // 2 + j for bi, bj in blocks
+              for i in range(4 * bi, 4 * bi + 4)
+              for j in range(4 * bj, 4 * bj + 4) if i < f and j < i]
+    assert sorted(stored) == list(range(f * (f - 1) // 2))
+    slots = [di.fwd_slot(r, f) for r in range(f)]
+    assert len(set(slots)) == f and max(slots) < di.fwd_slots(f)
+    assert di.fwd_slots(f) == max(slots) + 1
+    if elem == 4:
+        assert plan.copy == (16 if d % 4 == 0 and ptr % 16 == 0 else 4)
+    else:
+        assert plan.copy == (16 if f * d % 8 == 0 and ptr % 16 == 0 else
+                             4 if f * d % 2 == 0 and ptr % 4 == 0 else 0)
+    assert 1 <= plan.warps <= di.FWD_MAX_WARPS
+    assert plan.smem == plan.warps * di.fwd_warp_smem(f, d, elem) <= di.SMEM
+    per_sm = -(-plan.ctas // di.SMS)
+    assert per_sm * (plan.smem + 1024) <= di.SM_SHARED_BYTES
+    assert per_sm <= di.SM_CTAS and per_sm * plan.warps * 32 <= di.SM_THREADS
+    assert plan.ctas <= max(1, -(-b // plan.warps))
+
+
+def test_dot_interact_fwd_plan_at_the_dlrm_shape():
+    """(2048, 27, 128): 27 slots of 132 floats (33 float4s, odd, so that
+    neighbouring slots start in different banks), 28 blocks for the 351
+    pairs, 8 warps an SM in f32 (2 a CTA, 4 CTAs an SM) and in bf16 (1 a
+    CTA)."""
+    assert di.fwd_ld(128) == 132 and di.fwd_slots(27) == 27
+    assert len(di.fwd_blocks(27)) == 28
+    banks = {(s * di.fwd_ld(128) // 4) % 8 for s in range(8)}
+    assert banks == set(range(8))
+    assert di.fwd_plan(2048, 27, 128) == di.FwdPlan(16, 2, 528, 57024)
+    assert di.fwd_plan(2048, 27, 128, 2) == di.FwdPlan(16, 1, 1056, 28080)
+    assert di.fwd_plan(2048, 27, 128, 2, ptr=2).copy == 0
+
+
+def test_dot_interact_fwd_plan_takes_every_tile_the_wrapper_takes():
+    """Every (F, D) that passes the wrapper's tile check has a forward
+    plan whose shared memory fits a block, for f32 and bf16 feats: at each
+    F, the widest D and the three below it."""
+    for f in range(2, 2458):
+        d_max = di._MAX_SHARED_BYTES // (4 * f) - 4
+        for d in range(max(1, d_max - 3), d_max + 1):
+            di._check_tile(f, d + 4)
+            for elem in (4, 2):
+                assert di.fwd_plan(2048, f, d, elem).smem <= di.SMEM, (f, d)
+        with pytest.raises(ValueError):
+            di._check_tile(f, d_max + 1 + 4)
+
+
+def _place(slot, b, f, group):
+    """csrc/embedding_bag_fused.cu's `place`, vectorized: (b, f) of each
+    place of the walk in feature groups."""
+    full = f // group
+    g = np.minimum(slot // (b * group), full)
+    size = np.where(g < full, group, f - full * group)
+    rem = slot - g * (b * group)
+    bb = rem // np.maximum(size, 1)
+    return bb, g * group + rem - bb * size
+
+
+# (b, f, v, d, bag, elem, ptr): the wide arm f32 and bf16, the reduced
+# and deep tables, ragged D, 2- and 4-byte aligned bf16 tables, tables
+# over the L2 budget (groups of 1), a ragged last feature group
+FUSED_PLAN_CASES = [(300, 40, 2 ** 20, 1, 4, 4, 0),
+                    (300, 40, 2 ** 20, 1, 4, 2, 0),
+                    (37, 5, 2 ** 21, 1, 4, 4, 0),
+                    (37, 6, 2 ** 21, 1, 4, 2, 0),
+                    (33, 8, 512, 8, 4, 4, 0),
+                    (33, 6, 256, 32, 3, 2, 2),
+                    (37, 3, 1000, 5, 16, 2, 0),
+                    (37, 3, 1000, 10, 4, 2, 4),
+                    (37, 3, 1000, 33, 1, 4, 0),
+                    (5, 3, 2 ** 23, 1, 4, 4, 0),
+                    (301, 7, 2 ** 20, 1, 4, 4, 0),
+                    (301, 7, 2 ** 20, 1, 3, 2, 0)]
+
+
+@pytest.mark.parametrize("b,f,v,d,bag,elem,ptr", FUSED_PLAN_CASES)
+def test_embedding_bag_fused_plan_covers_every_row_once(b, f, v, d, bag,
+                                                        elem, ptr):
+    """The fused forward's index map, simulated as
+    csrc/embedding_bag_fused.cu walks it: every (b, f) row is taken by
+    exactly `lanes` threads, lanes 0 .. lanes - 1 once each; the walk's
+    places go group after group, feature groups of tables within the L2
+    budget (at least 1); loads as wide as D and the pointer allow; lanes
+    times the load cover D (or are 32)."""
+    plan = eb.fused_plan(b, f, v, d, bag, elem, ptr)
+    if elem == 4:
+        assert plan.vec == (4 if d % 4 == 0 and ptr % 16 == 0 else 1)
+    else:
+        assert plan.vec == (8 if d % 8 == 0 and ptr % 16 == 0 else
+                            2 if d % 2 == 0 and ptr % 4 == 0 else 1)
+    assert plan.lanes in (1, 2, 4, 8, 16, 32)
+    assert plan.lanes * plan.vec >= d or plan.lanes == 32
+    assert 1 <= plan.group <= f
+    table = v * d * elem
+    assert plan.group == 1 or plan.group * table <= eb.FUSED_L2_BYTES
+    assert plan.group == f or (plan.group + 1) * table > eb.FUSED_L2_BYTES
+    t = np.arange(plan.blocks * eb.FUSED_THREADS)
+    lane = t & (plan.lanes - 1)
+    slot = t >> plan.lanes_log2
+    live = slot < b * f
+    bb, ff = _place(slot[live], b, f, plan.group)
+    seen = np.zeros((b, f, plan.lanes), dtype=np.int64)
+    np.add.at(seen, (bb, ff, lane[live]), 1)
+    assert (seen == 1).all()
+    # group after group: a place's feature group never decreases
+    groups = ff // plan.group
+    assert (np.diff(groups[lane[live] == 0]) >= 0).all()
+    # no more blocks than the rows need
+    assert (plan.blocks - 1) * eb.FUSED_THREADS < b * f * plan.lanes
+
+
+def test_embedding_bag_fused_plan_at_the_path_shapes():
+    # wide-deep's wide arm: a thread a row, f32 tables of 4 MiB in groups
+    # of 4, bf16 ones of 2 MiB in groups of 8; 10240 blocks of 256
+    assert eb.fused_plan(65536, 40, 2 ** 20, 1, 4) == \
+        eb.FusedPlan(1, 1, 4, 10240)
+    assert eb.fused_plan(65536, 40, 2 ** 20, 1, 4, 2) == \
+        eb.FusedPlan(1, 1, 8, 10240)
