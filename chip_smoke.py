@@ -8,13 +8,18 @@ exits non-zero without printing a result:
 
   1. build    nvcc builds every kernel source under
               src/repro_torch/kernels/csrc for sm_90a (one nvcc per source,
-              started together); prints ptxas' register and shared-memory
-              report and the card's name and power limit.
+              started together); prints ptxas' report of each kernel
+              (registers, stack frame, spills; an embedding_bag_fwd
+              kernel with a stack frame fails) and the card's name and
+              power limit.
   2. kernels  each CUDA kernel against its plain PyTorch version on the
               card, at the main path's shapes (DLRM-Criteo: 26 tables of
               2^20 x 128 f32, batch 2048, bag 4; interaction (2048, 27,
               128)) and at ragged ones (batch 37, bag 1, mean, D not a
-              multiple of 4; the scatter at D 1, 2, 3, 5, 8, 32, 128 and
+              multiple of 4; embedding_bag_fwd at D 1, 2, 3, 5, 8, 32,
+              33, 128 and 132, B 1 and 37, bags 1, 3, 4, 16 and 17, f32
+              and bf16 tables 16-, 2- and 4-byte aligned, ids of -1 and
+              V; the scatter at D 1, 2, 3, 5, 8, 32, 128 and
               132 over 5 features, walked in groups of 2, at B 1 and 300
               and bags of 1, 4 and 17, with bags whose ids all repeat,
               bags padded by repeating their head id and ids of -1 and V;
@@ -60,8 +65,10 @@ hidden 128, 47 classes, adam:
               slice of a larger buffer).
               The forward also with neigh and w bf16, or either alone, at
               every load width (16-, 4- and 2-byte loads of bf16) and at
-              neigh2, timed there. Tolerances: the f32 aggregate (rows
-              padded to a multiple of 4 floats) bitwise; out and d_neigh
+              neigh2, timed there (a bf16 w's widening, sage_widen_w,
+              beside w.float() and its bound). Tolerances: the f32
+              aggregate (rows padded to a multiple of 4 floats) bitwise;
+              out and d_neigh
               rtol 1e-5 / atol 1e-5 against f32 cuBLAS with TF32 off, a
               bf16 out within 2 bf16 ulps; d_w within 1e-5 of max
               |d_w| (a sum over up to 15360 rows in another order); a
@@ -115,7 +122,8 @@ embedding_bag_fused_fwd, both with embedding_bag_bwd as their backward:
               and on the deep tables (D = 32) embedding_bag_fwd (library:
               F.embedding_bag over the flattened (F*V, 32) table) and
               embedding_bag_bwd (library: index_add_ into a (F*V, 32)
-              gradient), each with its plain version and bound.
+              gradient), each with its plain version and bound; the
+              forward also with bf16 tables.
  11. recsys_model  wide-deep's loss and every gradient at the published
               widths (batch 4096) through the kernels against the plain
               versions, same parameters and batch: loss rtol 1e-5, each
@@ -129,7 +137,7 @@ embedding_bag_fused_fwd, both with embedding_bag_bwd as their backward:
               train step, peak device memory, the first and last loss.
  13. recsys_profile  one wide-deep train step under torch.profiler:
               device time by kernel, and each embedding kernel's time in
-              the step (the fused forward's goes into its record).
+              the step (the forwards' go into their records).
 
 Launch counts are set to 0 just before each main path (the DLRM loop,
 the GNN loop, the wide-deep loop) and read just after it; the `kernels`
@@ -322,14 +330,41 @@ class Phase:
                   flush=True)
 
 
-def phase_build():
+def ptxas_report(log: str) -> dict:
+    """{kernel: (registers, stack frame bytes, spill store bytes, spill
+    load bytes)} from nvcc's `-Xptxas -v` output, each kernel by its
+    mangled name."""
+    import re
+    rep, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            rep[name] = [0, 0, 0, 0]
+        elif name is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                rep[name][1:] = [int(x) for x in m.groups()]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rep[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in rep.items()}
+
+
+def phase_build(strict: bool = True):
+    """Builds every kernel source and prints ptxas' report of each kernel
+    built; if `strict`, fails if an instantiation of
+    embedding_bag_fwd_kernel has a stack frame (its bag's words and sums
+    are meant to stay in registers)."""
     from repro_torch.kernels import build
     logs = build.build_all()
     for name, out in sorted(logs.items()):
-        for line in out.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line
-                                         or "Compiling" in line):
-                print(f"  [{name}] {line.strip()}")
+        for kernel, (regs, stack, st, ld) in ptxas_report(out).items():
+            print(f"  [{name}] {kernel}: {regs} registers, {stack} bytes "
+                  f"stack frame, {st}/{ld} bytes spill stores/loads")
+            if strict and "embedding_bag_fwd_kernel" in kernel and stack:
+                raise AssertionError(f"{kernel}: {stack} bytes stack frame")
     print(f"  built {sorted(build.SOURCES)} into {build.build_dir()}")
     print(f"  card: {card_line()}")
 
@@ -362,6 +397,55 @@ def _check_bag(tables, ids, combiner, tag) -> dict:
     err = max(_allclose(f"embedding_bag_bwd {tag} {combiner} f={i}",
                         g_k[i], g_p[i], 1e-5, 1e-6) for i in range(f))
     return {"embedding_bag_fwd": 0.0, "embedding_bag_bwd": err}
+
+
+def _ragged_bags(gen):
+    """embedding_bag_fwd bitwise against its plain version at D 1, 2, 3,
+    5, 8, 32, 33, 128 and 132, B 1 and 37, bags 1, 3, 4, 16 and 17, sum
+    and mean, f32 tables and bf16 ones 16-, 2- and 4-byte aligned (a
+    slice 0, 1 or 2 elements into a buffer): every load width, lanes from
+    1 to 32, both unroll bounds and a bag walked in chunks. Ids of -1 and
+    V make exactly their own rows NaN, the rest equal."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb, ref
+    n = 0
+    for d in (1, 2, 3, 5, 8, 32, 33, 128, 132):
+        f, v = 3, 1000
+        buf = torch.randn(f * v * d + 2, device="cuda", generator=gen)
+        for dtype, shift in ((torch.float32, 0), (torch.bfloat16, 0),
+                             (torch.bfloat16, 1), (torch.bfloat16, 2)):
+            tables = buf.to(dtype)[shift:shift + f * v * d].view(f, v, d)
+            for b in (1, 37):
+                for bag in (1, 3, 4, 16, 17):
+                    ids = torch.randint(0, v, (b, f, bag), device="cuda",
+                                        generator=gen, dtype=torch.int32)
+                    tag = (f"({f},{v},{d}) {str(dtype)[6:]} +{shift} b{b} "
+                           f"bag{bag}")
+                    for combiner in ("sum", "mean"):
+                        if not torch.equal(
+                                eb.embedding_bag_fwd(tables, ids, combiner),
+                                ref.embedding_bag_ref(tables, ids,
+                                                      combiner=combiner)):
+                            raise AssertionError(f"embedding_bag_fwd {tag} "
+                                                 f"{combiner}: not bitwise "
+                                                 f"equal to the plain version")
+                        n += 1
+                    bad = ids.clone()
+                    bad[0, 0, 0] = -1
+                    bad[b - 1, f - 1, bag - 1] = v
+                    got = eb.embedding_bag_fwd(tables, bad)
+                    nan = torch.isnan(got).any(-1)
+                    want = ref.embedding_bag_ref(tables, ids)
+                    if not (bool(torch.isnan(got[nan]).all())
+                            and int(nan.sum()) == 2 and nan[0, 0]
+                            and nan[b - 1, f - 1]
+                            and torch.equal(got[~nan], want[~nan])):
+                        raise AssertionError(f"embedding_bag_fwd {tag}: ids "
+                                             f"-1 and V must poison exactly "
+                                             f"their own rows")
+    print(f"  embedding_bag_fwd bitwise to the plain version at {n} ragged "
+          f"calls (D 1-132, B 1 and 37, bags 1-17, f32 and bf16 at 16-, 2- "
+          f"and 4-byte alignment); ids -1 and V poison their rows")
 
 
 def _check_dot(feats, tag) -> dict:
@@ -489,6 +573,7 @@ def phase_kernels(cfg) -> dict:
                             dtype=torch.int32)
         for combiner in ("sum", "mean"):
             note(_check_bag(tables, ids, combiner, f"({f},{v},{d}) b{b}"))
+    _ragged_bags(gen)
     note({"embedding_bag_bwd": _ragged_scatters(gen)})
     for b, f, d in ((37, 5, 10), (37, 27, 128), (1, 2, 4), (3, 60, 32)):
         note(_check_dot(torch.randn((b, f, d), device=dev, generator=gen),
@@ -525,6 +610,8 @@ def phase_kernels(cfg) -> dict:
     table_flat = tables.view(n_f * rows, dim)
 
     # embedding_bag_fwd
+    print(f"  embedding_bag_fwd plan: {eb.fwd_plan(b, n_f, dim)} (f32), "
+          f"{eb.fwd_plan(b, n_f, dim, 2)} (bf16)")
     t = time_ms(lambda: eb.embedding_bag_fwd(tables, ids), [()],
                 kernel="embedding_bag_fwd_kernel")
     plain = time_ms(lambda: ref.embedding_bag_ref(tables, ids), [()])
@@ -983,12 +1070,17 @@ def phase_sage_kernels(shape, cfg) -> dict:
                          b * f * d + 2 * b * d * h), err16)
             # the bf16 w's widening, a kernel of its own that the call
             # above launches first (its time is in the call's)
-            wt = time_ms(sa.widen_w, [(w,) for _, w in sets16],
-                         kernel="widen_w_kernel")
+            wsets = [(w,) for _, w in sets16]
+            wt = time_ms(sa.widen_w, wsets, kernel="widen_w_kernel")
+            wl = time_ms(lambda x: x.float(), wsets)
+            wb, wby = bound_ms(d * h * (2 + 4), 0)
             bf16["widen_w"] = {"ms": wt.ms, "wall_ms": wt.wall,
-                               "events": wt.events}
+                               "events": wt.events, "library_ms": wl.ms,
+                               "library_events": wl.events, "bound_ms": wb,
+                               "bound_by": wby}
             print(f"    widen_w ({d}, {h}) bf16: {wt.ms:.4f} ms on the card "
-                  f"({wt.events} events), {wt.wall:.4f} launch to launch")
+                  f"({wt.events} events), {wt.wall:.4f} launch to launch "
+                  f"(w.float() {wl.ms:.4f}, bound {wb:.4f} by {wby})")
             del sets16
         bsets = [(torch.randn((b, h), device=dev, generator=gen), w,
                   sa.sage_aggregate_fwd(n, w, True)[1]) for n, w in sets]
@@ -1375,6 +1467,8 @@ def phase_recsys_kernels(cfg) -> dict:
     # F.embedding_bag over the flattened (F*V, 32) table, embedding_bag_bwd
     # against index_add_ into a (F*V, 32) gradient
     deep_flat = deep.view(n_f * rows, dim)
+    print(f"  embedding_bag_fwd plan: {eb.fwd_plan(b, n_f, dim)} (f32), "
+          f"{eb.fwd_plan(b, n_f, dim, 2)} (bf16)")
     rec["embedding_bag_fwd_d32"] = kernel_record(
         "embedding_bag_fwd at D = 32 (deep tables)",
         time_ms(lambda i: eb.embedding_bag_fwd(deep, i), sets,
@@ -1385,8 +1479,7 @@ def phase_recsys_kernels(cfg) -> dict:
         bound_ms(main.numel() * 4 + uniq * dim * 4 + b * n_f * dim * 4,
                  b * n_f * bag * dim), 0.0)
     # the deep tables in bf16 (the same values, rounded): bitwise to the
-    # plain version; bound at 2-byte elements. A warp a row leaves most
-    # of its lanes idle at 64-byte rows (PERF.md)
+    # plain version; bound at 2-byte elements
     deep16 = deep.to(torch.bfloat16)
     if not torch.equal(eb.embedding_bag_fwd(deep16, main),
                        ref.embedding_bag_ref(deep16, main)):
@@ -1650,6 +1743,8 @@ def main() -> int:
         in_step = phase_recsys_profile(WD_ARCH)
     recs["embedding_bag_fused_fwd"]["in_step_ms"] = \
         in_step["embedding_bag_fused_fwd"]
+    recs["embedding_bag_fused_fwd"]["embedding_bag_fwd_d32"]["in_step_ms"] \
+        = in_step["embedding_bag_fwd"]
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]

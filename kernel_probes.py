@@ -26,7 +26,15 @@ CUDA events launch to launch). Sections (all when none is named):
             neigh and w each f32 or bf16.
   embedding embedding_bag_fwd at wide-deep's deep arm (65536, 40, 4) x
             (40, 2^20, 32) and the DLRM's (2048, 26, 4) x (26, 2^20, 128),
-            f32 and bf16 tables.
+            f32 and bf16 tables, beside embedding_bag_fused_fwd through
+            its wrapper (its 8 MiB dispatch skipped), F.embedding_bag
+            and the bound; the SASS of the forward kernels (loads, local
+            memory, branches). For this checkout's kernel also: its rows
+            walked feature by feature, blocks of 256 and 512 threads, at
+            least 16 blocks an SM, streaming output stores, 2 rows a lane
+            group (a probe kernel on its helpers), and its gathers alone
+            over the same rows in memory order, feature by feature and
+            sorted (the floor the random order sets).
   scatter   embedding_bag_bwd at wide-deep's two arms, ids (65536, 40, 4)
             into (40, 2^20, D) at D = 1 and 32, and at the DLRM's (2048,
             26, 4) into (26, 2^20, 128), with its walk's feature group
@@ -46,7 +54,8 @@ CUDA events launch to launch). Sections (all when none is named):
 Each variant is a copy of a kernel source under src/repro_torch/kernels/
 csrc with one edit, built with nvcc into build/kernel_probes/. `--src
 DIR` imports repro_torch from DIR (say, the src of an unpacked earlier
-commit) for the sections that call only its wrappers (sage, embedding).
+commit) for the sections that call only its wrappers (sage, embedding:
+there the variants are left out).
 It needs one CUDA card and nvcc, and exits non-zero without them.
 """
 from __future__ import annotations
@@ -169,8 +178,8 @@ SCATTER_VARIANTS = {
     "ldcs": (
         ("__ldg(reinterpret_cast<const float4*>(src) + c)",
          "__ldcs(reinterpret_cast<const float4*>(src) + c)"),
-        ("__ldg(reinterpret_cast<const int4*>(row_ids + j))",
-         "__ldcs(reinterpret_cast<const int4*>(row_ids + j))")),
+        ("__ldg(reinterpret_cast<const int4*>(p + j))",
+         "__ldcs(reinterpret_cast<const int4*>(p + j))")),
     "bulk": BULK,
 }
 # the forward's d loop unrolled by 2
@@ -311,20 +320,185 @@ extern "C" int fused_rows(const void* tables, const int32_t* ids, float* out,
 }
 '''
 
+# the forward walking its rows feature by feature (feature-major: row
+# b F + f at place f B + b) instead of in memory order, with blocks of
+# 256 or 512 threads, with at least 16 blocks of 128 an SM (32 registers
+# a thread), and with its output written evict-first (streaming stores)
+EMB_FWD_VARIANTS = {
+    "feature_major": (
+        ("  const int64_t row = t >> lanes_log2;\n"
+         "  if (row >= rows) return;",
+         "  const int64_t place = t >> lanes_log2;\n"
+         "  if (place >= rows) return;\n"
+         "  const int64_t row =\n"
+         "      place % (rows / F) * F + place / (rows / F);"),),
+    "threads256": (("constexpr int kFwdThreads = 128;",
+                    "constexpr int kFwdThreads = 256;"),),
+    "threads512": (("constexpr int kFwdThreads = 128;",
+                    "constexpr int kFwdThreads = 512;"),),
+    "min16blocks": (("__global__ void __launch_bounds__(kFwdThreads)\n"
+                     "embedding_bag_fwd_kernel(",
+                     "__global__ void __launch_bounds__(kFwdThreads, 16)\n"
+                     "embedding_bag_fwd_kernel("),),
+    "stcs": (("    *p = v[0];", "    __stcs(p, v[0]);"),
+             ("    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);",
+              "    __stcs(reinterpret_cast<float2*>(p), "
+              "make_float2(v[0], v[1]));"),
+             ("      *reinterpret_cast<float4*>(p + i) =\n"
+              "          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);",
+              "      __stcs(reinterpret_cast<float4*>(p + i),\n"
+              "             make_float4(v[i], v[i + 1], v[i + 2], "
+              "v[i + 3]));")),
+}
+EMB_FWD_THREADS = {"threads256": 256, "threads512": 512}
+
+# two probe kernels on the forward's helpers (words, widening, stores),
+# for 16-byte loads, bags of 4 and "sum": the forward's body with 2 rows
+# a lane group (consecutive rows in memory order, both rows' 4 loads in
+# flight before the adds), and the gathers alone (a lane group a row of
+# 4 flat row indices f V + id, one int4, with no place arithmetic and no
+# id check) over flat indices in any order
+EMB_PROBE = r'''
+#include "embedding_bag.cu"
+namespace {
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kFwdThreads)
+rows2_kernel(const T* __restrict__ tables, const int32_t* __restrict__ ids,
+             float* __restrict__ out, int64_t rows, int64_t F, int64_t V,
+             int64_t D, int lanes_log2) {
+  using W = typename Word<T, VEC>::type;
+  const int64_t t = (int64_t)blockIdx.x * kFwdThreads + threadIdx.x;
+  const int64_t row0 = (t >> lanes_log2) * 2;
+  if (row0 >= rows) return;
+  const int lanes = 1 << lanes_log2;
+  const int lane = (int)(t & (lanes - 1));
+  int32_t id[2][4];
+  const T* table[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t row = row0 + r < rows ? row0 + r : row0;
+    const int4 v = __ldg(reinterpret_cast<const int4*>(ids) + row);
+    id[r][0] = v.x; id[r][1] = v.y; id[r][2] = v.z; id[r][3] = v.w;
+    table[r] = tables + (int64_t)((uint32_t)row % (uint32_t)F) * V * D;
+  }
+  const W* no_row = reinterpret_cast<const W*>(&g_no_row);
+  const float nan = __int_as_float(0x7fc00000);
+  for (int64_t c = lane; c < D / VEC; c += lanes) {
+    W w[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w[r][j] = __ldg(valid_id(id[r][j], V)
+                            ? reinterpret_cast<const W*>(
+                                  table[r] + (int64_t)id[r][j] * D) + c
+                            : no_row);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row0 + r >= rows) continue;
+      float acc[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v[VEC];
+        widen(w[r][j], v);
+        const bool ok = valid_id(id[r][j], V);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] += ok ? v[k] : nan;
+      }
+      st_f32<VEC>(out + (row0 + r) * D + c * VEC, acc);
+    }
+  }
+}
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kFwdThreads)
+gather_rows_kernel(const T* __restrict__ tables, const int4* __restrict__ flat,
+                   float* __restrict__ out, int64_t rows, int64_t D,
+                   int lanes_log2) {
+  using W = typename Word<T, VEC>::type;
+  const int64_t t = (int64_t)blockIdx.x * kFwdThreads + threadIdx.x;
+  const int64_t row = t >> lanes_log2;
+  if (row >= rows) return;
+  const int lanes = 1 << lanes_log2;
+  const int4 q = __ldg(flat + row);
+  for (int64_t c = (int)(t & (lanes - 1)); c < D / VEC; c += lanes) {
+    W w[4];
+    w[0] = __ldg(reinterpret_cast<const W*>(tables + (int64_t)q.x * D) + c);
+    w[1] = __ldg(reinterpret_cast<const W*>(tables + (int64_t)q.y * D) + c);
+    w[2] = __ldg(reinterpret_cast<const W*>(tables + (int64_t)q.z * D) + c);
+    w[3] = __ldg(reinterpret_cast<const W*>(tables + (int64_t)q.w * D) + c);
+    float acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v[VEC];
+      widen(w[j], v);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] += v[k];
+    }
+    st_f32<VEC>(out + row * D + c * VEC, acc);
+  }
+}
+}  // namespace
+extern "C" int rows2(const void* tables, const int32_t* ids, float* out,
+                     int64_t B, int64_t F, int64_t V, int64_t D,
+                     int32_t bf16, int32_t lanes_log2, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t rows = B * F;
+  const unsigned blocks = (unsigned)(
+      ((((rows + 1) / 2) << lanes_log2) + kFwdThreads - 1) / kFwdThreads);
+  if (D % (bf16 ? 8 : 4)) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    rows2_kernel<__nv_bfloat16, 8><<<blocks, kFwdThreads, 0, s>>>(
+        (const __nv_bfloat16*)tables, ids, out, rows, F, V, D, lanes_log2);
+  else
+    rows2_kernel<float, 4><<<blocks, kFwdThreads, 0, s>>>(
+        (const float*)tables, ids, out, rows, F, V, D, lanes_log2);
+  return (int)cudaGetLastError();
+}
+extern "C" int gather_rows(const void* tables, const int32_t* flat,
+                           float* out, int64_t rows, int64_t D, int32_t bf16,
+                           int32_t lanes_log2, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks =
+      (unsigned)(((rows << lanes_log2) + kFwdThreads - 1) / kFwdThreads);
+  if (D % (bf16 ? 8 : 4)) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    gather_rows_kernel<__nv_bfloat16, 8><<<blocks, kFwdThreads, 0, s>>>(
+        (const __nv_bfloat16*)tables, (const int4*)flat, out, rows, D,
+        lanes_log2);
+  else
+    gather_rows_kernel<float, 4><<<blocks, kFwdThreads, 0, s>>>(
+        (const float*)tables, (const int4*)flat, out, rows, D, lanes_log2);
+  return (int)cudaGetLastError();
+}
+'''
+
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 
 
 def build_variants(sections):
     """nvcc for the micro kernels and the variants of `sections`, started
-    together; returns their loaded libraries."""
+    together; returns their loaded libraries. The forward's variants
+    (section `embedding`) are this checkout's, and are built only when
+    repro_torch is this checkout's too (no `--src`)."""
     from repro_torch.kernels import build
     os.makedirs(OUT, exist_ok=True)
     sources = {"micro": MICRO} if "scatter" in sections else {}
     if "fused" in sections:
         sources["gather"] = GATHER
         sources["fused_rows"] = FUSED_ROWS
+    own = SRC == os.path.join(ROOT, "src")
+    if "embedding" in sections and own:
+        sources["emb_probe"] = EMB_PROBE
     for src, variants, section in (
             ("embedding_bag", SCATTER_VARIANTS, "scatter"),
+            ("embedding_bag", EMB_FWD_VARIANTS,
+             "embedding" if own else None),
             ("dot_interact", DOT_VARIANTS, "dot_bwd"),
             ("dot_interact", DOT_FWD_VARIANTS, "dot_fwd"),
             ("embedding_bag_fused", FUSED_VARIANTS, "fused")):
@@ -361,6 +535,11 @@ def build_variants(sections):
         elif name == "fused_rows":
             lib.fused_rows.argtypes = (_P, _P, _P, _I64, _I64, _I64, _I32,
                                        _I32, _I32, _P)
+        elif name == "emb_probe":
+            lib.rows2.argtypes = (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                                  _I32, _P)
+            lib.gather_rows.argtypes = (_P, _P, _P, _I64, _I64, _I32, _I32,
+                                        _P)
         else:
             src = next(k for k in sorted(build.SIGNATURES, key=len,
                                          reverse=True)
@@ -372,9 +551,10 @@ def build_variants(sections):
     return libs
 
 
-def sass_reductions(path: str) -> dict:
-    """{kernel: {opcode: count}} of the REDG and ATOMG instructions in the
-    library at `path`."""
+def sass_ops(path: str, ops, match: str) -> dict:
+    """{kernel: {opcode: count}} of the instructions whose opcode starts
+    with one of `ops` in each kernel of the library at `path` whose name
+    holds `match`."""
     out = subprocess.run(["cuobjdump", "-sass", path], capture_output=True,
                          text=True, check=True).stdout
     counts, name = {}, None
@@ -383,10 +563,10 @@ def sass_reductions(path: str) -> dict:
             name = line.split("Function :")[1].strip()
             counts[name] = {}
         elif name is not None:
-            for word in line.split():
-                if word.startswith(("REDG.", "ATOMG.")):
+            for word in line.replace(";", " ").split():
+                if word.startswith(ops):
                     counts[name][word] = counts[name].get(word, 0) + 1
-    return counts
+    return {k: v for k, v in counts.items() if match in k}
 
 
 def probe_fused(cs, libs, ids, cfg, gen):
@@ -573,35 +753,131 @@ def probe_sage(cs, gen):
         del base
 
 
-def probe_embedding(cs, wd, dlrm, model, cfg, gen):
+def probe_embedding(cs, libs, wd, dlrm, model, cfg, gen):
     """embedding_bag_fwd at wide-deep's deep arm, ids (65536, 40, 4) into
     (40, 2^20, 32), and at the DLRM's (2048, 26, 4) into (26, 2^20, 128),
-    f32 and bf16 tables, two rounds in turns."""
+    f32 and bf16 tables, two rounds in turns (the second in reverse
+    order): the kernel and embedding_bag_fused_fwd through their
+    wrappers, F.embedding_bag and the bound; and, for this checkout's
+    kernel, the variants of EMB_FWD_VARIANTS, 2 rows a lane group, and
+    its gathers alone over the flat row indices in memory order, feature
+    by feature and sorted. Each variant is first checked bit-equal to the
+    kernel. The SASS of the built forward kernels: loads, local memory,
+    branches."""
     import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels.build import LIBRARIES
     print(f"embedding: repro_torch from {os.path.dirname(eb.__file__)}")
+    LIBRARIES.get("embedding_bag")      # built before its SASS is read
+    # the global loads, local memory and branches of each forward kernel
+    for name, ops in sass_ops(str(build.library_path("embedding_bag")),
+                              ("LDG.", "LDL", "STL", "BRA"),
+                              "embedding_bag_fwd_kernel").items():
+        print(f"sass {name}: {ops}")
+    own = "emb_probe" in libs
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
     for tag, ids, rows, d in (("deep arm", wd, cfg.vocab_sizes[0],
                                cfg.embed_dim),
                               ("DLRM", dlrm, model.vocab_sizes[0],
                                model.embed_dim)):
-        tables = torch.empty((ids.shape[1], rows, d), device="cuda")
+        b, n_f, bag = ids.shape
+        # the deep arm cycles two id sets (84 MB), as chip_smoke.py does
+        sets = [(ids,)]
+        if tag == "deep arm":
+            sets.append((torch.as_tensor(cs._criteo_batch(
+                cfg, 65536, 3)["sparse_ids"]).to(ids.device),))
+        offs = (torch.arange(n_f, device=ids.device) * rows).view(1, n_f, 1)
+        flat_sets = [((i.long() + offs).reshape(b * n_f, bag),)
+                     for (i,) in sets]
+        uniq = int(torch.unique(flat_sets[0][0]).numel())
+        tables = torch.empty((n_f, rows, d), device="cuda")
         tables.normal_(generator=gen)
-        for rnd in range(2):
-            for dtype in (torch.float32, torch.bfloat16)[::1 - 2 * rnd]:
-                table = tables.to(dtype)
-                try:
-                    t = cs.time_ms(lambda: eb.embedding_bag_fwd(table, ids),
-                                   [()], kernel="embedding_bag_fwd_kernel")
-                except TypeError as e:      # a version without bf16
-                    print(f"embedding_bag_fwd {tag} {str(dtype)[6:]}: "
-                          f"refused ({e})", flush=True)
-                    continue
-                finally:
-                    del table
-                print(f"embedding_bag_fwd {tag} {str(dtype)[6:]}: "
-                      f"{t.ms:.4f} ms, {t.wall:.4f} launch to launch",
-                      flush=True)
-        del tables
+        out = torch.empty((b, n_f, d), device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            table = tables.to(dtype)
+            elem = table.element_size()
+            bf16 = int(dtype == torch.bfloat16)
+            dt = f"{tag} {str(dtype)[6:]}"
+            bnd, _ = cs.bound_ms(ids.numel() * 4 + uniq * d * elem
+                                 + b * n_f * d * 4, 0)
+            lib_t = cs.time_ms(lambda x: F.embedding_bag(
+                x, table.view(n_f * rows, d), mode="sum"), flat_sets)
+            print(f"embedding {dt}: bound {bnd:.4f} ms; F.embedding_bag "
+                  f"{lib_t.ms:.4f} ms", flush=True)
+            calls = [("kernel", lambda i: eb.embedding_bag_fwd(table, i),
+                      sets, "embedding_bag_fwd_kernel"),
+                     ("fused kernel",
+                      lambda i: eb.embedding_bag_fused_fwd(table, i), sets,
+                      "embedding_bag_fused_fwd_kernel")]
+            if own:
+                want = eb.embedding_bag_fwd(table, ids)
+                plan = eb.fwd_plan(b, n_f, d, elem)
+                print(f"  plan {plan}", flush=True)
+
+                def fwd(vlib, threads):
+                    blocks = -(-b * n_f * plan.lanes // threads)
+
+                    def call(i):
+                        status = vlib.embedding_bag_fwd(
+                            table.data_ptr(), i.data_ptr(), out.data_ptr(),
+                            b, n_f, rows, d, bag, 0, bf16, plan.vec,
+                            plan.lanes_log2, blocks, stream())
+                        if status != 0:
+                            raise RuntimeError(f"embedding_bag_fwd: CUDA "
+                                               f"error {status}")
+                    return call
+
+                def rows2(i):
+                    status = libs["emb_probe"].rows2(
+                        table.data_ptr(), i.data_ptr(), out.data_ptr(), b,
+                        n_f, rows, d, bf16, plan.lanes_log2, stream())
+                    if status != 0:
+                        raise RuntimeError(f"rows2: CUDA error {status}")
+
+                variants = [(n, fwd(libs[f"embedding_bag_{n}"],
+                                    EMB_FWD_THREADS.get(n, eb.FWD_THREADS)),
+                             "embedding_bag_fwd_kernel")
+                            for n in EMB_FWD_VARIANTS]
+                variants.append(("2 rows a lane group", rows2,
+                                 "rows2_kernel"))
+                for name, call, kern in variants:
+                    call(ids)
+                    if not torch.equal(out, want):
+                        raise AssertionError(f"{name}: not bit-equal to "
+                                             f"embedding_bag_fwd")
+                    calls.append((name, call, sets, kern))
+                # the gathers alone over the flat row indices (f V + id)
+                for order, arrange in (
+                        ("memory order", lambda x: x),
+                        ("feature by feature",
+                         lambda x: x.view(b, n_f, bag).transpose(0, 1)),
+                        ("sorted",
+                         lambda x: torch.sort(x.reshape(-1)).values)):
+                    gsets = [(arrange(x).reshape(-1, bag).int().contiguous(),)
+                             for (x,) in flat_sets]
+
+                    def gather(x):
+                        status = libs["emb_probe"].gather_rows(
+                            table.data_ptr(), x.data_ptr(), out.data_ptr(),
+                            b * n_f, d, bf16, plan.lanes_log2, stream())
+                        if status != 0:
+                            raise RuntimeError(f"gather_rows: CUDA error "
+                                               f"{status}")
+                    calls.append((f"gathers alone, {order}", gather, gsets,
+                                  "gather_rows_kernel"))
+            for rnd in range(2):
+                for name, call, args, kern in calls[::1 if rnd == 0 else -1]:
+                    t = cs.time_ms(call, args, kernel=kern)
+                    print(f"  {dt} {name}: {t.ms:.4f} ms, {t.wall:.4f} "
+                          f"launch to launch ({bnd / t.ms:.0%} of the "
+                          f"bound)", flush=True)
+            del table
+        del tables, out
         torch.cuda.empty_cache()
 
 
@@ -623,14 +899,15 @@ def main(sections) -> int:
     from repro_torch.kernels.build import LIBRARIES
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cs.phase_build()
+    cs.phase_build(strict=SRC == os.path.join(ROOT, "src"))
     libs = build_variants(sections)
     from repro_torch.kernels import build
     if "scatter" in sections:
-        for name, ops in sass_reductions(
-                str(build.library_path("embedding_bag"))).items():
-            if "bwd" in name:
-                print(f"sass {name}: {ops}")
+        # the reductions each backward kernel issues: REDG,
+        # fire-and-forget, or ATOMG
+        for name, ops in sass_ops(str(build.library_path("embedding_bag")),
+                                  ("REDG.", "ATOMG."), "bwd").items():
+            print(f"sass {name}: {ops}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -766,7 +1043,7 @@ def main(sections) -> int:
     if "sage" in sections:
         probe_sage(cs, gen)
     if "embedding" in sections:
-        probe_embedding(cs, wd, dlrm, MODEL, cfg, gen)
+        probe_embedding(cs, libs, wd, dlrm, MODEL, cfg, gen)
     print(f"card: {cs.card_line()}")
     return 0
 

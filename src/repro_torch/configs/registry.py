@@ -18,17 +18,17 @@ _ARCH_MODULES = {
 
 # arch -> where it waits (ROADMAP.md, "Queue 1: modules to port")
 _NOT_PORTED = {
-    "dlrm-criteo": "queue 1, item 2 (dlrm-criteo through the generic "
+    "dlrm-criteo": "queue 1, item 3 (dlrm-criteo through the generic "
                    "driver; its closed loop runs as "
                    "repro_torch.launch.train_dlrm_criteo)",
-    "xdeepfm": "queue 1, item 6 (xDeepFM, DIEN and BERT4Rec)",
-    "dien": "queue 1, item 6 (xDeepFM, DIEN and BERT4Rec)",
-    "bert4rec": "queue 1, item 6 (xDeepFM, DIEN and BERT4Rec)",
-    "qwen2-moe-a2.7b": "queue 1, item 7 (LLM family)",
-    "kimi-k2-1t-a32b": "queue 1, item 7 (LLM family)",
-    "smollm-135m": "queue 1, item 7 (LLM family)",
-    "gemma2-2b": "queue 1, item 7 (LLM family)",
-    "qwen2.5-32b": "queue 1, item 7 (LLM family)",
+    "xdeepfm": "queue 1, item 7 (xDeepFM, DIEN and BERT4Rec)",
+    "dien": "queue 1, item 7 (xDeepFM, DIEN and BERT4Rec)",
+    "bert4rec": "queue 1, item 7 (xDeepFM, DIEN and BERT4Rec)",
+    "qwen2-moe-a2.7b": "queue 1, item 8 (LLM family)",
+    "kimi-k2-1t-a32b": "queue 1, item 8 (LLM family)",
+    "smollm-135m": "queue 1, item 8 (LLM family)",
+    "gemma2-2b": "queue 1, item 8 (LLM family)",
+    "qwen2.5-32b": "queue 1, item 8 (LLM family)",
 }
 
 

@@ -17,16 +17,45 @@
 // the tables is 64-bit.
 //
 // Forward, bound on this card by bytes. Each output row reads `bag` table
-// rows and writes one, a handful of adds per byte. The design keeps the
-// row loads wide and independent: one warp per (b, f) output row, each
-// lane holding one float4 column slice (D = 128 is exactly 32 lanes x 4
-// floats), and the bag loop unrolled so the `bag` row loads are in flight
-// together. The sum runs j ascending from 0.0f, so the f32 result is
-// bit-equal to the plain PyTorch version (a left fold over j). A bf16
-// table is loaded as bf16 (16-byte loads of 8 where D % 8 == 0 and the
-// pointer allows, 4-byte loads of 2 where D is even, else one at a time),
-// widened to f32 in registers (exact) and summed in f32 as above: one
-// template on the element type, the f32 instantiation unchanged.
+// rows and writes one, a handful of adds per byte. The sum runs j
+// ascending from 0.0f and "mean" divides by `bag` (IEEE division), so the
+// result is bit-equal to the plain PyTorch version (a left fold over j),
+// f32 or bf16 tables alike: a bf16 is widened to f32 in registers by
+// moving its 16 bits to the top of a word (exact), with shifts, no union
+// (the first bf16 body's union of a uint4 and 8 shorts went through an
+// 8-byte stack frame at 16-byte loads). The launch is a host plan
+// (embedding_bag.py, `fwd_plan`). What held the first version (a warp a
+// row, one 16-byte load a lane, ids loaded one at a time, a branch
+// around each row load) back, and what this one does about it
+// (kernel_probes.py embedding; PERF.md):
+//  - Idle lanes. A lane group of `lanes` threads covers one (b, f) row,
+//    `lanes` the power of two covering its loads, at most 32: the deep
+//    arm's D = 32 takes 8 lanes of float4 (4 rows a warp) or 4 of 8 bf16
+//    (8 rows a warp), the DLRM's D = 128 32 lanes or 16. Loads are 16
+//    bytes where D and the pointers allow it, else 4 bytes of bf16, else
+//    one element.
+//  - The bag's loads were not in flight together. Each lane group loads
+//    its bag's ids first (an int4 where the bag is a multiple of 4 and
+//    the ids 16-byte aligned), then issues every table load of the bag
+//    before the first add: unrolled to 4 for bags of up to 4 ids and to
+//    16 above, larger bags walked in chunks of 16, j ascending. The loads
+//    are branch-free: a slot past the bag, or an id outside [0, V),
+//    loads a zero word (g_no_row) in place of a table row, and the
+//    out-of-range id's value is a select of NaN.
+//  - The walk is memory order: row b F + f at place b F + f, so a warp's
+//    ids and outputs are contiguous. Walking feature by feature (the
+//    tables read 128 MB at a time instead of 5.4 GB) was 3-7% slower: the
+//    outputs are then written 5 KB apart. The kernel's time is that of
+//    its gathers alone in the same order (a probe kernel with no place
+//    arithmetic and no id checks); sorted, the same gathers take about
+//    0.9x (f32) and 0.75x (bf16) of it: what is left above the bound is
+//    the random order of the rows.
+//  - Blocks of 128 threads: about 1% faster than 256 at the DLRM's shape
+//    and the deep arm's in f32, equal in bf16; 512 slower. Also measured
+//    and not taken: 2 rows a lane group (its 8 loads in flight: within
+//    2% either way), at least 16 blocks an SM (32 registers: up to 1%
+//    faster in f32, 8-10% slower in bf16), streaming (evict-first)
+//    output stores (equal).
 //
 // Backward, bound by bytes on paper: d_out and ids read once, each
 // distinct gradient row read and written once (the atomics'
@@ -82,30 +111,79 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = 32 * kWarpsPerBlock;
+constexpr int kFwdThreads = 128;
+// bags of up to 4 ids, and of up to 16, are unrolled to that bound;
+// larger ones are walked in chunks of 16 (the forward) or slot by slot
+// (the backward)
+constexpr int kMaxUnrolledBag = 16;
 
 __device__ __forceinline__ bool valid_id(int32_t id, int64_t V) {
   return id >= 0 && static_cast<int64_t>(id) < V;
 }
 
-// N bf16 at p (aligned to their 2 N bytes: 2, 4 or 16), widened to f32
-// in registers: each one's 16 bits moved to the top of an f32 (exact)
-template <int kBytes> struct Bits;
-template <> struct Bits<2> { using T = unsigned short; };
-template <> struct Bits<4> { using T = unsigned int; };
-template <> struct Bits<16> { using T = uint4; };
-
-template <int N>
-__device__ __forceinline__ void ldg_bf16(const __nv_bfloat16* p,
-                                         float (&v)[N]) {
-  using R = typename Bits<2 * N>::T;
-  union { R r; unsigned short e[N]; } u;
-  u.r = __ldg(reinterpret_cast<const R*>(p));
+// The ids p[0, n) (at most kUnroll of them) into registers: as int4s
+// where `vec4` (n a multiple of 4, p 16-byte aligned), else one by one.
+template <int kUnroll>
+__device__ __forceinline__ void load_ids(const int32_t* p, int n, bool vec4,
+                                         int32_t (&id)[kUnroll]) {
+  if (vec4) {
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-    v[i] = __bfloat162float(__ushort_as_bfloat16(u.e[i]));
+    for (int j = 0; j < kUnroll; j += 4) {
+      if (j < n) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(p + j));
+        id[j] = v.x;
+        id[j + 1] = v.y;
+        id[j + 2] = v.z;
+        id[j + 3] = v.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      if (j < n) id[j] = __ldg(p + j);
+    }
+  }
 }
+
+// The word one load of VEC elements of T brings: 16 bytes (4 floats, 8
+// bf16), 4 bytes (2 bf16) or one element.
+template <typename T, int VEC> struct Word;
+template <> struct Word<float, 4> { using type = float4; };
+template <> struct Word<float, 1> { using type = float; };
+template <> struct Word<__nv_bfloat16, 8> { using type = uint4; };
+template <> struct Word<__nv_bfloat16, 2> { using type = unsigned int; };
+template <> struct Word<__nv_bfloat16, 1> { using type = unsigned short; };
+
+// A word widened to f32 in registers: a bf16 is the top half of an f32,
+// so its 16 bits shifted into place are its value (exact).
+__device__ __forceinline__ void widen(float4 w, float (&v)[4]) {
+  v[0] = w.x;
+  v[1] = w.y;
+  v[2] = w.z;
+  v[3] = w.w;
+}
+__device__ __forceinline__ void widen(float w, float (&v)[1]) { v[0] = w; }
+__device__ __forceinline__ void widen2(unsigned w, float* v) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void widen(uint4 w, float (&v)[8]) {
+  widen2(w.x, v);
+  widen2(w.y, v + 2);
+  widen2(w.z, v + 4);
+  widen2(w.w, v + 6);
+}
+__device__ __forceinline__ void widen(unsigned w, float (&v)[2]) {
+  widen2(w, v);
+}
+__device__ __forceinline__ void widen(unsigned short w, float (&v)[1]) {
+  v[0] = __uint_as_float(static_cast<unsigned>(w) << 16);
+}
+
+// What an out-of-range id loads in place of a table row (its value is
+// then replaced by NaN): any table, even an empty one, has no row to
+// stand in.
+__device__ __align__(16) uint4 g_no_row;
 
 // N f32 values to p (aligned to 4 N bytes, or 16 for N = 8)
 template <int N>
@@ -122,97 +200,85 @@ __device__ __forceinline__ void st_f32(float* p, const float (&v)[N]) {
   }
 }
 
-// T is the tables' element type (float or __nv_bfloat16); VEC elements a
-// load: 16 bytes (4 floats, 8 bf16) where D allows it and the tables are
-// 16-byte aligned, 2 bf16 where D is even and they are 4-byte aligned,
-// else 1. The f32 body is the f32-only kernel's that came before (float4
-// or float loads and sums; a generic body measured 17% slower at D = 32,
-// PERF.md); the bf16 body widens each load's elements in registers.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+// The forward. T is the tables' element type (float or __nv_bfloat16),
+// VEC elements a load, kUnroll the bag's unroll bound (4 or 16). Thread
+// t is lane t % lanes of the lane group of output row t / lanes (rows in
+// memory order, (b, f) at b F + f), and takes the row's column words
+// lane, lane + lanes, ... For each word, and each chunk of kUnroll bag
+// slots (one chunk for a bag of at most kUnroll), it loads the chunk's
+// ids, then issues all the chunk's table loads, then adds them, j
+// ascending.
+template <typename T, int VEC, int kUnroll>
+__global__ void __launch_bounds__(kFwdThreads)
 embedding_bag_fwd_kernel(const T* __restrict__ tables,
                          const int32_t* __restrict__ ids,
                          float* __restrict__ out, int64_t rows, int64_t F,
-                         int64_t V, int64_t D, int bag, int mean) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
-                      (threadIdx.x >> 5);
+                         int64_t V, int64_t D, int bag, int mean,
+                         int lanes_log2) {
+  using W = typename Word<T, VEC>::type;
+  const int64_t t =
+      static_cast<int64_t>(blockIdx.x) * kFwdThreads + threadIdx.x;
+  const int64_t row = t >> lanes_log2;
   if (row >= rows) return;
-  const int64_t f = row % F;
+  const int lanes = 1 << lanes_log2;
+  const int lane = static_cast<int>(t & (lanes - 1));
   const int32_t* row_ids = ids + row * bag;
+  const int64_t f =
+      rows <= INT32_MAX
+          ? static_cast<uint32_t>(row) % static_cast<uint32_t>(F)
+          : row % F;
   const T* table = tables + f * V * D;
   float* dst = out + row * D;
+  const bool ids4 =
+      bag % 4 == 0 && (reinterpret_cast<uintptr_t>(ids) & 15u) == 0;
+  const W* no_row = reinterpret_cast<const W*>(&g_no_row);
   const float nan = __int_as_float(0x7fc00000);
-  if constexpr (sizeof(T) == 4 && VEC == 4) {
-    const int64_t d4 = D / 4;
-    for (int64_t c = lane; c < d4; c += 32) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-      for (int j = 0; j < bag; ++j) {
-        const int32_t id = __ldg(row_ids + j);
-        float4 r;
-        if (valid_id(id, V)) {
-          r = __ldg(reinterpret_cast<const float4*>(
-                        table + static_cast<int64_t>(id) * D) + c);
-        } else {
-          r = make_float4(nan, nan, nan, nan);
+  // a bag of at most kUnroll ids is one chunk (kUnroll 4 takes only
+  // those); the column words of a row number D / VEC < 2^31
+  const int chunks = kUnroll == 4 ? 1 : (bag + kUnroll - 1) / kUnroll;
+  const int words = static_cast<int>(D / VEC);
+  for (int c = lane; c < words; c += lanes) {
+    float acc[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+    for (int chunk = 0; chunk < chunks; ++chunk) {
+      const int j0 = chunk * kUnroll;
+      const int n = bag - j0;
+      int32_t id[kUnroll];
+      load_ids<kUnroll>(row_ids + j0, n, ids4, id);
+      // every load of the chunk in flight before the first add: a slot
+      // past the bag, or an id out of range, loads g_no_row instead of a
+      // table row, and an out-of-range id's value is a select of NaN
+      W w[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const bool ok = j < n && valid_id(id[j], V);
+        w[j] = __ldg(ok ? reinterpret_cast<const W*>(
+                              table + static_cast<int64_t>(id[j]) * D) +
+                              c
+                        : no_row);
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (j < n) {
+          float v[VEC];
+          widen(w[j], v);
+          const bool ok = valid_id(id[j], V);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) acc[k] += ok ? v[k] : nan;
         }
-        acc.x += r.x;
-        acc.y += r.y;
-        acc.z += r.z;
-        acc.w += r.w;
       }
-      if (mean) {
-        const float n = static_cast<float>(bag);
-        acc.x /= n;
-        acc.y /= n;
-        acc.z /= n;
-        acc.w /= n;
-      }
-      reinterpret_cast<float4*>(dst)[c] = acc;
     }
-  } else if constexpr (sizeof(T) == 4) {
-    for (int64_t d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < bag; ++j) {
-        const int32_t id = __ldg(row_ids + j);
-        acc += valid_id(id, V)
-                   ? __ldg(table + static_cast<int64_t>(id) * D + d)
-                   : nan;
-      }
-      if (mean) acc /= static_cast<float>(bag);
-      dst[d] = acc;
+    if (mean) {
+      const float n = static_cast<float>(bag);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] /= n;
     }
-  } else {
-    for (int64_t c = lane; c < D / VEC; c += 32) {
-      float acc[VEC];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < bag; ++j) {
-        const int32_t id = __ldg(row_ids + j);
-        float r[VEC];
-        if (valid_id(id, V)) {
-          ldg_bf16<VEC>(table + static_cast<int64_t>(id) * D + c * VEC, r);
-        } else {
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) r[k] = nan;
-        }
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] += r[k];
-      }
-      if (mean) {
-        const float n = static_cast<float>(bag);
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] /= n;
-      }
-      st_f32<VEC>(dst + c * VEC, acc);
-    }
+    st_f32<VEC>(dst + c * VEC, acc);
   }
 }
 
 constexpr int kBwdThreads = 256;
-constexpr int kMaxUnrolledBag = 16;
 
 __device__ __forceinline__ float4 scale4(float4 v, float s) {
   return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
@@ -317,23 +383,9 @@ embedding_bag_bwd_kernel(const float* __restrict__ d_out,
   const float bag_f = static_cast<float>(bag);
   if constexpr (kUnroll > 0) {
     int32_t id[kUnroll];
-    if (bag % 4 == 0 && (reinterpret_cast<uintptr_t>(ids) & 15u) == 0) {
-#pragma unroll
-      for (int j = 0; j < kUnroll; j += 4) {
-        if (j < bag) {
-          const int4 v = __ldg(reinterpret_cast<const int4*>(row_ids + j));
-          id[j] = v.x;
-          id[j + 1] = v.y;
-          id[j + 2] = v.z;
-          id[j + 3] = v.w;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        if (j < bag) id[j] = __ldg(row_ids + j);
-      }
-    }
+    load_ids<kUnroll>(
+        row_ids, bag,
+        bag % 4 == 0 && (reinterpret_cast<uintptr_t>(ids) & 15u) == 0, id);
     float w[kUnroll];
     bag_weights<kUnroll>(id, bag, V, w);
     scatter_row<kVec, kUnroll>(src, dst, id, w, D, lane, lanes, bag, bag_f,
@@ -381,45 +433,62 @@ void launch_bwd(dim3 grid, cudaStream_t s, const float* d_out,
   }
 }
 
+// the bag's unroll bound: 4 for bags of up to 4 ids, else 16
 template <typename T, int VEC>
-void launch_fwd(const void* tables, const int32_t* ids, float* out,
-                int64_t rows, int64_t F, int64_t V, int64_t D, int bag,
-                int mean, cudaStream_t s) {
-  const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  embedding_bag_fwd_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads,
-                                     0, s>>>(static_cast<const T*>(tables),
-                                             ids, out, rows, F, V, D, bag,
-                                             mean);
+void launch_fwd(unsigned blocks, cudaStream_t s, const void* tables,
+                const int32_t* ids, float* out, int64_t rows, int64_t F,
+                int64_t V, int64_t D, int bag, int mean, int lanes_log2) {
+  const T* t = static_cast<const T*>(tables);
+  if (bag <= 4) {
+    embedding_bag_fwd_kernel<T, VEC, 4><<<blocks, kFwdThreads, 0, s>>>(
+        t, ids, out, rows, F, V, D, bag, mean, lanes_log2);
+  } else {
+    embedding_bag_fwd_kernel<T, VEC, kMaxUnrolledBag>
+        <<<blocks, kFwdThreads, 0, s>>>(t, ids, out, rows, F, V, D, bag,
+                                        mean, lanes_log2);
+  }
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Each launches on `stream` and returns
-// cudaGetLastError() of the launch (0 = launched). The forward's tables
-// are f32 (`bf16` 0) or bf16 (`bf16` 1); its output is f32 either way.
+// cudaGetLastError() of the launch (0 = launched).
+//
+// The forward launches the host plan (embedding_bag.py, `fwd_plan`):
+// tables f32 (`bf16` 0) or bf16 (1), `vec` elements a load (f32: 4 or 1;
+// bf16: 8, 2 or 1; D % vec == 0, tables and out aligned to the load and
+// the store), 2^lanes_log2 threads a row, `blocks` blocks of 128
+// threads; its output is f32. A plan that does not fit the call (a grid
+// that misses rows) returns cudaErrorInvalidValue without launching.
 extern "C" int embedding_bag_fwd(const void* tables, const int32_t* ids,
                                  float* out, int64_t B, int64_t F, int64_t V,
                                  int64_t D, int32_t bag, int32_t mean,
-                                 int32_t bf16, void* stream) {
+                                 int32_t bf16, int32_t vec,
+                                 int32_t lanes_log2, int64_t blocks,
+                                 void* stream) {
+  const int elem = bf16 ? 2 : 4;
+  const bool vec_ok =
+      bf16 ? (vec == 8 || vec == 2 || vec == 1) : (vec == 4 || vec == 1);
+  if (bag < 1 || !vec_ok || lanes_log2 < 0 || lanes_log2 > 5)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t rows = B * F;
   if (rows == 0 || D == 0) return 0;
+  if (D % vec != 0 || !aligned(tables, vec * elem) ||
+      !aligned(out, vec == 8 ? 16 : 4 * vec) || D > INT32_MAX ||
+      blocks > INT32_MAX || blocks * kFwdThreads < (rows << lanes_log2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16) {
-    if (D % 4 == 0 && aligned16(tables) && aligned16(out)) {
-      launch_fwd<float, 4>(tables, ids, out, rows, F, V, D, bag, mean, s);
-    } else {
-      launch_fwd<float, 1>(tables, ids, out, rows, F, V, D, bag, mean, s);
-    }
-  } else if (D % 8 == 0 && aligned16(tables) && aligned16(out)) {
-    launch_fwd<__nv_bfloat16, 8>(tables, ids, out, rows, F, V, D, bag, mean,
-                                 s);
-  } else if (D % 2 == 0 && aligned(tables, 4) && aligned(out, 8)) {
-    launch_fwd<__nv_bfloat16, 2>(tables, ids, out, rows, F, V, D, bag, mean,
-                                 s);
+#define FWD(T_, V_)                                                          \
+  if (vec == V_)                                                             \
+    launch_fwd<T_, V_>(grid, s, tables, ids, out, rows, F, V, D, bag, mean,  \
+                       lanes_log2);
+  if (bf16) {
+    FWD(__nv_bfloat16, 8) FWD(__nv_bfloat16, 2) FWD(__nv_bfloat16, 1)
   } else {
-    launch_fwd<__nv_bfloat16, 1>(tables, ids, out, rows, F, V, D, bag, mean,
-                                 s);
+    FWD(float, 4) FWD(float, 1)
   }
+#undef FWD
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,10 +9,10 @@ for small tables and bags. See the sources for the designs; all are
 bound by bytes. The forwards take f32 or bf16 tables, as the TPU
 kernels do, and return f32; the backward is f32.
 
-The launches of the fused forward and of the backward are plans
-computed here, in plain Python that the CPU tests reach (`fused_plan`:
-elements a load, threads a row, the feature groups of its walk; `bwd_plan`: floats an atomic, threads a row, the feature
-groups of its walk).
+The launches are plans computed here, in plain Python that the CPU
+tests reach (`fwd_plan`: elements a load, threads a row, blocks;
+`fused_plan`: the same and the feature groups of its walk; `bwd_plan`:
+floats an atomic, threads a row, the feature groups of its walk).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
@@ -81,6 +81,37 @@ def bwd_plan(b: int, f: int, v: int, d: int, aligned: bool = True
                 _cdiv(f, _MAX_GROUPS))
     return BwdPlan(vec, lanes, group, _cdiv(f, group),
                    _cdiv(b * min(group, f) * lanes, BWD_THREADS))
+
+
+# the forward (csrc/embedding_bag.cu): blocks of 128 threads (about 1%
+# faster than 256 on the card, 512 slower: PERF.md)
+FWD_THREADS = 128
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    vec: int          # elements a load: 4 or 1 (f32); 8, 2 or 1 (bf16)
+    lanes: int        # threads a (b, f) row, a power of two <= 32
+    blocks: int       # blocks of FWD_THREADS
+
+    @property
+    def lanes_log2(self) -> int:
+        return self.lanes.bit_length() - 1
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(b: int, f: int, d: int, elem: int = 4, ptr: int = 0
+             ) -> FwdPlan:
+    """The forward's launch for ids (b, f, bag) into tables (f, v, d) of
+    `elem`-byte elements at address `ptr` (or'd with the output's): loads
+    as wide as `load_width` allows; lanes the power of two covering a
+    row's loads, at most 32; blocks enough for every row, walked in
+    memory order."""
+    vec = load_width(d, elem, ptr)
+    lanes = 1
+    while lanes < 32 and lanes * vec < d:
+        lanes *= 2
+    return FwdPlan(vec, lanes, _cdiv(b * f * lanes, FWD_THREADS))
 
 
 # the fused forward (csrc/embedding_bag_fused.cu): blocks of 256 threads;
@@ -185,12 +216,15 @@ def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
     out = _check_lookup(tables, ids)
     f, v, d = tables.shape
     b, _, bag = ids.shape
+    plan = fwd_plan(b, f, d, tables.element_size(),
+                    (tables.data_ptr() | out.data_ptr()) % 16)
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_bag_fwd", LIBRARIES.get("embedding_bag")
                 .embedding_bag_fwd(tables.data_ptr(), ids.data_ptr(),
                                    out.data_ptr(), b, f, v, d, bag, mean,
                                    int(tables.dtype == torch.bfloat16),
+                                   plan.vec, plan.lanes_log2, plan.blocks,
                                    stream))
     return out
 

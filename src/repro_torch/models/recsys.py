@@ -10,7 +10,7 @@ kernel where a feature's table is at most 8 MiB (the wide arm's 4 MiB
 at the published widths) and the row kernel `embedding_bag_fwd`
 otherwise (the deep tables' 128 MiB); the backward of both is the
 scatter kernel `embedding_bag_bwd`. xDeepFM, DIEN and BERT4Rec are not
-ported yet (ROADMAP queue 1, item 6).
+ported yet (ROADMAP queue 1, item 7).
 
 Parameters cross between the packages as numpy in the JAX layout,
 `{"tables": (F, V, D), "wide": (F, V), "wide_dense": (n_dense, 1),

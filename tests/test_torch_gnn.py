@@ -3,6 +3,8 @@ sampler bit for bit, the configs, the registry, the model's loss and
 gradients, adam, the checkpoint layout and the generic driver, all from
 the same numpy inputs."""
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -87,6 +89,23 @@ def test_registry_runs_graphsage_and_names_the_roadmap_for_the_rest(arch_id):
         return
     with pytest.raises(KeyError, match="ROADMAP.md queue 1, item"):
         registry.get_arch(arch_id)
+
+
+# an arch of each ROADMAP queue 1 item that waits, with words of the
+# item's heading there
+@pytest.mark.parametrize("arch_id,item,heading", [
+    ("dlrm-criteo", 3, "--arch dlrm-criteo"),
+    ("xdeepfm", 7, "other recsys models"),
+    ("smollm-135m", 8, "LLM family")])
+def test_registry_names_the_roadmap_item_that_ports_each_arch(arch_id, item,
+                                                              heading):
+    with pytest.raises(KeyError, match=f"ROADMAP.md queue 1, item {item} "):
+        registry.get_arch(arch_id)
+    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md") \
+        .read_text()
+    queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]
+    items = dict(re.findall(r"^\s*(\d+)\. \*\*(.+?)\*\*", queue1, re.M))
+    assert heading in items[str(item)], items
 
 
 def test_registry_rejects_unknown_archs():

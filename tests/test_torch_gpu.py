@@ -498,3 +498,55 @@ def test_cuda_ops_differentiate_bf16_inputs():
         assert g.dtype == BF16
         torch.testing.assert_close(g.float(), wnt.float(), rtol=BF16_RTOL,
                                    atol=1e-5)
+
+
+# ---- embedding_bag_fwd, lanes a row from its host plan -----------------
+
+# D: the models' (1, 32, 128) and around them; every load width of both
+# dtypes, lanes from 1 to 32, and rows of more loads than lanes (132 f32)
+EB_FWD_DS = [1, 2, 3, 5, 8, 32, 33, 128, 132]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", EB_FWD_DS)
+def test_cuda_embedding_bag_fwd_is_bitwise_the_plain_version(d):
+    """embedding_bag_fwd bit for bit (torch.equal and the same f32 bit
+    patterns) against ref.embedding_bag_ref, sum and mean: f32 tables and
+    bf16 ones 16-, 2- and 4-byte aligned (a slice 0, 1 or 2 elements into
+    a buffer); B 1 and 37; bags 1, 3, 4, 16 and 17 (the unroll bounds
+    and a bag walked in chunks); one launch a call. Ids of -1 and V make
+    exactly their own rows NaN and leave every other row equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(100 + d)
+    for f, v in ((3, 1000), (5, 300)):
+        buf = torch.randn(f * v * d + 2, device="cuda", generator=gen)
+        for dtype, shift in ((torch.float32, 0), (BF16, 0), (BF16, 1),
+                             (BF16, 2)):
+            tables = buf.to(dtype)[shift:shift + f * v * d].view(f, v, d)
+            align = tables.data_ptr() % 16
+            assert align == (0, 2, 4)[shift] * (dtype == BF16)
+            for b in (1, 37):
+                for bag in (1, 3, 4, 16, 17):
+                    ids = torch.randint(0, v, (b, f, bag), device="cuda",
+                                        generator=gen, dtype=torch.int32)
+                    for combiner in ("sum", "mean"):
+                        before = eb.LAUNCHES["embedding_bag_fwd"]
+                        got = eb.embedding_bag_fwd(tables, ids, combiner)
+                        assert eb.LAUNCHES["embedding_bag_fwd"] == before + 1
+                        want = ref.embedding_bag_ref(tables, ids,
+                                                     combiner=combiner)
+                        assert torch.equal(got, want), (dtype, shift, b, bag)
+                        assert torch.equal(got.view(torch.int32),
+                                           want.view(torch.int32))
+                    bad = ids.clone()
+                    bad[0, 0, 0] = -1
+                    bad[b - 1, f - 1, bag - 1] = v
+                    got = eb.embedding_bag_fwd(tables, bad)
+                    nan_rows = torch.isnan(got).any(-1)
+                    assert bool(torch.isnan(got[nan_rows]).all())
+                    assert nan_rows[0, 0] and nan_rows[b - 1, f - 1]
+                    assert int(nan_rows.sum()) == (1 if b == 1 and f == 1
+                                                   else 2)
+                    want = ref.embedding_bag_ref(tables, ids)
+                    assert torch.equal(got[~nan_rows], want[~nan_rows])

@@ -911,3 +911,74 @@ def test_embedding_bag_fused_plan_at_the_path_shapes():
         eb.FusedPlan(1, 1, 4, 10240)
     assert eb.fused_plan(65536, 40, 2 ** 20, 1, 4, 2) == \
         eb.FusedPlan(1, 1, 8, 10240)
+
+
+# ---- the forward's host plan (csrc/embedding_bag.cu) -------------------
+
+# D: the models' (1, 32, 128) and around them; (b, f): B 1, 37 and 65536
+EB_FWD_DS = [1, 2, 3, 5, 8, 32, 33, 128, 132]
+EB_FWD_BF = [(1, 5), (37, 5), (65536, 2)]
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("b,f", EB_FWD_BF)
+@pytest.mark.parametrize("d", EB_FWD_DS)
+def test_embedding_bag_fwd_plan_covers_every_load_once(d, b, f, elem):
+    """The forward's index map, simulated as csrc/embedding_bag.cu walks
+    it, at every pointer alignment a table of `elem`-byte elements can
+    have: loads as wide as D and the pointer allow; lanes the least power
+    of two covering a row's loads (or 32); every (b, f, load word) taken
+    by exactly one thread; a grid within CUDA's limits and no block more
+    than the rows need; the 32-bit remainder that gives a row's feature
+    agrees with the 64-bit one; and each bag of 1, 3, 4, 16 or 17 ids is
+    walked j ascending, each slot once, in chunks of the unroll bound
+    (the plan does not depend on the bag)."""
+    for ptr in ((0, 4, 8) if elem == 4 else (0, 2, 4)):
+        plan = eb.fwd_plan(b, f, d, elem, ptr)
+        assert plan.vec == eb.load_width(d, elem, ptr)
+        if elem == 4:
+            assert plan.vec == (4 if d % 4 == 0 and ptr % 16 == 0 else 1)
+        else:
+            assert plan.vec == (8 if d % 8 == 0 and ptr % 16 == 0 else
+                                2 if d % 2 == 0 and ptr % 4 == 0 else 1)
+        words = d // plan.vec
+        assert words * plan.vec == d
+        assert plan.lanes in (1, 2, 4, 8, 16, 32)
+        assert plan.lanes >= words or plan.lanes == 32
+        assert plan.lanes == 1 or plan.lanes < 2 * words
+        assert 1 <= plan.blocks <= 2 ** 31 - 1
+        assert (plan.blocks - 1) * eb.FWD_THREADS < b * f * plan.lanes \
+            <= plan.blocks * eb.FWD_THREADS
+        t = np.arange(plan.blocks * eb.FWD_THREADS, dtype=np.int64)
+        row, lane = t >> plan.lanes_log2, t & (plan.lanes - 1)
+        live = row < b * f
+        row, lane = row[live], lane[live]
+        assert b * f <= 2 ** 31 - 1
+        assert (row.astype(np.uint32) % np.uint32(f) == row % f).all()
+        seen = np.zeros(b * f * words, dtype=np.int64)
+        for k in range(-(-words // plan.lanes)):
+            c = lane + k * plan.lanes
+            seen += np.bincount((row * words + c)[c < words],
+                                minlength=seen.size)
+        assert (seen == 1).all()
+    for bag in (1, 3, 4, 16, 17):
+        unroll = 4 if bag <= 4 else 16
+        walked = [j0 + j for j0 in range(0, bag, unroll)
+                  for j in range(min(unroll, bag - j0))]
+        assert walked == list(range(bag))
+
+
+def test_embedding_bag_fwd_plan_at_the_path_shapes():
+    # wide-deep's deep arm, D = 32: 8 lanes of float4 (4 rows a warp) in
+    # f32, 4 lanes of 8 bf16 (8 rows a warp); the DLRM's D = 128: a warp
+    # a row in f32, 16 lanes (2 rows a warp) in bf16; a 4-byte aligned
+    # bf16 table takes 2 bf16 a load
+    # (blocks of 128 threads)
+    assert eb.fwd_plan(65536, 40, 32) == eb.FwdPlan(4, 8, 163840)
+    assert eb.fwd_plan(65536, 40, 32, 2) == eb.FwdPlan(8, 4, 81920)
+    assert eb.fwd_plan(2048, 26, 128) == eb.FwdPlan(4, 32, 13312)
+    assert eb.fwd_plan(2048, 26, 128, 2) == eb.FwdPlan(8, 16, 6656)
+    assert eb.fwd_plan(2048, 26, 128, 2, 4) == eb.FwdPlan(2, 32, 13312)
+    # the wide arm through the row kernel (where the fused one does not
+    # fire): a thread a row
+    assert eb.fwd_plan(65536, 40, 1) == eb.FwdPlan(1, 1, 20480)
