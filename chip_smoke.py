@@ -76,7 +76,9 @@ hidden 128, 47 classes, adam:
               without d_neigh bitwise equal. Timed as above, each shape
               with its share of the bound and its ratio to the library
               call: torch.einsum("bfd,dh->bh") (the sum without the 1/F)
-              for the forward and torch.mm(agg^T, d_out) for d_w.
+              for the forward and torch.mm(agg^T, d_out) for d_w (at h1,
+              where the kernel writes d_neigh too, with (d_out w^T / F)
+              broadcast over F and written out beside it).
   6. graph    the synthetic graph of minibatch_lg (232,965 nodes,
               114,615,892 edges, 602 random features a node), built once
               from seed 0 and shared by the phases below.
@@ -139,13 +141,59 @@ embedding_bag_fused_fwd, both with embedding_bag_bwd as their backward:
               device time by kernel, and each embedding kernel's time in
               the step (the forwards' go into their records).
 
+The paper's DLRM at the reference's configuration, dlrm-criteo (slice
+8): 26 x 2^22 x 128 bf16 tables, bf16 MLPs, row-wise adagrad, batch
+65536, through the generic driver; the two DLRM backward kernels write
+bf16 gradients:
+
+ 14. dlrm_bf16_bwd  embedding_bag_bwd into a bf16 gradient and
+              dot_interact_bwd with bf16 d_out, feats and d_feats against
+              their plain versions, at the training shapes (ids (65536,
+              26, 1) of the Criteo stream into (26, 2^22, 128); (65536,
+              27, 128)) and ragged ones (odd B, D 5, 7, 10 and 12, a
+              29-row table whose ids repeat, bags padded by their head
+              id, d_out and feats off a 16- or 4-byte boundary). The
+              scatter bitwise on rows one bag slot names, else within 2
+              bf16 ulps of the sum of its terms' magnitudes a slot plus
+              2; the interaction within 2 bf16 ulps (rtol 2^-7, atol
+              1e-5); the max ulp errors and the tolerance printed. Timed
+              at the training shapes beside the plain version, the bound
+              (2-byte gradients) and index_add_ into the bf16 gradient /
+              bmm in bf16. The two bf16 forwards at the same training
+              shapes: embedding_bag_fwd on a (26, 2^22, 128) bf16 table
+              bitwise, dot_interact_fwd within 2 bf16 ulps (rtol 2^-7,
+              atol 1e-4); each timed beside its plain version, bound and
+              library call (F.embedding_bag; bmm and the triangle's
+              gather).
+ 15. dlrm_model_bf16  the bf16 DLRM (2^16 rows, batch 4096) through the
+              kernels against the plain versions: loss rtol 2^-8, each
+              bf16 gradient within 2^-6 of its L2 norm over the samples
+              whose ReLUs agree (at most 5% flip).
+ 16. dlrm_driver  repro_torch.launch.train.run("dlrm-criteo", full=True,
+              shape=train_batch, steps=20, lr=0.02): loss finite and
+              falling, peak device memory under 80 GB, every DLRM kernel
+              launched at least 20 times; samples/s and the loop step
+              split into batch + copy and the train step.
+ 17. dlrm_driver_profile  one dlrm-criteo train step under
+              torch.profiler: device time by kernel, the four DLRM
+              kernels' bf16 launches and time in the step.
+ 18. dlrm_retrieval  score_candidates at retrieval_cand (1,000,000
+              candidates in 25 chunks) on that model, through the kernels
+              and the plain versions: within 4 bf16 ulps of the largest
+              score; host-clock seconds of each.
+
 Launch counts are set to 0 just before each main path (the DLRM loop,
-the GNN loop, the wide-deep loop) and read just after it; the `kernels`
-line reports each kernel's count from its own path (embedding_bag_fwd
-and _bwd from the DLRM loop, with their wide-deep counts beside).
+the GNN loop, the wide-deep loop, the dlrm-criteo driver) and read just
+after it; the `kernels` line reports each kernel's count from its own
+path (embedding_bag_fwd and _bwd from the DLRM loop, with their
+wide-deep counts beside, and the DLRM kernels' dlrm-criteo counts in
+their `dlrm_criteo` sub-records).
 
 It prints a `kernels` JSON line (each record with the profiler events it
-was read from; the forwards with a `bf16` sub-record), the card's name
+was read from; the forwards with a `bf16` sub-record at the 2048-row
+shape, the four DLRM kernels with a `dlrm_criteo` one: bf16 at
+dlrm-criteo's training shapes, with the driver's launches and each
+kernel's time in its step), the card's name
 and power limit, and as its last line `{"ok": true, "device": {...}}`.
 It needs one CUDA card and exits 2 when there is none. It runs from the
 root of the repository, whose kernel sources it builds: a copy of the
@@ -180,6 +228,16 @@ TUNE_EVERY = 2
 GNN_STEPS = 20
 
 RECSYS_STEPS = 20
+
+# the reference DLRM through the generic driver: 20 steps at lr 0.02 (the
+# rate of the closed loop's adagrad: at the driver's default 1e-3 under its
+# 100-step warmup, 20 steps move the bf16 weights by less than their
+# rounding, and the loss does not leave the batch-to-batch noise); its peak
+# device memory stays under one H100's 80 GB
+DRIVER_STEPS = 20
+DRIVER_LR = 0.02
+CARD_BYTES = 80e9
+RETRIEVAL_CHUNKS = 25
 
 DLRM_KERNELS = ("embedding_bag_fwd", "embedding_bag_bwd", "dot_interact_fwd",
                 "dot_interact_bwd")
@@ -254,10 +312,11 @@ def time_ms(fn, args_list, iters: int = 20, kernel: str = None) -> Timing:
     must hold its full count of device events: at least `iters` named
     `kernel`, or, where `kernel` is None (a plain version or a library
     call, which may launch several kernels a call), `iters` times the
-    events of one call, counted in two windows of one call each (the
-    larger count). The profiler has lost events (a window with none, or
-    with 14 of 20 launches, whose sum then read low; see SENTINEL), and a
-    short window is profiled again; three short ones in a row fail."""
+    events of one call, counted in windows of one call each (the larger
+    count of two, or of up to five while they come back empty). The
+    profiler has lost events (a window with none, or with 14 of 20
+    launches, whose sum then read low; see SENTINEL), and a short window
+    is profiled again; three short ones in a row fail."""
     import torch
     for a in args_list[:2]:
         fn(*a)
@@ -270,11 +329,17 @@ def time_ms(fn, args_list, iters: int = 20, kernel: str = None) -> Timing:
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
     if kernel is None:
-        per_call = max(sum(_profiled(fn, args_list, 1, 0)[1].values())
-                       for _ in range(2))
+        # at least two windows; more (up to 5, each settled longer) while
+        # none has recorded an event: a whole window can come back empty
+        per_call = 0
+        for attempt in range(5):
+            per_call = max(per_call, sum(
+                _profiled(fn, args_list, 1, attempt)[1].values()))
+            if per_call and attempt:
+                break
         if per_call < 1:
             raise RuntimeError("torch.profiler recorded no device event of "
-                               "one call in 2 tries")
+                               "one call in 5 tries")
         need, what = iters * per_call, f"the call ({per_call} a call)"
     else:
         need, what = iters, kernel
@@ -1090,9 +1155,15 @@ def phase_sage_kernels(shape, cfg) -> dict:
             bsets, kernel="sage_dw_kernel")
         plain = time_ms(lambda g, w, a: ref.sage_aggregate_bwd_ref(
             g, w, a, f, need_neigh=need_neigh), bsets)
-        # one library call computes d_w alone; none computes both outputs
-        lib = None if need_neigh else time_ms(
-            lambda g, w, a: torch.mm(a.t(), g), bsets)
+        # one library call computes d_w alone (mm); with d_neigh, the
+        # library's calls are that mm and (d_out @ w^T / F) broadcast over
+        # the F neighbours, written out as the kernel writes d_neigh
+        if need_neigh:
+            lib = time_ms(lambda g, w, a: (
+                torch.mm(a.t(), g), (g @ w.t() / f)[:, None, :]
+                .expand(b, f, d).contiguous()), bsets)
+        else:
+            lib = time_ms(lambda g, w, a: torch.mm(a.t(), g), bsets)
         n_bytes = 4 * (b * h + b * d + d * h)
         flops = 2 * b * d * h
         if need_neigh:
@@ -1653,6 +1724,461 @@ def phase_recsys_profile(arch):
     return in_step
 
 
+# ---- slice 8: the reference DLRM (bf16, row-wise adagrad) -------------
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (2^-7 of its power of two), elementwise; the
+    smallest normal's at 0."""
+    import torch
+    x = x.abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+def _check_scatter_bf16(d_out, ids, v, combiner, tag) -> tuple:
+    """embedding_bag_bwd into a bf16 gradient against its plain version
+    (f32 sums rounded once), over the rows the ids touch (no f32
+    temporary of the table's size): bitwise on every row that one bag
+    slot names; a row that n slots name within 2 bf16 ulps of the sum of
+    its terms' magnitudes a slot, plus 2 (each bf16 atomic rounds the
+    row's running sum, in an order that varies between runs); every
+    other row 0. Returns (max error in bf16 ulps of that sum, the largest
+    tolerance used in the same unit, rows touched once, rows touched
+    more than once)."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb, ref
+    b, f, bag = ids.shape
+    d = d_out.shape[-1]
+    got = eb.embedding_bag_bwd(d_out, ids, v, combiner,
+                               dtype=torch.bfloat16)
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f"embedding_bag_bwd bf16 {tag}: {got.dtype}")
+    flat = (torch.arange(f, device=ids.device).view(1, f, 1) * v
+            + ids.long()).reshape(-1)
+    rows, slot, touches = torch.unique(flat, return_inverse=True,
+                                       return_counts=True)
+    g = d_out.float()
+    if combiner == "mean":
+        g = g / torch.full((), bag, dtype=g.dtype, device=g.device)
+    mag = torch.zeros((rows.numel(), d), device=g.device)
+    mag.index_add_(0, slot, g.abs()[:, :, None, :].expand(b, f, bag, d)
+                   .reshape(-1, d))
+    nonzero = sum(int(torch.count_nonzero(got[i])) for i in range(f))
+    got_rows = got.view(-1, d)[rows]
+    del got
+    want = ref.embedding_bag_bwd_ref(d_out, ids, v, combiner=combiner,
+                                     dtype=torch.bfloat16).view(-1, d)[rows]
+    once = touches == 1
+    if not torch.equal(got_rows[once], want[once]):
+        raise AssertionError(f"embedding_bag_bwd bf16 {tag} {combiner}: a "
+                             f"row touched once is not bitwise the plain "
+                             f"version")
+    if nonzero != int(torch.count_nonzero(got_rows)):
+        raise AssertionError(f"embedding_bag_bwd bf16 {tag} {combiner}: "
+                             f"writes outside the rows its ids name")
+    ulps = (got_rows.float() - want.float()).abs() / _bf16_ulp(mag)
+    tol = 2.0 * (touches + 1).view(-1, 1).float()
+    if bool((ulps > tol).any()):
+        raise AssertionError(f"embedding_bag_bwd bf16 {tag} {combiner}: "
+                             f"{int((ulps > tol).sum())} elements off, max "
+                             f"{float(ulps.max()):.2f} ulps")
+    return (float(ulps.max()) if ulps.numel() else 0.0,
+            float(tol.max()) if tol.numel() else 0.0, int(once.sum()),
+            int((~once).sum()))
+
+
+def _check_dot_bf16(d_out, feats, tag) -> tuple:
+    """dot_interact_bwd with bf16 d_out and feats against its plain
+    version (f32 sums rounded once) within 2 bf16 ulps (rtol 2^-7, atol
+    1e-5). Returns (max abs error, max error in bf16 ulps of the plain
+    value)."""
+    from repro_torch.kernels import dot_interact as di, ref
+    got = di.dot_interact_bwd(d_out, feats)
+    want = ref.dot_interact_bwd_ref(d_out, feats)
+    err = _allclose(f"dot_interact_bwd bf16 {tag}", got.float(),
+                    want.float(), BF16_RTOL, 1e-5)
+    ulps = float(((got.float() - want.float()).abs()
+                  / _bf16_ulp(want.float())).max())
+    return err, ulps
+
+
+def phase_dlrm_bf16_bwd(arch) -> dict:
+    """The two DLRM backward kernels with bf16 gradients against their
+    plain versions on the card, at the training shapes of dlrm-criteo
+    (ids (65536, 26, 1) of the synthetic Criteo stream into (26, 2^22,
+    128) bf16 tables; the interaction at (65536, 27, 128)) and at ragged
+    ones (odd B, D % 8 != 0, a table of 29 rows so that ids repeat, bags
+    of 4 padded by their head id, d_out or feats off a 16- or 4-byte
+    boundary); and the two bf16 forwards at the same training shapes
+    (embedding_bag_fwd bitwise, dot_interact_fwd within 2 bf16 ulps).
+    Each of the four is timed at the training shapes beside its plain
+    version, its bound and one PyTorch call (F.embedding_bag on the bf16
+    table; index_add_ into the bf16 gradient; bmm in bf16, and for the
+    forward its lower triangle gathered). Returns the four bf16 records
+    at the training shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import dot_interact as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cfg = arch.model
+    worst = {"scatter": [0.0, 0.0], "dot": [0.0, 0.0]}
+
+    def note(kind, e):
+        worst[kind] = [max(a, b) for a, b in zip(worst[kind], e)]
+
+    # ragged
+    for b, f, v, d, bag in ((301, 3, 29, 5, 1), (301, 3, 29, 128, 4),
+                            (37, 5, 4096, 12, 4), (1, 2, 29, 8, 17)):
+        ids = torch.randint(0, v, (b, f, bag), device=dev, generator=gen)
+        ids[..., bag // 2:] = ids[..., :1]
+        ids = ids.to(torch.int32)
+        buf = torch.randn(b * f * d + 1, device=dev, generator=gen)
+        for shift in (0, 1):
+            d_out = buf[shift:shift + b * f * d].view(b, f, d)
+            for combiner in ("sum", "mean"):
+                note("scatter", _check_scatter_bf16(
+                    d_out, ids, v, combiner,
+                    f"({b},{f},{v},{d}) bag{bag} +{4 * shift} B")[:2])
+    for b, f, d in ((2051, 27, 10), (37, 27, 7), (301, 5, 12), (1, 2, 4),
+                    (2051, 27, 128), (3, 60, 32)):
+        p = f * (f - 1) // 2
+        xb = torch.randn(b * f * d + 2, device=dev, generator=gen).to(bf16)
+        gb = torch.randn(b * p + 1, device=dev, generator=gen).to(bf16)
+        for shift in (0, 1, 2):
+            for gshift in (0, 1):
+                note("dot", _check_dot_bf16(
+                    gb[gshift:gshift + b * p].view(b, p),
+                    xb[shift:shift + b * f * d].view(b, f, d),
+                    f"({b},{f},{d}) feats +{2 * shift} B d_out "
+                    f"+{2 * gshift} B"))
+    print(f"  ragged: scatter max {worst['scatter'][0]:.2f} bf16 ulps "
+          f"(tolerance up to {worst['scatter'][1]:.0f}), interaction max "
+          f"abs err {worst['dot'][0]:.3e}, {worst['dot'][1]:.2f} ulps")
+
+    # the training shapes
+    n_f, rows, dim = cfg.n_sparse, cfg.vocab_sizes[0], cfg.embed_dim
+    batch = arch.shape("train_batch").batch
+    ids = torch.as_tensor(_criteo_batch(cfg, batch, 9)["sparse_ids"]) \
+        .to(dev)
+    b, _, bag = ids.shape
+    d_out = torch.randn((b, n_f, dim), device=dev, generator=gen) \
+        .to(bf16).float()
+    e_ulps, tol, once, more = _check_scatter_bf16(d_out, ids, rows, "sum",
+                                                  "main")
+    print(f"  embedding_bag_bwd bf16 at ({b}, {n_f}, {bag}) into ({n_f}, "
+          f"{rows}, {dim}): {once} rows touched once (bitwise), {more} "
+          f"more than once; max {e_ulps:.2f} bf16 ulps (tolerance up to "
+          f"{tol:.0f}); ragged max {worst['scatter'][0]:.2f}")
+    torch.cuda.empty_cache()
+    flat = (ids.long() + (torch.arange(n_f, device=dev) * rows)
+            .view(1, n_f, 1)).reshape(-1)
+    uniq = int(torch.unique(flat).numel())
+
+    # embedding_bag_fwd on a bf16 table of the reference's size, bitwise
+    # to its plain version; the same 27.9 GB then holds the scatter's
+    # gradient
+    tables = torch.empty((n_f, rows, dim), dtype=bf16, device=dev)
+    tables.normal_(generator=gen).mul_(dim ** -0.5)
+    if not torch.equal(eb.embedding_bag_fwd(tables, ids),
+                       ref.embedding_bag_ref(tables, ids)):
+        raise AssertionError(f"embedding_bag_fwd bf16 at ({b}, {n_f}, {bag}) "
+                             f"into ({n_f}, {rows}, {dim}): not bitwise "
+                             f"equal to the plain version")
+    print(f"  embedding_bag_fwd bf16 at ({b}, {n_f}, {bag}) into ({n_f}, "
+          f"{rows}, {dim}): bitwise to the plain version; plan "
+          f"{eb.fwd_plan(b, n_f, dim, 2)}")
+    bags, table_flat = flat.view(b * n_f, bag), tables.view(n_f * rows, dim)
+    recs = {"embedding_bag_fwd": kernel_record(
+        "embedding_bag_fwd bf16",
+        time_ms(lambda: eb.embedding_bag_fwd(tables, ids), [()],
+                kernel="embedding_bag_fwd_kernel"),
+        time_ms(lambda: ref.embedding_bag_ref(tables, ids), [()]),
+        time_ms(lambda: F.embedding_bag(bags, table_flat, mode="sum"),
+                [()]),
+        bound_ms(ids.numel() * 4 + uniq * dim * 2 + b * n_f * dim * 4,
+                 b * n_f * bag * dim), 0.0, shape=[b, n_f, bag, rows, dim])}
+    del table_flat
+    grad = tables.zero_()
+    del tables
+    plan = eb.bwd_plan(b, n_f, rows, dim, True, 2)
+    print(f"  embedding_bag_bwd bf16 plan: {plan}")
+    t = time_ms(lambda: eb.embedding_bag_scatter(d_out, ids, grad), [()],
+                kernel="embedding_bag_bwd_kernel")
+    zero_ms = time_ms(lambda: grad.zero_(), [()], iters=5).ms
+    plain = time_ms(lambda: ref.embedding_bag_bwd_ref(
+        d_out, ids, rows, dtype=bf16), [()], iters=3)
+    upd = d_out.to(bf16)[:, :, None, :].expand(b, n_f, bag, dim) \
+        .reshape(-1, dim).contiguous()
+    grad_flat = grad.view(n_f * rows, dim)
+    lib = time_ms(lambda: grad_flat.index_add_(0, flat, upd), [()])
+    del grad, grad_flat, upd
+    torch.cuda.empty_cache()
+    recs["embedding_bag_bwd"] = kernel_record(
+        "embedding_bag_bwd bf16", t, plain, lib,
+        bound_ms(d_out.numel() * 4 + ids.numel() * 4 + 2 * uniq * dim * 2,
+                 b * n_f * bag * dim), 0.0,
+        max_ulps=max(e_ulps, worst["scatter"][0]), zero_fill_ms=zero_ms,
+        shape=[b, n_f, bag, rows, dim])
+    del d_out, ids
+
+    fs = [(torch.randn((b, n_f + 1, dim), device=dev, generator=gen)
+           .to(bf16),) for _ in range(3)]
+    n_pairs = (n_f + 1) * n_f // 2
+    ii, jj = ref.tril_pairs(n_f + 1, dev)
+    err = max(_allclose("dot_interact_fwd bf16 main", di.dot_interact_fwd(x),
+                        ref.dot_interact_ref(x), BF16_RTOL, 1e-4)
+              for (x,) in fs)
+    print(f"  dot_interact_fwd bf16 at ({b}, {n_f + 1}, {dim}): max abs err "
+          f"{err:.3e}; plan {di.fwd_plan(b, n_f + 1, dim, 2)}")
+    recs["dot_interact_fwd"] = kernel_record(
+        "dot_interact_fwd bf16",
+        time_ms(di.dot_interact_fwd, fs, kernel="dot_interact_fwd_kernel"),
+        time_ms(ref.dot_interact_ref, fs),
+        time_ms(lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj], fs),
+        bound_ms(b * (n_f + 1) * dim * 2 + b * n_pairs * 2,
+                 2 * b * n_pairs * dim), err, shape=[b, n_f + 1, dim])
+    gs = [(torch.randn((b, n_pairs), device=dev, generator=gen).to(bf16), x)
+          for (x,) in fs]
+    err, ulps = _check_dot_bf16(*gs[0], "main")
+    print(f"  dot_interact_bwd bf16 at ({b}, {n_f + 1}, {dim}): max abs err "
+          f"{err:.3e}, {ulps:.2f} bf16 ulps; plan "
+          f"{di.bwd_plan(b, n_f + 1, dim, 0, 2)}")
+    sym = []
+    for g, x in gs:
+        s = torch.zeros((b, n_f + 1, n_f + 1), device=dev, dtype=bf16)
+        s[:, ii, jj] = g
+        sym.append((s + s.transpose(1, 2), x))
+    recs["dot_interact_bwd"] = kernel_record(
+        "dot_interact_bwd bf16",
+        time_ms(di.dot_interact_bwd, gs, kernel="dot_interact_bwd_kernel"),
+        time_ms(ref.dot_interact_bwd_ref, gs),
+        time_ms(torch.bmm, sym),
+        bound_ms(b * n_pairs * 2 + 2 * b * (n_f + 1) * dim * 2,
+                 2 * b * (n_f + 1) ** 2 * dim),
+        max(err, worst["dot"][0]), max_ulps=max(ulps, worst["dot"][1]),
+        shape=[b, n_f + 1, dim])
+    # the f32 kernel at the same shape, the path a bf16 input took before
+    # the kernel took bf16 (its casts aside)
+    del sym
+    fs32 = [(g.float(), x.float()) for g, x in gs]
+    f32 = time_ms(di.dot_interact_bwd, fs32, kernel="dot_interact_bwd_kernel")
+    recs["dot_interact_bwd"]["f32_ms"] = f32.ms
+    f32_bound = bound_ms(b * n_pairs * 4 + 2 * b * (n_f + 1) * dim * 4, 0)[0]
+    print(f"  dot_interact_bwd f32 at ({b}, {n_f + 1}, {dim}): {f32.ms:.4f} "
+          f"ms on the card ({f32.events} events), bound {f32_bound:.4f} ms")
+    return recs
+
+
+def phase_dlrm_model_bf16(arch):
+    """The bf16 DLRM (the reference configuration at 2^16 rows a table,
+    batch 4096 of the Criteo stream) through the kernels against the same
+    model through the plain versions: as in phase_model, samples whose
+    MLP pre-activations take the other side of a ReLU on one path (at
+    most 5%: the two paths' bf16 activations differ by an ulp here and
+    there) get loss weight 0; the loss within rtol 2^-8 (one bf16 ulp)
+    and each gradient, bf16 on both paths, within 2^-6 of its L2 norm
+    (four bf16 ulps)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import dlrm as dlrm_lib
+
+    cfg = arch.model.replace(vocab_sizes=(1 << 16,) * arch.model.n_sparse)
+    model = dlrm_lib.init_params(cfg, seed=0, device="cuda")
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in _criteo_batch(cfg, 4096, 10).items()}
+    names, params = zip(*model.named_parameters())
+    preacts = []
+    for lin in list(model.bottom) + list(model.top)[:-1]:
+        lin.register_forward_hook(lambda m, i, o: preacts.append(o.detach()))
+
+    def per_sample_loss(**kw):
+        z = model(batch, **kw).float()
+        y = batch["label"].float()
+        return torch.clamp(z, min=0) - z * y \
+            + torch.log1p(torch.exp(-torch.abs(z)))
+
+    ops.reset_launch_counts()
+    loss_k = per_sample_loss()
+    n_hooked = len(preacts)
+    loss_p = per_sample_loss(bag_fn=ref.embedding_bag_ref,
+                             interact_fn=ref.dot_interact_ref)
+    flips = torch.zeros_like(loss_k, dtype=torch.bool)
+    for a, b in zip(preacts[:n_hooked], preacts[n_hooked:]):
+        flips |= ((a > 0) != (b > 0)).any(dim=1)
+    n_flip = int(flips.sum())
+    if n_flip > loss_k.numel() // 20:
+        raise AssertionError(f"{n_flip} samples flip a ReLU between the "
+                             f"two bf16 paths")
+    if not bool(torch.isfinite(loss_k).all()):
+        raise AssertionError("bf16 model loss not finite")
+    _allclose("bf16 model loss", loss_k.mean(), loss_p.mean(), 2.0 ** -8,
+              0.0)
+    keep = (~flips).float() / float((~flips).sum())
+    grads_k = torch.autograd.grad((loss_k * keep).sum(), params)
+    counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
+    if min(counts.values()) < 1:
+        raise AssertionError(f"bf16 model pass skipped a kernel: {counts}")
+    worst = 0.0
+    for n, gk, gp in zip(names, grads_k, torch.autograd.grad(
+            (loss_p * keep).sum(), params)):
+        if gk.dtype != torch.bfloat16 or gp.dtype != torch.bfloat16:
+            raise AssertionError(f"grad {n}: {gk.dtype} / {gp.dtype}")
+        rel = float(torch.linalg.vector_norm(gk.float() - gp.float())
+                    / torch.linalg.vector_norm(gp.float()))
+        if not rel <= 2.0 ** -6:
+            raise AssertionError(f"bf16 grad {n}: relative L2 error "
+                                 f"{rel:.3e}")
+        worst = max(worst, rel)
+    print(f"  bf16 loss kernels {float(loss_k.detach().mean()):.7f} plain "
+          f"{float(loss_p.detach().mean()):.7f}; {n_flip} of "
+          f"{loss_k.numel()} samples flip a ReLU and are left out of the "
+          f"gradients; {len(names)} bf16 gradients agree (worst relative "
+          f"L2 error {worst:.3e}); launches {counts}")
+
+
+def phase_dlrm_driver(arch) -> dict:
+    """The generic driver on the reference configuration: --arch
+    dlrm-criteo --full --shape train_batch (26 x 2^22 x 128 bf16 tables,
+    bf16 MLPs, row-wise adagrad, batch 65536) for DRIVER_STEPS steps at lr
+    DRIVER_LR: the loss finite and falling (the last 5 steps' mean under
+    the first 5's), peak device memory under the card's, each DLRM
+    kernel launched at least once a step. Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    res = train.run(arch.arch_id, steps=DRIVER_STEPS, full=True,
+                    shape=arch.shape("train_batch"), device="cuda",
+                    lr=DRIVER_LR, log_every=5)
+    counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"dlrm-criteo loss not finite: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        raise AssertionError(f"dlrm-criteo loss not falling: {losses}")
+    peak = res["max_memory_allocated"]
+    card = torch.cuda.get_device_properties(0).total_memory
+    if not peak < min(card, CARD_BYTES):
+        raise AssertionError(f"dlrm-criteo peak {peak / 1e9:.2f} GB")
+    short = {k: n for k, n in counts.items() if n < DRIVER_STEPS}
+    if short:
+        raise AssertionError(f"kernels launched fewer than {DRIVER_STEPS} "
+                             f"times on the dlrm-criteo path: {short}")
+    summary = {k: res[k] for k in ("samples_per_s", "loop_step_s",
+                                   "fetch_step_s", "train_step_s",
+                                   "max_memory_allocated")}
+    summary.update(loss_first5=first, loss_last5=last, losses=losses,
+                   launches=counts)
+    print("  dlrm_driver " + json.dumps(summary))
+    torch.cuda.synchronize()
+    return counts
+
+
+def phase_dlrm_driver_profile(arch):
+    """One train step of the reference configuration under
+    torch.profiler (3 steps on one batch on the card, after 2 warm-up
+    steps): device time by kernel, the four DLRM kernels' launches in
+    the window and their time in the step. Returns (the model, after the
+    5 steps, for the retrieval phase; each DLRM kernel's device ms a
+    step)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = arch.model
+    model = train.init_params_for(arch, cfg, 0, device=dev)
+    opt = make_optimizer(arch.optimizer, lr=DRIVER_LR)
+    state = opt.init(dict(model.named_parameters()))
+    step_fn = make_train_step(train.make_loss_fn(arch, cfg), opt)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in _criteo_batch(
+        cfg, arch.shape("train_batch").batch, 11).items()}
+    for k in range(2):
+        step_fn(model, state, k, batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    kernels = tuple(k + "_kernel" for k in DLRM_KERNELS)
+    rows, wall_ms = profile_steps(
+        lambda k: step_fn(model, state, 2 + k, batch), 3, kernels)
+    launches = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
+    device_ms = sum(ms for _, ms in rows)
+    print(f"  dlrm-criteo train step: {device_ms:.3f} ms of device time in "
+          f"{wall_ms:.3f} ms of host-clock time (profiled); launches in the "
+          f"window (3 steps, each window taken at most 3 times) "
+          f"{launches}")
+    for name, ms in rows[:14]:
+        print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
+    in_step = {}
+    for name, ms in rows:
+        for k in kernels:
+            if k + "<" in name or name.endswith(k):
+                print(f"  {k[:-7]} in the step: {ms:.4f} ms  {name[:80]}")
+                in_step[k[:-7]] = in_step.get(k[:-7], 0.0) + ms
+    if set(in_step) != set(DLRM_KERNELS):
+        raise AssertionError(f"profile misses a DLRM kernel: {in_step}")
+    del state, opt
+    return model, in_step
+
+
+def phase_dlrm_retrieval(model, arch) -> dict:
+    """score_candidates at retrieval_cand (one user, 1,000,000 candidates
+    in 25 chunks) on the driver's bf16 model, through the kernels and
+    through the plain versions: the scores finite, the two within 4 bf16
+    ulps of the largest score; host-clock seconds of each (synchronised,
+    after a warm-up call)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import dlrm as dlrm_lib
+
+    cfg = model.cfg
+    shape = arch.shape("retrieval_cand")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    user = {k: torch.as_tensor(v).to(dev)
+            for k, v in _criteo_batch(cfg, shape.batch, 12).items()}
+    cand = torch.randint(0, 2 ** 31 - 1, (shape.n_candidates,), device=dev,
+                         generator=gen, dtype=torch.int32)
+    plain_fns = dict(bag_fn=ref.embedding_bag_ref,
+                     interact_fn=ref.dot_interact_ref)
+    out = {}
+    for tag, kw in (("kernels", {}), ("plain", plain_fns)):
+        dlrm_lib.score_candidates(model, user, cand,
+                                  chunks=RETRIEVAL_CHUNKS, **kw)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        scores = dlrm_lib.score_candidates(model, user, cand,
+                                           chunks=RETRIEVAL_CHUNKS, **kw)
+        torch.cuda.synchronize()
+        out[tag] = (scores, time.monotonic() - t0,
+                    {k: n for k, n in ops.launch_counts().items() if n})
+    (sk, tk, lk), (sp, tp, _) = out["kernels"], out["plain"]
+    if sk.shape != (shape.n_candidates,) or sk.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(sk).all()):
+        raise AssertionError(f"retrieval scores {sk.shape} {sk.dtype}")
+    if lk.get("dot_interact_fwd") != RETRIEVAL_CHUNKS \
+            or lk.get("embedding_bag_fwd") != 1:
+        raise AssertionError(f"retrieval launches {lk}")
+    err = float((sk.float() - sp.float()).abs().max())
+    ulp = float(_bf16_ulp(sp.float().abs().max()))
+    if not err <= 4 * ulp:
+        raise AssertionError(f"retrieval scores off by {err:.3e} "
+                             f"({err / ulp:.1f} bf16 ulps)")
+    res = {"candidates": shape.n_candidates, "chunks": RETRIEVAL_CHUNKS,
+           "kernels_s": tk, "plain_s": tp, "max_abs_err": err,
+           "max_ulps": err / ulp, "launches": lk}
+    print("  dlrm_retrieval " + json.dumps(res))
+    return res
+
+
 SOURCES = {
     "embedding_bag_fwd": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                           "src/repro/kernels/embedding_bag.py:75"),
@@ -1685,6 +2211,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
               file=sys.stderr)
         return 2
+    from repro_torch.configs.dlrm_criteo import ARCH as DLRM_ARCH
     from repro_torch.configs.dlrm_criteo import MODEL
     from repro_torch.configs.graphsage_reddit import ARCH as GNN_ARCH
     from repro_torch.configs.wide_deep import ARCH as WD_ARCH
@@ -1745,6 +2272,28 @@ def main() -> int:
         in_step["embedding_bag_fused_fwd"]
     recs["embedding_bag_fused_fwd"]["embedding_bag_fwd_d32"]["in_step_ms"] \
         = in_step["embedding_bag_fwd"]
+    torch.cuda.empty_cache()
+    with Phase("dlrm_bf16_bwd"):
+        bf16_recs = phase_dlrm_bf16_bwd(DLRM_ARCH)
+    torch.cuda.empty_cache()
+    with Phase("dlrm_model_bf16"):
+        phase_dlrm_model_bf16(DLRM_ARCH)
+    torch.cuda.empty_cache()
+    with Phase("dlrm_driver"):
+        drv_launches = phase_dlrm_driver(DLRM_ARCH)
+    torch.cuda.empty_cache()
+    with Phase("dlrm_driver_profile"):
+        model, drv_in_step = phase_dlrm_driver_profile(DLRM_ARCH)
+    with Phase("dlrm_retrieval"):
+        phase_dlrm_retrieval(model, DLRM_ARCH)
+    del model
+    torch.cuda.empty_cache()
+    # each DLRM kernel in bf16 at dlrm-criteo's training shapes, with its
+    # launches and time in the step on the driver's path
+    for name in DLRM_KERNELS:
+        recs[name]["dlrm_criteo"] = dict(
+            bf16_recs[name], launches=drv_launches[name],
+            in_step_ms=drv_in_step[name])
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]

@@ -44,12 +44,18 @@ CUDA events launch to launch). Sections (all when none is named):
             kernel's order, of the distinct ids sorted and shuffled; a
             plain load-add-store and a gather of the same rows. The
             reductions each backward kernel of the built library issues
-            (cuobjdump -sass): REDG, fire-and-forget, or ATOMG. Variants:
-            streaming loads of d_out and ids, TMA bulk reductions
+            (cuobjdump -sass): REDG, fire-and-forget, or ATOMG / ATOM.
+            Variants: streaming loads of d_out and ids, TMA bulk reductions
             (cp.reduce.async.bulk, one a row) in place of RED.
   dot_bwd   dot_interact_bwd at 1-6 persistent CTAs an SM, with streaming
             stores, with an L2 prefetch hint on its copies and with its k
             loop unrolled by 8, against bmm.
+  scatter_bf16  embedding_bag_bwd into a bf16 gradient at dlrm-criteo's
+            training shape, ids (65536, 26, 1) of the synthetic Criteo
+            stream into (26, 2^22, 128): its bf16x2 REDs against the
+            variant `atomic` (cuda_bf16.h's atomicAdd, a generic atom that
+            returns the old value), in turns, with the reductions each
+            bf16 instantiation issues (cuobjdump -sass).
 
 Each variant is a copy of a kernel source under src/repro_torch/kernels/
 csrc with one edit, built with nvcc into build/kernel_probes/. `--src
@@ -122,17 +128,24 @@ extern "C" int micro(int which, float* g, const int64_t* rows, float* out,
 # reduction a (row, bag slot): the row times its count is staged in shared
 # memory, and one lane a slot reduces it into the gradient row
 BULK = (
-    ('''template <bool kVec, int kUnroll>
+    ('''template <typename T, bool kVec, int kUnroll>
 __device__ __forceinline__ void scatter_row(''',
-     '''template <bool kVec, int kUnroll>
+     '''template <typename T, bool kVec, int kUnroll>
 __device__ __forceinline__ void scatter_row_red('''),
-    ('''// dOut (B, F, D) scatter-added into the zeroed dense gradient''',
-     '''template <bool kVec, int kUnroll>
-__device__ __forceinline__ void scatter_row(const float* src, float* dst,
+    ('''// dOut (B, F, D) f32 scatter-added into the zeroed dense gradient''',
+     '''template <typename T, bool kVec, int kUnroll>
+__device__ __forceinline__ void scatter_row(const float* src, T* dst,
                                             const int32_t (&id)[kUnroll],
                                             const float (&w)[kUnroll],
                                             int64_t D, int lane, int lanes,
                                             int n, float bag, int mean) {
+  // the bulk reductions are f32 and take float4 rows: the other paths
+  // keep their atomics
+  if constexpr (sizeof(T) == 2 || !kVec) {
+    scatter_row_red<T, kVec, kUnroll>(src, dst, id, w, D, lane, lanes, n,
+                                      bag, mean);
+    return;
+  }
   extern __shared__ __align__(128) float sbuf[];
   float* buf = sbuf + (threadIdx.x / lanes) * kUnroll * D;
   for (int64_t c = lane; c < D / 4; c += lanes) {
@@ -162,17 +175,29 @@ __device__ __forceinline__ void scatter_row(const float* src, float* dst,
   }
 }
 
-// dOut (B, F, D) scatter-added into the zeroed dense gradient'''),
-    ('''    launch_bwd<true>(grid, s,''',
-     '''    cudaFuncSetAttribute(embedding_bag_bwd_kernel<true, 4>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (kBwdThreads >> lanes_log2) * 16 *
-                             static_cast<int>(D));
-    launch_bwd<true>(grid, s,'''),
-    ('''    embedding_bag_bwd_kernel<kVec, 4><<<grid, kBwdThreads, 0, s>>>(''',
-     '''    embedding_bag_bwd_kernel<kVec, 4><<<grid, kBwdThreads,
-        kVec ? (kBwdThreads >> lanes_log2) * 16 * D : 0, s>>>('''),
+// dOut (B, F, D) f32 scatter-added into the zeroed dense gradient'''),
+    ('''    if (vec) BWD(float, true); else BWD(float, false);''',
+     '''    if (vec) {
+      cudaFuncSetAttribute(embedding_bag_bwd_kernel<float, true, 4>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (kBwdThreads >> lanes_log2) * 16 *
+                               static_cast<int>(D));
+      BWD(float, true);
+    } else BWD(float, false);'''),
+    ('''    embedding_bag_bwd_kernel<T, kVec, 4><<<grid, kBwdThreads, 0, s>>>(''',
+     '''    embedding_bag_bwd_kernel<T, kVec, 4><<<grid, kBwdThreads,
+        kVec && sizeof(T) == 4 ? (kBwdThreads >> lanes_log2) * 16 * D : 0,
+        s>>>('''),
 )
+
+# the bf16 scatter's pairs through cuda_bf16.h's atomicAdd
+SCATTER_BF16_VARIANTS = {
+    "atomic": (('''  asm volatile("red.global.add.noftz.bf16x2 [%0], %1;" ::"l"(p),
+               "r"(bf16_bits(a) | (bf16_bits(b) << 16))
+               : "memory");''',
+                '''  atomicAdd(reinterpret_cast<__nv_bfloat162*>(p),
+            __floats2bfloat162_rn(a, b));'''),),
+}
 
 SCATTER_VARIANTS = {
     "ldcs": (
@@ -197,9 +222,9 @@ DOT_VARIANTS = {
     "l2_256B": (('"cp.async.cg.shared.global [%0], [%1], 16;\\n"',
                  '"cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\\n"'),),
     "unroll8": (("#pragma unroll 4\n        for (int k = 0; k < F; ++k) {\n"
-                 "          const float4 v",
+                 "          float4 v;",
                  "#pragma unroll 8\n        for (int k = 0; k < F; ++k) {\n"
-                 "          const float4 v"),),
+                 "          float4 v;"),),
 }
 
 # the fused forward's gathers alone: a thread a row of 4 flat ids (f V +
@@ -497,6 +522,7 @@ def build_variants(sections):
         sources["emb_probe"] = EMB_PROBE
     for src, variants, section in (
             ("embedding_bag", SCATTER_VARIANTS, "scatter"),
+            ("embedding_bag", SCATTER_BF16_VARIANTS, "scatter_bf16"),
             ("embedding_bag", EMB_FWD_VARIANTS,
              "embedding" if own else None),
             ("dot_interact", DOT_VARIANTS, "dot_bwd"),
@@ -881,6 +907,55 @@ def probe_embedding(cs, libs, wd, dlrm, model, cfg, gen):
         torch.cuda.empty_cache()
 
 
+def probe_scatter_bf16(cs, libs, gen):
+    """The bf16 scatter at dlrm-criteo's training shape: the kernel and
+    its `atomic` variant in turns (two rounds, the second in reverse
+    order), and the reductions of each one's bf16 instantiations."""
+    import torch
+    from repro_torch.configs.dlrm_criteo import ARCH as DLRM_ARCH
+    from repro_torch.kernels import build
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels.build import LIBRARIES
+    dev = torch.device("cuda")
+    cfg = DLRM_ARCH.model
+    ids = torch.as_tensor(cs._criteo_batch(cfg, 65536, 9)["sparse_ids"]) \
+        .to(dev)
+    b, n_f, bag = ids.shape
+    rows, d = cfg.vocab_sizes[0], cfg.embed_dim
+    d_out = torch.randn((b, n_f, d), device=dev, generator=gen) \
+        .to(torch.bfloat16).float()
+    grad = torch.zeros((n_f, rows, d), dtype=torch.bfloat16, device=dev)
+    plan = eb.bwd_plan(b, n_f, rows, d, True, 2)
+    print(f"scatter bf16 ({b}, {n_f}, {bag}) into ({n_f}, {rows}, {d}): "
+          f"plan {plan}")
+
+    def call(lib):
+        def run():
+            status = lib.embedding_bag_bwd(
+                d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), b, n_f,
+                rows, d, bag, 0, 1, int(plan.vec > 1), plan.lanes_log2,
+                plan.group, plan.blocks, plan.groups,
+                torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise RuntimeError(f"embedding_bag_bwd: CUDA error {status}")
+        return run
+    variants = (("kernel", LIBRARIES.get("embedding_bag"),
+                 str(build.library_path("embedding_bag"))),
+                ("atomic", libs["embedding_bag_atomic"],
+                 os.path.join(OUT, "embedding_bag_atomic.so")))
+    for name, _, path in variants:
+        for kernel, ops in sass_ops(path, ("REDG.", "ATOMG.", "ATOM."),
+                                    "bwd_kernelI13__nv_bfloat16").items():
+            print(f"  sass {name} {kernel[-40:]}: {ops}")
+    for rnd in range(2):
+        for name, lib, _ in variants[::1 if rnd == 0 else -1]:
+            t = cs.time_ms(call(lib), [()], kernel="embedding_bag_bwd_kernel")
+            print(f"  {name}: {t.ms:.4f} ms, {t.wall:.4f} launch to launch",
+                  flush=True)
+    del grad
+    torch.cuda.empty_cache()
+
+
 def main(sections) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -904,9 +979,9 @@ def main(sections) -> int:
     from repro_torch.kernels import build
     if "scatter" in sections:
         # the reductions each backward kernel issues: REDG,
-        # fire-and-forget, or ATOMG
+        # fire-and-forget, or ATOMG / ATOM (generic)
         for name, ops in sass_ops(str(build.library_path("embedding_bag")),
-                                  ("REDG.", "ATOMG."), "bwd").items():
+                                  ("REDG.", "ATOMG.", "ATOM."), "bwd").items():
             print(f"sass {name}: {ops}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -924,7 +999,7 @@ def main(sections) -> int:
         def call():
             status = lib.embedding_bag_bwd(
                 d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), b, f, v,
-                d, bag, 0, int(plan.vec == 4), plan.lanes_log2, group,
+                d, bag, 0, 0, int(plan.vec > 1), plan.lanes_log2, group,
                 blocks, groups, stream())
             if status != 0:
                 raise RuntimeError(f"embedding_bag_bwd: CUDA error {status}")
@@ -1019,8 +1094,8 @@ def main(sections) -> int:
         def dot(lib, ctas):
             def call(g, x):
                 status = lib.dot_interact_bwd(
-                    g.data_ptr(), x.data_ptr(), out.data_ptr(), b, f, d, 1,
-                    plan.warps, ctas, plan.smem, stream())
+                    g.data_ptr(), x.data_ptr(), out.data_ptr(), b, f, d, 0,
+                    plan.copy, 1, plan.warps, ctas, plan.smem, stream())
                 if status != 0:
                     raise RuntimeError(f"dot_interact_bwd: CUDA error "
                                        f"{status}")
@@ -1038,6 +1113,8 @@ def main(sections) -> int:
                           flush=True)
     if "fused" in sections:
         probe_fused(cs, libs, wd, cfg, gen)
+    if "scatter_bf16" in sections:
+        probe_scatter_bf16(cs, libs, gen)
     if "dot_fwd" in sections:
         probe_dot_fwd(cs, libs, MODEL, gen)
     if "sage" in sections:
@@ -1048,7 +1125,8 @@ def main(sections) -> int:
     return 0
 
 
-SECTIONS = ("fused", "dot_fwd", "sage", "embedding", "scatter", "dot_bwd")
+SECTIONS = ("fused", "dot_fwd", "sage", "embedding", "scatter", "dot_bwd",
+            "scatter_bf16")
 
 if __name__ == "__main__":
     names = sys.argv[3:] if sys.argv[1:2] == ["--src"] else sys.argv[1:]

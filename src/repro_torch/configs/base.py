@@ -21,6 +21,7 @@ class DLRMConfig:
     vocab_sizes: Tuple[int, ...] = ()
     bottom_mlp: Tuple[int, ...] = (512, 256, 128)
     top_mlp: Tuple[int, ...] = (1024, 1024, 512, 256, 1)
+    multi_hot: int = 1                  # lookups per sparse feature (bag size)
     param_dtype: str = "float32"
     reduced: Tuple[str, ...] = ()
 

@@ -12,15 +12,13 @@ from typing import List
 from repro_torch.configs.base import ArchSpec
 
 _ARCH_MODULES = {
+    "dlrm-criteo": "repro_torch.configs.dlrm_criteo",
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
     "wide-deep": "repro_torch.configs.wide_deep",
 }
 
 # arch -> where it waits (ROADMAP.md, "Queue 1: modules to port")
 _NOT_PORTED = {
-    "dlrm-criteo": "queue 1, item 3 (dlrm-criteo through the generic "
-                   "driver; its closed loop runs as "
-                   "repro_torch.launch.train_dlrm_criteo)",
     "xdeepfm": "queue 1, item 7 (xDeepFM, DIEN and BERT4Rec)",
     "dien": "queue 1, item 7 (xDeepFM, DIEN and BERT4Rec)",
     "bert4rec": "queue 1, item 7 (xDeepFM, DIEN and BERT4Rec)",

@@ -291,3 +291,31 @@ def train_feed_pipeline(step_time_s: float = 0.25, batch_mb: float = 8.0,
     return StageGraph("train_feed", stages, batch_mb=batch_mb,
                       target_rate=1.0 / max(float(step_time_s), 1e-6),
                       work=work)
+
+
+def make_pipeline(n_stages: int, seed: int = 0, batch_mb: float = 256.0,
+                  target_rate: float = 10.0) -> StageGraph:
+    """Randomized linear pipeline of a given length (offline RL pretraining
+    uses a distribution over these; the paper trains one agent per length).
+    The simulator's dynamics depend only on the per-stage rate vector, so
+    agents pretrained on these chains transfer to DAGs of equal stage
+    count (DESIGN.md §4)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    kinds = ["source"] + ["udf", "shuffle", "batch"][: max(n_stages - 2, 0)] \
+        + ["prefetch"]
+    while len(kinds) < n_stages:
+        kinds.insert(1, "udf")
+    kinds = kinds[:n_stages]
+    stages = []
+    for i, kind in enumerate(kinds):
+        cost = float(rng.uniform(0.05, 0.5))
+        bias = float(rng.uniform(0.3, 0.7)) if kind in ("udf", "source") \
+            else 1.0
+        stages.append(StageSpec(
+            f"{kind}_{i}", kind, cost=cost,
+            serial_frac=float(rng.uniform(0.02, 0.15)), est_bias=bias,
+            mem_per_worker_mb=float(rng.uniform(16, 128)),
+            mem_per_item_mb=batch_mb if kind == "prefetch" else 0.0))
+    return StageGraph(f"rand{n_stages}_{seed}", tuple(stages),
+                      batch_mb=batch_mb, target_rate=target_rate)

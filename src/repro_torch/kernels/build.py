@@ -41,7 +41,8 @@ SIGNATURES = {
         "embedding_bag_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                               _I32, _I32, _I32, _I32, _I64, _P),
         "embedding_bag_bwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
-                              _I32, _I32, _I32, _I64, _I64, _I64, _P),
+                              _I32, _I32, _I32, _I32, _I64, _I64, _I64,
+                              _P),
     },
     "embedding_bag_fused": {
         "embedding_bag_fused_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
@@ -52,7 +53,7 @@ SIGNATURES = {
         "dot_interact_fwd": (_P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
                              _I32, _I64, _P),
         "dot_interact_bwd": (_P, _P, _P, _I64, _I32, _I32, _I32, _I32,
-                             _I32, _I64, _P),
+                             _I32, _I32, _I32, _I64, _P),
     },
     "sage_aggregate": {
         "sage_widen_w": (_P, _P, _I64, _P),

@@ -48,9 +48,10 @@
 // No tensor cores: TF32 would break the f32 tolerance (1e-5 against f32
 // cuBLAS), and the kernel is bound by bytes.
 //
-// Backward (f32; the wrapper's autograd hands it a bf16 input's d_out and
-// feats in f32): dFeats[b] = C_b feats[b], C_b = S + S^T, where S scatters
-// dOut[b] into the strict lower triangle. Bound by bytes: at the DLRM
+// Backward, f32 or bf16 (dOut, feats and dFeats in feats' dtype, as the
+// reference's gradient of a bf16 feats is bf16): dFeats[b] = C_b
+// feats[b], C_b = S + S^T, where S scatters dOut[b] into the strict lower
+// triangle. Bound by bytes: at the DLRM
 // shape (2048, 27, 128) it reads feats and dOut and writes dFeats, 59.5
 // MB (0.0178 ms at 3.35 TB/s), against 0.38 GFLOP of FMAs (6 us at 67
 // TFLOP/s). The first version (one CTA a sample; load, build, compute and
@@ -76,6 +77,20 @@
 // first version did (bit-equal to cuBLAS's bmm on the H100 so far); no
 // tensor cores: TF32 would break the 1e-5 tolerance, and the kernel is
 // bound by bytes. Two __syncthreads a sample.
+// bf16 keeps that plan and order and moves half the bytes (0.95 GB at the
+// DLRM-Criteo training shape (65536, 27, 128), 0.28 ms at 3.35 TB/s):
+//  - the stages hold the raw bf16 bytes. cp.async brings the sample's feats
+//    in 16-byte copies (8 elements; F D % 8 == 0 and feats 16-byte
+//    aligned), else 4-byte ones (F D even, 4-byte aligned), else each
+//    thread loads its elements (a feats only 2-byte aligned), and its dOut
+//    row in the 4-byte words that hold it: a row of odd P starts on a
+//    half word every other sample, so the stage keeps the row's offset (0
+//    or 1) beside it, and the tensor's last element, when it ends on half
+//    a word, is loaded alone, so nothing past dOut is read;
+//  - the coefficients are widened when the warps build them (once a
+//    sample), the feats in registers as each warp reads them (8 bytes, 4
+//    elements, a step), and each output is rounded to bf16 once, when it
+//    is stored (8 bytes a step where D % 4 == 0).
 //
 // Every input element is read from device memory once and every output
 // element written once, in both directions.
@@ -345,29 +360,58 @@ __device__ __forceinline__ float4 fma4(float c, float4 v, float4 acc) {
                      fmaf(c, v.z, acc.z), fmaf(c, v.w, acc.w));
 }
 
-// Floats of one stage of the ring: the feats tile (F, D), then the dOut
-// row (P), each rounded up to a multiple of 4 floats.
+// Floats of one f32 stage of the ring: the feats tile (F, D), then the
+// dOut row (P), each rounded up to a multiple of 4 floats.
 __host__ __device__ __forceinline__ int bwd_stage_floats(int F, int D) {
   return round4(F * D) + round4(F * (F - 1) / 2);
 }
+// Bytes of one bf16 stage: the sample's raw feats (rounded up to 16
+// bytes), then the 4-byte words holding its dOut row, its first element
+// at half word 0 or 1 (at most P + 3 half words, rounded up to 8).
+__host__ __device__ __forceinline__ int bwd_raw_bytes(int F, int D) {
+  return (2 * F * D + 15) & ~15;
+}
+__host__ __device__ __forceinline__ int bwd_stage_bytes(int F, int D,
+                                                        bool bf16) {
+  if (!bf16) return 4 * bwd_stage_floats(F, D);
+  return bwd_raw_bytes(F, D) + 2 * ((F * (F - 1) / 2 + 3 + 7) & ~7);
+}
 
 // Shared memory of a backward CTA: two stages and the coefficients
-// (F, 8 x warps). Mirrored by dot_interact.py's `bwd_smem`.
-size_t bwd_smem(int F, int D, int warps) {
-  return sizeof(float) * (2 * static_cast<size_t>(bwd_stage_floats(F, D)) +
-                          static_cast<size_t>(F) * kBwdSlots * warps);
+// (F, 8 x warps) in f32. Mirrored by dot_interact.py's `bwd_smem`.
+size_t bwd_smem(int F, int D, int warps, bool bf16) {
+  return 2 * static_cast<size_t>(bwd_stage_bytes(F, D, bf16)) +
+         sizeof(float) * static_cast<size_t>(F) * kBwdSlots * warps;
+}
+
+__device__ __forceinline__ float4 widen4(uint2 w) {
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ uint2 narrow4(float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  return make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                    *reinterpret_cast<const unsigned*>(&hi));
 }
 
 // One CTA of ceil(F / 7) warps per launch slot, walking samples
-// blockIdx.x, blockIdx.x + gridDim.x, ...; see the header.
-template <bool kVec>
+// blockIdx.x, blockIdx.x + gridDim.x, ...; see the header. T the element
+// type of dOut, feats and dFeats; kVec float4 math (D % 4 == 0); kCopy
+// bytes a cp.async of the feats (f32: 16 with kVec, else 4; bf16: 16, 4,
+// or 0 for loads thread by thread).
+template <typename T, bool kVec, int kCopy>
 __global__ void __launch_bounds__(kBwdMaxThreads)
-dot_interact_bwd_kernel(const float* __restrict__ d_out,
-                        const float* __restrict__ feats,
-                        float* __restrict__ d_feats, int64_t B, int F, int D,
+dot_interact_bwd_kernel(const T* __restrict__ d_out,
+                        const T* __restrict__ feats,
+                        T* __restrict__ d_feats, int64_t B, int F, int D,
                         int P) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(16) float sm[];
-  const int stage_floats = bwd_stage_floats(F, D);
+  const int stage_bytes = bwd_stage_bytes(F, D, kBf16);
   const int xn = F * D;
   const int tid = threadIdx.x;
   const int n_threads = blockDim.x;
@@ -375,21 +419,55 @@ dot_interact_bwd_kernel(const float* __restrict__ d_out,
   const int warp = tid >> 5;
   const int n_warps = n_threads >> 5;
   const int ldc = kBwdSlots * n_warps;
-  float* cs = sm + 2 * stage_floats;                 // (F, ldc)
+  unsigned char* smb = reinterpret_cast<unsigned char*>(sm);
+  float* cs = reinterpret_cast<float*>(smb + 2 * stage_bytes);   // (F, ldc)
 
   // stage `st` <- sample b's feats tile and dOut row, one commit group
   auto issue = [&](int64_t b, int st) {
-    float* xs = sm + st * stage_floats;
-    float* gs = xs + round4(xn);
-    const float* x = feats + b * xn;
-    if (kVec) {
-      for (int t = 4 * tid; t < xn; t += 4 * n_threads)
-        cp_async<16>(xs + t, x + t);
+    unsigned char* stage = smb + st * stage_bytes;
+    if constexpr (!kBf16) {
+      float* xs = reinterpret_cast<float*>(stage);
+      float* gs = xs + round4(xn);
+      const float* x = feats + b * xn;
+      if (kVec) {
+        for (int t = 4 * tid; t < xn; t += 4 * n_threads)
+          cp_async<16>(xs + t, x + t);
+      } else {
+        for (int t = tid; t < xn; t += n_threads) cp_async<4>(xs + t, x + t);
+      }
+      const float* g = d_out + b * P;
+      for (int t = tid; t < P; t += n_threads) cp_async<4>(gs + t, g + t);
     } else {
-      for (int t = tid; t < xn; t += n_threads) cp_async<4>(xs + t, x + t);
+      const unsigned char* x =
+          reinterpret_cast<const unsigned char*>(feats + b * xn);
+      if constexpr (kCopy == 0) {
+        unsigned short* raw = reinterpret_cast<unsigned short*>(stage);
+        const unsigned short* xh = reinterpret_cast<const unsigned short*>(x);
+        for (int t = tid; t < xn; t += n_threads) raw[t] = __ldg(xh + t);
+      } else {
+        for (int k = kCopy * tid; k < 2 * xn; k += kCopy * n_threads)
+          cp_async<kCopy>(stage + k, x + k);
+      }
+      // the 4-byte words [w0, w1) of dOut holding row b, row b's first
+      // element at half word (b P) % 2 of the first; a last word that
+      // would run past the tensor's end (B P odd) is not copied, and its
+      // one element of dOut is loaded alone
+      unsigned* gw = reinterpret_cast<unsigned*>(stage + bwd_raw_bytes(F, D));
+      const unsigned* dw = reinterpret_cast<const unsigned*>(d_out);
+      const int64_t w0 = (b * P) >> 1;
+      const int64_t full = (B * P) >> 1;
+      int64_t w1 = ((b + 1) * P + 1) >> 1;
+      if (w1 > full) {
+        if (tid == 0) {
+          reinterpret_cast<unsigned short*>(gw)[2 * (full - w0)] =
+              __ldg(reinterpret_cast<const unsigned short*>(d_out) +
+                    B * P - 1);
+        }
+        w1 = full;
+      }
+      for (int64_t w = w0 + tid; w < w1; w += n_threads)
+        cp_async<4>(gw + (w - w0), dw + w);
     }
-    const float* g = d_out + b * P;
-    for (int t = tid; t < P; t += n_threads) cp_async<4>(gs + t, g + t);
     cp_async_commit();
   };
 
@@ -401,21 +479,33 @@ dot_interact_bwd_kernel(const float* __restrict__ d_out,
     cp_async_wait_all();
     __syncthreads();
     if (b + gridDim.x < B) issue(b + gridDim.x, st ^ 1);
-    const float* xs = sm + st * stage_floats;
+    const unsigned char* stage = smb + st * stage_bytes;
+    const float* xs = reinterpret_cast<const float*>(stage);
+    const unsigned short* xh = reinterpret_cast<const unsigned short*>(stage);
+    // dOut's row: f32 after the tile, or bf16 half words at its offset
     const float* gs = xs + round4(xn);
+    const unsigned short* gh =
+        reinterpret_cast<const unsigned short*>(stage + bwd_raw_bytes(F, D)) +
+        ((b * P) & 1);
     for (int k = warp; k < F; k += n_warps) {
       for (int slot = lane; slot < ldc; slot += 32) {
         const int r = slot & (kBwdSlots - 1);
         const int i = (slot / kBwdSlots) * kBwdRows + r;
         float v = 0.f;
-        if (r < kBwdRows && i < F && i != k)
-          v = i > k ? gs[i * (i - 1) / 2 + k] : gs[k * (k - 1) / 2 + i];
+        if (r < kBwdRows && i < F && i != k) {
+          const int p = i > k ? i * (i - 1) / 2 + k : k * (k - 1) / 2 + i;
+          if constexpr (kBf16) {
+            v = __uint_as_float(static_cast<unsigned>(gh[p]) << 16);
+          } else {
+            v = gs[p];
+          }
+        }
         cs[k * ldc + slot] = v;
       }
     }
     __syncthreads();
     const float* crow = cs + warp * kBwdSlots;
-    float* dst = d_feats + b * xn;
+    T* dst = d_feats + b * xn;
     const int i0 = warp * kBwdRows;
     if (kVec) {
       for (int col = lane; col < D / 4; col += 32) {
@@ -425,7 +515,12 @@ dot_interact_bwd_kernel(const float* __restrict__ d_out,
           acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
         for (int k = 0; k < F; ++k) {
-          const float4 v = ld4(xs + k * D + 4 * col);
+          float4 v;
+          if constexpr (kBf16) {
+            v = widen4(*reinterpret_cast<const uint2*>(xh + k * D + 4 * col));
+          } else {
+            v = ld4(xs + k * D + 4 * col);
+          }
           const float4 c0 = ld4(crow + k * ldc);
           const float4 c1 = ld4(crow + k * ldc + 4);
           acc[0] = fma4(c0.x, v, acc[0]);
@@ -438,8 +533,14 @@ dot_interact_bwd_kernel(const float* __restrict__ d_out,
         }
 #pragma unroll
         for (int r = 0; r < kBwdRows; ++r) {
-          if (i0 + r < F)
-            reinterpret_cast<float4*>(dst + (i0 + r) * D)[col] = acc[r];
+          if (i0 + r < F) {
+            if constexpr (kBf16) {
+              reinterpret_cast<uint2*>(dst + (i0 + r) * D)[col] =
+                  narrow4(acc[r]);
+            } else {
+              reinterpret_cast<float4*>(dst + (i0 + r) * D)[col] = acc[r];
+            }
+          }
         }
       }
     } else {
@@ -449,7 +550,12 @@ dot_interact_bwd_kernel(const float* __restrict__ d_out,
         for (int r = 0; r < kBwdRows; ++r) acc[r] = 0.f;
 #pragma unroll 4
         for (int k = 0; k < F; ++k) {
-          const float v = xs[k * D + col];
+          float v;
+          if constexpr (kBf16) {
+            v = __uint_as_float(static_cast<unsigned>(xh[k * D + col]) << 16);
+          } else {
+            v = xs[k * D + col];
+          }
           const float4 c0 = ld4(crow + k * ldc);
           const float4 c1 = ld4(crow + k * ldc + 4);
           acc[0] = fmaf(c0.x, v, acc[0]);
@@ -462,7 +568,13 @@ dot_interact_bwd_kernel(const float* __restrict__ d_out,
         }
 #pragma unroll
         for (int r = 0; r < kBwdRows; ++r) {
-          if (i0 + r < F) dst[(i0 + r) * D + col] = acc[r];
+          if (i0 + r < F) {
+            if constexpr (kBf16) {
+              dst[(i0 + r) * D + col] = __float2bfloat16_rn(acc[r]);
+            } else {
+              dst[(i0 + r) * D + col] = acc[r];
+            }
+          }
         }
       }
     }
@@ -542,33 +654,70 @@ extern "C" int dot_interact_fwd(const void* feats, void* out, int64_t B,
 }
 
 // The backward launches the host plan (dot_interact.py, `bwd_plan`):
-// `ctas` persistent CTAs of `warps` warps with `smem` bytes of shared
-// memory each, `vec` 1 for 16-byte copies and float4 math (D % 4 == 0,
-// feats and d_feats 16-byte aligned) else 0. A plan that does not fit
-// the call (too few warps for F, too little shared memory, more than
-// 227 KB of it) returns cudaErrorInvalidValue without launching.
-extern "C" int dot_interact_bwd(const float* d_out, const float* feats,
-                                float* d_feats, int64_t B, int32_t F,
-                                int32_t D, int32_t vec, int32_t warps,
-                                int32_t ctas, int64_t smem, void* stream) {
+// dOut, feats and dFeats f32 (`bf16` 0) or bf16 (1); `ctas` persistent
+// CTAs of `warps` warps with `smem` bytes of shared memory each; `vec` 1
+// for float4 math (D % 4 == 0, feats and d_feats 16-byte aligned for f32,
+// d_feats 8-byte aligned for bf16) else 0; `copy` bytes a cp.async of the
+// feats (f32: 16 with vec, else 4; bf16: 16 with F D % 8 == 0 and feats
+// 16-byte aligned, 4 with F D even and feats 4-byte aligned, or 0); a
+// bf16 dOut 4-byte aligned. A plan that does not fit the call (too few
+// warps for F, too little shared memory, more than 227 KB of it) returns
+// cudaErrorInvalidValue without launching.
+extern "C" int dot_interact_bwd(const void* d_out, const void* feats,
+                                void* d_feats, int64_t B, int32_t F,
+                                int32_t D, int32_t bf16, int32_t copy,
+                                int32_t vec, int32_t warps, int32_t ctas,
+                                int64_t smem, void* stream) {
   if (B == 0 || F < 1) return 0;
+  const int64_t fd = static_cast<int64_t>(F) * D;
+  const bool copy_ok =
+      bf16 ? (copy == 16 ? fd % 8 == 0 && aligned16(feats)
+              : copy == 4 ? fd % 2 == 0 && aligned(feats, 4)
+                          : copy == 0) &&
+                 aligned(d_out, 4) && (!vec || aligned(d_feats, 8))
+           : copy == (vec ? 16 : 4) &&
+                 (!vec || (aligned16(feats) && aligned16(d_feats)));
   if (warps < 1 || warps * 32 > kBwdMaxThreads || warps * kBwdRows < F ||
-      ctas < 1 || ctas > B || smem < static_cast<int64_t>(
-          bwd_smem(F, D, warps)) || smem > kMaxOptInSharedBytes ||
-      (vec && !(D % 4 == 0 && aligned16(feats) && aligned16(d_feats)))) {
+      ctas < 1 || ctas > B ||
+      smem < static_cast<int64_t>(bwd_smem(F, D, warps, bf16)) ||
+      smem > kMaxOptInSharedBytes || (vec && D % 4 != 0) || !copy_ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int P = F * (F - 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = vec ? dot_interact_bwd_kernel<true>
-                    : dot_interact_bwd_kernel<false>;
+  void (*kernel)(const float*, const float*, float*, int64_t, int, int,
+                 int) = nullptr;
+  void (*kernel16)(const __nv_bfloat16*, const __nv_bfloat16*,
+                   __nv_bfloat16*, int64_t, int, int, int) = nullptr;
+  if (!bf16) {
+    kernel = vec ? dot_interact_bwd_kernel<float, true, 16>
+                 : dot_interact_bwd_kernel<float, false, 4>;
+  } else if (vec) {
+    kernel16 = copy == 16 ? dot_interact_bwd_kernel<__nv_bfloat16, true, 16>
+               : copy == 4 ? dot_interact_bwd_kernel<__nv_bfloat16, true, 4>
+                           : dot_interact_bwd_kernel<__nv_bfloat16, true, 0>;
+  } else {
+    kernel16 = copy == 16 ? dot_interact_bwd_kernel<__nv_bfloat16, false, 16>
+               : copy == 4 ? dot_interact_bwd_kernel<__nv_bfloat16, false, 4>
+                           : dot_interact_bwd_kernel<__nv_bfloat16, false, 0>;
+  }
+  const void* fn = bf16 ? reinterpret_cast<const void*>(kernel16)
+                        : reinterpret_cast<const void*>(kernel);
   if (smem > kMaxSharedBytes) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<ctas, 32 * warps, static_cast<size_t>(smem), s>>>(
-      d_out, feats, d_feats, B, F, D, P);
+  if (bf16) {
+    kernel16<<<ctas, 32 * warps, static_cast<size_t>(smem), s>>>(
+        static_cast<const __nv_bfloat16*>(d_out),
+        static_cast<const __nv_bfloat16*>(feats),
+        static_cast<__nv_bfloat16*>(d_feats), B, F, D, P);
+  } else {
+    kernel<<<ctas, 32 * warps, static_cast<size_t>(smem), s>>>(
+        static_cast<const float*>(d_out), static_cast<const float*>(feats),
+        static_cast<float*>(d_feats), B, F, D, P);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,9 @@
 //
 // Layout: tables (F, V, D) f32 or bf16 (the forward; the TPU kernel takes
 // both and sums in f32), ids (B, F, bag) int32, out (B, F, D) f32; the
-// backward is f32 throughout (the TPU kernel has none). F*V*D exceeds
+// backward reads an f32 d_out (the forward's output dtype) and writes the
+// gradient in the tables' dtype, f32 or bf16, as the reference's gradient
+// of a bf16 table is bf16 (the TPU kernel has no backward). F*V*D exceeds
 // 2^31 at the DLRM-Criteo widths (26 x 2^20 x 128), so every offset into
 // the tables is 64-bit.
 //
@@ -98,6 +100,27 @@
 // Atomic order varies between runs, and a repeated id adds count x g
 // where the plain version adds g count times, so the result matches the
 // plain version to rounding (chip_smoke.py: rtol 1e-5, atol 1e-6).
+//
+// A bf16 gradient (a bf16 table's; the DLRM-Criteo reference's tables are
+// bf16) keeps the plan above and changes only the adds: the f32 addend
+// (count x g, divided by the bag for "mean") is rounded to bf16 once, and
+// pairs of columns go to Hopper's native bf16x2 reduction
+// (`red.global.add.noftz.bf16x2`, 4 of them for each 8 columns read as two
+// float4s of d_out), or single columns to the bf16 one where D % 8 != 0 or
+// a pointer is not 16-byte aligned. They are fire-and-forget REDs on a
+// global address, as the f32 path's are: cuda_bf16.h's atomicAdd for bf16
+// and bf16x2 is an `atom` on a generic address that returns the old value
+// (a generic ATOM in the SASS of the first bf16 body, 20% slower at the
+// DLRM-Criteo shape: kernel_probes.py scatter_bf16). The card has no
+// one-column bf16 reduction: ptxas lowers it to a CAS loop, with an 8-byte
+// stack frame, on a path the DLRM does not take. It halves the dense gradient
+// (27.9 GB at 26 x 2^22 x 128, against 55.8 GB in f32), which is what lets
+// the reference configuration train on one card. Every bf16 atomic rounds
+// the row's running sum: a row that one slot of the batch touches gets
+// its addend rounded once, bit-equal to the plain version (the f32 sum
+// rounded once); a row touched n times is off by at most about one bf16
+// ulp of its largest partial sum a touch, and in an order that changes
+// between runs, as the reference's own bf16 scatter-add is.
 //
 // An id outside [0, V) reads nothing and poisons its output row with NaN
 // (the fill semantics of jnp.take); in the backward it adds nothing.
@@ -309,16 +332,40 @@ __device__ __forceinline__ void bag_weights(const int32_t (&id)[kUnroll],
   }
 }
 
+// The bits of v rounded to bf16 (to nearest even).
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// One bf16x2 reduction of the pair (a, b), each rounded to bf16 once, into
+// global p (4-byte aligned): a into p[0], b into p[1].
+__device__ __forceinline__ void red_bf16x2(__nv_bfloat16* p, float a,
+                                           float b) {
+  asm volatile("red.global.add.noftz.bf16x2 [%0], %1;" ::"l"(p),
+               "r"(bf16_bits(a) | (bf16_bits(b) << 16))
+               : "memory");
+}
+
+// One bf16 reduction of a, rounded to bf16 once, into global p.
+__device__ __forceinline__ void red_bf16(__nv_bfloat16* p, float a) {
+  asm volatile("red.global.add.noftz.bf16 [%0], %1;" ::"l"(p),
+               "h"(static_cast<unsigned short>(bf16_bits(a)))
+               : "memory");
+}
+
 // The gradient row of (b, f), divided by the bag for "mean", scatter-added
 // into the rows its bag names: lane `lane` of `lanes` takes the row's
-// float4s (floats) lane, lane + lanes, ...; slot j adds w[j] times it.
-template <bool kVec, int kUnroll>
-__device__ __forceinline__ void scatter_row(const float* src, float* dst,
+// words lane, lane + lanes, ...; slot j adds w[j] times it. A word is a
+// float4 (f32, kVec), 8 bf16 columns (bf16, kVec: two float4s of d_out,
+// four bf16x2 atomics) or one column.
+template <typename T, bool kVec, int kUnroll>
+__device__ __forceinline__ void scatter_row(const float* src, T* dst,
                                             const int32_t (&id)[kUnroll],
                                             const float (&w)[kUnroll],
                                             int64_t D, int lane, int lanes,
                                             int n, float bag, int mean) {
-  if (kVec) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  if constexpr (kVec && !kBf16) {
     for (int64_t c = lane; c < D / 4; c += lanes) {
       float4 g = __ldg(reinterpret_cast<const float4*>(src) + c);
       if (mean) g = make_float4(g.x / bag, g.y / bag, g.z / bag, g.w / bag);
@@ -331,6 +378,26 @@ __device__ __forceinline__ void scatter_row(const float* src, float* dst,
         }
       }
     }
+  } else if constexpr (kVec) {
+    for (int64_t c = lane; c < D / 8; c += lanes) {
+      float4 g0 = __ldg(reinterpret_cast<const float4*>(src) + 2 * c);
+      float4 g1 = __ldg(reinterpret_cast<const float4*>(src) + 2 * c + 1);
+      if (mean) {
+        g0 = make_float4(g0.x / bag, g0.y / bag, g0.z / bag, g0.w / bag);
+        g1 = make_float4(g1.x / bag, g1.y / bag, g1.z / bag, g1.w / bag);
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (j < n && w[j] != 0.f) {
+          T* p = dst + static_cast<int64_t>(id[j]) * D + 8 * c;
+          const float4 a = scale4(g0, w[j]), b = scale4(g1, w[j]);
+          red_bf16x2(p, a.x, a.y);
+          red_bf16x2(p + 2, a.z, a.w);
+          red_bf16x2(p + 4, b.x, b.y);
+          red_bf16x2(p + 6, b.z, b.w);
+        }
+      }
+    }
   } else {
     for (int64_t d = lane; d < D; d += lanes) {
       float g = __ldg(src + d);
@@ -338,24 +405,30 @@ __device__ __forceinline__ void scatter_row(const float* src, float* dst,
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
         if (j < n && w[j] != 0.f) {
-          atomicAdd(dst + static_cast<int64_t>(id[j]) * D + d, g * w[j]);
+          T* p = dst + static_cast<int64_t>(id[j]) * D + d;
+          if constexpr (kBf16) {
+            red_bf16(p, g * w[j]);
+          } else {
+            atomicAdd(p, g * w[j]);
+          }
         }
       }
     }
   }
 }
 
-// dOut (B, F, D) scatter-added into the zeroed dense gradient (F, V, D).
-// Block (x, y) walks feature group y (features y * group onwards, the
-// last group holding what is left), rows x * kBwdThreads / lanes onwards
-// in the group's order: row b after row b, the group's features
-// innermost. kUnroll 4 or 16 keeps a bag of at most that many ids in
-// registers; kUnroll 0 takes any bag, comparing ids from memory.
-template <bool kVec, int kUnroll>
+// dOut (B, F, D) f32 scatter-added into the zeroed dense gradient (F, V,
+// D) of element type T (f32 or bf16). Block (x, y) walks feature group y
+// (features y * group onwards, the last group holding what is left), rows
+// x * kBwdThreads / lanes onwards in the group's order: row b after row
+// b, the group's features innermost. kUnroll 4 or 16 keeps a bag of at
+// most that many ids in registers; kUnroll 0 takes any bag, comparing ids
+// from memory.
+template <typename T, bool kVec, int kUnroll>
 __global__ void __launch_bounds__(kBwdThreads)
 embedding_bag_bwd_kernel(const float* __restrict__ d_out,
                          const int32_t* __restrict__ ids,
-                         float* __restrict__ grad, int64_t B, int64_t F,
+                         T* __restrict__ grad, int64_t B, int64_t F,
                          int64_t V, int64_t D, int bag, int mean,
                          int lanes_log2, int64_t group) {
   const int64_t f0 = static_cast<int64_t>(blockIdx.y) * group;
@@ -379,7 +452,7 @@ embedding_bag_bwd_kernel(const float* __restrict__ d_out,
   const int64_t row = b * F + f;
   const int32_t* row_ids = ids + row * bag;
   const float* src = d_out + row * D;
-  float* dst = grad + f * V * D;
+  T* dst = grad + f * V * D;
   const float bag_f = static_cast<float>(bag);
   if constexpr (kUnroll > 0) {
     int32_t id[kUnroll];
@@ -388,8 +461,8 @@ embedding_bag_bwd_kernel(const float* __restrict__ d_out,
         bag % 4 == 0 && (reinterpret_cast<uintptr_t>(ids) & 15u) == 0, id);
     float w[kUnroll];
     bag_weights<kUnroll>(id, bag, V, w);
-    scatter_row<kVec, kUnroll>(src, dst, id, w, D, lane, lanes, bag, bag_f,
-                               mean);
+    scatter_row<T, kVec, kUnroll>(src, dst, id, w, D, lane, lanes, bag,
+                                  bag_f, mean);
   } else {
     // a bag over kMaxUnrolledBag ids: slot by slot, each id compared with
     // the bag's others in memory (L1)
@@ -403,8 +476,8 @@ embedding_bag_bwd_kernel(const float* __restrict__ d_out,
       for (int k = j + 1; k < bag; ++k) c += __ldg(row_ids + k) == idj;
       const int32_t id1[1] = {idj};
       const float w1[1] = {c};
-      scatter_row<kVec, 1>(src, dst, id1, w1, D, lane, lanes, 1, bag_f,
-                           mean);
+      scatter_row<T, kVec, 1>(src, dst, id1, w1, D, lane, lanes, 1, bag_f,
+                              mean);
     }
   }
 }
@@ -415,20 +488,21 @@ bool aligned(const void* p, unsigned bytes) {
 
 bool aligned16(const void* p) { return aligned(p, 16); }
 
-template <bool kVec>
+template <typename T, bool kVec>
 void launch_bwd(dim3 grid, cudaStream_t s, const float* d_out,
-                const int32_t* ids, float* grad, int64_t B, int64_t F,
+                const int32_t* ids, void* grad_p, int64_t B, int64_t F,
                 int64_t V, int64_t D, int bag, int mean, int lanes_log2,
                 int64_t group) {
+  T* grad = static_cast<T*>(grad_p);
   if (bag <= 4) {
-    embedding_bag_bwd_kernel<kVec, 4><<<grid, kBwdThreads, 0, s>>>(
+    embedding_bag_bwd_kernel<T, kVec, 4><<<grid, kBwdThreads, 0, s>>>(
         d_out, ids, grad, B, F, V, D, bag, mean, lanes_log2, group);
   } else if (bag <= kMaxUnrolledBag) {
-    embedding_bag_bwd_kernel<kVec, kMaxUnrolledBag>
+    embedding_bag_bwd_kernel<T, kVec, kMaxUnrolledBag>
         <<<grid, kBwdThreads, 0, s>>>(d_out, ids, grad, B, F, V, D, bag,
                                       mean, lanes_log2, group);
   } else {
-    embedding_bag_bwd_kernel<kVec, 0><<<grid, kBwdThreads, 0, s>>>(
+    embedding_bag_bwd_kernel<T, kVec, 0><<<grid, kBwdThreads, 0, s>>>(
         d_out, ids, grad, B, F, V, D, bag, mean, lanes_log2, group);
   }
 }
@@ -493,33 +567,39 @@ extern "C" int embedding_bag_fwd(const void* tables, const int32_t* ids,
 }
 
 // The backward launches the host plan (embedding_bag.py, `bwd_plan`):
-// `vec` 1 for float4 atomics (D % 4 == 0, d_out and grad 16-byte
-// aligned) else 0, 2^lanes_log2 threads a row, feature groups of `group`,
-// a grid of (blocks, groups). A plan that does not fit the call (a grid
-// that misses rows among them) returns cudaErrorInvalidValue without
-// launching.
+// the gradient f32 (`bf16` 0) or bf16 (1); `vec` 1 for the vector path
+// (f32: float4 atomics, D % 4 == 0; bf16: 8 columns a word in bf16x2
+// atomics, D % 8 == 0; d_out and grad 16-byte aligned) else 0,
+// 2^lanes_log2 threads a row, feature groups of `group`, a grid of
+// (blocks, groups). A plan that does not fit the call (a grid that misses
+// rows among them) returns cudaErrorInvalidValue without launching.
 extern "C" int embedding_bag_bwd(const float* d_out, const int32_t* ids,
-                                 float* grad, int64_t B, int64_t F, int64_t V,
+                                 void* grad, int64_t B, int64_t F, int64_t V,
                                  int64_t D, int32_t bag, int32_t mean,
-                                 int32_t vec, int32_t lanes_log2,
-                                 int64_t group, int64_t blocks,
-                                 int64_t groups, void* stream) {
+                                 int32_t bf16, int32_t vec,
+                                 int32_t lanes_log2, int64_t group,
+                                 int64_t blocks, int64_t groups,
+                                 void* stream) {
   if (B * F == 0 || D == 0) return 0;
   if (bag < 1 || lanes_log2 < 0 || lanes_log2 > 5 || group < 1 ||
-      (vec && !(D % 4 == 0 && aligned16(d_out) && aligned16(grad))) ||
-      groups * group < F || groups > 65535 || blocks > INT32_MAX ||
+      (vec && !(D % (bf16 ? 8 : 4) == 0 && aligned16(d_out) &&
+                aligned16(grad))) ||
+      (bf16 && !aligned(grad, 2)) || groups * group < F || groups > 65535 ||
+      blocks > INT32_MAX ||
       blocks * kBwdThreads < (B * std::min(group, F) << lanes_log2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>(groups));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    launch_bwd<true>(grid, s, d_out, ids, grad, B, F, V, D, bag, mean,
-                     lanes_log2, group);
+#define BWD(T_, V_)                                                        \
+  launch_bwd<T_, V_>(grid, s, d_out, ids, grad, B, F, V, D, bag, mean,     \
+                     lanes_log2, group)
+  if (bf16) {
+    if (vec) BWD(__nv_bfloat16, true); else BWD(__nv_bfloat16, false);
   } else {
-    launch_bwd<false>(grid, s, d_out, ids, grad, B, F, V, D, bag, mean,
-                      lanes_log2, group);
+    if (vec) BWD(float, true); else BWD(float, false);
   }
+#undef BWD
   return static_cast<int>(cudaGetLastError());
 }

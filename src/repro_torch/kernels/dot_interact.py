@@ -4,12 +4,13 @@ Replaces the Pallas TPU kernel `repro/kernels/dot_interact.py::
 dot_interact` (pallas_call at :51) and adds the backward the TPU kernel
 lacks. See the source for the design; both are bound by bytes. The
 forward takes f32 or bf16 feats, as the TPU kernel does, and returns
-the input's dtype; the backward is f32.
+the input's dtype; the backward takes d_out and feats in one dtype, f32
+or bf16, and returns d_feats in it.
 
 Both launches are plans computed here, in plain Python that the CPU
 tests reach (`fwd_plan`: the width of its copies, persistent warps, CTAs,
-shared memory; `bwd_plan`: the width of its copies, warps a CTA,
-persistent CTAs, shared memory).
+shared memory; `bwd_plan`: float4 math, the width of its copies, warps a
+CTA, persistent CTAs, shared memory).
 
 Same wrapper contract as repro_torch.kernels.embedding_bag: CUDA
 contiguous tensors only, outputs from `torch.empty`, launch on the
@@ -132,33 +133,51 @@ def fwd_plan(b: int, f: int, d: int, elem: int = 4, ptr: int = 0
                    warps * per_warp)
 
 
-def bwd_smem(f: int, d: int, warps: int) -> int:
+def bwd_smem(f: int, d: int, warps: int, elem: int = 4) -> int:
     """Bytes of shared memory of a backward CTA (as csrc's bwd_smem): two
-    stages of the feats tile and dOut row, each rounded up to 4 floats,
-    and the (F, 8 x warps) coefficients."""
-    stage = _round4(f * d) + _round4(f * (f - 1) // 2)
-    return 4 * (2 * stage + f * BWD_SLOTS * warps)
+    stages and the (F, 8 x warps) f32 coefficients. An f32 stage holds
+    the feats tile and the dOut row, each rounded up to 4 floats; a bf16
+    one the raw feats (rounded up to 16 bytes) and the 4-byte words of
+    the dOut row (P + 3 half words, rounded up to 8)."""
+    if elem == 2:
+        stage = -(-2 * f * d // 16) * 16 + 2 * (-(-(f * (f - 1) // 2 + 3)
+                                                 // 8) * 8)
+    else:
+        stage = 4 * (_round4(f * d) + _round4(f * (f - 1) // 2))
+    return 2 * stage + 4 * f * BWD_SLOTS * warps
 
 
 @dataclass(frozen=True)
 class BwdPlan:
-    vec: int          # floats a copy and an FMA step: 4 or 1
+    vec: int          # floats an FMA step: 4 or 1
     warps: int        # warps a CTA, 7 rows each
     ctas: int         # persistent CTAs, each walking every ctas-th sample
     smem: int         # shared-memory bytes a CTA
+    copy: int = 16    # bytes a cp.async of the feats: 16, 4; 0 (bf16) none
 
 
-def bwd_plan(b: int, f: int, d: int, ptr: int = 0) -> BwdPlan:
-    """The backward's launch for feats (b, f, d) at address `ptr`: 16-byte
-    copies and float4 FMAs where D % 4 == 0 and `ptr` is 16-byte aligned;
-    ceil(f / 7) warps; BWD_CTAS_PER_SM CTAs an SM, or as many as the SM's
-    threads and shared memory hold, at most b."""
+def bwd_plan(b: int, f: int, d: int, ptr: int = 0, elem: int = 4
+             ) -> BwdPlan:
+    """The backward's launch for feats (b, f, d) of `elem`-byte elements,
+    `ptr` the feats' address or'd with dFeats': float4 FMAs where D % 4
+    == 0 and, for f32, `ptr` is 16-byte aligned (then 16-byte copies, else
+    4-byte ones), for bf16 8-byte aligned; a bf16 feats copied 16 bytes
+    at a time where F D % 8 == 0 and `ptr` is 16-byte aligned, else 4
+    where F D is even and `ptr` 4-byte aligned, else loaded element by
+    element; ceil(f / 7) warps; BWD_CTAS_PER_SM CTAs an SM, or as many as
+    the SM's threads and shared memory hold, at most b."""
     warps = max(1, -(-f // BWD_ROWS))
-    smem = bwd_smem(f, d, warps)
+    smem = bwd_smem(f, d, warps, elem)
     per_sm = max(1, min(BWD_CTAS_PER_SM, SM_THREADS // (32 * warps),
                         SM_SHARED_BYTES // (smem + 1024)))
-    vec = 4 if d % 4 == 0 and ptr % 16 == 0 else 1
-    return BwdPlan(vec, warps, max(1, min(b, SMS * per_sm)), smem)
+    if elem == 2:
+        vec = 4 if d % 4 == 0 and ptr % 8 == 0 else 1
+        copy = (16 if f * d % 8 == 0 and ptr % 16 == 0 else
+                4 if f * d % 2 == 0 and ptr % 4 == 0 else 0)
+    else:
+        vec = 4 if d % 4 == 0 and ptr % 16 == 0 else 1
+        copy = 16 if vec == 4 else 4
+    return BwdPlan(vec, warps, max(1, min(b, SMS * per_sm)), smem, copy)
 
 
 def _status(name: str, status: int):
@@ -196,9 +215,13 @@ def dot_interact_fwd(feats: torch.Tensor) -> torch.Tensor:
 
 def dot_interact_bwd(d_out: torch.Tensor,
                      feats: torch.Tensor) -> torch.Tensor:
-    """d_out (B, F(F-1)/2) f32, feats (B, F, D) f32 -> dFeats (B, F, D)."""
-    _check(feats, "feats", torch.float32, 3)
-    _check(d_out, "d_out", torch.float32, 2)
+    """d_out (B, F(F-1)/2), feats (B, F, D), both f32 or both bf16 ->
+    dFeats (B, F, D) in their dtype, summed in f32 (a bf16 out rounded to
+    nearest even once). A bf16 d_out that does not start on a 4-byte
+    boundary is copied to one that does (the kernel reads its rows in
+    4-byte words)."""
+    _check(feats, "feats", (torch.float32, torch.bfloat16), 3)
+    _check(d_out, "d_out", feats.dtype, 2)
     b, f, d = feats.shape
     if d_out.shape != (b, f * (f - 1) // 2) or d_out.device != feats.device:
         raise ValueError(f"d_out {tuple(d_out.shape)} does not match feats "
@@ -210,13 +233,17 @@ def dot_interact_bwd(d_out: torch.Tensor,
     out = torch.empty_like(feats)
     if out.numel() == 0:
         return out
+    bf16 = feats.dtype == torch.bfloat16
+    if bf16 and d_out.data_ptr() % 4:
+        d_out = d_out.clone()
     # either pointer unaligned leaves their OR unaligned
-    plan = bwd_plan(b, f, d, feats.data_ptr() | out.data_ptr())
+    plan = bwd_plan(b, f, d, feats.data_ptr() | out.data_ptr(),
+                    feats.element_size())
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("dot_interact_bwd", LIBRARIES.get("dot_interact")
                 .dot_interact_bwd(d_out.data_ptr(), feats.data_ptr(),
-                                  out.data_ptr(), b, f, d,
-                                  int(plan.vec == 4), plan.warps, plan.ctas,
-                                  plan.smem, stream))
+                                  out.data_ptr(), b, f, d, int(bf16),
+                                  plan.copy, int(plan.vec == 4), plan.warps,
+                                  plan.ctas, plan.smem, stream))
     return out

@@ -7,12 +7,13 @@ the Pallas TPU kernel `repro/kernels/embedding_bag.py::embedding_bag`
 `embedding_bag_fused` (pallas_call at :135), the resident-table variant
 for small tables and bags. See the sources for the designs; all are
 bound by bytes. The forwards take f32 or bf16 tables, as the TPU
-kernels do, and return f32; the backward is f32.
+kernels do, and return f32; the backward reads an f32 d_out and writes
+the gradient in the tables' dtype, f32 or bf16.
 
 The launches are plans computed here, in plain Python that the CPU
 tests reach (`fwd_plan`: elements a load, threads a row, blocks;
 `fused_plan`: the same and the feature groups of its walk; `bwd_plan`:
-floats an atomic, threads a row, the feature groups of its walk).
+columns an atomic word, threads a row, the feature groups of its walk).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
@@ -54,7 +55,7 @@ def _cdiv(a: int, b: int) -> int:
 
 @dataclass(frozen=True)
 class BwdPlan:
-    vec: int          # floats an atomic: 4, or 1 (D % 4 != 0, unaligned)
+    vec: int          # columns a word: 4 (f32) or 8 (bf16), or 1
     lanes: int        # threads a (b, f) row, a power of two <= 32
     group: int        # features a group of the walk
     groups: int       # feature groups: the grid's y
@@ -65,19 +66,23 @@ class BwdPlan:
         return self.lanes.bit_length() - 1
 
 
-def bwd_plan(b: int, f: int, v: int, d: int, aligned: bool = True
-             ) -> BwdPlan:
-    """The scatter's launch for d_out (b, f, d) into grad (f, v, d): float4
-    atomics where D % 4 == 0 and both tensors are 16-byte `aligned`;
-    lanes the power of two covering a row's vectors, at most 32; feature
-    groups of as many features as have gradient slices (v x d x 4 bytes)
-    within BWD_L2_BYTES, at least 1 (and few enough groups for the
-    grid); blocks enough for b rows of a group's features."""
-    vec = 4 if d % 4 == 0 and aligned else 1
+def bwd_plan(b: int, f: int, v: int, d: int, aligned: bool = True,
+             elem: int = 4) -> BwdPlan:
+    """The scatter's launch for d_out (b, f, d) f32 into grad (f, v, d) of
+    `elem`-byte elements: words of 16 bytes of d_out (float4 atomics into
+    an f32 grad, four bf16x2 atomics of 8 columns into a bf16 one) where
+    D is a multiple of the word and both tensors are 16-byte `aligned`,
+    else one column; lanes the power of two covering a row's words, at
+    most 32; feature groups of as many features as have gradient slices
+    (v x d x elem bytes) within BWD_L2_BYTES, at least 1 (and few enough
+    groups for the grid); blocks enough for b rows of a group's
+    features."""
+    word = 4 if elem == 4 else 8
+    vec = word if d % word == 0 and aligned else 1
     lanes = 1
     while lanes < 32 and lanes * vec < d:
         lanes *= 2
-    group = max(1, min(f, BWD_L2_BYTES // max(1, 4 * v * d)),
+    group = max(1, min(f, BWD_L2_BYTES // max(1, elem * v * d)),
                 _cdiv(f, _MAX_GROUPS))
     return BwdPlan(vec, lanes, group, _cdiv(f, group),
                    _cdiv(b * min(group, f) * lanes, BWD_THREADS))
@@ -257,12 +262,13 @@ def embedding_bag_fused_fwd(tables: torch.Tensor, ids: torch.Tensor,
 
 def embedding_bag_scatter(d_out: torch.Tensor, ids: torch.Tensor,
                           grad: torch.Tensor, combiner: str = "sum"):
-    """Scatter-add d_out (B, F, D) f32 into grad (F, V, D) f32 in place,
-    at the rows ids (B, F, bag) int32 name (divided by bag for mean)."""
+    """Scatter-add d_out (B, F, D) f32 into grad (F, V, D) f32 or bf16 in
+    place, at the rows ids (B, F, bag) int32 name (divided by bag for
+    mean); a bf16 grad takes each addend rounded once, by bf16 atomics."""
     mean = _mean_flag(combiner)
     _check(d_out, "d_out", torch.float32, 3)
     _check(ids, "ids", torch.int32, 3)
-    _check(grad, "grad", torch.float32, 3)
+    _check(grad, "grad", TABLE_DTYPES, 3)
     b, f, bag = ids.shape
     f_g, v, d = grad.shape
     if d_out.shape != (b, f, d) or f_g != f or bag < 1 \
@@ -271,22 +277,25 @@ def embedding_bag_scatter(d_out: torch.Tensor, ids: torch.Tensor,
                          f"{tuple(ids.shape)} and grad {tuple(grad.shape)} "
                          f"do not match")
     plan = bwd_plan(b, f, v, d, (d_out.data_ptr() | grad.data_ptr()) % 16
-                    == 0)
+                    == 0, grad.element_size())
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_bag_bwd", LIBRARIES.get("embedding_bag")
                 .embedding_bag_bwd(d_out.data_ptr(), ids.data_ptr(),
                                    grad.data_ptr(), b, f, v, d, bag, mean,
-                                   int(plan.vec == 4), plan.lanes_log2,
+                                   int(grad.dtype == torch.bfloat16),
+                                   int(plan.vec > 1), plan.lanes_log2,
                                    plan.group, plan.blocks, plan.groups,
                                    stream))
     return grad
 
 
 def embedding_bag_bwd(d_out: torch.Tensor, ids: torch.Tensor, num_rows: int,
-                      combiner: str = "sum") -> torch.Tensor:
-    """The dense table gradient (F, num_rows, D) f32. Its zero fill is
-    the allocation's (`torch.zeros`), not the kernel's."""
+                      combiner: str = "sum",
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The dense table gradient (F, num_rows, D) in `dtype`, the tables'
+    (f32 or bf16). Its zero fill is the allocation's (`torch.zeros`), not
+    the kernel's."""
     grad = torch.zeros((ids.shape[1], num_rows, d_out.shape[-1]),
-                       dtype=torch.float32, device=d_out.device)
+                       dtype=dtype, device=d_out.device)
     return embedding_bag_scatter(d_out, ids, grad, combiner)

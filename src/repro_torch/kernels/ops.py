@@ -9,9 +9,13 @@ is no other fallback: a CUDA kernel that fails to build or launch
 raises.
 
 The forwards take f32 or bf16 inputs, as the TPU kernels do. The
-backward kernels are f32 (the TPU kernels have none): a bf16 input's
-backward hands them its d_out and inputs in f32 and casts the gradients
-back to the inputs' dtypes.
+DLRM's two backward kernels (the TPU kernels have none) write a bf16
+input's gradient in bf16, as the reference's gradient of a bf16
+parameter is, with no f32 copy of it: the scatter reads the forward's
+f32 d_out into a bf16 table gradient, and the interaction's backward
+reads bf16 d_out and feats. `sage_aggregate`'s backward kernel is f32: a
+bf16 input's backward hands it d_out and w in f32 and casts the
+gradients back to the inputs' dtypes.
 """
 from __future__ import annotations
 
@@ -73,11 +77,12 @@ class _EmbeddingBag(torch.autograd.Function):
         d_out = d_out.contiguous()
         if _on_cuda(d_out):
             grad = _eb.embedding_bag_bwd(d_out, ids, ctx.num_rows,
-                                         ctx.combiner)
+                                         ctx.combiner, dtype=ctx.table_dtype)
         else:
             grad = ref.embedding_bag_bwd_ref(d_out, ids, ctx.num_rows,
-                                             combiner=ctx.combiner)
-        return grad.to(ctx.table_dtype), None, None
+                                             combiner=ctx.combiner,
+                                             dtype=ctx.table_dtype)
+        return grad, None, None
 
 
 class _EmbeddingBagFused(_EmbeddingBag):
@@ -108,8 +113,7 @@ class _DotInteract(torch.autograd.Function):
         (feats,) = ctx.saved_tensors
         d_out = d_out.contiguous()
         if _on_cuda(d_out):
-            return _di.dot_interact_bwd(d_out.float(), feats.float()) \
-                .to(feats.dtype)
+            return _di.dot_interact_bwd(d_out, feats)
         return ref.dot_interact_bwd_ref(d_out, feats)
 
 
@@ -153,7 +157,8 @@ class _SageAggregate(torch.autograd.Function):
 def embedding_bag(tables: torch.Tensor, ids: torch.Tensor, *,
                   combiner: str = "sum") -> torch.Tensor:
     """Stacked multi-feature bag: tables (F, V, D) f32 or bf16, ids (B, F,
-    bag) -> (B, F, D) f32, differentiable in `tables`."""
+    bag) -> (B, F, D) f32, differentiable in `tables` (the gradient in
+    the tables' dtype)."""
     return _EmbeddingBag.apply(tables, ids, combiner)
 
 
@@ -168,7 +173,8 @@ def embedding_bag_fused(tables: torch.Tensor, ids: torch.Tensor, *,
 
 def dot_interact(feats: torch.Tensor) -> torch.Tensor:
     """feats (B, F, D) f32 or bf16 -> (B, F(F-1)/2) lower-triangle
-    pairwise dots summed in f32, in feats' dtype, differentiable."""
+    pairwise dots summed in f32, in feats' dtype, differentiable (the
+    gradient in feats' dtype, summed in f32 and rounded once)."""
     return _DotInteract.apply(feats)
 
 

@@ -43,11 +43,15 @@ embedding_bag_fused_ref = embedding_bag_ref
 
 
 def embedding_bag_bwd_ref(d_out: torch.Tensor, ids: torch.Tensor,
-                          num_rows: int, *,
-                          combiner: str = "sum") -> torch.Tensor:
+                          num_rows: int, *, combiner: str = "sum",
+                          dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
     """d_out (B, F, D); ids (B, F, bag) -> the dense table gradient
-    (F, num_rows, D) f32: each bag slot's row receives d_out[b, f]
-    (divided by `bag` for "mean")."""
+    (F, num_rows, D) in `dtype`, the tables' (f32 or bf16): each bag
+    slot's row receives d_out[b, f] (divided by `bag` for "mean"), summed
+    in f32 and rounded to `dtype` once. The sums are taken over the rows
+    the ids touch only, so no f32 temporary of the table's size is made
+    (a bf16 table of the DLRM-Criteo reference is 27.9 GB)."""
     b, f, bag = ids.shape
     d = d_out.shape[-1]
     g = d_out.float()
@@ -56,9 +60,12 @@ def embedding_bag_bwd_ref(d_out: torch.Tensor, ids: torch.Tensor,
     feat = torch.arange(f, device=ids.device).view(1, f, 1)
     flat = (feat * num_rows + ids.long()).reshape(-1)
     upd = g[:, :, None, :].expand(b, f, bag, d).reshape(-1, d)
-    grad = torch.zeros((f * num_rows, d), dtype=torch.float32,
+    rows, slot = torch.unique(flat, return_inverse=True)
+    sums = torch.zeros((rows.numel(), d), dtype=torch.float32,
                        device=d_out.device)
-    grad.index_add_(0, flat, upd)
+    sums.index_add_(0, slot, upd)
+    grad = torch.zeros((f * num_rows, d), dtype=dtype, device=d_out.device)
+    grad[rows] = sums.to(dtype)
     return grad.view(f, num_rows, d)
 
 
@@ -80,7 +87,8 @@ def dot_interact_ref(feats: torch.Tensor) -> torch.Tensor:
 def dot_interact_bwd_ref(d_out: torch.Tensor,
                          feats: torch.Tensor) -> torch.Tensor:
     """dFeats[b] = (S + S^T) feats[b], S scattering d_out[b] into the
-    strict lower triangle; in the input dtype."""
+    strict lower triangle: summed in f32 and rounded once to feats'
+    dtype (f32 or bf16, d_out in the same), as the kernel rounds."""
     b, f, _ = feats.shape
     ii, jj = tril_pairs(f, feats.device)
     s = torch.zeros((b, f, f), dtype=torch.float32, device=feats.device)

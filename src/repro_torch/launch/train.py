@@ -1,23 +1,27 @@
 """Generic training driver of the port: --arch <id> on one device (port of
-repro/launch/train.py; the `gnn` and `recsys` families so far).
+repro/launch/train.py; the `gnn`, `recsys` and `dlrm` families so far).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-reddit \
         [--steps 50] [--batch N] [--full] [--shape minibatch_lg] \
         [--ckpt-dir DIR] [--ckpt-every 25] [--lr 1e-3] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.train --arch wide-deep \
         [--full] [--shape train_batch] ...
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-criteo \
+        [--full] [--shape train_batch] ...
 
 Runs real training steps on synthetic data, as the JAX driver does:
   - without `--full` it runs the family's small config, the JAX
     driver's `reduced_model` (GraphSAGE: d_hidden 16 on the JAX driver's
     small graph, 512 nodes, 4096 edges, 32 features, fanout 5-3;
-    wide-deep: 8 features, embed_dim 8, MLP 64-32, 512 rows a table) at
-    the JAX driver's batch of 32, so that the two drivers can be held
-    together on the CPU; `--full` uses the arch's published config and
-    `--shape <name>` one of its shapes (graphsage-reddit: a minibatch
-    shape, minibatch_lg: 1024 seed nodes, fanout 15-10, 602 features on
-    232,965 nodes; wide-deep: a train shape, train_batch: 65536 samples
-    of synthetic Criteo records, `data/synthetic.CriteoStream`);
+    wide-deep: 8 features, embed_dim 8, MLP 64-32, 512 rows a table;
+    dlrm-criteo: 8 features, embed_dim 16, 512 rows a table, bottom MLP
+    32-16, top MLP 64-32-1, still bf16) at the JAX driver's batch of 32,
+    so that the two drivers can be held together on the CPU; `--full`
+    uses the arch's published config and `--shape <name>` one of its
+    shapes (graphsage-reddit: a minibatch shape, minibatch_lg: 1024 seed
+    nodes, fanout 15-10, 602 features on 232,965 nodes; wide-deep and
+    dlrm-criteo: a train shape, train_batch: 65536 samples of synthetic
+    Criteo records, `data/synthetic.CriteoStream`);
   - checkpoints every --ckpt-every steps in the JAX package's on-disk
     layout (atomic, resumable, restorable by either package);
   - an InTune controller tunes the (simulated-machine) ingestion pipeline
@@ -25,11 +29,13 @@ Runs real training steps on synthetic data, as the JAX driver does:
 
 On a CUDA device (`--device cuda`, the default) GraphSAGE's neighbour
 aggregations run through the hand-written Hopper kernel
-`sage_aggregate`, and wide-deep's lookups through `embedding_bag_fused`
+`sage_aggregate`, wide-deep's lookups through `embedding_bag_fused`
 (its wide arm) and `embedding_bag` (its deep tables), with the
-`embedding_bag` scatter as their backward; `--device cpu` runs their
-plain PyTorch versions. Archs the port does not run yet raise KeyError
-naming the ROADMAP item that ports them.
+`embedding_bag` scatter as their backward, and the DLRM's bags and
+interaction through `embedding_bag` and `dot_interact`, forward and
+backward, in bf16; `--device cpu` runs their plain PyTorch versions.
+Archs the port does not run yet raise KeyError naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from repro_torch.data.pipeline import criteo_pipeline
 from repro_torch.data.sampler import CSRGraph, NeighborSampler
 from repro_torch.data.simulator import MachineSpec
 from repro_torch.data.synthetic import CriteoStream
+from repro_torch.models import dlrm as dlrm_lib
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
 from repro_torch.train import checkpoint as ckpt
@@ -66,6 +73,7 @@ RECSYS_DRIVER_SHAPE = RecsysShape("driver_small", "train", 32)
 _FAMILIES = {
     "gnn": (DRIVER_SHAPE, "minibatch", gnn_lib, "seed_nodes_per_s"),
     "recsys": (RECSYS_DRIVER_SHAPE, "train", recsys_lib, "samples_per_s"),
+    "dlrm": (RECSYS_DRIVER_SHAPE, "train", dlrm_lib, "samples_per_s"),
 }
 
 
@@ -83,6 +91,13 @@ def reduced_model(arch: ArchSpec):
     m = arch.model
     if _family(arch) == "gnn":
         return m.replace(d_hidden=16)
+    if _family(arch) == "dlrm":
+        return m.replace(n_sparse=8, embed_dim=16, vocab_sizes=(512,) * 8,
+                         bottom_mlp=(32, 16), top_mlp=(64, 32, 1),
+                         reduced=("the JAX driver's reduced_model: 8 sparse "
+                                  "features, embed_dim 16, 512 rows a "
+                                  "table, bottom MLP 32-16, top MLP "
+                                  "64-32-1, for a CPU run",))
     n = min(m.n_sparse, 8)
     return m.replace(n_sparse=n, embed_dim=8, mlp_dims=(64, 32),
                      vocab_sizes=(512,) * n,
@@ -108,9 +123,9 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
                   sampler: Optional[NeighborSampler] = None):
     """A function returning the next batch on `device`: a sampled block
     of `shape`'s graph (gnn), or synthetic Criteo records from seed 0
-    through the online feature work (recsys), as the JAX driver makes
-    them."""
-    if _family(arch) == "recsys":
+    through the online feature work (recsys, dlrm), as the JAX driver
+    makes them."""
+    if _family(arch) in ("recsys", "dlrm"):
         stream = CriteoStream(n_sparse=cfg.n_sparse, n_dense=cfg.n_dense,
                               vocab=cfg.vocab_sizes[0],
                               multi_hot=cfg.multi_hot)
@@ -125,6 +140,8 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
 def make_loss_fn(arch: ArchSpec, cfg):
     if _family(arch) == "recsys":
         return lambda model, b: recsys_lib.ctr_loss(model, b)
+    if _family(arch) == "dlrm":
+        return lambda model, b: dlrm_lib.loss_fn(model, b)
     return lambda model, b: gnn_lib.minibatch_loss(model, b)
 
 
@@ -132,6 +149,8 @@ def init_params_for(arch: ArchSpec, cfg, seed: int, *,
                     shape=DRIVER_SHAPE, device="cuda"):
     if _family(arch) == "recsys":
         return recsys_lib.init_wide_deep(cfg, seed=seed, device=device)
+    if _family(arch) == "dlrm":
+        return dlrm_lib.init_params(cfg, seed=seed, device=device)
     return gnn_lib.init_params(cfg, d_feat=shape.d_feat, seed=seed,
                                device=device)
 
@@ -243,8 +262,9 @@ def main(argv=None):
                     help="use the published config")
     ap.add_argument("--shape", default=None,
                     help="a minibatch shape of a GNN (minibatch_lg) or a "
-                         "train shape of a recsys model (train_batch); "
-                         "default the JAX driver's small run")
+                         "train shape of a recsys model or the DLRM "
+                         "(train_batch); default the JAX driver's small "
+                         "run")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--lr", type=float, default=1e-3)

@@ -1,23 +1,30 @@
-"""The closed loop on the card: a tuned ProcessPipeline feeds a DLRM
-adagrad train step, and InTune re-places the pipeline's workers from
-the measured device idle time (port of `run_proc` in
-examples/train_dlrm_criteo.py).
+"""The DLRM training loop with InTune on the card (port of
+examples/train_dlrm_criteo.py), with the example's two backends.
 
     python -m repro_torch.launch.train_dlrm_criteo [--steps 300]
+        [--backend proc|sim]
 
-A real ProcessPipeline runs the featurization stages (hashing / pooling
-/ padding / collation, data/featurize.py) in worker processes; batches
-cross to the device through `device_feed.make_train_feed` (pinned,
-asynchronous copies + stall metering); the InTune controller tunes THIS
-pipeline — the one the train step actually eats from — via `FeedBackend`
-+ `Session.step`, observing measured `device_idle_frac` at the feed
-boundary.
+  --backend proc (default)  THE CLOSED LOOP (`run_proc`). A real
+      ProcessPipeline runs the featurization stages (hashing / pooling /
+      padding / collation, data/featurize.py) in worker processes;
+      batches cross to the device through `device_feed.make_train_feed`
+      (pinned, asynchronous copies + stall metering); the InTune
+      controller tunes THIS pipeline — the one the train step actually
+      eats from — via `FeedBackend` + `Session.step`, observing measured
+      `device_idle_frac` at the feed boundary.
+
+  --backend sim  (`run_sim`) the controller tunes a SIMULATED
+      MachineSpec(n_cpus=128) Criteo pipeline, ticking once a train step,
+      DETACHED from the data the model trains on: the batches come from
+      an inline `data/synthetic.CriteoStream`, and nothing the tuner
+      decides changes them. It demonstrates the controller loop, not a
+      closed tuning loop.
 
 The model is `dlrm-criteo-1m` (repro_torch/configs/dlrm_criteo.py): the
 paper's Criteo DLRM at its published widths, fp32 + adagrad, with 2^20
 rows per table; its embedding bags and interaction run through the
-hand-written Hopper kernels. Checkpointing and the simulated backend of
-the JAX example are not ported yet.
+hand-written Hopper kernels. Checkpointing of the JAX example is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -35,9 +42,10 @@ from repro_torch.core.controller import InTune
 from repro_torch.data.device_feed import make_train_feed
 from repro_torch.data.featurize import (RecordSpec, featurize_block,
                                         featurize_stage_fns, raw_block)
-from repro_torch.data.pipeline import train_feed_pipeline
+from repro_torch.data.pipeline import criteo_pipeline, train_feed_pipeline
 from repro_torch.data.proc_executor import ProcessPipeline
 from repro_torch.data.simulator import Allocation, MachineSpec
+from repro_torch.data.synthetic import CriteoStream
 from repro_torch.models import dlrm as dlrm_lib
 from repro_torch.train.optim import make_optimizer
 from repro_torch.train.train_step import make_train_step
@@ -148,18 +156,69 @@ def run_proc(args, cfg: Optional[DLRMConfig] = None) -> dict:
     }
 
 
+def run_sim(args, cfg: Optional[DLRMConfig] = None) -> dict:
+    """The tuner ticks a simulated 128-CPU machine once a train step; the
+    batches fed to the model come from an inline CriteoStream and are
+    unaffected by anything the tuner decides. Returns what the run
+    measured and the tuner's allocation at each tick."""
+    cfg = cfg if cfg is not None else MODEL
+    device = torch.device(args.device)
+    model, opt, step_fn = build_model(cfg, seed=args.seed, device=device)
+    opt_state = opt.init(dict(model.named_parameters()))
+    stream = CriteoStream(n_sparse=cfg.n_sparse, n_dense=cfg.n_dense,
+                          vocab=cfg.vocab_sizes[0])
+    tuner = InTune(criteo_pipeline(), MachineSpec(n_cpus=128), seed=0,
+                   head="factored", finetune_ticks=150)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, allocations = [], []
+    t0 = time.monotonic()
+    for i in range(args.steps):
+        batch = stream.feature_udf(stream.raw_block(args.batch))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        model, opt_state, metrics = step_fn(model, opt_state, i, batch)
+        # simulated-pipeline tuning in lockstep with the train steps; the
+        # closed-loop form is `--backend proc` (FeedBackend + Session.step)
+        tick = tuner.tick()
+        allocations.append(([int(w) for w in tick["workers"]],
+                            float(tick["prefetch_mb"])))
+        losses.append(float(metrics["loss"]))
+        if i % 25 == 0:
+            rate = (i + 1) * args.batch / (time.monotonic() - t0)
+            print(f"step {i:4d} loss {losses[-1]:.4f} "
+                  f"({rate:,.0f} samples/s) sim pipeline "
+                  f"{tuner.history[-1]['throughput']:.1f} b/s")
+    _sync(device)
+    wall = time.monotonic() - t0
+    print(f"final loss {np.mean(losses[-20:]):.4f} "
+          f"(first-20 {np.mean(losses[:20]):.4f})")
+    return {
+        "steps": args.steps, "losses": losses, "allocations": allocations,
+        "samples_per_s": args.steps * args.batch / wall,
+        "loop_step_s": wall / args.steps,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None),
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=2048)
+    ap.add_argument("--backend", choices=("proc", "sim"), default="proc",
+                    help="proc = tuned ProcessPipeline actually feeds the "
+                         "train step (closed loop); sim = tuner runs "
+                         "against a simulated machine DETACHED from the "
+                         "inline data the model trains on")
     ap.add_argument("--tune-every", type=int, default=2,
-                    help="train steps per tuning tick")
+                    help="proc backend: train steps per tuning tick")
     ap.add_argument("--finetune-ticks", type=int, default=90,
-                    help="InTune exploration budget before it serves its "
-                         "incumbent best allocation")
+                    help="proc backend: InTune exploration budget before "
+                         "it serves its incumbent best allocation")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    return run_proc(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    return (run_proc if args.backend == "proc" else run_sim)(args)
 
 
 if __name__ == "__main__":

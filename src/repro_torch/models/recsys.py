@@ -29,6 +29,7 @@ from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels import ops
+from repro_torch.models.exchange import transpose
 
 
 def init_mlp(dims: Sequence[int], *, generator: Optional[torch.Generator],
@@ -127,20 +128,13 @@ def ctr_loss(model: nn.Module, batch: Dict[str, torch.Tensor], **kw):
 _LEAVES = ("tables", "wide", "wide_dense", "bias")
 
 
-def _transpose(x):
-    """A 2-D torch tensor or numpy array, transposed and contiguous."""
-    if torch.is_tensor(x):
-        return x.t().contiguous()
-    return np.ascontiguousarray(np.asarray(x).T)
-
-
 def tree_from_named(named: Dict[str, object]) -> dict:
     """{module name: x} -> the JAX layout (parameters and optimizer state
     alike): `mlp.<i>.weight` becomes `mlp[i]["w"]`, transposed."""
     n_mlp = 1 + max(int(k.split(".")[1]) for k in named
                     if k.startswith("mlp."))
     tree = {k: named[k] for k in _LEAVES}
-    tree["mlp"] = tuple({"w": _transpose(named[f"mlp.{i}.weight"]),
+    tree["mlp"] = tuple({"w": transpose(named[f"mlp.{i}.weight"]),
                          "b": named[f"mlp.{i}.bias"]} for i in range(n_mlp))
     return tree
 
@@ -149,7 +143,7 @@ def named_from_tree(tree: dict) -> Dict[str, object]:
     """The inverse of `tree_from_named`."""
     named = {k: tree[k] for k in _LEAVES}
     for i, layer in enumerate(tree["mlp"]):
-        named[f"mlp.{i}.weight"] = _transpose(layer["w"])
+        named[f"mlp.{i}.weight"] = transpose(layer["w"])
         named[f"mlp.{i}.bias"] = layer["b"]
     return named
 

@@ -16,11 +16,15 @@ always resolves the newest *complete* step. Arrays bigger than
 `MAX_SHARD_BYTES` are split across shard files along axis 0, as the JAX
 package splits them; restore reads split arrays from either package.
 `extras` is written empty (the JAX package keeps controller state there;
-the port's driver keeps none). The tree is the JAX package's: each
-model module maps its parameter names to it (`tree_from_named` /
-`named_from_tree` of models/gnn.py and models/recsys.py), for the
-parameters and for the optimizer state alike (adam's `m`/`v`, row-wise
-adagrad's `acc`).
+the port's driver keeps none). A bf16 leaf is written as the JAX package
+writes one: `np.savez` of a JAX bf16 array stores its 2-byte elements as
+the void type `|V2`, and `np.load` gives them back as such; the port
+writes and reads that encoding (`to_numpy` / `from_numpy` of
+models/exchange.py), so bf16 checkpoints cross between the packages
+both ways. The tree is the JAX package's: each model module maps its parameter names to it
+(`tree_from_named` / `named_from_tree` of models/gnn.py, models/recsys.py
+and models/dlrm.py), for the parameters and for the optimizer state
+alike (adam's `m`/`v`, row-wise adagrad's `acc`).
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ import time
 from typing import Any, Optional
 
 import numpy as np
-import torch
+
+from repro_torch.models.exchange import from_numpy, to_numpy
 
 
 def _flatten(tree, prefix=""):
@@ -85,7 +90,7 @@ def save(ckpt_dir: str, step: int, tree) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
 
-    flat = {k: v.detach().cpu().numpy() for k, v in _flatten(tree).items()}
+    flat = {k: to_numpy(v) for k, v in _flatten(tree).items()}
     shards: list[dict] = [{}]
     sizes = [0]
     index = {}   # path -> [(shard_id, axis0_start, axis0_end)]
@@ -164,7 +169,5 @@ def restore(ckpt_dir: str, device):
             parts = [load_shard(sid)[f"{path}@@{s}"]
                      for sid, s, _ in entries]
             flat[path] = np.concatenate(parts, axis=0)
-    tree = _map_leaves(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device),
-        _unflatten(flat))
+    tree = _map_leaves(lambda a: from_numpy(a).to(device), _unflatten(flat))
     return tree, manifest

@@ -125,7 +125,12 @@ def rowwise_adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
     It reads each tensor in its own layout, so an `nn.Linear` weight,
     held (out, in), would take rows over the other axis than the JAX
     (in, out) weight; no linear layer of the ported models comes near
-    2^24 elements (wide-deep's largest is 1293 x 1024)."""
+    2^24 elements (wide-deep's largest is 1293 x 1024).
+
+    A bf16 parameter (the DLRM-Criteo reference's) takes its bf16
+    gradient as the reference's leaf does: the update in f32 and one
+    rounding into the parameter's dtype, a slice of axis 0 at a time for
+    a stacked tensor, so that its f32 temporaries are one feature's."""
     def _rowwise(p: torch.Tensor) -> bool:
         return p.dim() >= 2 and p.numel() > rowwise_min_elems
 
@@ -151,7 +156,11 @@ def rowwise_adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
                     a_s.addcmul_(g32, g32)
                     scale = torch.rsqrt(a_s + eps)
                 # (lr * g) * scale, the JAX evaluation order, in g's memory
-                p_s.sub_(g32.mul_(lr).mul_(scale).to(p_s.dtype))
+                upd = g32.mul_(lr).mul_(scale)
+                if p_s.dtype == torch.float32:
+                    p_s.sub_(upd)
+                else:
+                    p_s.copy_(p_s.float().sub_(upd))
         return params, state, {"lr": lr, "grad_norm": gn}
     return Optimizer("rowwise_adagrad", init, update)
 

@@ -450,9 +450,12 @@ def test_cuda_sage_aggregate_fwd_takes_bf16():
 @pytest.mark.gpu
 def test_cuda_ops_differentiate_bf16_inputs():
     """ops.dot_interact, ops.sage_aggregate and ops.embedding_bag on bf16
-    inputs on the card: the kernels run forward and backward (the
-    backward kernels in f32), and the gradients, cast to bf16, are
-    within 2 bf16 ulps of those of the plain versions on the card."""
+    inputs on the card: the kernels run forward and backward (the DLRM's
+    two backward kernels write bf16 gradients, sage_aggregate_bwd's f32
+    ones are cast to bf16), and the gradients are within 2 bf16 ulps of
+    those of the plain versions on the card; the embedding bag's, whose
+    bf16 atomics round every add, bitwise where one bag slot names a row
+    and within the bound of _check_scatter_bf16 elsewhere."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import ops
@@ -494,10 +497,12 @@ def test_cuda_ops_differentiate_bf16_inputs():
         assert after[name] == before[name] + 1, name
     # the bf16 w is widened by its own kernel, once a forward
     assert after["sage_widen_w"] == before["sage_widen_w"] + 1
-    for g, wnt in zip([got, *got2, got3], [want, *want2, want3]):
+    for g, wnt in zip([got, *got2], [want, *want2]):
         assert g.dtype == BF16
         torch.testing.assert_close(g.float(), wnt.float(), rtol=BF16_RTOL,
                                    atol=1e-5)
+    assert got3.dtype == want3.dtype == BF16
+    _assert_scatter_bf16(got3, want3, cot3, ids, 100, "sum")
 
 
 # ---- embedding_bag_fwd, lanes a row from its host plan -----------------
@@ -550,3 +555,150 @@ def test_cuda_embedding_bag_fwd_is_bitwise_the_plain_version(d):
                                                    else 2)
                     want = ref.embedding_bag_ref(tables, ids)
                     assert torch.equal(got[~nan_rows], want[~nan_rows])
+
+
+# ---- bf16 backwards of the DLRM kernels --------------------------------
+
+def _bf16_ulps(x):
+    """Two bf16 ulps at |x| (2^-6 of its power of two), elementwise; the
+    smallest normal's at 0."""
+    x = x.abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x)) - 6)
+
+
+def _assert_scatter_bf16(got, want, d_out, ids, v, combiner):
+    """A bf16 table gradient `got` against `want`, the plain version's (f32
+    sums rounded once): bitwise on every row that one bag slot names; a
+    row that n slots name within 2 bf16 ulps of the sum of its terms'
+    magnitudes a slot, plus 2 (every bf16 atomic rounds the row's running
+    sum, in an order that varies). Returns the rows named more than
+    once."""
+    mag = ref.embedding_bag_bwd_ref(d_out.abs(), ids, v, combiner=combiner)
+    b, f, bag = ids.shape
+    flat = (torch.arange(f, device=ids.device).view(1, f, 1) * v
+            + ids.long()).reshape(-1)
+    touches = torch.bincount(flat, minlength=f * v).view(f, v, 1)
+    once = (touches == 1).expand_as(got)
+    assert torch.equal(got[once], want[once])
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= (touches + 1) * _bf16_ulps(mag)).all()), \
+        float((err / _bf16_ulps(mag)).max())
+    return int((touches > 1).sum())
+
+
+def _check_scatter_bf16(d_out, ids, v, combiner):
+    """embedding_bag_bwd into a bf16 gradient against its plain version
+    (`_assert_scatter_bf16`); one launch a call."""
+    before = eb.LAUNCHES["embedding_bag_bwd"]
+    got = eb.embedding_bag_bwd(d_out, ids, v, combiner, dtype=BF16)
+    assert eb.LAUNCHES["embedding_bag_bwd"] == before + 1
+    assert got.dtype == BF16
+    want = ref.embedding_bag_bwd_ref(d_out, ids, v, combiner=combiner,
+                                     dtype=BF16)
+    return _assert_scatter_bf16(got, want, d_out, ids, v, combiner)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 8, 32, 128, 132])
+def test_cuda_embedding_bag_bwd_writes_bf16_gradients(d):
+    """The scatter into a bf16 table gradient: 8 columns a word in bf16x2
+    atomics where D % 8 == 0, one column at a time else (and from a d_out
+    only 4-byte aligned); ids all distinct in a feature (every row bitwise
+    the plain version), drawn from a small table (ids repeat across and
+    within bags), and bags padded by repeating their head id; sum and
+    mean, B 1 and 301, bags 1, 4 and 17. The f32 gradient is unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(200 + d)
+    f = 3
+    repeated = 0
+    for b, bag in ((1, 1), (301, 1), (301, 4), (37, 17)):
+        for v, distinct in ((4096, True), (29, False)):
+            if distinct:
+                ids = torch.stack([torch.randperm(v, device="cuda",
+                                                  generator=gen)[:b * bag]
+                                   for _ in range(f)], 1) \
+                    .view(b, bag, f).transpose(1, 2).contiguous()
+            else:
+                ids = torch.randint(0, v, (b, f, bag), device="cuda",
+                                    generator=gen)
+                ids[..., bag // 2:] = ids[..., :1]
+            ids = ids.to(torch.int32)
+            for shift in (0, 1):
+                buf = torch.randn(b * f * d + 1, device="cuda", generator=gen)
+                d_out = buf[shift:shift + b * f * d].view(b, f, d)
+                for combiner in ("sum", "mean"):
+                    repeated += _check_scatter_bf16(d_out, ids, v, combiner)
+    assert repeated > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,d", [(37, 27, 128), (2051, 27, 128),
+                                   (1, 2, 4), (37, 27, 10), (37, 27, 7),
+                                   (3, 60, 32), (301, 5, 12)])
+def test_cuda_dot_interact_bwd_takes_bf16(b, f, d):
+    """dot_interact_bwd with bf16 d_out and feats into a bf16 d_feats,
+    against its plain version on the same bf16 values (f32 sums rounded
+    once): within 2 bf16 ulps (rtol 2^-7, atol 1e-5). Feats 16-, 2- and
+    4-byte aligned (16-byte copies, loads element by element, 4-byte
+    copies), d_out 4- and 2-byte aligned (copied to a 4-byte boundary),
+    odd B with odd P (a row of d_out ends on half a word), D % 8 != 0.
+    One launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(b + f + d)
+    p = f * (f - 1) // 2
+    for shift in (0, 1, 2):
+        feats = _slice(b * f * d, BF16, shift, gen).view(b, f, d)
+        for gshift in (0, 1):
+            d_out = _slice(b * p, BF16, gshift, gen).view(b, p)
+            before = di.LAUNCHES["dot_interact_bwd"]
+            got = di.dot_interact_bwd(d_out, feats)
+            assert di.LAUNCHES["dot_interact_bwd"] == before + 1
+            assert got.dtype == BF16 and got.shape == (b, f, d)
+            torch.testing.assert_close(
+                got.float(), ref.dot_interact_bwd_ref(d_out, feats).float(),
+                rtol=BF16_RTOL, atol=1e-5)
+
+
+# SHA-256 of the f32 outputs of the two DLRM backward kernels as they were
+# before they took bf16 (NVIDIA H100 80GB HBM3), at one input each made
+# with numpy from a seed: dot_interact_bwd at (37, 27, 128) and (37, 27,
+# 10); embedding_bag_bwd at ids that name every row once (no two atomics
+# meet, so the order cannot move a bit)
+F32_BWD_DIGESTS = {
+    "dot_interact_bwd":
+        "627e8c26f9669f83cf211dfadf6be79475578109b0bf4feb56117ab37cde6c1c",
+    "embedding_bag_bwd":
+        "a7d4e058b7102c649d8ef412bb3c48c0f3b094d6942629622684146f3465572e"}
+
+
+def f32_bwd_outputs():
+    """The two f32 backward outputs that F32_BWD_DIGESTS pins."""
+    import numpy as np
+    rng = np.random.RandomState(18)
+    outs = []
+    for d in (128, 10):
+        feats = torch.from_numpy(rng.randn(37, 27, d).astype(np.float32))
+        d_out = torch.from_numpy(rng.randn(37, 351).astype(np.float32))
+        outs.append(di.dot_interact_bwd(d_out.cuda(), feats.cuda()))
+    ids = torch.from_numpy(np.stack([rng.permutation(2000)[:37 * 4]
+                                     for _ in range(5)], 1)
+                           .reshape(37, 4, 5).transpose(0, 2, 1)
+                           .astype(np.int32).copy())
+    d_out = torch.from_numpy(rng.randn(37, 5, 32).astype(np.float32))
+    bags = [eb.embedding_bag_bwd(d_out.cuda(), ids.cuda(), 2000, c)
+            for c in ("sum", "mean")]
+    return {"dot_interact_bwd": _digest(torch.cat([o.flatten()
+                                                   for o in outs])),
+            "embedding_bag_bwd": _digest(torch.cat(bags))}
+
+
+@pytest.mark.gpu
+def test_cuda_f32_backwards_keep_their_bits():
+    """The f32 instantiations of the two DLRM backward kernels give the
+    same bits as before the kernels took bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert f32_bwd_outputs() == F32_BWD_DIGESTS

@@ -152,10 +152,10 @@ def test_embedding_bag_fused_dispatches_like_the_reference(monkeypatch):
             return ref.embedding_bag_ref(tables, ids, combiner=combiner)
         return fn
 
-    def bwd(d_out, ids, num_rows, combiner):
+    def bwd(d_out, ids, num_rows, combiner, dtype):
         calls.append(("bwd", num_rows, combiner))
         return ref.embedding_bag_bwd_ref(d_out, ids, num_rows,
-                                         combiner=combiner)
+                                         combiner=combiner, dtype=dtype)
     monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
     monkeypatch.setattr(eb, "embedding_bag_fused_fwd",
                         spy("embedding_bag_fused_fwd"))
