@@ -182,12 +182,55 @@ bf16 gradients:
               and the plain versions: within 4 bf16 ulps of the largest
               score; host-clock seconds of each.
 
+xDeepFM, DIEN and BERT4Rec (slice 9) at their published widths through
+the generic driver at train_batch (65536), with the gradients of
+SEQ_MICROBATCHES microbatches accumulated before each optimizer step:
+xDeepFM's 39 tables (39, 2^20, 10) through embedding_bag_fwd and its
+linear arm (39, 2^20) viewed as (39, 2^20, 1) through
+embedding_bag_fused_fwd; DIEN's (2^20, 18) and BERT4Rec's (1048592, 64)
+item tables gathered as bags of one through embedding_bag_fwd; the
+scatter embedding_bag_bwd as the backward of each:
+
+ 19. recsys_seq_kernels  at a microbatch's lookups (xDeepFM's tables and
+              linear arm, DIEN's history, BERT4Rec's sequence and its
+              sampled-softmax candidates, 20 x 128 a sequence):
+              embedding_bag_fwd bitwise to its plain version,
+              embedding_bag_fused_fwd bitwise to it and to the row
+              kernel, embedding_bag_bwd with non-negative d_out within
+              rtol max(1e-5, 2 n 2^-24) / atol 1e-6 of its plain version
+              on each row n ids name (BERT4Rec's MASK row takes 20 a
+              sequence); each timed beside its plain version, its bound
+              and its library call (F.embedding_bag over the flattened
+              table; index_add_ into the flattened gradient).
+ 20. <arch>_model  (for each of the three) the loss and every gradient at
+              the published widths (batch SEQ_MODEL_BATCH) through the
+              kernels against the plain versions: loss rtol 1e-5, each
+              gradient within 1e-4 of its L2 norm over the samples whose
+              ReLU inputs agree on both paths (as phase_model).
+ 21. <arch>_driver  repro_torch.launch.train.run(arch, full=True,
+              shape=train_batch, microbatches=k) for SEQ_STEPS steps:
+              losses finite, peak device memory under the card's, each
+              of the path's kernels launched as often as a microbatch
+              needs; samples/s, the loop step split into batch + copy and
+              the train step.
+ 22. <arch>_profile  one train step under torch.profiler: device time by
+              kernel, the embedding kernels' time in the step.
+ 23. recsys_retrieval  score_candidates at retrieval_cand (1,000,000
+              candidates in 25 chunks) for wide-deep, xDeepFM, DIEN and
+              BERT4Rec at their published widths (random weights from a
+              seed), through the kernels and through the plain versions:
+              the scores finite and within rtol 1e-5 / atol 1e-5 of each
+              other; host-clock seconds of each and peak memory.
+
 Launch counts are set to 0 just before each main path (the DLRM loop,
-the GNN loop, the wide-deep loop, the dlrm-criteo driver) and read just
-after it; the `kernels` line reports each kernel's count from its own
-path (embedding_bag_fwd and _bwd from the DLRM loop, with their
-wide-deep counts beside, and the DLRM kernels' dlrm-criteo counts in
-their `dlrm_criteo` sub-records).
+the GNN loop, the wide-deep loop, the dlrm-criteo driver, the xDeepFM,
+DIEN and BERT4Rec drivers) and read just after it; the `kernels` line
+reports each kernel's count from its own path (embedding_bag_fwd and
+_bwd from the DLRM loop, with their wide-deep counts beside, the DLRM
+kernels' dlrm-criteo counts in their `dlrm_criteo` sub-records, and the
+embedding kernels' counts on each of the three drivers in the
+sub-records of that model's lookups: `xdeepfm_tables`,
+`xdeepfm_linear`, `dien_hist`, `bert4rec_seq`, `bert4rec_cand`).
 
 It prints a `kernels` JSON line (each record with the profiler events it
 was read from; the forwards with a `bf16` sub-record at the 2048-row
@@ -238,6 +281,16 @@ DRIVER_STEPS = 20
 DRIVER_LR = 0.02
 CARD_BYTES = 80e9
 RETRIEVAL_CHUNKS = 25
+
+# xDeepFM, DIEN and BERT4Rec through the generic driver at train_batch:
+# SEQ_STEPS steps each, with the fewest microbatches (gradient
+# accumulation) whose peak stays under 60 GB, three quarters of the card
+# (PERF.md, on an NVIDIA H100 80GB HBM3 at 700.00 W: xDeepFM at 1 does not
+# fit, at 2 peaks at 47.6 GB; DIEN at 1 at 53.4 GB; BERT4Rec at 4 at 71.5
+# GB, at 8 at 36.7 GB); the model checks at a small batch
+SEQ_STEPS = 5
+SEQ_MICROBATCHES = {"xdeepfm": 2, "dien": 1, "bert4rec": 8}
+SEQ_MODEL_BATCH = {"xdeepfm": 2048, "dien": 2048, "bert4rec": 512}
 
 DLRM_KERNELS = ("embedding_bag_fwd", "embedding_bag_bwd", "dot_interact_fwd",
                 "dot_interact_bwd")
@@ -1600,7 +1653,7 @@ def phase_recsys_model(cfg):
     from repro_torch.models import recsys
 
     dev = torch.device("cuda")
-    model = recsys.init_wide_deep(cfg, seed=0, device=dev)
+    model = recsys.init_model(cfg, seed=0, device=dev)
     batch = {k: torch.as_tensor(v).to(dev)
              for k, v in _criteo_batch(cfg, 4096, 4).items()}
     names, params = zip(*model.named_parameters())
@@ -1689,7 +1742,7 @@ def phase_recsys_profile(arch):
 
     dev = torch.device("cuda")
     cfg = arch.model
-    model = recsys.init_wide_deep(cfg, seed=0, device=dev)
+    model = recsys.init_model(cfg, seed=0, device=dev)
     opt = make_optimizer(arch.optimizer, lr=1e-3)
     state = opt.init(dict(model.named_parameters()))
     step_fn = make_train_step(recsys.ctr_loss, opt)
@@ -2179,6 +2232,403 @@ def phase_dlrm_retrieval(model, arch) -> dict:
     return res
 
 
+# ---- slice 9: xDeepFM, DIEN and BERT4Rec through the driver -----------
+
+def _seq_batch(cfg, n, seed):
+    """n synthetic records of cfg's arch as the driver makes them (numpy,
+    on the host): Criteo records for xDeepFM, `dien_batch` and
+    `bert4rec_batch` from a RandomState of `seed` for the others."""
+    import numpy as np
+    from repro_torch.data.synthetic import bert4rec_batch, dien_batch
+    rng = np.random.RandomState(seed)
+    if cfg.name == "dien":
+        return dien_batch(rng, n, cfg.seq_len, cfg.vocab_sizes[0],
+                          cfg.n_dense)
+    if cfg.name == "bert4rec":
+        return bert4rec_batch(rng, n, cfg.seq_len, cfg.n_items, cfg.n_mask,
+                              cfg.n_negatives)
+    return _criteo_batch(cfg, n, seed)
+
+
+def _seq_lookups(cfg, n, seed) -> dict:
+    """The lookups a microbatch of n gives the embedding kernels on cfg's
+    path: {tag: (table shape (F, V, D), ids (B, F, 1) int32 on the card,
+    fused)}; the item gathers of DIEN and BERT4Rec are bags of one of a
+    (1, V, D) table, ids in memory order."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    b = _seq_batch(cfg, n, seed)
+    col = lambda a: torch.as_tensor(a).to(dev).reshape(-1, 1, 1)
+    if cfg.name == "xdeepfm":
+        ids = torch.as_tensor(b["sparse_ids"]).to(dev)
+        rows = cfg.vocab_sizes[0]
+        return {"xdeepfm_tables": ((cfg.n_sparse, rows, cfg.embed_dim), ids,
+                                   False),
+                "xdeepfm_linear": ((cfg.n_sparse, rows, 1), ids, True)}
+    if cfg.name == "dien":
+        return {"dien_hist": ((1, cfg.vocab_sizes[0], cfg.embed_dim),
+                              col(b["hist_ids"]), False)}
+    vocab = -(-(cfg.n_items + 2) // 16) * 16
+    cand = np.concatenate([b["mask_labels"][..., None], b["neg_ids"]], -1)
+    return {"bert4rec_seq": ((1, vocab, cfg.embed_dim), col(b["item_seq"]),
+                             False),
+            "bert4rec_cand": ((1, vocab, cfg.embed_dim), col(cand), False)}
+
+
+def _check_scatter_counted(d_out, ids, v, tag) -> float:
+    """embedding_bag_bwd (sum) against its plain version where a row may
+    be named many times (BERT4Rec's MASK id, 20 times a sequence): every
+    d_out non-negative, each row within rtol max(1e-5, 2 n 2^-24) / atol
+    1e-6 of the plain version, n the times the ids name it (two orders of
+    n non-negative f32 adds each lie within (n - 1) 2^-24 of the exact
+    sum, relative); the rows no id names exactly 0. Feature by feature,
+    over the touched rows only. Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb, ref
+    got = eb.embedding_bag_bwd(d_out, ids, v)
+    want = ref.embedding_bag_bwd_ref(d_out, ids, v)
+    err = 0.0
+    for f in range(ids.shape[1]):
+        count = torch.bincount(ids[:, f].reshape(-1).long(), minlength=v)
+        hit = count > 0
+        if bool(got[f][~hit].any()):
+            raise AssertionError(f"embedding_bag_bwd {tag} f={f}: writes "
+                                 f"rows no id names")
+        g, w = got[f][hit].double(), want[f][hit].double()
+        rtol = torch.clamp(2.0 * count[hit].double() * 2.0 ** -24,
+                           min=1e-5)[:, None]
+        diff = (g - w).abs()
+        bad = diff > 1e-6 + rtol * w.abs()
+        if bool(bad.any()):
+            raise AssertionError(f"embedding_bag_bwd {tag} f={f}: "
+                                 f"{int(bad.sum())} elements off, max abs "
+                                 f"err {float(diff.max()):.3e}")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def phase_recsys_seq_kernels(archs, microbatches) -> dict:
+    """The embedding kernels at the lookups of xDeepFM, DIEN and BERT4Rec
+    at a driver microbatch (train_batch / microbatches of the arch): the
+    forwards bitwise against their plain versions (the fused kernel at
+    xDeepFM's linear arm against the row kernel too); the scatter with
+    non-negative d_out against its plain version (`_check_scatter_counted`).
+    Then each timed beside its plain version, its bound (bytes over 3.35
+    TB/s: ids, the distinct rows, the output; the scatter reads and
+    writes each touched row) and its library call (F.embedding_bag over
+    the flattened table; index_add_ into the flattened gradient). Returns
+    {kernel: {lookup tag: record}}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = {"embedding_bag_fwd": {}, "embedding_bag_bwd": {},
+           "embedding_bag_fused_fwd": {}}
+    for arch in archs:
+        cfg = arch.model
+        n = arch.shape("train_batch").batch // microbatches[arch.arch_id]
+        sets = [_seq_lookups(cfg, n, seed) for seed in (1, 2)]
+        for tag, (shape, ids, fused) in sets[0].items():
+            f, v, d = shape
+            table = torch.empty(shape, device=dev)
+            table.normal_(generator=gen).mul_(d ** -0.5)
+            id_sets = [(s[tag][1],) for s in sets]
+            b = ids.shape[0]
+            offs = (torch.arange(f, device=dev) * v).view(1, f, 1)
+            flat = [((i.long() + offs).reshape(b * f, 1),)
+                    for (i,) in id_sets]
+            uniq = int(torch.unique(flat[0][0]).numel())
+            kind = "fused" if fused else "row"
+            kname = "embedding_bag_fused_fwd" if fused else \
+                "embedding_bag_fwd"
+            fn = getattr(eb, kname)
+            if fused:
+                _check_fused(table, ids, "sum", tag)
+            elif not torch.equal(eb.embedding_bag_fwd(table, ids),
+                                 ref.embedding_bag_ref(table, ids)):
+                raise AssertionError(f"embedding_bag_fwd {tag}: not "
+                                     f"bitwise the plain version")
+            plan = eb.fused_plan(b, f, v, d, 1) if fused else \
+                eb.fwd_plan(b, f, d)
+            print(f"  {tag}: ids {tuple(ids.shape)} into {shape} f32, "
+                  f"{uniq} distinct rows; {kind} kernel bitwise the plain "
+                  f"version; plan {plan}", flush=True)
+            flat_table = table.view(f * v, d)
+            out[kname][tag] = kernel_record(
+                f"{kname} {tag}",
+                time_ms(lambda i: fn(table, i), id_sets,
+                        kernel=kname + "_kernel"),
+                time_ms(lambda i: ref.embedding_bag_ref(table, i), id_sets,
+                        iters=5),
+                time_ms(lambda x: F.embedding_bag(x, flat_table, mode="sum"),
+                        flat),
+                bound_ms(ids.numel() * 4 + uniq * d * 4 + b * f * d * 4,
+                         b * f * d), 0.0, ids=list(ids.shape),
+                table=list(shape), distinct_rows=uniq)
+            # the scatter (the lookup's backward), non-negative d_out
+            d_out = torch.rand((b, f, d), device=dev, generator=gen)
+            err = _check_scatter_counted(d_out, ids, v, tag)
+            print(f"  embedding_bag_bwd {tag}: plan {eb.bwd_plan(b, f, v, d)}"
+                  f"; max abs err {err:.3e}", flush=True)
+            grad = torch.zeros_like(table)
+            del table, flat_table
+            torch.cuda.empty_cache()
+            t = time_ms(lambda: eb.embedding_bag_scatter(d_out, ids, grad),
+                        [()], kernel="embedding_bag_bwd_kernel")
+            plain = time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, ids, v),
+                            [()], iters=3)
+            idx = flat[0][0].reshape(-1)
+            lib = time_ms(lambda: grad.view(f * v, d).index_add_(
+                0, idx, d_out.view(b * f, d)), [()])
+            out["embedding_bag_bwd"][tag] = kernel_record(
+                f"embedding_bag_bwd {tag}", t, plain, lib,
+                bound_ms(d_out.numel() * 4 + ids.numel() * 4
+                         + 2 * uniq * d * 4, b * f * d), err,
+                ids=list(ids.shape), table=list(shape), distinct_rows=uniq)
+            del grad, d_out, id_sets, flat, idx
+            torch.cuda.empty_cache()
+    return out
+
+
+def _relu_flips(layers, run_k, run_p):
+    """Runs run_k() and run_p() (each a per-sample loss), recording the
+    pre-activations of `layers` (the hidden nn.Linear layers of an MLP)
+    on each; returns (loss_k, loss_p, samples whose ReLU inputs take
+    another side on the two paths)."""
+    import torch
+    pre = []
+    hooks = [lin.register_forward_hook(
+        lambda m, i, o: pre.append(o.detach())) for lin in layers]
+    loss_k = run_k()
+    n = len(pre)
+    loss_p = run_p()
+    for h in hooks:
+        h.remove()
+    flips = torch.zeros_like(loss_k, dtype=torch.bool)
+    for a, b in zip(pre[:n], pre[n:]):
+        flips |= ((a > 0) != (b > 0)).any(dim=1)
+    return loss_k, loss_p, flips
+
+
+def phase_seq_model(arch, n: int):
+    """The arch's loss and every gradient at its published widths (batch
+    n) through the kernels against the plain versions, same parameters
+    and batch: the loss rtol 1e-5, each gradient within 1e-4 of its L2
+    norm, over the samples whose MLP ReLU inputs agree on both paths
+    (xDeepFM's DNN, DIEN's MLP; BERT4Rec has no ReLU), at most 1% left
+    out; each of the path's kernels launched."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys
+
+    dev = torch.device("cuda")
+    cfg = arch.model
+    model = recsys.init_model(cfg, seed=0, device=dev)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in _seq_batch(cfg, n, 7).items()}
+    names, params = zip(*model.named_parameters())
+
+    def per_sample(**kw):
+        if cfg.name == "bert4rec":
+            logp = torch.log_softmax(
+                model.sampled_logits(batch, **kw).float(), dim=-1)
+            mask = (batch["mask_labels"] >= 0).float()
+            return -(logp[..., 0] * mask).sum(1) / mask.sum(1)
+        z = model(batch, **kw)
+        y = batch["label"].float()
+        return torch.clamp(z, min=0) - z * y \
+            + torch.log1p(torch.exp(-torch.abs(z)))
+
+    mlp = {"xdeepfm": "dnn", "dien": "mlp"}.get(cfg.name)
+    layers = list(getattr(model, mlp))[:-1] if mlp else []
+    ops.reset_launch_counts()
+    loss_k, loss_p, flips = _relu_flips(
+        layers, per_sample, lambda: per_sample(bag_fn=ref.embedding_bag_ref))
+    n_flip = int(flips.sum())
+    if n_flip > loss_k.numel() // 100:
+        raise AssertionError(f"{cfg.name}: {n_flip} samples flip a ReLU "
+                             f"between the two paths")
+    if not bool(torch.isfinite(loss_k).all()):
+        raise AssertionError(f"{cfg.name} loss not finite")
+    _allclose(f"{cfg.name} loss", loss_k.mean(), loss_p.mean(), 1e-5, 0.0)
+    keep = (~flips).float() / float((~flips).sum())
+    grads_k = torch.autograd.grad((loss_k * keep).sum(), params)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    need = {"embedding_bag_fwd", "embedding_bag_bwd"}
+    if cfg.name == "xdeepfm":
+        need.add("embedding_bag_fused_fwd")
+    if not need <= set(counts):
+        raise AssertionError(f"{cfg.name} pass skipped a kernel: {counts}")
+    worst = 0.0
+    for name, gk, gp in zip(names, grads_k, torch.autograd.grad(
+            (loss_p * keep).sum(), params)):
+        rel = float(torch.linalg.vector_norm(gk - gp)
+                    / torch.linalg.vector_norm(gp))
+        if not rel <= 1e-4:
+            raise AssertionError(f"{cfg.name} grad {name}: relative L2 "
+                                 f"error {rel:.3e}")
+        worst = max(worst, rel)
+    print(f"  {cfg.name} at batch {n}: loss kernels "
+          f"{float(loss_k.detach().mean()):.7f} plain "
+          f"{float(loss_p.detach().mean()):.7f}; {n_flip} of "
+          f"{loss_k.numel()} samples flip a ReLU and are left out; "
+          f"{len(names)} gradients agree (worst relative L2 error "
+          f"{worst:.3e}); launches {counts}")
+
+
+def _seq_kernels(cfg) -> dict:
+    """{kernel: launches a microbatch} on cfg's training path: xDeepFM's
+    tables, its linear arm and both scatters; DIEN's history and target
+    lookups, or BERT4Rec's sequence and candidate ones, and theirs."""
+    if cfg.name == "xdeepfm":
+        return {"embedding_bag_fwd": 1, "embedding_bag_fused_fwd": 1,
+                "embedding_bag_bwd": 2}
+    return {"embedding_bag_fwd": 2, "embedding_bag_bwd": 2}
+
+
+def phase_seq_driver(arch, microbatches: int) -> dict:
+    """The generic driver at the arch's published widths: --full --shape
+    train_batch --microbatches k for SEQ_STEPS steps: losses finite, peak
+    device memory under the card's, each of the path's kernels launched
+    as often as `_seq_kernels` says a microbatch; samples/s, the loop
+    step split into batch + copy and the train step. Returns the launch
+    counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    res = train.run(arch.arch_id, steps=SEQ_STEPS, full=True,
+                    shape=arch.shape("train_batch"), device="cuda",
+                    microbatches=microbatches, log_every=1)
+    counts = {k: ops.launch_counts()[k] for k in _seq_kernels(arch.model)}
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"{arch.arch_id} loss not finite: "
+                             f"{res['losses']}")
+    peak = res["max_memory_allocated"]
+    card = torch.cuda.get_device_properties(0).total_memory
+    if not peak < min(card, CARD_BYTES):
+        raise AssertionError(f"{arch.arch_id} peak {peak / 1e9:.2f} GB")
+    need = {k: SEQ_STEPS * microbatches * n
+            for k, n in _seq_kernels(arch.model).items()}
+    short = {k: n for k, n in counts.items() if n < need[k]}
+    if short:
+        raise AssertionError(f"kernels launched fewer than {need} times on "
+                             f"the {arch.arch_id} path: {short}")
+    summary = {k: res[k] for k in ("samples_per_s", "loop_step_s",
+                                   "fetch_step_s", "train_step_s",
+                                   "max_memory_allocated", "microbatches")}
+    summary.update(losses=res["losses"], launches=counts)
+    print(f"  {arch.arch_id}_driver " + json.dumps(summary))
+    torch.cuda.synchronize()
+    return counts
+
+
+def phase_seq_profile(arch, microbatches: int) -> dict:
+    """Where one train step's device time goes (torch.profiler over one
+    step on a batch already on the card, after one warm-up step), against
+    the host-clock step. Returns each embedding kernel's device ms a
+    step."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = arch.model
+    model = train.init_params_for(arch, cfg, 0, device=dev)
+    opt = make_optimizer(arch.optimizer, lr=1e-3)
+    state = opt.init(dict(model.named_parameters()))
+    step_fn = make_train_step(train.make_loss_fn(arch, cfg), opt,
+                              microbatches)
+    batch = train.make_batch_fn(arch, cfg, arch.shape("train_batch").batch,
+                                np.random.RandomState(13), device=dev)()
+    step_fn(model, state, 0, batch)
+    torch.cuda.synchronize()
+    kernels = tuple(k + "_kernel" for k in _seq_kernels(cfg))
+    rows, wall_ms = profile_steps(
+        lambda k: step_fn(model, state, 1 + k, batch), 1, kernels)
+    device_ms = sum(ms for _, ms in rows)
+    print(f"  {arch.arch_id} train step ({microbatches} microbatches): "
+          f"{device_ms:.3f} ms of device time in {wall_ms:.3f} ms of "
+          f"host-clock time (profiled)")
+    for name, ms in rows[:12]:
+        print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
+    in_step = {}
+    for name, ms in rows:
+        for k in kernels:
+            if k + "<" in name or name.endswith(k):
+                in_step[k[:-7]] = in_step.get(k[:-7], 0.0) + ms
+    print(f"  embedding kernels in the step: {json.dumps(in_step)}")
+    del model, state, opt, batch
+    return in_step
+
+
+def phase_recsys_retrieval(archs) -> dict:
+    """score_candidates at retrieval_cand (one user, 1,000,000 candidates
+    in RETRIEVAL_CHUNKS chunks) for wide-deep, xDeepFM, DIEN and BERT4Rec
+    at their published widths (random weights from seed 0), through the
+    kernels and through the plain versions: the scores finite, the two
+    within rtol 1e-5 / atol 1e-5 (the lookups are bitwise; everything
+    after them the same operations); host-clock seconds of each
+    (synchronised, after a warm-up call)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys
+
+    dev = torch.device("cuda")
+    res = {}
+    for arch in archs:
+        torch.cuda.reset_peak_memory_stats()
+        cfg = arch.model
+        shape = arch.shape("retrieval_cand")
+        model = recsys.init_model(cfg, seed=0, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(14)
+        user = {k: torch.as_tensor(v).to(dev)
+                for k, v in _seq_batch(cfg, shape.batch, 14).items()
+                if k not in ("label", "mask_pos", "mask_labels", "neg_ids")}
+        high = {"dien": cfg.vocab_sizes[0], "bert4rec": cfg.n_items}.get(
+            cfg.name, 2 ** 31 - 1)
+        cand = torch.randint(0, high, (shape.n_candidates,), device=dev,
+                             generator=gen, dtype=torch.int32)
+        out = {}
+        for tag, kw in (("kernels", {}),
+                        ("plain", {"bag_fn": ref.embedding_bag_ref})):
+            recsys.score_candidates(model, user, cand,
+                                    chunks=RETRIEVAL_CHUNKS, **kw)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.monotonic()
+            scores = recsys.score_candidates(model, user, cand,
+                                             chunks=RETRIEVAL_CHUNKS, **kw)
+            torch.cuda.synchronize()
+            out[tag] = (scores, time.monotonic() - t0,
+                        {k: n for k, n in ops.launch_counts().items() if n})
+        (sk, tk, lk), (sp, tp, lp) = out["kernels"], out["plain"]
+        if sk.shape != (shape.n_candidates,) or \
+                not bool(torch.isfinite(sk).all()):
+            raise AssertionError(f"{cfg.name} retrieval scores {sk.shape}")
+        if not lk or lp:
+            raise AssertionError(f"{cfg.name} retrieval launches: kernels "
+                                 f"{lk}, plain {lp}")
+        err = _allclose(f"{cfg.name} retrieval", sk, sp, 1e-5, 1e-5)
+        res[cfg.name] = {"candidates": shape.n_candidates,
+                         "chunks": RETRIEVAL_CHUNKS, "kernels_s": tk,
+                         "plain_s": tp, "max_abs_err": err,
+                         "bitwise": bool(torch.equal(sk, sp)),
+                         "launches": lk,
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"  {cfg.name}_retrieval " + json.dumps(res[cfg.name]),
+              flush=True)
+        del model, out, sk, sp, scores
+        torch.cuda.empty_cache()
+    return res
+
+
 SOURCES = {
     "embedding_bag_fwd": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                           "src/repro/kernels/embedding_bag.py:75"),
@@ -2213,8 +2663,11 @@ def main() -> int:
         return 2
     from repro_torch.configs.dlrm_criteo import ARCH as DLRM_ARCH
     from repro_torch.configs.dlrm_criteo import MODEL
+    from repro_torch.configs.bert4rec import ARCH as B4R_ARCH
+    from repro_torch.configs.dien import ARCH as DIEN_ARCH
     from repro_torch.configs.graphsage_reddit import ARCH as GNN_ARCH
     from repro_torch.configs.wide_deep import ARCH as WD_ARCH
+    from repro_torch.configs.xdeepfm import ARCH as XD_ARCH
     gnn_shape = GNN_ARCH.shape("minibatch_lg")
     gnn_cfg = GNN_ARCH.model
 
@@ -2294,6 +2747,33 @@ def main() -> int:
         recs[name]["dlrm_criteo"] = dict(
             bf16_recs[name], launches=drv_launches[name],
             in_step_ms=drv_in_step[name])
+    seq_archs = (XD_ARCH, DIEN_ARCH, B4R_ARCH)
+    with Phase("recsys_seq_kernels"):
+        seq_recs = phase_recsys_seq_kernels(seq_archs, SEQ_MICROBATCHES)
+    torch.cuda.empty_cache()
+    seq_launches, seq_in_step = {}, {}
+    for arch in seq_archs:
+        k = SEQ_MICROBATCHES[arch.arch_id]
+        with Phase(f"{arch.arch_id}_model"):
+            phase_seq_model(arch, SEQ_MODEL_BATCH[arch.arch_id])
+        torch.cuda.empty_cache()
+        with Phase(f"{arch.arch_id}_driver"):
+            seq_launches[arch.arch_id] = phase_seq_driver(arch, k)
+        torch.cuda.empty_cache()
+        with Phase(f"{arch.arch_id}_profile"):
+            seq_in_step[arch.arch_id] = phase_seq_profile(arch, k)
+        torch.cuda.empty_cache()
+    with Phase("recsys_retrieval"):
+        phase_recsys_retrieval((WD_ARCH,) + seq_archs)
+    torch.cuda.empty_cache()
+    # each embedding kernel at each lookup of the three models, with its
+    # launches and time in the step on that model's driver path
+    for name, by_lookup in seq_recs.items():
+        for tag, rec in by_lookup.items():
+            arch_id = tag.split("_")[0]
+            recs[name][tag] = dict(
+                rec, launches=seq_launches[arch_id][name],
+                in_step_ms=seq_in_step[arch_id].get(name))
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]

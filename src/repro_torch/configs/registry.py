@@ -12,16 +12,16 @@ from typing import List
 from repro_torch.configs.base import ArchSpec
 
 _ARCH_MODULES = {
+    "bert4rec": "repro_torch.configs.bert4rec",
+    "dien": "repro_torch.configs.dien",
     "dlrm-criteo": "repro_torch.configs.dlrm_criteo",
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
     "wide-deep": "repro_torch.configs.wide_deep",
+    "xdeepfm": "repro_torch.configs.xdeepfm",
 }
 
 # arch -> where it waits (ROADMAP.md, "Queue 1: modules to port")
 _NOT_PORTED = {
-    "xdeepfm": "queue 1, item 7 (xDeepFM, DIEN and BERT4Rec)",
-    "dien": "queue 1, item 7 (xDeepFM, DIEN and BERT4Rec)",
-    "bert4rec": "queue 1, item 7 (xDeepFM, DIEN and BERT4Rec)",
     "qwen2-moe-a2.7b": "queue 1, item 8 (LLM family)",
     "kimi-k2-1t-a32b": "queue 1, item 8 (LLM family)",
     "smollm-135m": "queue 1, item 8 (LLM family)",

@@ -1,7 +1,7 @@
-"""Synthetic Criteo-like click records for the generic driver's recsys
-family: the port's copy of `CriteoStream` from repro/data/synthetic.py
-(numpy only, the same operations in the same order, so the same seed
-gives the same bits).
+"""Synthetic records for the generic driver's recsys family: the port's
+copies of `CriteoStream`, `bert4rec_batch` and `dien_batch` from
+repro/data/synthetic.py (numpy only, the same operations in the same
+order, so the same seed or `RandomState` gives the same bits).
 
 `raw_block` draws un-hashed ids, log-normal dense values and labels
 from a planted CTR signal; `feature_udf` is the online feature work
@@ -50,3 +50,35 @@ class CriteoStream:
     @staticmethod
     def batch_udf(block: dict) -> dict:
         return {k: np.ascontiguousarray(v) for k, v in block.items()}
+
+
+def bert4rec_batch(rng, batch: int, seq_len: int, n_items: int,
+                   n_mask: int, n_neg: int) -> dict:
+    """Cloze-masked item sequences with uniform sampled-softmax negatives."""
+    seq = rng.randint(0, n_items, size=(batch, seq_len)).astype(np.int32)
+    pos = np.stack([rng.choice(seq_len, size=n_mask, replace=False)
+                    for _ in range(batch)]).astype(np.int32)
+    labels = np.take_along_axis(seq, pos, axis=1)
+    masked = seq.copy()
+    np.put_along_axis(masked, pos, n_items, axis=1)   # MASK token id
+    negs = rng.randint(0, n_items,
+                       size=(batch, n_mask, n_neg)).astype(np.int32)
+    return {"item_seq": masked, "mask_pos": pos, "mask_labels": labels,
+            "neg_ids": negs}
+
+
+def dien_batch(rng, batch: int, seq_len: int, n_items: int,
+               n_dense: int) -> dict:
+    """Behaviour histories of seq_len // 4 to seq_len items (mask 1 on
+    the valid prefix), a target item, dense features and a label planted
+    on the target appearing in the history."""
+    hist = rng.randint(0, n_items, size=(batch, seq_len)).astype(np.int32)
+    lens = rng.randint(seq_len // 4, seq_len + 1, size=batch)
+    mask = (np.arange(seq_len)[None, :] < lens[:, None]).astype(np.float32)
+    target = rng.randint(0, n_items, size=batch).astype(np.int32)
+    dense = rng.randn(batch, n_dense).astype(np.float32)
+    # label correlates with target appearing in history (planted signal)
+    appears = (hist == target[:, None]).any(1)
+    label = ((appears | (rng.rand(batch) < 0.2))).astype(np.float32)
+    return {"hist_ids": hist, "hist_mask": mask, "target_id": target,
+            "dense": dense, "label": label}

@@ -8,20 +8,32 @@ repro/launch/train.py; the `gnn`, `recsys` and `dlrm` families so far).
         [--full] [--shape train_batch] ...
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-criteo \
         [--full] [--shape train_batch] ...
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch {xdeepfm|dien|bert4rec} [--full] [--shape train_batch] \
+        [--microbatches K] ...
 
 Runs real training steps on synthetic data, as the JAX driver does:
   - without `--full` it runs the family's small config, the JAX
     driver's `reduced_model` (GraphSAGE: d_hidden 16 on the JAX driver's
     small graph, 512 nodes, 4096 edges, 32 features, fanout 5-3;
     wide-deep: 8 features, embed_dim 8, MLP 64-32, 512 rows a table;
-    dlrm-criteo: 8 features, embed_dim 16, 512 rows a table, bottom MLP
-    32-16, top MLP 64-32-1, still bf16) at the JAX driver's batch of 32,
-    so that the two drivers can be held together on the CPU; `--full`
-    uses the arch's published config and `--shape <name>` one of its
-    shapes (graphsage-reddit: a minibatch shape, minibatch_lg: 1024 seed
-    nodes, fanout 15-10, 602 features on 232,965 nodes; wide-deep and
-    dlrm-criteo: a train shape, train_batch: 65536 samples of synthetic
-    Criteo records, `data/synthetic.CriteoStream`);
+    xDeepFM: the same and CIN 12-12; DIEN: 512 items, sequences of 16,
+    embed_dim 8, GRU 16, MLP 32-16; BERT4Rec: 512 items, sequences of 16,
+    embed_dim 16, 3 masked positions and 7 negatives; dlrm-criteo: 8
+    features, embed_dim 16, 512 rows a table, bottom MLP 32-16, top MLP
+    64-32-1, still bf16) at the JAX driver's batch of 32, so that the two
+    drivers can be held together on the CPU; `--full` uses the arch's
+    published config and `--shape <name>` one of its shapes
+    (graphsage-reddit: a minibatch shape, minibatch_lg: 1024 seed nodes,
+    fanout 15-10, 602 features on 232,965 nodes; the recsys archs and
+    dlrm-criteo: a train shape, train_batch: 65536 samples: synthetic
+    Criteo records, `data/synthetic.CriteoStream`, for wide-deep, xDeepFM
+    and dlrm-criteo, `dien_batch` and `bert4rec_batch` from the driver's
+    seed-0 `RandomState` for the other two);
+  - `--microbatches K` accumulates the gradients of K slices of each
+    batch before the one optimizer step (the reference's
+    `make_train_step(..., microbatches=)`): the memory knob that fits
+    xDeepFM's CIN and BERT4Rec's attention at train_batch on one card;
   - checkpoints every --ckpt-every steps in the JAX package's on-disk
     layout (atomic, resumable, restorable by either package);
   - an InTune controller tunes the (simulated-machine) ingestion pipeline
@@ -30,8 +42,11 @@ Runs real training steps on synthetic data, as the JAX driver does:
 On a CUDA device (`--device cuda`, the default) GraphSAGE's neighbour
 aggregations run through the hand-written Hopper kernel
 `sage_aggregate`, wide-deep's lookups through `embedding_bag_fused`
-(its wide arm) and `embedding_bag` (its deep tables), with the
-`embedding_bag` scatter as their backward, and the DLRM's bags and
+(its wide arm) and `embedding_bag` (its deep tables), xDeepFM's through
+`embedding_bag` (its tables) and `embedding_bag_fused` (its linear arm),
+DIEN's and BERT4Rec's item gathers through `embedding_bag` as bags of
+one, all with the `embedding_bag` scatter as their backward, and the
+DLRM's bags and
 interaction through `embedding_bag` and `dot_interact`, forward and
 backward, in bf16; `--device cpu` runs their plain PyTorch versions.
 Archs the port does not run yet raise KeyError naming the ROADMAP item
@@ -52,7 +67,8 @@ from repro_torch.core.controller import InTune
 from repro_torch.data.pipeline import criteo_pipeline
 from repro_torch.data.sampler import CSRGraph, NeighborSampler
 from repro_torch.data.simulator import MachineSpec
-from repro_torch.data.synthetic import CriteoStream
+from repro_torch.data.synthetic import (CriteoStream, bert4rec_batch,
+                                        dien_batch)
 from repro_torch.models import dlrm as dlrm_lib
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
@@ -98,12 +114,25 @@ def reduced_model(arch: ArchSpec):
                                   "features, embed_dim 16, 512 rows a "
                                   "table, bottom MLP 32-16, top MLP "
                                   "64-32-1, for a CPU run",))
-    n = min(m.n_sparse, 8)
-    return m.replace(n_sparse=n, embed_dim=8, mlp_dims=(64, 32),
-                     vocab_sizes=(512,) * n,
-                     reduced=("the JAX driver's reduced_model: 8 sparse "
-                              "features, embed_dim 8, MLP 64-32, 512 rows "
-                              "a table, for a CPU run",))
+    kw = dict(vocab_sizes=(512,) * max(len(m.vocab_sizes), 1))
+    if m.name == "bert4rec":
+        kw.update(n_items=512, seq_len=16, n_mask=3, n_negatives=7,
+                  embed_dim=16)
+        why = ("512 items, sequences of 16, embed_dim 16, 3 masked "
+               "positions and 7 negatives")
+    elif m.name == "dien":
+        kw.update(seq_len=16, embed_dim=8, gru_dim=16, mlp_dims=(32, 16))
+        why = "512 items, sequences of 16, embed_dim 8, GRU 16, MLP 32-16"
+    else:
+        n = min(m.n_sparse, 8)
+        kw.update(n_sparse=n, embed_dim=8, mlp_dims=(64, 32),
+                  vocab_sizes=(512,) * n)
+        why = "8 sparse features, embed_dim 8, MLP 64-32, 512 rows a table"
+        if m.cin_dims:
+            kw.update(cin_dims=(12, 12))
+            why += ", CIN 12-12"
+    return m.replace(**kw, reduced=(f"the JAX driver's reduced_model: "
+                                    f"{why}, for a CPU run",))
 
 
 # ------------------------------------------------------- batch factories ---
@@ -122,24 +151,33 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
                   *, shape=DRIVER_SHAPE, device="cuda",
                   sampler: Optional[NeighborSampler] = None):
     """A function returning the next batch on `device`: a sampled block
-    of `shape`'s graph (gnn), or synthetic Criteo records from seed 0
-    through the online feature work (recsys, dlrm), as the JAX driver
-    makes them."""
+    of `shape`'s graph (gnn), synthetic Criteo records from seed 0
+    through the online feature work (dlrm, wide-deep, xDeepFM), or DIEN's
+    and BERT4Rec's synthetic sequences drawn from `rng`, as the JAX
+    driver makes them."""
+    to_device = lambda b: {k: torch.from_numpy(v).to(device)
+                           for k, v in b.items()}
+    if cfg.name == "dien":
+        return lambda: to_device(dien_batch(
+            rng, batch, cfg.seq_len, cfg.vocab_sizes[0], cfg.n_dense))
+    if cfg.name == "bert4rec":
+        return lambda: to_device(bert4rec_batch(
+            rng, batch, cfg.seq_len, cfg.n_items, cfg.n_mask,
+            cfg.n_negatives))
     if _family(arch) in ("recsys", "dlrm"):
         stream = CriteoStream(n_sparse=cfg.n_sparse, n_dense=cfg.n_dense,
                               vocab=cfg.vocab_sizes[0],
                               multi_hot=cfg.multi_hot)
-        return lambda: {k: torch.from_numpy(v).to(device) for k, v in
-                        stream.feature_udf(stream.raw_block(batch)).items()}
+        return lambda: to_device(
+            stream.feature_udf(stream.raw_block(batch)))
     sampler = sampler if sampler is not None else make_sampler(cfg, shape,
                                                                rng)
-    return lambda: {k: torch.from_numpy(v).to(device)
-                    for k, v in sampler.sample(batch).items()}
+    return lambda: to_device(sampler.sample(batch))
 
 
 def make_loss_fn(arch: ArchSpec, cfg):
     if _family(arch) == "recsys":
-        return lambda model, b: recsys_lib.ctr_loss(model, b)
+        return lambda model, b: recsys_lib.loss_fn(model, b)
     if _family(arch) == "dlrm":
         return lambda model, b: dlrm_lib.loss_fn(model, b)
     return lambda model, b: gnn_lib.minibatch_loss(model, b)
@@ -148,7 +186,7 @@ def make_loss_fn(arch: ArchSpec, cfg):
 def init_params_for(arch: ArchSpec, cfg, seed: int, *,
                     shape=DRIVER_SHAPE, device="cuda"):
     if _family(arch) == "recsys":
-        return recsys_lib.init_wide_deep(cfg, seed=seed, device=device)
+        return recsys_lib.init_model(cfg, seed=seed, device=device)
     if _family(arch) == "dlrm":
         return dlrm_lib.init_params(cfg, seed=seed, device=device)
     return gnn_lib.init_params(cfg, d_feat=shape.d_feat, seed=seed,
@@ -172,12 +210,13 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         shape=None, full: bool = False, lr: float = 1e-3,
         device="cuda", ckpt_dir: Optional[str] = None,
         ckpt_every: int = 25, sampler: Optional[NeighborSampler] = None,
-        log_every: int = 10) -> dict:
+        log_every: int = 10, microbatches: int = 1) -> dict:
     """Train `steps` steps of `arch_id` on `shape`'s synthetic data (the
     family's driver shape if None) and return what the run measured.
     `sampler` is a prebuilt graph of a GNN `shape` (one built once can
-    serve several runs). Parameters and data all come from seed 0, as in
-    the JAX driver."""
+    serve several runs); `microbatches` splits each batch for gradient
+    accumulation (`make_train_step`). Parameters and data all come from
+    seed 0, as in the JAX driver."""
     arch = get_arch(arch_id)
     family = _family(arch)
     default_shape, _, lib, rate_key = _FAMILIES[family]
@@ -190,11 +229,11 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
     n_params = sum(p.numel() for p in model.parameters())
     print(f"arch={arch_id} family={family} params={n_params/1e6:.2f}M "
           f"optimizer={arch.optimizer} shape={shape.name} batch={batch} "
-          f"device={device}")
+          f"microbatches={microbatches} device={device}")
 
     opt = make_optimizer(arch.optimizer, lr=lr)
     opt_state = opt.init(dict(model.named_parameters()))
-    step_fn = make_train_step(make_loss_fn(arch, cfg), opt)
+    step_fn = make_train_step(make_loss_fn(arch, cfg), opt, microbatches)
     batch_fn = make_batch_fn(arch, cfg, batch, rng, shape=shape,
                              device=device, sampler=sampler)
 
@@ -233,7 +272,7 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
     n = len(losses)
     res = {
         "arch": arch_id, "shape": shape.name, "batch": batch, "steps": n,
-        "losses": losses,
+        "microbatches": microbatches, "losses": losses,
         rate_key: n * batch / wall if n else None,
         "loop_step_s": wall / n if n else None,
         "fetch_step_s": fetch_s / n if n else None,
@@ -268,6 +307,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="gradient accumulation over this many slices of "
+                         "each batch (default 1: none)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     shape = None
@@ -281,8 +323,8 @@ def main(argv=None):
                            f"(ROADMAP.md queue 1)")
     return run(args.arch, steps=args.steps, batch=args.batch, shape=shape,
                full=args.full, lr=args.lr, device=args.device,
-               ckpt_dir=args.ckpt_dir,
-               ckpt_every=args.ckpt_every)
+               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+               microbatches=args.microbatches)
 
 
 if __name__ == "__main__":

@@ -8,20 +8,25 @@ its plain version on the CPU).
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
 from repro_torch.kernels import ops
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, *,
-                  combiner: str = "sum") -> torch.Tensor:
+                  combiner: str = "sum",
+                  bag_fn: Optional[Callable] = None) -> torch.Tensor:
     """EmbeddingBag over the last axis of ids.
 
     table: (V, D); ids: (..., bag) int32 -> (..., D). combiner: "sum" |
-    "mean" (the kernel's two combiners)."""
+    "mean" (the kernel's two combiners). `bag_fn(tables, ids, combiner=)`
+    replaces `ops.embedding_bag` (a comparison against the plain version
+    on the card uses it)."""
     lead, bag = ids.shape[:-1], ids.shape[-1]
-    out = ops.embedding_bag(table[None], ids.reshape(-1, 1, bag),
-                            combiner=combiner)
+    out = (bag_fn or ops.embedding_bag)(table[None], ids.reshape(-1, 1, bag),
+                                        combiner=combiner)
     return out.reshape(*lead, table.shape[-1])
 
 

@@ -82,11 +82,14 @@ def test_gnn_configs_match_jax():
 def test_registry_runs_graphsage_and_names_the_roadmap_for_the_rest(arch_id):
     if arch_id == "graphsage-reddit":
         assert registry.get_arch(arch_id) is ARCH
-        assert registry.list_archs() == ["dlrm-criteo", arch_id, "wide-deep"]
+        assert registry.list_archs() == ["bert4rec", "dien", "dlrm-criteo",
+                                         arch_id, "wide-deep", "xdeepfm"]
         return
     # wide-deep: slice 3, tests/test_torch_recsys.py; dlrm-criteo: slice 8,
-    # tests/test_torch_dlrm_driver.py
-    if arch_id in ("wide-deep", "dlrm-criteo"):
+    # tests/test_torch_dlrm_driver.py; xdeepfm, dien, bert4rec: slice 9,
+    # tests/test_torch_recsys_seq.py
+    if arch_id in ("wide-deep", "dlrm-criteo", "xdeepfm", "dien",
+                   "bert4rec"):
         assert registry.get_arch(arch_id).arch_id == arch_id
         return
     with pytest.raises(KeyError, match="ROADMAP.md queue 1, item"):
@@ -96,8 +99,8 @@ def test_registry_runs_graphsage_and_names_the_roadmap_for_the_rest(arch_id):
 # an arch of each ROADMAP queue 1 item that waits, with words of the
 # item's heading there
 @pytest.mark.parametrize("arch_id,item,heading", [
-    ("dien", 7, "other recsys models"),
-    ("xdeepfm", 7, "other recsys models"),
+    ("gemma2-2b", 8, "LLM family"),
+    ("qwen2.5-32b", 8, "LLM family"),
     ("smollm-135m", 8, "LLM family")])
 def test_registry_names_the_roadmap_item_that_ports_each_arch(arch_id, item,
                                                               heading):

@@ -702,3 +702,55 @@ def test_cuda_f32_backwards_keep_their_bits():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     assert f32_bwd_outputs() == F32_BWD_DIGESTS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [10, 18, 64])
+def test_cuda_embedding_kernels_at_the_sequence_models_widths(d):
+    """xDeepFM's tables (D = 10), DIEN's items (D = 18) and BERT4Rec's (D
+    = 64), f32, bags of one, as the models look them up: the forward
+    bitwise the plain version at ragged batch sizes (1, 37, 4097) over
+    one feature of 2^20 rows (as DIEN and BERT4Rec gather items) and 39
+    features of 5000; the scatter with repeated ids (a 300-row table)
+    and non-negative d_out against its plain version at rtol 1e-5 / atol
+    1e-6, and writing nothing where no id points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for f, v in ((1, 2 ** 20), (39, 5000), (1, 300)):
+        tables = torch.randn((f, v, d), device="cuda", generator=gen)
+        for b in (1, 37, 4097):
+            ids = torch.randint(0, v, (b, f, 1), device="cuda",
+                                generator=gen, dtype=torch.int32)
+            assert torch.equal(eb.embedding_bag_fwd(tables, ids),
+                               ref.embedding_bag_ref(tables, ids)), (f, v, b)
+            d_out = torch.rand((b, f, d), device="cuda", generator=gen)
+            got = eb.embedding_bag_bwd(d_out, ids, v)
+            want = ref.embedding_bag_bwd_ref(d_out, ids, v)
+            for i in range(f):
+                torch.testing.assert_close(got[i], want[i], rtol=1e-5,
+                                           atol=1e-6)
+                hit = torch.zeros(v, dtype=torch.bool, device="cuda")
+                hit[ids[:, i, 0].long()] = True
+                assert not got[i][~hit].any()
+
+
+@pytest.mark.gpu
+def test_cuda_embedding_bag_fused_on_the_xdeepfm_linear_arm():
+    """xDeepFM's linear arm, its (39, 2^20) f32 table viewed as (39,
+    2^20, 1), 4 MiB a feature, read in bags of one: the fused kernel
+    fires (ops.fused_fires) and is bitwise the row kernel and the plain
+    version at ragged batch sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    linear = torch.randn((39, 2 ** 20, 1), device="cuda", generator=gen) \
+        .mul_(0.01)
+    assert ops.fused_fires(linear, 1)
+    for b in (1, 37, 8192):
+        ids = torch.randint(0, 2 ** 20, (b, 39, 1), device="cuda",
+                            generator=gen, dtype=torch.int32)
+        got = eb.embedding_bag_fused_fwd(linear, ids)
+        assert torch.equal(got, eb.embedding_bag_fwd(linear, ids)), b
+        assert torch.equal(got, ref.embedding_bag_fused_ref(linear, ids)), b

@@ -110,7 +110,7 @@ def _jax_params(jcfg, seed=0):
 
 
 def _port_model(cfg, np_params):
-    model = recsys.init_wide_deep(cfg, seed=1, device="cpu")
+    model = recsys.init_model(cfg, seed=1, device="cpu")
     model.load_state_dict(recsys.params_from_numpy(np_params))
     return model
 
@@ -141,7 +141,7 @@ def test_init_draws_the_jax_shapes_and_scales():
     biases, and the JAX scales (std D^-1/2 for the tables, 0.01 for the
     wide weights)."""
     jcfg, cfg = _configs(512, 4)
-    model = recsys.init_wide_deep(cfg, seed=0, device="cpu")
+    model = recsys.init_model(cfg, seed=0, device="cpu")
     got = recsys.params_to_numpy(model)
     want = _flat(_jax_params(jcfg))
     assert {k: v.shape for k, v in _flat(got).items()} == \
@@ -288,7 +288,7 @@ def test_checkpoint_round_trip_jax_port_jax(tmp_path):
                                         "opt_state": state})
     tree, manifest = ckpt.restore(str(tmp_path / "a"), device="cpu")
     assert manifest["step"] == 3
-    model = recsys.init_wide_deep(cfg, seed=2, device="cpu")
+    model = recsys.init_model(cfg, seed=2, device="cpu")
     model.load_state_dict(recsys.named_from_tree(tree["params"]))
     acc = recsys.named_from_tree(tree["opt_state"]["acc"])
     assert acc["mlp.0.weight"].shape == model.mlp[0].weight.shape
