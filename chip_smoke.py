@@ -519,20 +519,29 @@ def _check_bag(tables, ids, combiner, tag) -> dict:
 
 def _ragged_bags(gen):
     """embedding_bag_fwd bitwise against its plain version at D 1, 2, 3,
-    5, 8, 32, 33, 128 and 132, B 1 and 37, bags 1, 3, 4, 16 and 17, sum
-    and mean, f32 tables and bf16 ones 16-, 2- and 4-byte aligned (a
-    slice 0, 1 or 2 elements into a buffer): every load width, lanes from
-    1 to 32, both unroll bounds and a bag walked in chunks. Ids of -1 and
-    V make exactly their own rows NaN, the rest equal."""
+    5, 6, 8, 10, 18, 32, 33, 34, 128 and 132, B 1 and 37, bags 1, 3, 4,
+    16 and 17, sum and mean, f32 tables 16- and 4-byte aligned and bf16
+    ones 16-, 2- and 4-byte aligned (a slice 0, 1 or 2 elements into a
+    buffer): every load width (the f32 table at +1 element on 4-byte
+    words), both walks, lanes from 1 to 32, both unroll bounds and a bag
+    walked in chunks. Ids of -1 and V make exactly their own rows NaN,
+    the rest equal. Prints the plan of each f32 narrow row (the flat
+    walk)."""
     import torch
     from repro_torch.kernels import embedding_bag as eb, ref
     n = 0
-    for d in (1, 2, 3, 5, 8, 32, 33, 128, 132):
+    for d in (1, 2, 3, 5, 6, 8, 10, 18, 32, 33, 34, 128, 132):
         f, v = 3, 1000
         buf = torch.randn(f * v * d + 2, device="cuda", generator=gen)
-        for dtype, shift in ((torch.float32, 0), (torch.bfloat16, 0),
-                             (torch.bfloat16, 1), (torch.bfloat16, 2)):
+        for dtype, shift in ((torch.float32, 0), (torch.float32, 1),
+                             (torch.bfloat16, 0), (torch.bfloat16, 1),
+                             (torch.bfloat16, 2)):
             tables = buf.to(dtype)[shift:shift + f * v * d].view(f, v, d)
+            plan = eb.fwd_plan(37, f, d, tables.element_size(),
+                               tables.data_ptr() % 16)
+            if dtype == torch.float32 and plan.lanes == 0:
+                print(f"  embedding_bag_fwd ({f},{v},{d}) f32 +{shift} b37: "
+                      f"plan {plan}")
             for b in (1, 37):
                 for bag in (1, 3, 4, 16, 17):
                     ids = torch.randint(0, v, (b, f, bag), device="cuda",
@@ -562,8 +571,9 @@ def _ragged_bags(gen):
                                              f"-1 and V must poison exactly "
                                              f"their own rows")
     print(f"  embedding_bag_fwd bitwise to the plain version at {n} ragged "
-          f"calls (D 1-132, B 1 and 37, bags 1-17, f32 and bf16 at 16-, 2- "
-          f"and 4-byte alignment); ids -1 and V poison their rows")
+          f"calls (D 1-132, B 1 and 37, bags 1-17, f32 at 16- and 4-byte "
+          f"alignment, bf16 at 16-, 2- and 4-byte); ids -1 and V poison "
+          f"their rows")
 
 
 def _check_dot(feats, tag) -> dict:
@@ -620,18 +630,23 @@ def _check_scatter(d_out, ids, v, combiner, tag) -> float:
 
 
 def _ragged_scatters(gen) -> float:
-    """The scatter at every D the models use and around it, over 5
+    """The scatter at every D the models use and around it (the even
+    widths 6, 10, 18 and 34 on the flat walk's float2 atomics), over 5
     features (its walk's groups of 2 leave one over), at B 1 and 300 and
     bags of 1, 4 and 17: random ids (with the forward, bitwise), bags
     whose ids all repeat, bags padded by repeating their head id (the
-    DLRM featurizer's padding), and ids of -1 and V. The repeated ids
-    get non-negative gradients: a row then sums many of them, and with
-    signs a nearly cancelling row differs between any two orders of f32
-    atomics by more than atol. Returns the max abs error."""
+    DLRM featurizer's padding), and ids of -1 and V; at the even widths
+    also into a gradient 4-byte aligned (a slice 1 element into a buffer:
+    one column a word), whose buffer outside the slice stays 0. The
+    repeated ids get non-negative gradients: a row then sums many of
+    them, and with signs a nearly cancelling row differs between any two
+    orders of f32 atomics by more than atol. Prints the plan of each
+    narrow row. Returns the max abs error."""
     import torch
+    from repro_torch.kernels import embedding_bag as eb
     dev = torch.device("cuda")
     err = 0.0
-    for d in (1, 2, 3, 5, 8, 32, 128, 132):
+    for d in (1, 2, 3, 5, 6, 8, 10, 18, 32, 34, 128, 132):
         f, v = 5, 2 ** 20 // d
         tables = torch.randn((f, v, d), device=dev, generator=gen)
         for b in (1, 300):
@@ -659,6 +674,43 @@ def _ragged_scatters(gen) -> float:
                     for combiner in ("sum", "mean"):
                         err = max(err, _check_scatter(d_out, i, v, combiner,
                                                       f"{tag} {name}"))
+                if d % 4 == 2:
+                    err = max(err, _check_scatter_shifted(d_out, bad, v,
+                                                          tag))
+        if d % 4:
+            print(f"  embedding_bag_bwd ({f},{v},{d}) f32 b300: plan "
+                  f"{eb.bwd_plan(300, f, v, d)}; +1 element: "
+                  f"{eb.bwd_plan(300, f, v, d, 4)}")
+    return err
+
+
+def _check_scatter_shifted(d_out, ids, v, tag) -> float:
+    """embedding_bag_scatter (sum and mean) into an f32 gradient 1
+    element into a zeroed buffer (4-byte aligned: one column a word on
+    the flat walk), ids of -1 and V adding nothing, against the plain
+    version at rtol 1e-5 / atol 1e-6; the buffer outside the slice stays
+    0. Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb, ref
+    b, f, _ = ids.shape
+    d = d_out.shape[-1]
+    ext = torch.where(ids < 0, v + 1, torch.where(ids >= v, v, ids))
+    err = 0.0
+    for combiner in ("sum", "mean"):
+        buf = torch.zeros(f * v * d + 1, device=d_out.device)
+        grad = buf[1:].view(f, v, d)
+        if eb.bwd_plan(b, f, v, d, grad.data_ptr() % 16).vec != 1:
+            raise AssertionError(f"embedding_bag_bwd {tag}: a 4-byte aligned "
+                                 f"gradient must take one column a word")
+        eb.embedding_bag_scatter(d_out, ids, grad, combiner)
+        if bool(buf[0] != 0):
+            raise AssertionError(f"embedding_bag_bwd {tag} +1 element: "
+                                 f"writes outside its gradient")
+        want = ref.embedding_bag_bwd_ref(d_out, ext, v + 2,
+                                         combiner=combiner)[:, :v]
+        err = max(err, max(_allclose(
+            f"embedding_bag_bwd {tag} +1 element {combiner} f={i}", grad[i],
+            want[i], 1e-5, 1e-6) for i in range(f)))
     return err
 
 
@@ -1957,7 +2009,7 @@ def phase_dlrm_bf16_bwd(arch) -> dict:
     del table_flat
     grad = tables.zero_()
     del tables
-    plan = eb.bwd_plan(b, n_f, rows, dim, True, 2)
+    plan = eb.bwd_plan(b, n_f, rows, dim, 0, 2)
     print(f"  embedding_bag_bwd bf16 plan: {plan}")
     t = time_ms(lambda: eb.embedding_bag_scatter(d_out, ids, grad), [()],
                 kernel="embedding_bag_bwd_kernel")
@@ -2316,9 +2368,10 @@ def phase_recsys_seq_kernels(archs, microbatches) -> dict:
     non-negative d_out against its plain version (`_check_scatter_counted`).
     Then each timed beside its plain version, its bound (bytes over 3.35
     TB/s: ids, the distinct rows, the output; the scatter reads and
-    writes each touched row) and its library call (F.embedding_bag over
-    the flattened table; index_add_ into the flattened gradient). Returns
-    {kernel: {lookup tag: record}}."""
+    writes each touched row) and its library calls (F.embedding_bag and,
+    for these bags of one, F.embedding over the flattened table;
+    index_add_ into the flattened gradient). Returns {kernel: {lookup
+    tag: record}}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import embedding_bag as eb, ref
@@ -2357,6 +2410,11 @@ def phase_recsys_seq_kernels(archs, microbatches) -> dict:
                   f"{uniq} distinct rows; {kind} kernel bitwise the plain "
                   f"version; plan {plan}", flush=True)
             flat_table = table.view(f * v, d)
+            # bags of one: F.embedding computes the same function too
+            gather = time_ms(lambda x: F.embedding(x, flat_table), flat)
+            print(f"  {kname} {tag}: F.embedding {gather.ms:.4f} ms "
+                  f"({gather.events} events), {gather.wall:.4f} ms launch "
+                  f"to launch", flush=True)
             out[kname][tag] = kernel_record(
                 f"{kname} {tag}",
                 time_ms(lambda i: fn(table, i), id_sets,
@@ -2367,7 +2425,9 @@ def phase_recsys_seq_kernels(archs, microbatches) -> dict:
                         flat),
                 bound_ms(ids.numel() * 4 + uniq * d * 4 + b * f * d * 4,
                          b * f * d), 0.0, ids=list(ids.shape),
-                table=list(shape), distinct_rows=uniq)
+                table=list(shape), distinct_rows=uniq,
+                embedding_library_ms=gather.ms,
+                embedding_library_events=gather.events)
             # the scatter (the lookup's backward), non-negative d_out
             d_out = torch.rand((b, f, d), device=dev, generator=gen)
             err = _check_scatter_counted(d_out, ids, v, tag)

@@ -50,6 +50,24 @@ CUDA events launch to launch). Sections (all when none is named):
   dot_bwd   dot_interact_bwd at 1-6 persistent CTAs an SM, with streaming
             stores, with an L2 prefetch hint on its copies and with its k
             loop unrolled by 8, against bmm.
+  narrow    the narrow-row lookups of a driver microbatch, f32, bags of
+            one: xDeepFM's tables, ids (32768, 39, 1) into (39, 2^20,
+            10), and DIEN's history, ids (6553600, 1, 1) into (1, 2^20,
+            18). The forward and the scatter through their wrappers
+            beside their plans' launch with the walk or the word
+            overridden (the lane walk in 4-byte words, the design before
+            the flat walk; the lane walk in 8-byte words; the flat walk
+            in 4-byte words); variants with L2 hints (NARROW_VARIANTS:
+            outputs stored, ids and d_out loaded evict-first); the
+            forward with 1, 2 and 4 words a thread in flight
+            (a probe kernel on its helpers, K words t, t + S, ... of the
+            grid's S threads); F.embedding, F.embedding_bag, the plain
+            indexing gather and index_add_; the bounds. The scatter at D
+            = 1 (xDeepFM's linear arm, ids (32768, 39, 1), and the wide
+            arm, ids (65536, 40, 4), into 2^20-row tables), and the
+            forward there, on the flat walk (their plans) and on the
+            lane walk (a thread a row). The loads, local memory and
+            reductions of the narrow instantiations (cuobjdump -sass).
   scatter_bf16  embedding_bag_bwd into a bf16 gradient at dlrm-criteo's
             training shape, ids (65536, 26, 1) of the synthetic Criteo
             stream into (26, 2^22, 128): its bf16x2 REDs against the
@@ -128,12 +146,12 @@ extern "C" int micro(int which, float* g, const int64_t* rows, float* out,
 # reduction a (row, bag slot): the row times its count is staged in shared
 # memory, and one lane a slot reduces it into the gradient row
 BULK = (
-    ('''template <typename T, bool kVec, int kUnroll>
+    ('''template <typename T, int VEC, int kUnroll>
 __device__ __forceinline__ void scatter_row(''',
-     '''template <typename T, bool kVec, int kUnroll>
+     '''template <typename T, int VEC, int kUnroll>
 __device__ __forceinline__ void scatter_row_red('''),
     ('''// dOut (B, F, D) f32 scatter-added into the zeroed dense gradient''',
-     '''template <typename T, bool kVec, int kUnroll>
+     '''template <typename T, int VEC, int kUnroll>
 __device__ __forceinline__ void scatter_row(const float* src, T* dst,
                                             const int32_t (&id)[kUnroll],
                                             const float (&w)[kUnroll],
@@ -141,9 +159,9 @@ __device__ __forceinline__ void scatter_row(const float* src, T* dst,
                                             int n, float bag, int mean) {
   // the bulk reductions are f32 and take float4 rows: the other paths
   // keep their atomics
-  if constexpr (sizeof(T) == 2 || !kVec) {
-    scatter_row_red<T, kVec, kUnroll>(src, dst, id, w, D, lane, lanes, n,
-                                      bag, mean);
+  if constexpr (sizeof(T) == 2 || VEC != 4) {
+    scatter_row_red<T, VEC, kUnroll>(src, dst, id, w, D, lane, lanes, n,
+                                     bag, mean);
     return;
   }
   extern __shared__ __align__(128) float sbuf[];
@@ -176,17 +194,17 @@ __device__ __forceinline__ void scatter_row(const float* src, T* dst,
 }
 
 // dOut (B, F, D) f32 scatter-added into the zeroed dense gradient'''),
-    ('''    if (vec) BWD(float, true); else BWD(float, false);''',
-     '''    if (vec) {
-      cudaFuncSetAttribute(embedding_bag_bwd_kernel<float, true, 4>,
+    ('''    if (vec == 4) BWD(float, 4, false);''',
+     '''    if (vec == 4) {
+      cudaFuncSetAttribute(embedding_bag_bwd_kernel<float, 4, 4, false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (kBwdThreads >> lanes_log2) * 16 *
                                static_cast<int>(D));
-      BWD(float, true);
-    } else BWD(float, false);'''),
-    ('''    embedding_bag_bwd_kernel<T, kVec, 4><<<grid, kBwdThreads, 0, s>>>(''',
-     '''    embedding_bag_bwd_kernel<T, kVec, 4><<<grid, kBwdThreads,
-        kVec && sizeof(T) == 4 ? (kBwdThreads >> lanes_log2) * 16 * D : 0,
+      BWD(float, 4, false);
+    }'''),
+    ('''    embedding_bag_bwd_kernel<T, VEC, 4, kFlat><<<grid, kBwdThreads, 0, s>>>(''',
+     '''    embedding_bag_bwd_kernel<T, VEC, 4, kFlat><<<grid, kBwdThreads,
+        VEC == 4 && sizeof(T) == 4 ? (kBwdThreads >> lanes_log2) * 16 * D : 0,
         s>>>('''),
 )
 
@@ -377,6 +395,39 @@ EMB_FWD_VARIANTS = {
 }
 EMB_FWD_THREADS = {"threads256": 256, "threads512": 512}
 
+# the narrow rows' streams with L2 hints: the outputs stored evict-first
+# (the forward's `stcs`), the ids and the scatter's d_out loaded
+# evict-first (`ldcs`), or both
+_LDCS = (("      if (j < n) id[j] = __ldg(p + j);",
+          "      if (j < n) id[j] = __ldcs(p + j);"),
+         ("      float2 g = __ldg(reinterpret_cast<const float2*>(src) + c);",
+          "      float2 g = __ldcs(reinterpret_cast<const float2*>(src) + "
+          "c);"))
+# the lane walk for f32 tables' and gradients' 8- and 4-byte words, the
+# design before the flat walk, chosen by the plan's lanes_log2 (-1: flat)
+_LANES = (
+    ("  // the flat walk: exactly an f32 table's 8- and 4-byte words\n"
+     "  const bool flat = !bf16 && vec < 4;",
+     "  const bool flat = lanes_log2 == -1;"),
+    ("  // the flat walk: exactly an f32 gradient's 8- and 4-byte words\n"
+     "  const bool flat = !bf16 && vec < 4;",
+     "  const bool flat = lanes_log2 == -1;"),
+    ("    else if (vec == 2) FWD(float, 2, true);\n"
+     "    else FWD(float, 1, true);",
+     "    else if (vec == 2 && flat) FWD(float, 2, true);\n"
+     "    else if (vec == 2) FWD(float, 2, false);\n"
+     "    else if (flat) FWD(float, 1, true);\n"
+     "    else FWD(float, 1, false);"),
+    ("    else if (vec == 2) BWD(float, 2, true);\n"
+     "    else BWD(float, 1, true);",
+     "    else if (vec == 2 && flat) BWD(float, 2, true);\n"
+     "    else if (vec == 2) BWD(float, 2, false);\n"
+     "    else if (flat) BWD(float, 1, true);\n"
+     "    else BWD(float, 1, false);"))
+NARROW_VARIANTS = {"stcs": EMB_FWD_VARIANTS["stcs"], "ldcs": _LDCS,
+                   "stream": EMB_FWD_VARIANTS["stcs"] + _LDCS,
+                   "lanes": _LANES}
+
 # two probe kernels on the forward's helpers (words, widening, stores),
 # for 16-byte loads, bags of 4 and "sum": the forward's body with 2 rows
 # a lane group (consecutive rows in memory order, both rows' 4 loads in
@@ -503,6 +554,182 @@ extern "C" int gather_rows(const void* tables, const int32_t* flat,
 }
 '''
 
+# the forward's flat walk for f32 tables and bags of one ("sum") with K
+# words a thread in flight: thread t takes words t, t + S, ..., t + (K -
+# 1) S of the grid's S threads, every word's id load, then every word's
+# table load, issued before the first store; its source's helpers
+FLAT_WORDS = r'''
+#include "embedding_bag.cu"
+namespace {
+template <int VEC, int K>
+__global__ void __launch_bounds__(kFwdThreads)
+flat_words_kernel(const float* __restrict__ tables,
+                  const int32_t* __restrict__ ids, float* __restrict__ out,
+                  int64_t rows, int64_t F, int64_t V, int64_t D,
+                  Div per_row, Div per_feat) {
+  using W = typename Word<float, VEC>::type;
+  const int64_t S = (int64_t)gridDim.x * kFwdThreads;
+  const int64_t t = (int64_t)blockIdx.x * kFwdThreads + threadIdx.x;
+  const int words = (int)(D / VEC);
+  int64_t row[K];
+  int c[K];
+  int32_t id[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    row[k] = quotient(t + k * S, words, per_row);
+    c[k] = (int)(t + k * S - row[k] * words);
+    id[k] = row[k] < rows ? __ldg(ids + row[k]) : -1;
+  }
+  const W* no_row = reinterpret_cast<const W*>(&g_no_row);
+  W w[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int64_t f = row[k] - quotient(row[k], F, per_feat) * F;
+    w[k] = __ldg(valid_id(id[k], V)
+                     ? reinterpret_cast<const W*>(
+                           tables + (f * V + id[k]) * D) + c[k]
+                     : no_row);
+  }
+  const float nan = __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (row[k] >= rows) continue;
+    float v[VEC], acc[VEC];
+    widen(w[k], v);
+    const bool ok = valid_id(id[k], V);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      acc[j] = 0.f;
+      acc[j] += ok ? v[j] : nan;
+    }
+    st_f32<VEC>(out + row[k] * D + c[k] * VEC, acc);
+  }
+}
+template <int VEC, int K>
+void flat_launch(unsigned blocks, cudaStream_t s, const float* tables,
+                 const int32_t* ids, float* out, int64_t rows, int64_t F,
+                 int64_t V, int64_t D, Div r, Div f) {
+  flat_words_kernel<VEC, K><<<blocks, kFwdThreads, 0, s>>>(
+      tables, ids, out, rows, F, V, D, r, f);
+}
+}  // namespace
+extern "C" int flat_words(const float* tables, const int32_t* ids,
+                          float* out, int64_t B, int64_t F, int64_t V,
+                          int64_t D, int32_t vec, int32_t k, int64_t blocks,
+                          int64_t row_magic, int32_t row_shift,
+                          int64_t feat_magic, int32_t feat_shift,
+                          void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const Div r{(uint32_t)row_magic, row_shift};
+  const Div f{(uint32_t)feat_magic, feat_shift};
+  const unsigned g = (unsigned)blocks;
+  if (D % vec || blocks * kFwdThreads * k < B * F * (D / vec))
+    return (int)cudaErrorInvalidValue;
+#define FLAT(V_, K_) \
+  if (vec == V_ && k == K_) \
+    flat_launch<V_, K_>(g, s, tables, ids, out, B * F, F, V, D, r, f);
+  FLAT(2, 1) FLAT(2, 2) FLAT(2, 4) FLAT(1, 1) FLAT(1, 2) FLAT(1, 4)
+#undef FLAT
+  return (int)cudaGetLastError();
+}
+'''
+
+# the scatter's flat walk for f32 gradients, D % 4 == 2 and bags of one
+# ("sum"), features walked one a group (gridDim.y), on its source's
+# helpers: mode 0, float2 words, K a thread (words t + k S of the group's
+# grid of S threads, every word's id and d_out loads before the first
+# RED); mode 1, the same REDs of 1.0 with no d_out read (the REDs and the
+# id loads alone); mode 2, D / 4 + 1 words a row, each a float4 RED where
+# the gradient row is 16-byte aligned there and a float2 at the row's
+# 8-byte aligned end (D / 4 float4s and one float2 a row, for D / 2
+# float2s), d_out read as float2s
+BWD_WORDS = r'''
+#include "embedding_bag.cu"
+namespace {
+template <int MODE, int K>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_words_kernel(const float* __restrict__ d_out,
+                 const int32_t* __restrict__ ids, float* __restrict__ grad,
+                 int64_t B, int64_t F, int64_t V, int64_t D, Div per_row) {
+  const int64_t f = blockIdx.y;
+  const int64_t S = (int64_t)gridDim.x * kBwdThreads;
+  const int64_t t = (int64_t)blockIdx.x * kBwdThreads + threadIdx.x;
+  const int words = MODE == 2 ? (int)(D / 4 + 1) : (int)(D / 2);
+  int64_t b[K];
+  int c[K];
+  int32_t id[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    b[k] = quotient(t + k * S, words, per_row);
+    c[k] = (int)(t + k * S - b[k] * words);
+    id[k] = b[k] < B ? __ldg(ids + b[k] * F + f) : -1;
+  }
+  float* dst = grad + f * V * D;
+  if constexpr (MODE == 2) {
+    const int m = (int)(D / 4);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!valid_id(id[k], V)) continue;
+      const float* src = d_out + (b[k] * F + f) * D;
+      float* row = dst + (int64_t)id[k] * D;
+      const bool a16 = (reinterpret_cast<uintptr_t>(row) & 15u) == 0;
+      const int off = a16 ? 4 * c[k] : (c[k] == 0 ? 0 : 4 * c[k] - 2);
+      const bool four = a16 ? c[k] < m : c[k] > 0;
+      const float2 lo = __ldg(reinterpret_cast<const float2*>(src + off));
+      if (four) {
+        const float2 hi =
+            __ldg(reinterpret_cast<const float2*>(src + off + 2));
+        atomicAdd(reinterpret_cast<float4*>(row + off),
+                  make_float4(lo.x, lo.y, hi.x, hi.y));
+      } else {
+        atomicAdd(reinterpret_cast<float2*>(row + off), lo);
+      }
+    }
+  } else {
+    float2 g[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      g[k] = MODE == 1 || !valid_id(id[k], V)
+                 ? make_float2(1.f, 1.f)
+                 : __ldg(reinterpret_cast<const float2*>(
+                             d_out + (b[k] * F + f) * D) + c[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (valid_id(id[k], V))
+        atomicAdd(reinterpret_cast<float2*>(dst + (int64_t)id[k] * D) +
+                      c[k], g[k]);
+    }
+  }
+}
+template <int MODE, int K>
+void words_launch(dim3 grid, cudaStream_t s, const float* d_out,
+                  const int32_t* ids, float* grad, int64_t B, int64_t F,
+                  int64_t V, int64_t D, Div r) {
+  bwd_words_kernel<MODE, K><<<grid, kBwdThreads, 0, s>>>(d_out, ids, grad,
+                                                         B, F, V, D, r);
+}
+}  // namespace
+extern "C" int bwd_words(const float* d_out, const int32_t* ids, float* grad,
+                         int64_t B, int64_t F, int64_t V, int64_t D,
+                         int32_t mode, int32_t k, int64_t blocks,
+                         int64_t row_magic, int32_t row_shift,
+                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t words = mode == 2 ? D / 4 + 1 : D / 2;
+  if (D % 4 != 2 || blocks * kBwdThreads * k < B * words || F > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)F);
+  const Div r{(uint32_t)row_magic, row_shift};
+#define WORDS(M_, K_) \
+  if (mode == M_ && k == K_) \
+    words_launch<M_, K_>(grid, s, d_out, ids, grad, B, F, V, D, r);
+  WORDS(0, 1) WORDS(0, 2) WORDS(1, 1) WORDS(2, 1) WORDS(2, 2)
+#undef WORDS
+  return (int)cudaGetLastError();
+}
+'''
+
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 
 
@@ -520,11 +747,15 @@ def build_variants(sections):
     own = SRC == os.path.join(ROOT, "src")
     if "embedding" in sections and own:
         sources["emb_probe"] = EMB_PROBE
+    if "narrow" in sections and own:
+        sources["flat_words"] = FLAT_WORDS
+        sources["bwd_words"] = BWD_WORDS
     for src, variants, section in (
             ("embedding_bag", SCATTER_VARIANTS, "scatter"),
             ("embedding_bag", SCATTER_BF16_VARIANTS, "scatter_bf16"),
             ("embedding_bag", EMB_FWD_VARIANTS,
              "embedding" if own else None),
+            ("embedding_bag", NARROW_VARIANTS, "narrow" if own else None),
             ("dot_interact", DOT_VARIANTS, "dot_bwd"),
             ("dot_interact", DOT_FWD_VARIANTS, "dot_fwd"),
             ("embedding_bag_fused", FUSED_VARIANTS, "fused")):
@@ -561,6 +792,13 @@ def build_variants(sections):
         elif name == "fused_rows":
             lib.fused_rows.argtypes = (_P, _P, _P, _I64, _I64, _I64, _I32,
                                        _I32, _I32, _P)
+        elif name == "flat_words":
+            lib.flat_words.argtypes = (_P, _P, _P, _I64, _I64, _I64, _I64,
+                                       _I32, _I32, _I64, _I64, _I32, _I64,
+                                       _I32, _P)
+        elif name == "bwd_words":
+            lib.bwd_words.argtypes = (_P, _P, _P, _I64, _I64, _I64, _I64,
+                                      _I32, _I32, _I64, _I64, _I32, _P)
         elif name == "emb_probe":
             lib.rows2.argtypes = (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                                   _I32, _P)
@@ -852,7 +1090,8 @@ def probe_embedding(cs, libs, wd, dlrm, model, cfg, gen):
                         status = vlib.embedding_bag_fwd(
                             table.data_ptr(), i.data_ptr(), out.data_ptr(),
                             b, n_f, rows, d, bag, 0, bf16, plan.vec,
-                            plan.lanes_log2, blocks, stream())
+                            plan.lanes_log2, blocks, *plan.per_row,
+                            *plan.per_feat, stream())
                         if status != 0:
                             raise RuntimeError(f"embedding_bag_fwd: CUDA "
                                                f"error {status}")
@@ -907,6 +1146,303 @@ def probe_embedding(cs, libs, wd, dlrm, model, cfg, gen):
         torch.cuda.empty_cache()
 
 
+def _lanes(words: int) -> int:
+    """The lane walk's lanes for a row of `words` words."""
+    lanes = 1
+    while lanes < 32 and lanes < words:
+        lanes *= 2
+    return lanes
+
+
+def _fwd_plan(b, f, d, vec, flat):
+    """embedding_bag_fwd's plan for ids (b, f, bag) into f32 tables of
+    width d, in words of `vec` floats on the flat or the lane walk."""
+    from repro_torch.kernels import embedding_bag as eb
+    words = d // vec
+    if flat:
+        blocks = -(-b * f * words // eb.FWD_THREADS)
+        threads = blocks * eb.FWD_THREADS
+        return eb.FwdPlan(vec, 0, blocks, eb.divisor(words, threads),
+                          eb.divisor(f, threads))
+    lanes = _lanes(words)
+    return eb.FwdPlan(vec, lanes, -(-b * f * lanes // eb.FWD_THREADS))
+
+
+def _bwd_plan(b, f, v, d, vec, flat):
+    """embedding_bag_bwd's plan (its feature groups) for d_out (b, f, d)
+    into an f32 gradient, in words of `vec` floats on the flat or the
+    lane walk."""
+    from repro_torch.kernels import embedding_bag as eb
+    plan = eb.bwd_plan(b, f, v, d)
+    words = d // vec
+    rows = b * min(plan.group, f)
+    if flat:
+        blocks = -(-rows * words // eb.BWD_THREADS)
+        return eb.BwdPlan(vec, 0, plan.group, plan.groups, blocks,
+                          eb.divisor(words, blocks * eb.BWD_THREADS))
+    lanes = _lanes(words)
+    return eb.BwdPlan(vec, lanes, plan.group, plan.groups,
+                      -(-rows * lanes // eb.BWD_THREADS))
+
+
+def probe_narrow(cs, libs, gen):
+    """The narrow-row lookups: see the module's docstring (`narrow`).
+    Each override and probe is first checked bitwise (the forward) or
+    against the kernel within rtol 1e-5 / atol 1e-6 (the scatter, d_out
+    non-negative); then all are timed in turns, two rounds, the second
+    in reverse order."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.dien import ARCH as DIEN_ARCH
+    from repro_torch.configs.wide_deep import ARCH as WD_ARCH
+    from repro_torch.configs.xdeepfm import ARCH as XD_ARCH
+    from repro_torch.kernels import build
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import LIBRARIES
+    dev = torch.device("cuda")
+    lib = LIBRARIES.get("embedding_bag")
+    path = str(build.library_path("embedding_bag"))
+    # the flat walk's instantiations (kFlat, mangled Lb1E)
+    for name, ops in sass_ops(path, ("LDG.", "LDL", "STL", "REDG.",
+                                     "ATOMG.", "ATOM."), "Lb1E").items():
+        print(f"sass {name}: {ops}")
+    own = "flat_words" in libs
+    # the walk and word overrides: the lane walk from the `lanes` variant
+    # (this checkout's only)
+    lanes = libs.get("embedding_bag_lanes")
+    walks = ((("lane walk, 4-byte words (before)", 1, False),
+              ("lane walk, 8-byte words", 2, False)) if own else ()) + \
+        (("flat walk, 4-byte words", 1, True),)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def check(status, what):
+        if status != 0:
+            raise RuntimeError(f"{what}: CUDA error {status}")
+
+    def fwd(table, out, plan, lib=lib):
+        f, v, d = table.shape
+
+        def call(i):
+            b, _, bag = i.shape
+            check(lib.embedding_bag_fwd(
+                table.data_ptr(), i.data_ptr(), out.data_ptr(), b, f, v, d,
+                bag, 0, 0, plan.vec, plan.lanes_log2, plan.blocks,
+                *plan.per_row, *plan.per_feat, stream()), "embedding_bag_fwd")
+        return call
+
+    def flat_words(table, out, vec, k):
+        f, v, d = table.shape
+
+        def call(i):
+            b = i.shape[0]
+            blocks = -(-b * f * (d // vec) // (eb.FWD_THREADS * k))
+            threads = blocks * eb.FWD_THREADS * k
+            check(libs["flat_words"].flat_words(
+                table.data_ptr(), i.data_ptr(), out.data_ptr(), b, f, v, d,
+                vec, k, blocks, *eb.divisor(d // vec, threads),
+                *eb.divisor(f, threads), stream()), "flat_words")
+        return call
+
+    def bwd(d_out, ids, grad, plan, lib=lib):
+        b, f, bag = ids.shape
+        _, v, d = grad.shape
+
+        def call():
+            check(lib.embedding_bag_bwd(
+                d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), b, f, v,
+                d, bag, 0, 0, plan.vec, plan.lanes_log2, plan.group,
+                plan.blocks, plan.groups, *plan.per_row, stream()),
+                "embedding_bag_bwd")
+        return call
+
+    def bwd_words(d_out, ids, grad, mode, k):
+        b, f, _ = ids.shape
+        _, v, d = grad.shape
+        words = d // 4 + 1 if mode == 2 else d // 2
+        blocks = -(-b * words // (eb.BWD_THREADS * k))
+
+        def call():
+            check(libs["bwd_words"].bwd_words(
+                d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), b, f, v,
+                d, mode, k, blocks,
+                *eb.divisor(words, blocks * eb.BWD_THREADS * k), stream()),
+                "bwd_words")
+        return call
+
+    def rounds(calls, bnd):
+        for rnd in range(2):
+            for name, call, args, kern in calls[::1 if rnd == 0 else -1]:
+                t = cs.time_ms(call, args, kernel=kern)
+                print(f"  {name}: {t.ms:.4f} ms, {t.wall:.4f} launch to "
+                      f"launch ({bnd / t.ms:.0%} of the bound)", flush=True)
+
+    lookups = []
+    for arch, tag in ((XD_ARCH, "xdeepfm_tables"), (DIEN_ARCH, "dien_hist")):
+        n = arch.shape("train_batch").batch // cs.SEQ_MICROBATCHES[
+            arch.arch_id]
+        sets = [cs._seq_lookups(arch.model, n, seed) for seed in (1, 2)]
+        lookups.append((tag, sets[0][tag][0], [(x[tag][1],) for x in sets]))
+    for tag, shape, id_sets in lookups:
+        f, v, d = shape
+        ids = id_sets[0][0]
+        b = ids.shape[0]
+        table = torch.empty(shape, device=dev).normal_(generator=gen)
+        flat_table = table.view(f * v, d)
+        offs = (torch.arange(f, device=dev) * v).view(1, f, 1)
+        flat = [((i.long() + offs).reshape(b * f),) for (i,) in id_sets]
+        feat = torch.arange(f, device=dev).view(1, f)
+        uniq = int(torch.unique(flat[0][0]).numel())
+        bnd, _ = cs.bound_ms(ids.numel() * 4 + uniq * d * 4 + b * f * d * 4,
+                             0)
+        out = torch.empty((b, f, d), device=dev)
+        want = eb.embedding_bag_fwd(table, ids)
+        print(f"narrow forward {tag}: ids {tuple(ids.shape)} into {shape}, "
+              f"{uniq} distinct rows; bound {bnd:.4f} ms; plan "
+              f"{eb.fwd_plan(b, f, d)}", flush=True)
+        calls = [("kernel", lambda i: eb.embedding_bag_fwd(table, i),
+                  id_sets, "embedding_bag_fwd_kernel")]
+        for name, vec, flat_walk in walks:
+            plan = _fwd_plan(b, f, d, vec, flat_walk)
+            calls.append((f"{name} {plan}", fwd(
+                table, out, plan, lib if flat_walk else lanes), id_sets,
+                "embedding_bag_fwd_kernel"))
+        if own:
+            for k in (1, 2, 4):
+                calls.append((f"flat walk, 8-byte words, {k} a thread",
+                              flat_words(table, out, 2, k), id_sets,
+                              "flat_words_kernel"))
+            for n in ("stcs", "ldcs", "stream"):
+                calls.append((f"variant {n}", fwd(
+                    table, out, eb.fwd_plan(b, f, d),
+                    libs[f"embedding_bag_{n}"]), id_sets,
+                    "embedding_bag_fwd_kernel"))
+        for name, call, _, _ in calls[1:]:
+            out.fill_(0)
+            call(ids)
+            if not torch.equal(out, want):
+                raise AssertionError(f"{tag} {name}: not bitwise the "
+                                     f"kernel")
+        calls += [("F.embedding", lambda x: F.embedding(x, flat_table), flat,
+                   None),
+                  ("F.embedding_bag", lambda x: F.embedding_bag(
+                      x.view(-1, 1), flat_table, mode="sum"), flat, None),
+                  ("plain indexing gather",
+                   lambda i: table[feat, i[..., 0].long()], id_sets, None)]
+        rounds(calls, bnd)
+        # the scatter, non-negative d_out
+        del out, want, flat_table
+        d_out = torch.rand((b, f, d), device=dev, generator=gen)
+        grad = torch.zeros_like(table)
+        del table
+        torch.cuda.empty_cache()
+        want = ref.embedding_bag_bwd_ref(d_out, ids, v)
+        bnd, _ = cs.bound_ms(d_out.numel() * 4 + ids.numel() * 4
+                             + 2 * uniq * d * 4, 0)
+        print(f"narrow scatter {tag}: bound {bnd:.4f} ms; plan "
+              f"{eb.bwd_plan(b, f, v, d)}", flush=True)
+        calls = [("kernel", lambda: eb.embedding_bag_scatter(d_out, ids,
+                                                             grad), [()],
+                  "embedding_bag_bwd_kernel")]
+        for name, vec, flat_walk in walks:
+            plan = _bwd_plan(b, f, v, d, vec, flat_walk)
+            calls.append((f"{name} {plan}", bwd(
+                d_out, ids, grad, plan, lib if flat_walk else lanes), [()],
+                "embedding_bag_bwd_kernel"))
+        if own:
+            for n in ("ldcs", "stream"):
+                calls.append((f"variant {n}", bwd(
+                    d_out, ids, grad, eb.bwd_plan(b, f, v, d),
+                    libs[f"embedding_bag_{n}"]), [()],
+                    "embedding_bag_bwd_kernel"))
+            for mode, k, name in ((0, 1, "float2 words, 1 a thread"),
+                                  (0, 2, "float2 words, 2 a thread"),
+                                  (2, 1, "float4 words where aligned"),
+                                  (2, 2, "float4 words where aligned, 2 a "
+                                         "thread")):
+                calls.append((f"probe {name}",
+                              bwd_words(d_out, ids, grad, mode, k), [()],
+                              "bwd_words_kernel"))
+        for name, call, _, _ in calls:
+            grad.zero_()
+            call()
+            for i in range(f):
+                cs._allclose(f"{tag} {name} f={i}", grad[i], want[i], 1e-5,
+                             1e-6)
+        if own:
+            calls.append(("probe the REDs alone (of 1.0, no d_out read)",
+                          bwd_words(d_out, ids, grad, 1, 1), [()],
+                          "bwd_words_kernel"))
+        del want
+        idx = flat[0][0]
+        src = d_out.view(b * f, d)
+        calls.append(("index_add_", lambda: grad.view(f * v, d).index_add_(
+            0, idx, src), [()], None))
+        rounds(calls, bnd)
+        del grad, d_out
+        torch.cuda.empty_cache()
+
+    # D = 1: the flat walk (the kernels' plans) and the lane walk
+    if not own:
+        return
+    cfg = XD_ARCH.model
+    linear = cs._seq_lookups(cfg, XD_ARCH.shape("train_batch").batch
+                             // cs.SEQ_MICROBATCHES["xdeepfm"], 1)
+    wide = torch.as_tensor(cs._criteo_batch(WD_ARCH.model, 65536, 1)[
+        "sparse_ids"]).to(dev)
+    for tag, ids, v in (("xdeepfm_linear", linear["xdeepfm_linear"][1],
+                         linear["xdeepfm_linear"][0][1]),
+                        ("wide arm", wide, WD_ARCH.model.vocab_sizes[0])):
+        b, f, bag = ids.shape
+        d_out = torch.rand((b, f, 1), device=dev, generator=gen)
+        grad = torch.zeros((f, v, 1), device=dev)
+        flat = (ids.long() + (torch.arange(f, device=dev) * v)
+                .view(1, f, 1)).reshape(-1)
+        uniq = int(torch.unique(flat).numel())
+        bnd, _ = cs.bound_ms(d_out.numel() * 4 + ids.numel() * 4
+                             + 2 * uniq * 4, 0)
+        table = torch.randn((f, v, 1), device=dev, generator=gen)
+        out = torch.empty((b, f, 1), device=dev)
+        plan = _fwd_plan(b, f, 1, 1, False)
+        print(f"narrow forward {tag} D = 1: ids {tuple(ids.shape)}; plan "
+              f"{eb.fwd_plan(b, f, 1)}", flush=True)
+        fwd(table, out, plan, lanes)(ids)
+        if not torch.equal(out, eb.embedding_bag_fwd(table, ids)):
+            raise AssertionError(f"{tag} D = 1 lane walk: not bitwise the "
+                                 f"kernel")
+        rounds([("kernel", lambda i: eb.embedding_bag_fwd(table, i), [(ids,)],
+                 "embedding_bag_fwd_kernel"),
+                (f"lane walk {plan}", fwd(table, out, plan, lanes), [(ids,)],
+                 "embedding_bag_fwd_kernel")],
+               cs.bound_ms(ids.numel() * 4 + uniq * 4 + b * f * 4, 0)[0])
+        del table, out
+        print(f"narrow scatter {tag} D = 1: ids {tuple(ids.shape)}; bound "
+              f"{bnd:.4f} ms; plan {eb.bwd_plan(b, f, v, 1)}", flush=True)
+        want = ref.embedding_bag_bwd_ref(d_out, ids, v)
+        plan = _bwd_plan(b, f, v, 1, 1, False)
+        calls = [("kernel", lambda: eb.embedding_bag_scatter(d_out, ids,
+                                                             grad), [()],
+                  "embedding_bag_bwd_kernel"),
+                 (f"lane walk {plan}", bwd(d_out, ids, grad, plan, lanes),
+                  [()], "embedding_bag_bwd_kernel")]
+        for name, call, _, _ in calls:
+            grad.zero_()
+            call()
+            for i in range(f):
+                cs._allclose(f"{tag} {name} f={i}", grad[i], want[i], 1e-5,
+                             1e-6)
+        del want
+        upd = d_out[:, :, None, :].expand(b, f, bag, 1).reshape(-1, 1) \
+            .contiguous()
+        calls.append(("index_add_", lambda: grad.view(f * v, 1).index_add_(
+            0, flat, upd), [()], None))
+        rounds(calls, bnd)
+        del grad, d_out, upd
+        torch.cuda.empty_cache()
+
+
 def probe_scatter_bf16(cs, libs, gen):
     """The bf16 scatter at dlrm-criteo's training shape: the kernel and
     its `atomic` variant in turns (two rounds, the second in reverse
@@ -925,7 +1461,7 @@ def probe_scatter_bf16(cs, libs, gen):
     d_out = torch.randn((b, n_f, d), device=dev, generator=gen) \
         .to(torch.bfloat16).float()
     grad = torch.zeros((n_f, rows, d), dtype=torch.bfloat16, device=dev)
-    plan = eb.bwd_plan(b, n_f, rows, d, True, 2)
+    plan = eb.bwd_plan(b, n_f, rows, d, 0, 2)
     print(f"scatter bf16 ({b}, {n_f}, {bag}) into ({n_f}, {rows}, {d}): "
           f"plan {plan}")
 
@@ -933,8 +1469,8 @@ def probe_scatter_bf16(cs, libs, gen):
         def run():
             status = lib.embedding_bag_bwd(
                 d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), b, n_f,
-                rows, d, bag, 0, 1, int(plan.vec > 1), plan.lanes_log2,
-                plan.group, plan.blocks, plan.groups,
+                rows, d, bag, 0, 1, plan.vec, plan.lanes_log2,
+                plan.group, plan.blocks, plan.groups, *plan.per_row,
                 torch.cuda.current_stream().cuda_stream)
             if status != 0:
                 raise RuntimeError(f"embedding_bag_bwd: CUDA error {status}")
@@ -994,13 +1530,18 @@ def main(sections) -> int:
         _, v, d = grad.shape
         plan = eb.bwd_plan(b, f, v, d)
         groups = -(-f // group)
-        blocks = -(-b * min(group, f) * plan.lanes // eb.BWD_THREADS)
+        # threads a row: its lanes, or its words on the flat walk
+        words = d // plan.vec
+        blocks = -(-b * min(group, f) * (plan.lanes or words)
+                   // eb.BWD_THREADS)
+        div = eb.divisor(words, blocks * eb.BWD_THREADS) if plan.lanes == 0 \
+            else eb.NO_DIV
 
         def call():
             status = lib.embedding_bag_bwd(
                 d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), b, f, v,
-                d, bag, 0, 0, int(plan.vec > 1), plan.lanes_log2, group,
-                blocks, groups, stream())
+                d, bag, 0, 0, plan.vec, plan.lanes_log2, group, blocks,
+                groups, *div, stream())
             if status != 0:
                 raise RuntimeError(f"embedding_bag_bwd: CUDA error {status}")
         return call
@@ -1121,12 +1662,14 @@ def main(sections) -> int:
         probe_sage(cs, gen)
     if "embedding" in sections:
         probe_embedding(cs, libs, wd, dlrm, MODEL, cfg, gen)
+    if "narrow" in sections:
+        probe_narrow(cs, libs, gen)
     print(f"card: {cs.card_line()}")
     return 0
 
 
 SECTIONS = ("fused", "dot_fwd", "sage", "embedding", "scatter", "dot_bwd",
-            "scatter_bf16")
+            "scatter_bf16", "narrow")
 
 if __name__ == "__main__":
     names = sys.argv[3:] if sys.argv[1:2] == ["--src"] else sys.argv[1:]

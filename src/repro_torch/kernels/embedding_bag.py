@@ -11,9 +11,10 @@ kernels do, and return f32; the backward reads an f32 d_out and writes
 the gradient in the tables' dtype, f32 or bf16.
 
 The launches are plans computed here, in plain Python that the CPU
-tests reach (`fwd_plan`: elements a load, threads a row, blocks;
-`fused_plan`: the same and the feature groups of its walk; `bwd_plan`:
-columns an atomic word, threads a row, the feature groups of its walk).
+tests reach (`fwd_plan`: elements a load, threads a row or the flat
+walk's divisors, blocks; `fused_plan`: the same and the feature groups
+of its walk; `bwd_plan`: columns an atomic word, threads a row or the
+flat walk's divisor, the feature groups of its walk).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -53,51 +55,96 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+class Div(NamedTuple):
+    """The flat walk's divisor of d: n // d = (n * magic) >> shift for
+    every 0 <= n < 2^31; magic 0 where the walk has indices of 2^31 or
+    more, which the kernel divides in 64 bits."""
+    magic: int
+    shift: int
+
+
+NO_DIV = Div(0, 0)
+
+
+def divisor(d: int, threads: int) -> Div:
+    """The divisor of d for a walk of `threads` indices (0 .. threads -
+    1): Granlund and Montgomery's round-up method, shift = 31 + ceil(log2
+    d) and magic = ceil(2^shift / d) < 2^32, exact for every n < 2^31
+    since (2^31 - 1) (magic d - 2^shift) < 2^shift; NO_DIV (the 64-bit
+    division) for a walk of more than 2^31 indices."""
+    if threads > 2 ** 31:
+        return NO_DIV
+    shift = 31 + (d - 1).bit_length()
+    return Div(_cdiv(1 << shift, d), shift)
+
+
 @dataclass(frozen=True)
 class BwdPlan:
-    vec: int          # columns a word: 4 (f32) or 8 (bf16), or 1
-    lanes: int        # threads a (b, f) row, a power of two <= 32
+    vec: int          # columns a word: 4 or 2 (f32) or 8 (bf16), or 1
+    lanes: int        # threads a (b, f) row, a power of two <= 32; 0: the
+                      # flat walk, a thread a word
     group: int        # features a group of the walk
     groups: int       # feature groups: the grid's y
     blocks: int       # blocks a group: the grid's x
+    per_row: Div = NO_DIV     # the flat walk: a word's row, // (d // vec)
 
     @property
     def lanes_log2(self) -> int:
         return self.lanes.bit_length() - 1
 
 
-def bwd_plan(b: int, f: int, v: int, d: int, aligned: bool = True,
+def bwd_plan(b: int, f: int, v: int, d: int, ptr: int = 0,
              elem: int = 4) -> BwdPlan:
     """The scatter's launch for d_out (b, f, d) f32 into grad (f, v, d) of
-    `elem`-byte elements: words of 16 bytes of d_out (float4 atomics into
-    an f32 grad, four bf16x2 atomics of 8 columns into a bf16 one) where
-    D is a multiple of the word and both tensors are 16-byte `aligned`,
-    else one column; lanes the power of two covering a row's words, at
-    most 32; feature groups of as many features as have gradient slices
-    (v x d x elem bytes) within BWD_L2_BYTES, at least 1 (and few enough
-    groups for the grid); blocks enough for b rows of a group's
-    features."""
-    word = 4 if elem == 4 else 8
-    vec = word if d % word == 0 and aligned else 1
-    lanes = 1
-    while lanes < 32 and lanes * vec < d:
-        lanes *= 2
+    `elem`-byte elements, both at addresses or'd into `ptr`: words of 16
+    bytes of d_out (float4 atomics into an f32 grad, four bf16x2 atomics
+    of 8 columns into a bf16 one) where D is a multiple of the word and
+    ptr 16-byte aligned; into an f32 grad next 8 bytes (float2 atomics)
+    where D is even and ptr 8-byte aligned; else one column. Feature
+    groups of as many features as have gradient slices (v x d x elem
+    bytes) within BWD_L2_BYTES, at least 1 (and few enough groups for the
+    grid). An f32 grad's narrower words take the flat walk (lanes 0): a
+    thread a word, blocks enough for a group's words, and the divisor of
+    a row's words (at D = 1 a thread a row). The rest take the lane walk:
+    lanes the power of two covering a row's words, at most 32, and blocks
+    enough for b rows of a group's features (a bf16 grad's single columns
+    keep it: no model takes them)."""
+    if elem == 4:
+        vec = load_width(d, 4, ptr, (16, 8))
+    else:
+        vec = 8 if d % 8 == 0 and ptr % 16 == 0 else 1
+    words = d // vec
     group = max(1, min(f, BWD_L2_BYTES // max(1, elem * v * d)),
                 _cdiv(f, _MAX_GROUPS))
+    rows = b * min(group, f)
+    if elem == 4 and vec < 4:
+        blocks = _cdiv(rows * words, BWD_THREADS)
+        return BwdPlan(vec, 0, group, _cdiv(f, group), blocks,
+                       divisor(words, blocks * BWD_THREADS))
+    lanes = 1
+    while lanes < 32 and lanes < words:
+        lanes *= 2
     return BwdPlan(vec, lanes, group, _cdiv(f, group),
-                   _cdiv(b * min(group, f) * lanes, BWD_THREADS))
+                   _cdiv(rows * lanes, BWD_THREADS))
 
 
 # the forward (csrc/embedding_bag.cu): blocks of 128 threads (about 1%
-# faster than 256 on the card, 512 slower: PERF.md)
+# faster than 256 on the card, 512 slower: PERF.md); its words: 16 bytes,
+# then 8 for f32 tables and 4 for bf16 ones; 2 words a thread on the flat
+# walk (kFlatWords)
 FWD_THREADS = 128
+FWD_WIDTHS = {4: (16, 8), 2: (16, 4)}
+FLAT_WORDS = 2
 
 
 @dataclass(frozen=True)
 class FwdPlan:
-    vec: int          # elements a load: 4 or 1 (f32); 8, 2 or 1 (bf16)
-    lanes: int        # threads a (b, f) row, a power of two <= 32
+    vec: int          # elements a word: 4, 2 or 1 (f32); 8, 2 or 1 (bf16)
+    lanes: int        # threads a (b, f) row, a power of two <= 32; 0: the
+                      # flat walk, FLAT_WORDS words a thread
     blocks: int       # blocks of FWD_THREADS
+    per_row: Div = NO_DIV     # the flat walk: a word's row, // (d // vec)
+    per_feat: Div = NO_DIV    # and the row's feature, row % f
 
     @property
     def lanes_log2(self) -> int:
@@ -108,13 +155,25 @@ class FwdPlan:
 def fwd_plan(b: int, f: int, d: int, elem: int = 4, ptr: int = 0
              ) -> FwdPlan:
     """The forward's launch for ids (b, f, bag) into tables (f, v, d) of
-    `elem`-byte elements at address `ptr` (or'd with the output's): loads
-    as wide as `load_width` allows; lanes the power of two covering a
-    row's loads, at most 32; blocks enough for every row, walked in
-    memory order."""
-    vec = load_width(d, elem, ptr)
+    `elem`-byte elements at address `ptr` (or'd with the output's): words
+    as wide as `load_width` allows of FWD_WIDTHS. An f32 table's narrower
+    words take the flat walk (lanes 0): words of the flattened output,
+    blocks enough for every word, and the divisors of a row's words and
+    of f. The rest take the lane walk: lanes
+    the power of two covering a row's words, at most 32, and blocks enough
+    for every row (a bf16 table's 4- and 2-byte words keep it: no model
+    takes them). Both walk the rows in memory order; the flat walk's
+    thread t takes words t + k S, k < FLAT_WORDS, of the grid's S
+    threads, and its divisors cover the FLAT_WORDS S word indices."""
+    vec = load_width(d, elem, ptr, FWD_WIDTHS[elem])
+    words = d // vec
+    if elem == 4 and vec < 4:
+        blocks = _cdiv(b * f * words, FWD_THREADS * FLAT_WORDS)
+        threads = blocks * FWD_THREADS * FLAT_WORDS
+        return FwdPlan(vec, 0, blocks, divisor(words, threads),
+                       divisor(f, threads))
     lanes = 1
-    while lanes < 32 and lanes * vec < d:
+    while lanes < 32 and lanes < words:
         lanes *= 2
     return FwdPlan(vec, lanes, _cdiv(b * f * lanes, FWD_THREADS))
 
@@ -140,11 +199,12 @@ class FusedPlan:
         return self.lanes.bit_length() - 1
 
 
-def load_width(d: int, elem: int, ptr: int) -> int:
+def load_width(d: int, elem: int, ptr: int, widths=(16, 4)) -> int:
     """Elements a load of a row of d elements of `elem` bytes at address
-    `ptr` (and every row after it): 16 bytes where d and ptr allow it; for
-    bf16 4 bytes next; else one element."""
-    for width in ((16, 4) if elem == 2 else (16,)):
+    `ptr` (and every row after it): the first of `widths` bytes, widest
+    first, that d and ptr allow; else one element. The fused forward's
+    are 16 bytes, then 4 (for bf16; one f32 element)."""
+    for width in widths:
         n = width // elem
         if d % n == 0 and ptr % width == 0:
             return n
@@ -230,7 +290,7 @@ def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
                                    out.data_ptr(), b, f, v, d, bag, mean,
                                    int(tables.dtype == torch.bfloat16),
                                    plan.vec, plan.lanes_log2, plan.blocks,
-                                   stream))
+                                   *plan.per_row, *plan.per_feat, stream))
     return out
 
 
@@ -276,16 +336,16 @@ def embedding_bag_scatter(d_out: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"d_out {tuple(d_out.shape)}, ids "
                          f"{tuple(ids.shape)} and grad {tuple(grad.shape)} "
                          f"do not match")
-    plan = bwd_plan(b, f, v, d, (d_out.data_ptr() | grad.data_ptr()) % 16
-                    == 0, grad.element_size())
+    plan = bwd_plan(b, f, v, d, (d_out.data_ptr() | grad.data_ptr()) % 16,
+                    grad.element_size())
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_bag_bwd", LIBRARIES.get("embedding_bag")
                 .embedding_bag_bwd(d_out.data_ptr(), ids.data_ptr(),
                                    grad.data_ptr(), b, f, v, d, bag, mean,
                                    int(grad.dtype == torch.bfloat16),
-                                   int(plan.vec > 1), plan.lanes_log2,
-                                   plan.group, plan.blocks, plan.groups,
+                                   plan.vec, plan.lanes_log2, plan.group,
+                                   plan.blocks, plan.groups, *plan.per_row,
                                    stream))
     return grad
 

@@ -116,6 +116,51 @@ def test_cuda_embedding_bag_bwd_skips_out_of_range_ids():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [6, 10, 18, 34])
+def test_cuda_embedding_bag_bwd_narrow_rows(d):
+    """The scatter at the even widths that are not multiples of 4 (the
+    flat walk: float2 atomics into a 16- or 8-byte aligned f32 gradient,
+    one column into one 4-byte aligned, a slice 0, 2 or 1 elements into a
+    buffer), over (5, 1000, D) and (5, 50, D) tables (ids repeat across
+    bags), B 1 and 300, bags of 1, 3, 4 and 17, sum and mean: random ids,
+    bags whose ids all repeat, and ids of -1 and V, which add nothing.
+    Non-negative d_out, against the plain version at rtol 1e-5 / atol
+    1e-6; the gradient's buffer outside the slice stays 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(300 + d)
+    f = 5
+    for v in (1000, 50):
+        for b in (1, 300):
+            for bag in (1, 3, 4, 17):
+                ids = torch.randint(0, v, (b, f, bag), device="cuda",
+                                    generator=gen, dtype=torch.int32)
+                bad = ids.clone()
+                bad[0, f - 1, 0] = -1
+                bad[b - 1, 0, bag - 1] = v
+                same = ids[..., :1].expand(b, f, bag).contiguous()
+                d_out = torch.rand((b, f, d), device="cuda", generator=gen)
+                ext = torch.where(bad < 0, v + 1,
+                                  torch.where(bad >= v, v, bad))
+                for combiner in ("sum", "mean"):
+                    for i in (ids, same, bad):
+                        _check_scatter(d_out, i, v, combiner)
+                    want = ref.embedding_bag_bwd_ref(
+                        d_out, ext, v + 2, combiner=combiner)[:, :v]
+                    for shift, vec in ((0, 2), (2, 2), (1, 1)):
+                        buf = torch.zeros(f * v * d + 2, device="cuda")
+                        grad = buf[shift:shift + f * v * d].view(f, v, d)
+                        plan = eb.bwd_plan(b, f, v, d,
+                                           grad.data_ptr() % 16)
+                        assert (plan.vec, plan.lanes) == (vec, 0)
+                        eb.embedding_bag_scatter(d_out, bad, grad, combiner)
+                        torch.testing.assert_close(grad, want, rtol=1e-5,
+                                                   atol=1e-6)
+                        assert not buf[:shift].any()
+                        assert not buf[shift + f * v * d:].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("f,d", [(2, 4), (27, 128), (27, 10), (60, 32)])
 def test_cuda_dot_interact_bwd_matches_plain_version(f, d):
     """dot_interact_bwd against its plain version (rtol 1e-5, atol 1e-4,
@@ -508,29 +553,35 @@ def test_cuda_ops_differentiate_bf16_inputs():
 # ---- embedding_bag_fwd, lanes a row from its host plan -----------------
 
 # D: the models' (1, 32, 128) and around them; every load width of both
-# dtypes, lanes from 1 to 32, and rows of more loads than lanes (132 f32)
-EB_FWD_DS = [1, 2, 3, 5, 8, 32, 33, 128, 132]
+# dtypes, lanes from 1 to 32, and rows of more loads than lanes (132 f32);
+# the even widths that are not multiples of 4 (6, xDeepFM's 10, DIEN's 18,
+# 34), which f32 tables walk flat in 8-byte words
+EB_FWD_DS = [1, 2, 3, 5, 6, 8, 10, 18, 32, 33, 34, 128, 132]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", EB_FWD_DS)
 def test_cuda_embedding_bag_fwd_is_bitwise_the_plain_version(d):
     """embedding_bag_fwd bit for bit (torch.equal and the same f32 bit
-    patterns) against ref.embedding_bag_ref, sum and mean: f32 tables and
-    bf16 ones 16-, 2- and 4-byte aligned (a slice 0, 1 or 2 elements into
-    a buffer); B 1 and 37; bags 1, 3, 4, 16 and 17 (the unroll bounds
-    and a bag walked in chunks); one launch a call. Ids of -1 and V make
-    exactly their own rows NaN and leave every other row equal."""
+    patterns) against ref.embedding_bag_ref, sum and mean: f32 tables 16-,
+    4- and 8-byte aligned and bf16 ones 16-, 2- and 4-byte aligned (a
+    slice 0, 1 or 2 elements into a buffer: the f32 table at +1 element
+    takes 4-byte words); B 1 and 37; bags 1, 3, 4, 16 and 17 (the unroll
+    bounds and a bag walked in chunks); one launch a call. Ids of -1 and
+    V make exactly their own rows NaN and leave every other row equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(100 + d)
     for f, v in ((3, 1000), (5, 300)):
         buf = torch.randn(f * v * d + 2, device="cuda", generator=gen)
-        for dtype, shift in ((torch.float32, 0), (BF16, 0), (BF16, 1),
+        for dtype, shift in ((torch.float32, 0), (torch.float32, 1),
+                             (torch.float32, 2), (BF16, 0), (BF16, 1),
                              (BF16, 2)):
             tables = buf.to(dtype)[shift:shift + f * v * d].view(f, v, d)
             align = tables.data_ptr() % 16
-            assert align == (0, 2, 4)[shift] * (dtype == BF16)
+            assert align == shift * tables.element_size()
+            if dtype == torch.float32 and shift == 1:
+                assert eb.fwd_plan(37, f, d, 4, align).vec == 1
             for b in (1, 37):
                 for bag in (1, 3, 4, 16, 17):
                     ids = torch.randint(0, v, (b, f, bag), device="cuda",

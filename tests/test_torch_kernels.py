@@ -247,6 +247,41 @@ def test_embedding_bag_grad_matches_jax(combiner):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("bag", [1, 3])
+@pytest.mark.parametrize("d", [10, 18])
+def test_embedding_bag_narrow_rows_match_jax(d, bag, combiner):
+    """xDeepFM's D = 10 and DIEN's 18 (the rows the kernels walk flat,
+    in 8-byte words), bags of 1 and 3 with a repeated id: the port's
+    `ops.embedding_bag` against the reference's Pallas kernel in interpret
+    mode (rtol 1e-6: the same f32 sum, j ascending) and its gradient
+    against jax.grad of the reference's oracle (rtol 1e-6, atol 1e-6)."""
+    rng = np.random.RandomState(d + bag)
+    f, v, b = 3, 50, 24
+    tables = rng.randn(f, v, d).astype(np.float32)
+    ids = rng.randint(0, v, (b, f, bag)).astype(np.int32)
+    ids[0, :, -1] = ids[0, :, 0]
+    w = rng.randn(b, f, d).astype(np.float32)
+    t = torch.from_numpy(tables).requires_grad_(True)
+    got = ops.embedding_bag(t, torch.from_numpy(ids), combiner=combiner)
+    np.testing.assert_allclose(
+        got.detach().numpy(), _jax_bags(jops.embedding_bag, tables, ids,
+                                        combiner, interpret=True),
+        rtol=1e-6, atol=0)
+    (got * torch.from_numpy(w)).sum().backward()
+
+    def j_loss(x):
+        out = jnp.stack([jref.embedding_bag_ref(x[i], ids[:, i],
+                                                combiner=combiner)
+                         for i in range(f)], axis=1)
+        return jnp.sum(out * w)
+
+    np.testing.assert_allclose(t.grad.numpy(),
+                               np.asarray(jax.grad(j_loss)(
+                                   jnp.asarray(tables))),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_dot_interact_grad_matches_jax():
     rng = np.random.RandomState(2)
     feats = rng.randn(6, 7, 16).astype(np.float32)
@@ -404,54 +439,188 @@ def test_sage_fwd_plan_at_the_path_shapes():
 
 # (b, f, v, d): the wide-deep arms and the DLRM at small batches, every D
 # the card tests take, F not a multiple of the group, a feature group
-# holding every feature, B = 1
+# holding every feature, B = 1; the even widths that are not multiples of
+# 4 (8-byte words): D = 6, xDeepFM's 10, DIEN's 18 and 34
 EB_BWD_CASES = [(33, 40, 2 ** 20, 1), (5, 6, 2 ** 20, 32),
                 (7, 26, 2 ** 16, 128), (37, 3, 1000, 10), (1, 7, 5, 132),
                 (4, 7, 2 ** 20, 1), (16, 9, 2 ** 18, 1), (9, 5, 300, 2),
-                (9, 5, 300, 3), (9, 5, 300, 5), (9, 5, 300, 8)]
+                (9, 5, 300, 3), (9, 5, 300, 5), (9, 5, 300, 8),
+                (9, 5, 300, 6), (33, 3, 2 ** 16, 18), (5, 4, 700, 34)]
+
+
+def _quotient(n, div: "eb.Div", d: int):
+    """csrc/embedding_bag.cu's `quotient`, vectorized: (n * magic) >>
+    shift in 64 bits, or n // d where the plan's magic is 0."""
+    n = np.asarray(n, dtype=np.int64)
+    if div.magic == 0:
+        return n // d
+    assert (n < 2 ** 31).all()
+    return ((n.astype(np.uint64) * np.uint64(div.magic))
+            >> np.uint64(div.shift)).astype(np.int64)
+
+
+def _walk_words(plan, threads: int, rows: int, words: int,
+                per_thread: int = 1):
+    """(row, word) of each thread's words, as csrc/embedding_bag.cu walks
+    the (rows, words) words with `threads` threads: the lane walk (thread
+    t is lane t % lanes of row t // lanes, its words lane, lane + lanes,
+    ...) or the flat walk (lanes 0: thread t takes the words t + k
+    threads, k < per_thread)."""
+    t = np.arange(threads, dtype=np.int64)
+    if plan.lanes == 0:
+        t = (t[None, :] + threads * np.arange(per_thread)[:, None]).ravel()
+        row = _quotient(t, plan.per_row, words)
+        live = row < rows
+        return row[live], (t - row * words)[live]
+    row, lane = t >> plan.lanes_log2, t & (plan.lanes - 1)
+    live = row < rows
+    row, lane = row[live], lane[live]
+    rs, cs = [], []
+    for k in range(-(-words // plan.lanes)):
+        c = lane + k * plan.lanes
+        rs.append(row[c < words])
+        cs.append(c[c < words])
+    return np.concatenate(rs), np.concatenate(cs)
+
+
+def _check_walk(plan, words: int):
+    """A plan's walk: the flat walk (lanes 0), with the divisor of a
+    row's words for the plan's grid; or the lane walk, lanes the least
+    power of two covering a row's words (or 32)."""
+    if plan.lanes == 0:
+        threads = plan.blocks * (eb.BWD_THREADS
+                                 if isinstance(plan, eb.BwdPlan)
+                                 else eb.FWD_THREADS * eb.FLAT_WORDS)
+        assert plan.per_row == eb.divisor(words, threads)
+    else:
+        assert plan.lanes in (1, 2, 4, 8, 16, 32)
+        assert plan.lanes >= words or plan.lanes == 32
+        assert plan.lanes == 1 or plan.lanes < 2 * words
+        assert plan.per_row == eb.NO_DIV
 
 
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("b,f,v,d", EB_BWD_CASES)
 def test_embedding_bag_bwd_plan_covers_every_row_once(b, f, v, d, aligned):
     """The scatter's index map, simulated as csrc/embedding_bag.cu walks
-    it: every (b, f) row is taken by exactly `lanes` threads, lanes 0 ..
-    lanes - 1 once each; the lanes times the vector width cover D (or are
-    32); a feature group's gradient slices fit the L2 budget unless the
-    group is 1; float4 atomics only where D % 4 == 0 and aligned."""
-    plan = eb.bwd_plan(b, f, v, d, aligned)
-    assert plan.vec == (4 if d % 4 == 0 and aligned else 1)
-    assert plan.lanes in (1, 2, 4, 8, 16, 32)
-    assert plan.lanes * plan.vec >= d or plan.lanes == 32
-    assert plan.lanes == 1 or plan.lanes * plan.vec < 2 * d
-    assert 1 <= plan.group <= f
-    assert plan.group == 1 or plan.group * v * d * 4 <= eb.BWD_L2_BYTES
-    assert plan.group == f or (plan.group + 1) * v * d * 4 > eb.BWD_L2_BYTES
-    seen = np.zeros((b, f, plan.lanes), dtype=np.int64)
-    t = np.arange(plan.blocks * eb.BWD_THREADS)
-    slot, lane = t >> plan.lanes_log2, t & (plan.lanes - 1)
-    assert plan.groups == -(-f // plan.group)
-    for gy in range(plan.groups):
-        f0 = gy * plan.group
-        size = min(plan.group, f - f0)
-        live = slot < b * size
-        np.add.at(seen, (slot[live] // size, f0 + slot[live] % size,
-                         lane[live]), 1)
-    assert (seen == 1).all()
+    it, with d_out and grad 16-byte aligned or (not `aligned`) 8- and
+    4-byte aligned: every (b, f, word) of d_out is taken by exactly one
+    thread; float4 atomics only where D % 4 == 0 and 16-byte aligned,
+    float2 ones only where D is even and 8-byte aligned, else one column;
+    the flat walk (a thread a word, its row by the plan's divisor) for
+    float2s and columns in rows of more than one word, the lane walk for
+    the rest; a feature
+    group's gradient slices fit the L2 budget unless the group is 1."""
+    for ptr in ((0,) if aligned else (8, 4)):
+        plan = eb.bwd_plan(b, f, v, d, ptr)
+        assert plan.vec == (4 if d % 4 == 0 and ptr % 16 == 0 else
+                            2 if d % 2 == 0 and ptr % 8 == 0 else 1)
+        words = d // plan.vec
+        assert (plan.lanes == 0) == (plan.vec < 4)
+        _check_walk(plan, words)
+        assert 1 <= plan.group <= f
+        assert plan.group == 1 or plan.group * v * d * 4 <= eb.BWD_L2_BYTES
+        assert plan.group == f or \
+            (plan.group + 1) * v * d * 4 > eb.BWD_L2_BYTES
+        seen = np.zeros((b, f, words), dtype=np.int64)
+        assert plan.groups == -(-f // plan.group)
+        for gy in range(plan.groups):
+            f0 = gy * plan.group
+            size = min(plan.group, f - f0)
+            slot, c = _walk_words(plan, plan.blocks * eb.BWD_THREADS,
+                                  b * size, words)
+            np.add.at(seen, (slot // size, f0 + slot % size, c), 1)
+        assert (seen == 1).all()
 
 
 def test_embedding_bag_bwd_plan_at_the_path_shapes():
-    # wide-deep's wide arm: a thread a row, groups of 2 features (8 MiB
-    # of its 4 MiB slices), 20 groups of 512 blocks; its deep tables: 8
-    # lanes (4 rows a warp), one feature a group (128 MiB a slice); the
-    # DLRM's D = 128: a warp a row
-    assert eb.bwd_plan(65536, 40, 2 ** 20, 1) == eb.BwdPlan(1, 1, 2, 20, 512)
+    # wide-deep's wide arm: the flat walk of a thread a row, groups of 2
+    # features (8 MiB of its 4 MiB slices), 20 groups of 512 blocks; its
+    # deep tables: 8 lanes (4 rows a warp), one feature a group (128 MiB
+    # a slice); the DLRM's D = 128: a warp a row
+    assert eb.bwd_plan(65536, 40, 2 ** 20, 1) == eb.BwdPlan(
+        1, 0, 2, 20, 512, eb.Div(2 ** 31, 31))
     assert eb.bwd_plan(65536, 40, 2 ** 20, 32) == eb.BwdPlan(4, 8, 1, 40,
                                                              2048)
     assert eb.bwd_plan(2048, 26, 2 ** 20, 128) == eb.BwdPlan(4, 32, 1, 26,
                                                              256)
-    # unaligned: scalar atomics, 32 lanes over 128 floats
-    assert eb.bwd_plan(2048, 26, 2 ** 20, 128, False).lanes == 32
+    # 4-byte aligned: scalar atomics on the flat walk, a thread a column
+    unaligned = eb.bwd_plan(2048, 26, 2 ** 20, 128, 4)
+    assert (unaligned.vec, unaligned.lanes, unaligned.blocks) == (1, 0, 1024)
+
+
+def test_embedding_bag_narrow_plans_at_the_xdeepfm_and_dien_shapes():
+    """The two narrow-row lookups of the sequence models at a driver
+    microbatch, f32 and aligned: 8-byte words on the flat walk, 5 a row
+    at xDeepFM's D = 10 and 9 at DIEN's 18, with 32-bit divisors (the
+    walks are far below 2^31 threads); xDeepFM's linear arm (D = 1) a
+    thread a row, in feature groups of 2."""
+    # xDeepFM's tables, ids (32768, 39, 1) into (39, 2^20, 10)
+    assert eb.fwd_plan(32768, 39, 10) == eb.FwdPlan(
+        2, 0, 24960, eb.Div(3435973837, 34), eb.Div(3524075731, 37))
+    assert eb.bwd_plan(32768, 39, 2 ** 20, 10) == eb.BwdPlan(
+        2, 0, 1, 39, 640, eb.Div(3435973837, 34))
+    # DIEN's history, ids (6553600, 1, 1) into (1, 2^20, 18)
+    assert eb.fwd_plan(6553600, 1, 18) == eb.FwdPlan(
+        2, 0, 230400, eb.Div(3817748708, 35), eb.Div(2 ** 31, 31))
+    assert eb.bwd_plan(6553600, 1, 2 ** 20, 18) == eb.BwdPlan(
+        2, 0, 1, 1, 230400, eb.Div(3817748708, 35))
+    # xDeepFM's linear arm through the scatter
+    assert eb.bwd_plan(32768, 39, 2 ** 20, 1) == eb.BwdPlan(
+        1, 0, 2, 20, 256, eb.Div(2 ** 31, 31))
+    # the same tables 4-byte aligned: 4-byte words, still flat
+    fwd = eb.fwd_plan(32768, 39, 10, 4, 4)
+    assert (fwd.vec, fwd.lanes, fwd.blocks) == (1, 0, 49920)
+    bwd = eb.bwd_plan(6553600, 1, 2 ** 20, 18, 4)
+    assert (bwd.vec, bwd.lanes, bwd.blocks) == (1, 0, 460800)
+
+
+# d: every row width up to 40 and around powers of two; the divisors of
+# the path's rows (5, 9 words; 39 features); the largest a row can have
+_DIVISORS = list(range(1, 41)) + [63, 64, 65, 127, 128, 129, 1000, 4097,
+                                  65535, 2 ** 20 + 1, 2 ** 31 - 1]
+
+
+@pytest.mark.parametrize("d", _DIVISORS)
+def test_flat_walk_divisor_is_exact_below_2_31(d):
+    """`divisor(d, threads)`: for a walk of at most 2^31 threads, magic <
+    2^32 and shift = 31 + ceil(log2 d) with (2^31 - 1) (magic d -
+    2^shift) < 2^shift, which makes (n magic) >> shift == n // d for every
+    0 <= n < 2^31 (the error n (magic d - 2^shift) / (d 2^shift) stays
+    under 1 / d); checked against // at both ends of that range, around
+    multiples of d across it and at random points. Above 2^31 threads the
+    64-bit division takes over (NO_DIV)."""
+    div = eb.divisor(d, 2 ** 31)
+    assert 0 < div.magic < 2 ** 32 and div.shift == 31 + (d - 1).bit_length()
+    eps = div.magic * d - 2 ** div.shift
+    assert 0 <= eps and (2 ** 31 - 1) * eps < 2 ** div.shift
+    rng = np.random.RandomState(d % 2 ** 31)
+    k = np.concatenate([np.arange(1, 2 ** 12),
+                        rng.randint(1, max(2, 2 ** 31 // d), 2 ** 14),
+                        (2 ** 31 - 1) // d - np.arange(min(2 ** 12,
+                                                           2 ** 31 // d))])
+    n = np.concatenate([np.arange(2 ** 16), 2 ** 31 - 1 - np.arange(2 ** 16),
+                        rng.randint(0, 2 ** 31, 2 ** 16),
+                        (k * d)[k * d < 2 ** 31],
+                        (k * d - 1)[(k * d - 1 < 2 ** 31) & (k * d >= 1)]])
+    np.testing.assert_array_equal(_quotient(n, div, d), n // d)
+    assert eb.divisor(d, 2 ** 31 + 1) == eb.NO_DIV
+    assert eb.divisor(d, 2 ** 31) == div
+
+
+def test_flat_walk_takes_64_bit_indices_above_2_31_threads():
+    """A walk of more than 2^31 threads (2^28 bags at D = 18, 2.4e9
+    words) gets no 32-bit divisor: the kernel divides in 64 bits; one
+    just under keeps it."""
+    big = eb.fwd_plan(2 ** 28, 1, 18)
+    assert big.lanes == 0 and \
+        big.blocks * eb.FWD_THREADS * eb.FLAT_WORDS > 2 ** 31
+    assert big.per_row == eb.NO_DIV and big.per_feat == eb.NO_DIV
+    assert eb.bwd_plan(2 ** 28, 1, 2 ** 20, 18).per_row == eb.NO_DIV
+    rows = 2 ** 31 // 9 // eb.FWD_THREADS * eb.FWD_THREADS
+    small = eb.fwd_plan(rows, 1, 18)
+    assert small.blocks * eb.FWD_THREADS * eb.FLAT_WORDS <= 2 ** 31
+    assert small.per_row == eb.divisor(9, 2 ** 31)
 
 
 # (b, f, d, ptr): the DLRM shape and the card tests' (F, D) pairs, at B 1,
@@ -915,8 +1084,10 @@ def test_embedding_bag_fused_plan_at_the_path_shapes():
 
 # ---- the forward's host plan (csrc/embedding_bag.cu) -------------------
 
-# D: the models' (1, 32, 128) and around them; (b, f): B 1, 37 and 65536
-EB_FWD_DS = [1, 2, 3, 5, 8, 32, 33, 128, 132]
+# D: the models' (1, 32, 128) and around them, and the even widths that
+# are not multiples of 4 (6, xDeepFM's 10, DIEN's 18, 34); (b, f): B 1,
+# 37 and 65536
+EB_FWD_DS = [1, 2, 3, 5, 6, 8, 10, 18, 32, 33, 34, 128, 132]
 EB_FWD_BF = [(1, 5), (37, 5), (65536, 2)]
 
 
@@ -926,41 +1097,48 @@ EB_FWD_BF = [(1, 5), (37, 5), (65536, 2)]
 def test_embedding_bag_fwd_plan_covers_every_load_once(d, b, f, elem):
     """The forward's index map, simulated as csrc/embedding_bag.cu walks
     it, at every pointer alignment a table of `elem`-byte elements can
-    have: loads as wide as D and the pointer allow; lanes the least power
-    of two covering a row's loads (or 32); every (b, f, load word) taken
-    by exactly one thread; a grid within CUDA's limits and no block more
-    than the rows need; the 32-bit remainder that gives a row's feature
-    agrees with the 64-bit one; and each bag of 1, 3, 4, 16 or 17 ids is
+    have: words as wide as D and the pointer allow (f32: 16 bytes where D
+    % 4 == 0, 8 where D is even, both at their alignment; bf16: 16, then
+    4 bytes); the flat walk (a thread a word, its row and feature by the
+    plan's divisors) for an f32 table's 8- and 4-byte words in rows of
+    more than one, the lane walk (lanes the least power of two covering a
+    row's words, or 32) for the rest; every (b, f, word) taken by exactly
+    one thread; a grid
+    within CUDA's limits and no block more than the words need; the row's
+    feature agrees with row % f; and each bag of 1, 3, 4, 16 or 17 ids is
     walked j ascending, each slot once, in chunks of the unroll bound
     (the plan does not depend on the bag)."""
     for ptr in ((0, 4, 8) if elem == 4 else (0, 2, 4)):
         plan = eb.fwd_plan(b, f, d, elem, ptr)
-        assert plan.vec == eb.load_width(d, elem, ptr)
+        assert plan.vec == eb.load_width(d, elem, ptr, eb.FWD_WIDTHS[elem])
         if elem == 4:
-            assert plan.vec == (4 if d % 4 == 0 and ptr % 16 == 0 else 1)
+            assert plan.vec == (4 if d % 4 == 0 and ptr % 16 == 0 else
+                                2 if d % 2 == 0 and ptr % 8 == 0 else 1)
         else:
             assert plan.vec == (8 if d % 8 == 0 and ptr % 16 == 0 else
                                 2 if d % 2 == 0 and ptr % 4 == 0 else 1)
         words = d // plan.vec
         assert words * plan.vec == d
-        assert plan.lanes in (1, 2, 4, 8, 16, 32)
-        assert plan.lanes >= words or plan.lanes == 32
-        assert plan.lanes == 1 or plan.lanes < 2 * words
+        assert (plan.lanes == 0) == (elem == 4 and plan.vec < 4)
+        _check_walk(plan, words)
+        # words a thread: FLAT_WORDS on the flat walk; threads a row: lanes
+        k, per_row = (eb.FLAT_WORDS, words) if plan.lanes == 0 \
+            else (1, plan.lanes)
         assert 1 <= plan.blocks <= 2 ** 31 - 1
-        assert (plan.blocks - 1) * eb.FWD_THREADS < b * f * plan.lanes \
-            <= plan.blocks * eb.FWD_THREADS
-        t = np.arange(plan.blocks * eb.FWD_THREADS, dtype=np.int64)
-        row, lane = t >> plan.lanes_log2, t & (plan.lanes - 1)
-        live = row < b * f
-        row, lane = row[live], lane[live]
+        assert (plan.blocks - 1) * eb.FWD_THREADS * k < b * f * per_row \
+            <= plan.blocks * eb.FWD_THREADS * k
+        row, c = _walk_words(plan, plan.blocks * eb.FWD_THREADS, b * f,
+                             words, k)
         assert b * f <= 2 ** 31 - 1
-        assert (row.astype(np.uint32) % np.uint32(f) == row % f).all()
-        seen = np.zeros(b * f * words, dtype=np.int64)
-        for k in range(-(-words // plan.lanes)):
-            c = lane + k * plan.lanes
-            seen += np.bincount((row * words + c)[c < words],
-                                minlength=seen.size)
-        assert (seen == 1).all()
+        if plan.lanes == 0:
+            feat = row - _quotient(row, plan.per_feat, f) * f
+            assert plan.per_feat == eb.divisor(f, plan.blocks * k
+                                               * eb.FWD_THREADS)
+        else:
+            feat = row.astype(np.uint32) % np.uint32(f)
+        assert (feat == row % f).all()
+        seen = np.bincount(row * words + c, minlength=b * f * words)
+        assert seen.size == b * f * words and (seen == 1).all()
     for bag in (1, 3, 4, 16, 17):
         unroll = 4 if bag <= 4 else 16
         walked = [j0 + j for j0 in range(0, bag, unroll)
@@ -980,5 +1158,12 @@ def test_embedding_bag_fwd_plan_at_the_path_shapes():
     assert eb.fwd_plan(2048, 26, 128, 2) == eb.FwdPlan(8, 16, 6656)
     assert eb.fwd_plan(2048, 26, 128, 2, 4) == eb.FwdPlan(2, 32, 13312)
     # the wide arm through the row kernel (where the fused one does not
-    # fire): a thread a row
-    assert eb.fwd_plan(65536, 40, 1) == eb.FwdPlan(1, 1, 20480)
+    # fire): the flat walk, 2 rows a thread
+    assert eb.fwd_plan(65536, 40, 1) == eb.FwdPlan(
+        1, 0, 10240, eb.Div(2 ** 31, 31), eb.divisor(40, 2 ** 21))
+    # a 4-byte aligned f32 table at D = 32: 4-byte words on the flat walk
+    # (a warp a row); an 8-byte aligned one: 8-byte words (2 rows a warp)
+    plan = eb.fwd_plan(65536, 40, 32, 4, 4)
+    assert (plan.vec, plan.lanes, plan.blocks) == (1, 0, 327680)
+    plan = eb.fwd_plan(65536, 40, 32, 4, 8)
+    assert (plan.vec, plan.lanes, plan.blocks) == (2, 0, 163840)

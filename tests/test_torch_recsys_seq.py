@@ -543,20 +543,22 @@ def test_checkpoint_round_trip_jax_port_jax(tmp_path):
 
 
 # ------------------------------------------------------ kernel launches ---
-@pytest.mark.parametrize("d,vec,lanes", [(10, 1, 16), (18, 1, 32),
-                                         (64, 4, 16), (1, 1, 1)])
+@pytest.mark.parametrize("d,vec,lanes", [(10, 2, 0), (18, 2, 0),
+                                         (64, 4, 16), (1, 1, 0)])
 def test_embedding_plans_at_the_new_widths(d, vec, lanes):
     """The row kernel's and the scatter's launch plans at xDeepFM's D =
     10, DIEN's 18, BERT4Rec's 64 and the linear arm's 1, f32 and 16-byte
-    aligned: scalar words where D is not a multiple of 4, lanes the power
-    of two covering a row; and BERT4Rec's candidate gather at train_batch
+    aligned: 8-byte words on the flat walk (lanes 0) where D is even and
+    not a multiple of 4, a float on it at D = 1, float4s on lanes the
+    power of two covering a row at D = 64; and BERT4Rec's candidate gather at train_batch
     without microbatching (65536 x 20 x 128 rows) within the grid's
     2^31 - 1 blocks (the kernels index threads in 64 bits)."""
     from repro_torch.kernels import embedding_bag as eb
     rows = 8192 * 20 * 128
     fwd = eb.fwd_plan(rows, 1, d)
     assert (fwd.vec, fwd.lanes) == (vec, lanes)
-    assert fwd.blocks * eb.FWD_THREADS >= rows * lanes
+    assert fwd.blocks * eb.FWD_THREADS * (1 if lanes else eb.FLAT_WORDS) \
+        >= rows * (lanes or d // vec)
     bwd = eb.bwd_plan(rows, 1, 1048592, d)
     assert (bwd.vec, bwd.lanes, bwd.groups) == (vec, lanes, 1)
     full = eb.fwd_plan(65536 * 20 * 128, 1, d)
