@@ -36,8 +36,10 @@ exits non-zero without printing a result:
               bf16 ulps (rtol 2^-7, atol 1e-4). Times each kernel, its
               plain version and one PyTorch library call (device time
               from torch.profiler, from a window that holds every launch
-              of the kernel: see time_ms; launch-to-launch time from CUDA
-              events), in f32 and, for the forwards, in bf16.
+              of the kernel and whose clock reads its reference spins
+              within 8% of their CUDA-event time: see time_ms;
+              launch-to-launch time from CUDA events), in f32 and, for
+              the forwards, in bf16.
   3. model    DLRM forward + loss + backward through the kernels against
               the same model through the plain versions (2^16 rows, same
               parameters and batch): loss rtol 1e-5, each gradient within
@@ -49,6 +51,29 @@ exits non-zero without printing a result:
               2): loss finite, every kernel launched at least once a step.
   5. profile  one train step at the slice configuration under
               torch.profiler: device time by kernel.
+
+The closed loop scored and resumed (slice 11), at the same widths:
+
+  4a. idle_tail  run_proc held by a FrozenPolicy at the allocation the
+              tuner served in an earlier run's tail, [2, 1, 1, 7, 1], for
+              30 steps: loss finite, the allocation held, every kernel
+              launched; each window's produced, consumed, batches, wall,
+              settling flag, output queue and idle reading printed (the
+              loop phase prints its own beside them).
+  5a. train_feed  benchmarks/torch_fig_train_feed.py --model
+              dlrm-criteo-1m --smoke: the even, static_best and intune
+              arms, 80 steps each from the same seeded weights; each
+              arm's losses finite and at least one scored window, every
+              DLRM kernel launched; prints each arm's tail idle, step
+              time, final workers, windows and idle series, and the idle
+              reduction against even (report-only at smoke size). The
+              intune arm's agent is pretrained (60 episodes of 300 ticks)
+              in a process started before the build, on the last core.
+  5b. checkpoint  run_proc with rows cut to 2^16 a table saves at step
+              3; a second run_proc resumes with no step left, and its
+              parameters, adagrad state and tuner (Q-network, agent steps,
+              allocation) are bitwise the first's; a third trains 2 steps
+              on, loss finite. The free disk is printed first.
 
 GraphSAGE minibatch training (slice 2), graphsage-reddit at the
 minibatch_lg widths: 1024 seed nodes, fanout 15-10, 602 features,
@@ -223,11 +248,13 @@ scatter embedding_bag_bwd as the backward of each:
               other; host-clock seconds of each and peak memory.
 
 Launch counts are set to 0 just before each main path (the DLRM loop,
-the GNN loop, the wide-deep loop, the dlrm-criteo driver, the xDeepFM,
+the held loop, the train-feed arms, the checkpoint round trip, the GNN
+loop, the wide-deep loop, the dlrm-criteo driver, the xDeepFM,
 DIEN and BERT4Rec drivers) and read just after it; the `kernels` line
-reports each kernel's count from its own path (embedding_bag_fwd and
-_bwd from the DLRM loop, with their wide-deep counts beside, the DLRM
-kernels' dlrm-criteo counts in their `dlrm_criteo` sub-records, and the
+reports each kernel's count from its own path (the DLRM kernels from
+the DLRM loop, with `idle_tail_launches`, `train_feed_launches` and
+`checkpoint_launches` beside; embedding_bag_fwd and _bwd with their
+wide-deep counts beside too, the DLRM kernels' dlrm-criteo counts in their `dlrm_criteo` sub-records, and the
 embedding kernels' counts on each of the three drivers in the
 sub-records of that model's lookups: `xdeepfm_tables`,
 `xdeepfm_linear`, `dien_hist`, `bert4rec_seq`, `bert4rec_cand`).
@@ -268,6 +295,14 @@ BF16_RTOL = 2.0 ** -7
 
 STEPS = 40
 TUNE_EVERY = 2
+# the closed loop held at the allocation InTune served in the tail of an
+# earlier run, where its windows read idle 1.0 (PERF.md §5)
+IDLE_TAIL_WORKERS = (2, 1, 1, 7, 1)
+IDLE_TAIL_STEPS = 30
+# the checkpoint round trip: the slice configuration's widths with its
+# rows cut to 2^16 a table (0.87 GB of tables, as much adagrad state)
+CKPT_ROWS = 1 << 16
+CKPT_STEPS = 4
 GNN_STEPS = 20
 
 RECSYS_STEPS = 20
@@ -321,15 +356,80 @@ def bound_ms(n_bytes: float, flops: float):
 # kernel under test is taken again.
 SENTINEL = "spin_kernel"
 
+# A window can also hold every launch and read every one short: one
+# window of xDeepFM's embedding_bag_fwd read all 20 launches at 34.5-35.2
+# us where the other windows of the same call read 72.0-74.7 us, and its
+# short sentinels by the same factor, 0.47 (10.38 us for 16 against
+# 21.73-21.93); another read both at 0.88 (H100; PERF.md §6). The window's
+# timestamps ran at a wrong rate, not the kernel: CUDA events around the
+# same calls read 0.077 ms. So each window also opens and closes with one
+# reference spin of REF_CYCLES, timed beforehand by CUDA events
+# (`spin_ms`), and a window that reads either of them more than CLOCK_TOL
+# off that time is refused as a short window is. Windows that read right
+# put the spin at 0.942-1.033 of its CUDA-event time, median 0.981 (the
+# events' own cost), over 320 windows with and without 12 busy host
+# processes (kernel_probes.py profiler); the tolerance takes them and
+# refuses the 0.47 and 0.88 windows. Each window also waits PAD_S on the
+# host at either end: without the wait, three windows in a row once lost
+# 3, 10 and all 20 launches; with it, a window that lost launches lost 2
+# or 3, at one end, and the next held all. Taking up to WINDOW_TRIES
+# windows, not 3, leaves room for the windows the clock refuses; each one
+# taken meets every check.
+REF_CYCLES = 400_000        # about 0.2 ms at the H100's clock
+CLOCK_TOL = 0.08
+PAD_S = 0.05
+WINDOW_TRIES = 5
+
 
 def settle(attempt: int = 0):
     """The sentinel launches at either end of a profiled window, on an
-    idle card."""
+    idle card, after PAD_S of host time: the reference spin, then the
+    short ones."""
     import torch
     torch.cuda.synchronize()
+    time.sleep(PAD_S)
+    torch.cuda._sleep(REF_CYCLES)
     for _ in range(8 * (1 + attempt)):
         torch.cuda._sleep(1000)
     torch.cuda.synchronize()
+
+
+def spin_ms() -> float:
+    """The device time of one reference spin, torch.cuda._sleep(
+    REF_CYCLES), from CUDA events around it while a spin twice as long
+    holds the card (the spin is queued before the first event fires, so
+    the events bracket it and not its launch): the least of 3."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    best = math.inf
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2 * REF_CYCLES)
+        start.record()
+        torch.cuda._sleep(REF_CYCLES)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def window_clock(prof, ref_ms: float):
+    """The window's reading of its reference spins over their CUDA-event
+    time (`spin_ms`): (least, largest) ratio of the two, or None if the
+    profiler recorded neither."""
+    spins = sorted(((e.time_range.end - e.time_range.start) / 1e3
+                    for e in prof.events()
+                    if SENTINEL in e.name and e.device_type.name == "CUDA"),
+                   reverse=True)[:2]
+    # the reference spins are the window's two longest; a short sentinel
+    # is 1000 cycles
+    spins = [ms for ms in spins if ms > ref_ms / 4]
+    return (min(spins) / ref_ms, max(spins) / ref_ms) if spins else None
+
+
+def clock_ok(clock) -> bool:
+    return clock is not None and 1 - CLOCK_TOL <= clock[0] \
+        and clock[1] <= 1 + CLOCK_TOL
 
 
 class Timing(NamedTuple):
@@ -337,13 +437,17 @@ class Timing(NamedTuple):
     wall: float       # launch to launch a call (CUDA events)
     events: int       # device events of the kernel under test (or of the
                       # call) in the profiled window
+    clock: tuple = None   # the window's reading of its reference spins
+                          # over their CUDA-event time (least, largest)
 
 
 def _profiled(fn, args_list, calls: int, attempt: int):
-    """(device events, {name: events}, summed device us) of `calls` calls
+    """(profile, {name: events}, summed device us, clock) of `calls` calls
     cycling through `args_list`, in one torch.profiler window opened and
-    closed by the sentinel launches (left out)."""
+    closed by the sentinel launches (left out); `clock` is
+    `window_clock`'s."""
     from torch.profiler import ProfilerActivity, profile
+    ref_ms = spin_ms()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         settle(attempt)
         for i in range(calls):
@@ -352,7 +456,8 @@ def _profiled(fn, args_list, calls: int, attempt: int):
     device = [e for e in prof.key_averages()
               if e.self_device_time_total > 0 and SENTINEL not in e.key]
     return (prof, {e.key: e.count for e in device},
-            sum(e.self_device_time_total for e in device))
+            sum(e.self_device_time_total for e in device),
+            window_clock(prof, ref_ms))
 
 
 def time_ms(fn, args_list, iters: int = 20, kernel: str = None) -> Timing:
@@ -369,7 +474,9 @@ def time_ms(fn, args_list, iters: int = 20, kernel: str = None) -> Timing:
     count of two, or of up to five while they come back empty). The
     profiler has lost events (a window with none, or with 14 of 20
     launches, whose sum then read low; see SENTINEL), and a short window
-    is profiled again; three short ones in a row fail."""
+    is profiled again; WINDOW_TRIES short ones in a row fail. So is a
+    window whose clock reads its reference spins more than CLOCK_TOL off
+    their CUDA-event time (`window_clock`)."""
     import torch
     for a in args_list[:2]:
         fn(*a)
@@ -396,12 +503,19 @@ def time_ms(fn, args_list, iters: int = 20, kernel: str = None) -> Timing:
         need, what = iters * per_call, f"the call ({per_call} a call)"
     else:
         need, what = iters, kernel
-    for attempt in range(3):
-        prof, counts, device_us = _profiled(fn, args_list, iters, attempt)
+    for attempt in range(WINDOW_TRIES):
+        prof, counts, device_us, clock = _profiled(fn, args_list, iters,
+                                                   attempt)
         events = sum(n for k, n in counts.items()
                      if kernel is None or kernel in k)
+        if events >= need and clock_ok(clock):
+            return Timing(device_us / 1e3 / iters, wall, events, clock)
         if events >= need:
-            return Timing(device_us / 1e3 / iters, wall, events)
+            print(f"  torch.profiler read {device_us / 1e3 / iters:.4f} ms "
+                  f"a call of {what} from a window with all {events} events "
+                  f"whose clock read its reference spins at {clock} of "
+                  f"their CUDA-event time; profiling again", flush=True)
+            continue
         spans = sorted((e.time_range.start, e.time_range.end)
                        for e in prof.events()
                        if kernel is not None and kernel in e.name
@@ -409,10 +523,15 @@ def time_ms(fn, args_list, iters: int = 20, kernel: str = None) -> Timing:
         span = (f"; the recorded ones span {spans[-1][1] - spans[0][0]:.1f}"
                 f" us, {sum(b - a for a, b in spans) / len(spans):.1f} us "
                 f"each" if spans else "")
+        sentinels = sum(1 for e in prof.events() if SENTINEL in e.name
+                        and e.device_type.name == "CUDA")
         print(f"  torch.profiler recorded {events} of {need} events of "
-              f"{what} in {iters} calls{span}; profiling again", flush=True)
-    raise RuntimeError(f"torch.profiler recorded fewer than {need} events "
-                       f"of {what} in 3 tries")
+              f"{what} in {iters} calls{span}, {sentinels} of "
+              f"{2 * (1 + 8 * (1 + attempt))} sentinels, window clock "
+              f"{clock}; profiling again", flush=True)
+    raise RuntimeError(f"torch.profiler gave no full window of {what} in "
+                       f"{WINDOW_TRIES} tries: each held fewer than {need} "
+                       f"events or read its reference spins off")
 
 
 def kernel_record(tag, t: Timing, plain: Timing, lib, bound, err,
@@ -423,11 +542,13 @@ def kernel_record(tag, t: Timing, plain: Timing, lib, bound, err,
     read from, its bound, its max abs error."""
     bms, by = bound
     lib_s = "none" if lib is None else f"{lib.ms:.4f}"
-    print(f"  {tag}: {t.ms:.4f} ms on the card ({t.events} events), "
+    print(f"  {tag}: {t.ms:.4f} ms on the card ({t.events} events, window "
+          f"clock {t.clock[0]:.3f}-{t.clock[1]:.3f}), "
           f"{t.wall:.4f} ms launch to launch (plain {plain.ms:.4f}, library "
           f"{lib_s}, bound {bms:.4f} by {by}; {bms / t.ms:.0%} of the "
           f"bound), max abs err {err:.3e}", flush=True)
     return {"ms": t.ms, "wall_ms": t.wall, "events": t.events,
+            "window_clock": t.clock,
             "plain_ms": plain.ms, "plain_events": plain.events,
             "library_ms": None if lib is None else lib.ms,
             "library_events": None if lib is None else lib.events,
@@ -963,8 +1084,10 @@ def phase_loop(cfg) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.train_dlrm_criteo import run_proc
 
+    # no checkpoint: one of the slice configuration is about 28 GB
     args = SimpleNamespace(steps=STEPS, batch=2048, tune_every=TUNE_EVERY,
-                           finetune_ticks=90, device="cuda", seed=0)
+                           finetune_ticks=90, device="cuda", seed=0,
+                           ckpt_dir=None, ckpt_every=0)
     ops.reset_launch_counts()
     res = run_proc(args, cfg)
     counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
@@ -983,19 +1106,227 @@ def phase_loop(cfg) -> dict:
     summary["device_idle_trace"] = res["device_idle_trace"]
     summary["launches"] = counts
     print("  loop " + json.dumps(summary))
+    print_windows("loop", res["windows"])
     torch.cuda.synchronize()
+    return counts
+
+
+def print_windows(tag, windows):
+    """Each tuning window's raw readings (FeedBackend): idle is
+    1 - min(batches, produced) * device step / wall, so it reads 1.0
+    exactly when the pipe delivered nothing in the window."""
+    for w in windows:
+        print(f"  {tag} window " + json.dumps(w))
+    ones = [w for w in windows if w["idle"] >= 1.0]
+    print(f"  {tag}: {len(ones)} of {len(windows)} windows read idle 1.0; "
+          f"produced in them {[w['produced'] for w in ones]}, batches "
+          f"{[w['batches'] for w in ones]}, out queue "
+          f"{[w['out_queue'] for w in ones]} at prefetch MB "
+          f"{[w['prefetch_mb'] for w in ones]}, settling "
+          f"{[w['settling'] for w in ones]}", flush=True)
+
+
+def phase_idle_tail(cfg) -> dict:
+    """The closed loop held by a FrozenPolicy at IDLE_TAIL_WORKERS, the
+    tuner's served allocation in the tail of an earlier run (run_proc at
+    the slice configuration, IDLE_TAIL_STEPS steps, tune every 2, the
+    launch prefetch of 32 MB): loss finite, every DLRM kernel launched;
+    prints each window's readings beside the tuned loop's."""
+    import numpy as np
+    import torch
+    from repro_torch.api import FrozenPolicy
+    from repro_torch.data.simulator import Allocation
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_dlrm_criteo import run_proc
+
+    args = SimpleNamespace(steps=IDLE_TAIL_STEPS, batch=2048,
+                           tune_every=TUNE_EVERY, finetune_ticks=90,
+                           device="cuda", seed=0, ckpt_dir=None,
+                           ckpt_every=0)
+    policy = FrozenPolicy(Allocation(np.array(IDLE_TAIL_WORKERS), 32.0))
+    ops.reset_launch_counts()
+    res = run_proc(args, cfg, policy=policy)
+    counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"loss not finite: {res['losses']}")
+    short = {k: n for k, n in counts.items() if n < IDLE_TAIL_STEPS}
+    if short:
+        raise AssertionError(f"kernels launched fewer than "
+                             f"{IDLE_TAIL_STEPS} times: {short}")
+    held = [w["workers"] for w in res["windows"][1:]]
+    if any(w != list(IDLE_TAIL_WORKERS) for w in held):
+        raise AssertionError(f"the frozen allocation moved: {held}")
+    print(f"  idle_tail at {list(IDLE_TAIL_WORKERS)}: "
+          f"{res['samples_per_s']:.1f} samples/s, "
+          f"{res['loop_step_s'] * 1e3:.1f} ms a loop step against a "
+          f"{res['device_step_s'] * 1e3:.2f} ms device step; launches "
+          f"{counts}", flush=True)
+    print_windows("idle_tail", res["windows"])
+    torch.cuda.synchronize()
+    return counts
+
+
+def start_agent_pretrain():
+    """Pretrains the intune arm's agent for 5-stage pipelines
+    (benchmarks/torch_common.get_agent_state: 60 episodes of 300 ticks on
+    the analytic simulator, cached under build/agents) in a process of
+    its own, on the host's last core and one thread, while the card runs
+    the phases before train_feed. Returns the process."""
+    core = (os.cpu_count() or 1) - 1
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    return subprocess.Popen(
+        [sys.executable, "-c", "from benchmarks import torch_common; "
+         "torch_common.get_agent_state(5)"], cwd=ROOT, env=env,
+        preexec_fn=lambda: os.sched_setaffinity(0, {core}))
+
+
+def phase_train_feed(agent_proc) -> dict:
+    """benchmarks/torch_fig_train_feed.py at --model dlrm-criteo-1m
+    --smoke: the three arms (even, static_best, intune) of TRAIN_FEED
+    steps each, from the same seeded weights, on the card: every arm's
+    loss finite and at least one scored tick, every DLRM kernel launched;
+    prints each arm's tail idle, step time, final workers, ticks and idle
+    series, and the idle reduction against even (report-only at smoke
+    size, as in the reference)."""
+    import torch
+    from benchmarks import torch_fig_train_feed as tff
+    from repro_torch.kernels import ops
+
+    t0 = time.monotonic()
+    rc = agent_proc.wait(timeout=600)
+    if rc != 0:
+        raise RuntimeError(f"the agent's pretraining exited {rc}")
+    print(f"  agent pretrained (waited {time.monotonic() - t0:.1f} s)",
+          flush=True)
+    losses = {}
+    ops.reset_launch_counts()
+    payload = tff.main(["--model", "dlrm-criteo-1m", "--smoke"],
+                       losses=losses)
+    counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
+    summary = {k: payload[k] for k in (
+        "model", "device", "batch", "steps", "device_step_time_s",
+        "idle_reduction_vs_even", "step_time_reduction_vs_even",
+        "pass_20pct_bar")}
+    summary["arms"] = {}
+    for name, arm in payload["arms"].items():
+        loss = torch.stack(losses[name]).float().cpu()
+        if len(loss) != payload["steps"] or not torch.isfinite(loss).all():
+            raise AssertionError(f"train_feed {name}: {len(loss)} losses, "
+                                 f"not all finite: {loss.tolist()}")
+        if arm["ticks"] < 1:
+            raise AssertionError(f"train_feed {name}: no scored tick")
+        summary["arms"][name] = dict(
+            {k: arm[k] for k in ("idle_frac", "step_time_s", "workers_final",
+                                 "ticks", "idle_series", "teardown")},
+            loss_first=float(loss[0]), loss_last=float(loss[-1]))
+    missing = [k for k, n in counts.items() if n < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the train_feed "
+                             f"path: {missing}")
+    summary["launches"] = counts
+    print("  train_feed " + json.dumps(summary), flush=True)
+    return counts
+
+
+def phase_checkpoint(cfg) -> dict:
+    """The launcher's checkpoint round trip on the card, at the slice
+    configuration's widths with CKPT_ROWS rows a table (a full-width
+    checkpoint is about 28 GB): run_proc saves at step CKPT_STEPS - 1; a
+    second run_proc with the same directory and no step left to run
+    resumes, and its parameters, adagrad state and tuner state (the
+    Q-network's weights, its step count and the allocation) are held
+    bitwise against the first run's; a third trains 2 steps on from the
+    checkpoint, loss finite."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_dlrm_criteo import run_proc
+
+    cut = dataclasses.replace(cfg, name=f"{cfg.name}-rows-2^16",
+                              vocab_sizes=(CKPT_ROWS,) * cfg.n_sparse)
+    d = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    state_gb = 2 * cfg.n_sparse * CKPT_ROWS * cfg.embed_dim * 4 / 1e9
+    free_gb = shutil.disk_usage(d).free / 1e9
+    print(f"  {cut.name}: rows cut 2^20 -> 2^16 a table, so a checkpoint "
+          f"holds about {state_gb:.2f} GB of tables and adagrad state; "
+          f"{free_gb:.1f} GB free on the disk of {d}", flush=True)
+    if free_gb < 4 * state_gb:
+        raise RuntimeError(f"{free_gb:.1f} GB free, under the "
+                           f"{4 * state_gb:.1f} GB the round trip writes")
+    args = dict(batch=2048, tune_every=TUNE_EVERY, finetune_ticks=90,
+                device="cuda", seed=0, ckpt_dir=d, ckpt_every=CKPT_STEPS)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        first = run_proc(SimpleNamespace(steps=CKPT_STEPS, **args), cut)
+        save_s = time.monotonic() - t0
+        counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
+        short = {k: n for k, n in counts.items() if n < CKPT_STEPS}
+        if short:
+            raise AssertionError(f"kernels launched fewer than {CKPT_STEPS} "
+                                 f"times: {short}")
+        t0 = time.monotonic()
+        again = run_proc(SimpleNamespace(steps=CKPT_STEPS, **args), cut)
+        restore_s = time.monotonic() - t0
+        if again["start"] != CKPT_STEPS or again["losses"]:
+            raise AssertionError(f"resumed at {again['start']}, not "
+                                 f"{CKPT_STEPS}")
+        named = dict(again["model"].named_parameters())
+        bad = [k for k, p in first["model"].named_parameters()
+               if not torch.equal(p, named[k])]
+        bad += [f"acc/{k}" for k, a in first["opt_state"]["acc"].items()
+                if not torch.equal(a, again["opt_state"]["acc"][k])]
+        st1, st2 = first["tuner"].state_dict(), again["tuner"].state_dict()
+        bad += [f"qnet/{layer}/{k}" for layer, p in st1["agent"]["qnet"].items()
+                for k, v in p.items()
+                if not np.array_equal(v, st2["agent"]["qnet"][layer][k])]
+        bad += [k for k in ("workers", "prefetch_mb") if st1[k] != st2[k]]
+        if st1["agent"]["steps"] != st2["agent"]["steps"]:
+            bad.append("agent steps")
+        if bad:
+            raise AssertionError(f"restored state differs: {bad}")
+        n_params = len(named)
+        del first, again, named
+        torch.cuda.empty_cache()
+        on = run_proc(SimpleNamespace(steps=CKPT_STEPS + 2, **args), cut)
+        if on["start"] != CKPT_STEPS or len(on["losses"]) != 2 or \
+                not all(math.isfinite(x) for x in on["losses"]):
+            raise AssertionError(f"resumed run: start {on['start']}, "
+                                 f"losses {on['losses']}")
+        ckpt_gb = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(d) for f in fs) / 1e9
+        print(f"  checkpoint: saved at step {CKPT_STEPS - 1} (run "
+              f"{save_s:.1f} s), resumed with {n_params} parameters, "
+              f"{n_params} adagrad accumulators and the tuner (agent steps "
+              f"{st1['agent']['steps']}, workers {st1['workers']}, prefetch "
+              f"{st1['prefetch_mb']} MB) bitwise (run {restore_s:.1f} s); "
+              f"2 more steps from step {on['start']}, losses "
+              f"{on['losses']}; {ckpt_gb:.2f} GB on disk; launches "
+              f"{counts}", flush=True)
+        del on
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
     return counts
 
 
 def profile_steps(step, steps: int, kernels=()):
     """Device time by kernel of `steps` calls of step(k), k = 0, 1, ...:
     torch.profiler over a window that opens and closes with the sentinel
-    launches (as time_ms's), taken again (up to 3 times) until it holds
-    `steps` events of each name in `kernels`. Returns ([(kernel, device ms
+    launches (as time_ms's), taken again (up to WINDOW_TRIES times) until it holds
+    `steps` events of each name in `kernels` and its clock reads its
+    reference spins right (`window_clock`). Returns ([(kernel, device ms
     a step)] by time, host-clock ms a step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(3):
+    for attempt in range(WINDOW_TRIES):
+        ref_ms = spin_ms()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             settle(attempt)
             t0 = time.monotonic()
@@ -1008,6 +1339,9 @@ def profile_steps(step, steps: int, kernels=()):
         short = {k: n for k in kernels
                  for n in [sum(e.count for e in events if k in e.key)]
                  if n < steps}
+        clock = window_clock(prof, ref_ms)
+        if not clock_ok(clock):
+            short["window clock"] = clock
         if not short:
             rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
                            for e in events if SENTINEL not in e.key),
@@ -1016,7 +1350,7 @@ def profile_steps(step, steps: int, kernels=()):
         print(f"  torch.profiler recorded {short} events in {steps} steps; "
               f"profiling again", flush=True)
     raise RuntimeError(f"torch.profiler recorded too few events in {steps} "
-                       f"steps in 3 tries: {short}")
+                       f"steps in {WINDOW_TRIES} tries: {short}")
 
 
 def phase_profile(cfg):
@@ -2217,7 +2551,8 @@ def phase_dlrm_driver_profile(arch):
     device_ms = sum(ms for _, ms in rows)
     print(f"  dlrm-criteo train step: {device_ms:.3f} ms of device time in "
           f"{wall_ms:.3f} ms of host-clock time (profiled); launches in the "
-          f"window (3 steps, each window taken at most 3 times) "
+          f"window (3 steps, each window taken at most {WINDOW_TRIES} "
+          f"times) "
           f"{launches}")
     for name, ms in rows[:14]:
         print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
@@ -2721,6 +3056,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
               file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    agent_proc = start_agent_pretrain()
+    try:
+        return run_phases(agent_proc)
+    finally:
+        if agent_proc.poll() is None:
+            agent_proc.kill()
+        agent_proc.wait()
+
+
+def run_phases(agent_proc) -> int:
+    import torch
     from repro_torch.configs.dlrm_criteo import ARCH as DLRM_ARCH
     from repro_torch.configs.dlrm_criteo import MODEL
     from repro_torch.configs.bert4rec import ARCH as B4R_ARCH
@@ -2731,11 +3082,6 @@ def main() -> int:
     gnn_shape = GNN_ARCH.shape("minibatch_lg")
     gnn_cfg = GNN_ARCH.model
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     with Phase("build"):
         phase_build()
     with Phase("kernels"):
@@ -2749,8 +3095,21 @@ def main() -> int:
     with Phase("loop"):
         launches = phase_loop(MODEL)
     torch.cuda.empty_cache()
+    with Phase("idle_tail"):
+        tail_launches = phase_idle_tail(MODEL)
+    torch.cuda.empty_cache()
     with Phase("profile"):
         phase_profile(MODEL)
+    torch.cuda.empty_cache()
+    with Phase("train_feed"):
+        feed_launches = phase_train_feed(agent_proc)
+    torch.cuda.empty_cache()
+    with Phase("checkpoint"):
+        ckpt_launches = phase_checkpoint(MODEL)
+    for name in DLRM_KERNELS:
+        recs[name].update(idle_tail_launches=tail_launches[name],
+                          train_feed_launches=feed_launches[name],
+                          checkpoint_launches=ckpt_launches[name])
     torch.cuda.empty_cache()
     with Phase("graph"):
         sampler = build_graph(gnn_shape, gnn_cfg)

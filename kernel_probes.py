@@ -68,6 +68,15 @@ CUDA events launch to launch). Sections (all when none is named):
             forward there, on the flat walk (their plans) and on the
             lane walk (a thread a row). The loads, local memory and
             reductions of the narrow instantiations (cuobjdump -sass).
+  profiler  torch.profiler's windows against CUDA events, at xDeepFM's
+            embedding_bag_fwd (ids (32768, 39, 1) into (39, 2^20, 10)):
+            PROFILER_WINDOWS windows of 20 calls each (chip_smoke's
+            `_profiled`), the host quiet and with 12 busy processes, with
+            and without chip_smoke's host wait at either end of a window
+            (PAD_S); per window, the device time a call, the least and
+            largest duration of its launches, the sum of the short
+            sentinels and the window clock (chip_smoke.window_clock);
+            beside them, CUDA events around single calls.
   scatter_bf16  embedding_bag_bwd into a bf16 gradient at dlrm-criteo's
             training shape, ids (65536, 26, 1) of the synthetic Criteo
             stream into (26, 2^22, 128): its bf16x2 REDs against the
@@ -1492,6 +1501,98 @@ def probe_scatter_bf16(cs, libs, gen):
     torch.cuda.empty_cache()
 
 
+PROFILER_WINDOWS = 40
+
+
+def _busy(stop):
+    """A host process that spins until `stop` is set (the profiler
+    section's load)."""
+    x = 0
+    while not stop.is_set():
+        for i in range(100_000):
+            x += i * i
+
+
+def probe_profiler(cs, gen):
+    import multiprocessing as mp
+    import statistics
+
+    import torch
+    from repro_torch.configs.xdeepfm import ARCH as XD_ARCH
+    from repro_torch.kernels import embedding_bag as eb
+
+    dev = torch.device("cuda")
+    cfg = XD_ARCH.model
+    n = XD_ARCH.shape("train_batch").batch // 2
+    sets = [cs._seq_lookups(cfg, n, seed)["xdeepfm_tables"]
+            for seed in (1, 2)]
+    shape = sets[0][0]
+    table = torch.empty(shape, device=dev).normal_(generator=gen)
+    args = [(ids,) for _, ids, _ in sets]
+    fn = lambda i: eb.embedding_bag_fwd(table, i)
+    name = "embedding_bag_fwd_kernel"
+    single = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for k in range(10):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2 * cs.REF_CYCLES)
+        start.record()
+        fn(*args[k % 2])
+        end.record()
+        torch.cuda.synchronize()
+        single.append(start.elapsed_time(end))
+    print(f"profiler: xDeepFM embedding_bag_fwd {tuple(sets[0][1].shape)} "
+          f"into {shape}; one call behind a spin, CUDA events: "
+          f"{min(single):.4f}-{max(single):.4f} ms; reference spin "
+          f"{cs.spin_ms():.4f} ms", flush=True)
+    ctx = mp.get_context("spawn")
+    pad = cs.PAD_S
+    for load in (0, 12):
+        stop = ctx.Event()
+        procs = [ctx.Process(target=_busy, args=(stop,)) for _ in range(load)]
+        for p in procs:
+            p.start()
+        try:
+            for cs.PAD_S in (0.0, pad, 0.0, pad):
+                rows = []
+                for _ in range(PROFILER_WINDOWS):
+                    prof, _, dev_us, clock = cs._profiled(fn, args, 20, 0)
+                    kern = [e.time_range.end - e.time_range.start
+                            for e in prof.events() if name in e.name
+                            and e.device_type.name == "CUDA"]
+                    short = sum(e.time_range.end - e.time_range.start
+                                for e in prof.events()
+                                if cs.SENTINEL in e.name
+                                and e.device_type.name == "CUDA"
+                                and e.time_range.end - e.time_range.start
+                                < 100)
+                    rows.append((dev_us / 20e3, len(kern),
+                                 min(kern, default=0.0),
+                                 max(kern, default=0.0), short,
+                                 None if clock is None else clock[0]))
+                clocks = sorted(r[5] for r in rows if r[5] is not None)
+                off = [r for r in rows if not cs.clock_ok(
+                    None if r[5] is None else (r[5], r[5]))]
+                print(f"  {load} busy host processes, wait {cs.PAD_S} s: "
+                      f"{len(rows)} windows; ms a call "
+                      f"{min(r[0] for r in rows):.4f}-"
+                      f"{max(r[0] for r in rows):.4f}; launches recorded "
+                      f"{sorted({r[1] for r in rows})}; window clock "
+                      f"{clocks[0]:.4f} / {statistics.median(clocks):.4f} / "
+                      f"{clocks[-1]:.4f} (least / median / largest); "
+                      f"{len(off)} off by more than {cs.CLOCK_TOL}",
+                      flush=True)
+                for r in off:
+                    print(f"    off: {r[0]:.4f} ms a call, launches "
+                          f"{r[2]:.1f}-{r[3]:.1f} us, short sentinels "
+                          f"{r[4]:.2f} us, clock {r[5]}", flush=True)
+        finally:
+            cs.PAD_S = pad
+            stop.set()
+            for p in procs:
+                p.join(10)
+
+
 def main(sections) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1607,9 +1708,9 @@ def main(sections) -> int:
                                                          distinct),
                                  ("distinct shuffled", shuffled)):
                     for which, kind in kinds:
-                        ms, _, _ = cs.time_ms(lambda: libs["micro"].micro(
+                        ms = cs.time_ms(lambda: libs["micro"].micro(
                             which, grad.data_ptr(), r.data_ptr(),
-                            out.data_ptr(), r.numel(), stream()), [()])
+                            out.data_ptr(), r.numel(), stream()), [()]).ms
                         print(f"  limit D = {d} {kind}, {order} ({r.numel()} "
                               f"rows): {ms:.4f} ms", flush=True)
                 del out, walk, distinct, shuffled
@@ -1645,11 +1746,11 @@ def main(sections) -> int:
             (n, libs[f"dot_interact_{n}"]) for n in DOT_VARIANTS]
         print(f"dot_interact_bwd ({b}, {f}, {d}): plan {plan}")
         for rnd in range(2):
-            bmm_ms, _, _ = cs.time_ms(torch.bmm, sym)
+            bmm_ms = cs.time_ms(torch.bmm, sym).ms
             print(f"  bmm {bmm_ms:.4f} ms")
             for name, lib in variants[::1 if rnd == 0 else -1]:
                 for per_sm in (range(1, 7) if name == "kernel" else (4, 5)):
-                    ms, _, _ = cs.time_ms(dot(lib, di.SMS * per_sm), sets)
+                    ms = cs.time_ms(dot(lib, di.SMS * per_sm), sets).ms
                     print(f"  {name} {per_sm} CTAs an SM: {ms:.4f} ms",
                           flush=True)
     if "fused" in sections:
@@ -1664,12 +1765,14 @@ def main(sections) -> int:
         probe_embedding(cs, libs, wd, dlrm, MODEL, cfg, gen)
     if "narrow" in sections:
         probe_narrow(cs, libs, gen)
+    if "profiler" in sections:
+        probe_profiler(cs, gen)
     print(f"card: {cs.card_line()}")
     return 0
 
 
 SECTIONS = ("fused", "dot_fwd", "sage", "embedding", "scatter", "dot_bwd",
-            "scatter_bf16", "narrow")
+            "scatter_bf16", "narrow", "profiler")
 
 if __name__ == "__main__":
     names = sys.argv[3:] if sys.argv[1:2] == ["--src"] else sys.argv[1:]

@@ -100,8 +100,11 @@ class FeedBackend(BackendBase):
         # measured branch, same as the other live backends
         extras = {k: v for k, v in stats.items() if k != "throughput"}
         # raw window deltas for callers that need raw attribution data
+        # (the idle reading below is a function of these four)
         extras["produced"] = produced
         extras["consumed"] = consumed
+        extras["batches"] = batches
+        extras["wall_s"] = wall
         # THE settling flag (centralizes the per-driver
         # `produced == 0` heuristics): the first window after a worker
         # resize is flagged — fresh workers spend ~0.2s self-calibrating

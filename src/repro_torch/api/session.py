@@ -1,4 +1,5 @@
-"""Session: the driver of the closed training loop.
+"""Session: the driver of the closed training loop, and `FrozenPolicy`,
+the optimizer that holds one allocation.
 
 The train loop owns the clock: between train steps it calls
 `Session.step()`, which measures the window that just ran on the
@@ -19,6 +20,24 @@ from typing import Any, Dict, Optional
 
 from repro_torch.api.backend import Backend
 from repro_torch.api.telemetry import Telemetry
+
+
+class FrozenPolicy:
+    """The simplest Optimizer: always propose the given allocation (a
+    pipeline configured once and never touched — the paper's frozen
+    AUTOTUNE baseline, or any hand-set placement under test)."""
+
+    name = "frozen"
+
+    def __init__(self, alloc: Any) -> None:
+        self.alloc = alloc
+
+    def propose(self, spec: Any, machine: Any,
+                stats: Optional[Dict[str, Any]] = None) -> Any:
+        return self.alloc
+
+    def observe(self, metrics: Telemetry) -> None:
+        pass
 
 
 class Session:

@@ -2,8 +2,9 @@
 of repro/train/checkpoint.py, with the same on-disk layout: a checkpoint
 written by either package restores in the other).
 
-Leaves are torch tensors: they go to the host before they are saved,
-and `restore(ckpt_dir, device)` returns them as tensors on `device`.
+Leaves are torch tensors or numpy arrays: they go to the host before
+they are saved, and `restore(ckpt_dir, device)` returns them as tensors
+on `device`.
 
 Layout (one directory per step):
     <dir>/step_000123/
@@ -15,8 +16,10 @@ mid-write never corrupts the latest-complete checkpoint, and `restore()`
 always resolves the newest *complete* step. Arrays bigger than
 `MAX_SHARD_BYTES` are split across shard files along axis 0, as the JAX
 package splits them; restore reads split arrays from either package.
-`extras` is written empty (the JAX package keeps controller state there;
-the port's driver keeps none). A bf16 leaf is written as the JAX package
+`extras` is a JSON dict written into the manifest as the JAX package
+writes it: the closed-loop launcher keeps the InTune controller's
+allocation and agent step count there (its Q-network rides in the tree),
+so a restarted job resumes both model and pipeline tuning. A bf16 leaf is written as the JAX package
 writes one: `np.savez` of a JAX bf16 array stores its 2-byte elements as
 the void type `|V2`, and `np.load` gives them back as such; the port
 writes and reads that encoding (`to_numpy` / `from_numpy` of
@@ -35,6 +38,7 @@ import time
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.models.exchange import from_numpy, to_numpy
 
@@ -82,7 +86,8 @@ def _map_leaves(fn, tree):
     return fn(tree)
 
 
-def save(ckpt_dir: str, step: int, tree) -> str:
+def save(ckpt_dir: str, step: int, tree, *, extras: Optional[dict] = None,
+         max_shard_bytes: int = MAX_SHARD_BYTES) -> str:
     """Atomic checkpoint write. Returns the final directory path."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -90,13 +95,14 @@ def save(ckpt_dir: str, step: int, tree) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
 
-    flat = {k: to_numpy(v) for k, v in _flatten(tree).items()}
+    flat = {k: to_numpy(v) if torch.is_tensor(v) else np.asarray(v)
+            for k, v in _flatten(tree).items()}
     shards: list[dict] = [{}]
     sizes = [0]
     index = {}   # path -> [(shard_id, axis0_start, axis0_end)]
     for path, arr in flat.items():
-        if arr.nbytes > MAX_SHARD_BYTES and arr.ndim >= 1 and arr.shape[0] > 1:
-            n_chunks = -(-arr.nbytes // MAX_SHARD_BYTES)
+        if arr.nbytes > max_shard_bytes and arr.ndim >= 1 and arr.shape[0] > 1:
+            n_chunks = -(-arr.nbytes // max_shard_bytes)
             rows = -(-arr.shape[0] // n_chunks)
             entries = []
             for s in range(0, arr.shape[0], rows):
@@ -106,7 +112,7 @@ def save(ckpt_dir: str, step: int, tree) -> str:
                 entries.append([len(shards) - 1, s, e])
             index[path] = entries
         else:
-            if sizes[-1] + arr.nbytes > MAX_SHARD_BYTES and shards[-1]:
+            if sizes[-1] + arr.nbytes > max_shard_bytes and shards[-1]:
                 shards.append({})
                 sizes.append(0)
             shards[-1][path] = arr
@@ -121,7 +127,7 @@ def save(ckpt_dir: str, step: int, tree) -> str:
         "time": time.time(),
         "n_shards": len(shards),
         "index": index,
-        "extras": {},
+        "extras": extras or {},
     }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -143,13 +149,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, device):
-    """The newest complete checkpoint as (tree, manifest); the tree's
-    leaves are torch tensors on `device`. Raises FileNotFoundError if
-    nothing valid."""
-    step = latest_step(ckpt_dir)
+def restore(ckpt_dir: str, device, step: Optional[int] = None):
+    """The checkpoint of `step` (the newest complete one if None) as
+    (tree, manifest); the tree's leaves are torch tensors on `device`.
+    Raises FileNotFoundError if nothing valid."""
     if step is None:
-        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)

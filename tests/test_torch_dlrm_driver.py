@@ -592,11 +592,13 @@ def test_sim_backend_makes_the_reference_allocations(monkeypatch, tmp_path):
     monkeypatch.setattr(jex, "InTune", tuner(JInTune))
     monkeypatch.setattr(train_dlrm_criteo, "InTune", tuner(InTune))
     args = type("Args", (), dict(steps=steps, batch=16, ckpt_every=0,
-                                 ckpt_dir=str(tmp_path), device="cpu",
-                                 seed=0))()
+                                 ckpt_dir=str(tmp_path / "jax"),
+                                 device="cpu", seed=0))()
     jex.run_sim(args)
     want = [(list(map(int, h["workers"])), float(h["prefetch_mb"]))
             for h in made[0].history]
+    # the port resumes from a checkpoint in its directory: start it fresh
+    args.ckpt_dir = str(tmp_path / "port")
     res = train_dlrm_criteo.run_sim(args, DLRMConfig(**tiny))
     assert len(want) == steps and res["allocations"] == want
     assert all(np.isfinite(res["losses"])) and len(res["losses"]) == steps

@@ -41,13 +41,21 @@ def _imports(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+            if node.module == "benchmarks":
+                yield from (f"benchmarks.{a.name}" for a in node.names)
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """Nor do the port's benchmarks, which import no benchmark module of
+    the JAX package's (benchmarks/common.py imports repro)."""
+    benches = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+    assert len(benches) >= 2
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + benches
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")
+           or (m.startswith("benchmarks.")
+               and not m.startswith("benchmarks.torch_"))]
     assert not bad, bad
 
 
