@@ -247,6 +247,31 @@ scatter embedding_bag_bwd as the backward of each:
               the scores finite and within rtol 1e-5 / atol 1e-5 of each
               other; host-clock seconds of each and peak memory.
 
+GraphSAGE's full-graph and batched-small-graph regimes (slice 12) at the
+published widths (2 layers, hidden 128, 47 classes, mean, adam): the
+aggregate is the reference's gather and segment sum, in plain PyTorch
+(models/segment.py, chunked), as the JAX package computes it in XLA;
+no kernel of the port runs on these paths:
+
+ 9a. gnn_full_model  full_graph_sm (the whole Cora-sized graph, 2,708
+              nodes, 1,433 features) and a molecule batch (128 graphs of
+              up to 30 nodes): loss and every gradient on the card
+              against the same model on the CPU, same parameters and
+              numpy batch: loss rtol 1e-5, each gradient within 1e-4 of
+              its L2 norm over the rows no ReLU or norm-clamp flip
+              reaches (_check_full_model); the max aggregator's forward
+              at full_graph_sm within rtol 1e-5 / atol 1e-6, NaN and inf
+              in the same places.
+ 9b. gnn_full_graph  ogb_products (2,449,029 nodes, 61,859,140 edges, 100
+              features): the graph's host build time; layer 1's chunked
+              aggregate against one index_add_ over every edge at once
+              (rtol 1e-5 / atol 1e-6); 10 full-batch steps of the generic
+              driver: loss finite and falling, labelled nodes/s, the
+              step's seconds, peak device memory under one (E, 128) f32
+              message tensor (31.67 GB); one train step profiled.
+ 9c. gnn_molecule  the generic driver at molecule for 20 steps: loss
+              finite, graphs/s, peak memory.
+
 Launch counts are set to 0 just before each main path (the DLRM loop,
 the held loop, the train-feed arms, the checkpoint round trip, the GNN
 loop, the wide-deep loop, the dlrm-criteo driver, the xDeepFM,
@@ -1809,6 +1834,281 @@ def phase_gnn_profile(shape, cfg, sampler):
         print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
 
 
+# ----------------------------------------- GraphSAGE's other regimes ---
+# the ogb_products driver run: its peak device memory must stay under one
+# (E, 128) f32 message tensor, 61,859,140 x 128 x 4 bytes
+GNN_FULL_STEPS = 10
+MOLECULE_STEPS = 20
+MESSAGE_BYTES = 61_859_140 * 128 * 4
+
+
+def _combine_flips(rec_a, rec_b):
+    """(rows,) bool: rows of any recorded layer whose ReLU input (records
+    0, 2, ...: threshold 0) or norm (1, 3, ...: its 1e-6 clamp) falls on
+    the other side on the two paths."""
+    import torch
+    flips = None
+    for i, (a, b) in enumerate(zip(rec_a, rec_b)):
+        t = 0.0 if i % 2 == 0 else 1e-6
+        f = ((a > t) != (b.to(a.device) > t)).reshape(a.shape[0], -1) \
+            .any(dim=1)
+        flips = f if flips is None else flips | f
+    return flips if flips is not None else torch.zeros(0, dtype=torch.bool)
+
+
+def _nll_on(gnn, model, batch, kind):
+    """(per-row nll, per-row weight) of a full graph (nodes, the label
+    mask) or a batch of small graphs (graphs, 1), with the hidden layers'
+    ReLU inputs and norms recorded."""
+    import torch
+    rec = []
+    with recording_combine(gnn, rec):
+        if kind == "full_graph":
+            nll, mask = gnn.full_graph_nll(model, batch)
+        else:
+            nll = gnn.batched_graphs_nll(model, batch)
+            mask = torch.ones_like(nll)
+    return nll, mask, rec
+
+
+def _check_full_model(gnn, cfg, shape, batch_np):
+    """The port's model of a full-graph or batched-small shape on the card
+    against the same model on the CPU, same parameters and numpy batch:
+    loss rtol 1e-5, each gradient within 1e-4 of its L2 norm.
+
+    A ReLU input or norm within rounding of its threshold can fall on the
+    other side on one device, which moves its node's gradients by their
+    full size; such nodes are found from the recorded pre-activations,
+    and the rows whose loss they reach get weight 0: in a full graph the
+    node and every node it sends a message to (layer 2 aggregates layer
+    1's output), in a batch of small graphs the node's graph."""
+    import torch
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model = gnn.init_params(cfg, shape.d_feat, seed=0, device="cpu") \
+            .to(dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        runs.append((model,) + _nll_on(gnn, model, batch, shape.kind))
+    (m_c, nll_c, mask_c, rec_c), (m_g, nll_g, mask_g, rec_g) = runs
+    flips = _combine_flips(rec_c, rec_g)
+    n_flip = int(flips.sum())
+    if shape.kind == "full_graph":
+        src = torch.from_numpy(batch_np["edge_src"]).long()
+        dst = torch.from_numpy(batch_np["edge_dst"]).long()
+        real = dst < shape.n_nodes
+        hit = flips.clone()
+        hit[dst[real][flips[src[real]]]] = True
+    else:
+        hit = flips.reshape(batch_np["x"].shape[0], -1).any(dim=1)
+    if n_flip > flips.numel() // 100:
+        raise AssertionError(f"{n_flip} rows flip a ReLU or a norm clamp "
+                             f"between the CPU and the card")
+    loss_c = (nll_c * mask_c).sum() / mask_c.sum().clamp(min=1.0)
+    loss_g = (nll_g * mask_g).sum() / mask_g.sum().clamp(min=1.0)
+    if not bool(torch.isfinite(loss_g)):
+        raise AssertionError(f"{shape.name} loss not finite on the card")
+    _allclose(f"{shape.name} loss", loss_g.cpu(), loss_c, 1e-5, 0.0)
+    keep_c = mask_c * (~hit).float()
+    keep_g = mask_g * (~hit).float().to(mask_g.device)
+    names, params_c = zip(*m_c.named_parameters())
+    grads_c = torch.autograd.grad((nll_c * keep_c).sum() / keep_c.sum(),
+                                  params_c)
+    grads_g = torch.autograd.grad((nll_g * keep_g).sum() / keep_g.sum(),
+                                  list(m_g.parameters()))
+    worst = 0.0
+    for n, gc, gg in zip(names, grads_c, grads_g):
+        rel = float(torch.linalg.vector_norm(gg.cpu() - gc)
+                    / torch.linalg.vector_norm(gc))
+        if not rel <= 1e-4:
+            raise AssertionError(f"{shape.name} grad {n}: relative L2 "
+                                 f"error {rel:.3e}")
+        worst = max(worst, rel)
+    print(f"  {shape.name}: loss card {float(loss_g.detach()):.7f} cpu "
+          f"{float(loss_c.detach()):.7f}; {n_flip} rows flip a ReLU or "
+          f"norm clamp, {int(hit.sum())} of {hit.numel()} left out of the "
+          f"gradients; "
+          f"{len(names)} gradients agree (worst relative L2 error "
+          f"{worst:.3e})")
+
+
+def phase_gnn_full_model(arch):
+    """graphsage-reddit at its published widths on full_graph_sm (the
+    whole Cora-sized graph, 1,433 features) and on a molecule batch
+    (128 graphs): loss and gradients on the card against the CPU
+    (_check_full_model); and the max aggregator's forward at
+    full_graph_sm, where isolated nodes send -inf and then NaN on, within
+    rtol 1e-5 / atol 1e-6 with NaN and inf in the same places. None of
+    the port's kernels runs on these paths."""
+    import numpy as np
+    import torch
+    from repro_torch.data.graphs import full_graph_batch, molecule_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import gnn
+
+    cfg = arch.model
+    full = arch.shape("full_graph_sm")
+    mol = arch.shape("molecule")
+    full_np = full_graph_batch(full, cfg.n_classes, np.random.RandomState(0))
+    ops.reset_launch_counts()
+    _check_full_model(gnn, cfg, full, full_np)
+    _check_full_model(gnn, cfg, mol, molecule_batch(
+        mol, cfg.n_classes, np.random.RandomState(0)))
+    max_cfg = cfg.replace(aggregator="max")
+    outs = []
+    for dev in ("cpu", "cuda"):
+        model = gnn.init_params(max_cfg, full.d_feat, seed=0,
+                                device="cpu").to(dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in full_np.items()}
+        with torch.no_grad():
+            outs.append(gnn.full_graph_forward(
+                model, b["x"], gnn.graph_plan(b["edge_src"], b["edge_dst"],
+                                              full.n_nodes)).cpu())
+    want, got = outs
+    for name, f in (("NaN", torch.isnan), ("inf", torch.isinf)):
+        if not torch.equal(f(got), f(want)):
+            raise AssertionError(f"max forward: {name} in other places "
+                                 f"on the card")
+    ok = torch.isfinite(want)
+    err = _allclose("max forward", got[ok], want[ok], 1e-5, 1e-6)
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"a kernel ran on the full-graph path: "
+                             f"{counts}")
+    print(f"  max aggregator at {full.name}: logits agree (max abs err "
+          f"{err:.3e}); {int(torch.isnan(want).any(dim=1).sum())} of "
+          f"{full.n_nodes} nodes NaN on both (isolated nodes' -inf sent "
+          f"on)")
+
+
+def phase_gnn_full_graph(arch) -> dict:
+    """graphsage-reddit at ogb_products (2,449,029 nodes, 61,859,140
+    edges, 100 features) at its published widths: builds the graph (host
+    seconds printed); holds layer 1's chunked aggregate against one
+    index_add_ over every edge at once on the card (a 24.7 GB message
+    tensor, freed after) within rtol 1e-5 / atol 1e-6, atomics adding in
+    another order; runs the generic driver for GNN_FULL_STEPS full-batch
+    steps (loss finite and falling, peak device memory under one (E, 128)
+    f32 message tensor, no kernel launched); profiles one train step."""
+    import numpy as np
+    import torch
+    from repro_torch.data.graphs import full_graph_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import gnn, segment
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, shape = arch.model, arch.shape("ogb_products")
+    n, e = shape.n_nodes, shape.n_edges
+    t0 = time.monotonic()
+    graph = full_graph_batch(shape, cfg.n_classes, np.random.RandomState(0))
+    print(f"  graph: {n} nodes, {e} edges padded to "
+          f"{graph['edge_src'].shape[0]}, x {graph['x'].shape} "
+          f"({graph['x'].nbytes / 1e9:.2f} GB) built in "
+          f"{time.monotonic() - t0:.1f} s on the host")
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(graph["x"]).to(dev)
+    src = torch.from_numpy(graph["edge_src"]).to(dev)
+    dst = torch.from_numpy(graph["edge_dst"]).to(dev)
+    plan = gnn.graph_plan(src, dst, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    chunked = segment.segment_sum(x, plan) \
+        / torch.clamp(plan.count, min=1.0)[:, None]
+    torch.cuda.synchronize()
+    t_chunked = time.monotonic() - t0
+    t0 = time.monotonic()
+    msg = x.index_select(0, src[:e])
+    one_shot = torch.zeros_like(x).index_add_(0, dst[:e], msg)
+    del msg
+    deg = torch.bincount(dst[:e], minlength=n).clamp(min=1)
+    one_shot /= deg[:, None].float()
+    torch.cuda.synchronize()
+    t_once = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    err = _allclose("ogb_products layer-1 aggregate", chunked, one_shot,
+                    1e-5, 1e-6)
+    print(f"  layer-1 mean aggregate, chunked ({segment.CHUNK_PAIRS} pairs "
+          f"a chunk) against one index_add_: max abs err {err:.3e}; "
+          f"{t_chunked * 1e3:.1f} ms against {t_once * 1e3:.1f} ms (host "
+          f"clock, synchronised); the check's peak "
+          f"{peak / 1e9:.2f} GB")
+    del x, src, dst, plan, chunked, one_shot, deg
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    res = train.run("graphsage-reddit", steps=GNN_FULL_STEPS, shape=shape,
+                    full=True, device="cuda", graph=graph, log_every=1)
+    counts = ops.launch_counts()
+    losses = res["losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"ogb_products loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ogb_products loss did not fall: {losses}")
+    if res["max_memory_allocated"] >= MESSAGE_BYTES:
+        raise AssertionError(
+            f"ogb_products peak {res['max_memory_allocated'] / 1e9:.2f} GB "
+            f"reaches one (E, 128) f32 message tensor, "
+            f"{MESSAGE_BYTES / 1e9:.2f} GB")
+    if any(counts.values()):
+        raise AssertionError(f"a kernel ran on the full-graph path: "
+                             f"{counts}")
+    summary = {k: res[k] for k in ("nodes_per_s", "loop_step_s",
+                                   "train_step_s", "max_memory_allocated")}
+    summary.update(loss_first=losses[0], loss_last=losses[-1],
+                   peak_gb=res["max_memory_allocated"] / 1e9)
+    print("  gnn_full_graph " + json.dumps(summary))
+    torch.cuda.empty_cache()
+
+    model = gnn.init_params(cfg, shape.d_feat, seed=0, device=dev)
+    opt = make_optimizer("adam", lr=1e-3)
+    state = opt.init(dict(model.named_parameters()))
+    step_fn = make_train_step(gnn.full_graph_loss, opt)
+    batch = {k: torch.from_numpy(graph[k]).to(dev) for k in ("x", "labels")}
+    batch["plan"] = gnn.graph_plan(
+        torch.from_numpy(graph["edge_src"]).to(dev),
+        torch.from_numpy(graph["edge_dst"]).to(dev), n)
+    del graph
+    step_fn(model, state, 0, batch)
+    torch.cuda.synchronize()
+    rows, wall_ms = profile_steps(
+        lambda k: step_fn(model, state, 1 + k, batch), 1)
+    device_ms = sum(ms for _, ms in rows)
+    print(f"  ogb_products train step: {device_ms:.3f} ms of device time in "
+          f"{wall_ms:.3f} ms of host-clock time (profiled)")
+    for name, ms in rows[:12]:
+        print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
+    return summary
+
+
+def phase_gnn_molecule(arch) -> dict:
+    """The generic driver at molecule (128 graphs of up to 30 nodes and 64
+    edges a batch, published widths) for MOLECULE_STEPS steps: loss
+    finite, no kernel launched; graphs/s and peak memory."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    res = train.run("graphsage-reddit", steps=MOLECULE_STEPS,
+                    shape=arch.shape("molecule"), full=True, device="cuda",
+                    log_every=5)
+    counts = ops.launch_counts()
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise AssertionError(f"molecule loss not finite: {res['losses']}")
+    if any(counts.values()):
+        raise AssertionError(f"a kernel ran on the molecule path: {counts}")
+    summary = {k: res[k] for k in ("graphs_per_s", "loop_step_s",
+                                   "fetch_step_s", "train_step_s",
+                                   "max_memory_allocated")}
+    summary.update(loss_first=res["losses"][0], loss_last=res["losses"][-1])
+    print("  gnn_molecule " + json.dumps(summary))
+    torch.cuda.synchronize()
+    return summary
+
+
 def _criteo_batch(cfg, n, seed):
     """n synthetic Criteo records of the wide-deep widths through the
     driver's online feature work (numpy, on the host)."""
@@ -3122,6 +3422,15 @@ def run_phases(agent_proc) -> int:
     with Phase("gnn_profile"):
         phase_gnn_profile(gnn_shape, gnn_cfg, sampler)
     del sampler
+    torch.cuda.empty_cache()
+    with Phase("gnn_full_model"):
+        phase_gnn_full_model(GNN_ARCH)
+    torch.cuda.empty_cache()
+    with Phase("gnn_full_graph"):
+        phase_gnn_full_graph(GNN_ARCH)
+    torch.cuda.empty_cache()
+    with Phase("gnn_molecule"):
+        phase_gnn_molecule(GNN_ARCH)
     torch.cuda.empty_cache()
     with Phase("recsys_kernels"):
         fused_rec, wd_errs = phase_recsys_kernels(WD_ARCH.model)

@@ -77,6 +77,17 @@ CUDA events launch to launch). Sections (all when none is named):
             largest duration of its launches, the sum of the short
             sentinels and the window clock (chip_smoke.window_clock);
             beside them, CUDA events around single calls.
+  segment   the full graph's gather and segment sum (models/segment.py,
+            plain PyTorch) at ogb_products' 2,449,029 nodes and
+            61,859,140 edges (random, sorted by dst, drawn on the card),
+            D = 100 (layer 1) and 128 (layer 2): the forward and the
+            table-gradient backward at 2^20-2^24 pairs a chunk, each
+            with its peak memory over the resident tensors; one
+            index_select + index_add_ over every pair at once; the
+            chunk's index_select and index_add_ alone; the bound
+            (inputs read once, output written once) and the floor of
+            the message traffic (E x D gathered and added). CUDA events,
+            the mean of 3 calls after one warm-up.
   scatter_bf16  embedding_bag_bwd into a bf16 gradient at dlrm-criteo's
             training shape, ids (65536, 26, 1) of the synthetic Criteo
             stream into (26, 2^22, 128): its bf16x2 REDs against the
@@ -992,6 +1003,74 @@ def probe_dot_fwd(cs, libs, model, gen):
         del sets
 
 
+def _events_ms(fn, iters: int = 3) -> float:
+    """Mean device ms of fn() over `iters` calls after one warm-up, by
+    CUDA events around the run."""
+    import torch
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def probe_segment(cs, gen):
+    """models/segment.py's chunked reduce at ogb_products, forward and
+    backward, against its chunk size and one pass over every pair."""
+    from types import SimpleNamespace
+    import torch
+    from repro_torch.configs.graphsage_reddit import ARCH
+    from repro_torch.models import segment
+    shape = ARCH.shape("ogb_products")
+    n, e = shape.n_nodes, shape.n_edges
+    src = torch.randint(0, n, (e,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    dst = torch.randint(0, n, (e,), device="cuda", generator=gen,
+                        dtype=torch.int32).sort().values
+    plan = segment.segment_plan(src, dst, n, n)
+    for d in (100, 128):
+        table = torch.randn((n, d), device="cuda", generator=gen)
+        d_out = torch.randn((n, d), device="cuda", generator=gen)
+        bound, by = cs.bound_ms(2 * n * d * 4 + 2 * e * 4, e * d)
+        floor = 2 * e * d * 4 / cs.PEAK_BYTES_PER_S * 1e3
+        print(f"segment D={d}: bound {bound:.4f} ms ({by}); message "
+              f"traffic floor {floor:.4f} ms", flush=True)
+        for chunk in (1 << 20, 1 << 21, 1 << 22, 1 << 23, 1 << 24):
+            ctx = SimpleNamespace(plan=plan, chunk=chunk, rows=n,
+                                  needs_input_grad=(True,))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd = _events_ms(lambda: segment.segment_sum(table, plan,
+                                                         chunk=chunk))
+            bwd = _events_ms(lambda: segment._SegmentSum.backward(ctx,
+                                                                  d_out))
+            extra = (torch.cuda.max_memory_allocated() - base) / 1e9
+            print(f"  chunk {chunk}: forward {fwd:.3f} ms, backward "
+                  f"{bwd:.3f} ms, peak {extra:.2f} GB over the resident",
+                  flush=True)
+        msg = torch.empty((segment.CHUNK_PAIRS, d), device="cuda")
+        g, s = src[:segment.CHUNK_PAIRS], dst[:segment.CHUNK_PAIRS]
+        out = torch.zeros_like(table)
+        sel = _events_ms(lambda: torch.index_select(table, 0, g, out=msg))
+        add = _events_ms(lambda: out.index_add_(0, s, msg))
+        print(f"  one chunk of {segment.CHUNK_PAIRS}: index_select "
+              f"{sel:.3f} ms, index_add_ {add:.3f} ms", flush=True)
+        del msg, out
+
+        def once():
+            return torch.zeros_like(table).index_add_(
+                0, dst, table.index_select(0, src))
+        print(f"  every pair at once: {_events_ms(once):.3f} ms",
+              flush=True)
+        del table, d_out
+        torch.cuda.empty_cache()
+
+
 def probe_sage(cs, gen):
     """sage_aggregate_fwd at the GNN step's three shapes with neigh and w
     f32 or bf16 (each combination), two rounds in turns."""
@@ -1767,12 +1846,14 @@ def main(sections) -> int:
         probe_narrow(cs, libs, gen)
     if "profiler" in sections:
         probe_profiler(cs, gen)
+    if "segment" in sections:
+        probe_segment(cs, gen)
     print(f"card: {cs.card_line()}")
     return 0
 
 
 SECTIONS = ("fused", "dot_fwd", "sage", "embedding", "scatter", "dot_bwd",
-            "scatter_bf16", "narrow", "profiler")
+            "scatter_bf16", "narrow", "profiler", "segment")
 
 if __name__ == "__main__":
     names = sys.argv[3:] if sys.argv[1:2] == ["--src"] else sys.argv[1:]

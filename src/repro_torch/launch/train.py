@@ -2,7 +2,8 @@
 repro/launch/train.py; the `gnn`, `recsys` and `dlrm` families so far).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-reddit \
-        [--steps 50] [--batch N] [--full] [--shape minibatch_lg] \
+        [--steps 50] [--batch N] [--full] \
+        [--shape minibatch_lg|full_graph_sm|ogb_products|molecule] \
         [--ckpt-dir DIR] [--ckpt-every 25] [--lr 1e-3] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.train --arch wide-deep \
         [--full] [--shape train_batch] ...
@@ -24,12 +25,21 @@ Runs real training steps on synthetic data, as the JAX driver does:
     64-32-1, still bf16) at the JAX driver's batch of 32, so that the two
     drivers can be held together on the CPU; `--full` uses the arch's
     published config and `--shape <name>` one of its shapes
-    (graphsage-reddit: a minibatch shape, minibatch_lg: 1024 seed nodes,
-    fanout 15-10, 602 features on 232,965 nodes; the recsys archs and
+    (graphsage-reddit: any GNN shape, minibatch_lg: 1024 seed nodes,
+    fanout 15-10, 602 features on 232,965 nodes; full_graph_sm: the
+    whole Cora-sized graph, 2,708 nodes, 10,556 edges, 1,433 features,
+    each step; ogb_products: the whole ogbn-products-sized graph,
+    2,449,029 nodes, 61,859,140 edges, 100 features; molecule: batches
+    of 128 graphs of up to 30 nodes and 64 edges, 32 features; without
+    `--full` the same graphs at d_hidden 16; the recsys archs and
     dlrm-criteo: a train shape, train_batch: 65536 samples: synthetic
     Criteo records, `data/synthetic.CriteoStream`, for wide-deep, xDeepFM
     and dlrm-criteo, `dien_batch` and `bert4rec_batch` from the driver's
     seed-0 `RandomState` for the other two);
+  - a full graph (`data/graphs.full_graph_batch`) is one batch, copied
+    to the device once with its edges' SegmentPlan and reused every
+    step (full-batch training); molecule draws a new batch of graphs
+    (`data/graphs.molecule_batch`) a step;
   - `--microbatches K` accumulates the gradients of K slices of each
     batch before the one optimizer step (the reference's
     `make_train_step(..., microbatches=)`): the memory knob that fits
@@ -39,9 +49,11 @@ Runs real training steps on synthetic data, as the JAX driver does:
   - an InTune controller tunes the (simulated-machine) ingestion pipeline
     alongside, as a per-host controller would in production.
 
-On a CUDA device (`--device cuda`, the default) GraphSAGE's neighbour
-aggregations run through the hand-written Hopper kernel
-`sage_aggregate`, wide-deep's lookups through `embedding_bag_fused`
+On a CUDA device (`--device cuda`, the default) GraphSAGE's minibatch
+neighbour aggregations run through the hand-written Hopper kernel
+`sage_aggregate` (its full-graph and molecule regimes aggregate by
+gather and segment sum, in PyTorch, as the JAX package does in XLA),
+wide-deep's lookups through `embedding_bag_fused`
 (its wide arm) and `embedding_bag` (its deep tables), xDeepFM's through
 `embedding_bag` (its tables) and `embedding_bag_fused` (its linear arm),
 DIEN's and BERT4Rec's item gathers through `embedding_bag` as bags of
@@ -64,6 +76,7 @@ import torch
 from repro_torch.configs.base import ArchSpec, GNNShape, RecsysShape
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.controller import InTune
+from repro_torch.data.graphs import full_graph_batch, molecule_batch
 from repro_torch.data.pipeline import criteo_pipeline
 from repro_torch.data.sampler import CSRGraph, NeighborSampler
 from repro_torch.data.simulator import MachineSpec
@@ -83,14 +96,21 @@ DRIVER_SHAPE = GNNShape("driver_small", "minibatch", n_nodes=512,
 # the JAX driver's default batch for the recsys family (--batch 32)
 RECSYS_DRIVER_SHAPE = RecsysShape("driver_small", "train", 32)
 
-# per family: the shape without --shape, the kind --shape may name, the
-# model module that maps parameter names to the JAX tree, and the name
-# of the driver's rate
+# per family: the shape without --shape, the kinds --shape may name, and
+# the model module that maps parameter names to the JAX tree
 _FAMILIES = {
-    "gnn": (DRIVER_SHAPE, "minibatch", gnn_lib, "seed_nodes_per_s"),
-    "recsys": (RECSYS_DRIVER_SHAPE, "train", recsys_lib, "samples_per_s"),
-    "dlrm": (RECSYS_DRIVER_SHAPE, "train", dlrm_lib, "samples_per_s"),
+    "gnn": (DRIVER_SHAPE, ("minibatch", "full_graph", "batched_small"),
+            gnn_lib),
+    "recsys": (RECSYS_DRIVER_SHAPE, ("train",), recsys_lib),
+    "dlrm": (RECSYS_DRIVER_SHAPE, ("train",), dlrm_lib),
 }
+# per shape kind: the loss of the gnn family (repro/launch/programs.py
+# :260-262) and the name of the driver's rate, which says what it counts
+_GNN_LOSSES = {"minibatch": gnn_lib.minibatch_loss,
+               "full_graph": gnn_lib.full_graph_loss,
+               "batched_small": gnn_lib.batched_graphs_loss}
+_RATES = {"minibatch": "seed_nodes_per_s", "full_graph": "nodes_per_s",
+          "batched_small": "graphs_per_s", "train": "samples_per_s"}
 
 
 def _family(arch: ArchSpec) -> str:
@@ -98,6 +118,19 @@ def _family(arch: ArchSpec) -> str:
         raise KeyError(f"family {arch.family!r} of {arch.arch_id!r} is not "
                        f"ported to repro_torch.launch.train")
     return arch.family
+
+
+def resolve_shape(arch: ArchSpec, name: str):
+    """The arch's shape `name`, if its family's driver runs that kind;
+    KeyError for a name the arch lacks (a recsys shape's name given to
+    the gnn arch among them)."""
+    shape = arch.shape(name)
+    kinds = _FAMILIES[_family(arch)][1]
+    if shape.kind not in kinds:
+        raise KeyError(f"shape {name!r} is {shape.kind}: only the "
+                       f"{'/'.join(kinds)} regime of {arch.arch_id} is "
+                       f"ported (ROADMAP.md queue 1)")
+    return shape
 
 
 # ------------------------------------------------------- reduced configs ---
@@ -149,12 +182,15 @@ def make_sampler(cfg, shape: GNNShape,
 
 def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
                   *, shape=DRIVER_SHAPE, device="cuda",
-                  sampler: Optional[NeighborSampler] = None):
+                  sampler: Optional[NeighborSampler] = None,
+                  graph: Optional[dict] = None):
     """A function returning the next batch on `device`: a sampled block
-    of `shape`'s graph (gnn), synthetic Criteo records from seed 0
-    through the online feature work (dlrm, wide-deep, xDeepFM), or DIEN's
-    and BERT4Rec's synthetic sequences drawn from `rng`, as the JAX
-    driver makes them."""
+    of `shape`'s graph (gnn minibatch), the whole graph (gnn full graph:
+    `graph`, its numpy batch if prebuilt, copied once, the same tensors
+    every call), `batch` small graphs (gnn batched_small), synthetic
+    Criteo records from seed 0 through the online feature work (dlrm,
+    wide-deep, xDeepFM), or DIEN's and BERT4Rec's synthetic sequences
+    drawn from `rng`, as the JAX driver makes them."""
     to_device = lambda b: {k: torch.from_numpy(v).to(device)
                            for k, v in b.items()}
     if cfg.name == "dien":
@@ -170,17 +206,29 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
                               multi_hot=cfg.multi_hot)
         return lambda: to_device(
             stream.feature_udf(stream.raw_block(batch)))
+    if shape.kind == "batched_small":
+        return lambda: to_device(molecule_batch(shape, cfg.n_classes, rng,
+                                                batch))
+    if shape.kind == "full_graph":
+        whole = to_device(graph if graph is not None
+                          else full_graph_batch(shape, cfg.n_classes, rng))
+        whole["plan"] = gnn_lib.graph_plan(whole.pop("edge_src"),
+                                           whole.pop("edge_dst"),
+                                           shape.n_nodes)
+        return lambda: whole
     sampler = sampler if sampler is not None else make_sampler(cfg, shape,
                                                                rng)
     return lambda: to_device(sampler.sample(batch))
 
 
-def make_loss_fn(arch: ArchSpec, cfg):
+def make_loss_fn(arch: ArchSpec, cfg, shape=DRIVER_SHAPE):
+    """loss(model, batch) of the arch's family, and for the gnn family of
+    the shape's kind."""
     if _family(arch) == "recsys":
         return lambda model, b: recsys_lib.loss_fn(model, b)
     if _family(arch) == "dlrm":
         return lambda model, b: dlrm_lib.loss_fn(model, b)
-    return lambda model, b: gnn_lib.minibatch_loss(model, b)
+    return _GNN_LOSSES[shape.kind]
 
 
 def init_params_for(arch: ArchSpec, cfg, seed: int, *,
@@ -206,24 +254,47 @@ def _state_tree(lib, model, opt_state) -> dict:
 
 
 # ---------------------------------------------------------------- driver ---
+def _batch_size(shape, batch: Optional[int]) -> int:
+    """Seed nodes, graphs or samples a step: `batch`, else the shape's; a
+    full graph is one batch of all its nodes."""
+    if shape.kind == "full_graph":
+        if batch not in (None, shape.n_nodes):
+            raise ValueError(f"{shape.name} is one batch of its "
+                             f"{shape.n_nodes} nodes, not {batch}")
+        return shape.n_nodes
+    if batch:
+        return batch
+    if shape.kind == "minibatch":
+        return shape.batch_nodes
+    if shape.kind == "batched_small":
+        return shape.n_graphs
+    return shape.batch
+
+
 def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         shape=None, full: bool = False, lr: float = 1e-3,
         device="cuda", ckpt_dir: Optional[str] = None,
         ckpt_every: int = 25, sampler: Optional[NeighborSampler] = None,
-        log_every: int = 10, microbatches: int = 1) -> dict:
+        graph: Optional[dict] = None, log_every: int = 10,
+        microbatches: int = 1) -> dict:
     """Train `steps` steps of `arch_id` on `shape`'s synthetic data (the
     family's driver shape if None) and return what the run measured.
-    `sampler` is a prebuilt graph of a GNN `shape` (one built once can
-    serve several runs); `microbatches` splits each batch for gradient
-    accumulation (`make_train_step`). Parameters and data all come from
-    seed 0, as in the JAX driver."""
+    `sampler` is a prebuilt graph of a GNN minibatch `shape` and `graph`
+    the numpy batch of a full-graph `shape` (one built once can serve
+    several runs); `microbatches` splits each batch for gradient
+    accumulation (`make_train_step`; a full graph takes none).
+    Parameters and data all come from seed 0, as in the JAX driver."""
     arch = get_arch(arch_id)
     family = _family(arch)
-    default_shape, _, lib, rate_key = _FAMILIES[family]
+    default_shape, _, lib = _FAMILIES[family]
     shape = shape or default_shape
+    rate_key = _RATES[shape.kind]
+    if shape.kind == "full_graph" and microbatches != 1:
+        raise ValueError("a full graph is one batch: it takes no "
+                         "microbatches")
     cfg = arch.model if full else reduced_model(arch)
     device = torch.device(device)
-    batch = batch or (shape.batch_nodes if family == "gnn" else shape.batch)
+    batch = _batch_size(shape, batch)
     rng = np.random.RandomState(0)
     model = init_params_for(arch, cfg, 0, shape=shape, device=device)
     n_params = sum(p.numel() for p in model.parameters())
@@ -233,9 +304,10 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
 
     opt = make_optimizer(arch.optimizer, lr=lr)
     opt_state = opt.init(dict(model.named_parameters()))
-    step_fn = make_train_step(make_loss_fn(arch, cfg), opt, microbatches)
+    step_fn = make_train_step(make_loss_fn(arch, cfg, shape), opt,
+                              microbatches)
     batch_fn = make_batch_fn(arch, cfg, batch, rng, shape=shape,
-                             device=device, sampler=sampler)
+                             device=device, sampler=sampler, graph=graph)
 
     tuner = InTune(criteo_pipeline(), MachineSpec(n_cpus=128), seed=0,
                    head="factored", finetune_ticks=100)
@@ -270,10 +342,15 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
             ckpt.save(ckpt_dir, i, _state_tree(lib, model, opt_state))
     wall = time.monotonic() - t0
     n = len(losses)
+    if shape.kind == "full_graph":
+        # labelled nodes per second of train step
+        labelled = int((batch_fn()["labels"] >= 0).sum())
+        rate = n * labelled / train_s if n else None
+    else:
+        rate = n * batch / wall if n else None
     res = {
         "arch": arch_id, "shape": shape.name, "batch": batch, "steps": n,
-        "microbatches": microbatches, "losses": losses,
-        rate_key: n * batch / wall if n else None,
+        "microbatches": microbatches, "losses": losses, rate_key: rate,
         "loop_step_s": wall / n if n else None,
         "fetch_step_s": fetch_s / n if n else None,
         "train_step_s": train_s / n if n else None,
@@ -295,15 +372,16 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=None,
-                    help="seed nodes or samples per step (default: the "
-                         "shape's; 32 without --shape)")
+                    help="seed nodes, graphs or samples per step "
+                         "(default: the shape's; 32 without --shape; a "
+                         "full graph is one batch of all its nodes)")
     ap.add_argument("--full", action="store_true",
                     help="use the published config")
     ap.add_argument("--shape", default=None,
-                    help="a minibatch shape of a GNN (minibatch_lg) or a "
-                         "train shape of a recsys model or the DLRM "
-                         "(train_batch); default the JAX driver's small "
-                         "run")
+                    help="a GNN shape (minibatch_lg, full_graph_sm, "
+                         "ogb_products, molecule) or a train shape of a "
+                         "recsys model or the DLRM (train_batch); default "
+                         "the JAX driver's small run")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -314,13 +392,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     shape = None
     if args.shape is not None:
-        arch = get_arch(args.arch)
-        shape = arch.shape(args.shape)
-        kind = _FAMILIES[_family(arch)][1]
-        if shape.kind != kind:
-            raise KeyError(f"shape {args.shape!r} is {shape.kind}: only the "
-                           f"{kind} regime of {args.arch} is ported "
-                           f"(ROADMAP.md queue 1)")
+        shape = resolve_shape(get_arch(args.arch), args.shape)
     return run(args.arch, steps=args.steps, batch=args.batch, shape=shape,
                full=args.full, lr=args.lr, device=args.device,
                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,

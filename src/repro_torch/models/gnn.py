@@ -1,12 +1,28 @@
-"""GraphSAGE (mean aggregator), minibatch regime, in PyTorch.
+"""GraphSAGE in PyTorch, in the reference's three regimes (port of
+repro/models/gnn.py but its multi-device `full_graph_partitioned_loss`,
+which waits with distribution: ROADMAP.md queue 1, item 9).
 
-Port of the sampled-blocks path of repro/models/gnn.py: dense-fanout
-blocks x0 (B, d), neigh1 (B, F1, d), neigh2 (B, F1, F2, d) from
-data/sampler.py through a 2-layer GraphSAGE. Each neighbour term
-`mean(x, axis) @ layer["w_neigh"]` runs through the hand-written kernel
-`ops.sage_aggregate` (forward and backward), three calls a forward; the
-`h_self @ w_self` products stay `torch.matmul`, as the JAX package leaves
-them to XLA. The full-graph and batched-graph regimes are not ported yet.
+  - minibatch: dense-fanout blocks x0 (B, d), neigh1 (B, F1, d), neigh2
+    (B, F1, F2, d) from data/sampler.py through a 2-layer GraphSAGE. Each
+    neighbour term `mean(x, axis) @ layer["w_neigh"]` runs through the
+    hand-written kernel `ops.sage_aggregate` (forward and backward),
+    three calls a forward.
+  - full graph: message passing over an edge list, the reference's
+    `jnp.take` + `segment_sum` (or `segment_max`), through
+    models/segment.py's chunked gather-and-segment-reduce, whose
+    `SegmentPlan` of the kept edges and in-degrees is built once per
+    graph (`graph_plan`) and reused by every layer and step. Pad edges
+    carry dst == n_nodes and are dropped, as the reference's segment
+    ops drop them.
+  - batched small graphs: the reference `vmap`s the full graph over G
+    padded graphs of N nodes; the port runs them as one flat graph of
+    G * N nodes, graph g's node ids offset by g * N, then pools each
+    graph's masked nodes. Pad edges 0 -> 0 are real messages into node
+    0, counted as the reference counts them.
+
+The neighbour projection `agg @ w_neigh` of the last two is a
+`torch.matmul`, and so is every `h_self @ w_self`: the JAX package leaves
+those products to XLA.
 
 Parameters cross between the packages as numpy in the JAX layout,
 `{"layers": ({"w_self": (d_in, d_out), "w_neigh": (d_in, d_out),
@@ -24,6 +40,7 @@ from torch import nn
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.kernels import ops
+from repro_torch.models import segment
 
 _KEYS = ("w_self", "w_neigh", "b")
 
@@ -109,6 +126,111 @@ def minibatch_nll(model: GraphSAGE, batch: Dict[str, torch.Tensor],
 
 def minibatch_loss(model: GraphSAGE, batch: Dict[str, torch.Tensor], **kw):
     loss = minibatch_nll(model, batch, **kw).mean()
+    return loss, {"xent": loss}
+
+
+# ---------------------------------------------------------- full graph ---
+def graph_plan(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+               n_nodes: int) -> segment.SegmentPlan:
+    """The edges (messages flow src -> dst) of a graph of n_nodes as a
+    SegmentPlan: edges whose dst lies outside [0, n_nodes) dropped, the
+    in-degree of each node counted."""
+    return segment.segment_plan(edge_src, edge_dst, n_nodes, n_nodes)
+
+
+def _aggregate(h: torch.Tensor, plan: segment.SegmentPlan, aggregator: str):
+    """The reference's neighbour aggregate: max, or the sum, divided by
+    the in-degree (at least 1) for mean."""
+    if aggregator == "max":
+        return segment.segment_max(h, plan)
+    agg = segment.segment_sum(h, plan)
+    if aggregator == "mean":
+        agg = agg / torch.clamp(plan.count.to(h.dtype), min=1.0)[:, None]
+    return agg
+
+
+def full_graph_forward(model: GraphSAGE, x: torch.Tensor,
+                       plan: segment.SegmentPlan) -> torch.Tensor:
+    """x: (N, d) node features; plan: `graph_plan` of the edges. Returns
+    (N, n_classes) logits."""
+    h = x
+    n_layers = len(model.layers)
+    for l, layer in enumerate(model.layers):
+        agg = _aggregate(h, plan, model.cfg.aggregator)
+        h = _sage_combine(h, torch.matmul(agg, layer.w_neigh), layer,
+                          final=(l == n_layers - 1))
+    return h
+
+
+def _plan_of(batch: Dict[str, torch.Tensor]) -> segment.SegmentPlan:
+    if "plan" in batch:
+        return batch["plan"]
+    return graph_plan(batch["edge_src"], batch["edge_dst"],
+                      batch["x"].shape[0])
+
+
+def full_graph_nll(model: GraphSAGE, batch: Dict[str, torch.Tensor]):
+    """Per-node negative log-likelihood (N,) f32 and its mask (N,) f32
+    (1 where the label is >= 0). batch: x (N, d), labels (N,) and either
+    edge_src / edge_dst (E,) or their `plan` (the driver builds it once
+    for the graph)."""
+    logits = full_graph_forward(model, batch["x"], _plan_of(batch))
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(1, torch.clamp(labels, min=0)[:, None])[:, 0]
+    return nll, mask
+
+
+def full_graph_loss(model: GraphSAGE, batch: Dict[str, torch.Tensor]):
+    """Mean NLL over the labelled nodes (labels < 0 masked out)."""
+    nll, mask = full_graph_nll(model, batch)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss, {"xent": loss}
+
+
+# ------------------------------------------------ batched small graphs ---
+def batched_plan(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                 n_nodes: int) -> segment.SegmentPlan:
+    """G graphs' padded edge lists (G, E), node ids local to each graph
+    of n_nodes, as one SegmentPlan over G * n_nodes nodes: graph g's ids
+    offset by g * n_nodes, an edge whose dst lies outside its graph
+    dropped and one whose src does reading NaN, as the reference's
+    per-graph take and segment_sum treat them."""
+    g = edge_src.shape[0]
+    base = torch.arange(g, device=edge_src.device)[:, None] * n_nodes
+    src = torch.where(edge_src < 0, edge_src + n_nodes, edge_src)
+    src = torch.where((src >= 0) & (src < n_nodes), src + base, g * n_nodes)
+    dst = torch.where((edge_dst >= 0) & (edge_dst < n_nodes),
+                      edge_dst + base, -1)
+    return segment.segment_plan(src.reshape(-1), dst.reshape(-1),
+                                g * n_nodes, g * n_nodes)
+
+
+def batched_graphs_forward(model: GraphSAGE, x, edge_src, edge_dst,
+                           node_mask) -> torch.Tensor:
+    """x: (G, N, d); edges (G, E) int, padded (pad edges 0 -> 0);
+    node_mask: (G, N). Returns graph-level logits (G, C): each graph's
+    masked mean of its nodes' logits."""
+    g, n, d = x.shape
+    h = full_graph_forward(model, x.reshape(g * n, d),
+                           batched_plan(edge_src, edge_dst, n))
+    h = h.reshape(g, n, -1)
+    denom = torch.clamp(torch.sum(node_mask, dim=1), min=1.0)
+    return torch.sum(h * node_mask[..., None], dim=1) / denom[:, None]
+
+
+def batched_graphs_nll(model: GraphSAGE,
+                       batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Per-graph negative log-likelihood (G,) f32."""
+    logits = batched_graphs_forward(model, batch["x"], batch["edge_src"],
+                                    batch["edge_dst"], batch["node_mask"])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, batch["labels"].long()[:, None])[:, 0]
+
+
+def batched_graphs_loss(model: GraphSAGE, batch: Dict[str, torch.Tensor]):
+    loss = batched_graphs_nll(model, batch).mean()
     return loss, {"xent": loss}
 
 

@@ -1,9 +1,11 @@
-"""Adagrad (the classic DLRM embedding optimizer), row-wise adagrad and
-Adam, in PyTorch (port of those paths of repro/train/optim.py).
+"""SGD with momentum, Adagrad (the classic DLRM embedding optimizer),
+row-wise adagrad and Adam(W), in PyTorch (port of repro/train/optim.py
+but its Adafactor, which waits with the LLM family: ROADMAP.md queue 1,
+item 8).
 
 API, as in the JAX package:
 
-    opt = make_optimizer("adagrad", lr=0.02)  # or "rowwise_adagrad", "adam"
+    opt = make_optimizer("adagrad", lr=0.02)  # or "sgd", "adam", ...
     state = opt.init(params)                      # params: {name: tensor}
     params, state, stats = opt.update(grads, state, params, step)
 
@@ -81,24 +83,58 @@ def global_norm(tensors) -> torch.Tensor:
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
     """Scale every gradient by min(1, max_norm / max(norm, 1e-9)) in
     place, as the JAX package does (in f32, on the device: no host
-    sync). Returns (grads, global norm before clipping)."""
+    sync; a bf16 gradient's product rounded once). Returns (grads,
+    global norm before clipping)."""
     gn = global_norm(grads.values())
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in grads.values():
-        g.mul_(scale.to(g.dtype))
+        g.mul_(scale)
     return grads, gn
 
 
+def _clipped_norm(grads: Dict[str, torch.Tensor], grad_clip: float):
+    """The global norm of the gradients before clipping, and the
+    gradients clipped to `grad_clip` in place (0: not clipped)."""
+    if grad_clip:
+        return clip_by_global_norm(grads, grad_clip)[1]
+    return global_norm(grads.values())
+
+
+# ------------------------------------------------------------------ sgd ----
+def sgd(lr_fn: Callable[[int], float], momentum: float = 0.9,
+        grad_clip: float = 0.0) -> Optimizer:
+    """mu = momentum mu + g, p -= lr mu, with f32 momentum `mu`; the
+    gradients are clipped to `grad_clip` global norm first (0: off)."""
+    def init(params: Dict[str, torch.Tensor]):
+        return {"mu": {k: torch.zeros_like(p, dtype=torch.float32)
+                       for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        gn = _clipped_norm(grads, grad_clip)
+        lr = lr_fn(step)
+        for k, p in params.items():
+            for p_s, g_s, m_s in _slices(p, grads[k], state["mu"][k]):
+                m_s.mul_(momentum).add_(g_s.float())
+                # p - lr * mu computed in f32, rounded once into p's dtype
+                p_s.sub_(m_s * lr)
+        return params, state, {"lr": lr, "grad_norm": gn}
+    return Optimizer("sgd", init, update)
+
+
 # -------------------------------------------------------------- adagrad ----
-def adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10) -> Optimizer:
-    """p -= lr * g / (sqrt(acc + g^2) + eps), acc += g^2, elementwise."""
+def adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
+            grad_clip: float = 0.0) -> Optimizer:
+    """p -= lr * g / (sqrt(acc + g^2) + eps), acc += g^2, elementwise;
+    the gradients are clipped to `grad_clip` global norm first (0:
+    off)."""
     def init(params: Dict[str, torch.Tensor]):
         return {"acc": {k: torch.zeros_like(p, dtype=torch.float32)
                         for k, p in params.items()}}
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        gn = global_norm(grads.values())
+        gn = _clipped_norm(grads, grad_clip)
         lr = lr_fn(step)
         for k, p in params.items():
             for p_s, g_s, a_s in _slices(p, grads[k], state["acc"][k]):
@@ -168,28 +204,29 @@ def rowwise_adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
 # ----------------------------------------------------------------- adam ----
 def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
          eps: float = 1e-8, weight_decay: float = 0.0,
-         grad_clip: float = 1.0) -> Optimizer:
+         grad_clip: float = 1.0,
+         state_dtype: torch.dtype = torch.float32) -> Optimizer:
     """AdamW with the JAX package's defaults and evaluation order:
     m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2,
     p -= lr (m / bc1) / (sqrt(v / bc2) + eps) [+ lr wd p], with the bias
     corrections bc = 1 - b^t, t = step + 1, computed in float32. The
     gradients are clipped to `grad_clip` global norm first (0: off). The
     update runs in place on the parameters and the state, and consumes
-    the gradients."""
+    the gradients. `state_dtype=torch.bfloat16` halves the state's
+    memory (the reference's large-model knob): m and v are read into
+    f32, updated and used there, and stored by rounding after the
+    update."""
     f32 = np.float32
 
     def init(params: Dict[str, torch.Tensor]):
-        return {"m": {k: torch.zeros_like(p, dtype=torch.float32)
+        return {"m": {k: torch.zeros_like(p, dtype=state_dtype)
                       for k, p in params.items()},
-                "v": {k: torch.zeros_like(p, dtype=torch.float32)
+                "v": {k: torch.zeros_like(p, dtype=state_dtype)
                       for k, p in params.items()}}
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        if grad_clip:
-            grads, gn = clip_by_global_norm(grads, grad_clip)
-        else:
-            gn = global_norm(grads.values())
+        gn = _clipped_norm(grads, grad_clip)
         lr = lr_fn(step)
         t = f32(step) + f32(1.0)
         bc1 = float(f32(1.0) - f32(b1) ** t)
@@ -198,13 +235,19 @@ def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
             for p_s, g_s, m_s, v_s in _slices(p, grads[k], state["m"][k],
                                               state["v"][k]):
                 g32 = g_s.float()
-                m_s.mul_(b1).add_(g32 * (1 - b1))
-                v_s.mul_(b2).add_(g32.square_().mul_(1 - b2))
-                denom = (v_s / bc2).sqrt_().add_(eps)
-                upd = (m_s / bc1).mul_(lr).div_(denom)
+                # f32 state is updated in place; other state through f32
+                m32, v32 = m_s.float(), v_s.float()
+                m32.mul_(b1).add_(g32 * (1 - b1))
+                v32.mul_(b2).add_(g32.square_().mul_(1 - b2))
+                denom = (v32 / bc2).sqrt_().add_(eps)
+                upd = (m32 / bc1).mul_(lr).div_(denom)
                 if weight_decay:
                     upd.add_(p_s.float() * (lr * weight_decay))
-                p_s.sub_(upd.to(p_s.dtype))
+                # p - upd computed in f32, rounded once into p's dtype
+                p_s.sub_(upd)
+                if m32 is not m_s:
+                    m_s.copy_(m32)
+                    v_s.copy_(v32)
         return params, state, {"lr": lr, "grad_norm": gn}
     return Optimizer("adam", init, update)
 
@@ -212,15 +255,21 @@ def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
 # -------------------------------------------------------------- factory ----
 def make_optimizer(name: str, *, lr: float = 1e-3, total_steps: int = 10000,
                    warmup: int = 100, **kw) -> Optimizer:
-    """The JAX factory's contract (warmup-cosine schedule); adagrad (the
-    closed loop's), rowwise_adagrad (wide-deep's) and adam (GraphSAGE's)
-    are ported so far."""
+    """The JAX factory's contract (warmup-cosine schedule): sgd, adagrad
+    (the closed loop's), rowwise_adagrad (wide-deep's and the DLRM's)
+    and adam (GraphSAGE's and the sequence models')."""
     lr_fn = warmup_cosine(lr, warmup, total_steps)
+    if name == "sgd":
+        return sgd(lr_fn, **kw)
     if name == "adagrad":
         return adagrad(lr_fn, **kw)
     if name == "rowwise_adagrad":
         return rowwise_adagrad(lr_fn, **kw)
     if name == "adam":
         return adam(lr_fn, **kw)
-    raise ValueError(f"optimizer {name!r} is not ported to repro_torch; "
-                     f"the port has 'adagrad', 'rowwise_adagrad' and 'adam'")
+    if name == "adafactor":
+        raise ValueError("optimizer 'adafactor' is not ported to "
+                         "repro_torch yet: ROADMAP.md queue 1, item 8 (LLM "
+                         "family; only kimi-k2-1t-a32b uses it)")
+    raise ValueError(f"unknown optimizer {name!r}; the port has 'sgd', "
+                     f"'adagrad', 'rowwise_adagrad' and 'adam'")

@@ -349,7 +349,20 @@ def test_driver_cli_checkpoints_and_resumes(tmp_path, capsys):
     assert all(np.isfinite(second["losses"]))
 
 
-def test_driver_takes_only_minibatch_shapes():
-    with pytest.raises(KeyError, match="only the minibatch regime"):
-        train.main(["--arch", "graphsage-reddit", "--shape", "ogb_products",
-                    "--device", "cpu"])
+@pytest.mark.parametrize("name,loss", [
+    ("minibatch_lg", gnn.minibatch_loss),
+    ("full_graph_sm", gnn.full_graph_loss),
+    ("ogb_products", gnn.full_graph_loss),
+    ("molecule", gnn.batched_graphs_loss),
+    ("train_batch", None), ("no_such_shape", None)])
+def test_driver_resolves_each_gnn_shape_to_its_loss(name, loss):
+    """Every GNN shape resolves to its regime's loss, as
+    repro/launch/programs.py:260-262 picks it; a recsys shape's name or
+    an unknown name raises KeyError from the CLI."""
+    if loss is None:
+        with pytest.raises(KeyError, match=name):
+            train.main(["--arch", "graphsage-reddit", "--shape", name,
+                        "--device", "cpu"])
+        return
+    shape = train.resolve_shape(ARCH, name)
+    assert train.make_loss_fn(ARCH, ARCH.model, shape) is loss

@@ -805,3 +805,98 @@ def test_cuda_embedding_bag_fused_on_the_xdeepfm_linear_arm():
         got = eb.embedding_bag_fused_fwd(linear, ids)
         assert torch.equal(got, eb.embedding_bag_fwd(linear, ids)), b
         assert torch.equal(got, ref.embedding_bag_fused_ref(linear, ids)), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [7919, 1 << 23])
+def test_cuda_chunked_segment_reduce_matches_one_shot(chunk):
+    """models/segment.py on the card, walked in chunks, against one
+    index_add_ (or amax) over every pair at once: the sum and its table
+    gradient within rtol 1e-5 / atol 1e-6 (atomics add in another
+    order), the max bitwise, a NaN row's NaN carried to its segments
+    whatever the order of the atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models import segment
+    gen = torch.Generator(device="cuda").manual_seed(chunk % 1000)
+    table = torch.randn((20000, 100), device="cuda", generator=gen)
+    g = torch.randint(0, 20000, (300000,), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    s = torch.randint(0, 15000, (300000,), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    plan = segment.segment_plan(g, s, 15000, 20000)
+    d_out = torch.randn((15000, 100), device="cuda", generator=gen)
+    t = table.clone().requires_grad_()
+    got = segment.segment_sum(t, plan, chunk=chunk)
+    (d_got,) = torch.autograd.grad(got, t, d_out)
+    msg = table.index_select(0, g)
+    torch.testing.assert_close(
+        got, torch.zeros(15000, 100, device="cuda").index_add_(0, s, msg),
+        rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(
+        d_got, torch.zeros_like(table).index_add_(0, g, d_out[s.long()]),
+        rtol=1e-5, atol=1e-6)
+    table[7, 3] = float("nan")
+    got = segment.segment_max(table, plan, chunk=chunk)
+    want = torch.full((15000, 100), -float("inf"), device="cuda") \
+        .index_reduce_(0, s, table.index_select(0, g), "amax")
+    hit = torch.zeros(15000, dtype=torch.bool, device="cuda")
+    hit[s[g == 7].long()] = True
+    assert bool(hit.any())
+    assert torch.isnan(got[hit, 3]).all() and not torch.isnan(got[~hit]).any()
+    # the card's amax keeps or drops the NaN by the order of its atomics:
+    # the column the NaN row reaches is left out of the bitwise check
+    got[hit, 3] = 0.0
+    want[hit, 3] = 0.0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_full_graph_loss_and_grads_match_the_cpu():
+    """graphsage-reddit at full_graph_sm (the Cora-sized synthetic graph,
+    1,433 features, hidden 128) on the card against the CPU, same
+    parameters and graph: loss rtol 1e-5, each gradient within 1e-4 of
+    its L2 norm over the nodes that no ReLU flip between the two devices
+    reaches (chip_smoke.py's gnn_full_model says why)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from repro_torch.configs.graphsage_reddit import ARCH
+    from repro_torch.data.graphs import full_graph_batch
+    from repro_torch.models import gnn, segment
+    shape, cfg = ARCH.shape("full_graph_sm"), ARCH.model
+    graph = full_graph_batch(shape, cfg.n_classes, np.random.RandomState(0))
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model = gnn.init_params(cfg, shape.d_feat, seed=0, device="cpu") \
+            .to(dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in graph.items()}
+        l1 = model.layers[0]
+        plan = gnn.graph_plan(batch["edge_src"], batch["edge_dst"],
+                              shape.n_nodes)
+        with torch.no_grad():
+            agg = segment.segment_sum(batch["x"], plan) \
+                / plan.count.clamp(min=1.0)[:, None]
+            pre = batch["x"] @ l1.w_self + agg @ l1.w_neigh + l1.b
+        nll, mask = gnn.full_graph_nll(model, batch)
+        runs.append((model, nll, mask, pre.cpu()))
+    (m_c, nll_c, mask_c, pre_c), (m_g, nll_g, mask_g, pre_g) = runs
+    flips = ((pre_c > 0) != (pre_g > 0)).any(dim=1)
+    src = torch.from_numpy(graph["edge_src"]).long()
+    dst = torch.from_numpy(graph["edge_dst"]).long()
+    real = dst < shape.n_nodes
+    hit = flips.clone()
+    hit[dst[real][flips[src[real]]]] = True
+    loss_c = (nll_c * mask_c).sum() / mask_c.sum()
+    loss_g = (nll_g * mask_g).sum() / mask_g.sum()
+    torch.testing.assert_close(loss_g.detach().cpu(), loss_c.detach(),
+                               rtol=1e-5, atol=0.0)
+    keep = mask_c * (~hit).float()
+    grads_c = torch.autograd.grad((nll_c * keep).sum() / keep.sum(),
+                                  list(m_c.parameters()))
+    keep = keep.cuda()
+    grads_g = torch.autograd.grad((nll_g * keep).sum() / keep.sum(),
+                                  list(m_g.parameters()))
+    for gc, gg in zip(grads_c, grads_g):
+        assert float(torch.linalg.vector_norm(gg.cpu() - gc)
+                     / torch.linalg.vector_norm(gc)) <= 1e-4

@@ -153,12 +153,16 @@ def test_warmup_cosine_matches_jax(step):
 
 
 def test_make_optimizer_is_adagrad_only():
-    """adagrad (the closed loop's) and, since slices 2 and 3, adam
-    (GraphSAGE's) and rowwise_adagrad (wide-deep's) are ported; every
-    other optimizer raises."""
+    """adagrad (the closed loop's) and, since slices 2, 3 and 12, adam
+    (GraphSAGE's), rowwise_adagrad (wide-deep's) and sgd are ported;
+    adafactor raises, naming the ROADMAP item it waits in, and so does
+    an unknown name."""
     assert optim.make_optimizer("adagrad", lr=0.02).name == "adagrad"
     assert optim.make_optimizer("adam", lr=1e-3).name == "adam"
     assert optim.make_optimizer("rowwise_adagrad").name == "rowwise_adagrad"
-    with pytest.raises(ValueError, match="not ported.*'adagrad', "
-                                         "'rowwise_adagrad' and 'adam'"):
+    assert optim.make_optimizer("sgd").name == "sgd"
+    with pytest.raises(ValueError, match="not ported.*queue 1, item 8"):
         optim.make_optimizer("adafactor")
+    with pytest.raises(ValueError, match="'sgd', 'adagrad', "
+                                         "'rowwise_adagrad' and 'adam'"):
+        optim.make_optimizer("lamb")
