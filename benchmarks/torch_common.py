@@ -7,9 +7,11 @@ in the checkout, which git ignores: the JAX package's own cache,
 `experiments/agents/`, is never written. Benchmark JSON goes to
 `build/bench/`.
 
-The fleet helpers of benchmarks/common.py (`make_fleet_coordinator`,
-`make_pool_market`, `ReadaptPolicy`) need the fleet plane, which the
-port does not have yet.
+`make_fleet_coordinator` and `make_pool_market` build the fleet plane's
+RL policies over the same cache, one agent per pipeline length in the
+cluster (5 and 7 for `demo_cluster`). `ReadaptPolicy` of
+benchmarks/common.py serves the single-machine rescale benchmarks, which
+the port does not have yet.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ AGENT_DIR = os.path.join(_BUILD, "agents")
 OUT_DIR = os.path.join(_BUILD, "bench")
 
 __all__ = ["AGENT_DIR", "OUT_DIR", "RELAUNCH_TICKS", "get_agent_state",
-           "save_json", "make_tuner"]
+           "save_json", "make_tuner", "make_fleet_coordinator",
+           "make_pool_market"]
 
 
 def get_agent_state(n_stages: int, head: str = "factored",
@@ -47,6 +50,33 @@ def save_json(name: str, payload):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(payload, f, indent=1, default=float)
+
+
+def _pretrained(trainers, head: str) -> dict:
+    """One cached pretrained agent state per distinct pipeline length."""
+    lengths = sorted({t.pipeline.n_stages for t in trainers})
+    return {n: get_agent_state(n, head=head) for n in lengths}
+
+
+def make_fleet_coordinator(cluster, *, seed: int = 0, head: str = "factored",
+                           finetune_ticks: int = 150, **kw):
+    """Benchmark-grade FleetCoordinator: one cached pretrained agent per
+    distinct pipeline length in the cluster."""
+    from repro_torch.core.fleet_coordinator import FleetCoordinator
+    return FleetCoordinator(cluster, pretrained=_pretrained(
+        cluster.trainers, head), seed=seed, head=head,
+        finetune_ticks=finetune_ticks, **kw)
+
+
+def make_pool_market(market, *, seed: int = 0, head: str = "factored",
+                     finetune_ticks: int = 150, **kw):
+    """Benchmark-grade PoolMarket ("coordinator + market"): per-job
+    FleetCoordinators, one cached pretrained agent per distinct pipeline
+    length across the whole market."""
+    from repro_torch.core.fleet_coordinator import PoolMarket
+    return PoolMarket(market, inner="fleet_intune", pretrained=_pretrained(
+        market.trainers, head), seed=seed, head=head,
+        finetune_ticks=finetune_ticks, **kw)
 
 
 def make_tuner(spec, machine, *, seed: int = 0, head: str = "factored",

@@ -68,12 +68,37 @@ The closed loop scored and resumed (slice 11), at the same widths:
               time, final workers, windows and idle series, and the idle
               reduction against even (report-only at smoke size). The
               intune arm's agent is pretrained (60 episodes of 300 ticks)
-              in a process started before the build, on the last core.
+              in a process started before the build, on the last core;
+              the 7-stage agent the fleet phases need beside it, in a
+              process of its own on the core before.
   5b. checkpoint  run_proc with rows cut to 2^16 a table saves at step
               3; a second run_proc resumes with no step left, and its
               parameters, adagrad state and tuner (Q-network, agent steps,
               allocation) are bitwise the first's; a third trains 2 steps
               on, loss finite. The free disk is printed first.
+
+The fleet plane and the public tuning API (slice 13), on the host (the
+fleet's trainers are threads and processes, its DQNs run on the CPU;
+nothing here touches the card):
+
+  5c. fleet_sim  benchmarks/torch_fig7_fleet.run: FleetSim over
+              demo_cluster (4 trainers, pool 80, a join, a shrink and a
+              leave) for 1200 ticks under the five fleet policies; fails
+              unless the coordinator (fleet_intune) reaches 90% of the
+              fleet oracle and 1.3x fleet_even with no OOM at all.
+  5d. fleet_live  run_live: LiveFleet over live_demo_cluster (3 trainers
+              of real threads, 160 windows of 0.12 s) under fleet_even
+              and the coordinator; fails on a coordinator OOM, a dropped
+              batch, a thread not joined or left running, or a measured
+              intune_vs_even not above 1.0 (fleet_even's OOMs are the
+              cluster's designed crash loop, printed).
+  5e. api_tune  tune(live_linear_pipeline(), MachineSpec(n_cpus=the
+              host's cores), optimizer="oracle", backend="proc") over 8
+              windows of 0.3 s, then fleet_even on ProcFleetBackend over
+              live_demo_cluster(20) (its churn, at ticks 5, 11, 13 and
+              16, paid by relaunch windows),
+              ballast off; fails on an OOM, a crash-lost batch, a
+              process not joined or left running.
 
 GraphSAGE minibatch training (slice 2), graphsage-reddit at the
 minibatch_lg widths: 1024 seed nodes, fanout 15-10, 602 features,
@@ -302,6 +327,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from types import SimpleNamespace
 from typing import NamedTuple
@@ -1191,22 +1217,47 @@ def phase_idle_tail(cfg) -> dict:
     return counts
 
 
+AGENT_LENGTHS = (5, 7)
+
+
 def start_agent_pretrain():
-    """Pretrains the intune arm's agent for 5-stage pipelines
+    """Pretrains the agents the host phases need
     (benchmarks/torch_common.get_agent_state: 60 episodes of 300 ticks on
-    the analytic simulator, cached under build/agents) in a process of
-    its own, on the host's last core and one thread, while the card runs
-    the phases before train_feed. Returns the process."""
-    core = (os.cpu_count() or 1) - 1
+    the analytic simulator each, cached under build/agents), one process
+    a pipeline length, each on a core of its own at the host's end and
+    one thread, while the card runs the phases before train_feed: the
+    5-stage agent (train_feed's intune arm, the fleets' linear chains)
+    and the 7-stage one (demo_cluster's multi-source DAG), side by side,
+    so that neither still runs when train_feed measures the host. Each
+    prints the seconds it took. Returns {length: process}."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT]))
-    return subprocess.Popen(
-        [sys.executable, "-c", "from benchmarks import torch_common; "
-         "torch_common.get_agent_state(5)"], cwd=ROOT, env=env,
-        preexec_fn=lambda: os.sched_setaffinity(0, {core}))
+    procs = {}
+    for i, n in enumerate(AGENT_LENGTHS):
+        core = max((os.cpu_count() or 1) - 1 - i, 0)
+        procs[n] = subprocess.Popen(
+            [sys.executable, "-c", "import time\n"
+             "from benchmarks import torch_common\n"
+             "t0 = time.monotonic()\n"
+             f"torch_common.get_agent_state({n})\n"
+             f"print(f'  r{n} agent cached after "
+             "{time.monotonic() - t0:.1f} s', flush=True)"],
+            cwd=ROOT, env=env,
+            preexec_fn=lambda core=core: os.sched_setaffinity(0, {core}))
+    return procs
 
 
-def phase_train_feed(agent_proc) -> dict:
+def wait_agent(procs, n: int, timeout: float = 600.0) -> float:
+    """Blocks until the process pretraining the agent for n-stage
+    pipelines has cached it; returns the seconds waited."""
+    t0 = time.monotonic()
+    rc = procs[n].wait(timeout=timeout)
+    if rc != 0:
+        raise RuntimeError(f"the r{n} agent's pretraining exited {rc}")
+    return time.monotonic() - t0
+
+
+def phase_train_feed(agent_procs) -> dict:
     """benchmarks/torch_fig_train_feed.py at --model dlrm-criteo-1m
     --smoke: the three arms (even, static_best, intune) of TRAIN_FEED
     steps each, from the same seeded weights, on the card: every arm's
@@ -1218,12 +1269,8 @@ def phase_train_feed(agent_proc) -> dict:
     from benchmarks import torch_fig_train_feed as tff
     from repro_torch.kernels import ops
 
-    t0 = time.monotonic()
-    rc = agent_proc.wait(timeout=600)
-    if rc != 0:
-        raise RuntimeError(f"the agent's pretraining exited {rc}")
-    print(f"  agent pretrained (waited {time.monotonic() - t0:.1f} s)",
-          flush=True)
+    waited = wait_agent(agent_procs, 5)
+    print(f"  agent pretrained (waited {waited:.1f} s)", flush=True)
     losses = {}
     ops.reset_launch_counts()
     payload = tff.main(["--model", "dlrm-criteo-1m", "--smoke"],
@@ -1339,6 +1386,140 @@ def phase_checkpoint(cfg) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     torch.cuda.empty_cache()
     return counts
+
+
+FLEET_SIM_TICKS = 1200
+FLEET_LIVE_TICKS = 160
+PROC_TUNE_WINDOWS = 8
+PROC_FLEET_TICKS = 20
+
+
+def _leftovers(threads, children, timeout: float = 8.0):
+    """Threads and child processes started since the snapshots `threads`
+    and `children` and still alive after up to `timeout` seconds."""
+    import multiprocessing as mp
+    deadline = time.monotonic() + timeout
+    while True:
+        extra_t = [t.name for t in threading.enumerate() if t not in threads]
+        extra_p = [p.pid for p in mp.active_children() if p not in children]
+        if not (extra_t or extra_p) or time.monotonic() > deadline:
+            return extra_t, extra_p
+        time.sleep(0.05)
+
+
+def _host_snapshot():
+    import multiprocessing as mp
+    return set(threading.enumerate()), list(mp.active_children())
+
+
+def phase_fleet_sim(agent_procs):
+    """benchmarks/torch_fig7_fleet.run at 1200 ticks: the five fleet
+    policies over demo_cluster on FleetSim, the coordinator from the
+    cached 5- and 7-stage agents; the reference's bars (tests/
+    test_fleet.py::test_fig7_fleet_acceptance): pct_of_oracle >= 90,
+    intune_vs_even >= 1.3, no OOM. Prints each policy's aggregate
+    throughput, share of the oracle, OOMs and CPU utilization."""
+    import torch
+    from benchmarks import torch_fig7_fleet as f7
+    waited = wait_agent(agent_procs, 7)
+    print(f"  agents pretrained (waited {waited:.1f} s); host cores "
+          f"{os.cpu_count()}", flush=True)
+    # the coordinator's DQN is a few small matmuls a tick: one thread
+    # runs them faster than eight and no busy core can stall it
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        summary = f7.run(ticks=FLEET_SIM_TICKS, seed=0, quiet=False)
+    finally:
+        torch.set_num_threads(threads)
+    coord, sp = summary["fleet_intune"], summary["_speedups"]
+    print("  fleet_sim " + json.dumps(summary), flush=True)
+    if coord["pct_of_oracle"] < 90.0 or sp["intune_vs_even"] < 1.3 or \
+            coord["oom_count"] != 0 or coord["ooms_steady"] != 0:
+        raise AssertionError(f"fleet_sim under the reference's bars: "
+                             f"{coord}, {sp}")
+
+
+def phase_fleet_live():
+    """benchmarks/torch_fig7_fleet.run_live at 160 windows of 0.12 s:
+    fleet_even and the coordinator on LiveFleet (real threads) over
+    live_demo_cluster; the reference's bars (tests/test_live_fleet.py::
+    test_fig7_fleet_live_acceptance): the coordinator without an OOM, no
+    dropped batch, every thread joined, measured intune_vs_even above
+    1.0; and no thread of either run left running."""
+    from benchmarks import torch_fig7_fleet as f7
+    threads, children = _host_snapshot()
+    summary = f7.run_live(ticks=FLEET_LIVE_TICKS, seed=0, quiet=False)
+    left_t, left_p = _leftovers(threads, children)
+    coord, sp = summary["fleet_intune"], summary["_speedups"]
+    print("  fleet_live " + json.dumps(summary), flush=True)
+    bad = [f"{name}: {k} {s[k]}" for name, s in summary.items()
+           if name != "_speedups"
+           for k, ok in (("dropped_batches", 0), ("all_joined", True))
+           if s[k] != ok]
+    if coord["oom_count"] != 0:
+        bad.append(f"fleet_intune: oom_count {coord['oom_count']}")
+    if not sp["intune_vs_even"] > 1.0:
+        bad.append(f"intune_vs_even {sp['intune_vs_even']}")
+    if left_t or left_p:
+        bad.append(f"left running: threads {left_t}, processes {left_p}")
+    if bad:
+        raise AssertionError(f"fleet_live: {bad}")
+
+
+def phase_api_tune():
+    """The public one-liner on the process plane, as
+    examples/process_pipeline.py runs it: tune(live_linear_pipeline(),
+    MachineSpec(n_cpus=host cores), optimizer="oracle", backend="proc")
+    over 0.3 s windows (ms-scale stage costs, per-worker ballast on);
+    then fleet_even on ProcFleetBackend over live_demo_cluster(20), its
+    churn (a join, a resize, a pool re-cap, a leave) paid by relaunch
+    windows, with ballast off. Each run without an OOM or a crash-lost
+    batch, every process joined, none left running. (The H100's 8-core
+    host forks slowly: 40 ticks of fleet_even took 33.1 s there, most of
+    it in relaunches, and the coordinator, which re-places workers nearly
+    every tick while it explores, 102.6 s; PERF.md §6. The coordinator
+    runs on threads in fleet_live.)"""
+    import numpy as np
+    from repro_torch.api import tune
+    from repro_torch.data.live_fleet import (live_demo_cluster,
+                                             live_linear_pipeline)
+    from repro_torch.data.simulator import MachineSpec
+
+    out = {}
+    threads, children = _host_snapshot()
+    t0 = time.monotonic()
+    machine = MachineSpec(n_cpus=os.cpu_count(), mem_mb=16384.0)
+    res = tune(live_linear_pipeline(), machine, optimizer="oracle",
+               backend="proc", ticks=PROC_TUNE_WINDOWS, seed=0,
+               backend_kw={"window_s": 0.3})
+    out["proc"] = {"n_cpus": machine.n_cpus, "windows": res.ticks,
+                   "throughput": res.throughput,
+                   "mean_tput_after_2": float(np.mean(res.throughput[2:])),
+                   "used_cpus": res.used_cpus, "mem_mb": res.mem_mb,
+                   "oom_count": res.oom_count, "live": res.extras["live"],
+                   "s": time.monotonic() - t0}
+    t0 = time.monotonic()
+    cluster = live_demo_cluster(PROC_FLEET_TICKS)
+    res = tune(cluster, optimizer="fleet_even", backend="proc",
+               ticks=PROC_FLEET_TICKS, seed=0, relaunch_dead=2,
+               backend_kw={"window_s": 0.1, "ballast": False})
+    out["proc_fleet"] = {"cluster": cluster.name, "ticks": res.ticks,
+                         "mean_tput": float(np.mean(res.throughput)),
+                         "oom_count": res.oom_count,
+                         "live": res.extras["live"],
+                         "s": time.monotonic() - t0}
+    left_t, left_p = _leftovers(threads, children)
+    print("  api_tune " + json.dumps(out, default=float), flush=True)
+    bad = [f"{k}: {r['oom_count']} OOMs, {r['live']}" for k, r in out.items()
+           if r["oom_count"] or not r["live"]["all_joined"]
+           or r["live"].get("crash_lost", 0)]
+    if min(out["proc"]["throughput"][2:]) <= 0.0:
+        bad.append(f"proc: a window without a batch {out['proc']}")
+    if left_t or left_p:
+        bad.append(f"left running: threads {left_t}, processes {left_p}")
+    if bad:
+        raise AssertionError(f"api_tune: {bad}")
 
 
 def profile_steps(step, steps: int, kernels=()):
@@ -3361,16 +3542,17 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    agent_proc = start_agent_pretrain()
+    agent_procs = start_agent_pretrain()
     try:
-        return run_phases(agent_proc)
+        return run_phases(agent_procs)
     finally:
-        if agent_proc.poll() is None:
-            agent_proc.kill()
-        agent_proc.wait()
+        for proc in agent_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
 
-def run_phases(agent_proc) -> int:
+def run_phases(agent_procs) -> int:
     import torch
     from repro_torch.configs.dlrm_criteo import ARCH as DLRM_ARCH
     from repro_torch.configs.dlrm_criteo import MODEL
@@ -3402,7 +3584,7 @@ def run_phases(agent_proc) -> int:
         phase_profile(MODEL)
     torch.cuda.empty_cache()
     with Phase("train_feed"):
-        feed_launches = phase_train_feed(agent_proc)
+        feed_launches = phase_train_feed(agent_procs)
     torch.cuda.empty_cache()
     with Phase("checkpoint"):
         ckpt_launches = phase_checkpoint(MODEL)
@@ -3411,6 +3593,12 @@ def run_phases(agent_proc) -> int:
                           train_feed_launches=feed_launches[name],
                           checkpoint_launches=ckpt_launches[name])
     torch.cuda.empty_cache()
+    with Phase("fleet_sim"):
+        phase_fleet_sim(agent_procs)
+    with Phase("fleet_live"):
+        phase_fleet_live()
+    with Phase("api_tune"):
+        phase_api_tune()
     with Phase("graph"):
         sampler = build_graph(gnn_shape, gnn_cfg)
     with Phase("gnn_model"):

@@ -1,8 +1,10 @@
 """The Backend protocol: one runtime surface for every substrate.
 
-Every substrate is driven through this one protocol via a thin
-adapter; this package ports the one the closed training loop runs,
-`FeedBackend` (repro_torch.api.backends), and `Session` drives it:
+EVERY substrate the package can run — the analytic `PipelineSim`, the
+threaded executor, the process pipeline, the analytic `FleetSim`, the
+live fleets, the train-loop feed — is driven through this one protocol
+via a thin adapter (repro_torch.api.backends), and `Session` is the only
+driver loop:
 
     apply(alloc) -> Telemetry   advance one tick under the allocation
     inject(event)               ResizeEvent / ChurnEvent (fleet only)
@@ -79,7 +81,8 @@ class BackendBase:
         else:
             raise UnsupportedEventError(
                 f"{type(self).__name__} cannot inject "
-                f"{type(event).__name__}")
+                f"{type(event).__name__} (DeadWindow events are handled "
+                f"by the Session, not the backend)")
 
     def _resize(self, n_cpus: int) -> None:
         raise NotImplementedError

@@ -156,3 +156,26 @@ class Telemetry(_DictCompat):
     def dead_tick(cls) -> "Telemetry":
         """The zero tick charged inside a dead/relaunch window."""
         return cls(restarting=True)
+
+
+@dataclass
+class RunResult(_DictCompat):
+    """A Session run's timeline + terminal accounting.
+
+    The per-tick series align index-for-index with the run's ticks;
+    `used_cpus` is clamped to the capacity each proposal was made
+    against (the legacy loops' contract). `extras` carries run-level
+    artifacts: the live backend's teardown accounting under "live", the
+    driving optimizer under "optimizer", legacy fields like "caps".
+    """
+    throughput: List[float] = field(default_factory=list)
+    used_cpus: List[int] = field(default_factory=list)
+    mem_mb: List[float] = field(default_factory=list)
+    oom_count: int = 0
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+    _FIELDS = ("throughput", "used_cpus", "mem_mb", "oom_count")
+
+    @property
+    def ticks(self) -> int:
+        return len(self.throughput)

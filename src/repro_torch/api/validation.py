@@ -46,3 +46,25 @@ def validate_allocation(spec: Any, alloc: Any) -> None:
     if alloc.prefetch_mb < 0:
         raise AllocationError(
             f"prefetch_mb must be >= 0, got {alloc.prefetch_mb}")
+
+
+def validate_fleet_allocation(cluster: Any, falloc: Any) -> None:
+    """Reject structurally invalid FleetAllocations: every per-trainer
+    Allocation is validated against that trainer's pipeline, and grants
+    must be non-negative. (Grant totals vs the pool stay the backend's
+    contract — they depend on dynamic pool state.)"""
+    trainers = {t.name: t for t in cluster.trainers}
+    for name, alloc in falloc.allocs.items():
+        trainer = trainers.get(name)
+        if trainer is None:
+            raise AllocationError(
+                f"allocation names unknown trainer {name!r}; known: "
+                f"{sorted(trainers)}")
+        try:
+            validate_allocation(trainer.pipeline, alloc)
+        except AllocationError as e:
+            raise AllocationError(f"trainer {name!r}: {e}") from None
+    for name, g in falloc.grants.items():
+        if int(g) < 0:
+            raise AllocationError(
+                f"negative pool grant {int(g)} for trainer {name!r}")

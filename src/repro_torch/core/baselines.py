@@ -27,12 +27,19 @@ proportional placement is optimal for linear chains and join DAGs alike.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 
 from repro_torch.data.pipeline import StageGraph
 from repro_torch.data.simulator import Allocation, MachineSpec, PipelineSim
 
 PipelineSpec = StageGraph   # pre-DAG alias, kept for imports
+
+# one-shot optimizers whose run-to-run profiling noise is part of the
+# model (each launch re-profiles); benchmarks sweep their seed
+SEEDED = frozenset({"autotune", "plumber"})
+
 
 def unoptimized(spec: PipelineSpec, machine: MachineSpec) -> Allocation:
     return Allocation(np.ones(spec.n_stages, dtype=int),
@@ -108,4 +115,240 @@ BASELINES = {
     "autotune": autotune_like,
     "plumber": plumber_like,
     "oracle": oracle,
+}
+
+
+# ---------------------------------------------------------------------------
+# Fleet baselines (cluster plane). Each is fn(cluster, state, seed) ->
+# FleetAllocation: a pool-grant split across the active machines plus a
+# per-machine allocation at the granted cap. They run behind
+# FleetStaticOptimizer (repro.core.optimizer.make_fleet_optimizer), which
+# re-proposes whenever churn changes the FleetState — the fleet analog of
+# the single-machine *-Adaptive relaunch behavior.
+# ---------------------------------------------------------------------------
+
+def _eff_machine(trainer, cap: int) -> MachineSpec:
+    import dataclasses
+    return dataclasses.replace(trainer.machine, n_cpus=int(cap))
+
+
+@lru_cache(maxsize=4096)
+def _oracle_cached(pipeline: StageGraph, mem_mb: float,
+                   model_latency: float, cap: int):
+    """Memoized per-machine oracle point: (Allocation, throughput) of
+    true-cost water-filling at `cap` CPUs. Hashable StageGraph keys it."""
+    machine = MachineSpec(n_cpus=int(cap), mem_mb=mem_mb)
+    sim = PipelineSim(pipeline, machine, model_latency)
+    return sim.best_allocation()
+
+
+def _oracle_point(trainer, cap: int):
+    alloc, tput = _oracle_cached(trainer.pipeline, trainer.machine.mem_mb,
+                                 trainer.model_latency, int(cap))
+    return alloc.copy(), tput   # never hand out the cached (mutable) alloc
+
+
+def _even_grants(pool: int, names) -> dict:
+    """Pool split evenly over active machines, remainder round-robin."""
+    names = list(names)
+    if not names:
+        return {}
+    base, rem = divmod(int(pool), len(names))
+    return {n: base + (1 if i < rem else 0) for i, n in enumerate(names)}
+
+
+def fleet_even(cluster, state, seed: int = 0):
+    """Fleet-even: every active machine gets the same pool share, then the
+    single-machine even heuristic places workers — blind to machine size,
+    pipeline shape, and model demand."""
+    from repro_torch.data.fleet import FleetAllocation
+    grants = _even_grants(state.pool, state.active)
+    allocs = {n: heuristic_even(
+        cluster.trainer(n).pipeline,
+        _eff_machine(cluster.trainer(n), state.base(n) + grants[n]))
+        for n in state.active}
+    return FleetAllocation(allocs, grants)
+
+
+def fleet_proportional(cluster, state, seed: int = 0):
+    """Fleet-proportional: pool shares proportional to each machine's total
+    true pipeline cost (a demand proxy), per-machine Plumber-style LP
+    placement. Better informed than even, but no model-demand awareness:
+    a machine whose model is already saturated still draws its share."""
+    from repro_torch.data.fleet import FleetAllocation
+    names = list(state.active)
+    grants = {n: 0 for n in names}
+    if names and state.pool:
+        costs = np.array([sum(s.cost for s in
+                              cluster.trainer(n).pipeline.stages)
+                          for n in names])
+        frac = state.pool * costs / costs.sum()
+        floor = np.floor(frac).astype(int)
+        order = np.argsort(-(frac - floor))
+        rem = int(state.pool - floor.sum())
+        for k in order[:rem]:
+            floor[k] += 1
+        grants = {n: int(g) for n, g in zip(names, floor)}
+    allocs = {n: plumber_like(
+        cluster.trainer(n).pipeline,
+        _eff_machine(cluster.trainer(n), state.base(n) + grants[n]), seed)
+        for n in state.active}
+    return FleetAllocation(allocs, grants)
+
+
+def fleet_local_oracle(cluster, state, seed: int = 0):
+    """Per-machine oracle, no coordination: each machine water-fills its
+    OWN CPUs perfectly but nobody arbitrates the shared pool, so it sits
+    idle — the upper bound on what uncoordinated per-machine tuning buys."""
+    from repro_torch.data.fleet import FleetAllocation
+    allocs = {n: _oracle_point(cluster.trainer(n), state.base(n))[0]
+              for n in state.active}
+    return FleetAllocation(allocs, {})
+
+
+def fleet_oracle(cluster, state, seed: int = 0):
+    """Fleet oracle: greedy marginal-throughput water-filling of the shared
+    pool (each pool CPU goes to the machine whose oracle throughput gains
+    most from +1 cap; per-machine rates are concave so greedy is optimal),
+    then the per-machine oracle at the granted cap. The cluster-level
+    reference every fleet policy is scored against."""
+    from repro_torch.data.fleet import FleetAllocation
+    grants = {n: 0 for n in state.active}
+    for _ in range(int(state.pool)):
+        best_gain, best_name = 1e-12, None
+        for n in state.active:
+            t = cluster.trainer(n)
+            cap = state.base(n) + grants[n]
+            gain = _oracle_point(t, cap + 1)[1] - _oracle_point(t, cap)[1]
+            if gain > best_gain:
+                best_gain, best_name = gain, n
+        if best_name is None:
+            break               # every machine saturated: leave pool idle
+        grants[best_name] += 1
+    allocs = {n: _oracle_point(cluster.trainer(n),
+                               state.base(n) + grants[n])[0]
+              for n in state.active}
+    return FleetAllocation(allocs, grants)
+
+
+# ---------------------------------------------------------------------------
+# Market layer (multi-job pool auction). A MarketSpec partitions the
+# trainers into jobs with bid weights and anti-starvation floors; the
+# auction below is the pricing rule PoolMarket
+# (repro.core.fleet_coordinator) and the market baselines share.
+# ---------------------------------------------------------------------------
+
+def _job_partition(cluster, state):
+    """[(job name, weight, floor, [active member names])] for every job
+    with at least one active member, in spec (jobs) order. A plain
+    ClusterSpec — or a MarketSpec with `jobs=()` — makes every trainer
+    its own weight-1, floor-0 job, under which the market degrades to
+    exactly the per-trainer greedy arbiter (`fleet_oracle`)."""
+    jobs = getattr(cluster, "jobs", ()) or ()
+    if not jobs:
+        return [(n, 1.0, 0, [n]) for n in state.active]
+    out = []
+    for j in jobs:
+        members = [n for n in state.active if n in set(j.trainers)]
+        if members:
+            out.append((j.name, j.weight, j.floor, members))
+    return out
+
+
+def market_grants(cluster, state) -> dict:
+    """Cross-job marginal-throughput pricing: per-trainer pool grants.
+
+    Two passes. FLOORS first: every active job is owed min(floor,
+    remaining pool) cores unconditionally (anti-starvation), each core
+    placed at the job's own best-marginal member. Then the AUCTION: each
+    remaining core goes to the job with the highest bid
+    `weight * (best member's marginal oracle throughput for +1 cap)`,
+    granted to that member. Per-member rates are concave, so within a
+    job the greedy placement is optimal; across jobs the weights price
+    priority. Deterministic: jobs bid in spec order, members in active
+    order, strict > to dethrone — so equal bids resolve to the earlier
+    job/member and a re-run of the same state reproduces the same grants
+    (the re-auction idempotence the property suite pins)."""
+    jobs = _job_partition(cluster, state)
+    grants = {n: 0 for n in state.active}
+
+    def best_marginal(members):
+        best_gain, best_name = -1.0, None
+        for n in members:
+            t = cluster.trainer(n)
+            cap = state.base(n) + grants[n]
+            gain = _oracle_point(t, cap + 1)[1] - _oracle_point(t, cap)[1]
+            if gain > best_gain:
+                best_gain, best_name = gain, n
+        return best_gain, best_name
+
+    pool = int(state.pool)
+    for _, _, floor, members in jobs:
+        for _ in range(min(int(floor), pool)):
+            _, name = best_marginal(members)
+            grants[name] += 1
+            pool -= 1
+    while pool > 0:
+        best_bid, winner = 1e-12, None
+        for _, weight, _, members in jobs:
+            gain, name = best_marginal(members)
+            bid = weight * gain
+            if bid > best_bid:
+                best_bid, winner = bid, name
+        if winner is None:
+            break               # every job saturated: leave pool idle
+        grants[winner] += 1
+        pool -= 1
+    return grants
+
+
+def market_local_oracle(cluster, state, seed: int = 0):
+    """Per-JOB local oracle, no cross-job arbitration: the pool is split
+    evenly across active jobs (blind to weights, floors, and demand),
+    then each job water-fills its share over its own members perfectly.
+    The market analog of `fleet_local_oracle` — what perfect per-job
+    tuning buys when nobody prices the pool across jobs."""
+    from repro_torch.data.fleet import FleetAllocation
+    jobs = _job_partition(cluster, state)
+    grants = {n: 0 for n in state.active}
+    shares = _even_grants(state.pool, [j[0] for j in jobs])
+    for jname, _, _, members in jobs:
+        for _ in range(shares.get(jname, 0)):
+            best_gain, best = 1e-12, None
+            for n in members:
+                t = cluster.trainer(n)
+                cap = state.base(n) + grants[n]
+                gain = _oracle_point(t, cap + 1)[1] \
+                    - _oracle_point(t, cap)[1]
+                if gain > best_gain:
+                    best_gain, best = gain, n
+            if best is None:
+                break           # job saturated: its share goes unused
+            grants[best] += 1
+    allocs = {n: _oracle_point(cluster.trainer(n),
+                               state.base(n) + grants[n])[0]
+              for n in state.active}
+    return FleetAllocation(allocs, grants)
+
+
+def market_oracle(cluster, state, seed: int = 0):
+    """The market reference: weighted cross-job auction grants + the
+    per-machine oracle placement at each granted cap. On a spec without
+    jobs (or uniform weights, zero floors, one job) this reproduces
+    `fleet_oracle` exactly."""
+    from repro_torch.data.fleet import FleetAllocation
+    grants = market_grants(cluster, state)
+    allocs = {n: _oracle_point(cluster.trainer(n),
+                               state.base(n) + grants[n])[0]
+              for n in state.active}
+    return FleetAllocation(allocs, grants)
+
+
+FLEET_BASELINES = {
+    "fleet_even": fleet_even,
+    "fleet_proportional": fleet_proportional,
+    "fleet_local_oracle": fleet_local_oracle,
+    "fleet_oracle": fleet_oracle,
+    "market_local_oracle": market_local_oracle,
+    "market_oracle": market_oracle,
 }

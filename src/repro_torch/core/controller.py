@@ -1,9 +1,14 @@
 """InTune controller: the drop-in wrapper (paper §4.4, Listing 1).
 
+    # the unified driver (repro_torch.api): any backend, one loop
+    backend = ExecutorBackend.wrap(pipe)      # or SimBackend(spec, machine)
+    Session(backend, InTune(spec, machine)).run(ticks)
     # the closed training loop: a train loop drives the Session
     session = Session(FeedBackend(pipe, feed), InTune(spec, machine))
     session.step()                            # between train steps
-    # the self-driving paper protocol on the analytic simulator:
+    # legacy live mode (tunes a real executor in-process):
+    tuner.attach(pipe); tuner.live_tick()
+    # legacy self-driving paper protocol (ControllerBackend wraps this):
     for _ in range(ticks):
         tuner.tick()
 
@@ -395,6 +400,29 @@ class InTune:
                 or score(cn, cmu) > self.best[0] + self.switch_margin:
             self.best = (score(cn, cmu),
                          Allocation(np.array(ckey[0], dtype=int), ckey[1]))
+
+    # ----------------------------------------------------- live executor --
+    def attach(self, executor, interval_s: float = 1.0):
+        """Tune a real ThreadedPipeline: each tick reads its rate meters,
+        applies the chosen allocation to the worker pools."""
+        self._executor = executor
+        self._interval = interval_s
+
+    def live_tick(self):
+        ex = self._executor
+        stats = ex.stats()
+        choices = self.agent.act(self.obs, explore=self.explore)
+        workers, pf = act_lib.next_allocation(
+            choices, np.array(ex.worker_counts(), dtype=int),
+            ex.prefetch_mb, prefetch_idx=self.env.prefetch_idx,
+            max_workers=self.env.sim.machine.n_cpus)
+        ex.set_allocation(workers, pf)
+        reward = stats["throughput"] / self.env.reward_scale \
+            * (1 - min(stats["mem_frac"], 1.0))
+        nobs = self._live_obs(stats)
+        self.agent.observe(self.obs, choices, reward, nobs, done=False)
+        self.obs = nobs
+        return stats
 
     def _live_obs(self, stats) -> np.ndarray:
         m = self.env.sim.machine

@@ -21,6 +21,28 @@ from repro_torch.data.pipeline import PipelineSpec
 from repro_torch.data.simulator import Allocation, MachineSpec, PipelineSim
 
 
+def even_allocation(spec: PipelineSpec, n_cpus: int) -> Allocation:
+    """Even division across stages, done right: the `n_cpus % n_stages`
+    remainder is distributed round-robin from the front instead of
+    silently dropped, and when `n_stages > n_cpus` the total is capped at
+    `n_cpus` (the old `max(1, ...)` floor oversubscribed the machine).
+    Below one CPU per stage the trailing stages get 0 workers — a
+    visibly starved (zero-throughput) pipeline instead of a silently
+    oversubscribed one; such a machine cannot run the graph either way.
+
+    Note this is NOT PipelineEnv's initial state: the paper initializes
+    InTune from the even-division *heuristic baseline* (floor split,
+    baselines.heuristic_even), and every published fig5/fig7 number
+    started from that state, so the env keeps it bit-for-bit. New code
+    (the fleet plane, pool splitting) uses this fixed version.
+    """
+    n = spec.n_stages
+    base, rem = divmod(int(n_cpus), n)
+    workers = np.full(n, base, dtype=int)
+    workers[:rem] += 1
+    return Allocation(workers, prefetch_mb=2 * spec.batch_mb)
+
+
 def build_obs(sim: PipelineSim, alloc: Allocation) -> np.ndarray:
     """The Table-2 observation for one machine. This layout is a hard
     contract with the pretrained DQN weights (obs_dim = 2*n_stages + 6):
@@ -91,3 +113,62 @@ class PipelineEnv:
     def set_allocation(self, alloc: Allocation):
         self.alloc = alloc.copy()
         self.last_metrics = self.sim.apply(self.alloc)
+
+
+class FleetEnv:
+    """Cluster-granularity environment: steps a FleetSim under
+    FleetAllocations and reports per-trainer observations in the same
+    Table-2 layout PipelineEnv builds for one machine.
+
+    Reward is the fleet analog of Eq. 1, summed over active trainers and
+    normalized by the analytic fleet-oracle throughput of the initial
+    state, so the scale is comparable across cluster specs:
+
+        R = sum_i tput_i * (1 - mem_used_i / mem_total_i) / oracle_fleet
+    """
+
+    def __init__(self, cluster, seed: int = 0):
+        from repro_torch.core import baselines as B
+        from repro_torch.data.fleet import FleetAllocation, FleetSim
+        self.cluster = cluster
+        self.sim = FleetSim(cluster, seed=seed)
+        state = self.sim.machine
+        ideal = B.fleet_oracle(cluster, state)
+        self.reward_scale = max(sum(
+            B._oracle_point(cluster.trainer(n),
+                            state.base(n) + ideal.grants.get(n, 0))[1]
+            for n in state.active), 1e-6)
+        # neutral start: even pool split, fixed even division per machine
+        grants = B._even_grants(state.pool, state.active)
+        self.falloc = FleetAllocation(
+            {n: even_allocation(cluster.trainer(n).pipeline,
+                                state.base(n) + grants[n])
+             for n in state.active}, grants)
+        self.last_metrics = None
+
+    @property
+    def state(self):
+        return self.sim.machine
+
+    def observe(self) -> dict:
+        """{trainer: obs} for every active trainer, PipelineEnv layout
+        (built by the same build_obs the single-machine env uses)."""
+        out = {}
+        state = self.sim.machine
+        for name in state.active:
+            alloc = self.falloc.allocs.get(name) or even_allocation(
+                self.cluster.trainer(name).pipeline, state.base(name))
+            out[name] = build_obs(self.sim.sims[name], alloc)
+        return out
+
+    def step(self, falloc) -> Tuple[dict, float, dict]:
+        self.falloc = falloc
+        metrics = self.sim.apply(falloc)
+        self.last_metrics = metrics
+        reward = 0.0
+        for name, m in metrics["per_trainer"].items():
+            mem_total = self.cluster.trainer(name).machine.mem_mb
+            mem_frac = min(m["mem_mb"] / mem_total, 1.0)
+            reward += m["throughput"] * (1.0 - mem_frac)
+        reward /= self.reward_scale
+        return self.observe(), float(reward), metrics

@@ -293,6 +293,101 @@ def train_feed_pipeline(step_time_s: float = 0.25, batch_mb: float = 8.0,
                       work=work)
 
 
+def custom_pipeline(batch_mb: float = 196.0,
+                    target_rate: float = 27.0) -> StageGraph:
+    """The paper's second workload: the internal production recommender
+    (dozens of sparse features, <5 continuous, batch in the tens of
+    thousands). Heavier disk share, slightly lighter UDF than Criteo."""
+    stages = (
+        StageSpec("disk_load", "source", cost=0.36, serial_frac=0.10,
+                  est_bias=0.7, mem_per_worker_mb=112),
+        StageSpec("shuffle", "shuffle", cost=0.10, serial_frac=0.28,
+                  est_bias=1.0, mem_per_worker_mb=48),
+        StageSpec("feature_udf", "udf", cost=0.34, serial_frac=0.14,
+                  est_bias=0.2, mem_per_worker_mb=72),
+        StageSpec("batch", "batch", cost=0.14, serial_frac=0.25,
+                  est_bias=1.0, mem_per_worker_mb=32),
+        StageSpec("prefetch", "prefetch", cost=0.06, serial_frac=0.05,
+                  est_bias=1.0, mem_per_worker_mb=16,
+                  mem_per_item_mb=batch_mb),
+    )
+    return StageGraph("custom_prod", stages, batch_mb=batch_mb,
+                      target_rate=target_rate)
+
+
+def multisource_dlrm_pipeline(batch_mb: float = 256.0,
+                              target_rate: float = 30.0) -> StageGraph:
+    """Production-shaped multi-source DLRM ingestion DAG.
+
+    Zhao et al.'s DSI characterization: dense, sparse, and label streams
+    are read from separate storage partitions and joined before the
+    feature transforms. Sparse-ID reads dominate the I/O bytes and the
+    feature transforms dominate CPU time (the GPU trainer is otherwise
+    starved by online preprocessing), so `sparse_source` and
+    `feature_udf` carry the heavy costs here; the UDF keeps the
+    black-box est_bias that misleads static profilers.
+
+        dense_source ─┐
+        sparse_source ─┼─> join ─> feature_udf ─> batch ─> prefetch
+        label_source ─┘
+    """
+    stages = (
+        StageSpec("dense_source", "source", cost=0.12, serial_frac=0.10,
+                  est_bias=0.8, mem_per_worker_mb=80),
+        StageSpec("sparse_source", "source", cost=0.30, serial_frac=0.12,
+                  est_bias=0.7, mem_per_worker_mb=112),
+        StageSpec("label_source", "source", cost=0.03, serial_frac=0.05,
+                  est_bias=1.0, mem_per_worker_mb=24),
+        StageSpec("join", "join", cost=0.07, serial_frac=0.30,
+                  est_bias=1.0, mem_per_worker_mb=48,
+                  inputs=("dense_source", "sparse_source", "label_source")),
+        StageSpec("feature_udf", "udf", cost=0.40, serial_frac=0.15,
+                  est_bias=0.15, mem_per_worker_mb=64,
+                  inputs=("join",)),
+        StageSpec("batch", "batch", cost=0.11, serial_frac=0.25,
+                  est_bias=1.0, mem_per_worker_mb=32,
+                  inputs=("feature_udf",)),
+        StageSpec("prefetch", "prefetch", cost=0.06, serial_frac=0.05,
+                  est_bias=1.0, mem_per_worker_mb=16,
+                  mem_per_item_mb=batch_mb, inputs=("batch",)),
+    )
+    return StageGraph("multisource_dlrm", stages, batch_mb=batch_mb,
+                      target_rate=target_rate, edge_buffer_mb=32.0)
+
+
+def stream_dlrm_pipeline(arrival: ArrivalProcess, *,
+                         batch_mb: float = 64.0,
+                         cost_scale: float = 1.0,
+                         work: str = "spin") -> StageGraph:
+    """Streaming-ingestion chain (benchmarks/fig_stream.py): a broker
+    consumer ingesting live events instead of a disk source reading an
+    infinite backlog.
+
+        ingest(stream) -> decode -> feature_udf -> batch -> prefetch
+
+    The cost profile is deliberately SKEWED toward the UDF (low serial
+    fraction, ~10x the light stages): the even-split heuristic starves
+    feature_udf badly, so its sustainable rate sits far below the
+    water-filled oracle's — exactly the gap a 10x flash crowd exposes.
+    Five stages, so the cached r5 pretrained agent transfers.
+    """
+    c = float(cost_scale)
+    stages = (
+        StageSpec("ingest", "stream", cost=0.04 * c, serial_frac=0.05,
+                  mem_per_worker_mb=48, arrival=arrival),
+        StageSpec("decode", "udf", cost=0.05 * c, serial_frac=0.05,
+                  mem_per_worker_mb=32),
+        StageSpec("feature_udf", "udf", cost=0.50 * c, serial_frac=0.02,
+                  est_bias=0.15, mem_per_worker_mb=64),
+        StageSpec("batch", "batch", cost=0.05 * c, serial_frac=0.10,
+                  mem_per_worker_mb=32),
+        StageSpec("prefetch", "prefetch", cost=0.03 * c, serial_frac=0.05,
+                  mem_per_worker_mb=16, mem_per_item_mb=batch_mb),
+    )
+    return StageGraph("stream_dlrm", stages, batch_mb=batch_mb,
+                      target_rate=arrival.batches_per_sec(0.0), work=work)
+
+
 def make_pipeline(n_stages: int, seed: int = 0, batch_mb: float = 256.0,
                   target_rate: float = 10.0) -> StageGraph:
     """Randomized linear pipeline of a given length (offline RL pretraining

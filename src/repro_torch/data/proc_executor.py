@@ -127,6 +127,34 @@ def read_rss_mb(pid: int) -> Optional[float]:
         return None
 
 
+try:
+    _CLK_TCK = os.sysconf("SC_CLK_TCK")
+except (AttributeError, ValueError, OSError):
+    _CLK_TCK = 100
+
+
+def read_cpu_s(pid: int) -> Optional[float]:
+    """Cumulative CPU seconds (utime + stime) one process has consumed,
+    from `/proc/<pid>/stat` (psutil fallback). Contention-invariant —
+    the calibrator uses deltas of this to normalize measured window
+    rates by worker occupancy, so the Amdahl fit survives a host with
+    fewer cores than the sweep demands."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            data = f.read()
+        # comm may contain spaces: fields start after the last ')'
+        fields = data[data.rindex(b")") + 2:].split()
+        return (int(fields[11]) + int(fields[12])) / _CLK_TCK
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        import psutil
+        t = psutil.Process(pid).cpu_times()
+        return float(t.user + t.system)
+    except Exception:
+        return None
+
+
 def _spin_iters(n: int) -> float:
     """The unit of CPU work: a pure-python arithmetic loop. Iterations
     advance only while the process is scheduled, so a fixed iteration
@@ -640,6 +668,11 @@ class _ProcStagePool:
     def pids(self) -> List[int]:
         return [p.pid for p in self.procs + self._retired if p.is_alive()]
 
+    def cpu_s(self) -> float:
+        """Cumulative CPU seconds consumed by the pool's live workers
+        (calibration reads deltas of this across a measurement window)."""
+        return sum(filter(None, (read_cpu_s(pid) for pid in self.pids())))
+
     def stop(self):
         for f in self._soft_flags:
             f.set()
@@ -873,6 +906,31 @@ class ProcessPipeline:
         return {"t": t, "arrivals": arrivals, "emitted": emitted,
                 "backlog": max(0.0, arrivals - emitted),
                 "arrival_rate": self._stream_arrival.batches_per_sec(t)}
+
+    def stream_epoch(self) -> Optional[dict]:
+        """The stream's persistent identity: the monotonic t0 anchoring
+        its arrival curve plus the tokens already emitted against it.
+        None for non-stream graphs. A relaunch that adopts this epoch
+        RESUMES the curve — stream time keeps running through the dead
+        window, so backlog accrues while the process is down (the
+        simulator's "the world does not pause for an OOM" contract)."""
+        if self._stream_arrival is None:
+            return None
+        return {"emitted": int(self._stream_emitted.value),
+                "t0": float(self._stream_t0.value)}
+
+    def adopt_stream_epoch(self, epoch: Optional[dict]):
+        """Resume a predecessor's arrival curve instead of starting a
+        fresh one. Must be called before the first tokens are claimed
+        (RigSlot adopts immediately after relaunch). No-op for
+        non-stream graphs or a None epoch."""
+        if self._stream_arrival is None or not epoch:
+            return
+        with self._stream_emitted.get_lock():
+            self._stream_emitted.value = int(epoch["emitted"])
+        # ctx.Value mutations are visible to already-forked workers:
+        # both fields live in shared memory
+        self._stream_t0.value = float(epoch["t0"])
 
     def stats(self) -> dict:
         for p in self.pools:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 from collections import deque
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -263,3 +263,11 @@ class PipelineSim:
                     >= 1 / self.model_latency:
                 break
         return alloc, self.throughput(alloc)
+
+
+def resize_schedule(total_ticks: int,
+                    caps: Sequence[int] = (32, 64, 128, 64, 32)
+                    ) -> List[Tuple[int, int]]:
+    """The paper's rescale script: [(tick, n_cpus), ...] evenly spaced."""
+    seg = total_ticks // len(caps)
+    return [(i * seg, c) for i, c in enumerate(caps)]

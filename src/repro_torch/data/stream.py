@@ -164,3 +164,27 @@ class ArrivalProcess:
         """Cumulative batches arrived in [0, t) — the token-bucket level
         the process plane's rate-limited producer claims against."""
         return self.batches_between(0.0, t)
+
+
+def flash_crowd_arrivals(base_batches_per_sec: float, *,
+                         events_per_batch: float = 4096.0,
+                         spike_at_s: float, spike_len_s: float,
+                         spike_gain: float = 10.0,
+                         diurnal_amp: float = 0.0,
+                         diurnal_period_s: float = 600.0,
+                         buffer_mb_per_batch: float = 0.0,
+                         seed: int = 0) -> ArrivalProcess:
+    """The benchmark scenario: a steady (optionally mildly diurnal) base
+    rate with one scheduled flash crowd. `base_batches_per_sec` is the
+    mean rate in batch units; population knobs are derived so
+    `users * events_per_user_s == base * events_per_batch`."""
+    return ArrivalProcess(
+        users=base_batches_per_sec * events_per_batch,
+        events_per_user_s=1.0,
+        events_per_batch=events_per_batch,
+        diurnal_amp=diurnal_amp,
+        diurnal_period_s=diurnal_period_s,
+        flash_crowds=((float(spike_at_s), float(spike_len_s),
+                       float(spike_gain)),),
+        buffer_mb_per_batch=buffer_mb_per_batch,
+        seed=seed)

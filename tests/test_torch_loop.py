@@ -38,7 +38,15 @@ ids = hash_ids(torch.arange(-3, 9), 5)
 bag = ragged_embedding_bag(torch.ones(5, 2), ids, torch.arange(12) // 4, 3,
                            combiner="mean")
 opt = make_optimizer("sgd", grad_clip=1.0)
+from repro_torch.api import tune
+from repro_torch.data.fleet import demo_cluster
+from repro_torch.data.pipeline import criteo_pipeline
+from repro_torch.data.simulator import MachineSpec
+sim = tune(criteo_pipeline(), MachineSpec(64), optimizer="oracle",
+           backend="sim", ticks=20)
+fleet = tune(demo_cluster(60), optimizer="fleet_oracle", ticks=30)
 print(json.dumps({
+    "tune": [min(sim.throughput), min(fleet.throughput), fleet.oom_count],
     "gnn": gnn, "bag": bag.tolist(), "opt": opt.name,
     "losses": res["losses"], "idle": res["device_idle_trace"],
     "workers": res["workers"], "teardown": res["teardown"],
@@ -65,9 +73,13 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert len(benches) >= 2
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + benches
     assert len(files) > 20
-    # slice 12's modules among them
+    # slice 12's and slice 13's modules among them
     assert {PORT / "models" / "segment.py", PORT / "data" / "graphs.py",
-            PORT / "models" / "embedding.py"} <= set(files)
+            PORT / "models" / "embedding.py", PORT / "api" / "registry.py",
+            PORT / "core" / "fleet_coordinator.py",
+            PORT / "core" / "optimizer.py", PORT / "data" / "fleet.py",
+            PORT / "data" / "live_fleet.py", PORT / "data" / "calibrate.py",
+            ROOT / "benchmarks" / "torch_fig7_fleet.py"} <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")
            or (m.startswith("benchmarks.")
@@ -79,7 +91,8 @@ def test_cpu_closed_loop_runs_without_jax_or_repro():
     """~6 train steps at batch 64 on a tiny model: a real ProcessPipeline
     featurizes, FeedBackend + Session.step tune it; then 2 steps of the
     GNN driver at full_graph_sm and at molecule, a hashed ragged bag and
-    sgd; and neither jax nor repro is ever imported."""
+    sgd; `tune` on the single-machine and the fleet sim planes; and
+    neither jax nor repro is ever imported."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", SMOKE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=240)
@@ -89,6 +102,8 @@ def test_cpu_closed_loop_runs_without_jax_or_repro():
     assert all(len(v) == 2 and all(0.0 < x < 10.0 for x in v)
                for v in res["gnn"].values()), res["gnn"]
     assert res["bag"] == [[1.0, 1.0]] * 3 and res["opt"] == "sgd"
+    assert res["tune"][0] > 0.0 and res["tune"][1] > 0.0, res["tune"]
+    assert res["tune"][2] == 0
     assert len(res["losses"]) == 6
     assert all(0.0 < x < 5.0 for x in res["losses"])
     assert len(res["idle"]) == 3

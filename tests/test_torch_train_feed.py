@@ -280,6 +280,20 @@ def _drain_window(proc_mod, feat_mod, pipe_mod, sim_mod, backend_cls,
         while pipe.stats()["queue_sizes"][-1] < 8:
             assert time.monotonic() < deadline, "the output queue never filled"
             time.sleep(0.05)
+        # open the window only once the pipe is at rest (the sink gated
+        # by the full queue, the feed's prefetch buffer full): a batch
+        # the sink has put but not yet counted would land in the window
+        last, since = None, time.monotonic()
+        while True:
+            c = pipe.counters()
+            now = (c["delivered"], c["consumed"],
+                   pipe.stats()["queue_sizes"][-1])
+            if now != last:
+                last, since = now, time.monotonic()
+            elif now[2] >= 8 and time.monotonic() - since >= 0.5:
+                break
+            assert time.monotonic() < deadline, "the pipe never came to rest"
+            time.sleep(0.02)
         backend.measure()                       # open the window
         pipe.set_allocation([2, 1, 1, 7, 1], 1 * spec.batch_mb)
         for _ in range(3):
