@@ -9,27 +9,28 @@ in the checkout, which git ignores: the JAX package's own cache,
 
 `make_fleet_coordinator` and `make_pool_market` build the fleet plane's
 RL policies over the same cache, one agent per pipeline length in the
-cluster (5 and 7 for `demo_cluster`). `ReadaptPolicy` of
-benchmarks/common.py serves the single-machine rescale benchmarks, which
-the port does not have yet.
+cluster (5 and 7 for `demo_cluster`). `ReadaptPolicy` is the
+*-Adaptive protocol of the single-machine rescale benchmark
+(`benchmarks/torch_fig7_rescale.py`).
 """
 from __future__ import annotations
 
 import json
 import os
 
-from repro_torch.api import RELAUNCH_TICKS
+from repro_torch.api import FrozenPolicy, RELAUNCH_TICKS
 from repro_torch.core.controller import InTune
 from repro_torch.core.pretrain import load_agent_state, pretrain, save_agent
+from repro_torch.data.simulator import Allocation
 
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                       "build")
 AGENT_DIR = os.path.join(_BUILD, "agents")
 OUT_DIR = os.path.join(_BUILD, "bench")
 
-__all__ = ["AGENT_DIR", "OUT_DIR", "RELAUNCH_TICKS", "get_agent_state",
-           "save_json", "make_tuner", "make_fleet_coordinator",
-           "make_pool_market"]
+__all__ = ["AGENT_DIR", "OUT_DIR", "RELAUNCH_TICKS", "ReadaptPolicy",
+           "get_agent_state", "save_json", "make_tuner",
+           "make_fleet_coordinator", "make_pool_market"]
 
 
 def get_agent_state(n_stages: int, head: str = "factored",
@@ -50,6 +51,31 @@ def save_json(name: str, payload):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(payload, f, indent=1, default=float)
+
+
+class ReadaptPolicy(FrozenPolicy):
+    """The *-Adaptive benchmark protocol: hold `alloc` (FrozenPolicy);
+    on every scheduled resize tick, re-profile via `readapt(spec,
+    machine, seed + tick)` — the manual checkpoint+relaunch behavior,
+    whose dead window the caller schedules as DeadWindow events. With
+    `readapt=None` this IS FrozenPolicy."""
+
+    name = "static"
+
+    def __init__(self, alloc: Allocation, readapt=None, *, seed: int = 0,
+                 resize_ticks=()):
+        super().__init__(alloc)
+        self._readapt = readapt
+        self._seed = seed
+        self._resize_ticks = frozenset(resize_ticks)
+        self._t = 0
+
+    def propose(self, spec, machine, stats=None) -> Allocation:
+        t = self._t
+        self._t += 1
+        if self._readapt is not None and t in self._resize_ticks:
+            self.alloc = self._readapt(spec, machine, self._seed + t)
+        return self.alloc
 
 
 def _pretrained(trainers, head: str) -> dict:

@@ -87,7 +87,7 @@ nothing here touches the card):
               unless the coordinator (fleet_intune) reaches 90% of the
               fleet oracle and 1.3x fleet_even with no OOM at all.
   5d. fleet_live  run_live: LiveFleet over live_demo_cluster (3 trainers
-              of real threads, 160 windows of 0.12 s) under fleet_even
+              of real threads, 100 windows of 0.12 s) under fleet_even
               and the coordinator; fails on a coordinator OOM, a dropped
               batch, a thread not joined or left running, or a measured
               intune_vs_even not above 1.0 (fleet_even's OOMs are the
@@ -95,10 +95,26 @@ nothing here touches the card):
   5e. api_tune  tune(live_linear_pipeline(), MachineSpec(n_cpus=the
               host's cores), optimizer="oracle", backend="proc") over 8
               windows of 0.3 s, then fleet_even on ProcFleetBackend over
-              live_demo_cluster(20) (its churn, at ticks 5, 11, 13 and
-              16, paid by relaunch windows),
+              live_demo_cluster(14) (its churn, at ticks 3, 7, 9 and
+              11, paid by relaunch windows),
               ballast off; fails on an OOM, a crash-lost batch, a
               process not joined or left running.
+
+The examples on the card (slice 14):
+
+  5f. quickstart  examples/torch_quickstart.py: the four DLRM kernels
+              against their plain versions at the example's shapes (ids
+              (256, 8, 1) from the example's own stage functions into
+              (8, 4096, 16) f32 tables; the interaction at (256, 9, 16);
+              tolerances as in `kernels`) and timed there; parts 1 and 2
+              as the example runs them (host only); then part 3: 30
+              train steps of the example's DLRM on the card off a live
+              ThreadedPipeline while a background Session tunes it for 20
+              windows of 0.2 s. Fails on a non-finite loss, a step that
+              did not go through each of the four kernels, a thread or
+              process not joined or left running, an OOM, or a tuner that
+              never moved the pools; prints part 3's seconds, steps/s
+              and the workers of every tick.
 
 GraphSAGE minibatch training (slice 2), graphsage-reddit at the
 minibatch_lg widths: 1024 seed nodes, fanout 15-10, 602 features,
@@ -298,12 +314,14 @@ no kernel of the port runs on these paths:
               finite, graphs/s, peak memory.
 
 Launch counts are set to 0 just before each main path (the DLRM loop,
-the held loop, the train-feed arms, the checkpoint round trip, the GNN
-loop, the wide-deep loop, the dlrm-criteo driver, the xDeepFM,
+the held loop, the train-feed arms, the checkpoint round trip, the
+quickstart's part 3, the GNN loop, the wide-deep loop, the dlrm-criteo driver, the xDeepFM,
 DIEN and BERT4Rec drivers) and read just after it; the `kernels` line
 reports each kernel's count from its own path (the DLRM kernels from
 the DLRM loop, with `idle_tail_launches`, `train_feed_launches` and
-`checkpoint_launches` beside; embedding_bag_fwd and _bwd with their
+`checkpoint_launches` beside, and a `quickstart` sub-record at the
+example's shapes with part 3's launches; embedding_bag_fwd and _bwd with
+their
 wide-deep counts beside too, the DLRM kernels' dlrm-criteo counts in their `dlrm_criteo` sub-records, and the
 embedding kernels' counts on each of the three drivers in the
 sub-records of that model's lookups: `xdeepfm_tables`,
@@ -1389,9 +1407,15 @@ def phase_checkpoint(cfg) -> dict:
 
 
 FLEET_SIM_TICKS = 1200
-FLEET_LIVE_TICKS = 160
+# 100 windows, not the benchmark's default 160: the script's time goes to
+# the quickstart phase instead (live_demo_cluster scales its churn to the
+# run, so every churn kind still lands)
+FLEET_LIVE_TICKS = 100
 PROC_TUNE_WINDOWS = 8
-PROC_FLEET_TICKS = 20
+# 14 ticks, not 20: the script's time goes to the quickstart
+# phase; live_demo_cluster(14) still lands its four churn events, at
+# ticks 3, 7, 9 and 11, each with its own relaunch window
+PROC_FLEET_TICKS = 14
 
 
 def _leftovers(threads, children, timeout: float = 8.0):
@@ -1441,7 +1465,7 @@ def phase_fleet_sim(agent_procs):
 
 
 def phase_fleet_live():
-    """benchmarks/torch_fig7_fleet.run_live at 160 windows of 0.12 s:
+    """benchmarks/torch_fig7_fleet.run_live at 100 windows of 0.12 s:
     fleet_even and the coordinator on LiveFleet (real threads) over
     live_demo_cluster; the reference's bars (tests/test_live_fleet.py::
     test_fig7_fleet_live_acceptance): the coordinator without an OOM, no
@@ -1472,7 +1496,7 @@ def phase_api_tune():
     examples/process_pipeline.py runs it: tune(live_linear_pipeline(),
     MachineSpec(n_cpus=host cores), optimizer="oracle", backend="proc")
     over 0.3 s windows (ms-scale stage costs, per-worker ballast on);
-    then fleet_even on ProcFleetBackend over live_demo_cluster(20), its
+    then fleet_even on ProcFleetBackend over live_demo_cluster(14), its
     churn (a join, a resize, a pool re-cap, a leave) paid by relaunch
     windows, with ballast off. Each run without an OOM or a crash-lost
     batch, every process joined, none left running. (The H100's 8-core
@@ -1520,6 +1544,160 @@ def phase_api_tune():
         bad.append(f"left running: threads {left_t}, processes {left_p}")
     if bad:
         raise AssertionError(f"api_tune: {bad}")
+
+
+def _quickstart_kernels(cfg, batch: int) -> dict:
+    """The four DLRM kernels at the quickstart's shapes (ids (batch, 8,
+    1) of the example's own pipeline stages into (8, 4096, 16) f32
+    tables; the interaction at (batch, 9, 16)): each against its plain
+    version (embedding_bag_fwd bitwise, the scatter rtol 1e-5 / atol
+    1e-6, the interaction rtol 1e-5 / atol 1e-4), then timed beside its
+    plain version, its library call and its bound. Returns a record per
+    kernel."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.data.synthetic import CriteoStream
+    from repro_torch.kernels import dot_interact as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    n_f, rows, dim = cfg.n_sparse, cfg.vocab_sizes[0], cfg.embed_dim
+    stream = CriteoStream(n_sparse=n_f, n_dense=cfg.n_dense, vocab=rows)
+    host = CriteoStream.batch_udf(stream.feature_udf(CriteoStream.shuffle_udf(
+        stream.raw_block(batch), np.random.RandomState(0))))
+    ids = torch.as_tensor(host["sparse_ids"]).to(dev)
+    b, _, bag = ids.shape
+    tables = torch.empty((n_f, rows, dim), device=dev)
+    tables.normal_(generator=gen).mul_(dim ** -0.5)
+    errs = _check_bag(tables, ids, "sum", "quickstart")
+    feats = torch.randn((b, n_f + 1, dim), device=dev, generator=gen)
+    errs.update(_check_dot(feats, "quickstart"))
+
+    flat = (ids.long() + (torch.arange(n_f, device=dev) * rows)
+            .view(1, n_f, 1)).reshape(b * n_f, bag)
+    uniq = int(torch.unique(flat).numel())
+    table_flat = tables.view(n_f * rows, dim)
+    shape = f"({b}, {n_f}, {bag}) x ({n_f}, {rows}, {dim})"
+    out = {}
+    out["embedding_bag_fwd"] = kernel_record(
+        "embedding_bag_fwd quickstart",
+        time_ms(lambda: eb.embedding_bag_fwd(tables, ids), [()],
+                kernel="embedding_bag_fwd_kernel"),
+        time_ms(lambda: ref.embedding_bag_ref(tables, ids), [()]),
+        time_ms(lambda: F.embedding_bag(flat, table_flat, mode="sum"),
+                [()]),
+        bound_ms(ids.numel() * 4 + uniq * dim * 4 + b * n_f * dim * 4,
+                 b * n_f * bag * dim), errs["embedding_bag_fwd"],
+        shape=shape)
+    d_out = torch.randn((b, n_f, dim), device=dev, generator=gen)
+    grad = torch.zeros_like(tables)
+    upd = d_out[:, :, None, :].expand(b, n_f, bag, dim).reshape(-1, dim) \
+        .contiguous()
+    grad_flat = torch.zeros((n_f * rows, dim), device=dev)
+    out["embedding_bag_bwd"] = kernel_record(
+        "embedding_bag_bwd quickstart",
+        time_ms(lambda: eb.embedding_bag_scatter(d_out, ids, grad), [()],
+                kernel="embedding_bag_bwd_kernel"),
+        time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, ids, rows), [()]),
+        time_ms(lambda: grad_flat.index_add_(0, flat.reshape(-1), upd),
+                [()]),
+        bound_ms(d_out.numel() * 4 + ids.numel() * 4 + 2 * uniq * dim * 4,
+                 b * n_f * bag * dim), errs["embedding_bag_bwd"],
+        shape=shape, zero_fill_ms=time_ms(lambda: grad.zero_(), [()]).ms)
+    n_pairs = (n_f + 1) * n_f // 2
+    ii, jj = ref.tril_pairs(n_f + 1, dev)
+    fs = [(feats,)]
+    shape = f"({b}, {n_f + 1}, {dim})"
+    out["dot_interact_fwd"] = kernel_record(
+        "dot_interact_fwd quickstart",
+        time_ms(di.dot_interact_fwd, fs, kernel="dot_interact_fwd_kernel"),
+        time_ms(ref.dot_interact_ref, fs),
+        time_ms(lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj], fs),
+        bound_ms(b * (n_f + 1) * dim * 4 + b * n_pairs * 4,
+                 2 * b * n_pairs * dim), errs["dot_interact_fwd"],
+        shape=shape)
+    g = torch.randn((b, n_pairs), device=dev, generator=gen)
+    s = torch.zeros((b, n_f + 1, n_f + 1), device=dev)
+    s[:, ii, jj] = g
+    out["dot_interact_bwd"] = kernel_record(
+        "dot_interact_bwd quickstart",
+        time_ms(di.dot_interact_bwd, [(g, feats)],
+                kernel="dot_interact_bwd_kernel"),
+        time_ms(ref.dot_interact_bwd_ref, [(g, feats)]),
+        time_ms(torch.bmm, [(s + s.transpose(1, 2), feats)]),
+        bound_ms(b * n_pairs * 4 + 2 * b * (n_f + 1) * dim * 4,
+                 2 * b * (n_f + 1) ** 2 * dim), errs["dot_interact_bwd"],
+        shape=shape)
+    return out
+
+
+def phase_quickstart() -> dict:
+    """examples/torch_quickstart.py's three parts, part 3 on the card:
+    the four DLRM kernels against their plain versions at the example's
+    shapes and timed (_quickstart_kernels); part 1 (tune on the analytic
+    simulator, 250 ticks) and part 2 (the same call on real threads, 12
+    windows) as the example runs them; then part 3 as the example runs
+    it: its 30 train steps of the example's DLRM on the card off the live
+    ThreadedPipeline while the tuning Session runs 20 windows of 0.2 s in
+    its background thread. Fails on a non-finite loss, a train step that did not go
+    through each of the four kernels (the launch counts, set to 0 just
+    before part 3), a thread or process not joined or left running, an
+    OOM, or a tuner that never moved the pools. Prints part 3's seconds,
+    steps/s and final workers. Returns each kernel's record with its
+    launches."""
+    from examples import torch_quickstart as qs
+    from repro_torch.kernels import ops
+
+    recs = _quickstart_kernels(qs.QS_CONFIG, qs.QS_BATCH)
+    threads, children = _host_snapshot()
+    t0 = time.monotonic()
+    one = qs.part1_one_liner()
+    two = qs.part2_live_backend()
+    parts_s = time.monotonic() - t0
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    three = qs.part3_drop_in("cuda")
+    part3_s = time.monotonic() - t0
+    counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
+    left_t, left_p = _leftovers(threads, children)
+    moved = len({tuple(w) for w in three["workers_seen"]}) > 1
+    print(f"  quickstart part 1: InTune steady {one['steady']:.2f} b/s vs "
+          f"AUTOTUNE-like {one['autotune']:.2f}, {one['oom_count']} OOMs; "
+          f"part 2: {two['live']}; parts 1-2 {parts_s:.1f} s", flush=True)
+    print(f"  quickstart part 3: {qs.QS_STEPS} steps in "
+          f"{three['train_s']:.2f} s ({three['steps_per_s']:.1f} steps/s), "
+          f"the part {part3_s:.1f} s; loss {three['losses'][0]:.4f} -> "
+          f"{three['losses'][-1]:.4f}; workers "
+          f"{three['workers_seen'][0]} -> {three['workers_final']} (each "
+          f"tick: {three['workers_seen']}); teardown {three['teardown']}; "
+          f"launches {counts}", flush=True)
+    bad = []
+    if len(three["losses"]) != qs.QS_STEPS or \
+            not all(math.isfinite(x) for x in three["losses"]):
+        bad.append(f"losses {three['losses']}")
+    short = {k: n for k, n in counts.items() if n < qs.QS_STEPS}
+    if short:
+        bad.append(f"kernels launched fewer than {qs.QS_STEPS} times: "
+                   f"{short}")
+    for name, acct in (("part 2", two["live"]), ("part 3", three["teardown"])):
+        if not acct["all_joined"] or acct["oom_count"] or \
+                acct.get("dropped_batches", 0):
+            bad.append(f"{name}: {acct}")
+    if one["oom_count"]:
+        bad.append(f"part 1: {one['oom_count']} OOMs")
+    if not moved:
+        bad.append(f"the tuner never moved the pools: "
+                   f"{three['workers_seen']}")
+    if left_t or left_p:
+        bad.append(f"left running: threads {left_t}, processes {left_p}")
+    if bad:
+        raise AssertionError(f"quickstart: {bad}")
+    for name, n in counts.items():
+        recs[name]["launches"] = n
+    return recs
 
 
 def profile_steps(step, steps: int, kernels=()):
@@ -3599,6 +3777,11 @@ def run_phases(agent_procs) -> int:
         phase_fleet_live()
     with Phase("api_tune"):
         phase_api_tune()
+    with Phase("quickstart"):
+        qs_recs = phase_quickstart()
+    for name in DLRM_KERNELS:
+        recs[name]["quickstart"] = qs_recs[name]
+    torch.cuda.empty_cache()
     with Phase("graph"):
         sampler = build_graph(gnn_shape, gnn_cfg)
     with Phase("gnn_model"):

@@ -67,7 +67,17 @@ def save_agent(agent: DQNAgent, path: str):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     flat = {f"qnet/{layer}/{k}": v
             for layer, p in state["qnet"].items() for k, v in p.items()}
-    np.savez(path, steps=state["steps"], **flat)
+    # written whole beside the target, then renamed over it, so that a
+    # process loading the cache never reads a half-written file
+    final = path if path.endswith(".npz") else path + ".npz"
+    tmp = f"{final}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, steps=state["steps"], **flat)
+        os.replace(tmp, final)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load_agent_state(path: str) -> dict:

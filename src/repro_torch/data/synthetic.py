@@ -4,7 +4,8 @@ repro/data/synthetic.py (numpy only, the same operations in the same
 order, so the same seed or `RandomState` gives the same bits).
 
 `raw_block` draws un-hashed ids, log-normal dense values and labels
-from a planted CTR signal; `feature_udf` is the online feature work
+from a planted CTR signal; `shuffle_udf` permutes a block's records with
+the caller's RandomState; `feature_udf` is the online feature work
 (hash ids into table rows, log1p and per-batch normalisation of the
 dense features); `batch_udf` makes every array contiguous.
 """
@@ -37,6 +38,15 @@ class CriteoStream:
             np.float32)
         return {"raw_ids": raw_ids.astype(np.int64),
                 "dense_raw": dense_raw.astype(np.float32), "label": label}
+
+    # --------------------------- pipeline stage UDFs (the online work) ----
+    @staticmethod
+    def shuffle_udf(block: dict, rng: np.random.RandomState) -> dict:
+        """The block's records in the order of `rng.permutation`: the
+        caller's seeded RandomState, never numpy's global one."""
+        n = block["label"].shape[0]
+        perm = rng.permutation(n)
+        return {k: v[perm] for k, v in block.items()}
 
     def feature_udf(self, block: dict) -> dict:
         """Hash ids into table rows; log1p + normalize dense features."""

@@ -62,28 +62,40 @@ def _imports(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
-            if node.module == "benchmarks":
-                yield from (f"benchmarks.{a.name}" for a in node.names)
+            if node.module in ("benchmarks", "examples"):
+                yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    """Nor do the port's benchmarks, which import no benchmark module of
-    the JAX package's (benchmarks/common.py imports repro)."""
+    """Nor do the port's benchmarks and examples, which import no
+    benchmark or example module of the JAX package's
+    (benchmarks/common.py imports repro)."""
     benches = sorted((ROOT / "benchmarks").glob("torch_*.py"))
-    assert len(benches) >= 2
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + benches
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(benches) >= 2 and len(examples) >= 5
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        benches + examples
     assert len(files) > 20
-    # slice 12's and slice 13's modules among them
+    # slice 12's, 13's and 14's modules among them
     assert {PORT / "models" / "segment.py", PORT / "data" / "graphs.py",
             PORT / "models" / "embedding.py", PORT / "api" / "registry.py",
             PORT / "core" / "fleet_coordinator.py",
             PORT / "core" / "optimizer.py", PORT / "data" / "fleet.py",
             PORT / "data" / "live_fleet.py", PORT / "data" / "calibrate.py",
             ROOT / "benchmarks" / "torch_fig7_fleet.py"} <= set(files)
+    assert {ROOT / "benchmarks" / f"torch_{name}.py" for name in (
+        "fig5_static", "fig7_rescale", "fig8_scaling", "fig_market",
+        "fig_stream", "proc_calibration", "debug_feed_replay", "run")} \
+        <= set(files)
+    assert {ROOT / "examples" / f"torch_{name}.py" for name in (
+        "quickstart", "process_pipeline", "multisource_dlrm",
+        "fleet_tuning", "live_fleet")} <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")
            or (m.startswith("benchmarks.")
-               and not m.startswith("benchmarks.torch_"))]
+               and not m.startswith("benchmarks.torch_"))
+           or (m.startswith("examples.")
+               and not m.startswith("examples.torch_"))]
     assert not bad, bad
 
 
