@@ -313,6 +313,39 @@ no kernel of the port runs on these paths:
  9c. gnn_molecule  the generic driver at molecule for 20 steps: loss
               finite, graphs/s, peak memory.
 
+The LLM family (slice 15), the kernel benchmark and the roofline, last
+(no kernel of the `kernels` line lies on the LM path, which runs in
+plain PyTorch as the JAX package's runs in jnp):
+
+ 10. lm_attention  chunked_attention's forward and dq, dk, dv against
+              naive S x S attention on the card in f32 with TF32 off
+              (GQA 8/2 with a window of 700 and softcap 50 at S 2000,
+              MHA at S 3000; KV tails of 464 and 184 past whole chunks),
+              decode_attention against the naive rows: each within 1e-4
+              of its max |value|; the attention's forward and backward
+              ms at gemma2-2b's train shape in bf16.
+ 11. lm_train_<arch>  the generic driver at --full --shape train_4k:
+              smollm-135m at batch 8, gemma2-2b at batch 4 in 4
+              microbatches (LM_TRAIN), a few steps: losses finite, the
+              last two's mean under the first, tokens/s, peak memory; the
+              warm step recorded for the roofline. Then lm_profile_<arch>:
+              one train step under torch.profiler.
+ 12. lm_serve_<arch>  gemma2-2b: a timed prefill of 8192 tokens (past its
+              4096 window), 16 decode steps at positions 8192-8207, each
+              step's logits against the full forward's within a bf16
+              tolerance (LM_SERVE); qwen2-moe-a2.7b: a timed prefill of
+              4096, 16 decode steps at batch 4 (its bf16 agreement
+              printed), and its decode held to its forward in f32 at its
+              published widths, 4 layers deep (LM_SERVE_F32). Tokens/s of
+              prefill and decode, and the cuts of prefill_32k and
+              decode_32k.
+ 13. kernels_bench  benchmarks/torch_kernels_bench.py on the card: each
+              kernel against its plain version, timed beside it and the
+              reference's oracle, with its bound.
+ 14. roofline  benchmarks/torch_roofline.py over the steps the LM train
+              phases and dlrm_driver recorded (build/bench/
+              torch_steps.json), at the H100's ceilings.
+
 Launch counts are set to 0 just before each main path (the DLRM loop,
 the held loop, the train-feed arms, the checkpoint round trip, the
 quickstart's part 3, the GNN loop, the wide-deep loop, the dlrm-criteo driver, the xDeepFM,
@@ -3152,7 +3185,7 @@ def phase_dlrm_driver(arch) -> dict:
     ops.reset_launch_counts()
     res = train.run(arch.arch_id, steps=DRIVER_STEPS, full=True,
                     shape=arch.shape("train_batch"), device="cuda",
-                    lr=DRIVER_LR, log_every=5)
+                    lr=DRIVER_LR, log_every=5, steps_json=STEPS_JSON)
     counts = {k: ops.launch_counts()[k] for k in DLRM_KERNELS}
     losses = res["losses"]
     if not all(math.isfinite(x) for x in losses):
@@ -3683,6 +3716,369 @@ def phase_recsys_retrieval(archs) -> dict:
     return res
 
 
+# ------------------------------------------------ slice 15: the LM family ---
+# the driver phases record their warm train step seconds here for the
+# roofline (benchmarks/torch_roofline.py); emptied at the start of a run
+STEPS_JSON = os.path.join(ROOT, "build", "bench", "torch_steps.json")
+# train_4k (sequences of 4096) at its published widths, the batch cut
+# from 256 to what one card holds in a few seconds a step; lr above the
+# driver's 1e-3, so that a few steps under the 100-step warmup (step 0's
+# lr is 0) move the bf16 weights by more than their rounding, and for
+# gemma2-2b low enough that its early adam steps do not overshoot (at
+# 0.01 and 0.03 its fourth loss read 16.08 and 14.06 against a first of
+# 12.65; NVIDIA H100 80GB HBM3, 700.00 W)
+# The profiled step: smollm-135m's at its driver batch; gemma2-2b's at
+# one of its four microbatches (batch 1; the profiler's reading of a whole
+# step's 120,000-odd launches took 20 s), whose forward and backward are
+# a quarter of its step's, with one adam update instead of one in four
+LM_TRAIN = {"smollm-135m": dict(batch=8, microbatches=1, steps=4, lr=0.03,
+                                profile_batch=8),
+            "gemma2-2b": dict(batch=4, microbatches=4, steps=4, lr=0.003,
+                              profile_batch=1)}
+# serving: a timed prefill of batch 1 (gemma2-2b past its 4096 window, so
+# that the local layers mask), then `decode` steps at `batch` over a cache
+# of prompt + decode entries, each step's logits against the full forward's
+# softcapped logits at its position. gemma2-2b's bf16 tolerance (stated
+# before the first run, from CPU runs at reduced widths, 3x their
+# largest): max |diff| 0.25 and mean 0.04 a position (1-2 bf16 ulps of
+# logits of 2-8 after 26 layers whose GEMMs sum in other orders) and a
+# cosine of at least 0.99 between the two logit vectors of each position
+# (a wrong position, cache entry or mask reads far below it).
+# qwen2-moe-a2.7b's bf16 run is timed and its agreement printed, not
+# held: its bf16 router takes another expert for a near tie on one path
+# and not the other now and then (the first run read max 0.81, mean up to
+# 0.1395, cosine down to 0.9848, bimodal by position, against the 1.0,
+# 0.1 and 0.99 stated for it), so its decode is held in f32 instead
+# (LM_SERVE_F32)
+LM_SERVE = {"gemma2-2b": dict(prompt=8192, batch=1, decode=16,
+                              max_abs=0.25, mean_abs=0.04, cos=0.99),
+            "qwen2-moe-a2.7b": dict(prompt=4096, batch=4, decode=16)}
+# the MoE's decode against its forward in f32 (TF32 off) at its published
+# widths with the depth cut to 4 layers (f32 parameters of all 24 would
+# take 60 GB), drop-free: prompt 1024, batch 4, 8 steps; tolerance
+# (stated before its first run): max |diff| 1e-3 and a cosine of at least
+# 0.99999 a position (f32 sums in other orders, ~1e-6 relative)
+LM_SERVE_F32 = dict(layers=4, prompt=1024, batch=4, decode=8, max_abs=1e-3,
+                    cos=0.99999)
+# chunked_attention against naive S x S attention on the card, f32 with
+# TF32 off: (B, S, H, K, hd, window, cap, chunk); GQA, a window shorter
+# than S, softcap 50, KV tails of 464 and 184 past whole chunks; each of
+# out, dq, dk, dv and the decode rows within ATTN_TOL of its max |value|
+LM_ATTN_CASES = ((1, 2000, 8, 2, 64, 700, 50.0, 512),
+                 (2, 3000, 4, 4, 128, 0, 0.0, 256))
+ATTN_TOL = 1e-4
+
+
+def _naive_attention(q, k, v, window: int, cap: float):
+    """Causal attention with the whole (S, S) score matrix, f32."""
+    import torch
+    from repro_torch.models.layers import NEG_INF, softcap
+    b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    qg = q.view(b, s, n_kv, h // n_kv, hd)
+    sc = softcap(torch.einsum("bskgh,btkh->bkgst", qg, k) * hd ** -0.5, cap)
+    i = torch.arange(s, device=q.device)
+    valid = i[None, :] <= i[:, None]
+    if window:
+        valid = valid & (i[:, None] - i[None, :] < window)
+    p = torch.softmax(sc.masked_fill(~valid, NEG_INF), dim=-1)
+    return torch.einsum("bkgst,btkh->bskgh", p, v).reshape(b, s, h, hd)
+
+
+def _within(name: str, got, want, tol: float = ATTN_TOL) -> float:
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max abs err {err:.3e} over "
+                             f"{tol} x max |want| {scale:.3e}")
+    return err / scale
+
+
+def phase_lm_attention() -> dict:
+    """chunked_attention's forward and dq, dk, dv against naive S x S
+    attention (autograd) on the card in f32, TF32 off, at LM_ATTN_CASES,
+    and decode_attention against the naive output's rows; then the
+    attention's time at gemma2-2b's train shape in bf16 ((1, 4096, 8,
+    256) over 4 kv heads, chunks of 512, cap 50), for a local (4096)
+    and a global layer: forward ms and forward + backward ms (CUDA
+    events). Returns those times."""
+    import torch
+    from benchmarks.torch_kernels_bench import time_ms as events_ms
+    from repro_torch.models.layers import chunked_attention, decode_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 check needs it off")
+    for b, s, h, n_kv, hd, window, cap, chunk in LM_ATTN_CASES:
+        tag = f"(B {b}, S {s}, H {h}/{n_kv}, hd {hd}, window {window}, " \
+              f"cap {cap}, chunk {chunk})"
+        q = torch.randn((b, s, h, hd), device=dev, generator=gen)
+        k = torch.randn((b, s, n_kv, hd), device=dev, generator=gen)
+        v = torch.randn((b, s, n_kv, hd), device=dev, generator=gen)
+        d_out = torch.randn((b, s, h, hd), device=dev, generator=gen)
+        errs = {}
+        for name, fn in (("chunked", lambda q, k, v: chunked_attention(
+                q, k, v, window=window, logit_cap=cap, chunk=chunk)),
+                         ("naive", lambda q, k, v: _naive_attention(
+                             q, k, v, window, cap))):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = fn(*leaves)
+            out.backward(d_out)
+            errs[name] = [out.detach()] + [x.grad for x in leaves]
+            del out, leaves
+        rel = {n: _within(f"chunked_attention {n} {tag}", got, want)
+               for n, got, want in zip(("out", "dq", "dk", "dv"),
+                                       errs["chunked"], errs["naive"])}
+        want = errs["naive"][0]
+        for pos in (s // 2, s - 1):
+            row = decode_attention(q[:, pos:pos + 1], k, v, pos=pos,
+                                   window=window, logit_cap=cap)
+            rel[f"decode {pos}"] = _within(f"decode_attention {tag} at "
+                                           f"{pos}", row[:, 0], want[:, pos])
+        print(f"  {tag}: max abs err / max |want|: "
+              + ", ".join(f"{n} {e:.2e}" for n, e in rel.items()),
+              flush=True)
+        del errs, q, k, v, d_out
+        torch.cuda.empty_cache()
+    q = torch.randn((1, 4096, 8, 256), device=dev, generator=gen,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((1, 4096, 4, 256), device=dev, generator=gen,
+                        dtype=torch.bfloat16) for _ in range(2))
+    d_out = torch.randn_like(q)
+    out = {}
+    for window in (4096, 0):
+        attn = lambda: chunked_attention(q, k, v, window=window,
+                                         logit_cap=50.0, chunk=512)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        fwd = events_ms(attn, dev, iters=3, warmup=1)
+        both = events_ms(lambda: chunked_attention(
+            *leaves, window=window, logit_cap=50.0,
+            chunk=512).backward(d_out), dev, iters=3, warmup=1)
+        out[window] = {"fwd_ms": fwd, "fwd_bwd_ms": both}
+        print(f"  gemma2-2b train shape, window {window}: forward "
+              f"{fwd:.3f} ms, forward + backward {both:.3f} ms", flush=True)
+    return out
+
+
+def phase_lm_train(arch_id: str) -> dict:
+    """The generic driver at --full --shape train_4k (LM_TRAIN's batch,
+    microbatches, steps and lr), its warm step recorded in STEPS_JSON:
+    every loss finite, the mean of the last two under the first, peak
+    device memory under the card's. Returns the driver's result."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import train
+    spec = LM_TRAIN[arch_id]
+    res = train.run(arch_id, steps=spec["steps"], batch=spec["batch"],
+                    shape=get_arch(arch_id).shape("train_4k"), full=True,
+                    lr=spec["lr"], microbatches=spec["microbatches"],
+                    device="cuda", log_every=1, steps_json=STEPS_JSON)
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch_id} loss not finite: {losses}")
+    if not sum(losses[-2:]) / 2 < losses[0]:
+        raise AssertionError(f"{arch_id} loss not falling: {losses}")
+    peak = res["max_memory_allocated"]
+    if not peak < min(torch.cuda.get_device_properties(0).total_memory,
+                      CARD_BYTES):
+        raise AssertionError(f"{arch_id} peak {peak / 1e9:.2f} GB")
+    print(f"  {arch_id} train_4k " + json.dumps(
+        {k: res[k] for k in ("batch", "microbatches", "tokens_per_s",
+                             "loop_step_s", "train_step_s", "warm_step_s",
+                             "max_memory_allocated", "losses", "reduced")}),
+          flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm_profile(arch_id: str) -> float:
+    """One train step at LM_TRAIN's profile_batch, in one microbatch,
+    under torch.profiler (the driver's shapes already warm in this
+    process): device time by kernel, the GEMMs' share, against the
+    host-clock step. Returns the step's device ms."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import train
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    dev = torch.device("cuda")
+    spec = LM_TRAIN[arch_id]
+    arch = get_arch(arch_id)
+    shape = arch.shape("train_4k")
+    model = train.init_params_for(arch, arch.model, 0, device=dev)
+    opt = make_optimizer(arch.optimizer, lr=spec["lr"])
+    state = opt.init(dict(model.named_parameters()))
+    step_fn = make_train_step(train.make_loss_fn(arch, arch.model), opt)
+    batch = train.make_batch_fn(arch, arch.model, spec["profile_batch"],
+                                np.random.RandomState(13), shape=shape,
+                                device=dev)()
+    rows, wall_ms = profile_steps(
+        lambda k: step_fn(model, state, 1 + k, batch), 1)
+    device_ms = sum(ms for _, ms in rows)
+    # cuBLAS's and CUTLASS's GEMMs (nvjet: cuBLAS's bf16 kernels)
+    gemm = sum(ms for name, ms in rows
+               if any(k in name.lower() for k in ("gemm", "nvjet", "cutlass",
+                                                  "xmma")))
+    print(f"  {arch_id} train step (batch {spec['profile_batch']}, one "
+          f"microbatch): {device_ms:.3f} ms of "
+          f"device time in {wall_ms:.3f} ms of host-clock time "
+          f"(profiled); GEMM kernels {gemm:.3f} ms "
+          f"({100 * gemm / device_ms:.1f}%)", flush=True)
+    for name, ms in rows[:12]:
+        print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
+    del model, state, opt, batch
+    torch.cuda.empty_cache()
+    return device_ms
+
+
+def _decode_vs_forward(model, toks, p_len: int, n_dec: int) -> dict:
+    """A timed prefill of batch 1 over toks[:1, :p_len] (after a short
+    warm-up prefill); a prefill of the whole batch (a MoE model's with no
+    token-choice dropped, `moe.drop_free`, as its decode steps of a few
+    tokens drop none) moved into a cache of p_len + n_dec entries;
+    n_dec timed decode steps; each step's logits against the full
+    forward's softcapped logits at its position. Returns the times and,
+    by position, max |diff|, mean |diff| and the cosine."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import softcap
+    cfg = model.cfg
+    b = toks.shape[0]
+    tfm.prefill(model, toks[:1, :min(512, p_len)])     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    tfm.prefill(model, toks[:1, :p_len])
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    if cfg.is_moe:
+        model.cfg = moe.drop_free(cfg)
+    try:
+        _, cache = tfm.prefill(model, toks[:, :p_len])
+        big = tfm.init_cache(cfg, b, p_len + n_dec, dtype=cache["k"].dtype,
+                             device=toks.device)
+        for n in ("k", "v"):
+            big[n][:, :, :p_len] = cache[n]
+        del cache
+        torch.cuda.synchronize()
+        got = []
+        t0 = time.monotonic()
+        for pos in range(p_len, p_len + n_dec):
+            logits, big = tfm.decode_step(model, big, toks[:, pos], pos)
+            got.append(logits)
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t0
+        del big
+        with torch.no_grad():
+            full, _ = tfm.forward(model, toks)
+    finally:
+        model.cfg = cfg
+    want = softcap(full[:, p_len:].float(), cfg.final_logit_softcap)
+    del full
+    got = torch.stack(got, dim=1)                      # (B, n_dec, V)
+    diff = (got - want).abs()
+    return {"prefill_tokens_per_s": p_len / prefill_s, "prefill_s": prefill_s,
+            "decode_tokens_per_s": n_dec * b / decode_s,
+            "decode_step_s": decode_s / n_dec,
+            "max_abs": diff.amax(-1), "mean_abs": diff.mean(-1),
+            "cos": torch.nn.functional.cosine_similarity(got, want, dim=-1)}
+
+
+def phase_lm_serve(arch_id: str) -> dict:
+    """Prefill and decode at the published widths in bf16 (LM_SERVE,
+    `_decode_vs_forward`): tokens/s, the cuts of prefill_32k and
+    decode_32k, and gemma2-2b's decode held to its forward; a MoE arch's
+    decode is held in f32 at LM_SERVE_F32's cut depth."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    spec = LM_SERVE[arch_id]
+    cfg = get_arch(arch_id).model
+    p_len, b, n_dec = spec["prompt"], spec["batch"], spec["decode"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks = torch.from_numpy(TokenStream(cfg.vocab_size, p_len + n_dec)
+                            .batch(b)["tokens"]).to(dev)
+    model = tfm.init_params(cfg, seed=0, device=dev)
+    r = _decode_vs_forward(model, toks, p_len, n_dec)
+    del model
+    torch.cuda.empty_cache()
+    res = {k: r[k] for k in ("prefill_tokens_per_s", "prefill_s",
+                             "decode_tokens_per_s", "decode_step_s")}
+    res.update(max_abs=float(r["max_abs"].max()),
+               mean_abs=float(r["mean_abs"].max()),
+               min_cos=float(r["cos"].min()),
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               reduced=[f"prefill_32k: batch 32 -> 1, sequence 32768 -> "
+                        f"{p_len}, for the phase's time",
+                        f"decode_32k: batch 128 -> {b}, cache 32768 -> "
+                        f"{p_len + n_dec} entries, {n_dec} steps, for the "
+                        f"phase's time"])
+    print(f"  {arch_id} bf16 " + json.dumps(res), flush=True)
+    if "max_abs" in spec and not (res["max_abs"] <= spec["max_abs"]
+                                  and res["mean_abs"] <= spec["mean_abs"]
+                                  and res["min_cos"] >= spec["cos"]):
+        raise AssertionError(f"{arch_id} decode logits off the forward's: "
+                             f"max {r['max_abs'].tolist()}, mean "
+                             f"{r['mean_abs'].tolist()}, cos "
+                             f"{r['cos'].tolist()}")
+    if cfg.is_moe:
+        f32 = LM_SERVE_F32
+        cut = cfg.replace(n_layers=f32["layers"], param_dtype="float32")
+        model = tfm.init_params(cut, seed=0, device=dev)
+        r = _decode_vs_forward(model, toks[:f32["batch"], :f32["prompt"]
+                                           + f32["decode"]],
+                               f32["prompt"], f32["decode"])
+        del model
+        torch.cuda.empty_cache()
+        check = {"max_abs": float(r["max_abs"].max()),
+                 "mean_abs": float(r["mean_abs"].max()),
+                 "min_cos": float(r["cos"].min()),
+                 "reduced": [f"the f32 decode check: depth {cfg.n_layers} "
+                             f"-> {f32['layers']} (f32 parameters), prompt "
+                             f"{f32['prompt']}, batch {f32['batch']}, "
+                             f"{f32['decode']} steps; its prefill and "
+                             f"forward at capacity factor E / top_k (no "
+                             f"drop), {moe.drop_free(cfg).capacity_factor}"]}
+        print(f"  {arch_id} f32 check " + json.dumps(check), flush=True)
+        if not (check["max_abs"] <= f32["max_abs"]
+                and check["min_cos"] >= f32["cos"]):
+            raise AssertionError(f"{arch_id} f32 decode logits off the "
+                                 f"forward's: max {r['max_abs'].tolist()}, "
+                                 f"cos {r['cos'].tolist()}")
+        res["f32_check"] = check
+    return res
+
+
+def phase_kernels_bench() -> list:
+    """benchmarks/torch_kernels_bench.py on the card: each kernel against
+    its plain version (as the `kernels` phase holds it; the bench raises
+    on a disagreement), its plain version and the reference's oracle
+    timed, with its bound."""
+    from benchmarks import torch_kernels_bench
+    rows = torch_kernels_bench.run("cuda")
+    if {r["kernel"] for r in rows} != {"embedding_bag", "embedding_bag_fused",
+                                       "dot_interact", "sage_aggregate"}:
+        raise AssertionError(f"kernel bench rows: {rows}")
+    return rows
+
+
+def phase_roofline() -> list:
+    """benchmarks/torch_roofline.py over STEPS_JSON: the LM train cells
+    and the dlrm-criteo driver cell, each with both terms."""
+    from benchmarks import torch_roofline
+    rows = torch_roofline.run(STEPS_JSON)
+    cells = {(r["arch"], r["shape"]) for r in rows}
+    want = {("smollm-135m", "train_4k"), ("gemma2-2b", "train_4k"),
+            ("dlrm-criteo", "train_batch")}
+    if not want <= cells:
+        raise AssertionError(f"roofline covers {cells}, not {want}")
+    return rows
+
+
 SOURCES = {
     "embedding_bag_fwd": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                           "src/repro/kernels/embedding_bag.py:75"),
@@ -3742,6 +4138,8 @@ def run_phases(agent_procs) -> int:
     gnn_shape = GNN_ARCH.shape("minibatch_lg")
     gnn_cfg = GNN_ARCH.model
 
+    if os.path.exists(STEPS_JSON):
+        os.remove(STEPS_JSON)
     with Phase("build"):
         phase_build()
     with Phase("kernels"):
@@ -3873,6 +4271,7 @@ def run_phases(agent_procs) -> int:
             recs[name][tag] = dict(
                 rec, launches=seq_launches[arch_id][name],
                 in_step_ms=seq_in_step[arch_id].get(name))
+    run_lm_phases()
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]
@@ -3882,6 +4281,27 @@ def run_phases(agent_procs) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_lm_phases():
+    """Slice 15's phases: the LM family (no kernel of the `kernels` line
+    lies on its path), the kernel benchmark and the roofline."""
+    import torch
+    with Phase("lm_attention"):
+        phase_lm_attention()
+    torch.cuda.empty_cache()
+    for arch_id in LM_TRAIN:
+        with Phase(f"lm_train_{arch_id}"):
+            phase_lm_train(arch_id)
+        with Phase(f"lm_profile_{arch_id}"):
+            phase_lm_profile(arch_id)
+    for arch_id in LM_SERVE:
+        with Phase(f"lm_serve_{arch_id}"):
+            phase_lm_serve(arch_id)
+    with Phase("kernels_bench"):
+        phase_kernels_bench()
+    with Phase("roofline"):
+        phase_roofline()
 
 
 if __name__ == "__main__":

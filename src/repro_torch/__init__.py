@@ -8,7 +8,9 @@ DLRM's two hot ops go through kernels written by hand for Hopper
 trains GraphSAGE on sampled minibatches, its neighbour aggregations
 through a third such kernel, and wide-deep, its wide arm through a
 fourth (the fused embedding bag) and its deep tables through the
-DLRM's. Everything else is plain PyTorch or copied
+DLRM's; it also trains the LM family (models/transformer.py, plain
+PyTorch, as the JAX package's is plain jnp). Everything else is plain
+PyTorch or copied
 numpy code. Importing this package (or `repro_torch.data`) imports
 neither torch nor CUDA, so forked or spawned pipeline workers stay cheap.
 """

@@ -1,6 +1,8 @@
 """Config dataclasses of the port (copied from repro.configs.base, with
 the fields of regimes the port does not run dropped: sharding overrides,
-lookup and partitioning knobs, skipped cells).
+lookup and partitioning knobs, skipped cells; `TransformerConfig` keeps
+its `sharding_overrides` and `moe_impl` as inert data, so that the five
+LM configs read as the JAX package's do).
 
 Frozen so configs are hashable. `reduced` lists every cut a config
 makes against its published source, each with its reason.
@@ -9,9 +11,89 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
+# ------------------------------------------------------------------ LM -----
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    # MoE (n_experts == 0 -> dense MLP)
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    norm_topk_prob: bool = True
+    # attention / block details
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int = 0            # 0 = full attention
+    local_global_alternating: bool = False  # gemma2: even layers local
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    post_norm: bool = False            # gemma2 post-block norms
+    scale_embed: bool = False          # gemma multiplies embed by sqrt(d)
+    act: str = "silu"
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    # execution
+    attn_chunk: int = 512
+    remat: str = "full"                # "none" | "full" | "dots"
+    scan_layers: bool = True
+    scan_block: int = 1                # layers per scan group (2 for gemma2)
+    param_dtype: str = "bfloat16"
+    moe_impl: str = "shardmap_ep"      # inert on one device: local dispatch
+    sharding_overrides: Tuple[Tuple[str, Optional[str]], ...] = ()
+    reduced: Tuple[str, ...] = ()
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def n_experts_padded(self, tp: int) -> int:
+        """Experts padded up so the expert axis divides the TP degree."""
+        if not self.is_moe:
+            return 0
+        return -(-self.n_experts // tp) * tp
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class LMShape:
+    name: str
+    kind: str        # "train" | "prefill" | "decode"
+    seq_len: int
+    batch: int
+
+
+LM_SHAPES = (
+    LMShape("train_4k", "train", 4096, 256),
+    LMShape("prefill_32k", "prefill", 32768, 32),
+    LMShape("decode_32k", "decode", 32768, 128),
+    LMShape("long_500k", "decode", 524288, 1),
+)
+
+
+# ----------------------------------------------------------------- DLRM ----
 @dataclass(frozen=True)
 class DLRMConfig:
     name: str

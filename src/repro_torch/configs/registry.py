@@ -1,8 +1,9 @@
 """Architecture registry of the port: `--arch <id>` resolution.
 
-Only the archs the port runs resolve. Every other arch of the JAX
-registry (repro.configs.registry) raises `KeyError` naming the ROADMAP
-item that ports it.
+Every arch of the JAX registry (repro.configs.registry) resolves. The
+archs whose full-width runs do not fit one device wait on distribution:
+`ONE_DEVICE_LIMIT` is the wording of that refusal, which the generic
+driver's `--full` raises before it allocates anything.
 """
 from __future__ import annotations
 
@@ -12,33 +13,33 @@ from typing import List
 from repro_torch.configs.base import ArchSpec
 
 _ARCH_MODULES = {
-    "bert4rec": "repro_torch.configs.bert4rec",
-    "dien": "repro_torch.configs.dien",
-    "dlrm-criteo": "repro_torch.configs.dlrm_criteo",
+    # LM family
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "smollm-135m": "repro_torch.configs.smollm_135m",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    # GNN
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
+    # RecSys
     "wide-deep": "repro_torch.configs.wide_deep",
     "xdeepfm": "repro_torch.configs.xdeepfm",
+    "dien": "repro_torch.configs.dien",
+    "bert4rec": "repro_torch.configs.bert4rec",
+    # The paper's own workload (Criteo DLRM)
+    "dlrm-criteo": "repro_torch.configs.dlrm_criteo",
 }
 
-# arch -> where it waits (ROADMAP.md, "Queue 1: modules to port")
-_NOT_PORTED = {
-    "qwen2-moe-a2.7b": "queue 1, item 8 (LLM family)",
-    "kimi-k2-1t-a32b": "queue 1, item 8 (LLM family)",
-    "smollm-135m": "queue 1, item 8 (LLM family)",
-    "gemma2-2b": "queue 1, item 8 (LLM family)",
-    "qwen2.5-32b": "queue 1, item 8 (LLM family)",
-}
+# where a run too large for one device waits (ROADMAP.md, "Queue 1:
+# modules to port")
+ONE_DEVICE_LIMIT = "ROADMAP.md queue 1, item 9 (distribution and launch)"
 
 
 def list_archs() -> List[str]:
-    """The archs the port runs."""
     return sorted(_ARCH_MODULES)
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in _NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported to repro_torch yet: "
-                       f"ROADMAP.md {_NOT_PORTED[arch_id]}")
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; the port runs "
                        f"{list_archs()}")

@@ -1,5 +1,6 @@
-"""Synthetic records for the generic driver's recsys family: the port's
-copies of `CriteoStream`, `bert4rec_batch` and `dien_batch` from
+"""Synthetic records for the generic driver's recsys and LM families: the
+port's copies of `CriteoStream`, `TokenStream`, `bert4rec_batch` and
+`dien_batch` from
 repro/data/synthetic.py (numpy only, the same operations in the same
 order, so the same seed or `RandomState` gives the same bits).
 
@@ -8,6 +9,7 @@ from a planted CTR signal; `shuffle_udf` permutes a block's records with
 the caller's RandomState; `feature_udf` is the online feature work
 (hash ids into table rows, log1p and per-batch normalisation of the
 dense features); `batch_udf` makes every array contiguous.
+`TokenStream` draws zipf-distributed token sequences.
 """
 from __future__ import annotations
 
@@ -60,6 +62,19 @@ class CriteoStream:
     @staticmethod
     def batch_udf(block: dict) -> dict:
         return {k: np.ascontiguousarray(v) for k, v in block.items()}
+
+
+class TokenStream:
+    """Synthetic LM token stream (zipf-ish unigram with local structure)."""
+
+    def __init__(self, vocab: int, seq_len: int, seed: int = 0):
+        self.vocab, self.seq_len = vocab, seq_len
+        self.rng = np.random.RandomState(seed)
+
+    def batch(self, n: int) -> dict:
+        z = self.rng.zipf(1.3, size=(n, self.seq_len + 1))
+        toks = (z % self.vocab).astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def bert4rec_batch(rng, batch: int, seq_len: int, n_items: int,

@@ -1,6 +1,9 @@
 """Generic training driver of the port: --arch <id> on one device (port of
-repro/launch/train.py; the `gnn`, `recsys` and `dlrm` families so far).
+repro/launch/train.py: the `lm`, `gnn`, `recsys` and `dlrm` families).
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
+        [--steps 50] [--full --shape train_4k [--batch N] \
+        [--microbatches K]] [--steps-json build/bench/torch_steps.json] ...
     PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-reddit \
         [--steps 50] [--batch N] [--full] \
         [--shape minibatch_lg|full_graph_sm|ogb_products|molecule] \
@@ -15,7 +18,10 @@ repro/launch/train.py; the `gnn`, `recsys` and `dlrm` families so far).
 
 Runs real training steps on synthetic data, as the JAX driver does:
   - without `--full` it runs the family's small config, the JAX
-    driver's `reduced_model` (GraphSAGE: d_hidden 16 on the JAX driver's
+    driver's `reduced_model` (the LMs: 2 layers, d_model 64, 4 heads of
+    16, d_ff 128, a vocab of 512, chunks of 32, f32, 8 experts of 48
+    for the MoE archs, a window of 16 for gemma2-2b, on `TokenStream`
+    sequences of 64 tokens; GraphSAGE: d_hidden 16 on the JAX driver's
     small graph, 512 nodes, 4096 edges, 32 features, fanout 5-3;
     wide-deep: 8 features, embed_dim 8, MLP 64-32, 512 rows a table;
     xDeepFM: the same and CIN 12-12; DIEN: 512 items, sequences of 16,
@@ -25,7 +31,11 @@ Runs real training steps on synthetic data, as the JAX driver does:
     64-32-1, still bf16) at the JAX driver's batch of 32, so that the two
     drivers can be held together on the CPU; `--full` uses the arch's
     published config and `--shape <name>` one of its shapes
-    (graphsage-reddit: any GNN shape, minibatch_lg: 1024 seed nodes,
+    (the LMs: train_4k, sequences of 4096, at `--batch` (the shape's
+    256 does not fit one device); an LM whose parameters and optimizer
+    state exceed one device's 80 GB, kimi-k2-1t-a32b, qwen2.5-32b and
+    qwen2-moe-a2.7b, is refused before anything is allocated;
+    graphsage-reddit: any GNN shape, minibatch_lg: 1024 seed nodes,
     fanout 15-10, 602 features on 232,965 nodes; full_graph_sm: the
     whole Cora-sized graph, 2,708 nodes, 10,556 edges, 1,433 features,
     each step; ogb_products: the whole ogbn-products-sized graph,
@@ -43,9 +53,13 @@ Runs real training steps on synthetic data, as the JAX driver does:
   - `--microbatches K` accumulates the gradients of K slices of each
     batch before the one optimizer step (the reference's
     `make_train_step(..., microbatches=)`): the memory knob that fits
-    xDeepFM's CIN and BERT4Rec's attention at train_batch on one card;
+    xDeepFM's CIN, BERT4Rec's attention and the LMs' logits on one card;
   - checkpoints every --ckpt-every steps in the JAX package's on-disk
     layout (atomic, resumable, restorable by either package);
+  - `--steps-json PATH` records the run's train step seconds (a mean
+    over the steps after the first) with its arch, shape, batch,
+    microbatches, dtype and device in a JSON list, which
+    `benchmarks/torch_roofline.py` reads;
   - an InTune controller tunes the (simulated-machine) ingestion pipeline
     alongside, as a per-host controller would in production.
 
@@ -61,30 +75,34 @@ one, all with the `embedding_bag` scatter as their backward, and the
 DLRM's bags and
 interaction through `embedding_bag` and `dot_interact`, forward and
 backward, in bf16; `--device cpu` runs their plain PyTorch versions.
-Archs the port does not run yet raise KeyError naming the ROADMAP item
-that ports them.
+The LM family has no TPU kernel on its path: it runs in plain PyTorch
+on either device (models/transformer.py).
 """
 from __future__ import annotations
 
 import argparse
+import json
+import math
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchSpec, GNNShape, RecsysShape
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.base import ArchSpec, GNNShape, LMShape, RecsysShape
+from repro_torch.configs.registry import ONE_DEVICE_LIMIT, get_arch
 from repro_torch.core.controller import InTune
 from repro_torch.data.graphs import full_graph_batch, molecule_batch
 from repro_torch.data.pipeline import criteo_pipeline
 from repro_torch.data.sampler import CSRGraph, NeighborSampler
 from repro_torch.data.simulator import MachineSpec
-from repro_torch.data.synthetic import (CriteoStream, bert4rec_batch,
-                                        dien_batch)
+from repro_torch.data.synthetic import (CriteoStream, TokenStream,
+                                        bert4rec_batch, dien_batch)
 from repro_torch.models import dlrm as dlrm_lib
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
+from repro_torch.models import transformer as tfm
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optim import make_optimizer
 from repro_torch.train.train_step import make_train_step
@@ -95,10 +113,15 @@ DRIVER_SHAPE = GNNShape("driver_small", "minibatch", n_nodes=512,
                         fanout=(5, 3))
 # the JAX driver's default batch for the recsys family (--batch 32)
 RECSYS_DRIVER_SHAPE = RecsysShape("driver_small", "train", 32)
+# the JAX driver's LM run: TokenStream sequences of 64, batch 32
+LM_DRIVER_SHAPE = LMShape("driver_small", "train", 64, 32)
+# one device's memory, against which an LM's --full run is reckoned
+DEVICE_BYTES = 80e9
 
 # per family: the shape without --shape, the kinds --shape may name, and
 # the model module that maps parameter names to the JAX tree
 _FAMILIES = {
+    "lm": (LM_DRIVER_SHAPE, ("train",), tfm),
     "gnn": (DRIVER_SHAPE, ("minibatch", "full_graph", "batched_small"),
             gnn_lib),
     "recsys": (RECSYS_DRIVER_SHAPE, ("train",), recsys_lib),
@@ -138,6 +161,22 @@ def reduced_model(arch: ArchSpec):
     """The JAX driver's CPU-sized config of the arch's family
     (repro/launch/train.py:39-67)."""
     m = arch.model
+    if _family(arch) == "lm":
+        # n_kv_heads must divide the reduced 4-head count
+        kw = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=512,
+                  n_heads=4, n_kv_heads=2 if m.n_kv_heads > 1 else 1,
+                  head_dim=16, attn_chunk=32, param_dtype="float32")
+        why = ("2 layers, d_model 64, 4 heads of 16, d_ff 128, a vocab of "
+               "512, chunks of 32, f32")
+        if m.is_moe:
+            kw.update(n_experts=8, n_shared_experts=min(m.n_shared_experts, 2),
+                      top_k=min(m.top_k, 2), d_expert=48)
+            why += ", 8 experts of 48, top-2"
+        if m.local_global_alternating:
+            kw.update(sliding_window=16, scan_block=2)
+            why += ", a window of 16"
+        return m.replace(**kw, reduced=(f"the JAX driver's reduced_model: "
+                                        f"{why}, for a CPU run",))
     if _family(arch) == "gnn":
         return m.replace(d_hidden=16)
     if _family(arch) == "dlrm":
@@ -193,6 +232,9 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
     drawn from `rng`, as the JAX driver makes them."""
     to_device = lambda b: {k: torch.from_numpy(v).to(device)
                            for k, v in b.items()}
+    if _family(arch) == "lm":
+        stream = TokenStream(cfg.vocab_size, shape.seq_len)
+        return lambda: to_device(stream.batch(batch))
     if cfg.name == "dien":
         return lambda: to_device(dien_batch(
             rng, batch, cfg.seq_len, cfg.vocab_sizes[0], cfg.n_dense))
@@ -224,6 +266,8 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
 def make_loss_fn(arch: ArchSpec, cfg, shape=DRIVER_SHAPE):
     """loss(model, batch) of the arch's family, and for the gnn family of
     the shape's kind."""
+    if _family(arch) == "lm":
+        return tfm.loss_fn
     if _family(arch) == "recsys":
         return lambda model, b: recsys_lib.loss_fn(model, b)
     if _family(arch) == "dlrm":
@@ -233,6 +277,8 @@ def make_loss_fn(arch: ArchSpec, cfg, shape=DRIVER_SHAPE):
 
 def init_params_for(arch: ArchSpec, cfg, seed: int, *,
                     shape=DRIVER_SHAPE, device="cuda"):
+    if _family(arch) == "lm":
+        return tfm.init_params(cfg, seed=seed, device=device)
     if _family(arch) == "recsys":
         return recsys_lib.init_model(cfg, seed=seed, device=device)
     if _family(arch) == "dlrm":
@@ -251,6 +297,51 @@ def _state_tree(lib, model, opt_state) -> dict:
     return {"params": lib.tree_from_named(named),
             "opt_state": {k: lib.tree_from_named(v)
                           for k, v in opt_state.items()}}
+
+
+def lm_state_bytes(cfg, optimizer: str) -> int:
+    """Bytes of an LM's parameters and its optimizer's f32 state, from
+    the config's shapes alone (adam keeps m and v; adafactor a row and a
+    column mean for a matrix of two dims of at least 128, else a full
+    v; the others one f32 tensor a parameter)."""
+    total = 0
+    for shape, _, dtype in tfm.param_shapes(cfg).values():
+        n = math.prod(shape)
+        total += n * torch.empty((), dtype=dtype).element_size()
+        if optimizer == "adafactor" and len(shape) >= 2 \
+                and min(shape[-2:]) >= 128:
+            total += 4 * (n // shape[-1] + n // shape[-2])
+        else:
+            total += 4 * n * (2 if optimizer == "adam" else 1)
+    return total
+
+
+def check_fits_one_device(arch: ArchSpec, cfg) -> None:
+    """Raise, before anything is allocated, if an LM's parameters and
+    optimizer state exceed one device's DEVICE_BYTES."""
+    if _family(arch) != "lm":
+        return
+    need = lm_state_bytes(cfg, arch.optimizer)
+    if need > DEVICE_BYTES:
+        raise ValueError(
+            f"{arch.arch_id} at its published widths needs "
+            f"{need / 1e9:.1f} GB of parameters and {arch.optimizer} "
+            f"state, over one device's {DEVICE_BYTES / 1e9:.0f} GB: its "
+            f"full-width training waits on {ONE_DEVICE_LIMIT}")
+
+
+def record_step(path: str, rec: dict) -> None:
+    """Write `rec` into the JSON list at `path`, in place of any record
+    of the same arch and shape."""
+    rows = []
+    if os.path.exists(path):
+        with open(path) as f:
+            rows = json.load(f)
+    rows = [r for r in rows if (r["arch"], r["shape"])
+            != (rec["arch"], rec["shape"])] + [rec]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(rows, f, indent=1)
 
 
 # ---------------------------------------------------------------- driver ---
@@ -276,23 +367,26 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         device="cuda", ckpt_dir: Optional[str] = None,
         ckpt_every: int = 25, sampler: Optional[NeighborSampler] = None,
         graph: Optional[dict] = None, log_every: int = 10,
-        microbatches: int = 1) -> dict:
+        microbatches: int = 1, steps_json: Optional[str] = None) -> dict:
     """Train `steps` steps of `arch_id` on `shape`'s synthetic data (the
     family's driver shape if None) and return what the run measured.
     `sampler` is a prebuilt graph of a GNN minibatch `shape` and `graph`
     the numpy batch of a full-graph `shape` (one built once can serve
     several runs); `microbatches` splits each batch for gradient
-    accumulation (`make_train_step`; a full graph takes none).
-    Parameters and data all come from seed 0, as in the JAX driver."""
+    accumulation (`make_train_step`; a full graph takes none);
+    `steps_json` names a JSON list to record the train step seconds in
+    (`record_step`). Parameters and data all come from seed 0, as in the
+    JAX driver."""
     arch = get_arch(arch_id)
     family = _family(arch)
     default_shape, _, lib = _FAMILIES[family]
     shape = shape or default_shape
-    rate_key = _RATES[shape.kind]
+    rate_key = "tokens_per_s" if family == "lm" else _RATES[shape.kind]
     if shape.kind == "full_graph" and microbatches != 1:
         raise ValueError("a full graph is one batch: it takes no "
                          "microbatches")
     cfg = arch.model if full else reduced_model(arch)
+    check_fits_one_device(arch, cfg)
     device = torch.device(device)
     batch = _batch_size(shape, batch)
     rng = np.random.RandomState(0)
@@ -322,7 +416,7 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    losses, fetch_s, train_s = [], 0.0, 0.0
+    losses, fetch_s, step_times = [], 0.0, []
     t0 = time.monotonic()
     for i in range(start, steps):
         t_a = time.monotonic()
@@ -333,7 +427,7 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         losses.append(float(metrics["loss"]))        # waits for the step
         t_c = time.monotonic()
         fetch_s += t_b - t_a
-        train_s += t_c - t_b
+        step_times.append(t_c - t_b)
         tuner.tick()
         if i % log_every == 0:
             print(f"step {i:4d} loss {losses[-1]:.4f} "
@@ -342,10 +436,13 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
             ckpt.save(ckpt_dir, i, _state_tree(lib, model, opt_state))
     wall = time.monotonic() - t0
     n = len(losses)
+    train_s = sum(step_times)
     if shape.kind == "full_graph":
         # labelled nodes per second of train step
         labelled = int((batch_fn()["labels"] >= 0).sum())
         rate = n * labelled / train_s if n else None
+    elif family == "lm":
+        rate = n * batch * shape.seq_len / wall if n else None
     else:
         rate = n * batch / wall if n else None
     res = {
@@ -356,7 +453,24 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         "train_step_s": train_s / n if n else None,
         "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else None),
+        "reduced": list(getattr(cfg, "reduced", ())) + (
+            [f"batch {shape.batch} -> {batch} of {shape.name}, for one "
+             f"device's memory"] if family == "lm" and batch != shape.batch
+            else []),
+        # the train step after the first (which warms up the allocator
+        # and the libraries), the roofline's measured seconds
+        "warm_step_s": (sum(step_times[1:]) / (n - 1) if n > 1
+                        else (step_times[0] if n else None)),
     }
+    if steps_json and n:
+        record_step(steps_json, {
+            "arch": arch_id, "shape": shape.name, "kind": shape.kind,
+            "batch": batch, "seq_len": getattr(shape, "seq_len", None),
+            "microbatches": microbatches, "steps": n,
+            "step_s": res["warm_step_s"], "dtype": cfg.param_dtype,
+            "reduced": res["reduced"],
+            "device": (torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "cpu")})
     if n:
         unit = rate_key[:-len("_per_s")].replace("_", " ")
         print(f"done: {n} steps in {wall:.1f}s; loss {losses[0]:.4f} -> "
@@ -378,10 +492,11 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="use the published config")
     ap.add_argument("--shape", default=None,
-                    help="a GNN shape (minibatch_lg, full_graph_sm, "
-                         "ogb_products, molecule) or a train shape of a "
-                         "recsys model or the DLRM (train_batch); default "
-                         "the JAX driver's small run")
+                    help="an LM's train shape (train_4k), a GNN shape "
+                         "(minibatch_lg, full_graph_sm, ogb_products, "
+                         "molecule) or a train shape of a recsys model or "
+                         "the DLRM (train_batch); default the JAX driver's "
+                         "small run")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -389,6 +504,9 @@ def main(argv=None):
                     help="gradient accumulation over this many slices of "
                          "each batch (default 1: none)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--steps-json", default=None,
+                    help="a JSON list to record the train step seconds in "
+                         "(benchmarks/torch_roofline.py reads it)")
     args = ap.parse_args(argv)
     shape = None
     if args.shape is not None:
@@ -396,7 +514,7 @@ def main(argv=None):
     return run(args.arch, steps=args.steps, batch=args.batch, shape=shape,
                full=args.full, lr=args.lr, device=args.device,
                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-               microbatches=args.microbatches)
+               microbatches=args.microbatches, steps_json=args.steps_json)
 
 
 if __name__ == "__main__":

@@ -25,9 +25,10 @@ the void type `|V2`, and `np.load` gives them back as such; the port
 writes and reads that encoding (`to_numpy` / `from_numpy` of
 models/exchange.py), so bf16 checkpoints cross between the packages
 both ways. The tree is the JAX package's: each model module maps its parameter names to it
-(`tree_from_named` / `named_from_tree` of models/gnn.py, models/recsys.py
-and models/dlrm.py), for the parameters and for the optimizer state
-alike (adam's `m`/`v`, row-wise adagrad's `acc`).
+(`tree_from_named` / `named_from_tree` of models/gnn.py, models/recsys.py,
+models/dlrm.py and models/transformer.py), for the parameters and for
+the optimizer state alike (adam's `m`/`v`, row-wise adagrad's `acc`,
+adafactor's `f` with a `vr`/`vc` or `v` dict a parameter).
 """
 from __future__ import annotations
 

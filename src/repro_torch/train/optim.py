@@ -1,7 +1,7 @@
 """SGD with momentum, Adagrad (the classic DLRM embedding optimizer),
-row-wise adagrad and Adam(W), in PyTorch (port of repro/train/optim.py
-but its Adafactor, which waits with the LLM family: ROADMAP.md queue 1,
-item 8).
+row-wise adagrad, Adam(W) and Adafactor (kimi-k2's: factored second
+moments, O(rows + cols) state a matrix), in PyTorch (port of
+repro/train/optim.py).
 
 API, as in the JAX package:
 
@@ -252,12 +252,80 @@ def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
     return Optimizer("adam", init, update)
 
 
+# ------------------------------------------------------------ adafactor ----
+def adafactor(lr_fn: Callable[[int], float], decay: float = 0.8,
+              eps1: float = 1e-30, eps2: float = 1e-3,
+              clip_threshold: float = 1.0,
+              min_dim_factored: int = 128) -> Optimizer:
+    """Adafactor (Shazeer & Stern 2018) as the JAX package has it, with
+    no first moment: a parameter whose last two dims are both at least
+    `min_dim_factored` keeps factored second moments, a row mean `vr`
+    (shape[:-1]) and a column mean `vc` (shape[:-2] + shape[-1:]); any
+    other keeps a full `v`. The update is clipped to RMS
+    `clip_threshold` and scaled by the parameter's RMS (at least eps2),
+    each over the whole tensor, or over one slice of axis 0 for a huge
+    stacked tensor (`_slices`, the reference's `_chunked`)."""
+    f32 = np.float32
+
+    def _factored(p: torch.Tensor) -> bool:
+        return p.dim() >= 2 and p.shape[-1] >= min_dim_factored \
+            and p.shape[-2] >= min_dim_factored
+
+    def init(params: Dict[str, torch.Tensor]):
+        def per(p):
+            z = lambda shape: torch.zeros(shape, dtype=torch.float32,
+                                          device=p.device)
+            if _factored(p):
+                return {"vr": z(p.shape[:-1]),
+                        "vc": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+        return {"f": {k: per(p) for k, p in params.items()}}
+
+    def _apply(p_s, u, lr):
+        # u / max(1, rms(u) / clip), then p - (lr * max(eps2, rms(p))) u,
+        # in f32, rounded once into p's dtype
+        rms_u = torch.sqrt(u.square().mean() + eps1)
+        u.div_(torch.clamp(rms_u / clip_threshold, min=1.0))
+        p32 = p_s.float()
+        scale = torch.clamp(torch.sqrt(p32.square().mean()), min=eps2)
+        p_s.copy_(p32 - (lr * scale) * u)
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        gn = global_norm(grads.values())
+        lr = lr_fn(step)
+        t = f32(step) + f32(1.0)
+        beta = f32(1.0) - t ** f32(-decay)
+        b, nb = float(beta), float(f32(1.0) - beta)
+        for k, p in params.items():
+            s = state["f"][k]
+            if "vr" in s:
+                for p_s, g_s, vr, vc in _slices(p, grads[k], s["vr"],
+                                                s["vc"]):
+                    g32 = g_s.float()
+                    g2 = g32.square() + eps1
+                    vr.mul_(b).add_(g2.mean(-1) * nb)
+                    vc.mul_(b).add_(g2.mean(-2) * nb)
+                    r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps1)
+                    u = g32 / (torch.sqrt(r)[..., None]
+                               * torch.sqrt(vc)[..., None, :] + eps1)
+                    _apply(p_s, u, lr)
+            else:
+                for p_s, g_s, v in _slices(p, grads[k], s["v"]):
+                    g32 = g_s.float()
+                    v.mul_(b).add_((g32.square() + eps1) * nb)
+                    _apply(p_s, g32 / (torch.sqrt(v) + eps1), lr)
+        return params, state, {"lr": lr, "grad_norm": gn}
+    return Optimizer("adafactor", init, update)
+
+
 # -------------------------------------------------------------- factory ----
 def make_optimizer(name: str, *, lr: float = 1e-3, total_steps: int = 10000,
                    warmup: int = 100, **kw) -> Optimizer:
     """The JAX factory's contract (warmup-cosine schedule): sgd, adagrad
-    (the closed loop's), rowwise_adagrad (wide-deep's and the DLRM's)
-    and adam (GraphSAGE's and the sequence models')."""
+    (the closed loop's), rowwise_adagrad (wide-deep's and the DLRM's),
+    adam (GraphSAGE's, the sequence models' and the LMs') and adafactor
+    (kimi-k2's)."""
     lr_fn = warmup_cosine(lr, warmup, total_steps)
     if name == "sgd":
         return sgd(lr_fn, **kw)
@@ -268,8 +336,7 @@ def make_optimizer(name: str, *, lr: float = 1e-3, total_steps: int = 10000,
     if name == "adam":
         return adam(lr_fn, **kw)
     if name == "adafactor":
-        raise ValueError("optimizer 'adafactor' is not ported to "
-                         "repro_torch yet: ROADMAP.md queue 1, item 8 (LLM "
-                         "family; only kimi-k2-1t-a32b uses it)")
+        return adafactor(lr_fn, **kw)
     raise ValueError(f"unknown optimizer {name!r}; the port has 'sgd', "
-                     f"'adagrad', 'rowwise_adagrad' and 'adam'")
+                     f"'adagrad', 'rowwise_adagrad', 'adam' and "
+                     f"'adafactor'")

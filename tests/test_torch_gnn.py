@@ -80,32 +80,27 @@ def test_gnn_configs_match_jax():
 
 @pytest.mark.parametrize("arch_id", j_list_archs())
 def test_registry_runs_graphsage_and_names_the_roadmap_for_the_rest(arch_id):
+    """Every arch of the JAX registry resolves (the LLM family since
+    slice 15, tests/test_torch_lm.py); list_archs() has all eleven."""
+    assert registry.list_archs() == j_list_archs()
+    assert len(registry.list_archs()) == 11
     if arch_id == "graphsage-reddit":
         assert registry.get_arch(arch_id) is ARCH
-        assert registry.list_archs() == ["bert4rec", "dien", "dlrm-criteo",
-                                         arch_id, "wide-deep", "xdeepfm"]
         return
-    # wide-deep: slice 3, tests/test_torch_recsys.py; dlrm-criteo: slice 8,
-    # tests/test_torch_dlrm_driver.py; xdeepfm, dien, bert4rec: slice 9,
-    # tests/test_torch_recsys_seq.py
-    if arch_id in ("wide-deep", "dlrm-criteo", "xdeepfm", "dien",
-                   "bert4rec"):
-        assert registry.get_arch(arch_id).arch_id == arch_id
-        return
-    with pytest.raises(KeyError, match="ROADMAP.md queue 1, item"):
-        registry.get_arch(arch_id)
+    assert registry.get_arch(arch_id).arch_id == arch_id
 
 
-# an arch of each ROADMAP queue 1 item that waits, with words of the
-# item's heading there
+# an arch whose --full training the driver refuses, with words of the
+# ROADMAP queue 1 item it waits on there
 @pytest.mark.parametrize("arch_id,item,heading", [
-    ("gemma2-2b", 8, "LLM family"),
-    ("qwen2.5-32b", 8, "LLM family"),
-    ("smollm-135m", 8, "LLM family")])
+    ("kimi-k2-1t-a32b", 9, "Distribution and launch"),
+    ("qwen2.5-32b", 9, "Distribution and launch"),
+    ("qwen2-moe-a2.7b", 9, "Distribution and launch")])
 def test_registry_names_the_roadmap_item_that_ports_each_arch(arch_id, item,
                                                               heading):
-    with pytest.raises(KeyError, match=f"ROADMAP.md queue 1, item {item} "):
-        registry.get_arch(arch_id)
+    assert f"ROADMAP.md queue 1, item {item} " in registry.ONE_DEVICE_LIMIT
+    with pytest.raises(ValueError, match=f"ROADMAP.md queue 1, item {item} "):
+        train.run(arch_id, steps=1, full=True, device="cpu")
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md") \
         .read_text()
     queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]

@@ -85,8 +85,14 @@ def test_port_never_imports_jax_or_the_jax_package():
             ROOT / "benchmarks" / "torch_fig7_fleet.py"} <= set(files)
     assert {ROOT / "benchmarks" / f"torch_{name}.py" for name in (
         "fig5_static", "fig7_rescale", "fig8_scaling", "fig_market",
-        "fig_stream", "proc_calibration", "debug_feed_replay", "run")} \
-        <= set(files)
+        "fig_stream", "proc_calibration", "debug_feed_replay", "run",
+        "kernels_bench", "analytic", "roofline")} <= set(files)
+    # slice 15's LM family
+    assert {PORT / "models" / f"{name}.py" for name in (
+        "layers", "moe", "transformer")} | {
+        PORT / "configs" / f"{name}.py" for name in (
+            "smollm_135m", "gemma2_2b", "qwen2_moe_a2_7b", "qwen2_5_32b",
+            "kimi_k2_1t_a32b")} <= set(files)
     assert {ROOT / "examples" / f"torch_{name}.py" for name in (
         "quickstart", "process_pipeline", "multisource_dlrm",
         "fleet_tuning", "live_fleet")} <= set(files)
