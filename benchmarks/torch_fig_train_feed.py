@@ -171,16 +171,17 @@ def main(argv=None, *, losses: Optional[dict] = None) -> dict:
     receives each arm's per-step losses under its name."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
-                    help="short run for CI: fewer steps, same plumbing")
-    # long enough that the serving tail outlives the exploration phase's
-    # retired-worker decay (the reference's default)
-    ap.add_argument("--steps", type=int, default=320)
+                    help="short run for CI: fewer steps (80 unless --steps "
+                         "says), same plumbing")
+    # 320 (the reference's default): long enough that the serving tail
+    # outlives the exploration phase's retired-worker decay
+    ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--tune-every", type=int, default=2)
     ap.add_argument("--model", choices=sorted(MODELS), default=DEMO.name)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    steps = 80 if args.smoke else args.steps
+    steps = args.steps or (80 if args.smoke else 320)
     # the reference's budget: the tuner observes only post-warmup,
     # non-settling windows, and every exploration move costs two windows
     # (one discarded settle window + one observed), so the fine-tune /

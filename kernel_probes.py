@@ -1179,7 +1179,7 @@ def probe_embedding(cs, libs, wd, dlrm, model, cfg, gen):
                             table.data_ptr(), i.data_ptr(), out.data_ptr(),
                             b, n_f, rows, d, bag, 0, bf16, plan.vec,
                             plan.lanes_log2, blocks, *plan.per_row,
-                            *plan.per_feat, stream())
+                            *plan.per_feat, 0, 0, stream())
                         if status != 0:
                             raise RuntimeError(f"embedding_bag_fwd: CUDA "
                                                f"error {status}")
@@ -1318,7 +1318,8 @@ def probe_narrow(cs, libs, gen):
             check(lib.embedding_bag_fwd(
                 table.data_ptr(), i.data_ptr(), out.data_ptr(), b, f, v, d,
                 bag, 0, 0, plan.vec, plan.lanes_log2, plan.blocks,
-                *plan.per_row, *plan.per_feat, stream()), "embedding_bag_fwd")
+                *plan.per_row, *plan.per_feat, 0, 0, stream()),
+                "embedding_bag_fwd")
         return call
 
     def flat_words(table, out, vec, k):
@@ -1342,7 +1343,7 @@ def probe_narrow(cs, libs, gen):
             check(lib.embedding_bag_bwd(
                 d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), b, f, v,
                 d, bag, 0, 0, plan.vec, plan.lanes_log2, plan.group,
-                plan.blocks, plan.groups, *plan.per_row, stream()),
+                plan.blocks, plan.groups, *plan.per_row, 0, 0, stream()),
                 "embedding_bag_bwd")
         return call
 
@@ -1558,7 +1559,7 @@ def probe_scatter_bf16(cs, libs, gen):
             status = lib.embedding_bag_bwd(
                 d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), b, n_f,
                 rows, d, bag, 0, 1, plan.vec, plan.lanes_log2,
-                plan.group, plan.blocks, plan.groups, *plan.per_row,
+                plan.group, plan.blocks, plan.groups, *plan.per_row, 0, 0,
                 torch.cuda.current_stream().cuda_stream)
             if status != 0:
                 raise RuntimeError(f"embedding_bag_bwd: CUDA error {status}")
@@ -1721,7 +1722,7 @@ def main(sections) -> int:
             status = lib.embedding_bag_bwd(
                 d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), b, f, v,
                 d, bag, 0, 0, plan.vec, plan.lanes_log2, group, blocks,
-                groups, *div, stream())
+                groups, *div, 0, 0, stream())
             if status != 0:
                 raise RuntimeError(f"embedding_bag_bwd: CUDA error {status}")
         return call

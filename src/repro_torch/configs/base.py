@@ -1,8 +1,8 @@
 """Config dataclasses of the port (copied from repro.configs.base, with
-the fields of regimes the port does not run dropped: sharding overrides,
-lookup and partitioning knobs, skipped cells; `TransformerConfig` keeps
-its `sharding_overrides` and `moe_impl` as inert data, so that the five
-LM configs read as the JAX package's do).
+the skipped cells dropped; `TransformerConfig` keeps its
+`sharding_overrides` and `moe_impl` as data the port does not read yet,
+so that the five LM configs read as the JAX package's do; the recsys,
+DLRM and GNN sharding knobs are read by the driver on a mesh).
 
 Frozen so configs are hashable. `reduced` lists every cut a config
 makes against its published source, each with its reason.
@@ -105,6 +105,10 @@ class DLRMConfig:
     top_mlp: Tuple[int, ...] = (1024, 1024, 512, 256, 1)
     multi_hot: int = 1                  # lookups per sparse feature (bag size)
     param_dtype: str = "float32"
+    # the row-sharded lookup (models/embedding.tp_multifeature_bag) where
+    # the driver runs on a mesh
+    tp_lookup: bool = False
+    sharding_overrides: Tuple[Tuple[str, Optional[str]], ...] = ()
     reduced: Tuple[str, ...] = ()
 
     def replace(self, **kw):
@@ -121,6 +125,11 @@ class GNNConfig:
     aggregator: str = "mean"
     sample_sizes: Tuple[int, ...] = (25, 10)
     param_dtype: str = "float32"
+    # per-shard edge padding headroom for dst-partition skew (a full graph
+    # on a mesh, models/gnn.full_graph_partitioned_loss; the reference's
+    # `partitioned` knob, which chooses that layout over GSPMD's
+    # edge-sharded program, has no counterpart: the port has no other)
+    partition_slack: float = 1.25
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -153,9 +162,7 @@ GNN_SHAPES = (
 # -------------------------------------------------------------- recsys -----
 @dataclass(frozen=True)
 class RecsysConfig:
-    """repro.configs.base.RecsysConfig without `tp_lookup` and
-    `sharding_overrides` (the port runs on one device, unsharded, as its
-    DLRMConfig does), with `reduced` added."""
+    """repro.configs.base.RecsysConfig with `reduced` added."""
     name: str
     interaction: str                    # "concat" | "cin" | "augru" | "bidir-seq" | "dot"
     n_sparse: int = 0
@@ -175,7 +182,11 @@ class RecsysConfig:
     n_items: int = 0                    # item vocab for sequence models
     n_mask: int = 0                     # BERT4Rec: masked positions per seq
     n_negatives: int = 0                # BERT4Rec: sampled-softmax negatives
+    # the row-sharded lookups and the sampled-logit psum (models/recsys)
+    # where the driver runs on a mesh
+    tp_lookup: bool = False
     param_dtype: str = "float32"
+    sharding_overrides: Tuple[Tuple[str, Optional[str]], ...] = ()
     reduced: Tuple[str, ...] = ()
 
     def replace(self, **kw):

@@ -9,10 +9,10 @@ rows), adam. A full softmax over 2^20 items at batch 65536 would be
 positions a sequence, 127 uniform negatives a position (index 0 the true
 item).
 
-The reference sets `tp_lookup`, its row-sharded lookup with a psum of
-the sampled logits over the model axis; the port runs on one device, so
-the field is absent here (the sharded lookups are ROADMAP queue 1, item
-9). Nothing is cut: at the train_batch shape (65536) each block's
+`tp_lookup` is set, as in the reference: on a mesh (`--dist`) the item
+table's rows shard over the model axis, the sequence lookup is
+`tp_embedding_lookup` and the sampled logits are psummed over the model
+axis (`tp_sampled_scores`). Nothing is cut: at the train_batch shape (65536) each block's
 attention scores (B, 2, 200, 200) f32 are 21 GB by their shape and the
 gathered candidates (B, 20, 128, 64) f32 43 GB, so the driver takes 8
 microbatches (`--microbatches 8`, peak 36.7 GB on an NVIDIA H100 80GB
@@ -25,6 +25,7 @@ MODEL = RecsysConfig(
     embed_dim=64, n_blocks=2, n_heads=2, seq_len=200, n_items=1 << 20,
     vocab_sizes=(1 << 20,),
     n_mask=20, n_negatives=127,
+    tp_lookup=True,
     reduced=(),
 )
 

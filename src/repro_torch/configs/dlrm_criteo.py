@@ -10,9 +10,9 @@ features, embed_dim 128, bottom MLP 512-256-128, top MLP
   adagrad baseline of benchmarks/perf_hillclimb.py, 2^20 rows a table.
 - `ARCH`, dlrm-criteo: the reference's own configuration for the generic
   driver (`--arch dlrm-criteo`): bf16 tables and MLPs, row-wise adagrad,
-  2^22 rows a table. Its row-sharded lookup (`tp_lookup`) and sharding
-  overrides belong to distribution (ROADMAP queue 1, item 9): on one
-  device the tables are not sharded.
+  2^22 rows a table. On a mesh (`--dist`) its tables' rows shard over
+  every axis and the lookup is the row-sharded `tp_multifeature_bag`
+  (`tp_lookup`, `sharding_overrides`), as the JAX config sets.
 """
 from repro_torch.configs.base import RECSYS_SHAPES, ArchSpec, DLRMConfig
 
@@ -46,6 +46,8 @@ ARCH = ArchSpec(
         top_mlp=(1024, 1024, 512, 256, 1),
         multi_hot=1,
         param_dtype="bfloat16",
+        tp_lookup=True,
+        sharding_overrides=(("table_rows", ("pod", "data", "model")),),
         reduced=(
             "rows per table 2^23 -> 2^22, for device memory: at 2^22 the "
             "bf16 tables are 26 x 2^22 x 128 x 2 B = 27.9 GB, their dense "

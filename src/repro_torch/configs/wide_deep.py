@@ -7,8 +7,9 @@ features; 2^20 hashed rows per feature (stacked tables 40 x 2^20 x 32,
 row-wise adagrad. Nothing is cut: at the train_batch shape (65536) the
 tables (5.37 GB), their dense gradient (5.37 GB), the row-wise
 accumulator (0.17 GB), the wide table with its gradient (0.34 GB) and
-the activations fit one 80 GB card, so the JAX config's row sharding is
-not needed.
+the activations fit one 80 GB card; on a mesh (`--dist`) the tables'
+rows shard over every axis and the lookup is `tp_multifeature_bag`, as
+the JAX config sets.
 """
 from repro_torch.configs.base import RECSYS_SHAPES, ArchSpec, RecsysConfig
 
@@ -18,6 +19,9 @@ MODEL = RecsysConfig(
     name="wide-deep", interaction="concat",
     n_sparse=40, embed_dim=32, mlp_dims=(1024, 512, 256), n_dense=13,
     vocab_sizes=(ROWS,) * 40, multi_hot=4,
+    # all-axis row sharding + the row-sharded lookup on a mesh
+    tp_lookup=True,
+    sharding_overrides=(("table_rows", ("pod", "data", "model")),),
     reduced=(),
 )
 

@@ -40,10 +40,10 @@ SIGNATURES = {
     "embedding_bag": {
         "embedding_bag_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                               _I32, _I32, _I32, _I32, _I64, _I64, _I32,
-                              _I64, _I32, _P),
+                              _I64, _I32, _I64, _I32, _P),
         "embedding_bag_bwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                               _I32, _I32, _I32, _I32, _I64, _I64, _I64,
-                              _I64, _I32, _P),
+                              _I64, _I32, _I64, _I32, _P),
     },
     "embedding_bag_fused": {
         "embedding_bag_fused_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,

@@ -166,6 +166,18 @@
 //
 // An id outside [0, V) reads nothing and poisons its output row with NaN
 // (the fill semantics of jnp.take); in the backward it adds nothing.
+//
+// The local-rows mode (`local`, with `row0`): the tables are one rank's
+// row shard (F, V, D) of row-sharded tables, rows [row0, row0 + V) of
+// each feature's table (the reference's tp_multifeature_bag,
+// src/repro/models/embedding.py:137-251). Each id is moved into the
+// shard as it is loaded: an id in [row0, row0 + V) reads row id - row0,
+// and any other id contributes 0 to the forward (not NaN: the
+// reference's masked gather multiplies it by 0) and nothing to the
+// scatter. A repeated id is counted only among the bag's slots that fall
+// in the shard (equal ids fall in it together). Nothing else changes:
+// the walks, the plans and the arithmetic are the unsharded path's, so
+// a shard that holds every id is bit-equal to it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -266,6 +278,20 @@ __device__ __forceinline__ void widen(unsigned short w, float (&v)[1]) {
   v[0] = __uint_as_float(static_cast<unsigned>(w) << 16);
 }
 
+// The local-rows mode: ids[0, n) moved into the shard [row0, row0 + V),
+// -1 for an id outside it (64-bit: id - row0 may leave int32's range).
+template <int kUnroll>
+__device__ __forceinline__ void shard_ids(int32_t (&id)[kUnroll], int n,
+                                          int64_t row0, int64_t V) {
+#pragma unroll
+  for (int j = 0; j < kUnroll; ++j) {
+    if (j < n) {
+      const int64_t l = static_cast<int64_t>(id[j]) - row0;
+      id[j] = l >= 0 && l < V ? static_cast<int32_t>(l) : -1;
+    }
+  }
+}
+
 // What an out-of-range id loads in place of a table row (its value is
 // then replaced by NaN): any table, even an empty one, has no row to
 // stand in.
@@ -300,7 +326,8 @@ __device__ __forceinline__ void fwd_lanes(const T* __restrict__ tables,
                                           float* __restrict__ out,
                                           int64_t rows, int64_t F, int64_t V,
                                           int64_t D, int bag, int mean,
-                                          int lanes_log2) {
+                                          int lanes_log2, int64_t row0,
+                                          int local) {
   using W = typename Word<T, VEC>::type;
   const int64_t t =
       static_cast<int64_t>(blockIdx.x) * kFwdThreads + threadIdx.x;
@@ -318,7 +345,8 @@ __device__ __forceinline__ void fwd_lanes(const T* __restrict__ tables,
   const bool ids4 =
       bag % 4 == 0 && (reinterpret_cast<uintptr_t>(ids) & 15u) == 0;
   const W* no_row = reinterpret_cast<const W*>(&g_no_row);
-  const float nan = __int_as_float(0x7fc00000);
+  // what an id outside the table adds: NaN, or 0 in the local-rows mode
+  const float bad = local ? 0.f : __int_as_float(0x7fc00000);
   // a bag of at most kUnroll ids is one chunk (kUnroll 4 takes only
   // those); the column words of a row number D / VEC < 2^31
   const int chunks = kUnroll == 4 ? 1 : (bag + kUnroll - 1) / kUnroll;
@@ -332,9 +360,10 @@ __device__ __forceinline__ void fwd_lanes(const T* __restrict__ tables,
       const int n = bag - j0;
       int32_t id[kUnroll];
       load_ids<kUnroll>(row_ids + j0, n, ids4, id);
+      if (local) shard_ids<kUnroll>(id, n, row0, V);
       // every load of the chunk in flight before the first add: a slot
       // past the bag, or an id out of range, loads g_no_row instead of a
-      // table row, and an out-of-range id's value is a select of NaN
+      // table row, and an out-of-range id's value is a select of `bad`
       W w[kUnroll];
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
@@ -351,7 +380,7 @@ __device__ __forceinline__ void fwd_lanes(const T* __restrict__ tables,
           widen(w[j], v);
           const bool ok = valid_id(id[j], V);
 #pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[k] += ok ? v[k] : nan;
+          for (int k = 0; k < VEC; ++k) acc[k] += ok ? v[k] : bad;
         }
       }
     }
@@ -383,7 +412,8 @@ __device__ __forceinline__ void fwd_flat(const T* __restrict__ tables,
                                          float* __restrict__ out,
                                          int64_t rows, int64_t F, int64_t V,
                                          int64_t D, int bag, int mean,
-                                         Div per_row, Div per_feat) {
+                                         Div per_row, Div per_feat,
+                                         int64_t row0, int local) {
   using W = typename Word<T, VEC>::type;
   const int64_t S = static_cast<int64_t>(gridDim.x) * kFwdThreads;
   const int64_t t =
@@ -402,7 +432,7 @@ __device__ __forceinline__ void fwd_flat(const T* __restrict__ tables,
   const bool ids4 =
       bag % 4 == 0 && (reinterpret_cast<uintptr_t>(ids) & 15u) == 0;
   const W* no_row = reinterpret_cast<const W*>(&g_no_row);
-  const float nan = __int_as_float(0x7fc00000);
+  const float bad = local ? 0.f : __int_as_float(0x7fc00000);
   const int chunks = kUnroll == 16 ? (bag + kUnroll - 1) / kUnroll : 1;
   float acc[kFlatWords][VEC];
 #pragma unroll
@@ -419,6 +449,7 @@ __device__ __forceinline__ void fwd_flat(const T* __restrict__ tables,
     for (int k = 0; k < kFlatWords; ++k) {
       n[k] = row[k] < rows ? bag - j0 : 0;
       load_ids<kUnroll>(ids + row[k] * bag + j0, n[k], ids4, id[k]);
+      if (local) shard_ids<kUnroll>(id[k], n[k], row0, V);
     }
     W w[kFlatWords][kUnroll];
 #pragma unroll
@@ -442,7 +473,7 @@ __device__ __forceinline__ void fwd_flat(const T* __restrict__ tables,
           widen(w[k][j], v);
           const bool ok = valid_id(id[k][j], V);
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[k][i] += ok ? v[i] : nan;
+          for (int i = 0; i < VEC; ++i) acc[k][i] += ok ? v[i] : bad;
         }
       }
     }
@@ -466,13 +497,14 @@ embedding_bag_fwd_kernel(const T* __restrict__ tables,
                          const int32_t* __restrict__ ids,
                          float* __restrict__ out, int64_t rows, int64_t F,
                          int64_t V, int64_t D, int bag, int mean,
-                         int lanes_log2, Div per_row, Div per_feat) {
+                         int lanes_log2, Div per_row, Div per_feat,
+                         int64_t row0, int local) {
   if constexpr (kFlat) {
     fwd_flat<T, VEC, kUnroll>(tables, ids, out, rows, F, V, D, bag, mean,
-                              per_row, per_feat);
+                              per_row, per_feat, row0, local);
   } else {
     fwd_lanes<T, VEC, kUnroll>(tables, ids, out, rows, F, V, D, bag, mean,
-                               lanes_log2);
+                               lanes_log2, row0, local);
   }
 }
 
@@ -541,6 +573,12 @@ __device__ __forceinline__ void scatter_row(const float* src, T* dst,
                                             int64_t D, int lane, int lanes,
                                             int n, float bag, int mean) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  // a row that adds nothing (every id outside the table or the shard)
+  // does not read d_out
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < kUnroll; ++j) any = any || (j < n && w[j] != 0.f);
+  if (!any) return;
   if constexpr (VEC == 4 && !kBf16) {
     for (int64_t c = lane; c < D / 4; c += lanes) {
       float4 g = __ldg(reinterpret_cast<const float4*>(src) + c);
@@ -623,7 +661,8 @@ embedding_bag_bwd_kernel(const float* __restrict__ d_out,
                          const int32_t* __restrict__ ids,
                          T* __restrict__ grad, int64_t B, int64_t F,
                          int64_t V, int64_t D, int bag, int mean,
-                         int lanes_log2, int64_t group, Div per_row) {
+                         int lanes_log2, int64_t group, Div per_row,
+                         int64_t row0, int local) {
   const int64_t f0 = static_cast<int64_t>(blockIdx.y) * group;
   const int64_t size = F - f0 < group ? F - f0 : group;
   const int64_t t =
@@ -660,24 +699,26 @@ embedding_bag_bwd_kernel(const float* __restrict__ d_out,
     load_ids<kUnroll>(
         row_ids, bag,
         bag % 4 == 0 && (reinterpret_cast<uintptr_t>(ids) & 15u) == 0, id);
+    if (local) shard_ids<kUnroll>(id, bag, row0, V);
     float w[kUnroll];
     bag_weights<kUnroll>(id, bag, V, w);
     scatter_row<T, VEC, kUnroll>(src, dst, id, w, D, lane, lanes, bag,
                                  bag_f, mean);
   } else {
     // a bag over kMaxUnrolledBag ids: slot by slot, each id compared with
-    // the bag's others in memory (L1)
+    // the bag's others in memory (L1); equal ids are equal in the shard
     for (int j = 0; j < bag; ++j) {
       const int32_t idj = __ldg(row_ids + j);
-      if (!valid_id(idj, V)) continue;
+      int32_t lid[1] = {idj};
+      if (local) shard_ids<1>(lid, 1, row0, V);
+      if (!valid_id(lid[0], V)) continue;
       bool first = true;
       for (int k = 0; k < j && first; ++k) first = __ldg(row_ids + k) != idj;
       if (!first) continue;
       float c = 1.f;
       for (int k = j + 1; k < bag; ++k) c += __ldg(row_ids + k) == idj;
-      const int32_t id1[1] = {idj};
       const float w1[1] = {c};
-      scatter_row<T, VEC, 1>(src, dst, id1, w1, D, lane, lanes, 1, bag_f,
+      scatter_row<T, VEC, 1>(src, dst, lid, w1, D, lane, lanes, 1, bag_f,
                              mean);
     }
   }
@@ -706,18 +747,21 @@ template <typename T, int VEC, bool kFlat>
 void launch_bwd(dim3 grid, cudaStream_t s, const float* d_out,
                 const int32_t* ids, void* grad_p, int64_t B, int64_t F,
                 int64_t V, int64_t D, int bag, int mean, int lanes_log2,
-                int64_t group, Div per_row) {
+                int64_t group, Div per_row, int64_t row0, int local) {
   T* grad = static_cast<T*>(grad_p);
   if (bag <= 4) {
     embedding_bag_bwd_kernel<T, VEC, 4, kFlat><<<grid, kBwdThreads, 0, s>>>(
-        d_out, ids, grad, B, F, V, D, bag, mean, lanes_log2, group, per_row);
+        d_out, ids, grad, B, F, V, D, bag, mean, lanes_log2, group, per_row,
+        row0, local);
   } else if (bag <= kMaxUnrolledBag) {
     embedding_bag_bwd_kernel<T, VEC, kMaxUnrolledBag, kFlat>
         <<<grid, kBwdThreads, 0, s>>>(d_out, ids, grad, B, F, V, D, bag,
-                                      mean, lanes_log2, group, per_row);
+                                      mean, lanes_log2, group, per_row, row0,
+                                      local);
   } else {
     embedding_bag_bwd_kernel<T, VEC, 0, kFlat><<<grid, kBwdThreads, 0, s>>>(
-        d_out, ids, grad, B, F, V, D, bag, mean, lanes_log2, group, per_row);
+        d_out, ids, grad, B, F, V, D, bag, mean, lanes_log2, group, per_row,
+        row0, local);
   }
 }
 
@@ -728,18 +772,21 @@ template <typename T, int VEC, bool kFlat>
 void launch_fwd(unsigned blocks, cudaStream_t s, const void* tables,
                 const int32_t* ids, float* out, int64_t rows, int64_t F,
                 int64_t V, int64_t D, int bag, int mean, int lanes_log2,
-                Div per_row, Div per_feat) {
+                Div per_row, Div per_feat, int64_t row0, int local) {
   const T* t = static_cast<const T*>(tables);
   if (kFlat && bag == 1) {
     embedding_bag_fwd_kernel<T, VEC, 1, kFlat><<<blocks, kFwdThreads, 0, s>>>(
-        t, ids, out, rows, F, V, D, bag, mean, lanes_log2, per_row, per_feat);
+        t, ids, out, rows, F, V, D, bag, mean, lanes_log2, per_row, per_feat,
+        row0, local);
   } else if (bag <= 4) {
     embedding_bag_fwd_kernel<T, VEC, 4, kFlat><<<blocks, kFwdThreads, 0, s>>>(
-        t, ids, out, rows, F, V, D, bag, mean, lanes_log2, per_row, per_feat);
+        t, ids, out, rows, F, V, D, bag, mean, lanes_log2, per_row, per_feat,
+        row0, local);
   } else {
     embedding_bag_fwd_kernel<T, VEC, kMaxUnrolledBag, kFlat>
         <<<blocks, kFwdThreads, 0, s>>>(t, ids, out, rows, F, V, D, bag,
-                                        mean, lanes_log2, per_row, per_feat);
+                                        mean, lanes_log2, per_row, per_feat,
+                                        row0, local);
   }
 }
 
@@ -758,7 +805,8 @@ void launch_fwd(unsigned blocks, cudaStream_t s, const void* tables,
 // (row_magic, row_shift) of D / vec and (feat_magic, feat_shift) of F);
 // `blocks` blocks of 128 threads; its output is f32. A plan that does not
 // fit the call (a grid that misses words, a divisor that is not exact)
-// returns cudaErrorInvalidValue without launching.
+// returns cudaErrorInvalidValue without launching. `local` 1 takes the
+// local-rows mode: the tables are rows [row0, row0 + V) (row0 >= 0).
 extern "C" int embedding_bag_fwd(const void* tables, const int32_t* ids,
                                  float* out, int64_t B, int64_t F, int64_t V,
                                  int64_t D, int32_t bag, int32_t mean,
@@ -766,13 +814,15 @@ extern "C" int embedding_bag_fwd(const void* tables, const int32_t* ids,
                                  int32_t lanes_log2, int64_t blocks,
                                  int64_t row_magic, int32_t row_shift,
                                  int64_t feat_magic, int32_t feat_shift,
+                                 int64_t row0, int32_t local,
                                  void* stream) {
   const int elem = bf16 ? 2 : 4;
   const bool vec_ok = bf16 ? (vec == 8 || vec == 2 || vec == 1)
                            : (vec == 4 || vec == 2 || vec == 1);
   // the flat walk: exactly an f32 table's 8- and 4-byte words
   const bool flat = !bf16 && vec < 4;
-  if (bag < 1 || !vec_ok ||
+  if (bag < 1 || !vec_ok || row0 < 0 || (local != 0 && local != 1) ||
+      (!local && row0 != 0) ||
       (flat ? lanes_log2 != -1 : lanes_log2 < 0 || lanes_log2 > 5))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t rows = B * F;
@@ -792,7 +842,7 @@ extern "C" int embedding_bag_fwd(const void* tables, const int32_t* ids,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FWD(T_, V_, FLAT_)                                                   \
   launch_fwd<T_, V_, FLAT_>(grid, s, tables, ids, out, rows, F, V, D, bag,   \
-                            mean, lanes_log2, per_row, per_feat)
+                            mean, lanes_log2, per_row, per_feat, row0, local)
   if (bf16) {
     if (vec == 8) FWD(__nv_bfloat16, 8, false);
     else if (vec == 2) FWD(__nv_bfloat16, 2, false);
@@ -817,6 +867,8 @@ extern "C" int embedding_bag_fwd(const void* tables, const int32_t* ids,
 // groups of `group`, a grid of (blocks, groups). A plan that
 // does not fit the call (a grid that misses words among them, a divisor
 // that is not exact) returns cudaErrorInvalidValue without launching.
+// `local` 1 takes the local-rows mode: the gradient is of rows [row0,
+// row0 + V), and ids outside them add nothing.
 extern "C" int embedding_bag_bwd(const float* d_out, const int32_t* ids,
                                  void* grad, int64_t B, int64_t F, int64_t V,
                                  int64_t D, int32_t bag, int32_t mean,
@@ -824,6 +876,7 @@ extern "C" int embedding_bag_bwd(const float* d_out, const int32_t* ids,
                                  int32_t lanes_log2, int64_t group,
                                  int64_t blocks, int64_t groups,
                                  int64_t row_magic, int32_t row_shift,
+                                 int64_t row0, int32_t local,
                                  void* stream) {
   if (B * F == 0 || D == 0) return 0;
   const bool vec_ok =
@@ -833,8 +886,9 @@ extern "C" int embedding_bag_bwd(const float* d_out, const int32_t* ids,
   const int64_t threads = blocks * kBwdThreads;
   const int64_t rows = B * std::min(group, F);
   const unsigned word = vec == 8 ? 16 : 4 * vec;
-  if (bag < 1 || !vec_ok || (flat ? lanes_log2 != -1
-                                  : lanes_log2 < 0 || lanes_log2 > 5) ||
+  if (bag < 1 || !vec_ok || row0 < 0 || (local != 0 && local != 1) ||
+      (!local && row0 != 0) ||
+      (flat ? lanes_log2 != -1 : lanes_log2 < 0 || lanes_log2 > 5) ||
       group < 1 || D % vec != 0 ||
       !aligned(d_out, word) || !aligned(grad, bf16 ? (vec == 8 ? 16 : 2)
                                                    : word) ||
@@ -849,7 +903,7 @@ extern "C" int embedding_bag_bwd(const float* d_out, const int32_t* ids,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BWD(T_, V_, FLAT_)                                                 \
   launch_bwd<T_, V_, FLAT_>(grid, s, d_out, ids, grad, B, F, V, D, bag,    \
-                            mean, lanes_log2, group, per_row)
+                            mean, lanes_log2, group, per_row, row0, local)
   if (bf16) {
     if (vec == 8) BWD(__nv_bfloat16, 8, false);
     else BWD(__nv_bfloat16, 1, false);

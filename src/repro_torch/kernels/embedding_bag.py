@@ -6,7 +6,11 @@ the Pallas TPU kernel `repro/kernels/embedding_bag.py::embedding_bag`
 `embedding_bag_fused_fwd` (csrc/embedding_bag_fused.cu) replaces
 `embedding_bag_fused` (pallas_call at :135), the resident-table variant
 for small tables and bags. See the sources for the designs; all are
-bound by bytes. The forwards take f32 or bf16 tables, as the TPU
+bound by bytes. The row kernel's local-rows mode (`row0` given) takes one
+rank's row shard of row-sharded tables, as the reference's
+`tp_multifeature_bag` does (an id outside the shard reads 0 and adds
+nothing); its launches count under `embedding_bag_fwd_local` and
+`embedding_bag_bwd_local`. The forwards take f32 or bf16 tables, as the TPU
 kernels do, and return f32; the backward reads an f32 d_out and writes
 the gradient in the tables' dtype, f32 or bf16.
 
@@ -34,7 +38,8 @@ import torch
 from repro_torch.kernels.build import LIBRARIES
 
 LAUNCHES = {"embedding_bag_fwd": 0, "embedding_bag_bwd": 0,
-            "embedding_bag_fused_fwd": 0}
+            "embedding_bag_fused_fwd": 0, "embedding_bag_fwd_local": 0,
+            "embedding_bag_bwd_local": 0}
 
 # the fused kernel's unroll bound (csrc/embedding_bag_fused.cu, kMaxBag)
 FUSED_MAX_BAG = 16
@@ -273,11 +278,23 @@ def _check_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, f, d), dtype=torch.float32, device=tables.device)
 
 
+def _local(row0) -> tuple:
+    """The kernels' (row0, local) arguments, and the launch's name suffix."""
+    if row0 is None:
+        return 0, 0, ""
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
+    return int(row0), 1, "_local"
+
+
 def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
-                      combiner: str = "sum") -> torch.Tensor:
+                      combiner: str = "sum", row0=None) -> torch.Tensor:
     """tables (F, V, D) f32 or bf16, ids (B, F, bag) int32 -> (B, F, D)
-    f32, summed in f32."""
+    f32, summed in f32. With `row0` the tables are rows [row0, row0 + V)
+    of each feature's table (the local-rows mode): an id outside them
+    reads 0."""
     mean = _mean_flag(combiner)
+    row0, local, suffix = _local(row0)
     out = _check_lookup(tables, ids)
     f, v, d = tables.shape
     b, _, bag = ids.shape
@@ -285,12 +302,13 @@ def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
                     (tables.data_ptr() | out.data_ptr()) % 16)
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _status("embedding_bag_fwd", LIBRARIES.get("embedding_bag")
+        _status("embedding_bag_fwd" + suffix, LIBRARIES.get("embedding_bag")
                 .embedding_bag_fwd(tables.data_ptr(), ids.data_ptr(),
                                    out.data_ptr(), b, f, v, d, bag, mean,
                                    int(tables.dtype == torch.bfloat16),
                                    plan.vec, plan.lanes_log2, plan.blocks,
-                                   *plan.per_row, *plan.per_feat, stream))
+                                   *plan.per_row, *plan.per_feat, row0,
+                                   local, stream))
     return out
 
 
@@ -321,11 +339,15 @@ def embedding_bag_fused_fwd(tables: torch.Tensor, ids: torch.Tensor,
 
 
 def embedding_bag_scatter(d_out: torch.Tensor, ids: torch.Tensor,
-                          grad: torch.Tensor, combiner: str = "sum"):
+                          grad: torch.Tensor, combiner: str = "sum",
+                          row0=None):
     """Scatter-add d_out (B, F, D) f32 into grad (F, V, D) f32 or bf16 in
     place, at the rows ids (B, F, bag) int32 name (divided by bag for
-    mean); a bf16 grad takes each addend rounded once, by bf16 atomics."""
+    mean); a bf16 grad takes each addend rounded once, by bf16 atomics.
+    With `row0`, grad is of rows [row0, row0 + V) and ids outside them
+    add nothing."""
     mean = _mean_flag(combiner)
+    row0, local, suffix = _local(row0)
     _check(d_out, "d_out", torch.float32, 3)
     _check(ids, "ids", torch.int32, 3)
     _check(grad, "grad", TABLE_DTYPES, 3)
@@ -340,22 +362,24 @@ def embedding_bag_scatter(d_out: torch.Tensor, ids: torch.Tensor,
                     grad.element_size())
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _status("embedding_bag_bwd", LIBRARIES.get("embedding_bag")
+        _status("embedding_bag_bwd" + suffix, LIBRARIES.get("embedding_bag")
                 .embedding_bag_bwd(d_out.data_ptr(), ids.data_ptr(),
                                    grad.data_ptr(), b, f, v, d, bag, mean,
                                    int(grad.dtype == torch.bfloat16),
                                    plan.vec, plan.lanes_log2, plan.group,
                                    plan.blocks, plan.groups, *plan.per_row,
-                                   stream))
+                                   row0, local, stream))
     return grad
 
 
 def embedding_bag_bwd(d_out: torch.Tensor, ids: torch.Tensor, num_rows: int,
                       combiner: str = "sum",
-                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      dtype: torch.dtype = torch.float32,
+                      row0=None) -> torch.Tensor:
     """The dense table gradient (F, num_rows, D) in `dtype`, the tables'
-    (f32 or bf16). Its zero fill is the allocation's (`torch.zeros`), not
-    the kernel's."""
+    (f32 or bf16); with `row0`, of rows [row0, row0 + num_rows) alone.
+    Its zero fill is the allocation's (`torch.zeros`), not the
+    kernel's."""
     grad = torch.zeros((ids.shape[1], num_rows, d_out.shape[-1]),
                        dtype=dtype, device=d_out.device)
-    return embedding_bag_scatter(d_out, ids, grad, combiner)
+    return embedding_bag_scatter(d_out, ids, grad, combiner, row0)

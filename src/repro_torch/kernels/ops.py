@@ -171,6 +171,32 @@ def embedding_bag_fused(tables: torch.Tensor, ids: torch.Tensor, *,
     return _EmbeddingBagFused.apply(tables, ids, combiner)
 
 
+def embedding_bag_local(tables: torch.Tensor, ids: torch.Tensor,
+                        row0: int) -> torch.Tensor:
+    """The local-rows lookup of one rank's row shard, no autograd (the
+    sharded lookup's autograd Function, models/embedding.py, calls it):
+    tables (F, v_loc, D) f32 or bf16, rows [row0, row0 + v_loc) of each
+    feature's table; ids (B, F, bag) -> (B, F, D) f32, the bag's rows in
+    the shard summed (an id outside it reads 0)."""
+    if _on_cuda(tables):
+        return _eb.embedding_bag_fwd(tables, ids, "sum", row0=row0)
+    return ref.embedding_bag_local_ref(tables, ids, row0)
+
+
+def embedding_bag_local_bwd(d_out: torch.Tensor, ids: torch.Tensor,
+                            row0: int, v_loc: int,
+                            dtype: torch.dtype) -> torch.Tensor:
+    """The local-rows scatter: d_out (B, F, D) f32 into the gradient
+    (F, v_loc, D) in `dtype` of rows [row0, row0 + v_loc); ids outside
+    them add nothing."""
+    d_out = d_out.contiguous()
+    if _on_cuda(d_out):
+        return _eb.embedding_bag_bwd(d_out, ids, v_loc, "sum", dtype=dtype,
+                                     row0=row0)
+    return ref.embedding_bag_local_bwd_ref(d_out, ids, row0, v_loc,
+                                           dtype=dtype)
+
+
 def dot_interact(feats: torch.Tensor) -> torch.Tensor:
     """feats (B, F, D) f32 or bf16 -> (B, F(F-1)/2) lower-triangle
     pairwise dots summed in f32, in feats' dtype, differentiable (the

@@ -69,6 +69,55 @@ def embedding_bag_bwd_ref(d_out: torch.Tensor, ids: torch.Tensor,
     return grad.view(f, num_rows, d)
 
 
+def _shard(ids: torch.Tensor, row0: int, v_loc: int):
+    """(ids moved into the shard [row0, row0 + v_loc), clamped into it;
+    the mask of the ids that fall in it)."""
+    lid = ids.long() - row0
+    ok = (lid >= 0) & (lid < v_loc)
+    return lid.clamp(0, max(v_loc - 1, 0)), ok
+
+
+def embedding_bag_local_ref(tables: torch.Tensor, ids: torch.Tensor,
+                            row0: int) -> torch.Tensor:
+    """The kernel's local-rows mode: tables (F, v_loc, D) are rows [row0,
+    row0 + v_loc) of row-sharded tables; ids (B, F, bag) -> (B, F, D) f32,
+    the bag's rows that fall in the shard summed in an explicit left fold
+    (j ascending, from 0; an id outside reads 0), as the kernel sums."""
+    f = tables.shape[0]
+    lid, ok = _shard(ids, row0, tables.shape[1])
+    feat = torch.arange(f, device=ids.device).view(1, f, 1)
+    rows = tables[feat, lid].float()                    # (B, F, bag, D)
+    rows = torch.where(ok[..., None], rows, torch.zeros((), device=rows.device))
+    out = torch.zeros(rows.shape[:2] + rows.shape[3:], dtype=torch.float32,
+                      device=rows.device)
+    for j in range(ids.shape[-1]):
+        out = out + rows[:, :, j]
+    return out
+
+
+def embedding_bag_local_bwd_ref(d_out: torch.Tensor, ids: torch.Tensor,
+                                row0: int, v_loc: int, *,
+                                dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
+    """The local-rows scatter: d_out (B, F, D) -> the gradient of rows
+    [row0, row0 + v_loc) (F, v_loc, D) in `dtype`, each slot whose id
+    falls in the shard adding d_out[b, f] (the sum's gradient), summed in
+    f32 and rounded once."""
+    b, f, bag = ids.shape
+    d = d_out.shape[-1]
+    lid, ok = _shard(ids, row0, v_loc)
+    feat = torch.arange(f, device=ids.device).view(1, f, 1)
+    flat = (feat * v_loc + lid)[ok]
+    upd = d_out.float()[:, :, None, :].expand(b, f, bag, d)[ok]
+    rows, slot = torch.unique(flat, return_inverse=True)
+    sums = torch.zeros((rows.numel(), d), dtype=torch.float32,
+                       device=d_out.device)
+    sums.index_add_(0, slot, upd)
+    grad = torch.zeros((f * v_loc, d), dtype=dtype, device=d_out.device)
+    grad[rows] = sums.to(dtype)
+    return grad.view(f, v_loc, d)
+
+
 def tril_pairs(f: int, device=None):
     """(ii, jj) of the strict lower triangle, np.tril_indices(f, -1)
     order: pair p = i(i-1)/2 + j for i > j."""

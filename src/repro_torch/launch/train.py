@@ -1,5 +1,6 @@
-"""Generic training driver of the port: --arch <id> on one device (port of
-repro/launch/train.py: the `lm`, `gnn`, `recsys` and `dlrm` families).
+"""Generic training driver of the port: --arch <id> on one device or a
+mesh of ranks (port of repro/launch/train.py: the `lm`, `gnn`, `recsys`
+and `dlrm` families, and the placements of repro/launch/programs.py).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         [--steps 50] [--full --shape train_4k [--batch N] \
@@ -15,6 +16,9 @@ repro/launch/train.py: the `lm`, `gnn`, `recsys` and `dlrm` families).
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch {xdeepfm|dien|bert4rec} [--full] [--shape train_batch] \
         [--microbatches K] ...
+    torchrun --nproc-per-node N -m repro_torch.launch.train --dist \
+        [--mesh DP,TP] [--compress none|bf16|int8] --arch ... \
+        (or python -m torch.distributed.run ...)
 
 Runs real training steps on synthetic data, as the JAX driver does:
   - without `--full` it runs the family's small config, the JAX
@@ -77,6 +81,27 @@ interaction through `embedding_bag` and `dot_interact`, forward and
 backward, in bf16; `--device cpu` runs their plain PyTorch versions.
 The LM family has no TPU kernel on its path: it runs in plain PyTorch
 on either device (models/transformer.py).
+
+`--dist` joins the process group `torchrun` describes (RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT; NCCL on `cuda`, gloo
+on `cpu`, never one for the other) and trains on the (data, model) mesh
+`--mesh DP,TP` (default: every rank on the data axis). The parameters
+are placed by `launch/programs.Placement`: the tables of the row-sharded
+lookups (`tp_lookup`: the DLRM's and wide-deep's tables over every axis,
+BERT4Rec's items over the model axis) are this rank's row shards, their
+gradients and optimizer state stay local (row-wise adagrad on the
+shard), and everything else is replicated, its gradients averaged over
+the data axes by `psum_tree` (`--compress`). Each data rank takes its
+slice of the global batch, so the global batch is the shape's; the
+losses printed and returned are the global batch's. A full graph on a
+mesh takes the dst-partitioned loss (`full_graph_partitioned_loss`; the
+reference's `partitioned` knob chooses it over GSPMD's edge-sharded
+program, which the port does not have). A checkpoint is
+gathered whole to rank 0 in the JAX layout and restored onto any mesh
+(`train/elastic.reshard`). The LM family's placements (sequence
+parallelism, head sharding) are not ported: `--dist` refuses it
+(ROADMAP.md queue 1, item 9). The tests run the same `run(...)` on gloo
+ranks through `mp.spawn` (`rank`, `world_size`, `init_method`).
 """
 from __future__ import annotations
 
@@ -89,21 +114,28 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.common.shardlib import ShardCtx
 from repro_torch.configs.base import ArchSpec, GNNShape, LMShape, RecsysShape
 from repro_torch.configs.registry import ONE_DEVICE_LIMIT, get_arch
 from repro_torch.core.controller import InTune
-from repro_torch.data.graphs import full_graph_batch, molecule_batch
+from repro_torch.data.graphs import (full_graph_batch, molecule_batch,
+                                     partitioned_batch)
 from repro_torch.data.pipeline import criteo_pipeline
 from repro_torch.data.sampler import CSRGraph, NeighborSampler
 from repro_torch.data.simulator import MachineSpec
 from repro_torch.data.synthetic import (CriteoStream, TokenStream,
                                         bert4rec_batch, dien_batch)
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.programs import Placement
 from repro_torch.models import dlrm as dlrm_lib
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import collectives as coll
+from repro_torch.train.elastic import reshard
 from repro_torch.train.optim import make_optimizer
 from repro_torch.train.train_step import make_train_step
 
@@ -222,14 +254,30 @@ def make_sampler(cfg, shape: GNNShape,
 def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
                   *, shape=DRIVER_SHAPE, device="cuda",
                   sampler: Optional[NeighborSampler] = None,
-                  graph: Optional[dict] = None):
+                  graph: Optional[dict] = None, mesh=None,
+                  partitioned: bool = False):
     """A function returning the next batch on `device`: a sampled block
     of `shape`'s graph (gnn minibatch), the whole graph (gnn full graph:
     `graph`, its numpy batch if prebuilt, copied once, the same tensors
     every call), `batch` small graphs (gnn batched_small), synthetic
     Criteo records from seed 0 through the online feature work (dlrm,
     wide-deep, xDeepFM), or DIEN's and BERT4Rec's synthetic sequences
-    drawn from `rng`, as the JAX driver makes them."""
+    drawn from `rng`, as the JAX driver makes them. On a `mesh` every
+    rank makes the global batch and keeps its data rank's slice, or with
+    `partitioned` (a full graph) the whole graph in the dst-partitioned
+    layout, with its own rank's edge plan."""
+    if mesh is not None and not partitioned:
+        dp, k = mesh.size(mesh.data_axes), mesh.index(mesh.data_axes)
+        whole_fn = make_batch_fn(arch, cfg, batch, rng, shape=shape,
+                                 device=device, sampler=sampler, graph=graph)
+        if dp == 1:
+            return whole_fn
+        if batch % dp:
+            raise ValueError(f"a batch of {batch} does not split over "
+                             f"{dp} data ranks")
+        n = batch // dp
+        return lambda: {key: v[k * n:(k + 1) * n]
+                        for key, v in whole_fn().items()}
     to_device = lambda b: {k: torch.from_numpy(v).to(device)
                            for k, v in b.items()}
     if _family(arch) == "lm":
@@ -252,8 +300,19 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
         return lambda: to_device(molecule_batch(shape, cfg.n_classes, rng,
                                                 batch))
     if shape.kind == "full_graph":
-        whole = to_device(graph if graph is not None
-                          else full_graph_batch(shape, cfg.n_classes, rng))
+        g = graph if graph is not None \
+            else full_graph_batch(shape, cfg.n_classes, rng)
+        if partitioned:
+            axes = mesh.axis_names
+            n_shards, k = mesh.size(axes), mesh.index(axes)
+            whole = to_device(partitioned_batch(g, n_shards,
+                                                cfg.partition_slack))
+            n_loc = whole["x"].shape[0] // n_shards
+            whole["part_plan"] = gnn_lib.partition_plan(
+                whole["edge_src"][k], whole["edge_dst"][k], k * n_loc,
+                n_loc, whole["x"].shape[0])
+            return lambda: whole
+        whole = to_device(g)
         whole["plan"] = gnn_lib.graph_plan(whole.pop("edge_src"),
                                            whole.pop("edge_dst"),
                                            shape.n_nodes)
@@ -263,15 +322,21 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
     return lambda: to_device(sampler.sample(batch))
 
 
-def make_loss_fn(arch: ArchSpec, cfg, shape=DRIVER_SHAPE):
+def make_loss_fn(arch: ArchSpec, cfg, shape=DRIVER_SHAPE,
+                 placement: Optional[Placement] = None):
     """loss(model, batch) of the arch's family, and for the gnn family of
-    the shape's kind."""
+    the shape's kind; on a mesh (`placement`) the row-sharded lookups'
+    and the partitioned graph's."""
+    ctx = ShardCtx(placement.mesh) if placement is not None else None
     if _family(arch) == "lm":
         return tfm.loss_fn
     if _family(arch) == "recsys":
-        return lambda model, b: recsys_lib.loss_fn(model, b)
+        return lambda model, b: recsys_lib.loss_fn(model, b, ctx=ctx)
     if _family(arch) == "dlrm":
-        return lambda model, b: dlrm_lib.loss_fn(model, b)
+        return lambda model, b: dlrm_lib.loss_fn(model, b, ctx=ctx)
+    if placement is not None and placement.partitioned:
+        return lambda model, b: gnn_lib.full_graph_partitioned_loss(
+            model, b, placement.mesh)
     return _GNN_LOSSES[shape.kind]
 
 
@@ -292,11 +357,32 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def _state_tree(lib, model, opt_state) -> dict:
+def _state_tree(lib, model, opt_state,
+                placement: Optional[Placement] = None) -> dict:
+    """The JAX layout's {"params", "opt_state"} tree; on a mesh every
+    rank joins the gathers of the sharded tensors, made whole."""
     named = {k: p.detach() for k, p in model.named_parameters()}
+    state = opt_state
+    if placement is not None:
+        named = placement.gather(named)
+        state = {k: {n: placement.gather_state(n, t) for n, t in v.items()}
+                 for k, v in opt_state.items()}
     return {"params": lib.tree_from_named(named),
             "opt_state": {k: lib.tree_from_named(v)
-                          for k, v in opt_state.items()}}
+                          for k, v in state.items()}}
+
+
+def _restore_sharded(tree: dict, placement: Placement, device):
+    """A whole checkpoint tree's params and optimizer state ({name:
+    tensor} each) as this rank's shards (`reshard`)."""
+    params = tree["params"]
+    named = reshard(params, {k: placement.specs.get(k) for k in params},
+                    placement.mesh, device=device)
+    opt = {}
+    for k, v in tree["opt_state"].items():
+        specs = {n: placement.state_spec(n, t.shape) for n, t in v.items()}
+        opt[k] = reshard(v, specs, placement.mesh, device=device)
+    return named, opt
 
 
 def lm_state_bytes(cfg, optimizer: str) -> int:
@@ -367,7 +453,11 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         device="cuda", ckpt_dir: Optional[str] = None,
         ckpt_every: int = 25, sampler: Optional[NeighborSampler] = None,
         graph: Optional[dict] = None, log_every: int = 10,
-        microbatches: int = 1, steps_json: Optional[str] = None) -> dict:
+        microbatches: int = 1, steps_json: Optional[str] = None,
+        dist_run: bool = False, mesh_shape: Optional[tuple] = None,
+        compress: str = "none", rank: Optional[int] = None,
+        world_size: Optional[int] = None,
+        init_method: Optional[str] = None) -> dict:
     """Train `steps` steps of `arch_id` on `shape`'s synthetic data (the
     family's driver shape if None) and return what the run measured.
     `sampler` is a prebuilt graph of a GNN minibatch `shape` and `graph`
@@ -376,8 +466,45 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
     accumulation (`make_train_step`; a full graph takes none);
     `steps_json` names a JSON list to record the train step seconds in
     (`record_step`). Parameters and data all come from seed 0, as in the
-    JAX driver."""
+    JAX driver. `dist_run` trains on a mesh of ranks (see the module
+    docstring): `mesh_shape` (DP, TP), `compress` the replicated
+    gradients' all-reduce, and `rank` / `world_size` / `init_method`
+    where no `torchrun` environment gives them; a process group this
+    call starts it also ends."""
     arch = get_arch(arch_id)
+    family = _family(arch)
+    if not dist_run:
+        return _run(arch, steps=steps, batch=batch, shape=shape, full=full,
+                    lr=lr, device=device, ckpt_dir=ckpt_dir,
+                    ckpt_every=ckpt_every, sampler=sampler, graph=graph,
+                    log_every=log_every, microbatches=microbatches,
+                    steps_json=steps_json)
+    if family == "lm":
+        raise ValueError(f"--dist: the LM family's placements (sequence "
+                         f"parallelism, head sharding) wait on "
+                         f"{ONE_DEVICE_LIMIT}")
+    started = not dist.is_initialized()
+    dev = mesh_lib.init_distributed(device, rank=rank,
+                                    world_size=world_size,
+                                    init_method=init_method)
+    try:
+        world = dist.get_world_size()
+        dp, tp = mesh_shape or (world, 1)
+        mesh = mesh_lib.make_mesh(dp, tp, dev, exchange_one_shard=True)
+        return _run(arch, steps=steps, batch=batch, shape=shape, full=full,
+                    lr=lr, device=dev, ckpt_dir=ckpt_dir,
+                    ckpt_every=ckpt_every, sampler=sampler, graph=graph,
+                    log_every=log_every, microbatches=microbatches,
+                    steps_json=steps_json, mesh=mesh, compress=compress)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(arch: ArchSpec, *, steps, batch, shape, full, lr, device,
+         ckpt_dir, ckpt_every, sampler, graph, log_every, microbatches,
+         steps_json, mesh=None, compress: str = "none") -> dict:
+    arch_id = arch.arch_id
     family = _family(arch)
     default_shape, _, lib = _FAMILIES[family]
     shape = shape or default_shape
@@ -392,27 +519,51 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
     rng = np.random.RandomState(0)
     model = init_params_for(arch, cfg, 0, shape=shape, device=device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch={arch_id} family={family} params={n_params/1e6:.2f}M "
-          f"optimizer={arch.optimizer} shape={shape.name} batch={batch} "
-          f"microbatches={microbatches} device={device}")
+    lead = mesh is None or dist.get_rank() == 0
+    placement, opt_kw, grad_fn = None, {}, None
+    if mesh is not None:
+        partitioned = family == "gnn" and shape.kind == "full_graph"
+        placement = Placement(
+            mesh, "dlrm" if family == "dlrm" else cfg.name, cfg,
+            {k: p.shape for k, p in model.named_parameters()},
+            partitioned=partitioned)
+        placement.shard_model(model)
+        opt_kw["norm_groups"] = placement.norm_groups()
+        if arch.optimizer == "rowwise_adagrad":
+            opt_kw["global_numel"] = placement.global_numel()
+        grad_fn = lambda g: placement.reduce_grads(g, compress)
+    if lead:
+        print(f"arch={arch_id} family={family} params={n_params/1e6:.2f}M "
+              f"optimizer={arch.optimizer} shape={shape.name} batch={batch} "
+              f"microbatches={microbatches} device={device}"
+              + (f" mesh={dict(mesh.shape)} compress={compress}"
+                 if mesh is not None else ""))
 
-    opt = make_optimizer(arch.optimizer, lr=lr)
+    opt = make_optimizer(arch.optimizer, lr=lr, **opt_kw)
     opt_state = opt.init(dict(model.named_parameters()))
-    step_fn = make_train_step(make_loss_fn(arch, cfg, shape), opt,
-                              microbatches)
+    step_fn = make_train_step(make_loss_fn(arch, cfg, shape, placement), opt,
+                              microbatches, grad_fn=grad_fn)
     batch_fn = make_batch_fn(arch, cfg, batch, rng, shape=shape,
-                             device=device, sampler=sampler, graph=graph)
+                             device=device, sampler=sampler, graph=graph,
+                             mesh=mesh,
+                             partitioned=bool(placement
+                                              and placement.partitioned))
 
     tuner = InTune(criteo_pipeline(), MachineSpec(n_cpus=128), seed=0,
                    head="factored", finetune_ticks=100)
     start = 0
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         tree, manifest = ckpt.restore(ckpt_dir, device=device)
-        model.load_state_dict(lib.named_from_tree(tree["params"]))
+        named = lib.named_from_tree(tree["params"])
         opt_state = {k: lib.named_from_tree(v)
                      for k, v in tree["opt_state"].items()}
+        if placement is not None:
+            named, opt_state = _restore_sharded(
+                {"params": named, "opt_state": opt_state}, placement, device)
+        model.load_state_dict(named)
         start = manifest["step"] + 1
-        print(f"resumed from step {start - 1}")
+        if lead:
+            print(f"resumed from step {start - 1}")
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -424,16 +575,25 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         _sync(device)
         t_b = time.monotonic()
         model, opt_state, metrics = step_fn(model, opt_state, i, b)
-        losses.append(float(metrics["loss"]))        # waits for the step
+        loss = metrics["loss"]
+        if placement is not None and not placement.partitioned:
+            # the global batch's: the mean of the data ranks' equal slices
+            loss = coll.psum_tree(loss.float(), mesh.data_group)
+        losses.append(float(loss))                   # waits for the step
         t_c = time.monotonic()
         fetch_s += t_b - t_a
         step_times.append(t_c - t_b)
         tuner.tick()
-        if i % log_every == 0:
+        if i % log_every == 0 and lead:
             print(f"step {i:4d} loss {losses[-1]:.4f} "
                   f"pipeline {tuner.history[-1]['throughput']:.1f} b/s")
         if ckpt_dir and ((i + 1) % ckpt_every == 0 or i == steps - 1):
-            ckpt.save(ckpt_dir, i, _state_tree(lib, model, opt_state))
+            tree = _state_tree(lib, model, opt_state, placement)
+            if lead:
+                ckpt.save(ckpt_dir, i, tree)
+            del tree
+            if mesh is not None:
+                dist.barrier()
     wall = time.monotonic() - t0
     n = len(losses)
     train_s = sum(step_times)
@@ -453,6 +613,8 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         "train_step_s": train_s / n if n else None,
         "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else None),
+        "mesh": dict(mesh.shape) if mesh is not None else None,
+        "compress": compress if mesh is not None else None,
         "reduced": list(getattr(cfg, "reduced", ())) + (
             [f"batch {shape.batch} -> {batch} of {shape.name}, for one "
              f"device's memory"] if family == "lm" and batch != shape.batch
@@ -462,7 +624,7 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         "warm_step_s": (sum(step_times[1:]) / (n - 1) if n > 1
                         else (step_times[0] if n else None)),
     }
-    if steps_json and n:
+    if steps_json and n and lead:
         record_step(steps_json, {
             "arch": arch_id, "shape": shape.name, "kind": shape.kind,
             "batch": batch, "seq_len": getattr(shape, "seq_len", None),
@@ -471,7 +633,7 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
             "reduced": res["reduced"],
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu")})
-    if n:
+    if n and lead:
         unit = rate_key[:-len("_per_s")].replace("_", " ")
         print(f"done: {n} steps in {wall:.1f}s; loss {losses[0]:.4f} -> "
               f"{np.mean(losses[-5:]):.4f}; {res[rate_key]:.1f} {unit}/s, "
@@ -507,14 +669,33 @@ def main(argv=None):
     ap.add_argument("--steps-json", default=None,
                     help="a JSON list to record the train step seconds in "
                          "(benchmarks/torch_roofline.py reads it)")
+    ap.add_argument("--dist", action="store_true",
+                    help="train on a mesh of ranks: the process group "
+                         "torchrun describes (nccl on cuda, gloo on cpu)")
+    ap.add_argument("--mesh", default=None,
+                    help="DP,TP: the (data, model) mesh of --dist "
+                         "(default: every rank on the data axis)")
+    ap.add_argument("--compress", default="none",
+                    choices=("none", "bf16", "int8"),
+                    help="the replicated gradients' all-reduce under "
+                         "--dist (train/collectives.psum_tree)")
     args = ap.parse_args(argv)
+    mesh_shape = None
+    if args.mesh is not None:
+        if not args.dist:
+            ap.error("--mesh needs --dist")
+        mesh_shape = tuple(int(v) for v in args.mesh.split(","))
+        if len(mesh_shape) != 2:
+            ap.error(f"--mesh takes DP,TP, got {args.mesh!r}")
     shape = None
     if args.shape is not None:
         shape = resolve_shape(get_arch(args.arch), args.shape)
     return run(args.arch, steps=args.steps, batch=args.batch, shape=shape,
                full=args.full, lr=args.lr, device=args.device,
                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-               microbatches=args.microbatches, steps_json=args.steps_json)
+               microbatches=args.microbatches, steps_json=args.steps_json,
+               dist_run=args.dist, mesh_shape=mesh_shape,
+               compress=args.compress)
 
 
 if __name__ == "__main__":

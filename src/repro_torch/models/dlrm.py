@@ -1,11 +1,14 @@
 """Meta DLRM (Naumov et al.), the paper's Criteo workload, in PyTorch.
 
 bottom-MLP(dense) -> embedding bags (one per sparse feature) -> pairwise
-dot interaction -> top-MLP -> CTR logit. Port of repro/models/dlrm.py on
-one device: the embedding bags and the interaction both run through the
+dot interaction -> top-MLP -> CTR logit. Port of repro/models/dlrm.py:
+the embedding bags and the interaction both run through the
 hand-written kernels (repro_torch.kernels.ops), forward and backward,
 in f32 or, as the reference configuration has them, bf16 (the bags sum
-in f32 and are rounded to bf16 for the interaction). `score_candidates`
+in f32 and are rounded to bf16 for the interaction). On a mesh (a
+`ShardCtx` with `cfg.tp_lookup`) the tables are this rank's row shard
+and the lookup is `tp_multifeature_bag`, through the kernel's
+local-rows mode. `score_candidates`
 is the reference's retrieval scoring.
 
 Parameters cross between the packages as numpy in the JAX layout,
@@ -25,7 +28,8 @@ from torch import nn
 
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.kernels import ops
-from repro_torch.models.embedding import multifeature_bag
+from repro_torch.models.embedding import (multifeature_bag,
+                                          tp_multifeature_bag)
 from repro_torch.models.exchange import from_numpy, to_numpy, transpose
 from repro_torch.models.recsys import apply_mlp, bce_loss, init_mlp
 
@@ -54,14 +58,22 @@ class DLRM(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 bag_fn: Optional[Callable] = None,
-                interact_fn: Optional[Callable] = None) -> torch.Tensor:
+                interact_fn: Optional[Callable] = None,
+                ctx=None) -> torch.Tensor:
         """batch: sparse_ids (B, F, hot) int32, dense (B, n_dense) ->
         logits (B,). `bag_fn` / `interact_fn` replace the kernel ops (a
-        comparison against the plain versions on the card uses them)."""
+        comparison against the plain versions on the card uses them);
+        `ctx` a ShardCtx (the row-sharded lookup)."""
         dense_out = apply_mlp(self.bottom,
                               batch["dense"].to(self.tables.dtype),
                               final_act=True)
-        emb = (bag_fn or multifeature_bag)(self.tables, batch["sparse_ids"])
+        if self.cfg.tp_lookup and ctx is not None and bag_fn is None:
+            emb = tp_multifeature_bag(
+                self.tables, batch["sparse_ids"], ctx.mesh,
+                rows=self.cfg.vocab_sizes[0])
+        else:
+            emb = (bag_fn or multifeature_bag)(self.tables,
+                                               batch["sparse_ids"])
         feats = torch.cat([dense_out[:, None, :], emb.to(dense_out.dtype)],
                           dim=1)                            # (B, F+1, D)
         interact = (interact_fn or ops.dot_interact)(feats)

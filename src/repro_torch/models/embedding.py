@@ -1,5 +1,4 @@
-"""Sparse-embedding lookups, port of the single-device parts of
-repro/models/embedding.py.
+"""Sparse-embedding lookups, port of repro/models/embedding.py.
 
 `embedding_bag` and `multifeature_bag` are the DLRM's: the tables are
 stacked (F, V, D), one per sparse feature with a shared vocab size, and
@@ -9,15 +8,39 @@ CUDA kernel on the card, its plain version on the CPU).
 `jnp.take` + segment-op formulation, through models/segment.py's chunked
 gather-and-segment-reduce, which the full-graph GraphSAGE shares;
 `hash_ids` is the reference's multiplicative hash, bit for bit.
+
+The row-sharded lookups on a mesh (`launch.mesh.Mesh`) are the
+reference's two shard_map functions, each rank running the body of the
+shard_map on its own shard with the same collectives:
+`tp_embedding_lookup` (a masked gather from this rank's vocab shard and
+a sum over the model axis; its gradient lands in the local shard only)
+and `tp_multifeature_bag` (stacked tables row-sharded over every axis:
+the ids all-gathered over the data axes, the whole batch looked up in
+the local rows by the `embedding_bag` kernel's local-rows mode, a
+reduce-scatter over the data axes and a sum over the model axis; its
+backward all-gathers d_out in the table dtype and scatters locally, so
+the gradient stays sharded). Each takes `rows`, the tables' global row
+count, with this rank's shard, and falls back to the unsharded lookup
+of whole tables exactly where the reference does: no mesh or no model
+axis, one shard, rows that do not divide over the shards, or no `rows`;
+at one shard, a mesh made with `exchange_one_shard` (the driver's) takes
+the exchange instead, so that a world of one rank runs every collective
+and the local-rows kernel (for ids in [0, rows) the values are the
+fallback's, in the tables' dtype).
+Each rank passes its own data rank's slice of the batch; a global batch
+that does not divide over the data ranks (the reference's other
+fallback) is refused by the driver, which makes the slices.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import segment
+from repro_torch.train import collectives as coll
 
 # 2654435761 (Knuth's multiplicative constant) in 16-bit halves, so that
 # the uint32 product wraps in int64 arithmetic without overflowing it
@@ -46,6 +69,126 @@ def multifeature_bag(tables: torch.Tensor, ids: torch.Tensor, *,
     tables: (F, V, D); ids: (B, F, bag) int32 (already hashed mod V).
     Returns (B, F, D): feature f reads its own table."""
     return ops.embedding_bag(tables, ids, combiner=combiner)
+
+
+class _LocalRows(torch.autograd.Function):
+    """Bags of local rows through the kernel's local-rows mode: tables
+    (F, v_loc, D) rows [row0, row0 + v_loc); ids (B, F, bag) -> (B, F, D)
+    f32 (an id outside reads 0); the gradient scatters into the shard."""
+
+    @staticmethod
+    def forward(ctx, tables, ids, row0):
+        ctx.save_for_backward(ids)
+        ctx.cfg = (row0, tables.shape[1], tables.dtype)
+        return ops.embedding_bag_local(tables, ids, row0)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (ids,) = ctx.saved_tensors
+        row0, v_loc, dtype = ctx.cfg
+        return (ops.embedding_bag_local_bwd(d_out.float(), ids, row0, v_loc,
+                                            dtype), None, None)
+
+
+def local_rows_take(table: torch.Tensor, ids: torch.Tensor,
+                    row0: int) -> torch.Tensor:
+    """The masked gather of a vocab shard: table (v_loc, D), rows [row0,
+    row0 + v_loc); ids (...) int32 -> (..., D) f32, 0 for an id outside
+    the shard; the gradient lands in the shard."""
+    out = _LocalRows.apply(table[None],
+                           ids.reshape(-1, 1, 1).to(torch.int32), row0)
+    return out.reshape(*ids.shape, table.shape[-1])
+
+
+def tp_embedding_lookup(table: torch.Tensor, ids: torch.Tensor, mesh, *,
+                        rows: Optional[int] = None) -> torch.Tensor:
+    """Vocab-sharded single-hot lookup: table (rows / tp, D), this rank's
+    shard of the (rows, D) table split over the model axis; ids (...)
+    int32, this rank's -> (..., D) in the table's dtype. Each model rank
+    gathers the ids it owns through the `embedding_bag` kernel's
+    local-rows mode (an id outside its shard reads 0) and the sum over
+    the model axis completes the rows; every model rank then uses them
+    alike, so the gradient passes through the sum and scatters into the
+    local shard only. Falls back to `F.embedding` of a whole table (see
+    the module docstring)."""
+    names = mesh.axis_names if mesh is not None else ()
+    if "model" not in names or rows is None:
+        return F.embedding(ids.long(), table)
+    tp = mesh.shape["model"]
+    if (tp == 1 and not mesh.exchange_one_shard) or rows % tp != 0:
+        return F.embedding(ids.long(), table)
+    v_loc = rows // tp
+    _check_shard(table.shape[0], v_loc)
+    e = local_rows_take(table, ids, mesh.index("model") * v_loc)
+    return coll.psum_same(e.to(table.dtype), mesh.group("model"))
+
+
+def _check_shard(got: int, v_loc: int):
+    if got != v_loc:
+        raise ValueError(f"a row shard of {v_loc} rows was expected, the "
+                         f"table passed has {got}")
+
+
+class _TpMultifeatureBag(torch.autograd.Function):
+    """The reference's custom-VJP shard_map pair (`fwd_local` and
+    `bwd_local`), one rank's part."""
+
+    @staticmethod
+    def forward(ctx, tables, ids, data_group, model_group, row0, dp,
+                combiner):
+        ids_full = coll.all_gather(ids.contiguous(), data_group) \
+            if dp > 1 else ids                             # (B, F, hot)
+        out = ops.embedding_bag_local(tables, ids_full, row0) \
+            .to(tables.dtype)                              # (B, F, D) part
+        if dp > 1:
+            out = coll.reduce_scatter(out, data_group)     # (B_loc, F, D)
+        out = coll.all_reduce(out, model_group)
+        hot = ids.shape[-1]
+        if combiner == "mean":
+            out = coll.ieee_div(out, hot)
+        ctx.save_for_backward(ids_full)
+        ctx.cfg = (data_group, row0, dp, combiner, hot, tables.shape[1],
+                   tables.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (ids_full,) = ctx.saved_tensors
+        data_group, row0, dp, combiner, hot, v_loc, dtype = ctx.cfg
+        # the table dtype before the wire, as the reference casts
+        g = d_out.to(dtype)
+        if combiner == "mean":
+            g = coll.ieee_div(g, hot)
+        if dp > 1:
+            g = coll.all_gather(g.contiguous(), data_group)
+        grad = ops.embedding_bag_local_bwd(g.float(), ids_full, row0, v_loc,
+                                           dtype)
+        return grad, None, None, None, None, None, None
+
+
+def tp_multifeature_bag(tables: torch.Tensor, ids: torch.Tensor, mesh, *,
+                        combiner: str = "sum", rows: Optional[int] = None
+                        ) -> torch.Tensor:
+    """Fully row-sharded stacked-table lookup: tables (F, rows / n, D),
+    this rank's row shard of the (F, rows, D) tables split over every
+    mesh axis (n ranks, rows [k rows / n, (k + 1) rows / n) on the rank
+    at flat position k of (pod, data, model), major to minor); ids
+    (B_loc, F, hot), this data rank's slice of the batch -> (B_loc, F, D)
+    in the tables' dtype (see the module docstring for the exchange)."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(combiner)
+    names = mesh.axis_names if mesh is not None else ()
+    if "model" not in names or rows is None:
+        return multifeature_bag(tables, ids, combiner=combiner)
+    n_shards = mesh.size(names)
+    if (n_shards == 1 and not mesh.exchange_one_shard) \
+            or rows % n_shards != 0:
+        return multifeature_bag(tables, ids, combiner=combiner)
+    v_loc = rows // n_shards
+    _check_shard(tables.shape[1], v_loc)
+    return _TpMultifeatureBag.apply(
+        tables, ids, mesh.data_group, mesh.group("model"),
+        mesh.index(names) * v_loc, mesh.size(mesh.data_axes), combiner)
 
 
 def ragged_embedding_bag(table: torch.Tensor, ids: torch.Tensor,

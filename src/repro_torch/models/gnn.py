@@ -1,6 +1,6 @@
-"""GraphSAGE in PyTorch, in the reference's three regimes (port of
-repro/models/gnn.py but its multi-device `full_graph_partitioned_loss`,
-which waits with distribution: ROADMAP.md queue 1, item 9).
+"""GraphSAGE in PyTorch, in the reference's three regimes and the
+full graph's dst-partitioned form on a mesh (port of
+repro/models/gnn.py).
 
   - minibatch: dense-fanout blocks x0 (B, d), neigh1 (B, F1, d), neigh2
     (B, F1, F2, d) from data/sampler.py through a 2-layer GraphSAGE. Each
@@ -19,6 +19,12 @@ which waits with distribution: ROADMAP.md queue 1, item 9).
     G * N nodes, graph g's node ids offset by g * N, then pools each
     graph's masked nodes. Pad edges 0 -> 0 are real messages into node
     0, counted as the reference counts them.
+
+  - the partitioned full graph (`full_graph_partitioned_loss`, on a
+    `launch.mesh.Mesh`): each rank owns a node range and the edges whose
+    dst falls in it (data/graphs.py `partition_edges`), aggregates into
+    its range only, and all-gathers the hidden state between layers;
+    the loss is two sums over every rank.
 
 The neighbour projection `agg @ w_neigh` of the last two is a
 `torch.matmul`, and so is every `h_self @ w_self`: the JAX package leaves
@@ -41,6 +47,7 @@ from torch import nn
 from repro_torch.configs.base import GNNConfig
 from repro_torch.kernels import ops
 from repro_torch.models import segment
+from repro_torch.train import collectives as coll
 
 _KEYS = ("w_self", "w_neigh", "b")
 
@@ -186,6 +193,76 @@ def full_graph_loss(model: GraphSAGE, batch: Dict[str, torch.Tensor]):
     """Mean NLL over the labelled nodes (labels < 0 masked out)."""
     nll, mask = full_graph_nll(model, batch)
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss, {"xent": loss}
+
+
+# ------------------------------------------- dst-partitioned full graph ---
+def partition_plan(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                   node0: int, n_loc: int, n_pad: int) -> segment.SegmentPlan:
+    """One rank's edges (e_loc,) (pad edges -1) as a SegmentPlan into its
+    node range [node0, node0 + n_loc): the pad edges dropped (the
+    reference multiplies their messages by 0, and counts them 0 in the
+    in-degree), the rest read h at src and land at dst - node0."""
+    ok = edge_src >= 0
+    seg = torch.where(ok, edge_dst.long() - node0,
+                      torch.full_like(edge_dst, -1, dtype=torch.long))
+    return segment.segment_plan(torch.where(ok, edge_src.long(), 0), seg,
+                                n_loc, n_pad)
+
+
+def full_graph_partitioned_loss(model: GraphSAGE,
+                                batch: Dict[str, torch.Tensor], mesh):
+    """The reference's dst-partitioned message passing, this rank's part.
+
+    Rank k (flat over (pod, data, model), major to minor) owns the nodes
+    [k n_loc, (k + 1) n_loc) and the edges of row k of edge_src /
+    edge_dst, whose dst falls in them (pad edges src = dst = -1): its
+    segment sum lands in its own range. Between layers one all-gather of
+    the hidden state over every rank (its backward the matching
+    reduce-scatter); the loss is the masked NLL of its label slice,
+    numerator and denominator each summed over every rank. As in the
+    reference, the neighbours are summed (divided by the in-degree for
+    "mean"), whatever other aggregator the config names.
+
+    batch: x (N_pad, d), every rank's; edge_src, edge_dst (n_shards,
+    e_loc) int32 and labels (N_pad,) int32 (-1 masked or pad), whole,
+    each rank reading its row and slice; `part_plan`, where given, this
+    rank's `partition_plan` (the driver builds it once a graph). The
+    parameters' gradients are this rank's share: summed over every rank
+    they are the loss's."""
+    axes = mesh.axis_names
+    n_shards = mesh.size(axes)
+    x = batch["x"]
+    n_pad = x.shape[0]
+    if n_pad % n_shards:
+        raise ValueError(f"{n_pad} nodes do not divide over {n_shards} "
+                         f"shards")
+    n_loc = n_pad // n_shards
+    k = mesh.index(axes)
+    node0 = k * n_loc
+    plan = batch.get("part_plan")
+    if plan is None:
+        plan = partition_plan(batch["edge_src"][k], batch["edge_dst"][k],
+                              node0, n_loc, n_pad)
+    group = mesh.all_group
+    h_full = x
+    n_layers = len(model.layers)
+    for l, layer in enumerate(model.layers):
+        agg = segment.segment_sum(h_full, plan)
+        if model.cfg.aggregator == "mean":
+            agg = agg / torch.clamp(plan.count.to(agg.dtype), min=1.0)[:, None]
+        h_loc = _sage_combine(h_full[node0:node0 + n_loc],
+                              torch.matmul(agg, layer.w_neigh), layer,
+                              final=(l == n_layers - 1))
+        if l < n_layers - 1:
+            h_full = coll.all_gather_sum(h_loc, group)
+    logp = torch.log_softmax(h_loc.float(), dim=-1)
+    labels = batch["labels"][node0:node0 + n_loc].long()
+    mask = (labels >= 0).float()
+    nll = -logp.gather(1, torch.clamp(labels, min=0)[:, None])[:, 0]
+    num = coll.psum_same(torch.sum(nll * mask), group)
+    den = coll.psum_same(torch.sum(mask), group)
+    loss = num / torch.clamp(den, min=1.0)
     return loss, {"xent": loss}
 
 

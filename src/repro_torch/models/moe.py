@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN on one device (port of repro/models/moe.py's
-local path: `moe_ffn` with no mesh).
+"""Mixture-of-Experts FFN (port of repro/models/moe.py): the local
+dispatch, and the expert parallelism of `moe_ffn` on a mesh.
 
 Each token routes in f32 to its top-k experts; the token-choices are
 dispatched to their experts by a sort -> gather (no dispatch-mask
@@ -8,9 +8,24 @@ the (padded) expert axis, and a scatter-add combines the weighted
 outputs; shared experts add a dense gated MLP. Capacity: each expert
 takes C = ceil(T * top_k * cf / E) token-choices (rounded up to a
 multiple of 8, at least 8); the rest are dropped (GShard-style), their
-combine weight never applied. The reference's shard_map expert
-parallelism across a model axis waits on distribution (ROADMAP.md
-queue 1, item 9).
+combine weight never applied.
+
+On a mesh (`launch.mesh.Mesh`, the reference's shard_map at :146-193),
+each model rank holds the experts [e_start, e_start + E / tp) and a
+column slice of the shared experts' wi and wg (rows of wo); its tokens'
+choices of other experts fall into the overflow bin, and one sum over
+the model axis adds the routed and the shared experts' outputs. The
+tokens split over the data axes (each data rank routes and dispatches
+its slice, its capacity counted from its own tokens) unless they do not
+divide, where every rank takes them all; the aux loss is averaged over
+the data axes. The caller holds the tokens, and every parameter, whole
+on every rank (the transformer's other layers are replicated in this
+slice): `moe_ffn` slices its own part and all-gathers the output over
+the data axes. Gradients: x's is whole on every rank (summed over the
+model axis, gathered over the data axes); each parameter's is this
+rank's share (its tokens', and on the model axis its experts' and
+columns', the aux loss's counted 1 / tp a model rank), so that summed
+over every rank it is the whole.
 
 Ties and order follow the reference: the top-k takes the lower expert
 index first among equal probabilities (as `jax.lax.top_k` does), and
@@ -20,11 +35,12 @@ bit.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models.layers import activation
+from repro_torch.train import collectives as coll
 
 
 def capacity_for(t_local: int, top_k: int, n_experts: int, cf: float) -> int:
@@ -114,14 +130,21 @@ def _dispatch_local(x: torch.Tensor, flat_e: torch.Tensor,
 
 
 def _moe_local(x: torch.Tensor, p: Dict[str, torch.Tensor], *, cfg,
-               e_start: int, e_loc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+               e_start: int, e_loc: int, tp_group=None, dp_group=None,
+               routing: Optional[List[torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE block over tokens x (T, D); p holds one layer's
-    parameters by name ("router", "wi", ..., "shared.wo"). Returns
-    (y, aux_loss)."""
+    parameters by name ("router", "wi", ..., "shared.wo"), the experts
+    [e_start, e_start + e_loc). With `tp_group` the output is summed
+    over it, with `dp_group` the aux loss averaged over it. Appends the
+    top-k expert indices (T, k) to `routing` where given. Returns (y,
+    aux_loss)."""
     t, d = x.shape
     act = activation(cfg.act)
     probs, topw, topi = _route(x, p["router"], cfg.n_experts, cfg.top_k,
                                cfg.norm_topk_prob)
+    if routing is not None:
+        routing.append(topi)
     aux = _aux_loss(probs, topi, cfg.n_experts)
     cap = capacity_for(t, cfg.top_k, max(cfg.n_experts, 1),
                        cfg.capacity_factor)
@@ -133,16 +156,63 @@ def _moe_local(x: torch.Tensor, p: Dict[str, torch.Tensor], *, cfg,
     out = torch.bmm(h, p["wo"]) * wbuf[..., None]          # (e, c, d)
     y = torch.zeros((t, d), dtype=x.dtype, device=x.device).index_add(
         0, tok.reshape(-1), out.reshape(-1, d))
-    if "shared.wi" in p:
+    if "shared.wi" in p:   # tensor-parallel shared experts, same sum
         hs = act(x @ p["shared.wg"]) * (x @ p["shared.wi"])
         y = y + hs @ p["shared.wo"]
+    if tp_group is not None:
+        y = coll.psum_same(y, tp_group)
+        # every model rank computes the same aux: a 1 / tp share of its
+        # gradient each, the value unchanged
+        aux = coll.grad_scaled(aux, 1.0 / coll.group_size(tp_group))
+    if dp_group is not None:
+        aux = coll.psum_same(aux, dp_group) / coll.group_size(dp_group)
     return y, aux
 
 
-def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
-            e_pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN over tokens x: (B, S, D) or (T, D), every (padded) expert
-    on this device. Returns (y, aux)."""
-    y, aux = _moe_local(x.reshape(-1, x.shape[-1]), p, cfg=cfg, e_start=0,
-                        e_loc=e_pad)
+def moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, e_pad: int,
+            *, mesh=None, routing: Optional[List[torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN over tokens x: (B, S, D) or (T, D). With no mesh (or
+    `cfg.moe_impl == "local"`) every (padded) expert runs here; on a
+    mesh, expert parallelism (see the module docstring). Appends each
+    call's top-k indices (this rank's tokens', (T_loc, k)) to `routing`
+    where given. Returns (y, aux)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if mesh is None or cfg.moe_impl == "local":
+        y, aux = _moe_local(x2, p, cfg=cfg, e_start=0, e_loc=e_pad,
+                            routing=routing)
+        return y.reshape(x.shape), aux
+    names = mesh.axis_names
+    tp = mesh.shape["model"] if "model" in names else 1
+    dp_axes = mesh.data_axes
+    dp = mesh.size(dp_axes)
+    if x2.shape[0] % max(dp, 1) != 0:   # e.g. decode batch 1: replicate
+        dp_axes, dp = (), 1
+    if e_pad % tp:
+        raise ValueError(f"{e_pad} experts do not divide over {tp} ranks")
+    e_loc = e_pad // tp
+    e_start = mesh.index("model") * e_loc if tp > 1 else 0
+    pl = {"router": p["router"],
+          "wi": p["wi"][e_start:e_start + e_loc],
+          "wg": p["wg"][e_start:e_start + e_loc],
+          "wo": p["wo"][e_start:e_start + e_loc]}
+    if "shared.wi" in p:
+        fs = p["shared.wi"].shape[-1]
+        if fs % tp:
+            raise ValueError(f"shared experts of width {fs} do not divide "
+                             f"over {tp} ranks")
+        c0, c1 = (fs // tp) * mesh.index("model"), (fs // tp) * \
+            (mesh.index("model") + 1)
+        pl.update({"shared.wi": p["shared.wi"][:, c0:c1],
+                   "shared.wg": p["shared.wg"][:, c0:c1],
+                   "shared.wo": p["shared.wo"][c0:c1]})
+    dp_group = mesh.data_group if dp_axes else None
+    xl = coll.split_same(x2, dp_group) if dp_group is not None else x2
+    if tp > 1:
+        xl = coll.same_to_parts(xl, mesh.group("model"))
+    y, aux = _moe_local(xl, pl, cfg=cfg, e_start=e_start, e_loc=e_loc,
+                        tp_group=mesh.group("model") if tp > 1 else None,
+                        dp_group=dp_group, routing=routing)
+    if dp_group is not None:
+        y = coll.all_gather_same(y, dp_group)
     return y.reshape(x.shape), aux

@@ -1,11 +1,17 @@
 """The recsys family in PyTorch (port of repro/models/recsys.py on one
 device): the MLP helpers and the CTR loss shared with the DLRM
 (:33-58), wide-deep (:62-103), xDeepFM (:106-163), DIEN (:166-246),
-BERT4Rec (:250-420, without the row-sharded `tp_lookup` branches and
-`tp_sampled_scores`, which need a mesh), the losses and the retrieval
-`score_candidates` (:394-488). Each model is an `nn.Module` whose
-`forward` is the reference's forward function; `init_model` draws one
-from a seed.
+BERT4Rec (:250-420), the losses and the retrieval `score_candidates`
+(:394-488). Each model is an `nn.Module` whose `forward` is the
+reference's forward function; `init_model` draws one from a seed.
+
+On a mesh (a `ShardCtx` whose `mesh` is set, and `cfg.tp_lookup`), the
+row-sharded branches run on this rank's shards: wide-deep's and
+xDeepFM's tables through `tp_multifeature_bag` (`_ctr_tables_lookup`,
+wide-deep's wide arm too, its table sharded as its deep tables are),
+BERT4Rec's sequence through `tp_embedding_lookup` and its candidates
+through `tp_sampled_scores`, whose sum over the model axis moves the
+(B, M, C) logits, not gathered rows.
 
 Every table lookup runs through the hand-written kernels
 (`repro_torch.kernels.ops`), forward and backward:
@@ -42,8 +48,10 @@ from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels import ops
-from repro_torch.models.embedding import embedding_bag
+from repro_torch.models.embedding import (
+    embedding_bag, local_rows_take, tp_embedding_lookup, tp_multifeature_bag)
 from repro_torch.models.exchange import transpose
+from repro_torch.train import collectives as coll
 
 
 def init_mlp(dims: Sequence[int], *, generator: Optional[torch.Generator],
@@ -100,6 +108,20 @@ def _take(table: torch.Tensor, ids: torch.Tensor,
     return embedding_bag(table, ids[..., None], bag_fn=bag_fn)
 
 
+def _sharded(cfg, ctx) -> bool:
+    return bool(cfg.tp_lookup and ctx is not None and ctx.mesh is not None)
+
+
+def _ctr_tables_lookup(tables: torch.Tensor, ids: torch.Tensor, cfg, ctx,
+                       bag_fn: Callable) -> torch.Tensor:
+    """A CTR model's stacked-table lookup: row-sharded on a mesh, else
+    `bag_fn`. tables (F, V, D) (or this rank's row shard)."""
+    if _sharded(cfg, ctx):
+        return tp_multifeature_bag(tables, ids, ctx.mesh,
+                                   rows=cfg.vocab_sizes[0])
+    return bag_fn(tables, ids)
+
+
 # =============================================================== wide-deep ==
 class WideDeep(nn.Module):
     """Stacked (F, V, D) deep tables, the (F, V) wide table, the wide arm's
@@ -126,22 +148,24 @@ class WideDeep(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 bag_fn: Optional[Callable] = None,
-                emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                emb: Optional[torch.Tensor] = None, ctx=None) -> torch.Tensor:
         """batch: sparse_ids (B, F, hot) int32, dense (B, n_dense) ->
         logits (B,). `bag_fn(tables, ids)` replaces the kernel op (a
         comparison against the plain version on the card uses it); `emb`
         (B, F, D), where given, replaces the deep tables' lookup (the
-        retrieval's)."""
+        retrieval's); `ctx` a ShardCtx (the row-sharded lookups)."""
         bag_fn = bag_fn or ops.embedding_bag_fused
         ids = batch["sparse_ids"]
         if emb is None:
-            emb = bag_fn(self.tables, ids)                      # (B, F, D)
+            emb = _ctr_tables_lookup(self.tables, ids, self.cfg, ctx,
+                                     bag_fn)                    # (B, F, D)
         dense = batch["dense"].to(emb.dtype)
         deep_in = torch.cat([emb.reshape(emb.shape[0], -1), dense], dim=-1)
         deep_logit = apply_mlp(self.mlp, deep_in)[:, 0]
         # wide arm: per-feature scalar weights, multi-hot summed (the bag
         # in the lookup, then the features)
-        wide_w = bag_fn(self.wide.unsqueeze(-1), ids)           # (B, F, 1)
+        wide_w = _ctr_tables_lookup(self.wide.unsqueeze(-1), ids, self.cfg,
+                                    ctx, bag_fn)                # (B, F, 1)
         wide_logit = wide_w.sum(dim=(1, 2)) + (dense @ self.wide_dense)[:, 0]
         return deep_logit + wide_logit + self.bias
 
@@ -181,13 +205,15 @@ class XDeepFM(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 bag_fn: Optional[Callable] = None,
-                emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                emb: Optional[torch.Tensor] = None, ctx=None) -> torch.Tensor:
         """batch: sparse_ids (B, F, hot) int32, dense (B, n_dense) ->
         logits (B,). `bag_fn` replaces both kernel ops; `emb` (B, F, D),
-        where given, replaces the tables' lookup (the retrieval's)."""
+        where given, replaces the tables' lookup (the retrieval's); `ctx`
+        a ShardCtx."""
         ids = batch["sparse_ids"]
-        x0 = emb if emb is not None else \
-            (bag_fn or ops.embedding_bag)(self.tables, ids)       # (B, m, D)
+        x0 = emb if emb is not None else _ctr_tables_lookup(
+            self.tables, ids, self.cfg, ctx,
+            bag_fn or ops.embedding_bag)                          # (B, m, D)
         # x_k[b,h,d] = sum_{i,j} W[h,i,j] * x_{k-1}[b,i,d] * x0[b,j,d],
         # associated as the reference's (contract i, then j), with d kept
         # next to b: u (B, D, H, m) comes out of one GEMM and feeds a
@@ -296,9 +322,10 @@ class DIEN(nn.Module):
         return apply_mlp(self.mlp, feats)[:, 0]
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
-                bag_fn: Optional[Callable] = None) -> torch.Tensor:
+                bag_fn: Optional[Callable] = None, ctx=None) -> torch.Tensor:
         """batch: hist_ids (B, S) int32, hist_mask (B, S), target_id (B,)
-        int32, dense (B, n_dense) -> logits (B,)."""
+        int32, dense (B, n_dense) -> logits (B,). DIEN has no sharded
+        branch (`ctx` is taken and not read), as in the reference."""
         hist = self.history(batch, bag_fn)
         target = _take(self.items, batch["target_id"], bag_fn)
         states = self.interest_states(hist)
@@ -361,7 +388,7 @@ class BERT4Rec(nn.Module):
         self.cfg = cfg
         kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
         d = cfg.embed_dim
-        vocab = -(-(cfg.n_items + 2) // 16) * 16
+        self.vocab = vocab = -(-(cfg.n_items + 2) // 16) * 16
         self.items = _normal((vocab, d), d ** -0.5, generator=generator,
                              **kw)
         self.pos = _normal((cfg.seq_len, d), 0.02, generator=generator,
@@ -372,9 +399,14 @@ class BERT4Rec(nn.Module):
         self.ln_f = _const((d,), 1.0, **kw)
 
     def encode(self, item_seq: torch.Tensor, *,
-               bag_fn: Optional[Callable] = None) -> torch.Tensor:
+               bag_fn: Optional[Callable] = None, ctx=None) -> torch.Tensor:
         """item_seq (B, S) int32 -> hidden (B, S, D), bidirectional."""
-        x = _take(self.items, item_seq, bag_fn) + self.pos
+        if _sharded(self.cfg, ctx):
+            emb = tp_embedding_lookup(self.items, item_seq, ctx.mesh,
+                                      rows=self.vocab)
+        else:
+            emb = _take(self.items, item_seq, bag_fn)
+        x = emb + self.pos
         for blk in self.blocks:
             x = blk(x)
         return _layer_norm(x, self.ln_f)
@@ -388,17 +420,49 @@ class BERT4Rec(nn.Module):
         return torch.einsum("bsd,vd->bsv", hidden, self.items)
 
     def sampled_logits(self, batch: Dict[str, torch.Tensor], *,
-                       bag_fn: Optional[Callable] = None) -> torch.Tensor:
+                       bag_fn: Optional[Callable] = None,
+                       ctx=None) -> torch.Tensor:
         """Sampled-softmax cloze logits at the masked positions: batch
         item_seq (B, S), mask_pos (B, M), mask_labels (B, M), neg_ids (B,
         M, N) -> (B, M, 1 + N), index 0 the true item."""
-        hidden = self.encode(batch["item_seq"], bag_fn=bag_fn)
+        hidden = self.encode(batch["item_seq"], bag_fn=bag_fn, ctx=ctx)
         h = torch.take_along_dim(hidden, batch["mask_pos"].long()[..., None],
                                  dim=1)                           # (B, M, D)
         cand = torch.cat([batch["mask_labels"][..., None], batch["neg_ids"]],
                          dim=-1)                                  # (B, M, 1+N)
+        if _sharded(self.cfg, ctx):
+            return tp_sampled_scores(self.items, h, cand, ctx.mesh,
+                                     rows=self.vocab)
         emb = _take(self.items, cand, bag_fn)                     # (B,M,1+N,D)
         return torch.einsum("bmd,bmnd->bmn", h, emb)
+
+
+def tp_sampled_scores(items: torch.Tensor, h: torch.Tensor,
+                      cand: torch.Tensor, mesh, *,
+                      rows: Optional[int] = None) -> torch.Tensor:
+    """Candidate scores against a row-sharded item table: items (rows /
+    tp, D), this rank's shard over the model axis; h (B, M, D) and cand
+    (B, M, C) int32, this data rank's -> (B, M, C). Each model rank
+    scores only the candidates it owns (the rest read 0 rows through the
+    kernel's local-rows mode) and the sum over the model axis moves the
+    logits, not the gathered rows; the gradient of the items lands in
+    the local shard, and h's, summed over the model axis, is whole on
+    every model rank. Falls back to the whole table's scores where the
+    reference does (no model axis, one shard, rows not divisible, no
+    `rows`)."""
+    names = mesh.axis_names if mesh is not None else ()
+    tp = mesh.shape["model"] if "model" in names else 1
+    if rows is None or tp == 1 or rows % tp != 0:
+        return torch.einsum("bmd,bmnd->bmn", h, _take(items, cand, None))
+    v_loc = rows // tp
+    if items.shape[0] != v_loc:
+        raise ValueError(f"a row shard of {v_loc} rows was expected, the "
+                         f"items passed have {items.shape[0]}")
+    group = mesh.group("model")
+    emb = local_rows_take(items, cand, mesh.index("model") * v_loc)
+    part = torch.einsum("bmd,bmnd->bmn", coll.same_to_parts(h, group),
+                        emb.to(h.dtype))
+    return coll.psum_same(part, group)
 
 
 # ----------------------------------------------------------- entrypoints ---

@@ -1,5 +1,5 @@
 """Decoder-only transformer family covering the five LM archs, in
-PyTorch on one device (port of repro/models/transformer.py).
+PyTorch (port of repro/models/transformer.py).
 
 Features driven by TransformerConfig, as in the reference:
   - GQA attention (`layers.chunked_attention`: never materializes S x S,
@@ -13,7 +13,14 @@ Features driven by TransformerConfig, as in the reference:
     layers (`torch.utils.checkpoint`: its activations are recomputed in
     the backward, as the reference's remat of its scan body; "dots"
     recomputes as "full" does),
-  - tied or untied LM head.
+  - tied or untied LM head,
+  - a `mesh` (launch.mesh.Mesh), where given, passed to the embedding
+    lookup (`tp_embedding_lookup`: the table is whole here, so it is the
+    plain lookup) and to the MoE (`moe_ffn`'s expert parallelism); every
+    other layer is replicated on every rank in this slice: the LM's
+    placements (sequence parallelism, head sharding) are the next one's,
+  - `routing`, where given, a list the MoE layers append their top-k
+    expert indices to (layer by layer; the outputs do not change).
 
 Parameters keep the JAX tree's names and layout: `embed.table` (V, D),
 `blocks.attn.wq` (L, D, H, hd), `blocks.moe.shared.wo` (L, n_shared * F,
@@ -28,12 +35,12 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.embedding import tp_embedding_lookup
 from repro_torch.models.exchange import from_numpy, to_numpy
 from repro_torch.models.layers import (
     apply_rope, chunked_attention, cross_entropy_loss, decode_attention,
@@ -144,8 +151,8 @@ def _layers(model: Transformer):
 
 
 def _embed(cfg: TransformerConfig, table: torch.Tensor,
-           tokens: torch.Tensor) -> torch.Tensor:
-    x = F.embedding(tokens, table)
+           tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    x = tp_embedding_lookup(table, tokens, mesh)
     if cfg.scale_embed:
         # sqrt(d) rounded to the activation dtype, as the reference
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
@@ -172,17 +179,20 @@ def _attn_out(o: torch.Tensor, blk: dict, cfg: TransformerConfig):
     return o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _ffn(h2: torch.Tensor, blk: dict, cfg: TransformerConfig):
+def _ffn(h2: torch.Tensor, blk: dict, cfg: TransformerConfig, mesh=None,
+         routing=None):
     """(m, aux) of the layer's MLP or MoE."""
     if cfg.is_moe:
         p = {k[len("moe."):]: v for k, v in blk.items()
              if k.startswith("moe.")}
-        return moe_lib.moe_ffn(h2, p, cfg, expert_pad(cfg))
+        return moe_lib.moe_ffn(h2, p, cfg, expert_pad(cfg), mesh=mesh,
+                               routing=routing)
     m = mlp_block(h2, blk["mlp.wi"], blk["mlp.wg"], blk["mlp.wo"], cfg.act)
     return m, torch.zeros((), dtype=torch.float32, device=h2.device)
 
 
-def _one_layer(x, blk: dict, window: int, positions, cfg: TransformerConfig):
+def _one_layer(x, blk: dict, window: int, positions, cfg: TransformerConfig,
+               mesh=None, routing=None):
     plus1 = cfg.post_norm
     h = rms_norm(x, blk["ln1"], eps=cfg.norm_eps, plus_one=plus1)
     q, k, v = _attn_proj(h, blk, cfg)
@@ -196,7 +206,7 @@ def _one_layer(x, blk: dict, window: int, positions, cfg: TransformerConfig):
         o = rms_norm(o, blk["ln1_post"], eps=cfg.norm_eps, plus_one=True)
     x = x + o
     h2 = rms_norm(x, blk["ln2"], eps=cfg.norm_eps, plus_one=plus1)
-    m, aux = _ffn(h2, blk, cfg)
+    m, aux = _ffn(h2, blk, cfg, mesh, routing)
     if cfg.post_norm:
         m = rms_norm(m, blk["ln2_post"], eps=cfg.norm_eps, plus_one=True)
     return x + m, aux, (k, v)
@@ -211,25 +221,27 @@ def _logits(x: torch.Tensor, named: dict) -> torch.Tensor:
 
 # -------------------------------------------------------------- forward ----
 def forward(model: Transformer, tokens: torch.Tensor, *,
-            return_cache: bool = False):
+            return_cache: bool = False, mesh=None, routing=None):
     """Full-sequence forward. tokens: (B, S) int.
 
     Returns (logits (B, S, V) in the parameter dtype, aux) [, cache
-    {"k", "v"}: (L, B, S, K, hd), the post-RoPE keys and the values]."""
+    {"k", "v"}: (L, B, S, K, hd), the post-RoPE keys and the values].
+    `routing` is filled only where the layers run outside a checkpoint
+    (a recompute would append again)."""
     cfg, named, layers = _layers(model)
     S = tokens.shape[1]
-    x = _embed(cfg, named["embed.table"], tokens)
+    x = _embed(cfg, named["embed.table"], tokens, mesh)
     positions = torch.arange(S, device=tokens.device)
     windows = _group_windows(cfg)
     blk_sz = cfg.scan_block
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
 
-    def group(x, aux_sum, g0: int):
+    def group(x, aux_sum, g0: int, route=None):
         kvs = []
         for j in range(blk_sz):
             x, aux, kv = _one_layer(x, layers[g0 + j], windows[j], positions,
-                                    cfg)
+                                    cfg, mesh, route)
             aux_sum = aux_sum + aux
             kvs.append(kv)
         return x, aux_sum, kvs
@@ -241,7 +253,7 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
                 lambda x, a, g0=g0: group(x, a, g0)[:2], x, aux_total,
                 use_reentrant=False)
         else:
-            x, aux_total, kvs = group(x, aux_total, g0)
+            x, aux_total, kvs = group(x, aux_total, g0, routing)
             if return_cache:
                 ks += [k for k, _ in kvs]
                 vs += [v for _, v in kvs]
@@ -279,16 +291,18 @@ def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor):
+def prefill(model: Transformer, tokens: torch.Tensor, *, mesh=None,
+            routing=None):
     """Forward over the prompt: (last-token logits (B, V), not
     softcapped, in the parameter dtype; cache (L, B, S, K, hd))."""
-    logits, cache, _ = forward(model, tokens, return_cache=True)
+    logits, cache, _ = forward(model, tokens, return_cache=True, mesh=mesh,
+                               routing=routing)
     return logits[:, -1], cache
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int, *, mesh=None, routing=None):
     """One decode step. tokens: (B,) int; pos: the position decoded, the
     same for the whole batch.
 
@@ -296,7 +310,7 @@ def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
     entries at `pos` are written in place (the reference returns a new
     cache; at full width a copy a step would double its memory)."""
     cfg, named, layers = _layers(model)
-    x = _embed(cfg, named["embed.table"], tokens)[:, None, :]   # (B, 1, D)
+    x = _embed(cfg, named["embed.table"], tokens, mesh)[:, None, :]
     windows = _group_windows(cfg)
     plus1 = cfg.post_norm
     pos_arr = torch.tensor([pos], device=tokens.device)
@@ -316,7 +330,7 @@ def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
             o = rms_norm(o, blk["ln1_post"], eps=cfg.norm_eps, plus_one=True)
         x = x + o
         h2 = rms_norm(x, blk["ln2"], eps=cfg.norm_eps, plus_one=plus1)
-        m, _ = _ffn(h2, blk, cfg)
+        m, _ = _ffn(h2, blk, cfg, mesh, routing)
         if cfg.post_norm:
             m = rms_norm(m, blk["ln2_post"], eps=cfg.norm_eps, plus_one=True)
         x = x + m

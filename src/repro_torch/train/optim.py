@@ -15,13 +15,21 @@ and consumes the gradients (they are overwritten), so the dense
 Tensors of more than 2^26 elements with three or more axes are updated
 one slice of axis 0 at a time: at the DLRM-Criteo widths the transient
 is one feature's (V, D) f32 slice, 537 MB, not 14 GB.
+
+On a mesh each rank updates its own shards. `norm_groups` ({name:
+process group}) names the sharded gradients, whose squares are summed
+over their group so that the global norm (clipping, `grad_norm`) is the
+whole gradient's on every rank; row-wise adagrad's `global_numel`
+({name: elements}) decides row-wise or elementwise by the whole
+tensor's size, as the reference's global arrays do.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _CHUNK_ELEMS = 1 << 26
 
@@ -68,41 +76,53 @@ def constant_lr(base_lr: float) -> Callable[[int], float]:
 
 
 # ------------------------------------------------------------- norms -------
-def global_norm(tensors) -> torch.Tensor:
-    """L2 norm over every tensor (f32 accumulation, no full f32 copy)."""
+def global_norm(tensors, groups: Optional[dict] = None) -> torch.Tensor:
+    """L2 norm over every tensor (f32 accumulation, no full f32 copy).
+    `tensors` is an iterable, or a dict of named tensors; a name in
+    `groups` is a shard, whose square is summed over its process group."""
+    named = tensors.items() if isinstance(tensors, dict) \
+        else ((None, t) for t in tensors)
     total = None
-    for t in tensors:
+    for name, t in named:
+        sq_t = None
         for (sl,) in _slices(t):
             sq = torch.linalg.vector_norm(sl, dtype=torch.float32).square()
-            total = sq if total is None else total + sq
+            sq_t = sq if sq_t is None else sq_t + sq
+        if groups and name in groups:
+            sq_t = sq_t.clone()
+            dist.all_reduce(sq_t, group=groups[name])
+        total = sq_t if total is None else total + sq_t
     return torch.sqrt(total)
 
 
 # ------------------------------------------------------------- clipping ----
 @torch.no_grad()
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        groups: Optional[dict] = None):
     """Scale every gradient by min(1, max_norm / max(norm, 1e-9)) in
     place, as the JAX package does (in f32, on the device: no host
     sync; a bf16 gradient's product rounded once). Returns (grads,
     global norm before clipping)."""
-    gn = global_norm(grads.values())
+    gn = global_norm(grads, groups)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in grads.values():
         g.mul_(scale)
     return grads, gn
 
 
-def _clipped_norm(grads: Dict[str, torch.Tensor], grad_clip: float):
+def _clipped_norm(grads: Dict[str, torch.Tensor], grad_clip: float,
+                  groups: Optional[dict] = None):
     """The global norm of the gradients before clipping, and the
     gradients clipped to `grad_clip` in place (0: not clipped)."""
     if grad_clip:
-        return clip_by_global_norm(grads, grad_clip)[1]
-    return global_norm(grads.values())
+        return clip_by_global_norm(grads, grad_clip, groups)[1]
+    return global_norm(grads, groups)
 
 
 # ------------------------------------------------------------------ sgd ----
 def sgd(lr_fn: Callable[[int], float], momentum: float = 0.9,
-        grad_clip: float = 0.0) -> Optimizer:
+        grad_clip: float = 0.0,
+        norm_groups: Optional[dict] = None) -> Optimizer:
     """mu = momentum mu + g, p -= lr mu, with f32 momentum `mu`; the
     gradients are clipped to `grad_clip` global norm first (0: off)."""
     def init(params: Dict[str, torch.Tensor]):
@@ -111,7 +131,7 @@ def sgd(lr_fn: Callable[[int], float], momentum: float = 0.9,
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        gn = _clipped_norm(grads, grad_clip)
+        gn = _clipped_norm(grads, grad_clip, norm_groups)
         lr = lr_fn(step)
         for k, p in params.items():
             for p_s, g_s, m_s in _slices(p, grads[k], state["mu"][k]):
@@ -124,7 +144,8 @@ def sgd(lr_fn: Callable[[int], float], momentum: float = 0.9,
 
 # -------------------------------------------------------------- adagrad ----
 def adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
-            grad_clip: float = 0.0) -> Optimizer:
+            grad_clip: float = 0.0,
+            norm_groups: Optional[dict] = None) -> Optimizer:
     """p -= lr * g / (sqrt(acc + g^2) + eps), acc += g^2, elementwise;
     the gradients are clipped to `grad_clip` global norm first (0:
     off)."""
@@ -134,7 +155,7 @@ def adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        gn = _clipped_norm(grads, grad_clip)
+        gn = _clipped_norm(grads, grad_clip, norm_groups)
         lr = lr_fn(step)
         for k, p in params.items():
             for p_s, g_s, a_s in _slices(p, grads[k], state["acc"][k]):
@@ -149,7 +170,9 @@ def adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
 
 # ------------------------------------------------------ rowwise adagrad ----
 def rowwise_adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
-                    rowwise_min_elems: int = 1 << 24) -> Optimizer:
+                    rowwise_min_elems: int = 1 << 24,
+                    norm_groups: Optional[dict] = None,
+                    global_numel: Optional[dict] = None) -> Optimizer:
     """FBGEMM-style row-wise adagrad, as the JAX package has it: a tensor
     of two or more axes and more than `rowwise_min_elems` elements keeps
     one accumulator per row (over its last axis), acc += mean(g^2), and
@@ -167,18 +190,19 @@ def rowwise_adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
     gradient as the reference's leaf does: the update in f32 and one
     rounding into the parameter's dtype, a slice of axis 0 at a time for
     a stacked tensor, so that its f32 temporaries are one feature's."""
-    def _rowwise(p: torch.Tensor) -> bool:
-        return p.dim() >= 2 and p.numel() > rowwise_min_elems
+    def _rowwise(k: str, p: torch.Tensor) -> bool:
+        n = (global_numel or {}).get(k, p.numel())
+        return p.dim() >= 2 and n > rowwise_min_elems
 
     def init(params: Dict[str, torch.Tensor]):
-        return {"acc": {k: torch.zeros(p.shape[:-1] if _rowwise(p)
+        return {"acc": {k: torch.zeros(p.shape[:-1] if _rowwise(k, p)
                                        else p.shape, dtype=torch.float32,
                                        device=p.device)
                         for k, p in params.items()}}
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        gn = global_norm(grads.values())
+        gn = global_norm(grads, norm_groups)
         lr = lr_fn(step)
         for k, p in params.items():
             acc = state["acc"][k]
@@ -205,7 +229,8 @@ def rowwise_adagrad(lr_fn: Callable[[int], float], eps: float = 1e-10,
 def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
          eps: float = 1e-8, weight_decay: float = 0.0,
          grad_clip: float = 1.0,
-         state_dtype: torch.dtype = torch.float32) -> Optimizer:
+         state_dtype: torch.dtype = torch.float32,
+         norm_groups: Optional[dict] = None) -> Optimizer:
     """AdamW with the JAX package's defaults and evaluation order:
     m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2,
     p -= lr (m / bc1) / (sqrt(v / bc2) + eps) [+ lr wd p], with the bias
@@ -226,7 +251,7 @@ def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        gn = _clipped_norm(grads, grad_clip)
+        gn = _clipped_norm(grads, grad_clip, norm_groups)
         lr = lr_fn(step)
         t = f32(step) + f32(1.0)
         bc1 = float(f32(1.0) - f32(b1) ** t)
@@ -256,7 +281,8 @@ def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
 def adafactor(lr_fn: Callable[[int], float], decay: float = 0.8,
               eps1: float = 1e-30, eps2: float = 1e-3,
               clip_threshold: float = 1.0,
-              min_dim_factored: int = 128) -> Optimizer:
+              min_dim_factored: int = 128,
+              norm_groups: Optional[dict] = None) -> Optimizer:
     """Adafactor (Shazeer & Stern 2018) as the JAX package has it, with
     no first moment: a parameter whose last two dims are both at least
     `min_dim_factored` keeps factored second moments, a row mean `vr`
@@ -292,7 +318,7 @@ def adafactor(lr_fn: Callable[[int], float], decay: float = 0.8,
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        gn = global_norm(grads.values())
+        gn = global_norm(grads, norm_groups)
         lr = lr_fn(step)
         t = f32(step) + f32(1.0)
         beta = f32(1.0) - t ** f32(-decay)

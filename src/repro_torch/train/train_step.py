@@ -8,7 +8,7 @@ whole batch.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -30,8 +30,11 @@ def _split(batch: dict, microbatches: int) -> list:
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                    microbatches: int = 1):
-    """loss_fn(model, batch) -> (loss, metrics dict).
+                    microbatches: int = 1,
+                    grad_fn: Optional[Callable] = None):
+    """loss_fn(model, batch) -> (loss, metrics dict). `grad_fn({name:
+    gradient}) -> {name: gradient}`, where given, runs between the
+    gradients and the update (on a mesh: their reduction over ranks).
 
     Returns train_step(model, opt_state, step, batch) ->
     (model, opt_state, metrics). The model's parameters and the optimizer
@@ -63,6 +66,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                 parts.append(mb_metrics)
             metrics = {k: torch.stack([m[k].detach() for m in parts]).mean()
                        for k in parts[0]}
+        if grad_fn is not None:
+            grads = grad_fn(grads)
         _, opt_state, stats = optimizer.update(grads, opt_state, params,
                                                step)
         out = {k: v.detach() if torch.is_tensor(v) else v

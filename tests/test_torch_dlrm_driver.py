@@ -94,12 +94,12 @@ def _assert_within_ulps(got, want, ulps, name=""):
 
 # ----------------------------------------------------- configs, registry ---
 def test_dlrm_criteo_config_is_the_reference_one_with_rows_cut():
-    """Every field of the reference's dlrm-criteo but the sharding ones,
-    rows a table 2^23 cut to 2^22 (listed in `reduced`), the arch's
+    """Every field of the reference's dlrm-criteo, the sharding ones
+    included, rows a table 2^23 cut to 2^22 (listed in `reduced`), the arch's
     family, source, optimizer and shapes; the registry resolves it."""
     jarch = j_get_arch("dlrm-criteo")
     got, want = _fields(ARCH.model), _fields(jarch.model)
-    assert set(want) - set(got) == {"tp_lookup", "sharding_overrides"}
+    assert set(want) - set(got) == set()
     assert set(got) - set(want) == {"reduced"}
     reduced = got.pop("reduced")
     assert len(reduced) == 1 and "2^23 -> 2^22" in reduced[0]
@@ -115,8 +115,7 @@ def test_dlrm_criteo_config_is_the_reference_one_with_rows_cut():
     assert "dlrm-criteo" in registry.list_archs()
     assert [f.name for f in dataclasses.fields(DLRMConfig)
             if f.name != "reduced"] == \
-        [f.name for f in dataclasses.fields(type(jarch.model))
-         if f.name not in ("tp_lookup", "sharding_overrides")]
+        [f.name for f in dataclasses.fields(type(jarch.model))]
 
 
 def test_reduced_model_matches_jax_driver():

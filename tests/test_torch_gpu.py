@@ -911,3 +911,66 @@ def test_cuda_full_graph_loss_and_grads_match_the_cpu():
     for gc, gg in zip(grads_c, grads_g):
         assert float(torch.linalg.vector_norm(gg.cpu() - gc)
                      / torch.linalg.vector_norm(gc)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_local_rows_mode_matches_plain_versions():
+    """The row kernels' local-rows mode (the row-sharded lookup's): tables
+    of rows [row0, row0 + V); ids over a larger range, repeated, and
+    negative; the lane walk (D 128, f32 and bf16), the flat walk (D 10
+    and 1, f32) and bags of 1, 4 and 17 (the scatter's memory-compare
+    branch): the forward bitwise its plain version (an id outside reads
+    0, not NaN), the scatter with non-negative d_out within rtol 1e-5 /
+    atol 1e-6 of its plain version, feature by feature; each launch
+    counted under its `_local` name; row0 0 over the whole table is the
+    unsharded kernel's output bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for d, dtype in ((128, torch.float32), (128, torch.bfloat16),
+                     (10, torch.float32), (1, torch.float32)):
+        for bag in (1, 4, 17):
+            for row0, v in ((0, 64), (48, 16)):
+                tables = torch.randn((3, v, d), device="cuda",
+                                     generator=gen).to(dtype)
+                ids = torch.randint(-4, 80, (37, 3, bag), device="cuda",
+                                    generator=gen, dtype=torch.int32)
+                ids[..., bag // 2:] = ids[..., :1]
+                before = dict(eb.LAUNCHES)
+                got = eb.embedding_bag_fwd(tables, ids, row0=row0)
+                assert torch.equal(got, ref.embedding_bag_local_ref(
+                    tables, ids, row0)), (d, dtype, bag, row0)
+                assert not bool(torch.isnan(got).any())
+                g = torch.rand((37, 3, d), device="cuda", generator=gen)
+                grad = eb.embedding_bag_bwd(g, ids, v, dtype=dtype,
+                                            row0=row0)
+                want = ref.embedding_bag_local_bwd_ref(g, ids, row0, v,
+                                                       dtype=dtype)
+                for f in range(3):
+                    if dtype == torch.float32:
+                        torch.testing.assert_close(grad[f], want[f],
+                                                   rtol=1e-5, atol=1e-6)
+                        continue
+                    # bf16 atomics round every add: a row n slots name
+                    # within 2 (n + 1) bf16 ulps of its (positive) sum
+                    lid = ids[:, f].long().reshape(-1) - row0
+                    n = torch.bincount(lid[(lid >= 0) & (lid < v)],
+                                       minlength=v).float()[:, None]
+                    w = want[f].float()
+                    ulp = torch.exp2(torch.floor(torch.log2(
+                        w.abs().clamp(min=2.0 ** -126))) - 7)
+                    assert bool(((grad[f].float() - w).abs()
+                                 <= 2 * (n + 1) * ulp).all())
+                assert eb.LAUNCHES["embedding_bag_fwd_local"] == \
+                    before["embedding_bag_fwd_local"] + 1
+                assert eb.LAUNCHES["embedding_bag_bwd_local"] == \
+                    before["embedding_bag_bwd_local"] + 1
+                assert eb.LAUNCHES["embedding_bag_fwd"] == \
+                    before["embedding_bag_fwd"]
+    tables = torch.randn((3, 64, 32), device="cuda", generator=gen)
+    ids = torch.randint(0, 64, (37, 3, 4), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    assert torch.equal(eb.embedding_bag_fwd(tables, ids, row0=0),
+                       eb.embedding_bag_fwd(tables, ids))
+    with pytest.raises(ValueError, match="row0"):
+        eb.embedding_bag_fwd(tables, ids, row0=-1)

@@ -686,9 +686,15 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         .sum().backward()
     w = torch.zeros(4, 2, requires_grad=True)
     ops.sage_aggregate(torch.zeros(2, 3, 4), w).sum().backward()
+    ids = torch.zeros(3, 2, 1, dtype=torch.int32)
+    ops.embedding_bag_local(torch.zeros(2, 5, 4), ids, 5)
+    ops.embedding_bag_local_bwd(torch.zeros(3, 2, 4), ids, 5, 5,
+                                torch.float32)
     assert ops.launch_counts() == before
     assert set(before) == {"embedding_bag_fwd", "embedding_bag_bwd",
                            "embedding_bag_fused_fwd",
+                           "embedding_bag_fwd_local",
+                           "embedding_bag_bwd_local",
                            "dot_interact_fwd", "dot_interact_bwd",
                            "sage_aggregate_fwd", "sage_aggregate_bwd",
                            "sage_widen_w"}

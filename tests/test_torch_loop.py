@@ -95,7 +95,12 @@ def test_port_never_imports_jax_or_the_jax_package():
             "kimi_k2_1t_a32b")} <= set(files)
     assert {ROOT / "examples" / f"torch_{name}.py" for name in (
         "quickstart", "process_pipeline", "multisource_dlrm",
-        "fleet_tuning", "live_fleet")} <= set(files)
+        "fleet_tuning", "live_fleet", "elastic_rescale")} <= set(files)
+    # slice 16's distribution modules
+    assert {PORT / "common" / "shardlib.py", PORT / "launch" / "mesh.py",
+            PORT / "launch" / "programs.py",
+            PORT / "train" / "collectives.py",
+            PORT / "train" / "elastic.py"} <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")
            or (m.startswith("benchmarks.")

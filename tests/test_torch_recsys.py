@@ -74,7 +74,7 @@ def test_recsys_configs_match_jax():
     jarch = j_get_arch("wide-deep")
     got = _fields(ARCH.model)
     want = _fields(jarch.model)
-    assert set(want) - set(got) == {"tp_lookup", "sharding_overrides"}
+    assert set(want) - set(got) == set()
     assert got.pop("reduced") == ()
     assert got == {k: v for k, v in want.items() if k in got}
     for key in ("arch_id", "family", "source", "optimizer"):

@@ -78,9 +78,7 @@ def _configs(arch_id, size="reduced"):
                 train.reduced_model(registry.get_arch(arch_id)))
     kw = _fields(j_get_arch(arch_id).model)
     kw.update(WIDE[arch_id])
-    jcfg = JRecsysConfig(**kw)
-    kw.pop("tp_lookup"), kw.pop("sharding_overrides")
-    return jcfg, RecsysConfig(**kw)
+    return JRecsysConfig(**kw), RecsysConfig(**kw)
 
 
 def _jax_params(jcfg, seed=0):
@@ -151,7 +149,7 @@ def _assert_trees_close(got, want, **tol):
 def test_configs_match_jax(arch_id):
     arch, jarch = registry.get_arch(arch_id), j_get_arch(arch_id)
     got, want = _fields(arch.model), _fields(jarch.model)
-    assert set(want) - set(got) == {"tp_lookup", "sharding_overrides"}
+    assert set(want) - set(got) == set()
     assert got.pop("reduced") == ()
     assert got == {k: v for k, v in want.items() if k in got}
     for key in ("arch_id", "family", "source", "optimizer"):
