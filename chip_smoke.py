@@ -680,6 +680,26 @@ def time_ms(fn, args_list, iters: int = 20, kernel: str = None) -> Timing:
                        f"events or read its reference spins off")
 
 
+def named_kernel_ms(fn, args_list, kernel: str, iters: int = 20):
+    """(device ms a call, events) of the kernels named `kernel` alone in
+    a profiler window of `iters` calls (each call may launch others);
+    the window must hold `iters` of them and a clock that reads its
+    reference spins right, as `time_ms`'s."""
+    for a in args_list[:2]:
+        fn(*a)
+    for attempt in range(WINDOW_TRIES):
+        prof, _, _, clock = _profiled(fn, args_list, iters, attempt)
+        ev = [e for e in prof.key_averages()
+              if kernel in e.key and e.self_device_time_total > 0]
+        n = sum(e.count for e in ev)
+        if n >= iters and clock_ok(clock):
+            return sum(e.self_device_time_total for e in ev) / 1e3 / iters, n
+        print(f"  torch.profiler recorded {n} of {iters} {kernel} events, "
+              f"window clock {clock}; profiling again", flush=True)
+    raise RuntimeError(f"torch.profiler gave no full window of {kernel} in "
+                       f"{WINDOW_TRIES} tries")
+
+
 def kernel_record(tag, t: Timing, plain: Timing, lib, bound, err,
                   **extra) -> dict:
     """A kernel's record for the `kernels` line, printed: its device time
@@ -2059,6 +2079,21 @@ def phase_sage_kernels(shape, cfg) -> dict:
         t = time_ms(
             lambda g, w, a: sa.sage_aggregate_bwd(g, w, a, f, need_neigh),
             bsets, kernel="sage_dw_kernel")
+        dneigh = None
+        if need_neigh:
+            # sage_dneigh_kernel alone, read by name from a window of the
+            # same backward (the row's ms holds it and sage_dw_kernel)
+            dn_ms, dn_events = named_kernel_ms(
+                lambda g, w, a: sa.sage_aggregate_bwd(g, w, a, f, True),
+                bsets, "sage_dneigh_kernel")
+            dn_bound = bound_ms(4 * (b * h + d * h + b * f * d), 2 * b * d * h)
+            dneigh = {"ms": dn_ms, "events": dn_events,
+                      "bound_ms": dn_bound[0], "bound_by": dn_bound[1]}
+            print(f"    sage_dneigh_kernel {tag} ({b}, {f}, {d}) from "
+                  f"({b}, {h}) x ({d}, {h})^T: {dn_ms:.4f} ms on the card "
+                  f"({dn_events} events), bound {dn_bound[0]:.4f} by "
+                  f"{dn_bound[1]} ({dn_bound[0] / dn_ms:.0%} of it)",
+                  flush=True)
         plain = time_ms(lambda g, w, a: ref.sage_aggregate_bwd_ref(
             g, w, a, f, need_neigh=need_neigh), bsets)
         # one library call computes d_w alone (mm); with d_neigh, the
@@ -2083,7 +2118,8 @@ def phase_sage_kernels(shape, cfg) -> dict:
              "plain_events": plain.events,
              "library_ms": None if lib is None else lib.ms,
              "library_events": None if lib is None else lib.events,
-             "bound_ms": bms, "bound_by": by})
+             "bound_ms": bms, "bound_by": by,
+             **({"sage_dneigh_kernel": dneigh} if dneigh else {})})
         del bsets
         torch.cuda.empty_cache()
 
@@ -4284,28 +4320,41 @@ def phase_lm_train(arch_id: str) -> dict:
     return res
 
 
-def phase_lm_profile(arch_id: str) -> float:
+def phase_lm_profile(arch_id: str, mesh=None) -> float:
     """One train step at LM_TRAIN's profile_batch, in one microbatch,
     under torch.profiler (the driver's shapes already warm in this
     process): device time by kernel, the GEMMs' share, against the
-    host-clock step. Returns the step's device ms."""
+    host-clock step; on `mesh` the placed step (LMPlacement, as the
+    driver's --dist builds it). Returns the step's device ms."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import train
+    from repro_torch.launch.programs import LMPlacement
+    from repro_torch.models import transformer as tfm
     from repro_torch.train.optim import make_optimizer
     from repro_torch.train.train_step import make_train_step
     dev = torch.device("cuda")
     spec = LM_TRAIN[arch_id]
     arch = get_arch(arch_id)
     shape = arch.shape("train_4k")
-    model = train.init_params_for(arch, arch.model, 0, device=dev)
-    opt = make_optimizer(arch.optimizer, lr=spec["lr"])
+    pl, opt_kw, grad_fn = None, {}, None
+    if mesh is None:
+        model = train.init_params_for(arch, arch.model, 0, device=dev)
+    else:
+        pl = LMPlacement(mesh, arch.model, optimizer=arch.optimizer)
+        model = tfm.init_params(arch.model, seed=0, device=dev,
+                                blocks=pl.blocks())
+        opt_kw["norm_groups"] = pl.norm_groups()
+        grad_fn = pl.reduce_grads
+    opt = make_optimizer(arch.optimizer, lr=spec["lr"], **opt_kw)
     state = opt.init(dict(model.named_parameters()))
-    step_fn = make_train_step(train.make_loss_fn(arch, arch.model), opt)
+    step_fn = make_train_step(
+        train.make_loss_fn(arch, arch.model, placement=pl), opt,
+        grad_fn=grad_fn)
     batch = train.make_batch_fn(arch, arch.model, spec["profile_batch"],
                                 np.random.RandomState(13), shape=shape,
-                                device=dev)()
+                                device=dev, mesh=mesh)()
     rows, wall_ms = profile_steps(
         lambda k: step_fn(model, state, 1 + k, batch), 1)
     device_ms = sum(ms for _, ms in rows)
@@ -4313,8 +4362,8 @@ def phase_lm_profile(arch_id: str) -> float:
     gemm = sum(ms for name, ms in rows
                if any(k in name.lower() for k in ("gemm", "nvjet", "cutlass",
                                                   "xmma")))
-    print(f"  {arch_id} train step (batch {spec['profile_batch']}, one "
-          f"microbatch): {device_ms:.3f} ms of "
+    print(f"  {arch_id} {'placed ' if pl else ''}train step (batch "
+          f"{spec['profile_batch']}, one microbatch): {device_ms:.3f} ms of "
           f"device time in {wall_ms:.3f} ms of host-clock time "
           f"(profiled); GEMM kernels {gemm:.3f} ms "
           f"({100 * gemm / device_ms:.1f}%)", flush=True)
@@ -4494,6 +4543,295 @@ def phase_lm_serve(arch_id: str) -> dict:
                                  f"cos {r['cos'].tolist()}")
         res["f32_check"] = check
     return res
+
+
+# ---- slice 17: the LM family on a mesh (LMPlacement), a world of one ----
+# The placed driver (`run(dist_run=True, mesh_shape=(1, 1))`, NCCL) at
+# gemma2-2b's train_4k with lm_train's batch and microbatches, 3 steps,
+# against the unplaced lm_train_gemma2-2b run of the same call. Stated
+# before the first run: the first loss bitwise (at one rank the placed
+# forward is the unplaced one's arithmetic: the lookup's local-rows kernel
+# reads the same bf16 rows); the next two within LM_DIST_LOSS_RTOL (the
+# tied table's gradient from the local-rows scatter sums a repeated
+# token's rows in bf16 atomics, F.embedding's backward in f32; 2e-4, about
+# 4x the largest of five readings, 1.03e-6, 1.04e-5, 2.73e-5, 1.9e-7 and
+# 4.53e-5, NVIDIA H100 80GB HBM3, 700.00 W); the peak within
+# LM_DIST_PEAK_TOL of the unplaced run's. Then
+# one placed train step profiled at lm_profile's batch, its device time
+# printed beside the unplaced step's of the same call. Then
+# qwen2-moe-a2.7b's placed prefill and decode against the unplaced ones
+# on the same weights (LM_DIST_SERVE: the prefill's last logits and the
+# decode steps' held at LM_SERVE's bf16 tolerance at the rows and
+# positions whose experts agree, as lm_serve holds its decode; the
+# unplaced path against itself beside
+# it, since the MoE's combine sums bf16 rows with atomics in no fixed
+# order on the card, so that neither is bitwise), the local-rows kernels
+# at the two LM embedding shapes, and the byte plan of the training runs
+# one card cannot hold on the (16, 16) production mesh.
+LM_DIST = dict(arch="gemma2-2b", steps=3)
+LM_DIST_LOSS_RTOL = 2e-4
+LM_DIST_PEAK_TOL = 0.05
+LM_DIST_SERVE = dict(arch="qwen2-moe-a2.7b", prompt=1024, batch=4, decode=8)
+# (arch, tokens (batch, seq) of its main-path lookup): gemma2-2b's train
+# batch at train_4k, qwen2-moe-a2.7b's serving prefill
+LM_EMBED_SHAPES = (("gemma2-2b", 4, 4096), ("qwen2-moe-a2.7b", 4, 4096))
+LM_PLAN_ARCHS = ("qwen2-moe-a2.7b", "qwen2.5-32b", "kimi-k2-1t-a32b")
+
+
+def _lm_local_kernels(arch_id: str, b: int, seq: int) -> dict:
+    """The local-rows forward and scatter at an LM's whole vocab as one
+    shard (the lookup of a world of one rank), bf16, ids of b x seq
+    TokenStream tokens: `_check_local`, then each timed beside its plain
+    version, its bound and the unplaced lookup's own PyTorch call
+    (F.embedding forward; index_add_ of the rows for the scatter)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import embedding_bag as eb, ref
+    dev = torch.device("cuda")
+    cfg = get_arch(arch_id).model
+    v, d = cfg.vocab_size, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(27)
+    toks = torch.from_numpy(TokenStream(v, seq).batch(b)["tokens"]).to(dev)
+    ids = toks.reshape(-1, 1, 1).to(torch.int32)
+    n = ids.shape[0]
+    tag = f"{arch_id} ({n}, 1, 1) into (1, {v}, {d})"
+    tables = torch.empty((1, v, d), dtype=torch.bfloat16, device=dev)
+    tables.normal_(generator=gen)
+    chk = _check_local(tables, ids, 0, tag)
+    tables.normal_(generator=gen)
+    uniq = int(torch.unique(ids).numel())
+    flat = ids.view(-1).long()
+    fwd = kernel_record(
+        f"embedding_bag_fwd local bf16 {tag}",
+        time_ms(lambda: eb.embedding_bag_fwd(tables, ids, row0=0), [()],
+                kernel="embedding_bag_fwd_kernel"),
+        time_ms(lambda: ref.embedding_bag_local_ref(tables, ids, 0), [()]),
+        time_ms(lambda: F.embedding(flat, tables[0]), [()]),
+        bound_ms(n * 4 + uniq * d * 2 + n * d * 4, n * d), 0.0,
+        shape=[n, 1, 1, v, d], unique_rows=uniq, checks=chk)
+    d_out = torch.randn((n, 1, d), device=dev, generator=gen) \
+        .to(torch.bfloat16).float()
+    grad = tables.zero_()
+    t = time_ms(lambda: eb.embedding_bag_scatter(d_out, ids, grad, row0=0),
+                [()], kernel="embedding_bag_bwd_kernel")
+    plain = time_ms(lambda: ref.embedding_bag_local_bwd_ref(
+        d_out, ids, 0, v, dtype=torch.bfloat16), [()], iters=3)
+    upd = d_out.view(n, d).to(torch.bfloat16)
+    lib = time_ms(lambda: grad[0].index_add_(0, flat, upd), [()])
+    bwd = kernel_record(
+        f"embedding_bag_bwd local bf16 {tag}", t, plain, lib,
+        bound_ms(n * d * 4 + n * 4 + 2 * uniq * d * 2, n * d), 0.0,
+        shape=[n, 1, 1, v, d], unique_rows=uniq)
+    del tables, grad, d_out, upd
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _serve_run(model, toks, p_len: int, n_dec: int, placement=None):
+    """Prefill of toks[:, :p_len] and n_dec decode steps (unplaced into a
+    cache of p_len + n_dec entries, or through `placement`, whose cache
+    has them): (last prefill logits, each step's logits, each step's
+    routing, seconds of prefill and of decode, the prefill's routing of
+    each row's last position)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    cfg = model.cfg
+    if toks.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    pre_route = []
+    last, cache = tfm.prefill(model, toks[:, :p_len], routing=pre_route,
+                              placement=placement)
+    pre_route = [r.view(toks.shape[0], p_len, -1)[:, -1].sort(-1).values
+                 for r in pre_route]
+    if placement is None:
+        big = tfm.init_cache(cfg, toks.shape[0], p_len + n_dec,
+                             dtype=cache["k"].dtype, device=toks.device)
+        for n in ("k", "v"):
+            big[n][:, :, :p_len] = cache[n]
+        cache = big
+    if toks.is_cuda:
+        torch.cuda.synchronize()
+    t1 = time.monotonic()
+    logits, routes = [], []
+    for pos in range(p_len, p_len + n_dec):
+        route = []
+        lg, cache = tfm.decode_step(model, cache, toks[:, pos], pos,
+                                    routing=route, placement=placement)
+        logits.append(lg)
+        routes.append([r.sort(-1).values for r in route])
+    if toks.is_cuda:
+        torch.cuda.synchronize()
+    return last, logits, routes, t1 - t0, time.monotonic() - t1, pre_route
+
+
+def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
+    """Slice 17 (see LM_DIST above): the placed gemma2-2b driver against
+    `unplaced` (lm_train_gemma2-2b's result) and a profiled placed step
+    against `unplaced_device_ms` (lm_profile_gemma2-2b's), the placed
+    qwen2-moe serve path against the unplaced one, the local-rows kernels
+    at the LM embedding shapes and the byte plan. Returns {kernel name:
+    {"launches": the placed driver's, "serve_launches": the placed serve
+    path's, "<arch>": the kernel's record at that shape}}."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.programs import LMPlacement, rank_bytes
+    from repro_torch.models import transformer as tfm
+
+    out = {k: {} for k in DIST_KERNELS}
+    if os.path.exists(DIST_PG_FILE):
+        os.remove(DIST_PG_FILE)
+    dev = mesh_lib.init_distributed("cuda", rank=0, world_size=1,
+                                    init_method=f"file://{DIST_PG_FILE}")
+    try:
+        arch_id, spec = LM_DIST["arch"], LM_TRAIN[LM_DIST["arch"]]
+        ops.reset_launch_counts()
+        res = train.run(arch_id, steps=LM_DIST["steps"], batch=spec["batch"],
+                        shape=get_arch(arch_id).shape("train_4k"), full=True,
+                        lr=spec["lr"], microbatches=spec["microbatches"],
+                        device="cuda", log_every=1, dist_run=True,
+                        mesh_shape=(1, 1))
+        counts = ops.launch_counts()
+        for k in DIST_KERNELS:
+            out[k]["launches"] = counts[k]
+        losses = res["losses"]
+        want = unplaced["losses"][:len(losses)]
+        peak, peak0 = res["max_memory_allocated"], \
+            unplaced["max_memory_allocated"]
+        summary = {"losses": losses, "unplaced_losses": want,
+                   "bitwise": losses == want,
+                   "max_rel_diff": max(abs(a - b) / abs(b)
+                                       for a, b in zip(losses, want)),
+                   "tokens_per_s": res["tokens_per_s"],
+                   "unplaced_tokens_per_s": unplaced["tokens_per_s"],
+                   "warm_step_s": res["warm_step_s"],
+                   "unplaced_warm_step_s": unplaced["warm_step_s"],
+                   "max_memory_allocated": peak,
+                   "unplaced_max_memory_allocated": peak0,
+                   "peak_ratio": peak / peak0, "mesh": res["mesh"],
+                   "launches": {k: counts[k] for k in DIST_KERNELS}}
+        print(f"  lm_dist {arch_id} train_4k " + json.dumps(summary),
+              flush=True)
+        if losses[0] != want[0]:
+            raise AssertionError(f"lm_dist first loss {losses[0]} is not "
+                                 f"the unplaced driver's {want[0]}")
+        if not all(abs(a - b) <= LM_DIST_LOSS_RTOL * abs(b)
+                   for a, b in zip(losses, want)):
+            raise AssertionError(f"lm_dist losses {losses} off the "
+                                 f"unplaced {want}")
+        if not peak <= (1 + LM_DIST_PEAK_TOL) * peak0:
+            raise AssertionError(f"lm_dist peak {peak} over {peak0}")
+        n_mb = LM_DIST["steps"] * spec["microbatches"]
+        if min(counts[k] for k in DIST_KERNELS) < n_mb:
+            raise AssertionError(f"lm_dist launches {counts}: the lookup "
+                                 f"takes the local-rows kernels each "
+                                 f"microbatch")
+        torch.cuda.empty_cache()
+        placed_ms = phase_lm_profile(arch_id, mesh=mesh_lib.make_mesh(
+            1, 1, dev, exchange_one_shard=True))
+        print(f"  lm_dist {arch_id} profiled train step (batch "
+              f"{spec['profile_batch']}): placed {placed_ms:.3f} ms, "
+              f"unplaced {unplaced_device_ms:.3f} ms of device time "
+              f"(ratio {placed_ms / unplaced_device_ms:.4f})", flush=True)
+        torch.cuda.empty_cache()
+
+        sv = LM_DIST_SERVE
+        cfg = get_arch(sv["arch"]).model
+        p_len, b, n_dec = sv["prompt"], sv["batch"], sv["decode"]
+        toks = torch.from_numpy(TokenStream(cfg.vocab_size, p_len + n_dec)
+                                .batch(b)["tokens"]).to(dev)
+        model = tfm.init_params(cfg, seed=0, device=dev)
+        base = _serve_run(model, toks, p_len, n_dec)
+        # the unplaced path against itself: the MoE's combine (index_add
+        # of bf16 rows, atomics on the card) sums in no fixed order
+        again = _serve_run(model, toks, p_len, n_dec)
+        mesh = mesh_lib.make_mesh(1, 1, dev, exchange_one_shard=True)
+        pl = LMPlacement(mesh, cfg, kind="decode", batch=b,
+                         cache_len=p_len + n_dec)
+        pl.shard_model(model)
+        ops.reset_launch_counts()
+        got = _serve_run(model, toks, p_len, n_dec, placement=pl)
+        counts = ops.launch_counts()
+        for k in DIST_KERNELS:
+            out[k]["serve_launches"] = counts[k]
+        del model
+        torch.cuda.empty_cache()
+
+        def held_to(run):
+            """(positions whose experts agree with `base`'s, the logits'
+            max and mean |diff| and min cosine there, bitwise), the
+            prefill's last position first, then each decode step."""
+            flips = torch.zeros((b, 1 + n_dec), dtype=torch.bool,
+                                device=dev)
+            for r0, r1 in zip(base[5], run[5]):
+                flips[:, 0] |= (r0 != r1).any(-1)
+            for i in range(n_dec):
+                for r0, r1 in zip(base[2][i], run[2][i]):
+                    flips[:, 1 + i] |= (r0 != r1).any(-1)
+            held = ~flips
+            a = torch.cat([run[0].float()[:, None],
+                           torch.stack(run[1], 1)], 1)
+            w = torch.cat([base[0].float()[:, None],
+                           torch.stack(base[1], 1)], 1)
+            diff = (a - w).abs()
+            cos = torch.nn.functional.cosine_similarity(a, w, dim=-1)
+            return held, {
+                "prefill_bitwise": bool(torch.equal(run[0], base[0])),
+                "decode_bitwise": bool(torch.equal(a[:, 1:], w[:, 1:])),
+                "prefill_flips": int(flips[:, 0].sum()),
+                "flips": int(flips[:, 1:].sum()),
+                "positions": flips[:, 1:].numel(),
+                "max_abs": float(diff.amax(-1)[held].max()) if bool(
+                    held.any()) else None,
+                "mean_abs": float(diff.mean(-1)[held].max()) if bool(
+                    held.any()) else None,
+                "min_cos": float(cos[held].min()) if bool(held.any())
+                else None,
+                "prefill_max_abs": float(diff[:, 0].amax(-1)[held[:, 0]]
+                                         .max()) if bool(held[:, 0].any())
+                else None}
+
+        held, res_s = held_to(got)
+        res_s.update(unplaced_twice=held_to(again)[1],
+                     prefill_s=got[3], unplaced_prefill_s=base[3],
+                     decode_step_s=got[4] / n_dec,
+                     unplaced_decode_step_s=base[4] / n_dec,
+                     launches={k: counts[k] for k in DIST_KERNELS},
+                     reduced=[f"prompt {p_len}, batch {b}, {n_dec} decode "
+                              f"steps, for the phase's time"])
+        lim = LM_SERVE[sv["arch"]]
+        print(f"  lm_dist {sv['arch']} serve " + json.dumps(res_s),
+              flush=True)
+        if not bool(held.any()) or not (
+                res_s["max_abs"] <= lim["max_abs"]
+                and res_s["mean_abs"] <= lim["mean_abs"]
+                and res_s["min_cos"] >= lim["cos"]):
+            raise AssertionError(f"lm_dist serve off the unplaced path: "
+                                 f"{res_s}")
+        if min(counts[k] for k in ("embedding_bag_fwd_local",)) < 1 + n_dec:
+            raise AssertionError(f"lm_dist serve launches {counts}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    for arch_id, b, seq in LM_EMBED_SHAPES:
+        recs = _lm_local_kernels(arch_id, b, seq)
+        out["embedding_bag_fwd_local"][arch_id] = recs["fwd"]
+        out["embedding_bag_bwd_local"][arch_id] = recs["bwd"]
+
+    for arch_id in LM_PLAN_ARCHS:
+        arch = get_arch(arch_id)
+        plan = rank_bytes(arch_id, "train_4k", (16, 16))
+        print(f"  byte plan {arch_id} train_4k on (16, 16): " + json.dumps(
+            {"one_device_bytes": train.lm_state_bytes(arch.model,
+                                                      arch.optimizer),
+             **plan}), flush=True)
+    return out
 
 
 def phase_kernels_bench() -> list:
@@ -4735,7 +5073,10 @@ def run_phases(agent_procs) -> int:
             recs[name][tag] = dict(
                 rec, launches=seq_launches[arch_id][name],
                 in_step_ms=seq_in_step[arch_id].get(name))
-    run_lm_phases()
+    for name, by in run_lm_phases().items():
+        recs[name]["lm_dist_launches"] = by.pop("launches")
+        recs[name]["lm_serve_launches"] = by.pop("serve_launches")
+        recs[name]["lm"] = by
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]
@@ -4747,25 +5088,34 @@ def run_phases(agent_procs) -> int:
     return 0
 
 
-def run_lm_phases():
-    """Slice 15's phases: the LM family (no kernel of the `kernels` line
-    lies on its path), the kernel benchmark and the roofline."""
+def run_lm_phases() -> dict:
+    """Slice 15's phases: the LM family unplaced (no kernel of the
+    `kernels` line lies on its path), then slice 17's `lm_dist` (the
+    placed LM, whose lookup runs the local-rows kernels), the kernel
+    benchmark and the roofline. Returns lm_dist's records."""
     import torch
     with Phase("lm_attention"):
         phase_lm_attention()
     torch.cuda.empty_cache()
+    trained, device_ms = {}, {}
     for arch_id in LM_TRAIN:
         with Phase(f"lm_train_{arch_id}"):
-            phase_lm_train(arch_id)
+            trained[arch_id] = phase_lm_train(arch_id)
         with Phase(f"lm_profile_{arch_id}"):
-            phase_lm_profile(arch_id)
+            device_ms[arch_id] = phase_lm_profile(arch_id)
     for arch_id in LM_SERVE:
         with Phase(f"lm_serve_{arch_id}"):
             phase_lm_serve(arch_id)
+    torch.cuda.empty_cache()
+    with Phase("lm_dist"):
+        dist_recs = phase_lm_dist(trained[LM_DIST["arch"]],
+                                  device_ms[LM_DIST["arch"]])
+    torch.cuda.empty_cache()
     with Phase("kernels_bench"):
         phase_kernels_bench()
     with Phase("roofline"):
         phase_roofline()
+    return dist_recs
 
 
 if __name__ == "__main__":

@@ -13,6 +13,14 @@ over their product, major to minor): entry for entry the JAX
 build. `placements` turns a spec into the per-mesh-dimension layout of a
 torch `DeviceMesh` (`Shard(d)` / `Replicate()`).
 
+The LM's logical axes live here too (`lm_param_logical`,
+`lm_opt_logical`, `lm_cache_logical`, and `lm_rules`): those of the
+reference's transformer parameters (repro/models/transformer.py:45-117),
+its MoE's (repro/models/moe.py:47-66), its optimizer state's
+(repro/train/optim.py:312-342) and its KV cache's, so that the port's
+placement (launch/programs.LMPlacement) stores every leaf as the block
+the reference's `sanitized_pspec` gives it.
+
 `compat_shard_map`, `pspec_tree`, `sharding_tree` and `constrain` are JAX
 plumbing and have no counterpart: the port's explicit collectives name
 their process groups themselves (`launch.mesh.Mesh`).
@@ -32,7 +40,8 @@ DEFAULT_RULES: dict = {
     "batch": ("pod", "data"),
     "seq": None,
     # Megatron-style sequence parallelism of the residual stream between
-    # blocks (the LM's placements; read by the next slice's LM program)
+    # blocks (norms and adds local; the LM gathers it before attention
+    # and the FFN and reduce-scatters after)
     "act_seq": "model",
     "act_embed": "model",
     "act_vocab": "model",
@@ -180,19 +189,108 @@ def placements(spec: Spec, mesh) -> tuple:
                  for a in mesh.axis_names)
 
 
+# ------------------------------------------------------------------- LM ----
+def lm_param_logical(cfg) -> dict:
+    """{dotted parameter name: logical axes} of a TransformerConfig, the
+    reference's tree (transformer.init_params, moe.init_moe_params) by
+    the port's names (models/transformer.param_shapes)."""
+    att = {"wq": ("layers", "fsdp", "heads", "head_dim"),
+           "wk": ("layers", "fsdp", "kv_heads", "head_dim"),
+           "wv": ("layers", "fsdp", "kv_heads", "head_dim"),
+           "wo": ("layers", "heads", "head_dim", "fsdp")}
+    lg = {"embed.table": ("vocab", "embed"),
+          "blocks.ln1": ("layers", "embed"),
+          "blocks.ln2": ("layers", "embed")}
+    lg.update({f"blocks.attn.{k}": v for k, v in att.items()})
+    if cfg.qkv_bias:
+        lg.update({"blocks.attn.bq": ("layers", "heads", "head_dim"),
+                   "blocks.attn.bk": ("layers", "kv_heads", "head_dim"),
+                   "blocks.attn.bv": ("layers", "kv_heads", "head_dim")})
+    if cfg.post_norm:
+        lg.update({"blocks.ln1_post": ("layers", "embed"),
+                   "blocks.ln2_post": ("layers", "embed")})
+    mlp = {"wi": ("layers", "fsdp", "mlp"), "wg": ("layers", "fsdp", "mlp"),
+           "wo": ("layers", "mlp", "fsdp")}
+    if cfg.is_moe:
+        lg.update({"blocks.moe.router": ("layers", "embed", None),
+                   "blocks.moe.wi": ("layers", "expert", "fsdp",
+                                     "expert_mlp"),
+                   "blocks.moe.wg": ("layers", "expert", "fsdp",
+                                     "expert_mlp"),
+                   "blocks.moe.wo": ("layers", "expert", "expert_mlp",
+                                     "fsdp")})
+        if cfg.n_shared_experts:
+            lg.update({f"blocks.moe.shared.{k}": v for k, v in mlp.items()})
+    else:
+        lg.update({f"blocks.mlp.{k}": v for k, v in mlp.items()})
+    lg["final_ln"] = ("embed",)
+    if not cfg.tie_embeddings:
+        lg["lm_head"] = ("embed", "vocab")
+    return lg
+
+
+def adafactor_factored(shape, min_dim_factored: int = 128) -> bool:
+    """Whether adafactor keeps a parameter of global `shape` factored."""
+    return len(shape) >= 2 and shape[-1] >= min_dim_factored \
+        and shape[-2] >= min_dim_factored
+
+
+def lm_opt_logical(optimizer: str, logical: Sequence, shape) -> dict:
+    """{state key: logical axes} of one parameter's optimizer state
+    (repro/train/optim.opt_logical_axes): adam's m and v take the
+    parameter's axes; adafactor's row mean vr `lg[:-1]` and column mean
+    vc `lg[:-2] + lg[-1:]` where it factors (a full v otherwise); sgd's
+    mu and adagrad's acc the parameter's."""
+    lg = tuple(logical)
+    if optimizer == "adam":
+        return {"m": lg, "v": lg}
+    if optimizer == "adafactor":
+        if adafactor_factored(shape):
+            return {"vr": lg[:-1], "vc": lg[:-2] + lg[-1:]}
+        return {"v": lg}
+    if optimizer in ("sgd", "adagrad"):
+        return {"mu" if optimizer == "sgd" else "acc": lg}
+    raise ValueError(f"no LM optimizer state for {optimizer!r}")
+
+
+def lm_opt_shape(key: str, shape) -> tuple:
+    """The global shape of optimizer-state tensor `key` of a parameter of
+    `shape`: vr drops the last dim, vc the one before it."""
+    shape = tuple(shape)
+    if key == "vr":
+        return shape[:-1]
+    if key == "vc":
+        return shape[:-2] + shape[-1:]
+    return shape
+
+
+def lm_cache_logical() -> Tuple[str, ...]:
+    """The KV cache's axes, (L, B, S, K, hd) (transformer.cache_logical_axes)."""
+    return ("layers", "cache_batch", "cache_seq", "cache_kv_heads",
+            "cache_head_dim")
+
+
+def lm_rules(cfg, kind: str = "train", batch: Optional[int] = None) -> dict:
+    """The reference's `_lm_rules` (repro/launch/programs.py:99-106): the
+    config's sharding overrides, and for a decode batch under 8 the cache
+    seq over the data axes."""
+    overrides = dict(cfg.sharding_overrides)
+    if kind == "decode" and batch is not None and batch < 8:
+        overrides.setdefault("cache_seq", ("pod", "data"))
+    return make_rules(overrides)
+
+
 class ShardCtx:
-    """Carries (mesh, rules) through model code.
+    """Carries (mesh, rules) through the recsys, DLRM and GNN model code,
+    whose explicit collectives read `mesh`. A no-arg ShardCtx() runs
+    model code on one device unchanged.
 
-    Its `cs` (the activation sharding constraint) is the identity in the
-    port: those constraints are GSPMD's, and the LM placements that need
-    them (sequence parallelism, head sharding) wait for the next slice
-    (ROADMAP queue 1, item 9). The explicit collectives read `mesh`. A
-    no-arg ShardCtx() runs model code on one device unchanged."""
-
+    It has no `cs`: the reference's activation constraints are GSPMD's
+    (`with_sharding_constraint`), and the port moves activations between
+    ranks explicitly instead. The LM takes its placement
+    (launch/programs.LMPlacement) in place of a ShardCtx, and its layers
+    gather, reduce-scatter and all-reduce where the placement says."""
 
     def __init__(self, mesh=None, rules: Optional[Mapping[str, Axis]] = None):
         self.mesh = mesh
         self.rules = dict(rules) if rules else dict(DEFAULT_RULES)
-
-    def cs(self, x, *logical):
-        return x

@@ -1,9 +1,10 @@
 """Architecture registry of the port: `--arch <id>` resolution.
 
-Every arch of the JAX registry (repro.configs.registry) resolves. The
-archs whose full-width runs do not fit one device wait on distribution:
+Every arch of the JAX registry (repro.configs.registry) resolves. An
+arch whose full-width training does not fit one device runs on a mesh of
+ranks (`--dist`), which needs more devices than one card's machine has:
 `ONE_DEVICE_LIMIT` is the wording of that refusal, which the generic
-driver's `--full` raises before it allocates anything.
+driver's `--full` raises on one device before it allocates anything.
 """
 from __future__ import annotations
 
@@ -30,9 +31,10 @@ _ARCH_MODULES = {
     "dlrm-criteo": "repro_torch.configs.dlrm_criteo",
 }
 
-# where a run too large for one device waits (ROADMAP.md, "Queue 1:
-# modules to port")
-ONE_DEVICE_LIMIT = "ROADMAP.md queue 1, item 9 (distribution and launch)"
+# what a run too large for one device needs (ROADMAP.md, "Queue 1")
+ONE_DEVICE_LIMIT = ("more devices than one card's machine has: a mesh of "
+                    "ranks (--dist; ROADMAP.md queue 1, item 9 (distribution "
+                    "and launch))")
 
 
 def list_archs() -> List[str]:

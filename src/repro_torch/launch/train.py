@@ -19,6 +19,9 @@ and `dlrm` families, and the placements of repro/launch/programs.py).
     torchrun --nproc-per-node N -m repro_torch.launch.train --dist \
         [--mesh DP,TP] [--compress none|bf16|int8] --arch ... \
         (or python -m torch.distributed.run ...)
+    OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 -m \
+        repro_torch.launch.train --dist --mesh 2,2 --arch smollm-135m \
+        --device cpu --steps 5      # the reduced LM on gloo ranks
 
 Runs real training steps on synthetic data, as the JAX driver does:
   - without `--full` it runs the family's small config, the JAX
@@ -38,7 +41,8 @@ Runs real training steps on synthetic data, as the JAX driver does:
     (the LMs: train_4k, sequences of 4096, at `--batch` (the shape's
     256 does not fit one device); an LM whose parameters and optimizer
     state exceed one device's 80 GB, kimi-k2-1t-a32b, qwen2.5-32b and
-    qwen2-moe-a2.7b, is refused before anything is allocated;
+    qwen2-moe-a2.7b, is refused before anything is allocated, its
+    message naming the per-rank bytes a production mesh gives it;
     graphsage-reddit: any GNN shape, minibatch_lg: 1024 seed nodes,
     fanout 15-10, 602 features on 232,965 nodes; full_graph_sm: the
     whole Cora-sized graph, 2,708 nodes, 10,556 edges, 1,433 features,
@@ -98,10 +102,22 @@ mesh takes the dst-partitioned loss (`full_graph_partitioned_loss`; the
 reference's `partitioned` knob chooses it over GSPMD's edge-sharded
 program, which the port does not have). A checkpoint is
 gathered whole to rank 0 in the JAX layout and restored onto any mesh
-(`train/elastic.reshard`). The LM family's placements (sequence
-parallelism, head sharding) are not ported: `--dist` refuses it
-(ROADMAP.md queue 1, item 9). The tests run the same `run(...)` on gloo
-ranks through `mp.spawn` (`rank`, `world_size`, `init_method`).
+(`train/elastic.reshard`). The LM family is placed by
+`launch/programs.LMPlacement`, the reference's build_lm_program: every
+parameter and optimizer-state tensor is this rank's block under the
+reference's rules (FSDP over the data axes; heads, kv heads, mlp, vocab
+and experts over the model axis; head_dim where the config sends it);
+each rank draws only its own blocks of the seed's parameters
+(`transformer.init_params(blocks=)`), and the fit check reckons one
+rank's bytes (`check_fits_a_rank`); the residual stream is split on seq over the model ranks, the loss is
+the vocab-parallel cross-entropy, and each rank's gradients are its
+share of the global loss's (LMPlacement.reduce_grads sums them; the
+replicated ones' sum over the data axes takes `--compress`); adafactor's
+row and column means are the whole matrix's. With `--microbatches K`
+each data rank's rows are its slices of the reference's K microbatches,
+so that microbatch k holds the global batch's rows of the k-th K-th, as
+the reference's scan slices them. The tests run the same `run(...)` on
+gloo ranks through `mp.spawn` (`rank`, `world_size`, `init_method`).
 """
 from __future__ import annotations
 
@@ -128,7 +144,8 @@ from repro_torch.data.simulator import MachineSpec
 from repro_torch.data.synthetic import (CriteoStream, TokenStream,
                                         bert4rec_batch, dien_batch)
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.programs import Placement
+from repro_torch.launch.programs import (LMPlacement, Placement, plan_bytes,
+                                        rank_bytes)
 from repro_torch.models import dlrm as dlrm_lib
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
@@ -255,7 +272,7 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
                   *, shape=DRIVER_SHAPE, device="cuda",
                   sampler: Optional[NeighborSampler] = None,
                   graph: Optional[dict] = None, mesh=None,
-                  partitioned: bool = False):
+                  partitioned: bool = False, microbatches: int = 1):
     """A function returning the next batch on `device`: a sampled block
     of `shape`'s graph (gnn minibatch), the whole graph (gnn full graph:
     `graph`, its numpy batch if prebuilt, copied once, the same tensors
@@ -263,7 +280,8 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
     Criteo records from seed 0 through the online feature work (dlrm,
     wide-deep, xDeepFM), or DIEN's and BERT4Rec's synthetic sequences
     drawn from `rng`, as the JAX driver makes them. On a `mesh` every
-    rank makes the global batch and keeps its data rank's slice, or with
+    rank makes the global batch and keeps its data rank's rows
+    (`data_rows`: its slice of each of the `microbatches`), or with
     `partitioned` (a full graph) the whole graph in the dst-partitioned
     layout, with its own rank's edge plan."""
     if mesh is not None and not partitioned:
@@ -272,11 +290,8 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
                                  device=device, sampler=sampler, graph=graph)
         if dp == 1:
             return whole_fn
-        if batch % dp:
-            raise ValueError(f"a batch of {batch} does not split over "
-                             f"{dp} data ranks")
-        n = batch // dp
-        return lambda: {key: v[k * n:(k + 1) * n]
+        rows = torch.as_tensor(data_rows(batch, dp, k, microbatches))
+        return lambda: {key: v[rows.to(v.device)]
                         for key, v in whole_fn().items()}
     to_device = lambda b: {k: torch.from_numpy(v).to(device)
                            for k, v in b.items()}
@@ -322,14 +337,31 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
     return lambda: to_device(sampler.sample(batch))
 
 
+def data_rows(batch: int, dp: int, k: int, microbatches: int = 1):
+    """The global batch's rows that data rank k of dp holds: its slice of
+    each of the `microbatches` consecutive slices, in order, so that the
+    train step's split of its rows gives each microbatch the reference's
+    rows (its scan's k-th slice of the global batch, split over the data
+    ranks)."""
+    if batch % (dp * microbatches):
+        raise ValueError(f"a batch of {batch} does not split over {dp} "
+                         f"data ranks in {microbatches} microbatches")
+    mb, n = batch // microbatches, batch // (dp * microbatches)
+    return np.concatenate([np.arange(j * mb + k * n, j * mb + (k + 1) * n)
+                           for j in range(microbatches)])
+
+
 def make_loss_fn(arch: ArchSpec, cfg, shape=DRIVER_SHAPE,
                  placement: Optional[Placement] = None):
     """loss(model, batch) of the arch's family, and for the gnn family of
-    the shape's kind; on a mesh (`placement`) the row-sharded lookups'
-    and the partitioned graph's."""
-    ctx = ShardCtx(placement.mesh) if placement is not None else None
+    the shape's kind; on a mesh (`placement`) the row-sharded lookups',
+    the partitioned graph's and the placed LM's."""
     if _family(arch) == "lm":
+        if placement is not None:
+            return lambda model, b: tfm.loss_fn(model, b,
+                                                placement=placement)
         return tfm.loss_fn
+    ctx = ShardCtx(placement.mesh) if placement is not None else None
     if _family(arch) == "recsys":
         return lambda model, b: recsys_lib.loss_fn(model, b, ctx=ctx)
     if _family(arch) == "dlrm":
@@ -365,7 +397,8 @@ def _state_tree(lib, model, opt_state,
     state = opt_state
     if placement is not None:
         named = placement.gather(named)
-        state = {k: {n: placement.gather_state(n, t) for n, t in v.items()}
+        state = {k: {n: placement.gather_state(n, t, key=k)
+                     for n, t in v.items()}
                  for k, v in opt_state.items()}
     return {"params": lib.tree_from_named(named),
             "opt_state": {k: lib.tree_from_named(v)
@@ -380,7 +413,7 @@ def _restore_sharded(tree: dict, placement: Placement, device):
                     placement.mesh, device=device)
     opt = {}
     for k, v in tree["opt_state"].items():
-        specs = {n: placement.state_spec(n, t.shape) for n, t in v.items()}
+        specs = {n: placement.restore_specs(k, n, t) for n, t in v.items()}
         opt[k] = reshard(v, specs, placement.mesh, device=device)
     return named, opt
 
@@ -389,31 +422,50 @@ def lm_state_bytes(cfg, optimizer: str) -> int:
     """Bytes of an LM's parameters and its optimizer's f32 state, from
     the config's shapes alone (adam keeps m and v; adafactor a row and a
     column mean for a matrix of two dims of at least 128, else a full
-    v; the others one f32 tensor a parameter)."""
-    total = 0
-    for shape, _, dtype in tfm.param_shapes(cfg).values():
-        n = math.prod(shape)
-        total += n * torch.empty((), dtype=dtype).element_size()
-        if optimizer == "adafactor" and len(shape) >= 2 \
-                and min(shape[-2:]) >= 128:
-            total += 4 * (n // shape[-1] + n // shape[-2])
-        else:
-            total += 4 * n * (2 if optimizer == "adam" else 1)
-    return total
+    v; the others one f32 tensor a parameter): the byte plan of a mesh
+    of one rank."""
+    return plan_bytes(cfg, optimizer, LMShape("train", "train", 1, 1),
+                      (1, 1))["total"]
 
 
 def check_fits_one_device(arch: ArchSpec, cfg) -> None:
     """Raise, before anything is allocated, if an LM's parameters and
-    optimizer state exceed one device's DEVICE_BYTES."""
+    optimizer state exceed one device's DEVICE_BYTES; the message names
+    the bytes a rank holds on the (16, 16) production mesh
+    (`rank_bytes`)."""
     if _family(arch) != "lm":
         return
     need = lm_state_bytes(cfg, arch.optimizer)
     if need > DEVICE_BYTES:
+        mesh_shape = mesh_lib.PRODUCTION_SHAPES[1][0]
+        per = rank_bytes(arch.arch_id, LMShape("train", "train", 1, 1),
+                         mesh_shape)
         raise ValueError(
             f"{arch.arch_id} at its published widths needs "
             f"{need / 1e9:.1f} GB of parameters and {arch.optimizer} "
-            f"state, over one device's {DEVICE_BYTES / 1e9:.0f} GB: its "
-            f"full-width training waits on {ONE_DEVICE_LIMIT}")
+            f"state, over one device's {DEVICE_BYTES / 1e9:.0f} GB; on "
+            f"the {mesh_shape} production mesh a rank holds "
+            f"{per['total'] / 1e9:.2f} GB ({per['params']} bytes of "
+            f"parameters, {per['opt_state']} of optimizer state): it "
+            f"needs {ONE_DEVICE_LIMIT}")
+
+
+def check_fits_a_rank(arch: ArchSpec, cfg, mesh_shape: tuple) -> None:
+    """Raise, before anything is allocated, if one rank's blocks of an
+    LM's parameters and optimizer state on the mesh of `mesh_shape`
+    ((data, model); `plan_bytes`, from shapes alone) exceed one device's
+    DEVICE_BYTES."""
+    if _family(arch) != "lm":
+        return
+    per = plan_bytes(cfg, arch.optimizer, LMShape("train", "train", 1, 1),
+                     mesh_shape)
+    if per["total"] > DEVICE_BYTES:
+        raise ValueError(
+            f"{arch.arch_id} on the {tuple(mesh_shape)} mesh holds "
+            f"{per['total'] / 1e9:.2f} GB a rank ({per['params']} bytes of "
+            f"parameters, {per['opt_state']} of {arch.optimizer} state), "
+            f"over one device's {DEVICE_BYTES / 1e9:.0f} GB: it needs a "
+            f"mesh of more ranks")
 
 
 def record_step(path: str, rec: dict) -> None:
@@ -479,10 +531,6 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
                     ckpt_every=ckpt_every, sampler=sampler, graph=graph,
                     log_every=log_every, microbatches=microbatches,
                     steps_json=steps_json)
-    if family == "lm":
-        raise ValueError(f"--dist: the LM family's placements (sequence "
-                         f"parallelism, head sharding) wait on "
-                         f"{ONE_DEVICE_LIMIT}")
     started = not dist.is_initialized()
     dev = mesh_lib.init_distributed(device, rank=rank,
                                     world_size=world_size,
@@ -513,15 +561,32 @@ def _run(arch: ArchSpec, *, steps, batch, shape, full, lr, device,
         raise ValueError("a full graph is one batch: it takes no "
                          "microbatches")
     cfg = arch.model if full else reduced_model(arch)
-    check_fits_one_device(arch, cfg)
+    lm_mesh = mesh is not None and family == "lm"
+    if lm_mesh:
+        check_fits_a_rank(arch, cfg, tuple(mesh.shape[a]
+                                           for a in mesh.axis_names))
+    else:
+        check_fits_one_device(arch, cfg)
     device = torch.device(device)
     batch = _batch_size(shape, batch)
     rng = np.random.RandomState(0)
-    model = init_params_for(arch, cfg, 0, shape=shape, device=device)
-    n_params = sum(p.numel() for p in model.parameters())
     lead = mesh is None or dist.get_rank() == 0
     placement, opt_kw, grad_fn = None, {}, None
-    if mesh is not None:
+    if lm_mesh:
+        # each rank draws its own blocks: no rank holds a whole tensor
+        placement = LMPlacement(mesh, cfg, optimizer=arch.optimizer)
+        model = tfm.init_params(cfg, seed=0, device=device,
+                                blocks=placement.blocks())
+        n_params = sum(math.prod(s) for s, _, _ in
+                       tfm.param_shapes(cfg).values())
+        opt_kw["norm_groups"] = placement.norm_groups()
+        if arch.optimizer == "adafactor":
+            opt_kw["shards"] = placement.adafactor_shards()
+        grad_fn = lambda g: placement.reduce_grads(g, compress)
+    else:
+        model = init_params_for(arch, cfg, 0, shape=shape, device=device)
+        n_params = sum(p.numel() for p in model.parameters())
+    if mesh is not None and not lm_mesh:
         partitioned = family == "gnn" and shape.kind == "full_graph"
         placement = Placement(
             mesh, "dlrm" if family == "dlrm" else cfg.name, cfg,
@@ -545,7 +610,7 @@ def _run(arch: ArchSpec, *, steps, batch, shape, full, lr, device,
                               microbatches, grad_fn=grad_fn)
     batch_fn = make_batch_fn(arch, cfg, batch, rng, shape=shape,
                              device=device, sampler=sampler, graph=graph,
-                             mesh=mesh,
+                             mesh=mesh, microbatches=microbatches,
                              partitioned=bool(placement
                                               and placement.partitioned))
 
@@ -576,7 +641,9 @@ def _run(arch: ArchSpec, *, steps, batch, shape, full, lr, device,
         t_b = time.monotonic()
         model, opt_state, metrics = step_fn(model, opt_state, i, b)
         loss = metrics["loss"]
-        if placement is not None and not placement.partitioned:
+        if isinstance(placement, LMPlacement):
+            loss = metrics["global_loss"]     # every rank holds it
+        elif placement is not None and not placement.partitioned:
             # the global batch's: the mean of the data ranks' equal slices
             loss = coll.psum_tree(loss.float(), mesh.data_group)
         losses.append(float(loss))                   # waits for the step

@@ -95,8 +95,9 @@ def local_rows_take(table: torch.Tensor, ids: torch.Tensor,
     """The masked gather of a vocab shard: table (v_loc, D), rows [row0,
     row0 + v_loc); ids (...) int32 -> (..., D) f32, 0 for an id outside
     the shard; the gradient lands in the shard."""
-    out = _LocalRows.apply(table[None],
-                           ids.reshape(-1, 1, 1).to(torch.int32), row0)
+    # a column of a token matrix (a decode step's) is strided
+    out = _LocalRows.apply(table[None], ids.reshape(-1, 1, 1).to(
+        torch.int32).contiguous(), row0)
     return out.reshape(*ids.shape, table.shape[-1])
 
 

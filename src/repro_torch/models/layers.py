@@ -12,6 +12,19 @@ of this in plain jnp, with no Pallas kernel, and so does the port in
 plain PyTorch (no `F.scaled_dot_product_attention`, which has no logit
 softcap).
 
+On a placement (launch/programs.LMPlacement) with the head dim split
+over the model ranks, `chunked_attention(..., group=)` sums each block's
+partial q.k scores over the group before the scale, the softcap and the
+softmax (its backward sums the partial dO.V products and the
+dO.out row sums likewise), and the value contraction leaves each rank
+its own slice of the head dim; `decode_attention` with its groups attends
+over a cache block split on kv heads, on the head dim (partial scores summed
+over the model ranks) and on positions (each rank's running max, sum
+and weighted values combined by a log-sum-exp over the data ranks);
+`cross_entropy_parts` is the vocab-parallel loss: the max, the sum of
+exponentials and the gold logit reduced over the model ranks, the
+(B, S, V) logits never gathered.
+
 Dtypes follow the reference: the score and PV products take their
 operands in the input dtype and keep f32 results (`_mm_f32`), masks
 write NEG_INF, a large finite number, so that no (-inf) - (-inf) is
@@ -23,6 +36,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.train import collectives as coll
 
 NEG_INF = -1e30  # large-but-finite; avoids NaN from (-inf) - (-inf)
 
@@ -109,11 +124,21 @@ def _block_mask(blk: int, chunk: int, skv: int, q_pos: torch.Tensor,
     return valid
 
 
+def _psum_(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over `group` in place (None: x)."""
+    if group is not None:
+        torch.distributed.all_reduce(x, group=group)
+    return x
+
+
 def _scores(qg: torch.Tensor, kblk: torch.Tensor, shape, scale: float,
-            logit_cap: float, invalid: torch.Tensor):
+            logit_cap: float, invalid: torch.Tensor, group=None):
     """A block's scaled, capped and masked f32 scores (B, K, G, Sq, c):
-    qg (B*K, G*Sq, hd), kblk (B*K, c, hd), invalid (Sq, c)."""
-    s = _mm_f32(qg, kblk.transpose(1, 2)).view(shape).mul_(scale)
+    qg (B*K, G*Sq, hd), kblk (B*K, c, hd), invalid (Sq, c); with `group`
+    the head dim is split over its ranks and the partial products are
+    summed over it first."""
+    s = _psum_(_mm_f32(qg, kblk.transpose(1, 2)), group).view(shape) \
+        .mul_(scale)
     if logit_cap:
         s = softcap(s, logit_cap)
     return s.masked_fill_(invalid, NEG_INF)
@@ -125,7 +150,7 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window: int, causal: bool, logit_cap: float,
-                chunk: int, scale: float, q_offset: int):
+                chunk: int, scale: float, q_offset: int, group):
         b, sq, h, hd = q.shape
         _, skv, n_kv, _ = k.shape
         g = h // n_kv
@@ -142,7 +167,7 @@ class _Flash(torch.autograd.Function):
                           device=q.device)
         for blk in range(kb.shape[0]):
             invalid = ~_block_mask(blk, chunk, skv, q_pos, causal, window)
-            s = _scores(qg, kb[blk], shape, scale, logit_cap, invalid)
+            s = _scores(qg, kb[blk], shape, scale, logit_cap, invalid, group)
             m_new = torch.maximum(m, s.amax(-1))
             p = s.sub_(m_new[..., None]).exp_()
             corr = torch.exp(m - m_new)
@@ -156,13 +181,13 @@ class _Flash(torch.autograd.Function):
         out = acc.div_(l_safe[..., None])                 # (B, K, G, Sq, hd)
         lse = m + torch.log(l_safe)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (window, causal, logit_cap, chunk, scale, q_offset)
+        ctx.args = (window, causal, logit_cap, chunk, scale, q_offset, group)
         return _ungroup(out, b, sq, h, hd).to(q.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        window, causal, logit_cap, chunk, scale, q_offset = ctx.args
+        window, causal, logit_cap, chunk, scale, q_offset, group = ctx.args
         b, sq, h, hd = q.shape
         _, skv, n_kv, _ = k.shape
         g = h // n_kv
@@ -174,7 +199,7 @@ class _Flash(torch.autograd.Function):
         dog = dout.reshape(b, sq, n_kv, g, hd).permute(0, 2, 3, 1, 4) \
             .float().contiguous()
         # D_i = sum_d dout_i * out_i, with out the saved f32 (pre-cast)
-        dsum = (dog * out).sum(-1)                        # (B, K, G, Sq)
+        dsum = _psum_((dog * out).sum(-1), group)         # (B, K, G, Sq)
         dog = dog.view(bk, g * sq, hd)
         kb, vb = _block_kv(k, chunk), _block_kv(v, chunk)
         nblk = kb.shape[0]
@@ -187,9 +212,10 @@ class _Flash(torch.autograd.Function):
         dv = torch.empty_like(dk)
         for blk in range(nblk):
             invalid = ~_block_mask(blk, chunk, skv, q_pos, causal, window)
-            s = _scores(qg, kb[blk], shape, scale, logit_cap, invalid)
+            s = _scores(qg, kb[blk], shape, scale, logit_cap, invalid, group)
             p = torch.exp(s - lse[..., None])             # (B, K, G, Sq, c)
-            dp = _mm_f32(dog, vb[blk].transpose(1, 2)).view(shape)
+            dp = _psum_(_mm_f32(dog, vb[blk].transpose(1, 2)), group) \
+                .view(shape)
             ds = dp.sub_(dsum[..., None]).mul_(p)
             if logit_cap:
                 # d tanh: the capped (and masked) score, as the reference
@@ -210,7 +236,7 @@ class _Flash(torch.autograd.Function):
                 .reshape(b, nblk * chunk, n_kv, hd)
             return xb[:, :skv]
         return (dq, unblock(dk).to(k.dtype), unblock(dv).to(v.dtype),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def _ungroup(outg: torch.Tensor, b: int, sq: int, h: int,
@@ -222,29 +248,44 @@ def _ungroup(outg: torch.Tensor, b: int, sq: int, h: int,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_offset: int = 0, window: int = 0,
                       causal: bool = True, logit_cap: float = 0.0,
-                      chunk: int = 512,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      chunk: int = 512, scale: Optional[float] = None,
+                      group=None) -> torch.Tensor:
     """FlashAttention in plain PyTorch, never materializing S x S.
 
     q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) with GQA groups G = H // K.
     `window` > 0 is a sliding window, 0 unbounded; q_offset is the
-    absolute position of q[0]. The KV tail is zero-padded to a whole
-    chunk, and chunk = min(chunk, Skv)."""
+    absolute position of q[0] (a slice of query positions attends with
+    its masks offset by its start). The KV tail is zero-padded to a
+    whole chunk, and chunk = min(chunk, Skv). With `group`, q, k and v
+    hold this rank's slice of the head dim (the same slice of each), the
+    scores are summed over the group and the output is this rank's
+    slice; `scale` must then be given (the whole head dim's)."""
     hd = q.shape[-1]
+    if group is not None and scale is None:
+        raise ValueError("a head dim split over ranks needs its scale")
     scale = scale if scale is not None else hd ** -0.5
     chunk = min(chunk, k.shape[1])
     return _Flash.apply(q, k, v, int(window), bool(causal), float(logit_cap),
-                        int(chunk), float(scale), int(q_offset))
+                        int(chunk), float(scale), int(q_offset), group)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      pos: int, window: int = 0, logit_cap: float = 0.0,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """Single-token attention over a KV cache.
+                     scale: Optional[float] = None, s0: int = 0,
+                     dim_group=None, seq_group=None) -> torch.Tensor:
+    """Single-token attention over a KV cache, or over this rank's block
+    of one.
 
-    q: (B, 1, H, hd); k, v: (B, S, K, hd); pos: the index of the token
-    being decoded (cache entries > pos are unwritten). Scores are
-    (B, K, G, S), softmaxed in f32."""
+    q: (B, 1, H, hd); k, v: (B, S, K, hd), cache positions [s0, s0 + S);
+    pos: the index of the token being decoded (cache entries > pos are
+    unwritten). Scores are (B, K, G, S), softmaxed in f32. On a placement
+    q holds the query heads of the block's kv heads; with `dim_group`
+    the head dim is split over its ranks: the partial scores are summed
+    over it, and the output is this rank's slice of the head dim. With
+    `seq_group` the positions are split over its ranks: each takes the
+    max, the sum of exponentials and the weighted values of its own
+    positions, and a log-sum-exp over the group combines them (a rank
+    whose positions are all masked adds nothing)."""
     b, sq, h, hd = q.shape
     assert sq == 1
     _, s, n_kv, _ = k.shape
@@ -252,16 +293,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else hd ** -0.5
     qg = q.reshape(b * n_kv, g, hd)                          # (B*K, G, hd)
     kt = k.permute(0, 2, 3, 1).reshape(b * n_kv, hd, s)
-    sc = softcap(_mm_f32(qg, kt).view(b, n_kv, g, s) * scale, logit_cap)
-    kv_pos = torch.arange(s, device=q.device)
+    sc = _psum_(_mm_f32(qg, kt), dim_group).view(b, n_kv, g, s) * scale
+    sc = softcap(sc, logit_cap)
+    kv_pos = s0 + torch.arange(s, device=q.device)
     valid = kv_pos <= pos
     if window:
         valid = valid & (pos - kv_pos < window)
     sc = sc.masked_fill(~valid, NEG_INF)
-    p = torch.softmax(sc, dim=-1)
     vv = v.permute(0, 2, 1, 3).reshape(b * n_kv, s, hd)
-    out = _mm_f32(p.view(b * n_kv, g, s).to(v.dtype), vv)
-    return out.view(b, 1, h, hd).to(q.dtype)
+    if seq_group is None:
+        p = torch.softmax(sc, dim=-1)
+        out = _mm_f32(p.view(b * n_kv, g, s).to(v.dtype), vv)
+        return out.view(b, 1, h, hd).to(q.dtype)
+    m = coll.all_reduce_max(sc.amax(-1), seq_group)          # (B, K, G)
+    p = torch.exp(sc - m[..., None])
+    l_sum = _psum_(p.sum(-1), seq_group)
+    acc = _psum_(_mm_f32(p.view(b * n_kv, g, s).to(v.dtype), vv),
+                 seq_group).view(b, n_kv, g, hd)
+    out = acc / l_sum[..., None]
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 # -------------------------------------------------------------- linears ----
@@ -284,13 +334,38 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
                        final_cap: float = 0.0,
                        z_loss: float = 0.0) -> torch.Tensor:
     """Mean token cross-entropy in f32; labels < 0 are masked out."""
+    total, count = cross_entropy_parts(logits, labels, final_cap=final_cap,
+                                       z_loss=z_loss)
+    return total / torch.clamp(count, min=1.0)
+
+
+def cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor, *,
+                        v0: int = 0, final_cap: float = 0.0,
+                        z_loss: float = 0.0, group=None):
+    """The unmasked tokens' summed cross-entropy in f32 and their count,
+    of logits (..., V_loc) that are this rank's vocab shard [v0, v0 +
+    V_loc) of the model ranks `group` (None: the whole vocab). The
+    softcap is elementwise on the shard; the max, the sum of exponentials and the gold logit are
+    reduced over the group (the max without a gradient, the sums passing
+    theirs through), so every rank holds the same sum and the logits are
+    never gathered. Returns (sum, count)."""
     logits = softcap(logits.float(), final_cap)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp(min=0).long()[..., None])[..., 0]
+    else:
+        v_loc = logits.shape[-1]
+        m = coll.all_reduce_max(logits.detach().amax(-1), group)
+        lse = m + torch.log(coll.psum_same(
+            torch.exp(logits - m[..., None]).sum(-1), group))
+        local = labels.long() - v0
+        own = (local >= 0) & (local < v_loc)
+        gold = torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])
+        gold = coll.psum_same(gold[..., 0] * own.float(), group)
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse.square()
-    mask = (labels >= 0).float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum(), mask.sum()
 

@@ -28,7 +28,12 @@ slice of a tensor every rank holds alike all-gathers it (`split_same`),
 and a tensor every rank holds alike that each rank then uses for its
 own part of a sum (the hidden state against this rank's vocab shard)
 sums its gradient over the group (`same_to_parts`: Megatron's "f",
-whose pair `psum_same` is its "g").
+whose pair `psum_same` is its "g"). Each takes a `dim` along which it
+gathers or slices (0 by default). `reduce_scatter_sum` is
+`all_gather_sum`'s pair: its backward all-gathers, so that sequence
+parallelism's gather before a block and reduce-scatter after it are each
+other's gradients, and FSDP's weight gather over the data axes
+reduce-scatters the weight's gradient back into its shard.
 `torch.distributed`'s collectives have no gradients of their own.
 """
 from __future__ import annotations
@@ -106,6 +111,31 @@ def _my_slice(x: torch.Tensor, group) -> torch.Tensor:
     return x[r * k:(r + 1) * k]
 
 
+def _along(fn, x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """fn (a dim-0 collective) applied along `dim`."""
+    if group is None:
+        return x
+    if dim == 0:
+        return fn(x, group)
+    return fn(x.movedim(dim, 0).contiguous(), group).movedim(0, dim)
+
+
+def gather_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Each rank's x concatenated along `dim`, in group-rank order."""
+    return _along(all_gather, x, group, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, group, dim: int = 0
+                       ) -> torch.Tensor:
+    """x summed over `group`, this rank's block of `dim`."""
+    return _along(reduce_scatter, x, group, dim)
+
+
+def slice_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's block of `dim` (no communication)."""
+    return _along(_my_slice, x, group, dim)
+
+
 class _PsumSame(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -147,35 +177,46 @@ def grad_scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
 
 class _AllGatherSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_gather(x, group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return gather_dim(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, ctx.group), None
+        return reduce_scatter_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.group, ctx.dim), None, None
 
 
 class _AllGatherSame(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_gather(x, group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return gather_dim(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _my_slice(g, ctx.group), None
+        return slice_dim(g, ctx.group, ctx.dim), None, None
 
 
 class _SplitSame(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _my_slice(x, group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return slice_dim(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather(g, ctx.group), None
+        return gather_dim(g, ctx.group, ctx.dim), None, None
 
 
 def psum_same(x: torch.Tensor, group) -> torch.Tensor:
@@ -191,22 +232,41 @@ def same_to_parts(x: torch.Tensor, group) -> torch.Tensor:
     return _SameToParts.apply(x, group)
 
 
-def all_gather_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """All-gather along dim 0; each rank uses the result for its own
-    work, so the backward reduce-scatters (sums) the gradients."""
-    return _AllGatherSum.apply(x, group)
+def all_gather_sum(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along `dim`; each rank uses the result for its own
+    work, so the backward reduce-scatters (sums) the gradients (FSDP's
+    weight gather over the data axes, sequence parallelism's gather of
+    the residual stream)."""
+    return _AllGatherSum.apply(x, group, dim)
 
 
-def all_gather_same(x: torch.Tensor, group) -> torch.Tensor:
-    """All-gather along dim 0; every rank uses the result alike, so the
+def reduce_scatter_sum(x: torch.Tensor, group, dim: int = 0
+                       ) -> torch.Tensor:
+    """Reduce-scatter along `dim` of each rank's partial sum; the
+    backward all-gathers the blocks' gradients (sequence parallelism's
+    return to the residual stream)."""
+    return _ReduceScatterSum.apply(x, group, dim)
+
+
+def all_gather_same(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along `dim`; every rank uses the result alike, so the
     backward keeps this rank's slice of the gradient."""
-    return _AllGatherSame.apply(x, group)
+    return _AllGatherSame.apply(x, group, dim)
 
 
-def split_same(x: torch.Tensor, group) -> torch.Tensor:
-    """This rank's slice of dim 0 of a tensor every rank holds alike; the
+def split_same(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's slice of `dim` of a tensor every rank holds alike; the
     backward all-gathers the slices' gradients."""
-    return _SplitSame.apply(x, group)
+    return _SplitSame.apply(x, group, dim)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over `group`, out of place, no gradient."""
+    if group is None:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 def _reduce_leaf(g: torch.Tensor, group, n: int, compress: str,

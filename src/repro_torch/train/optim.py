@@ -25,11 +25,14 @@ tensor's size, as the reference's global arrays do.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.train import collectives as coll
 
 _CHUNK_ELEMS = 1 << 26
 
@@ -40,12 +43,15 @@ class Optimizer(NamedTuple):
     update: Callable[..., Any]   # (grads, state, params, step) -> (p, s, stats)
 
 
-def _slices(*ts: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
+def _slices(*ts: torch.Tensor, numel: Optional[int] = None
+            ) -> Iterator[Tuple[torch.Tensor, ...]]:
     """Axis-0 slices of tensors that share axis 0 (a parameter, its
     gradient and its state, which may lack the last axis) when the first
-    is a huge stacked tensor, else the tensors themselves."""
+    is a huge stacked tensor (`numel`: its whole size, where it is a
+    shard), else the tensors themselves."""
     p = ts[0]
-    if p.dim() < 3 or p.numel() <= _CHUNK_ELEMS:
+    if p.dim() < 3 or (p.numel() if numel is None else numel) \
+            <= _CHUNK_ELEMS:
         yield ts
         return
     for i in range(p.shape[0]):
@@ -278,11 +284,22 @@ def adam(lr_fn: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
 
 
 # ------------------------------------------------------------ adafactor ----
+def _mean(x: torch.Tensor, dim: Optional[int], n: int, group):
+    """The mean of x over `dim` (None: every element) of a tensor split
+    over `group` along it, `n` the whole's count; x.mean where it is
+    not split."""
+    if group is None:
+        return x.mean() if dim is None else x.mean(dim)
+    part = x.sum() if dim is None else x.sum(dim)
+    return coll.all_reduce(part, group) / n
+
+
 def adafactor(lr_fn: Callable[[int], float], decay: float = 0.8,
               eps1: float = 1e-30, eps2: float = 1e-3,
               clip_threshold: float = 1.0,
               min_dim_factored: int = 128,
-              norm_groups: Optional[dict] = None) -> Optimizer:
+              norm_groups: Optional[dict] = None,
+              shards: Optional[dict] = None) -> Optimizer:
     """Adafactor (Shazeer & Stern 2018) as the JAX package has it, with
     no first moment: a parameter whose last two dims are both at least
     `min_dim_factored` keeps factored second moments, a row mean `vr`
@@ -290,30 +307,40 @@ def adafactor(lr_fn: Callable[[int], float], decay: float = 0.8,
     other keeps a full `v`. The update is clipped to RMS
     `clip_threshold` and scaled by the parameter's RMS (at least eps2),
     each over the whole tensor, or over one slice of axis 0 for a huge
-    stacked tensor (`_slices`, the reference's `_chunked`)."""
+    stacked tensor (`_slices`, the reference's `_chunked`). On a mesh,
+    `shards` (see the module docstring) names the parameters that are
+    blocks of a whole, whose statistics are the whole's."""
     f32 = np.float32
+    shards = shards or {}
 
-    def _factored(p: torch.Tensor) -> bool:
-        return p.dim() >= 2 and p.shape[-1] >= min_dim_factored \
-            and p.shape[-2] >= min_dim_factored
+    def _gshape(k: str, p: torch.Tensor) -> tuple:
+        return tuple(shards[k][0]) if k in shards else tuple(p.shape)
+
+    def _factored(shape) -> bool:
+        return len(shape) >= 2 and shape[-1] >= min_dim_factored \
+            and shape[-2] >= min_dim_factored
 
     def init(params: Dict[str, torch.Tensor]):
-        def per(p):
+        def per(k, p):
             z = lambda shape: torch.zeros(shape, dtype=torch.float32,
                                           device=p.device)
-            if _factored(p):
-                return {"vr": z(p.shape[:-1]),
-                        "vc": z(p.shape[:-2] + p.shape[-1:])}
+            if _factored(_gshape(k, p)):
+                vc = p.shape[:-2] + p.shape[-1:]
+                if k in shards and shards[k][3] is not None:
+                    n = coll.group_size(shards[k][3])
+                    vc = vc[:-1] + (vc[-1] // n,)
+                return {"vr": z(p.shape[:-1]), "vc": z(vc)}
             return {"v": z(p.shape)}
-        return {"f": {k: per(p) for k, p in params.items()}}
+        return {"f": {k: per(k, p) for k, p in params.items()}}
 
-    def _apply(p_s, u, lr):
+    def _apply(p_s, u, lr, n, group):
         # u / max(1, rms(u) / clip), then p - (lr * max(eps2, rms(p))) u,
         # in f32, rounded once into p's dtype
-        rms_u = torch.sqrt(u.square().mean() + eps1)
+        rms_u = torch.sqrt(_mean(u.square(), None, n, group) + eps1)
         u.div_(torch.clamp(rms_u / clip_threshold, min=1.0))
         p32 = p_s.float()
-        scale = torch.clamp(torch.sqrt(p32.square().mean()), min=eps2)
+        scale = torch.clamp(torch.sqrt(_mean(p32.square(), None, n, group)),
+                            min=eps2)
         p_s.copy_(p32 - (lr * scale) * u)
 
     @torch.no_grad()
@@ -325,22 +352,34 @@ def adafactor(lr_fn: Callable[[int], float], decay: float = 0.8,
         b, nb = float(beta), float(f32(1.0) - beta)
         for k, p in params.items():
             s = state["f"][k]
-            if "vr" in s:
-                for p_s, g_s, vr, vc in _slices(p, grads[k], s["vr"],
-                                                s["vc"]):
-                    g32 = g_s.float()
+            gshape = _gshape(k, p)
+            _, dg, allg, vcg = shards.get(k, (gshape, (None,) * p.dim(),
+                                              None, None))
+            numel = int(np.prod(gshape))
+            st = (s["vr"], s["vc"]) if "vr" in s else (s["v"],)
+            for sl in _slices(p, grads[k], *st, numel=numel):
+                p_s, g_s = sl[:2]
+                cut = p_s.dim() < p.dim()      # one slice of axis 0
+                n = numel // gshape[0] if cut else numel
+                g32 = g_s.float()
+                if "vr" in s:
+                    vr, vc = sl[2:]
                     g2 = g32.square() + eps1
-                    vr.mul_(b).add_(g2.mean(-1) * nb)
-                    vc.mul_(b).add_(g2.mean(-2) * nb)
-                    r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps1)
+                    vr.mul_(b).add_(_mean(g2, -1, gshape[-1], dg[-1]) * nb)
+                    # vc in the parameter's layout: its last dim whole
+                    # where vc splits it further
+                    vcw = coll.gather_dim(vc, vcg, -1).mul_(b).add_(
+                        _mean(g2, -2, gshape[-2], dg[-2]) * nb)
+                    vc.copy_(coll.slice_dim(vcw, vcg, -1))
+                    r = vr / torch.clamp(_mean(vr, -1, gshape[-2], dg[-2])
+                                         .unsqueeze(-1), min=eps1)
                     u = g32 / (torch.sqrt(r)[..., None]
-                               * torch.sqrt(vc)[..., None, :] + eps1)
-                    _apply(p_s, u, lr)
-            else:
-                for p_s, g_s, v in _slices(p, grads[k], s["v"]):
-                    g32 = g_s.float()
+                               * torch.sqrt(vcw)[..., None, :] + eps1)
+                else:
+                    (v,) = sl[2:]
                     v.mul_(b).add_((g32.square() + eps1) * nb)
-                    _apply(p_s, g32 / (torch.sqrt(v) + eps1), lr)
+                    u = g32 / (torch.sqrt(v) + eps1)
+                _apply(p_s, u, lr, n, allg)
         return params, state, {"lr": lr, "grad_norm": gn}
     return Optimizer("adafactor", init, update)
 

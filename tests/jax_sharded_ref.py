@@ -3,12 +3,17 @@ reference of tests/test_torch_dist.py. Run in a process of its own
 (XLA_FLAGS must be set before jax is imported, and the test process's
 jax already has one device):
 
-    python tests/jax_sharded_ref.py WORKDIR
+    python tests/jax_sharded_ref.py WORKDIR [lm]
 
 reads WORKDIR/inputs.npz and writes WORKDIR/ref.npz, each result under
 "<dp>x<tp>/<name>" for the (data, model) meshes (1, 2), (2, 1), (2, 2);
 gradients are taken under jax.jit (eager jax.grad of a shard_map asks
-for a mesh context).
+for a mesh context). With `lm` it runs the LM cases of
+tests/torch_dist_ranks.LM_DIST_CASES through the reference's own
+`build_lm_program` on each mesh (tests/test_torch_lm_dist.py): the loss
+and gradients of its ShardCtx'd loss_fn under its in_shardings, one
+step of its train program, each leaf's shard shape, and its prefill and
+decode programs, each device's cache shard kept by its rank.
 """
 import os
 import sys
@@ -36,7 +41,9 @@ from repro.models.recsys import tp_sampled_scores  # noqa: E402
 from repro.train.collectives import psum_tree  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_dist_ranks import LM_CFG, MESHES, MOE_CFG  # noqa: E402
+from torch_dist_ranks import (LM_CFG, LM_DIST_CASES, LM_OPTIMIZER,  # noqa
+                              LM_SERVE, LM_STEP, MESHES, MOE_CFG,
+                              lm_inputs, lm_serve_batches)
 
 f32 = jnp.float32
 
@@ -145,6 +152,130 @@ def run_mesh(inp, dp, tp):
     return out
 
 
+def _tree(named):
+    """{dotted name: x} -> the nested tree."""
+    tree = {}
+    for name, v in named.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
+def _dotted(tree, prefix=""):
+    """The nested tree -> {dotted name: leaf}; a dict of optimizer-state
+    leaves (vr / vc or v) stays whole."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) and not (set(v) <= {"vr", "vc", "v"} and
+                                        not isinstance(v.get("v", 0), dict)):
+            out.update(_dotted(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _by_rank(arr, dp, tp):
+    """{rank: this rank's shard} of a sharded array (rank r at row-major
+    position r of the (dp, tp) device grid, as the port's mesh puts it)."""
+    ids = [d.id for d in jax.devices()[:dp * tp]]
+    return {ids.index(s.device.id): np.asarray(s.data)
+            for s in arr.addressable_shards}
+
+
+def lm_case(inp, case, dp, tp):
+    from repro.configs.base import ArchSpec, LMShape
+    from repro.launch.programs import build_lm_program
+    from repro.train.optim import make_optimizer
+    mesh = Mesh(np.array(jax.devices()[:dp * tp]).reshape(dp, tp),
+                ("data", "model"))
+    jcfg = TransformerConfig(**LM_DIST_CASES[case])
+    opt_name = LM_OPTIMIZER.get(case, "adam")
+    arch = ArchSpec(arch_id=case, family="lm", model=jcfg, shapes=(),
+                    optimizer=opt_name)
+    named, batch, serve = lm_inputs(inp, case)
+    params = _tree(named)
+    batch = {k: v.astype(np.int32) for k, v in batch.items()}
+    b, s = batch["tokens"].shape
+    out = {}
+    prog = build_lm_program(arch, LMShape("t", "train", s, b), mesh)
+    p_shard, o_shard, _, a_shard = prog.in_shardings
+    ctx = ShardCtx(mesh, prog.meta["rules"])
+    with jax.set_mesh(mesh):
+        dev_p = jax.device_put(params, p_shard)
+        for k, v in _dotted(dev_p).items():
+            out[f"shape/params/{k}"] = np.array(
+                v.addressable_shards[0].data.shape)
+        vg = jax.jit(jax.value_and_grad(
+            lambda p, bb: jtfm.loss_fn(p, jcfg, bb, ctx=ctx), has_aux=True),
+            in_shardings=(p_shard, a_shard))
+        (loss, _), grads = vg(dev_p, batch)
+        out["loss"] = loss
+        for k, g in _dotted(grads).items():
+            out[f"grad/{k}"] = g
+        opt = make_optimizer(opt_name, lr=3e-4)
+        state = jax.jit(opt.init, out_shardings=o_shard)(dev_p)
+        new_p, new_s, metrics = jax.jit(
+            prog.fn, in_shardings=prog.in_shardings,
+            out_shardings=prog.out_shardings)(
+                dev_p, state, jnp.int32(LM_STEP), batch)
+        out["step_loss"] = metrics["loss"]
+        out["grad_norm"] = metrics["grad_norm"]
+        for k, v in _dotted(new_p).items():
+            out[f"step/params/{k}"] = v
+        for key, tree in new_s.items():
+            for name, leaf in _dotted(tree).items():
+                subs = leaf.items() if isinstance(leaf, dict) \
+                    else [(key, leaf)]
+                for sub, v in subs:
+                    out[f"step/opt/{sub}/{name}"] = v
+                    out[f"shape/opt/{sub}/{name}"] = np.array(
+                        v.addressable_shards[0].data.shape)
+
+        s0, c = LM_SERVE["prompt"], LM_SERVE["cache"]
+        for bsz in lm_serve_batches(case):
+            toks = serve[:bsz].astype(np.int32)
+            pre = build_lm_program(arch, LMShape("p", "prefill", s0, bsz),
+                                   mesh)
+            last, cache = jax.jit(pre.fn, in_shardings=pre.in_shardings)(
+                dev_p, {"tokens": toks[:, :s0]})
+            out[f"b{bsz}/prefill"] = last
+            dec = build_lm_program(arch, LMShape("d", "decode", c, bsz), mesh)
+            c_shard = dec.in_shardings[1]
+            big = {n: np.zeros((jcfg.n_layers, bsz, c, jcfg.n_kv_heads,
+                                jcfg.head_dim), np.float32) for n in "kv"}
+            for n in "kv":
+                big[n][:, :, :s0] = np.asarray(cache[n], np.float32)
+            big = jax.device_put(big, c_shard)
+            for r, blk in _by_rank(big["k"], dp, tp).items():
+                out[f"b{bsz}/prefill_k/{r}"] = blk
+            out[f"b{bsz}/shape/cache"] = np.array(
+                big["k"].addressable_shards[0].data.shape)
+            step = jax.jit(dec.fn, in_shardings=dec.in_shardings,
+                           out_shardings=dec.out_shardings)
+            for pos in range(s0, c):
+                logits, big = step(dev_p, big, toks[:, pos], jnp.int32(pos))
+                out[f"b{bsz}/decode{pos}"] = logits
+            for n in "kv":
+                for r, blk in _by_rank(big[n], dp, tp).items():
+                    out[f"b{bsz}/cache_{n}/{r}"] = blk
+    return out
+
+
+def main_lm(workdir):
+    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    res = {}
+    for dp, tp in MESHES:
+        for case in LM_DIST_CASES:
+            for k, v in lm_case(inp, case, dp, tp).items():
+                a = np.asarray(v)
+                res[f"{dp}x{tp}/{case}/{k}"] = a.astype(np.float32) \
+                    if a.dtype.kind in "fV" else a
+    np.savez(os.path.join(workdir, "ref.npz"), **res)
+
+
 def main(workdir):
     inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
     res = {}
@@ -159,4 +290,7 @@ def main(workdir):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[2:] == ["lm"]:
+        main_lm(sys.argv[1])
+    else:
+        main(sys.argv[1])

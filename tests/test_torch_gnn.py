@@ -90,17 +90,27 @@ def test_registry_runs_graphsage_and_names_the_roadmap_for_the_rest(arch_id):
     assert registry.get_arch(arch_id).arch_id == arch_id
 
 
-# an arch whose --full training the driver refuses, with words of the
-# ROADMAP queue 1 item it waits on there
+# an arch whose --full training the driver refuses on one device, with
+# the bytes a rank holds on the (16, 16) production mesh and words of the
+# ROADMAP queue 1 item that ran it on a mesh of ranks
 @pytest.mark.parametrize("arch_id,item,heading", [
     ("kimi-k2-1t-a32b", 9, "Distribution and launch"),
     ("qwen2.5-32b", 9, "Distribution and launch"),
     ("qwen2-moe-a2.7b", 9, "Distribution and launch")])
 def test_registry_names_the_roadmap_item_that_ports_each_arch(arch_id, item,
                                                               heading):
+    from repro_torch.launch.programs import rank_bytes
     assert f"ROADMAP.md queue 1, item {item} " in registry.ONE_DEVICE_LIMIT
-    with pytest.raises(ValueError, match=f"ROADMAP.md queue 1, item {item} "):
+    assert "more devices than one card's machine has" in \
+        registry.ONE_DEVICE_LIMIT
+    per = rank_bytes(arch_id, "train_4k", (16, 16))
+    with pytest.raises(ValueError) as err:
         train.run(arch_id, steps=1, full=True, device="cpu")
+    msg = str(err.value)
+    assert f"ROADMAP.md queue 1, item {item} " in msg
+    assert f"(16, 16) production mesh a rank holds {per['total'] / 1e9:.2f}" \
+        f" GB ({per['params']} bytes of parameters, {per['opt_state']} of " \
+        f"optimizer state)" in msg, msg
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md") \
         .read_text()
     queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]

@@ -117,7 +117,9 @@ def test_placements_on_a_mesh():
     assert shardlib.placements((None, None), MESH) == (Replicate(),
                                                        Replicate())
     assert shardlib.spec_axes(spec) == ("pod", "data", "model")
-    assert shardlib.ShardCtx().cs(torch.ones(2), "batch").tolist() == [1, 1]
+    # the port moves activations explicitly: ShardCtx constrains nothing
+    # and has no `cs` that would look as though it did
+    assert not hasattr(shardlib.ShardCtx(), "cs")
 
 
 @pytest.mark.parametrize("n,e,shards", [(50, 200, 1), (1500, 2000, 4),

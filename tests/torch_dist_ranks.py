@@ -168,19 +168,26 @@ def functions(rank, mesh_shape, workdir):
         if k in ("wi", "wg", "wo"):
             out[f"moe_grad_rank/{k}"] = _np(g)
 
-    # the transformer with its mesh (the embedding lookup and the MoE's
-    # expert parallelism; every other layer replicated), drop-free, so
-    # that its tokens split over the data axis route and keep all their
+    # the transformer on its placement (LMPlacement: every parameter
+    # this rank's block, the tokens this data rank's rows, the logits this
+    # model rank's vocab shard, gathered whole here), drop-free, so that
+    # its tokens split over the data axis route and keep all their
     # choices as on one device
+    from repro_torch.launch.programs import LMPlacement
     from repro_torch.models import transformer as tfm
     lcfg = moe.drop_free(TransformerConfig(**LM_CFG))
     lm = tfm.init_params(lcfg, seed=3, device="cpu")
     lm.load_state_dict(tfm.params_from_numpy(tfm.tree_from_named(
         {k[len("lm/"):]: v for k, v in inp.items() if k.startswith("lm/")})))
     toks = torch.from_numpy(inp["lm_tokens"])
+    pl = LMPlacement(mesh, lcfg)
     with torch.no_grad():
-        out["lm_mesh"] = _np(tfm.forward(lm, toks, mesh=mesh)[0])
         out["lm_one"] = _np(tfm.forward(lm, toks)[0])
+        pl.shard_model(lm)
+        logits = tfm.forward(lm, torch.from_numpy(data_rows(
+            inp["lm_tokens"])), placement=pl)[0]
+        logits = coll.gather_dim(logits, pl.tpg, -1)
+        out["lm_mesh"] = _np(coll.gather_dim(logits, pl.dpg, 0))
     return out
 
 
@@ -266,3 +273,281 @@ def _restore_check(mesh_shape, ckpt_dir):
             ok &= bool(torch.equal(whole, v))
     return {"restore_bitwise": np.array(ok), "restore_shards": np.array(
         shards), "tables_local_shape": np.array(local["tables"].shape)}
+
+
+# ------------------------------------------------------------ LM on a mesh ---
+_GEMMA_RULES = (("head_dim", "model"), ("act_q_seq", "model"),
+                ("cache_head_dim", "model"))
+# reduced LMs that reach every placed path at the meshes above: heads
+# split (gemma-like: softcaps, local/global windows, post-norms, tied
+# embeddings), query positions over the model ranks with the head dim
+# split (smollm-like: 3 heads, 1 kv head), the head dim split in the
+# attention itself (smollm-hd: no act_q_seq), heads with their kv heads
+# split (qwen-moe-like: MoE with shared experts, qkv bias, untied head),
+# heads reading one replicated kv head and adafactor over 128 x 128
+# matrices (kimi-like)
+LM_DIST_CASES = {
+    "gemma-like": dict(
+        name="gemma-like", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+        head_dim=8, d_ff=64, vocab_size=64, sliding_window=8,
+        local_global_alternating=True, scan_block=2,
+        attn_logit_softcap=50.0, final_logit_softcap=30.0, post_norm=True,
+        scale_embed=True, act="gelu", tie_embeddings=True, attn_chunk=8,
+        param_dtype="float32", sharding_overrides=_GEMMA_RULES),
+    "smollm-like": dict(
+        name="smollm-like", n_layers=2, d_model=32, n_heads=3, n_kv_heads=1,
+        head_dim=8, d_ff=64, vocab_size=64, tie_embeddings=True,
+        attn_chunk=8, param_dtype="float32",
+        sharding_overrides=_GEMMA_RULES),
+    "smollm-hd": dict(
+        name="smollm-hd", n_layers=2, d_model=32, n_heads=3, n_kv_heads=1,
+        head_dim=8, d_ff=64, vocab_size=64, tie_embeddings=True,
+        attn_chunk=8, param_dtype="float32",
+        sharding_overrides=(("head_dim", "model"),
+                            ("cache_head_dim", "model"))),
+    "qwen-moe-like": dict(
+        name="qwen-moe-like", n_layers=2, d_model=32, n_heads=4,
+        n_kv_heads=4, head_dim=8, d_ff=64, vocab_size=64, n_experts=6,
+        n_shared_experts=2, top_k=2, d_expert=16, qkv_bias=True,
+        rope_theta=1_000_000.0, tie_embeddings=False, attn_chunk=8,
+        param_dtype="float32"),
+    "kimi-like": dict(
+        name="kimi-like", n_layers=2, d_model=128, n_heads=4, n_kv_heads=1,
+        head_dim=16, d_ff=128, vocab_size=128, n_experts=4,
+        n_shared_experts=1, top_k=2, d_expert=128, rope_theta=50_000.0,
+        tie_embeddings=False, attn_chunk=8, param_dtype="float32",
+        sharding_overrides=(("cache_head_dim", "model"),)),
+}
+LM_OPTIMIZER = {"kimi-like": "adafactor"}
+# the train step's step number (the warm-up's learning rate is 0 at 0)
+LM_STEP = 50
+LM_SERVE = {"prompt": 13, "cache": 16}
+LM_SERVE_BATCHES = {"gemma-like": (4, 2, 1), "smollm-like": (4, 2, 1)}
+
+
+def lm_serve_batches(case):
+    return LM_SERVE_BATCHES.get(case, (4, 2))
+
+
+def lm_inputs(inp, case):
+    """({dotted name: numpy} parameters, batch, serve tokens) of a case."""
+    pre = f"{case}/p/"
+    params = {k[len(pre):]: v for k, v in inp.items() if k.startswith(pre)}
+    batch = {k: inp[f"{case}/{k}"] for k in ("tokens", "labels")}
+    return params, batch, inp[f"{case}/serve"]
+
+
+def lm_functions(rank, mesh_shape, workdir):
+    """Each case of LM_DIST_CASES on this rank's blocks: the loss and
+    the gradients (reduced, gathered whole), one train step (the
+    parameters and the optimizer state gathered whole), every leaf's
+    local shape, and prefill and three decode steps at each serving batch
+    (this rank's rows of the logits, its cache block)."""
+    from repro_torch.configs.base import TransformerConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.programs import LMPlacement
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    mesh = make_mesh(*mesh_shape, "cpu")
+    out = {}
+    for case, kw in LM_DIST_CASES.items():
+        cfg = TransformerConfig(**kw)
+        params, batch, serve = lm_inputs(inp, case)
+        opt_name = LM_OPTIMIZER.get(case, "adam")
+
+        def placed(**pkw):
+            model = tfm.init_params(cfg, seed=1, device="cpu")
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in params.items()})
+            pl = LMPlacement(mesh, cfg, optimizer=opt_name, **pkw)
+            pl.shard_model(model)
+            return model, pl
+
+        model, pl = placed()
+        b = batch["tokens"].shape[0]
+        r0, n = pl.batch_rows(b)
+        local = {k: torch.from_numpy(v[r0:r0 + n]) for k, v in batch.items()}
+        loss, metrics = tfm.loss_fn(model, local, placement=pl)
+        names = [k for k, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, [p for _, p in
+                                           model.named_parameters()])
+        grads = pl.reduce_grads(dict(zip(names, grads)))
+        out[f"{case}/loss"] = _np(metrics["global_loss"])
+        for k, g in pl.gather(grads).items():
+            out[f"{case}/grad/{k}"] = _np(g)
+        for k, p in model.named_parameters():
+            out[f"{case}/shape/params/{k}"] = np.array(p.shape)
+
+        kw_opt = dict(norm_groups=pl.norm_groups())
+        if opt_name == "adafactor":
+            kw_opt["shards"] = pl.adafactor_shards()
+        opt = make_optimizer(opt_name, lr=3e-4, **kw_opt)
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(
+            lambda m, bb: tfm.loss_fn(m, bb, placement=pl), opt,
+            grad_fn=pl.reduce_grads)
+        _, state, stats = step(model, state, LM_STEP, local)
+        if opt_name == "adafactor":
+            out.update(_state_reshard_check(case, model, state, pl))
+        out[f"{case}/step_loss"] = _np(stats["global_loss"])
+        out[f"{case}/grad_norm"] = _np(stats["grad_norm"])
+        for k, p in pl.gather({k: p.detach() for k, p in
+                               model.named_parameters()}).items():
+            out[f"{case}/step/params/{k}"] = _np(p)
+        for key, per in state.items():
+            for name, t in per.items():
+                whole = pl.gather_state(name, t, key=key)
+                for sub, (w, loc) in ({key: (whole, t)}.items()
+                                      if not isinstance(t, dict) else
+                                      {s: (whole[s], t[s])
+                                       for s in t}.items()):
+                    out[f"{case}/step/opt/{sub}/{name}"] = _np(w)
+                    out[f"{case}/shape/opt/{sub}/{name}"] = np.array(
+                        loc.shape)
+
+        for bsz in lm_serve_batches(case):
+            model, pl = placed(kind="decode", batch=bsz,
+                               cache_len=LM_SERVE["cache"])
+            r0, n = pl.batch_rows(bsz)
+            toks = torch.from_numpy(serve[r0:r0 + n].astype(np.int64))
+            s0 = LM_SERVE["prompt"]
+            last, cache = tfm.prefill(model, toks[:, :s0], placement=pl)
+            out[f"{case}/b{bsz}/prefill"] = _np(last)
+            # a copy: the decode steps write into the cache in place
+            out[f"{case}/b{bsz}/prefill_k"] = _np(cache["k"]).copy()
+            out[f"{case}/b{bsz}/shape/cache"] = np.array(cache["k"].shape)
+            for pos in range(s0, LM_SERVE["cache"]):
+                logits, cache = tfm.decode_step(model, cache, toks[:, pos],
+                                                pos, placement=pl)
+                out[f"{case}/b{bsz}/decode{pos}"] = _np(logits)
+            out[f"{case}/b{bsz}/cache_k"] = _np(cache["k"])
+            out[f"{case}/b{bsz}/cache_v"] = _np(cache["v"])
+            out[f"{case}/b{bsz}/rows"] = np.array([r0, n])
+    return out
+
+
+def _state_reshard_check(case, model, state, pl):
+    """The optimizer state gathered whole in the JAX layout (the driver's
+    checkpoint tree) and `reshard`ed back: this rank's blocks bitwise."""
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    tree = train._state_tree(tfm, model, state, pl)
+    opt = {k: tfm.named_from_tree(v) for k, v in tree["opt_state"].items()}
+    named = tfm.named_from_tree(tree["params"])
+    local, local_opt = train._restore_sharded(
+        {"params": named, "opt_state": opt}, pl, "cpu")
+    ok = all(torch.equal(local[k], p.detach())
+             for k, p in model.named_parameters())
+    n = 0
+    for key, per in state.items():
+        for name, t in per.items():
+            for sub, v in t.items():
+                n += sub in ("vr", "vc")
+                ok &= bool(torch.equal(local_opt[key][name][sub], v))
+    return {f"{case}/reshard_bitwise": np.array(ok),
+            f"{case}/n_factored": np.array(n)}
+
+
+LM_DRIVER_ARCHS = ("gemma2-2b", "kimi-k2-1t-a32b")
+
+
+def lm_driver(rank, mesh_shape, workdir, save_dir="", restore_dir=""):
+    """3 driver steps of each of LM_DRIVER_ARCHS (the reduced LMs) on this
+    mesh, and of gemma2-2b in 2 microbatches; with `save_dir`, 3 steps of kimi-k2-1t-a32b (adafactor) that
+    checkpoint there; with `restore_dir`, that checkpoint restored onto
+    this mesh and gathered back, and the run resumed to 5 steps."""
+    from repro_torch.launch import train
+    out = {}
+    kw = dict(device="cpu", dist_run=True, mesh_shape=mesh_shape,
+              log_every=100)
+    for arch_id in LM_DRIVER_ARCHS:
+        r = train.run(arch_id, steps=3, **kw)
+        out[f"{arch_id}_losses"] = np.array(r["losses"])
+        out[f"{arch_id}_mesh"] = np.array([r["mesh"]["data"],
+                                           r["mesh"]["model"]])
+    out["init_blocks_bitwise"] = np.array(_init_blocks_bitwise(mesh_shape))
+    # each data rank's rows are its slices of the 2 microbatches
+    r = train.run("gemma2-2b", steps=3, microbatches=2, **kw)
+    out["gemma2-2b_mb2_losses"] = np.array(r["losses"])
+    if save_dir:
+        r = train.run("kimi-k2-1t-a32b", steps=3, ckpt_dir=save_dir,
+                      ckpt_every=3, **kw)
+        out["saved_losses"] = np.array(r["losses"])
+    if restore_dir:
+        out.update(_lm_restore_check(mesh_shape, restore_dir))
+        r = train.run("kimi-k2-1t-a32b", steps=5, ckpt_dir=restore_dir,
+                      ckpt_every=100, **kw)
+        out["resumed_losses"] = np.array(r["losses"])
+    return out
+
+
+def _init_blocks_bitwise(mesh_shape) -> bool:
+    """Each parameter this rank draws as its block (the driver's
+    `init_params(blocks=)`, for each of LM_DRIVER_ARCHS' reduced LMs)
+    bitwise the block of the whole init, and every block but a
+    replicated one smaller than the whole where the mesh has more than
+    one rank."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.programs import LMPlacement
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.elastic import local_slice
+    mesh = make_mesh(*mesh_shape, "cpu")
+    ok, split = True, 0
+    for arch_id in LM_DRIVER_ARCHS:
+        arch = get_arch(arch_id)
+        cfg = train.reduced_model(arch)
+        pl = LMPlacement(mesh, cfg, optimizer=arch.optimizer)
+        whole = dict(tfm.init_params(cfg, seed=0,
+                                     device="cpu").named_parameters())
+        for k, p in tfm.init_params(cfg, seed=0, device="cpu",
+                                    blocks=pl.blocks()).named_parameters():
+            want = local_slice(whole[k].detach(), pl.specs[k], mesh)
+            ok &= bool(torch.equal(p.detach(), want))
+            split += p.shape != whole[k].shape
+    return ok and split > 0
+
+
+def _lm_restore_check(mesh_shape, ckpt_dir):
+    """The whole checkpoint (parameters and adafactor's vr / vc / v)
+    restored onto this mesh's blocks and gathered back: bitwise the
+    saved arrays, each block the saved array's."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.programs import LMPlacement
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.elastic import local_slice
+    arch = get_arch("kimi-k2-1t-a32b")
+    cfg = train.reduced_model(arch)
+    mesh = make_mesh(*mesh_shape, "cpu")
+    tree, _ = ckpt.restore(ckpt_dir, device="cpu")
+    named = tfm.named_from_tree(tree["params"])
+    opt = {k: tfm.named_from_tree(v) for k, v in tree["opt_state"].items()}
+    pl = LMPlacement(mesh, cfg, optimizer=arch.optimizer)
+    local, local_opt = train._restore_sharded(
+        {"params": named, "opt_state": opt}, pl, "cpu")
+    ok = shards = True
+    for k, v in named.items():
+        shards &= bool(torch.equal(local[k], local_slice(v, pl.specs[k],
+                                                         mesh)))
+        ok &= bool(torch.equal(pl.gather({k: local[k]})[k], v))
+    n_state = 0
+    for key, state in opt.items():
+        for name, v in state.items():
+            whole = pl.gather_state(name, local_opt[key][name], key=key)
+            for sub in v:
+                n_state += 1
+                ok &= bool(torch.equal(whole[sub], v[sub]))
+                shards &= bool(torch.equal(
+                    local_opt[key][name][sub],
+                    local_slice(v[sub], pl.state_spec(name, sub), mesh)))
+    return {"restore_bitwise": np.array(ok),
+            "restore_shards": np.array(shards),
+            "restore_n_state": np.array(n_state),
+            "table_local_shape": np.array(local["embed.table"].shape)}
