@@ -379,6 +379,30 @@ plain PyTorch as the JAX package's runs in jnp):
               phases and dlrm_driver recorded (build/bench/
               torch_steps.json), at the H100's ceilings.
 
+The LM family on a mesh (slices 17 and 18), before kernels_bench:
+
+ 13a. lm_dist  gemma2-2b's placed driver (NCCL, a world of one, --mesh
+              1,1) against the unplaced run: losses, peak, tokens/s, a
+              profiled step; qwen2-moe-a2.7b's placed prefill and decode
+              against the unplaced path. The vocab-sharded lookup,
+              `local_rows_take`, launches the take pair,
+              embedding_take_fwd_local and embedding_take_bwd_local
+              (csrc/embedding_take.cu), each microbatch and each serving
+              step, and the bag's local-rows mode never. Then both pairs
+              at the LM embedding shapes (LM_EMBED_SHAPES, bf16, the
+              whole vocab as one shard): the take's forward bitwise its
+              plain version, its scatter with non-negative d_out bitwise
+              on rows one slot names, within 1 bf16 ulp plus 2 n 2^-24 of
+              a row's sum on a row n slots name, zero elsewhere, and
+              bitwise the same over two runs (`_check_take`); each of the
+              four timed beside its plain version, its bound and
+              F.embedding or index_add_. The take pair also at a
+              BERT4Rec-shaped f32 shard (B4R_TAKE: D 64, a rank of a (1,
+              4) mesh, a fifth of a microbatch's candidates with the MASK
+              id at a tenth of the slots), checked at ranks 1 and 3 (the
+              MASK row's), timed at rank 1. Last the byte plan of the
+              training runs one card cannot hold on (16, 16).
+
 Launch counts are set to 0 just before each main path (the DLRM loop,
 the held loop, the train-feed arms, the checkpoint round trip, the
 quickstart's part 3, the GNN loop, the wide-deep loop, the dlrm-criteo
@@ -395,7 +419,11 @@ sub-records of that model's lookups: `xdeepfm_tables`,
 `xdeepfm_linear`, `dien_hist`, `bert4rec_seq`, `bert4rec_cand`; the
 local-rows mode's records, `embedding_bag_fwd_local` and
 `embedding_bag_bwd_local`, with dist_dlrm's launches and the quarter
-shard's record under `quarter`).
+shard's record under `quarter`, and their LM-shape records under `lm`
+with lm_dist's launches, 0; the take pair's, `embedding_take_fwd_local`
+and `embedding_take_bwd_local`, from lm_dist's placed driver, their
+records at gemma2-2b's shape, with qwen2-moe-a2.7b's and BERT4Rec's
+under `lm`).
 
 It prints a `kernels` JSON line (each record with the profiler events it
 was read from; the forwards with a `bf16` sub-record at the 2048-row
@@ -2087,11 +2115,23 @@ def phase_sage_kernels(shape, cfg) -> dict:
                 lambda g, w, a: sa.sage_aggregate_bwd(g, w, a, f, True),
                 bsets, "sage_dneigh_kernel")
             dn_bound = bound_ms(4 * (b * h + d * h + b * f * d), 2 * b * d * h)
+            # its function alone: the plain version's d_neigh (no agg, so
+            # no d_w) and one library expression, (d_out @ w^T / F)
+            # expanded over the F neighbours and written out
+            dn_plain = time_ms(lambda g, w, a: ref.sage_aggregate_bwd_ref(
+                g, w, None, f, need_neigh=True), bsets)
+            dn_lib = time_ms(lambda g, w, a: (g @ w.t() / f)[:, None, :]
+                             .expand(b, f, d).contiguous(), bsets)
             dneigh = {"ms": dn_ms, "events": dn_events,
+                      "plain_ms": dn_plain.ms,
+                      "plain_events": dn_plain.events,
+                      "library_ms": dn_lib.ms,
+                      "library_events": dn_lib.events,
                       "bound_ms": dn_bound[0], "bound_by": dn_bound[1]}
             print(f"    sage_dneigh_kernel {tag} ({b}, {f}, {d}) from "
                   f"({b}, {h}) x ({d}, {h})^T: {dn_ms:.4f} ms on the card "
-                  f"({dn_events} events), bound {dn_bound[0]:.4f} by "
+                  f"({dn_events} events), plain {dn_plain.ms:.4f}, "
+                  f"library {dn_lib.ms:.4f}, bound {dn_bound[0]:.4f} by "
                   f"{dn_bound[1]} ({dn_bound[0] / dn_ms:.0%} of it)",
                   flush=True)
         plain = time_ms(lambda g, w, a: ref.sage_aggregate_bwd_ref(
@@ -4550,12 +4590,14 @@ def phase_lm_serve(arch_id: str) -> dict:
 # gemma2-2b's train_4k with lm_train's batch and microbatches, 3 steps,
 # against the unplaced lm_train_gemma2-2b run of the same call. Stated
 # before the first run: the first loss bitwise (at one rank the placed
-# forward is the unplaced one's arithmetic: the lookup's local-rows kernel
-# reads the same bf16 rows); the next two within LM_DIST_LOSS_RTOL (the
-# tied table's gradient from the local-rows scatter sums a repeated
-# token's rows in bf16 atomics, F.embedding's backward in f32; 2e-4, about
-# 4x the largest of five readings, 1.03e-6, 1.04e-5, 2.73e-5, 1.9e-7 and
-# 4.53e-5, NVIDIA H100 80GB HBM3, 700.00 W); the peak within
+# forward is the unplaced one's arithmetic: the lookup's take kernel
+# copies the same bf16 rows); the next two within LM_DIST_LOSS_RTOL (the
+# tied table's gradient from the take's scatter sums a repeated token's
+# rows in f32 in a fixed tree, F.embedding's backward in f32 in its own
+# order, each rounded once; until slice 18 the bag's local-rows scatter
+# added them in bf16 atomics: 2e-4 is about 4x the largest of five
+# readings then, 1.03e-6, 1.04e-5, 2.73e-5, 1.9e-7 and 4.53e-5, NVIDIA
+# H100 80GB HBM3, 700.00 W); the peak within
 # LM_DIST_PEAK_TOL of the unplaced run's. Then
 # one placed train step profiled at lm_profile's batch, its device time
 # printed beside the unplaced step's of the same call. Then
@@ -4565,9 +4607,10 @@ def phase_lm_serve(arch_id: str) -> dict:
 # positions whose experts agree, as lm_serve holds its decode; the
 # unplaced path against itself beside
 # it, since the MoE's combine sums bf16 rows with atomics in no fixed
-# order on the card, so that neither is bitwise), the local-rows kernels
-# at the two LM embedding shapes, and the byte plan of the training runs
-# one card cannot hold on the (16, 16) production mesh.
+# order on the card, so that neither is bitwise), the bag's local-rows
+# pair and the take pair at the two LM embedding shapes and the take pair
+# at a BERT4Rec-shaped shard, and the byte plan of the training runs one
+# card cannot hold on the (16, 16) production mesh.
 LM_DIST = dict(arch="gemma2-2b", steps=3)
 LM_DIST_LOSS_RTOL = 2e-4
 LM_DIST_PEAK_TOL = 0.05
@@ -4578,12 +4621,133 @@ LM_EMBED_SHAPES = (("gemma2-2b", 4, 4096), ("qwen2-moe-a2.7b", 4, 4096))
 LM_PLAN_ARCHS = ("qwen2-moe-a2.7b", "qwen2.5-32b", "kimi-k2-1t-a32b")
 
 
+TAKE_KERNELS = ("embedding_take_fwd_local", "embedding_take_bwd_local")
+# BERT4Rec's item table (1,048,592 rows, D 64, f32) cut over a (1, 4)
+# mesh's model axis: rank 1's rows and rank 3's (which hold the MASK id,
+# n_items); the ids a fifth of a driver microbatch's candidates (8192 / 5
+# sequences of 20 x 128, bert4rec_batch's draw), the MASK id at a tenth
+# of the slots, as the sequence holds it (20 of 200)
+B4R_TAKE = dict(tp=4, ranks=(1, 3), timed=1, sequences=8192 // 5,
+                mask_share=0.1)
+
+
+def _check_take(table, ids, row0, tag) -> dict:
+    """The take pair against its plain versions on the shard `table`
+    (rows [row0, row0 + v_loc)), ids (N,): the forward bitwise (zeros for
+    an id outside); the scatter, with non-negative d_out in the table's
+    dtype, over the rows the in-shard ids touch: bitwise the plain
+    version on a row one slot names, within 1 ulp of the dtype (0 in f32)
+    plus 2 n 2^-24 of the exact sum on a row n slots name (the plain sums
+    add in index_add_'s atomic order, the kernel's in a fixed tree; each
+    lies within (n - 1) 2^-24 of it), nothing written elsewhere, and
+    bitwise the same over two runs. Returns the counts and errors."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb, ref
+    v_loc, d = table.shape
+    got = eb.embedding_take_fwd_local(table, ids, row0)
+    if not torch.equal(got, ref.embedding_take_local_ref(table, ids, row0)):
+        raise AssertionError(f"embedding_take_fwd_local {tag}: not bitwise "
+                             f"the plain version")
+    d_out = got.abs_()
+    lid = ids.long() - row0
+    ok = (lid >= 0) & (lid < v_loc)
+    rows, inv, touches = torch.unique(lid[ok], return_inverse=True,
+                                      return_counts=True)
+    exact = torch.zeros((rows.numel(), d), dtype=torch.float64,
+                        device=ids.device)
+    exact.index_add_(0, inv, d_out[ok].double())
+    grad = eb.embedding_take_bwd_local(d_out, ids, row0, v_loc)
+    again = eb.embedding_take_bwd_local(d_out, ids, row0, v_loc)
+    if not torch.equal(grad, again):
+        raise AssertionError(f"embedding_take_bwd_local {tag}: two runs "
+                             f"differ")
+    del again
+    want = ref.embedding_take_local_bwd_ref(d_out, ids, row0, v_loc)[rows]
+    got_rows = grad[rows]
+    if int(torch.count_nonzero(grad)) != int(torch.count_nonzero(got_rows)):
+        raise AssertionError(f"embedding_take_bwd_local {tag}: writes rows "
+                             f"no in-shard id names")
+    once = touches == 1
+    if not torch.equal(got_rows[once], want[once]):
+        raise AssertionError(f"embedding_take_bwd_local {tag}: a row one "
+                             f"slot names is not bitwise the plain version")
+    ulp = 0.0
+    if table.dtype == torch.bfloat16:
+        ulp = _bf16_ulp(exact)
+    err = (got_rows.double() - want.double()).abs()
+    lim = ulp + 2 * touches.double()[:, None] * 2.0 ** -24 * exact
+    if bool((err > lim).any()):
+        raise AssertionError(f"embedding_take_bwd_local {tag}: "
+                             f"{int((err > lim).sum())} elements off")
+    res = {"in_shard_slots": int(ok.sum()), "slots": ids.numel(),
+           "rows_touched": int(rows.numel()),
+           "rows_touched_more_than_once": int((touches > 1).sum()),
+           "most_touches": int(touches.max()) if touches.numel() else 0,
+           "bwd_max_err": float(err.max()) if err.numel() else 0.0,
+           "bwd_max_err_over_limit": float((err / lim.clamp(min=1e-300))
+                                           .max()) if err.numel() else 0.0,
+           "two_runs_bitwise": True}
+    print(f"  take {tag} {str(table.dtype)[6:]}: forward bitwise, scatter "
+          + json.dumps(res), flush=True)
+    del grad, want, got_rows, exact, d_out, got
+    return res
+
+
+def _take_records(table, ids, row0, tag, chk) -> tuple:
+    """The take pair timed on the shard `table` at ids (N,): each beside
+    its plain version, its bound (forward: the ids, each distinct row
+    read once, the output written once; scatter: d_out read once, the
+    ids, each distinct gradient row written once) and the unsharded
+    lookup's PyTorch call (F.embedding; index_add_ of the masked d_out
+    rows into the gradient). Returns (forward, scatter) records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb, ref
+    v_loc, d = table.shape
+    e = table.element_size()
+    n = ids.numel()
+    lid = ids.long() - row0
+    ok = (lid >= 0) & (lid < v_loc)
+    flat = lid.clamp(0, v_loc - 1)
+    uniq = int(torch.unique(flat[ok]).numel())
+    inside = int(ok.sum())
+    fwd = kernel_record(
+        f"embedding_take_fwd_local {tag}",
+        time_ms(lambda: eb.embedding_take_fwd_local(table, ids, row0), [()],
+                kernel="embedding_take_fwd_kernel"),
+        time_ms(lambda: ref.embedding_take_local_ref(table, ids, row0),
+                [()]),
+        time_ms(lambda: F.embedding(flat, table), [()]),
+        bound_ms(n * 4 + uniq * d * e + n * d * e, 0), 0.0,
+        shape=[n, v_loc, d], row0=row0, dtype=str(table.dtype)[6:],
+        unique_rows=uniq, in_shard_slots=inside, checks=chk)
+    d_out = torch.rand((n, d), device=ids.device).to(table.dtype)
+    grad = torch.zeros_like(table)
+    t = time_ms(lambda: eb.embedding_take_scatter(d_out, ids, grad, row0),
+                [()], kernel="embedding_take_bwd")
+    plain = time_ms(lambda: ref.embedding_take_local_bwd_ref(
+        d_out, ids, row0, v_loc), [()], iters=3)
+    upd = d_out * ok[:, None].to(d_out.dtype)
+    lib = time_ms(lambda: grad.index_add_(0, flat, upd), [()])
+    bwd = kernel_record(
+        f"embedding_take_bwd_local {tag}", t, plain, lib,
+        bound_ms(inside * d * e + n * 4 + uniq * d * e, inside * d), 0.0,
+        shape=[n, v_loc, d], row0=row0, dtype=str(table.dtype)[6:],
+        unique_rows=uniq, in_shard_slots=inside,
+        plan=dict(vars(eb.take_bwd_plan(n, v_loc, d, e))))
+    del grad, d_out, upd
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def _lm_local_kernels(arch_id: str, b: int, seq: int) -> dict:
-    """The local-rows forward and scatter at an LM's whole vocab as one
-    shard (the lookup of a world of one rank), bf16, ids of b x seq
-    TokenStream tokens: `_check_local`, then each timed beside its plain
-    version, its bound and the unplaced lookup's own PyTorch call
-    (F.embedding forward; index_add_ of the rows for the scatter)."""
+    """Both local-rows pairs at an LM's whole vocab as one shard (the
+    lookup of a world of one rank), bf16, ids of b x seq TokenStream
+    tokens: the bag's local-rows mode as it ran before the take pair
+    (`_check_local`, then each timed beside its plain version, its bound
+    and the unplaced lookup's own PyTorch call: F.embedding forward;
+    index_add_ of the rows for the scatter), then the take pair, the
+    lookup's now (`_check_take`, `_take_records`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs.registry import get_arch
@@ -4624,9 +4788,54 @@ def _lm_local_kernels(arch_id: str, b: int, seq: int) -> dict:
         f"embedding_bag_bwd local bf16 {tag}", t, plain, lib,
         bound_ms(n * d * 4 + n * 4 + 2 * uniq * d * 2, n * d), 0.0,
         shape=[n, 1, 1, v, d], unique_rows=uniq)
-    del tables, grad, d_out, upd
+    del grad, d_out, upd
+    table = tables.view(v, d)
+    table.normal_(generator=gen)
+    ids1 = ids.view(-1)
+    take_tag = f"bf16 {arch_id} ({n},) into ({v}, {d})"
+    chk = _check_take(table, ids1, 0, take_tag)
+    table.normal_(generator=gen)
+    take_fwd, take_bwd = _take_records(table, ids1, 0, take_tag, chk)
+    del tables, table
     torch.cuda.empty_cache()
-    return {"fwd": fwd, "bwd": bwd}
+    return {"fwd": fwd, "bwd": bwd, "take_fwd": take_fwd,
+            "take_bwd": take_bwd}
+
+
+def _b4r_take_kernels() -> dict:
+    """The take pair at B4R_TAKE's BERT4Rec-shaped f32 shards: checked at
+    each rank (`_check_take`), timed at rank `timed`. Returns {"fwd":
+    {tag: record}, "bwd": {tag: record}}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.bert4rec import MODEL as B4R
+    from repro_torch.data.synthetic import bert4rec_batch
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(28)
+    batch = bert4rec_batch(rng, B4R_TAKE["sequences"], B4R.seq_len,
+                           B4R.n_items, B4R.n_mask, B4R.n_negatives)
+    cand = np.concatenate([batch["mask_labels"][..., None],
+                           batch["neg_ids"]], -1).reshape(-1)
+    cand[rng.rand(cand.size) < B4R_TAKE["mask_share"]] = B4R.n_items
+    ids = torch.from_numpy(cand.astype(np.int32)).to(dev)
+    vocab = -(-(B4R.n_items + 2) // 16) * 16
+    v_loc, d = vocab // B4R_TAKE["tp"], B4R.embed_dim
+    gen = torch.Generator(device=dev).manual_seed(28)
+    out = {"fwd": {}, "bwd": {}}
+    for rank in B4R_TAKE["ranks"]:
+        row0 = rank * v_loc
+        table = torch.empty((v_loc, d), device=dev)
+        table.normal_(generator=gen).mul_(d ** -0.5)
+        tag = (f"f32 bert4rec rank {rank} of {B4R_TAKE['tp']}: "
+               f"({ids.numel()},) into ({v_loc}, {d}) at row {row0}")
+        chk = _check_take(table, ids, row0, tag)
+        if rank == B4R_TAKE["timed"]:
+            key = f"bert4rec_rank{rank}"
+            out["fwd"][key], out["bwd"][key] = _take_records(
+                table, ids, row0, tag, chk)
+        del table
+        torch.cuda.empty_cache()
+    return out
 
 
 def _serve_run(model, toks, p_len: int, n_dec: int, placement=None):
@@ -4684,7 +4893,7 @@ def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
     from repro_torch.launch.programs import LMPlacement, rank_bytes
     from repro_torch.models import transformer as tfm
 
-    out = {k: {} for k in DIST_KERNELS}
+    out = {k: {} for k in DIST_KERNELS + TAKE_KERNELS}
     if os.path.exists(DIST_PG_FILE):
         os.remove(DIST_PG_FILE)
     dev = mesh_lib.init_distributed("cuda", rank=0, world_size=1,
@@ -4698,7 +4907,7 @@ def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
                         device="cuda", log_every=1, dist_run=True,
                         mesh_shape=(1, 1))
         counts = ops.launch_counts()
-        for k in DIST_KERNELS:
+        for k in DIST_KERNELS + TAKE_KERNELS:
             out[k]["launches"] = counts[k]
         losses = res["losses"]
         want = unplaced["losses"][:len(losses)]
@@ -4715,7 +4924,8 @@ def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
                    "max_memory_allocated": peak,
                    "unplaced_max_memory_allocated": peak0,
                    "peak_ratio": peak / peak0, "mesh": res["mesh"],
-                   "launches": {k: counts[k] for k in DIST_KERNELS}}
+                   "launches": {k: counts[k]
+                                for k in DIST_KERNELS + TAKE_KERNELS}}
         print(f"  lm_dist {arch_id} train_4k " + json.dumps(summary),
               flush=True)
         if losses[0] != want[0]:
@@ -4728,10 +4938,11 @@ def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
         if not peak <= (1 + LM_DIST_PEAK_TOL) * peak0:
             raise AssertionError(f"lm_dist peak {peak} over {peak0}")
         n_mb = LM_DIST["steps"] * spec["microbatches"]
-        if min(counts[k] for k in DIST_KERNELS) < n_mb:
+        if min(counts[k] for k in TAKE_KERNELS) < n_mb \
+                or any(counts[k] for k in DIST_KERNELS):
             raise AssertionError(f"lm_dist launches {counts}: the lookup "
-                                 f"takes the local-rows kernels each "
-                                 f"microbatch")
+                                 f"takes the take pair each microbatch, "
+                                 f"and the bag's local-rows mode never")
         torch.cuda.empty_cache()
         placed_ms = phase_lm_profile(arch_id, mesh=mesh_lib.make_mesh(
             1, 1, dev, exchange_one_shard=True))
@@ -4758,7 +4969,7 @@ def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
         ops.reset_launch_counts()
         got = _serve_run(model, toks, p_len, n_dec, placement=pl)
         counts = ops.launch_counts()
-        for k in DIST_KERNELS:
+        for k in DIST_KERNELS + TAKE_KERNELS:
             out[k]["serve_launches"] = counts[k]
         del model
         torch.cuda.empty_cache()
@@ -4802,7 +5013,8 @@ def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
                      prefill_s=got[3], unplaced_prefill_s=base[3],
                      decode_step_s=got[4] / n_dec,
                      unplaced_decode_step_s=base[4] / n_dec,
-                     launches={k: counts[k] for k in DIST_KERNELS},
+                     launches={k: counts[k]
+                               for k in DIST_KERNELS + TAKE_KERNELS},
                      reduced=[f"prompt {p_len}, batch {b}, {n_dec} decode "
                               f"steps, for the phase's time"])
         lim = LM_SERVE[sv["arch"]]
@@ -4814,7 +5026,8 @@ def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
                 and res_s["min_cos"] >= lim["cos"]):
             raise AssertionError(f"lm_dist serve off the unplaced path: "
                                  f"{res_s}")
-        if min(counts[k] for k in ("embedding_bag_fwd_local",)) < 1 + n_dec:
+        if counts["embedding_take_fwd_local"] < 1 + n_dec \
+                or any(counts[k] for k in DIST_KERNELS):
             raise AssertionError(f"lm_dist serve launches {counts}")
     finally:
         torch.distributed.destroy_process_group()
@@ -4823,6 +5036,11 @@ def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
         recs = _lm_local_kernels(arch_id, b, seq)
         out["embedding_bag_fwd_local"][arch_id] = recs["fwd"]
         out["embedding_bag_bwd_local"][arch_id] = recs["bwd"]
+        out["embedding_take_fwd_local"][arch_id] = recs["take_fwd"]
+        out["embedding_take_bwd_local"][arch_id] = recs["take_bwd"]
+    recs = _b4r_take_kernels()
+    out["embedding_take_fwd_local"].update(recs["fwd"])
+    out["embedding_take_bwd_local"].update(recs["bwd"])
 
     for arch_id in LM_PLAN_ARCHS:
         arch = get_arch(arch_id)
@@ -4873,6 +5091,15 @@ SOURCES = {
         "src/repro/kernels/embedding_bag.py:75"),
     "embedding_bag_bwd_local": (
         "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "src/repro/kernels/embedding_bag.py:75"),
+    # the take pair (slice 18): the vocab-sharded lookup's masked take of
+    # repro/models/embedding.py:72-78, the TPU kernel's bag of one on one
+    # rank's rows
+    "embedding_take_fwd_local": (
+        "src/repro_torch/kernels/csrc/embedding_take.cu",
+        "src/repro/kernels/embedding_bag.py:75"),
+    "embedding_take_bwd_local": (
+        "src/repro_torch/kernels/csrc/embedding_take.cu",
         "src/repro/kernels/embedding_bag.py:75"),
     "embedding_bag_fused_fwd": (
         "src/repro_torch/kernels/csrc/embedding_bag_fused.cu",
@@ -5074,9 +5301,16 @@ def run_phases(agent_procs) -> int:
                 rec, launches=seq_launches[arch_id][name],
                 in_step_ms=seq_in_step[arch_id].get(name))
     for name, by in run_lm_phases().items():
-        recs[name]["lm_dist_launches"] = by.pop("launches")
-        recs[name]["lm_serve_launches"] = by.pop("serve_launches")
-        recs[name]["lm"] = by
+        lm_launches, serve = by.pop("launches"), by.pop("serve_launches")
+        if name in TAKE_KERNELS:
+            # the take pair's main path is the placed LM's lookup: its
+            # record is gemma2-2b's shape, the others under `lm`
+            recs[name] = dict(by.pop(LM_DIST["arch"]), lm=by,
+                              lm_serve_launches=serve)
+            launches[name] = lm_launches
+        else:
+            recs[name].update(lm_dist_launches=lm_launches,
+                              lm_serve_launches=serve, lm=by)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]
@@ -5091,7 +5325,7 @@ def run_phases(agent_procs) -> int:
 def run_lm_phases() -> dict:
     """Slice 15's phases: the LM family unplaced (no kernel of the
     `kernels` line lies on its path), then slice 17's `lm_dist` (the
-    placed LM, whose lookup runs the local-rows kernels), the kernel
+    placed LM, whose lookup runs the take pair of slice 18), the kernel
     benchmark and the roofline. Returns lm_dist's records."""
     import torch
     with Phase("lm_attention"):

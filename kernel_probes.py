@@ -88,6 +88,19 @@ CUDA events launch to launch). Sections (all when none is named):
             (inputs read once, output written once) and the floor of
             the message traffic (E x D gathered and added). CUDA events,
             the mean of 3 calls after one warm-up.
+  take      the vocab shard's take pair (csrc/embedding_take.cu) at the
+            LM embedding shapes (chip_smoke.LM_EMBED_SHAPES: 16,384
+            TokenStream ids into gemma2-2b's (256000, 2304) and
+            qwen2-moe-a2.7b's (151936, 2048) bf16 tables, one shard):
+            the forward with its grid capped at 528, 1056 and 2112
+            blocks (further rounds a thread) against one round of
+            blocks, beside F.embedding, in turns; the backward's device
+            time by kernel; the backward under TAKE_VARIANTS (the sum's
+            group of 4, 8 or 16 elements, level 1 held to 1, 2 or 3
+            blocks an SM), each checked bitwise against this checkout's
+            kernel,
+            its total and level-1 times, with ptxas' registers and spills
+            of the sum's instantiations; index_add_ beside them.
   scatter_bf16  embedding_bag_bwd into a bf16 gradient at dlrm-criteo's
             training shape, ids (65536, 26, 1) of the synthetic Criteo
             stream into (26, 2^22, 128): its bf16x2 REDs against the
@@ -753,6 +766,23 @@ extern "C" int bwd_words(const float* d_out, const int32_t* ids, float* grad,
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 
 
+# the take backward's level-1 sum: its group of elements (kSumUnroll) and
+# the blocks an SM that launch bounds ask of level 1 (none: 1)
+_UNROLL = "constexpr int kSumUnroll = 4;"
+_BOUNDS = ("__launch_bounds__(kSumThreads)\n"
+           "embedding_take_bwd_sum_kernel(")
+TAKE_VARIANTS = {
+    f"u{u}_b{b}": [(_UNROLL, f"constexpr int kSumUnroll = {u};"),
+                   (_BOUNDS, f"__launch_bounds__(kSumThreads, "
+                             f"kFirst ? {b} : 1)\n"
+                             f"embedding_take_bwd_sum_kernel(")]
+    for u, b in ((4, 2), (8, 1), (8, 2), (8, 3), (16, 1))}
+
+
+# nvcc's output (ptxas' report) for each variant built
+VARIANT_LOGS = {}
+
+
 def build_variants(sections):
     """nvcc for the micro kernels and the variants of `sections`, started
     together; returns their loaded libraries. The forward's variants
@@ -778,7 +808,8 @@ def build_variants(sections):
             ("embedding_bag", NARROW_VARIANTS, "narrow" if own else None),
             ("dot_interact", DOT_VARIANTS, "dot_bwd"),
             ("dot_interact", DOT_FWD_VARIANTS, "dot_fwd"),
-            ("embedding_bag_fused", FUSED_VARIANTS, "fused")):
+            ("embedding_bag_fused", FUSED_VARIANTS, "fused"),
+            ("embedding_take", TAKE_VARIANTS, "take" if own else None)):
         if section not in sections:
             continue
         text = open(os.path.join(CSRC, f"{src}.cu")).read()
@@ -804,6 +835,7 @@ def build_variants(sections):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        VARIANT_LOGS[name] = log
         lib = ctypes.CDLL(os.path.join(OUT, f"{name}.so"))
         if name == "micro":
             lib.micro.argtypes = (_I32, _P, _P, _P, _I64, _P)
@@ -1673,6 +1705,93 @@ def probe_profiler(cs, gen):
                 p.join(10)
 
 
+def probe_take(cs, libs):
+    """Section `take` (see the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import build
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import LIBRARIES
+    dev = torch.device("cuda")
+    for name in libs:
+        if name.startswith("embedding_take_"):
+            for kernel, rep in cs.ptxas_report(VARIANT_LOGS[name]).items():
+                if "sum_kernel" in kernel:
+                    print(f"  {name[15:]} {kernel}: registers, stack, "
+                          f"spill stores, spill loads {rep}", flush=True)
+    own = LIBRARIES.get("embedding_take")
+    plan_fn = eb.take_fwd_plan
+    for arch_id, b, seq in cs.LM_EMBED_SHAPES:
+        cfg = get_arch(arch_id).model
+        v, d = cfg.vocab_size, cfg.d_model
+        ids = torch.from_numpy(TokenStream(v, seq).batch(b)["tokens"]) \
+            .to(dev).reshape(-1).to(torch.int32)
+        n = ids.numel()
+        table = torch.randn((v, d), device=dev).to(torch.bfloat16)
+        flat = ids.long()
+        words = n * d * 2 // 16
+        one = plan_fn(n, d * 2).blocks
+        for cap in ("F.embedding", one, 528, 1056, 2112, one,
+                    "F.embedding"):
+            if isinstance(cap, str):
+                t = cs.time_ms(lambda: F.embedding(flat, table), [()])
+            else:
+                blocks = min(cap, one)
+                plan = eb.TakeFwdPlan(16, blocks, eb.divisor(
+                    d * 2 // 16, eb.take_fwd_span(words, blocks)))
+                eb.take_fwd_plan = lambda *a, p=plan: p
+                try:
+                    if not torch.equal(
+                            eb.embedding_take_fwd_local(table, ids, 0),
+                            ref.embedding_take_local_ref(table, ids, 0)):
+                        raise AssertionError(f"take fwd at {blocks} blocks")
+                    t = cs.time_ms(lambda: eb.embedding_take_fwd_local(
+                        table, ids, 0), [()],
+                        kernel="embedding_take_fwd_kernel")
+                finally:
+                    eb.take_fwd_plan = plan_fn
+                cap = f"{blocks} blocks"
+            print(f"  take fwd {arch_id} ({n},) into ({v}, {d}) bf16, "
+                  f"{cap}: {t.ms:.5f} ms ({t.events} events), "
+                  f"{t.wall:.5f} launch to launch", flush=True)
+        d_out = torch.rand((n, d), device=dev).to(torch.bfloat16)
+        grad = torch.zeros_like(table)
+        want = eb.embedding_take_bwd_local(d_out, ids, 0, v)
+        fn = lambda: eb.embedding_take_scatter(d_out, ids, grad, 0)
+        fn()
+        prof, _, dev_us, clock = cs._profiled(fn, [()], 20, 0)
+        for e in sorted(prof.key_averages(),
+                        key=lambda e: -e.self_device_time_total):
+            if e.self_device_time_total > 0 and cs.SENTINEL not in e.key:
+                print(f"  take bwd {arch_id} by kernel: "
+                      f"{e.self_device_time_total / 20:.3f} us a call, "
+                      f"{e.count // 20} a call, {e.key[:100]}", flush=True)
+        print(f"  take bwd {arch_id}: {dev_us / 20e3:.5f} ms a call, "
+              f"window clock {clock}", flush=True)
+        level1 = "embedding_take_bwd_sum_kernel<__nv_bfloat16, 8, true>"
+        for name in ["own"] + [k for k in libs
+                               if k.startswith("embedding_take_")] + ["own"]:
+            build.LIBRARIES._libs["embedding_take"] = \
+                own if name == "own" else libs[name]
+            try:
+                if not torch.equal(eb.embedding_take_bwd_local(
+                        d_out, ids, 0, v), want):
+                    raise AssertionError(f"take bwd variant {name}")
+                t = cs.time_ms(fn, [()], kernel="embedding_take_bwd")
+                l1, _ = cs.named_kernel_ms(fn, [()], level1)
+            finally:
+                build.LIBRARIES._libs["embedding_take"] = own
+            print(f"  take bwd {arch_id} {name.replace('embedding_take_', '')}"
+                  f": {t.ms:.5f} ms, level 1 {l1:.5f} ms", flush=True)
+        t = cs.time_ms(lambda: grad.index_add_(0, flat, d_out), [()])
+        print(f"  take bwd {arch_id}: index_add_ {t.ms:.5f} ms", flush=True)
+        del table, d_out, grad, want
+        torch.cuda.empty_cache()
+
+
 def main(sections) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1849,12 +1968,14 @@ def main(sections) -> int:
         probe_profiler(cs, gen)
     if "segment" in sections:
         probe_segment(cs, gen)
+    if "take" in sections:
+        probe_take(cs, libs)
     print(f"card: {cs.card_line()}")
     return 0
 
 
 SECTIONS = ("fused", "dot_fwd", "sage", "embedding", "scatter", "dot_bwd",
-            "scatter_bf16", "narrow", "profiler", "segment")
+            "scatter_bf16", "narrow", "profiler", "segment", "take")
 
 if __name__ == "__main__":
     names = sys.argv[3:] if sys.argv[1:2] == ["--src"] else sys.argv[1:]

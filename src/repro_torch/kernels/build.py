@@ -27,8 +27,8 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("embedding_bag", "embedding_bag_fused", "dot_interact",
-           "sage_aggregate")
+SOURCES = ("embedding_bag", "embedding_bag_fused", "embedding_take",
+           "dot_interact", "sage_aggregate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,14 @@ SIGNATURES = {
         "embedding_bag_fused_fwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                                     _I32, _I32, _I32, _I32, _I32, _I64,
                                     _P),
+    },
+    "embedding_take": {
+        "embedding_take_fwd": (_P, _P, _P, _I64, _I64, _I64, _I32, _I64,
+                               _I64, _I32, _I64, _P),
+        "embedding_take_bwd": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                               _I32, _I32, _I32, _I32, _I64, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _I64, _P, _P, _I64,
+                               _P),
     },
     "dot_interact": {
         "dot_interact_fwd": (_P, _P, _I64, _I32, _I32, _I32, _I32, _I32,

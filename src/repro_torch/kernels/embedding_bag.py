@@ -14,11 +14,20 @@ nothing); its launches count under `embedding_bag_fwd_local` and
 kernels do, and return f32; the backward reads an f32 d_out and writes
 the gradient in the tables' dtype, f32 or bf16.
 
+`embedding_take_fwd_local` / `embedding_take_bwd_local`
+(csrc/embedding_take.cu) are the single-hot take from one rank's row
+shard, the vocab-sharded lookup's (the reference's `tp_embedding_lookup`
+and `tp_sampled_scores`): a table (v_loc, D) and ids (N,) -> (N, D) in
+the table's dtype, and its gradient from d_out in that dtype, each named
+row written once by its owner (no atomics, the same bits run to run).
+
 The launches are plans computed here, in plain Python that the CPU
 tests reach (`fwd_plan`: elements a load, threads a row or the flat
 walk's divisors, blocks; `fused_plan`: the same and the feature groups
 of its walk; `bwd_plan`: columns an atomic word, threads a row or the
-flat walk's divisor, the feature groups of its walk).
+flat walk's divisor, the feature groups of its walk; `take_fwd_plan`:
+bytes a word, blocks, the divisor of a row's words; `take_bwd_plan`: the
+sort's passes and tiles, columns a word, the sum's scratch).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
@@ -39,7 +48,8 @@ from repro_torch.kernels.build import LIBRARIES
 
 LAUNCHES = {"embedding_bag_fwd": 0, "embedding_bag_bwd": 0,
             "embedding_bag_fused_fwd": 0, "embedding_bag_fwd_local": 0,
-            "embedding_bag_bwd_local": 0}
+            "embedding_bag_bwd_local": 0, "embedding_take_fwd_local": 0,
+            "embedding_take_bwd_local": 0}
 
 # the fused kernel's unroll bound (csrc/embedding_bag_fused.cu, kMaxBag)
 FUSED_MAX_BAG = 16
@@ -383,3 +393,212 @@ def embedding_bag_bwd(d_out: torch.Tensor, ids: torch.Tensor, num_rows: int,
     grad = torch.zeros((ids.shape[1], num_rows, d_out.shape[-1]),
                        dtype=dtype, device=d_out.device)
     return embedding_bag_scatter(d_out, ids, grad, combiner, row0)
+
+
+# the single-hot take (csrc/embedding_take.cu): the forward's blocks of
+# 256 threads, 4 words a thread in flight a round (kFwdWords; one round
+# of blocks was as fast as a grid capped at 528-2112 blocks walking more:
+# kernel_probes.py take); its words 16, 4 or 2 bytes
+TAKE_THREADS = 256
+TAKE_WORDS = 4
+TAKE_WIDTHS = (16, 4, 2)
+# the backward's radix sort: blocks of 256 threads, tiles of 256 kpt
+# positions (kpt 1, 2, 4 or 8, the fewest that keep the tiles within 4 an
+# SM of the H100's 132), digits of at most 10 bits; its segmented sum's
+# chunks of 64 positions at level 1 (kChunk), of 16 partials after
+# (kChunkUp)
+SORT_THREADS = 256
+SORT_MAX_BITS = 10
+SORT_TILES = 4 * 132
+TAKE_CHUNK = 64
+TAKE_CHUNK_UP = 16
+
+
+@dataclass(frozen=True)
+class TakeFwdPlan:
+    word: int         # bytes a word: 16, 4 or 2
+    blocks: int       # blocks of TAKE_THREADS, TAKE_WORDS words a thread
+                      # a round
+    per_row: Div      # a word's row: // (row bytes // word)
+
+
+def take_fwd_span(words: int, blocks: int) -> int:
+    """The forward walk's indices lie below this: its words and one round
+    of the grid past them."""
+    return words + blocks * TAKE_THREADS * TAKE_WORDS
+
+
+@functools.lru_cache(maxsize=None)
+def take_fwd_plan(n: int, row_bytes: int, ptr: int = 0) -> TakeFwdPlan:
+    """The forward's launch for n rows of `row_bytes` bytes, table and
+    output at addresses or'd into `ptr`: the widest of TAKE_WIDTHS that
+    divides a row and aligns both, blocks enough for every word in one
+    round of TAKE_WORDS a thread, and the divisor of a row's words over
+    the walk's span."""
+    word = next((w for w in TAKE_WIDTHS if row_bytes % w == 0
+                 and ptr % w == 0), 0)
+    if word == 0:
+        raise ValueError(f"a row of {row_bytes} bytes at {ptr:#x} takes no "
+                         f"word of {TAKE_WIDTHS} bytes")
+    words = n * (row_bytes // word)
+    blocks = max(1, _cdiv(words, TAKE_THREADS * TAKE_WORDS))
+    return TakeFwdPlan(word, blocks, divisor(
+        max(1, row_bytes // word), take_fwd_span(words, blocks)))
+
+
+@dataclass(frozen=True)
+class TakeBwdPlan:
+    vec: int          # columns a word: 8 (bf16) or 4 (f32), else 1
+    passes: int       # radix passes, of
+    radix_bits: int   # bits a digit, covering the keys [0, v_loc]
+    kpt: int          # positions a thread of a sort tile
+    tiles: int        # sort tiles: SORT_THREADS kpt positions each
+    part_a: int       # rows of D floats for levels 2, 4, ... of the sum
+    part_b: int       # and for levels 3, 5, ...
+
+    @property
+    def radix(self) -> int:
+        return 1 << self.radix_bits
+
+
+def take_levels(n: int) -> list:
+    """The segmented sum's levels: the elements each takes, n at level 1
+    (chunks of TAKE_CHUNK), then twice the chunks of the one before (in
+    chunks of TAKE_CHUNK_UP), until a level of one chunk."""
+    sizes = [n]
+    chunk = TAKE_CHUNK
+    while _cdiv(sizes[-1], chunk) > 1:
+        sizes.append(2 * _cdiv(sizes[-1], chunk))
+        chunk = TAKE_CHUNK_UP
+    return sizes
+
+
+@functools.lru_cache(maxsize=None)
+def take_bwd_plan(n: int, v_loc: int, d: int, elem: int = 4,
+                  ptr: int = 0) -> TakeBwdPlan:
+    """The backward's launch for d_out (n, d) into a gradient (v_loc, d)
+    of `elem`-byte elements, both at addresses or'd into `ptr`: 16-byte
+    words where d and ptr allow, else one column; the sort's keys [0,
+    v_loc] in the fewest passes of at most SORT_MAX_BITS bits, spread
+    evenly; tiles of the fewest positions a thread (1, 2, 4 or 8) that
+    keep them within SORT_TILES; the partials of every level after the
+    first, in two buffers taken in turns."""
+    vec = 16 // elem if d % (16 // elem) == 0 and ptr % 16 == 0 else 1
+    bits = max(1, v_loc.bit_length())
+    passes = _cdiv(bits, SORT_MAX_BITS)
+    kpt = 1
+    while kpt < 8 and _cdiv(n, SORT_THREADS * kpt) > SORT_TILES:
+        kpt *= 2
+    levels = take_levels(n)[1:]
+    return TakeBwdPlan(vec, passes, _cdiv(bits, passes), kpt,
+                       max(1, _cdiv(n, SORT_THREADS * kpt)),
+                       max(levels[0::2], default=0),
+                       max(levels[1::2], default=0))
+
+
+def _check_take(table: torch.Tensor, ids: torch.Tensor, row0):
+    _check(table, "table", TABLE_DTYPES, 2)
+    _check(ids, "ids", torch.int32, 1)
+    if ids.device != table.device:
+        raise ValueError(f"ids on {ids.device}, table on {table.device}")
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
+
+
+def _check_d_out(d_out: torch.Tensor, ids: torch.Tensor, shape, dtype,
+                 device):
+    """d_out (N, D) of the take's gradient (shape (v_loc, D), `dtype`, on
+    `device`), ids (N,)."""
+    _check(d_out, "d_out", TABLE_DTYPES, 2)
+    if ids.shape[0] != d_out.shape[0] or shape[1] != d_out.shape[1] \
+            or dtype != d_out.dtype \
+            or not (d_out.device == ids.device == device):
+        raise ValueError(f"d_out {tuple(d_out.shape)} {d_out.dtype}, ids "
+                         f"{tuple(ids.shape)} and grad {tuple(shape)} "
+                         f"{dtype} do not match")
+
+
+def embedding_take_fwd_local(table: torch.Tensor, ids: torch.Tensor,
+                             row0: int) -> torch.Tensor:
+    """table (v_loc, D) f32 or bf16, rows [row0, row0 + v_loc) of a
+    row-sharded table; ids (N,) int32 -> (N, D) in the table's dtype: row
+    id - row0 for an id in the shard, zeros for any other (the masked
+    take), a copy bit for bit."""
+    _check_take(table, ids, row0)
+    v_loc, d = table.shape
+    n = ids.shape[0]
+    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+    row_bytes = d * table.element_size()
+    if n == 0 or row_bytes == 0:
+        return out
+    plan = take_fwd_plan(n, row_bytes,
+                         (table.data_ptr() | out.data_ptr()) % 16)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _status("embedding_take_fwd_local", LIBRARIES.get("embedding_take")
+                .embedding_take_fwd(table.data_ptr(), ids.data_ptr(),
+                                    out.data_ptr(), n, v_loc, row_bytes,
+                                    plan.word, plan.blocks, *plan.per_row,
+                                    int(row0), stream))
+    return out
+
+
+def embedding_take_scatter(d_out: torch.Tensor, ids: torch.Tensor,
+                           grad: torch.Tensor, row0: int) -> torch.Tensor:
+    """The take's gradient into grad (v_loc, D), zeroed by the caller, of
+    rows [row0, row0 + v_loc): each row that ids (N,) int32 name in the
+    shard gets the f32 sum of its slots' rows of d_out (N, D), in
+    ascending slot order within a chunk of 64 sorted slots and in a fixed
+    tree across chunks, rounded once to grad's dtype, d_out's; every other
+    row is left as it is. Each row is written once, by its owner; the
+    sort and the partials take scratch from `torch.empty`."""
+    _check_take(grad, ids, row0)
+    _check_d_out(d_out, ids, grad.shape, grad.dtype, grad.device)
+    n, d = d_out.shape
+    v_loc = grad.shape[0]
+    if n == 0 or d == 0 or v_loc == 0:
+        return grad
+    if max(n, v_loc) >= 2 ** 31 - 1:
+        raise ValueError(f"{n} ids into {v_loc} rows: the sort's keys and "
+                         f"slots are int32")
+    plan = take_bwd_plan(n, v_loc, d, grad.element_size(),
+                         (d_out.data_ptr() | grad.data_ptr()) % 16)
+    dev = grad.device
+    # the scratch in two allocations: the ints (the sort's keys and slots
+    # in two buffers, the digit counts and totals, the levels' keys) and
+    # the levels' f32 partials (part_a's rows, then part_b's: 16-byte
+    # aligned rows wherever the words are 16 bytes)
+    sizes = (n, n, n, n, plan.radix * plan.tiles, plan.radix, plan.part_a,
+             plan.part_b)
+    ints = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    floats = torch.empty((plan.part_a + plan.part_b) * d,
+                         dtype=torch.float32, device=dev)
+    at, ptrs = 0, []
+    for k in sizes:
+        ptrs.append(ints.data_ptr() + 4 * at)
+        at += k
+    keys_a, slots_a, keys_b, slots_b, counts, totals, pkeys_a, pkeys_b = ptrs
+    part_a, part_b = floats.data_ptr(), floats.data_ptr() + 4 * plan.part_a * d
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _status("embedding_take_bwd_local", LIBRARIES.get("embedding_take")
+                .embedding_take_bwd(
+                    d_out.data_ptr(), ids.data_ptr(), grad.data_ptr(), n,
+                    v_loc, d, int(row0), int(grad.dtype == torch.bfloat16),
+                    plan.vec, plan.passes, plan.radix_bits, plan.kpt,
+                    plan.tiles, keys_a, slots_a, keys_b, slots_b, counts,
+                    totals, part_a, pkeys_a, plan.part_a, part_b, pkeys_b,
+                    plan.part_b, stream))
+    return grad
+
+
+def embedding_take_bwd_local(d_out: torch.Tensor, ids: torch.Tensor,
+                             row0: int, v_loc: int) -> torch.Tensor:
+    """The shard's gradient (v_loc, D) in d_out's dtype (the table's):
+    `embedding_take_scatter` into a tensor whose zero fill is the
+    allocation's (`torch.zeros`), not the kernel's."""
+    shape = (v_loc, d_out.shape[-1])
+    _check_d_out(d_out, ids, shape, d_out.dtype, d_out.device)
+    _check(ids, "ids", torch.int32, 1)
+    grad = torch.zeros(shape, dtype=d_out.dtype, device=d_out.device)
+    return embedding_take_scatter(d_out, ids, grad, row0)

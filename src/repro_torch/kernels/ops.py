@@ -12,7 +12,8 @@ The forwards take f32 or bf16 inputs, as the TPU kernels do. The
 DLRM's two backward kernels (the TPU kernels have none) write a bf16
 input's gradient in bf16, as the reference's gradient of a bf16
 parameter is, with no f32 copy of it: the scatter reads the forward's
-f32 d_out into a bf16 table gradient, and the interaction's backward
+f32 d_out into a bf16 table gradient (the vocab shard's take, `local_take`,
+stays in the table's dtype both ways), and the interaction's backward
 reads bf16 d_out and feats. `sage_aggregate`'s backward kernel is f32: a
 bf16 input's backward hands it d_out and w in f32 and casts the
 gradients back to the inputs' dtypes.
@@ -195,6 +196,28 @@ def embedding_bag_local_bwd(d_out: torch.Tensor, ids: torch.Tensor,
                                      row0=row0)
     return ref.embedding_bag_local_bwd_ref(d_out, ids, row0, v_loc,
                                            dtype=dtype)
+
+
+def local_take(table: torch.Tensor, ids: torch.Tensor,
+               row0: int) -> torch.Tensor:
+    """The masked take of one rank's vocab shard, no autograd (the
+    sharded lookup's autograd Function, models/embedding.py, calls it):
+    table (v_loc, D) f32 or bf16, rows [row0, row0 + v_loc); ids (N,)
+    int32 -> (N, D) in the table's dtype (zeros for an id outside)."""
+    if _on_cuda(table):
+        return _eb.embedding_take_fwd_local(table, ids, row0)
+    return ref.embedding_take_local_ref(table, ids, row0)
+
+
+def local_take_bwd(d_out: torch.Tensor, ids: torch.Tensor, row0: int,
+                   v_loc: int) -> torch.Tensor:
+    """The masked take's gradient: d_out (N, D) in the table's dtype ->
+    the shard's gradient (v_loc, D) in that dtype, each row's slots
+    summed in f32 and rounded once; ids outside add nothing."""
+    d_out = d_out.contiguous()
+    if _on_cuda(d_out):
+        return _eb.embedding_take_bwd_local(d_out, ids, row0, v_loc)
+    return ref.embedding_take_local_bwd_ref(d_out, ids, row0, v_loc)
 
 
 def dot_interact(feats: torch.Tensor) -> torch.Tensor:

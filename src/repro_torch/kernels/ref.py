@@ -118,6 +118,35 @@ def embedding_bag_local_bwd_ref(d_out: torch.Tensor, ids: torch.Tensor,
     return grad.view(f, v_loc, d)
 
 
+def embedding_take_local_ref(table: torch.Tensor, ids: torch.Tensor,
+                             row0: int) -> torch.Tensor:
+    """The vocab shard's masked take: table (v_loc, D), rows [row0, row0 +
+    v_loc); ids (N,) -> (N, D) in the table's dtype, row id - row0 for an
+    id in the shard and zeros for any other (the reference's `e * ok`)."""
+    lid, ok = _shard(ids, row0, table.shape[0])
+    rows = table[lid]
+    return torch.where(ok[:, None], rows, torch.zeros((), dtype=rows.dtype,
+                                                      device=rows.device))
+
+
+def embedding_take_local_bwd_ref(d_out: torch.Tensor, ids: torch.Tensor,
+                                 row0: int, v_loc: int) -> torch.Tensor:
+    """The masked take's gradient: d_out (N, D) -> (v_loc, D) in d_out's
+    dtype (the table's), each row an in-shard id names getting the f32 sum
+    of its slots' d_out rows, rounded once. The sums are index_add_'s over
+    the slots in ascending order: on the CPU it adds them in that order,
+    on the card in the order of its atomics."""
+    lid, ok = _shard(ids, row0, v_loc)
+    rows, slot = torch.unique(lid[ok], return_inverse=True)
+    sums = torch.zeros((rows.numel(), d_out.shape[-1]), dtype=torch.float32,
+                       device=d_out.device)
+    sums.index_add_(0, slot, d_out[ok].float())
+    grad = torch.zeros((v_loc, d_out.shape[-1]), dtype=d_out.dtype,
+                       device=d_out.device)
+    grad[rows] = sums.to(d_out.dtype)
+    return grad
+
+
 def tril_pairs(f: int, device=None):
     """(ii, jj) of the strict lower triangle, np.tril_indices(f, -1)
     order: pair p = i(i-1)/2 + j for i > j."""

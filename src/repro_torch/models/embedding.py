@@ -12,8 +12,9 @@ gather-and-segment-reduce, which the full-graph GraphSAGE shares;
 The row-sharded lookups on a mesh (`launch.mesh.Mesh`) are the
 reference's two shard_map functions, each rank running the body of the
 shard_map on its own shard with the same collectives:
-`tp_embedding_lookup` (a masked gather from this rank's vocab shard and
-a sum over the model axis; its gradient lands in the local shard only)
+`tp_embedding_lookup` (a masked take from this rank's vocab shard by the
+take kernels, in the table's dtype, and a sum over the model axis; its
+gradient lands in the local shard only)
 and `tp_multifeature_bag` (stacked tables row-sharded over every axis:
 the ids all-gathered over the data axes, the whole batch looked up in
 the local rows by the `embedding_bag` kernel's local-rows mode, a
@@ -25,7 +26,7 @@ of whole tables exactly where the reference does: no mesh or no model
 axis, one shard, rows that do not divide over the shards, or no `rows`;
 at one shard, a mesh made with `exchange_one_shard` (the driver's) takes
 the exchange instead, so that a world of one rank runs every collective
-and the local-rows kernel (for ids in [0, rows) the values are the
+and the local-rows kernels (for ids in [0, rows) the values are the
 fallback's, in the tables' dtype).
 Each rank passes its own data rank's slice of the batch; a global batch
 that does not divide over the data ranks (the reference's other
@@ -71,33 +72,35 @@ def multifeature_bag(tables: torch.Tensor, ids: torch.Tensor, *,
     return ops.embedding_bag(tables, ids, combiner=combiner)
 
 
-class _LocalRows(torch.autograd.Function):
-    """Bags of local rows through the kernel's local-rows mode: tables
-    (F, v_loc, D) rows [row0, row0 + v_loc); ids (B, F, bag) -> (B, F, D)
-    f32 (an id outside reads 0); the gradient scatters into the shard."""
+class _LocalTake(torch.autograd.Function):
+    """The masked take of a vocab shard through the take kernels: table
+    (v_loc, D) rows [row0, row0 + v_loc); ids (N,) int32 -> (N, D) in the
+    table's dtype (an id outside reads 0); the gradient, from d_out in
+    that dtype, lands in the shard."""
 
     @staticmethod
-    def forward(ctx, tables, ids, row0):
+    def forward(ctx, table, ids, row0):
         ctx.save_for_backward(ids)
-        ctx.cfg = (row0, tables.shape[1], tables.dtype)
-        return ops.embedding_bag_local(tables, ids, row0)
+        ctx.cfg = (row0, table.shape[0])
+        return ops.local_take(table, ids, row0)
 
     @staticmethod
     def backward(ctx, d_out):
         (ids,) = ctx.saved_tensors
-        row0, v_loc, dtype = ctx.cfg
-        return (ops.embedding_bag_local_bwd(d_out.float(), ids, row0, v_loc,
-                                            dtype), None, None)
+        row0, v_loc = ctx.cfg
+        return ops.local_take_bwd(d_out, ids, row0, v_loc), None, None
 
 
 def local_rows_take(table: torch.Tensor, ids: torch.Tensor,
                     row0: int) -> torch.Tensor:
     """The masked gather of a vocab shard: table (v_loc, D), rows [row0,
-    row0 + v_loc); ids (...) int32 -> (..., D) f32, 0 for an id outside
-    the shard; the gradient lands in the shard."""
+    row0 + v_loc); ids (...) int32 -> (..., D) in the table's dtype, 0 for
+    an id outside the shard; the gradient lands in the shard (the take
+    kernels on the card, `embedding_take_fwd_local` and
+    `embedding_take_bwd_local`)."""
     # a column of a token matrix (a decode step's) is strided
-    out = _LocalRows.apply(table[None], ids.reshape(-1, 1, 1).to(
-        torch.int32).contiguous(), row0)
+    out = _LocalTake.apply(table, ids.reshape(-1).to(torch.int32)
+                           .contiguous(), row0)
     return out.reshape(*ids.shape, table.shape[-1])
 
 
@@ -106,12 +109,12 @@ def tp_embedding_lookup(table: torch.Tensor, ids: torch.Tensor, mesh, *,
     """Vocab-sharded single-hot lookup: table (rows / tp, D), this rank's
     shard of the (rows, D) table split over the model axis; ids (...)
     int32, this rank's -> (..., D) in the table's dtype. Each model rank
-    gathers the ids it owns through the `embedding_bag` kernel's
-    local-rows mode (an id outside its shard reads 0) and the sum over
-    the model axis completes the rows; every model rank then uses them
-    alike, so the gradient passes through the sum and scatters into the
-    local shard only. Falls back to `F.embedding` of a whole table (see
-    the module docstring)."""
+    takes the ids it owns through `local_rows_take` (an id outside its
+    shard reads 0), in the table's dtype as the reference's masked take
+    is, and the sum over the model axis completes the rows; every model
+    rank then uses them alike, so the gradient passes through the sum and
+    scatters, in the table's dtype, into the local shard only. Falls back
+    to `F.embedding` of a whole table (see the module docstring)."""
     names = mesh.axis_names if mesh is not None else ()
     if "model" not in names or rows is None:
         return F.embedding(ids.long(), table)
@@ -121,7 +124,7 @@ def tp_embedding_lookup(table: torch.Tensor, ids: torch.Tensor, mesh, *,
     v_loc = rows // tp
     _check_shard(table.shape[0], v_loc)
     e = local_rows_take(table, ids, mesh.index("model") * v_loc)
-    return coll.psum_same(e.to(table.dtype), mesh.group("model"))
+    return coll.psum_same(e, mesh.group("model"))
 
 
 def _check_shard(got: int, v_loc: int):

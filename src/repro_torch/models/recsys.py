@@ -443,9 +443,10 @@ def tp_sampled_scores(items: torch.Tensor, h: torch.Tensor,
     """Candidate scores against a row-sharded item table: items (rows /
     tp, D), this rank's shard over the model axis; h (B, M, D) and cand
     (B, M, C) int32, this data rank's -> (B, M, C). Each model rank
-    scores only the candidates it owns (the rest read 0 rows through the
-    kernel's local-rows mode) and the sum over the model axis moves the
-    logits, not the gathered rows; the gradient of the items lands in
+    scores only the candidates it owns (the rest read 0 rows through
+    `local_rows_take`, in the table's dtype) and the sum over the model
+    axis moves the logits, not the gathered rows; the gradient of the
+    items lands in
     the local shard, and h's, summed over the model axis, is whole on
     every model rank. Falls back to the whole table's scores where the
     reference does (no model axis, one shard, rows not divisible, no

@@ -974,3 +974,138 @@ def test_local_rows_mode_matches_plain_versions():
                        eb.embedding_bag_fwd(tables, ids))
     with pytest.raises(ValueError, match="row0"):
         eb.embedding_bag_fwd(tables, ids, row0=-1)
+
+
+# ---- the vocab shard's take (csrc/embedding_take.cu) --------------------
+
+def check_take_bwd(grad, d_out, ids, row0, v):
+    """The take's scatter against its plain version for non-negative
+    d_out: rows one in-shard slot names bitwise; a row n slots name
+    within 1 ulp of the gradient's dtype (0 for f32) plus 2 n 2^-24 of
+    its exact sum (two orders of n non-negative f32 adds each lie within
+    (n - 1) 2^-24 of it, relative); every other row exactly 0."""
+    want = ref.embedding_take_local_bwd_ref(d_out, ids, row0, v)
+    lid = ids.long() - row0
+    ok = (lid >= 0) & (lid < v)
+    n = torch.bincount(lid[ok], minlength=v).double()[:, None]
+    exact = torch.zeros((v, d_out.shape[1]), dtype=torch.float64,
+                        device=d_out.device)
+    exact.index_add_(0, lid[ok], d_out[ok].double())
+    once = n[:, 0] == 1
+    assert torch.equal(grad[once], want[once])
+    assert not bool(grad[n[:, 0] == 0].any())
+    ulp = 0.0
+    if grad.dtype == BF16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            exact.clamp(min=2.0 ** -126))) - 7)
+    err = (grad.double() - want.double()).abs()
+    assert bool((err <= ulp + 2 * n * 2.0 ** -24 * exact).all()), \
+        float(err.max())
+
+
+# (n, v_loc, row0, D, dtype, hot share): 16-byte words (bf16 D 40, f32 D
+# 64), single columns (bf16 D 7: 2-byte forward words; f32 D 3: 4-byte
+# ones), a row 30% of the slots name (over many chunks and three levels
+# of the sum), a decode batch of 4, and 150,000 ids over 2,000 rows (two
+# sort passes, tiles of 512)
+TAKE_CASES = [(5000, 300, 100, 40, BF16, 0.3), (5000, 300, 0, 64,
+                                                  torch.float32, 0.3),
+              (4, 300, 100, 40, BF16, 0.0), (777, 50, 25, 7, BF16, 0.5),
+              (777, 50, 25, 3, torch.float32, 0.0),
+              (150_000, 2000, 1000, 8, torch.float32, 0.2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,v,row0,d,dtype,hot", TAKE_CASES)
+def test_take_kernels_match_plain_versions(n, v, row0, d, dtype, hot):
+    """The take's forward bitwise its plain version (ids below, inside and
+    past the shard, zeros outside it); its scatter within check_take_bwd's
+    bounds, and bitwise the same over two runs; each wrapper's launch
+    counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(n + d)
+    table = torch.randn((v, d), device="cuda", generator=gen).to(dtype)
+    ids = torch.randint(row0 - v // 2, row0 + v + v // 2, (n,),
+                        device="cuda", generator=gen, dtype=torch.int32)
+    hit = torch.rand((n,), device="cuda", generator=gen) < hot
+    ids[hit] = row0 + v // 3
+    before = dict(eb.LAUNCHES)
+    got = eb.embedding_take_fwd_local(table, ids, row0)
+    assert got.dtype == dtype and got.shape == (n, d)
+    assert torch.equal(got, ref.embedding_take_local_ref(table, ids, row0))
+    d_out = torch.rand((n, d), device="cuda", generator=gen).to(dtype)
+    grad = eb.embedding_take_bwd_local(d_out, ids, row0, v)
+    assert grad.dtype == dtype and grad.shape == (v, d)
+    check_take_bwd(grad, d_out, ids, row0, v)
+    assert torch.equal(grad, eb.embedding_take_bwd_local(d_out, ids, row0,
+                                                         v))
+    torch.cuda.synchronize()
+    for name, k in (("embedding_take_fwd_local", 1),
+                    ("embedding_take_bwd_local", 2),
+                    ("embedding_bag_fwd_local", 0),
+                    ("embedding_bag_bwd_local", 0)):
+        assert eb.LAUNCHES[name] == before[name] + k, name
+
+
+@pytest.mark.gpu
+def test_local_rows_take_launches_the_take_kernels():
+    """On the card `local_rows_take` (the vocab-sharded lookup's) runs the
+    take pair and not the bag's local-rows mode, in the table's dtype both
+    ways, and agrees with its CPU path (the plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    from repro_torch.models.embedding import local_rows_take
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    table = torch.randn((64, 48), device="cuda", generator=gen).to(BF16)
+    ids = torch.randint(0, 200, (6, 9), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    cot = torch.rand((6, 9, 48), device="cuda", generator=gen).to(BF16)
+    before = dict(ops.launch_counts())
+    t = table.clone().requires_grad_(True)
+    out = local_rows_take(t, ids[:, 2], 64)        # a strided column
+    out2 = local_rows_take(t, ids, 64)
+    assert out.dtype == out2.dtype == BF16 and out2.shape == (6, 9, 48)
+    (out2 * cot).sum().backward()
+    after = ops.launch_counts()
+    assert after["embedding_take_fwd_local"] == \
+        before["embedding_take_fwd_local"] + 2
+    assert after["embedding_take_bwd_local"] == \
+        before["embedding_take_bwd_local"] + 1
+    for name in ("embedding_bag_fwd_local", "embedding_bag_bwd_local"):
+        assert after[name] == before[name], name
+    assert t.grad.dtype == BF16
+    tc = table.cpu().requires_grad_(True)
+    want = local_rows_take(tc, ids.cpu(), 64)
+    assert torch.equal(out2.cpu(), want)
+    assert torch.equal(out.cpu(), want[:, 2])
+    (want * cot.cpu()).sum().backward()
+    check_take_bwd(t.grad, cot.reshape(-1, 48), ids.reshape(-1), 64, 64)
+    check_take_bwd(tc.grad.cuda(), cot.reshape(-1, 48), ids.reshape(-1),
+                   64, 64)
+
+
+@pytest.mark.gpu
+def test_take_refused_launch_raises(monkeypatch):
+    """A plan that does not fit the call (a forward word of 8 bytes, which
+    the kernel does not take; too few sort bits for the backward's keys)
+    is refused by the kernel library: the wrapper raises and counts
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    table = torch.zeros((3000, 16), device="cuda")
+    ids = torch.zeros((5000,), dtype=torch.int32, device="cuda")
+    before = dict(eb.LAUNCHES)
+    monkeypatch.setattr(eb, "take_fwd_plan", lambda *a: eb.TakeFwdPlan(
+        8, 1, eb.NO_DIV))
+    with pytest.raises(RuntimeError, match="embedding_take_fwd_local "
+                                           "launch failed"):
+        eb.embedding_take_fwd_local(table, ids, 0)
+    monkeypatch.setattr(eb, "take_bwd_plan", lambda *a: eb.TakeBwdPlan(
+        4, 1, 4, 1, 20, 158, 6))
+    with pytest.raises(RuntimeError, match="embedding_take_bwd_local "
+                                           "launch failed"):
+        eb.embedding_take_bwd_local(torch.zeros((5000, 16), device="cuda"),
+                                    ids, 0, 3000)
+    assert eb.LAUNCHES == before

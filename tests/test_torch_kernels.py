@@ -690,11 +690,15 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.embedding_bag_local(torch.zeros(2, 5, 4), ids, 5)
     ops.embedding_bag_local_bwd(torch.zeros(3, 2, 4), ids, 5, 5,
                                 torch.float32)
+    ops.local_take(torch.zeros(5, 4), ids.view(-1), 5)
+    ops.local_take_bwd(torch.zeros(6, 4), ids.view(-1), 5, 5)
     assert ops.launch_counts() == before
     assert set(before) == {"embedding_bag_fwd", "embedding_bag_bwd",
                            "embedding_bag_fused_fwd",
                            "embedding_bag_fwd_local",
                            "embedding_bag_bwd_local",
+                           "embedding_take_fwd_local",
+                           "embedding_take_bwd_local",
                            "dot_interact_fwd", "dot_interact_bwd",
                            "sage_aggregate_fwd", "sage_aggregate_bwd",
                            "sage_widen_w"}
@@ -714,6 +718,12 @@ def test_other_devices_raise():
     lambda: eb.embedding_bag_scatter(torch.zeros(3, 2, 4),
                                      torch.zeros(3, 2, 1, dtype=torch.int32),
                                      torch.zeros(2, 5, 4)),
+    lambda: eb.embedding_take_fwd_local(torch.zeros(5, 4),
+                                        torch.zeros(3, dtype=torch.int32),
+                                        0),
+    lambda: eb.embedding_take_bwd_local(torch.zeros(3, 4),
+                                        torch.zeros(3, dtype=torch.int32),
+                                        0, 5),
     lambda: di.dot_interact_fwd(torch.zeros(2, 3, 4)),
     lambda: di.dot_interact_bwd(torch.zeros(2, 3), torch.zeros(2, 3, 4)),
     lambda: sa.sage_aggregate_fwd(torch.zeros(2, 3, 4), torch.zeros(4, 5)),
@@ -1173,3 +1183,194 @@ def test_embedding_bag_fwd_plan_at_the_path_shapes():
     assert (plan.vec, plan.lanes, plan.blocks) == (1, 0, 327680)
     plan = eb.fwd_plan(65536, 40, 32, 4, 8)
     assert (plan.vec, plan.lanes, plan.blocks) == (2, 0, 163840)
+
+
+# ---- the vocab shard's take (csrc/embedding_take.cu) --------------------
+
+def _jax_masked_take(tbl, idl, row0: int, v_loc: int):
+    """The reference's masked take on one rank's shard, as
+    src/repro/models/embedding.py:72-78 writes it inside its shard_map."""
+    lid = idl - row0
+    ok = (lid >= 0) & (lid < v_loc)
+    e = jnp.take(tbl, jnp.clip(lid, 0, v_loc - 1), axis=0)
+    return e * ok[..., None].astype(e.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n,v_loc,row0,d", [(40, 16, 0, 8), (300, 24, 20, 5),
+                                            (64, 50, 7, 16)])
+def test_take_plain_versions_match_the_reference_masked_take(n, v_loc, row0,
+                                                             d, dtype):
+    """The take's plain versions against the reference's masked take and
+    its jax.vjp, from the same numpy inputs: ids repeated (a hot id a
+    third of the slots) and outside the shard on both sides. The forward
+    bitwise; the gradient bitwise in f32 (both add a row's slots in
+    ascending order), in bf16 bitwise on rows one slot names and within n
+    bf16 ulps of the sum of its terms' magnitudes on a row n slots name
+    (XLA's bf16 scatter rounds each add, the plain version the f32 sum
+    once)."""
+    rng = np.random.RandomState(n + row0)
+    table = rng.randn(v_loc, d).astype(np.float32)
+    ids = rng.randint(row0 - 9, row0 + v_loc + 9, n).astype(np.int32)
+    ids[rng.rand(n) < 1 / 3] = row0 + v_loc // 2
+    cot = rng.randn(n, d).astype(np.float32)
+    if dtype == "bf16":
+        tt, jt = _bf16(table)
+        tc, jc = _bf16(cot)
+    else:
+        tt, jt = torch.from_numpy(table), jnp.asarray(table)
+        tc, jc = torch.from_numpy(cot), jnp.asarray(cot)
+    tid = torch.from_numpy(ids)
+    want, vjp = jax.vjp(lambda t: _jax_masked_take(t, jnp.asarray(ids), row0,
+                                                   v_loc), jt)
+    (want_g,) = vjp(jc)
+    got = ref.embedding_take_local_ref(tt, tid, row0)
+    assert got.dtype == tt.dtype and want.dtype == jt.dtype
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+    got_g = ref.embedding_take_local_bwd_ref(tc, tid, row0, v_loc)
+    assert got_g.dtype == tt.dtype and got_g.shape == (v_loc, d)
+    if dtype == "f32":
+        np.testing.assert_array_equal(_f32(got_g), _f32(want_g))
+        return
+    lid = ids.astype(np.int64) - row0
+    count = np.bincount(lid[(lid >= 0) & (lid < v_loc)], minlength=v_loc)
+    once = count == 1
+    np.testing.assert_array_equal(_f32(got_g)[once], _f32(want_g)[once])
+    mag = np.zeros((v_loc, d))
+    for s, r in enumerate(lid):
+        if 0 <= r < v_loc:
+            mag[r] += np.abs(_f32(tc)[s])
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 2.0 ** -126))) - 7)
+    err = np.abs(_f32(got_g) - _f32(want_g))
+    assert (err <= np.maximum(count, 1)[:, None] * ulp).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_local_rows_take_keeps_the_table_dtype(dtype):
+    """On the CPU `local_rows_take` returns the table's dtype (no f32
+    widening: the reference's masked take stays in it), takes any shape
+    of ids (a strided column too) and writes its gradient in that dtype
+    through the plain versions, launching nothing."""
+    from repro_torch.models.embedding import local_rows_take
+    g = torch.Generator().manual_seed(3)
+    table = torch.randn((10, 6), generator=g).to(dtype).requires_grad_(True)
+    ids = torch.randint(0, 30, (4, 5), generator=g, dtype=torch.int32)
+    before = ops.launch_counts()
+    out = local_rows_take(table, ids, 10)
+    assert out.dtype == dtype and out.shape == (4, 5, 6)
+    assert torch.equal(local_rows_take(table, ids[:, 1], 10), out[:, 1])
+    lid = ids.long() - 10
+    ok = (lid >= 0) & (lid < 10)
+    assert torch.equal(out[ok], table.detach()[lid[ok]])
+    assert not bool(out[~ok].any())
+    out.sum().backward()
+    assert table.grad.dtype == dtype
+    want = torch.bincount(lid[ok], minlength=10).to(dtype)[:, None] \
+        .expand(10, 6)
+    assert torch.equal(table.grad, want)
+    assert ops.launch_counts() == before
+
+
+def test_take_wrappers_refuse_wrong_dtypes_and_shapes(monkeypatch):
+    """The take's wrappers check dtype, rank, contiguity, row0 and the
+    match of d_out, ids and grad before they build or launch anything."""
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda t: torch.device("cuda")))
+    ids = torch.zeros(6, dtype=torch.int32)
+    bad = [
+        (TypeError, lambda: eb.embedding_take_fwd_local(
+            torch.zeros(5, 4, dtype=torch.float16), ids, 0)),
+        (TypeError, lambda: eb.embedding_take_fwd_local(
+            torch.zeros(5, 4), ids.long(), 0)),
+        (ValueError, lambda: eb.embedding_take_fwd_local(
+            torch.zeros(1, 5, 4), ids, 0)),
+        (ValueError, lambda: eb.embedding_take_fwd_local(
+            torch.zeros(5, 4), ids.view(2, 3), 0)),
+        (ValueError, lambda: eb.embedding_take_fwd_local(
+            torch.zeros(4, 5).t(), ids, 0)),
+        (ValueError, lambda: eb.embedding_take_fwd_local(
+            torch.zeros(5, 4), ids, -1)),
+        (TypeError, lambda: eb.embedding_take_bwd_local(
+            torch.zeros(6, 4, dtype=torch.float64), ids, 0, 5)),
+        (ValueError, lambda: eb.embedding_take_bwd_local(
+            torch.zeros(7, 4), ids, 0, 5)),
+        (ValueError, lambda: eb.embedding_take_scatter(
+            torch.zeros(6, 4), ids, torch.zeros(5, 4, dtype=BF16), 0)),
+        (ValueError, lambda: eb.embedding_take_scatter(
+            torch.zeros(6, 4), ids, torch.zeros(5, 3), 0)),
+        (ValueError, lambda: eb.embedding_take_scatter(
+            torch.zeros(6, 4), ids, torch.zeros(5, 4), -2)),
+    ]
+    for exc, call in bad:
+        with pytest.raises(exc):
+            call()
+    assert ops.launch_counts()["embedding_take_fwd_local"] == 0
+
+
+@pytest.mark.parametrize("n,row_bytes,ptr", [
+    (16384, 4608, 0), (16384, 4096, 0), (4, 4608, 0), (3, 14, 0),
+    (37, 12, 0), (37, 12, 4), (5, 2, 0), (4194304, 256, 0)])
+def test_take_fwd_plan_covers_every_word_once(n, row_bytes, ptr):
+    """The forward's words: the widest of 16, 4 and 2 bytes that a row and
+    the pointers allow; blocks enough for every word in one round of 4 a
+    thread; the divisor exact over the walk's span (or the 64-bit
+    division past 2^31)."""
+    plan = eb.take_fwd_plan(n, row_bytes, ptr)
+    assert row_bytes % plan.word == 0 and ptr % plan.word == 0
+    assert all(row_bytes % w or ptr % w for w in eb.TAKE_WIDTHS
+               if w > plan.word)
+    words, threads = n * row_bytes // plan.word, \
+        plan.blocks * eb.TAKE_THREADS * eb.TAKE_WORDS
+    assert words <= threads < words + eb.TAKE_THREADS * eb.TAKE_WORDS \
+        or plan.blocks == 1
+    wpr = row_bytes // plan.word
+    span = eb.take_fwd_span(words, plan.blocks)
+    assert plan.per_row == eb.divisor(wpr, span)
+    for w in {0, 1, wpr - 1, wpr, words - 1, span - 1}:
+        assert (w * plan.per_row.magic) >> plan.per_row.shift == w // wpr
+    with pytest.raises(ValueError, match="takes no word"):
+        eb.take_fwd_plan(3, 7, 0)
+
+
+@pytest.mark.parametrize("n,v_loc,d,elem,ptr", [
+    (16384, 256000, 2304, 2, 0), (16384, 151936, 2048, 2, 0),
+    (4194304, 262148, 64, 4, 0), (4, 256000, 2304, 2, 0),
+    (777, 50, 7, 2, 0), (150000, 2000, 8, 4, 0), (64, 5, 8, 2, 8),
+    (1, 1, 1, 4, 0)])
+def test_take_bwd_plan_covers_every_key_and_level(n, v_loc, d, elem, ptr):
+    """The backward's sort passes cover the keys [0, v_loc] in digits of
+    at most 10 bits; its tiles cover the n slots, none empty, and keep to
+    4 an SM where 8 slots a thread allow; its scratch holds every level
+    of the sum (level 2 in part_a, 3 in part_b, in turns); its words are
+    16 bytes where D and the pointers allow."""
+    plan = eb.take_bwd_plan(n, v_loc, d, elem, ptr)
+    assert plan.passes * plan.radix_bits >= v_loc.bit_length()
+    assert plan.radix_bits <= eb.SORT_MAX_BITS
+    assert (plan.passes - 1) * eb.SORT_MAX_BITS < v_loc.bit_length()
+    tile = eb.SORT_THREADS * plan.kpt
+    assert (plan.tiles - 1) * tile < n <= plan.tiles * tile
+    assert plan.tiles <= eb.SORT_TILES or plan.kpt == 8
+    assert plan.kpt == 1 or _cdiv_t(n, tile // 2) > eb.SORT_TILES
+    levels = eb.take_levels(n)
+    for i, m in enumerate(levels[1:]):
+        assert m <= (plan.part_a, plan.part_b)[i % 2]
+    assert _cdiv_t(levels[-1], eb.TAKE_CHUNK if len(levels) == 1
+                   else eb.TAKE_CHUNK_UP) == 1
+    vec = 16 // elem
+    assert plan.vec == (vec if d % vec == 0 and ptr % 16 == 0 else 1)
+
+
+def _cdiv_t(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def test_take_bwd_plan_at_the_lm_shapes():
+    """gemma2-2b's 16,384 ids into its (256000, 2304) bf16 shard: two sort
+    passes of 9 bits over 64 tiles of 256; 16-byte words; four levels of
+    the sum (16,384 slots in chunks of 64, then 512, 64 and 8 partials in
+    chunks of 16)."""
+    assert eb.take_bwd_plan(16384, 256000, 2304, 2) == eb.TakeBwdPlan(
+        8, 2, 9, 1, 64, 512, 64)
+    assert eb.take_levels(16384) == [16384, 512, 64, 8]
+    assert eb.take_fwd_plan(16384, 4608) == eb.TakeFwdPlan(
+        16, 4608, eb.divisor(288, 16384 * 288 + 4608 * 1024))
