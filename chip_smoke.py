@@ -139,12 +139,16 @@ hidden 128, 47 classes, adam:
               bf16 out within 2 bf16 ulps; d_w within 1e-5 of max
               |d_w| (a sum over up to 15360 rows in another order); a
               second run, out without the saved aggregate and d_w
-              without d_neigh bitwise equal. Timed as above, each shape
+              without d_neigh bitwise equal; d_neigh's F copies of a row
+              bitwise equal, and d_neigh from d_out and w 4 bytes off a
+              16-byte boundary bitwise the same. Timed as above, each shape
               with its share of the bound and its ratio to the library
               call: torch.einsum("bfd,dh->bh") (the sum without the 1/F)
               for the forward and torch.mm(agg^T, d_out) for d_w (at h1,
               where the kernel writes d_neigh too, with (d_out w^T / F)
-              broadcast over F and written out beside it).
+              broadcast over F and written out beside it;
+              sage_dneigh_kernel alone there, read by name, with the
+              tile that its plan chose and its store path).
   6. graph    the synthetic graph of minibatch_lg (232,965 nodes,
               114,615,892 edges, 602 random features a node), built once
               from seed 0 and shared by the phases below.
@@ -1910,7 +1914,9 @@ def _check_sage(neigh, w, tag) -> dict:
     """Kernel vs plain on one input: the aggregate (its rows padded to a
     multiple of 4 floats) bitwise, out and d_neigh allclose, d_w within
     1e-5 of max |d_w|; out without the saved aggregate, d_w without
-    d_neigh and a second run of each bitwise equal."""
+    d_neigh and a second run of each bitwise equal; d_neigh's F copies of
+    a row bitwise equal, and d_neigh bitwise the same from d_out and w
+    copied 4 bytes off a 16-byte boundary."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import sage_aggregate as sa
@@ -1938,6 +1944,16 @@ def _check_sage(neigh, w, tag) -> dict:
     want_n, want_w = ref.sage_aggregate_bwd_ref(d_out, w, agg_p, f)
     e_n = _allclose(f"sage_aggregate_bwd d_neigh {tag}", d_neigh, want_n,
                     1e-5, 1e-5)
+    if not torch.equal(d_neigh, d_neigh[:, :1].expand_as(d_neigh)):
+        raise AssertionError(f"sage_aggregate_bwd {tag}: the F copies of a "
+                             f"row of d_neigh differ")
+    # the same d_out and w 4 bytes off a 16-byte boundary: the same bits
+    shifted = [torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape)
+               .copy_(x) for x in (d_out, w)]
+    if not torch.equal(sa.sage_aggregate_bwd(*shifted, None, f, True)[0],
+                       d_neigh):
+        raise AssertionError(f"sage_aggregate_bwd {tag}: d_neigh differs "
+                             f"with d_out and w off 16-byte alignment")
     e_w = _allclose(f"sage_aggregate_bwd d_w {tag}", d_w, want_w, 0.0,
                     1e-5 * float(want_w.abs().max()))
     only_w = sa.sage_aggregate_bwd(d_out, w, agg, f, False)
@@ -2122,14 +2138,20 @@ def phase_sage_kernels(shape, cfg) -> dict:
                 g, w, None, f, need_neigh=True), bsets)
             dn_lib = time_ms(lambda g, w, a: (g @ w.t() / f)[:, None, :]
                              .expand(b, f, d).contiguous(), bsets)
+            dn_plan = sa.dneigh_plan(b, f, d, h)
             dneigh = {"ms": dn_ms, "events": dn_events,
+                      "plan": {"rows": dn_plan.rows, "cols": 32,
+                               "ctas": dn_plan.ctas(b, d),
+                               "store": "registers"},
                       "plain_ms": dn_plain.ms,
                       "plain_events": dn_plain.events,
                       "library_ms": dn_lib.ms,
                       "library_events": dn_lib.events,
                       "bound_ms": dn_bound[0], "bound_by": dn_bound[1]}
             print(f"    sage_dneigh_kernel {tag} ({b}, {f}, {d}) from "
-                  f"({b}, {h}) x ({d}, {h})^T: {dn_ms:.4f} ms on the card "
+                  f"({b}, {h}) x ({d}, {h})^T, {dn_plan.ctas(b, d)} CTAs of "
+                  f"{dn_plan.rows} x 32, 4-byte stores from registers: "
+                  f"{dn_ms:.4f} ms on the card "
                   f"({dn_events} events), plain {dn_plain.ms:.4f}, "
                   f"library {dn_lib.ms:.4f}, bound {dn_bound[0]:.4f} by "
                   f"{dn_bound[1]} ({dn_bound[0] / dn_ms:.0%} of it)",

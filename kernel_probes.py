@@ -101,6 +101,27 @@ CUDA events launch to launch). Sections (all when none is named):
             kernel,
             its total and level-1 times, with ptxas' registers and spills
             of the sum's instantiations; index_add_ beside them.
+  dneigh    sage_dneigh_kernel at GraphSAGE's h1 call, (1024, 15, 128)
+            from (1024, 47) x (128, 47)^T, after d_w as in the h1
+            backward, read by name from profiler windows as
+            chip_smoke.named_kernel_ms reads it: under its plan (8 x 32
+            tiles) and the 4 x 32 tiles, each as it is and under the
+            DNEIGH_VARIANTS of the store path and tile (`tma`: the tile
+            in shared memory written by TMA bulk copies; `float4`: by
+            float4 stores; `cs`: evict-first stores; `cols64`, `cols128`:
+            tiles that wide; `rr4`: 16 x 32 tiles in place of the plan's);
+            at the plan also those that show where its time goes
+            (`one_copy`: each row written once, not F times; `no_stage`:
+            no loads of w and d_out; `stage_only`: a return before the
+            product; `store_only`: no product, a tile of zeros written;
+            `empty`: a return at its top; `carveout`: the largest
+            shared-memory carve-out, d_w's) and the plan alone (no d_w
+            before it). Two rounds in turns; each variant that computes
+            the same sums bitwise against the plan's d_neigh; the plain
+            version, the library expression, fill_ of a tensor of
+            d_neigh's shape (the card's write rate through PyTorch) and
+            the bound of chip_smoke.py beside them. With `--src`, that
+            checkout's kernel under its own plan alone.
   scatter_bf16  embedding_bag_bwd into a bf16 gradient at dlrm-criteo's
             training shape, ids (65536, 26, 1) of the synthetic Criteo
             stream into (26, 2^22, 128): its bf16x2 REDs against the
@@ -779,6 +800,103 @@ TAKE_VARIANTS = {
     for u, b in ((4, 2), (8, 1), (8, 2), (8, 3), (16, 1))}
 
 
+# sage_dneigh_kernel's other store paths: its tile put in shared memory,
+# then each row written F times, (row, f) in order, by TMA bulk copies
+# (`tma`) or float4 stores (`float4`; rows of 32 floats, as at h1); both
+# take D a multiple of 4 and a 16-byte aligned d_neigh, as at h1
+_DN_STORES_AT = ("  // the stores, straight from registers: each (row, f) a "
+                 "warp's 32")
+_DN_TILE = r"""  __shared__ __align__(16) float v_s[rows * kDnCols];
+#pragma unroll
+  for (int i = 0; i < RR; ++i) v_s[(r0 + i) * kDnCols + dl] = acc[i] / f_div;
+"""
+DNEIGH_VARIANTS = {
+    "tma": ((_DN_STORES_AT, _DN_TILE + r"""  // the tile's writes, made by the generic proxy, seen by the copies
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  for (int r = tid / F, f = tid % F; r < nr;) {
+    const uint32_t src = static_cast<uint32_t>(
+        __cvta_generic_to_shared(v_s + r * kDnCols));
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        :: "l"(d_neigh + ((b0 + r) * F + f) * D + d0), "r"(src),
+           "r"(static_cast<uint32_t>(nc) * 4) : "memory");
+    for (f += kDnThreads; f >= F; f -= F) ++r;
+  }
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  // the tile stays until the copies have read it
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  if (B > 0) return;
+""" + _DN_STORES_AT),),
+    "float4": ((_DN_STORES_AT, _DN_TILE + r"""  __syncthreads();
+  {
+    constexpr int nv = kDnCols / 4;           // float4s a row
+    constexpr int groups = kDnThreads / nv;   // (row, f) written at once
+    const int j = (tid % nv) * 4;
+    for (int r = tid / nv / F, f = tid / nv % F; r < nr;) {
+      *reinterpret_cast<float4*>(d_neigh + ((b0 + r) * F + f) * D + d0 +
+                                 j) =
+          *reinterpret_cast<const float4*>(v_s + r * kDnCols + j);
+      for (f += groups; f >= F; f -= F) ++r;
+    }
+  }
+  if (B > 0) return;
+""" + _DN_STORES_AT),),
+    # evict-first stores (__stcs)
+    "cs": (("      dst[static_cast<int64_t>(f) * D] = v;",
+            "      __stcs(dst + static_cast<int64_t>(f) * D, v);"),),
+    # tiles of 64 and 128 columns (4 x 64 and 2 x 128 at the plan's rows a
+    # thread), and of 16 rows (4 a thread) where the plan takes 8
+    "cols64": (("constexpr int kDnCols = 32;",
+                "constexpr int kDnCols = 64;"),),
+    "cols128": (("constexpr int kDnCols = 32;",
+                 "constexpr int kDnCols = 128;"),),
+    "rr4": ((": launch_dneigh<2>(", ": launch_dneigh<4>("),),
+}
+
+# where sage_dneigh_kernel's time goes: each row of the tile written once
+# (one copy of F), and no staging of w and d_out (the product of whatever
+# shared memory holds, then all F copies)
+DNEIGH_VARIANTS["one_copy"] = ((
+    "    for (int f = 0; f < F; ++f)\n      dst[",
+    "    for (int f = 0; f < 1; ++f)\n      dst["),)
+DNEIGH_VARIANTS["no_stage"] = (
+    ("      cp_async<16>(flat + k0, base + k0, true);", "      {}"),
+    ("        if (k >= pad && k < pad + n) cp_async<4>(flat + k, base + k, "
+     "true);", "        {}"),
+    ("          cp_async<4>(w_s + r * ld + h, ok ? src + h : w, ok);",
+     "          {}"))
+# the staging alone (a return before the product), and the stores alone
+# (no chunk of H: the tile is zeros)
+DNEIGH_VARIANTS["stage_only"] = ((
+    "    // the product, h ascending",
+    "    if (B > 0) return;\n    // the product, h ascending"),)
+DNEIGH_VARIANTS["store_only"] = (
+    ("  const bool run = dn_runs(H);", "  const bool run = false;"),
+    ("  for (int h0 = 0; h0 < H; h0 += kDnKH) {",
+     "  for (int h0 = 0; h0 < 0; h0 += kDnKH) {"))
+
+# and a kernel that returns at once (its launch and CTAs alone)
+DNEIGH_VARIANTS["empty"] = ((
+    "  const bool run = dn_runs(H);",
+    "  if (B > 0) return;\n  const bool run = dn_runs(H);"),)
+
+# the SM's shared memory carve-out set to its largest, as d_w's 128 KB
+# CTAs need it, so that no reconfiguration comes between the two kernels
+DNEIGH_VARIANTS["carveout"] = ((
+    "  sage_dneigh_kernel<RR><<<grid, kDnThreads, dn_smem(rows, H), s>>>(",
+    "  const cudaError_t err = cudaFuncSetAttribute(\n"
+    "      sage_dneigh_kernel<RR>,\n"
+    "      cudaFuncAttributePreferredSharedMemoryCarveout,\n"
+    "      cudaSharedmemCarveoutMaxShared);\n"
+    "  if (err != cudaSuccess) return err;\n"
+    "  sage_dneigh_kernel<RR><<<grid, kDnThreads, dn_smem(rows, H), s>>>("),)
+# the variants whose d_neigh is the plan's, bit for bit (each value's sum
+# has the same order), and those the probe also runs at the other tile
+DNEIGH_SAME = ("default", "cs", "tma", "float4", "cols64", "cols128", "rr4",
+               "carveout")
+DNEIGH_OTHER = ("default", "cs", "tma", "float4", "cols64", "cols128")
+
 # nvcc's output (ptxas' report) for each variant built
 VARIANT_LOGS = {}
 
@@ -809,7 +927,8 @@ def build_variants(sections):
             ("dot_interact", DOT_VARIANTS, "dot_bwd"),
             ("dot_interact", DOT_FWD_VARIANTS, "dot_fwd"),
             ("embedding_bag_fused", FUSED_VARIANTS, "fused"),
-            ("embedding_take", TAKE_VARIANTS, "take" if own else None)):
+            ("embedding_take", TAKE_VARIANTS, "take" if own else None),
+            ("sage_aggregate", DNEIGH_VARIANTS, "dneigh" if own else None)):
         if section not in sections:
             continue
         text = open(os.path.join(CSRC, f"{src}.cu")).read()
@@ -1792,6 +1911,92 @@ def probe_take(cs, libs):
         torch.cuda.empty_cache()
 
 
+def probe_dneigh(cs, libs, gen):
+    """Section `dneigh` (see the module docstring)."""
+    import torch
+    from repro_torch.configs.graphsage_reddit import ARCH
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_aggregate as sa
+    _, b, f, d, h, _ = cs._gnn_path_shapes(ARCH.shape("minibatch_lg"),
+                                           ARCH.model)[2]
+    print(f"dneigh: repro_torch from {os.path.dirname(sa.__file__)}; "
+          f"h1 ({b}, {f}, {d}) from ({b}, {h}) x ({d}, {h})^T")
+    for name in libs:
+        if name.startswith("sage_aggregate_"):
+            for kernel, rep in cs.ptxas_report(VARIANT_LOGS[name]).items():
+                if "dneigh" in kernel:
+                    print(f"  {name[15:]} {kernel}: registers, stack, spill "
+                          f"stores, spill loads {rep}", flush=True)
+    # eight input sets, as chip_smoke's h1 backward cycles through, with
+    # an aggregate, so that d_w runs before d_neigh as on the path (and
+    # an earlier checkout, whose d_neigh alone failed at h1, runs too)
+    sets = [(torch.randn((b, h), device="cuda", generator=gen),
+             torch.randn((d, h), device="cuda", generator=gen) * d ** -0.5,
+             torch.randn((b, d), device="cuda", generator=gen))
+            for _ in range(8)]
+    bnd, by = cs.bound_ms(4 * (b * h + d * h + b * f * d), 2 * b * d * h)
+    plain = cs.time_ms(lambda g, w, a: ref.sage_aggregate_bwd_ref(
+        g, w, None, f, need_neigh=True), sets)
+    lib = cs.time_ms(lambda g, w, a: (g @ w.t() / f)[:, None, :]
+                     .expand(b, f, d).contiguous(), sets)
+    fill = cs.time_ms(lambda g, w, a: torch.empty(
+        (b, f, d), device="cuda").fill_(1.0), sets)
+    print(f"  bound {bnd:.5f} ms by {by}; plain {plain.ms:.5f}; library "
+          f"{lib.ms:.5f}; fill_ of a ({b}, {f}, {d}) f32 tensor "
+          f"{fill.ms:.5f}", flush=True)
+
+    def call(g, w, a):
+        return sa.sage_aggregate_bwd(g, w, a, f, True)
+
+    def alone(g, w, a):
+        return sa.sage_aggregate_bwd(g, w, None, f, True)
+
+    def kernel_ms(fn=call):
+        return cs.named_kernel_ms(fn, sets, "sage_dneigh_kernel")
+    if not hasattr(sa, "dneigh_plan"):       # a version before the plan
+        ms, n = kernel_ms()
+        print(f"  sage_dneigh_kernel: {ms:.5f} ms ({n} events)", flush=True)
+        return
+    own = build.LIBRARIES.get("sage_aggregate")
+    plan_fn = sa.dneigh_plan
+    chosen = plan_fn(b, f, d, h)
+    want = call(*sets[0])[0]
+    variants = [("default", own)] + [(k, libs[f"sage_aggregate_{k}"])
+                                     for k in DNEIGH_VARIANTS]
+    for rnd in range(2):
+        for plan in (chosen, sa.DneighPlan(1))[::1 if rnd == 0 else -1]:
+            label = "plan" if plan == chosen else "other"
+            for var, lib_v in variants:
+                # at the other tile, the store paths and tiles only
+                if label == "other" and var not in DNEIGH_OTHER:
+                    continue
+                build.LIBRARIES._libs["sage_aggregate"] = lib_v
+                sa.dneigh_plan = lambda *a, p=plan: p
+                try:
+                    if var in DNEIGH_SAME and not torch.equal(
+                            call(*sets[0])[0], want):
+                        raise AssertionError(f"dneigh {label} {var}: not "
+                                             f"the plan's bits")
+                    ms, n = kernel_ms()
+                    # and with no d_w before it: a run of d_neigh alone
+                    ms1, _ = (kernel_ms(alone) if label == "plan"
+                              else (float("nan"), 0))
+                finally:
+                    build.LIBRARIES._libs["sage_aggregate"] = own
+                    sa.dneigh_plan = plan_fn
+                cols = {"cols64": 64, "cols128": 128}.get(var, 32)
+                rr = 4 if var == "rr4" else plan.rr
+                rows = rr * 128 // cols
+                ctas = -(-b // rows) * -(-d // cols)
+                store = var if var in ("tma", "float4") else "registers"
+                print(f"  round {rnd} {label} ({rows} x {cols}, {ctas} "
+                      f"CTAs) {store} {var}: {ms:.5f} ms ({n} events), "
+                      f"{bnd / ms:.0%} of the bound; alone {ms1:.5f}",
+                      flush=True)
+    del sets
+
+
 def main(sections) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1970,12 +2175,15 @@ def main(sections) -> int:
         probe_segment(cs, gen)
     if "take" in sections:
         probe_take(cs, libs)
+    if "dneigh" in sections:
+        probe_dneigh(cs, libs, gen)
     print(f"card: {cs.card_line()}")
     return 0
 
 
 SECTIONS = ("fused", "dot_fwd", "sage", "embedding", "scatter", "dot_bwd",
-            "scatter_bf16", "narrow", "profiler", "segment", "take")
+            "scatter_bf16", "narrow", "profiler", "segment", "take",
+            "dneigh")
 
 if __name__ == "__main__":
     names = sys.argv[3:] if sys.argv[1:2] == ["--src"] else sys.argv[1:]

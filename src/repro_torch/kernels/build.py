@@ -71,7 +71,7 @@ SIGNATURES = {
                                _P),
         "sage_dw_max_clusters": (_I32, _P),
         "sage_aggregate_bwd": (_P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
-                               _I32, _I32, _I32, _I32, _P),
+                               _I32, _I32, _I32, _I32, _I32, _P),
     },
 }
 

@@ -79,8 +79,41 @@
 //    elements; chip_smoke.py holds it to 1e-5 of max|d_w|.
 //  - d_neigh (B, F, D) = (d_out w^T) / F, broadcast over f, written only
 //    when neigh needs a gradient (the GNN's h1 call; for the data inputs
-//    it would be 370 MB written for nothing). A block computes a 16 x 64
-//    tile of d_out w^T (h ascending), divides by F, and writes it F times.
+//    it would be 370 MB written for nothing). Bound by the bytes it
+//    writes: at h1, (1024, 15, 128) from (1024, 47) x (128, 47)^T, 7.86 MB
+//    written and 0.22 MB read, 0.0024 ms at 3.35 TB/s, against 12.3
+//    MFLOP. The kernel's first design (16 x 64 tiles, 128 blocks at h1, h
+//    in chunks of 16, 60 scalar stores a thread) read 0.0069 ms there. Each CTA runs
+//    one chain, stage, multiply, store, and at h1 every CTA is on the card
+//    at once, so the time is the launch of the grid plus one chain; the
+//    design keeps each step short (each step's time is in PERF.md, from
+//    `kernel_probes.py dneigh`):
+//     - A CTA of 128 threads owns a tile of 32 columns and 4 x RR rows, a
+//       thread one column and RR rows. The host plan (`dneigh_plan`) takes
+//       RR 2: 512 CTAs of 8 x 32 at h1, about 4 an SM; RR 1 where that
+//       would put fewer than two on each SM.
+//     - Staging: where H is odd and fits one chunk of 128, w's rows d0 ..
+//       and d_out's rows b0 .. are each one contiguous run of floats,
+//       copied into shared memory by 16-byte cp.async at the run's own
+//       alignment (4-byte ones at its ends; rows of 47 floats are 188
+//       bytes apart, never 16-byte aligned, and a 4-byte copy a float
+//       took longer than the rest of the chain). Otherwise row by row, 4
+//       bytes a copy, into rows ld floats apart (4 mod 8), H in chunks of
+//       128.
+//     - The product: f32 FMAs with h ascending, then the IEEE division by
+//       F of ref.sage_aggregate_bwd_ref. From the runs, a lane's row of w
+//       is H floats past its neighbour's, in 32 different banks, and
+//       d_out's rows are broadcasts; from the rows, float4 loads (ld = 4
+//       mod 8: 8 lanes' loads meet no bank twice).
+//     - Stores straight from registers: each thread writes its values F
+//       times, each (row, f) a warp's 32 consecutive floats, 128 bytes;
+//       any D and any alignment. The tile put in shared memory and its
+//       rows written F times by TMA bulk copies or float4 stores, and
+//       tiles of 64 or 128 columns, measured slower at h1 (variants in
+//       `kernel_probes.py dneigh`).
+//    Each value's sum has one order, fixed by H alone, and all F copies of
+//    a row come from one register, so both tiles give the same bits, the
+//    F copies of a row are equal and two runs are equal.
 //
 // The versions before this one, and their times, are in PERF.md.
 
@@ -93,7 +126,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;   // d_w and d_neigh
+constexpr int kThreads = 256;   // d_w
 
 // forward: kLoaders threads stream and reduce neigh, kMults multiply; a
 // tile has kCols output columns; a slice of w, kWRows of its rows; a ring
@@ -110,11 +143,11 @@ constexpr int kDwRows = 32;
 constexpr int kDwStages = 4;
 constexpr int kMaxCluster = 8;
 
-// d_neigh tile: 16 rows x 64 d per block, h chunk 16; thread (ty, tx)
-// owns row ty and d = tx + 16 q (q < 4)
-constexpr int kDnRows = 16;
-constexpr int kDnCols = 64;
-constexpr int kDnH = 16;
+// d_neigh: kDnThreads threads a CTA over a tile of kDnCols columns, each
+// one column and RR rows; H staged kDnKH values at a time
+constexpr int kDnThreads = 128;
+constexpr int kDnCols = 32;
+constexpr int kDnKH = 128;
 
 // a BYTES-wide copy global -> shared that lands asynchronously; an invalid
 // one zero-fills its destination and reads nothing
@@ -658,58 +691,149 @@ __global__ void sage_dw_reduce_kernel(const float* __restrict__ partial,
   d_w[i] = s;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Whether w's and d_out's rows are staged as the runs of floats they are
+// in memory (H odd and one chunk) rather than row by row
+__host__ __device__ __forceinline__ bool dn_runs(int H) {
+  return H <= kDnKH && H % 2 == 1;
+}
+// Floats between the rows of w and d_out staged row by row: a chunk of kh
+// values of h rounded up to an odd multiple of 4 (4 mod 8), so that 8
+// consecutive rows' float4 loads fall in 8 different 16-byte bank groups.
+__host__ __device__ __forceinline__ int dn_ld(int H) {
+  const int kh = H < kDnKH ? H : kDnKH;
+  const int ld = (kh + 3) / 4 * 4;
+  return ld % 8 == 0 ? ld + 4 : ld;
+}
+// Floats of shared memory that hold a run of n floats staged by
+// stage_run: up to 3 before it, rounded up to 16 bytes
+__host__ __device__ __forceinline__ int dn_run(int n) {
+  return (n + 3 + 3) / 4 * 4;
+}
+// d_neigh's shared memory for a tile of `rows` rows: the runs of w's
+// kDnCols rows and d_out's `rows` rows, or those rows of a chunk of H, ld
+// floats apart
+__host__ __device__ __forceinline__ size_t dn_smem(int rows, int H) {
+  return sizeof(float) *
+         (dn_runs(H) ? static_cast<size_t>(dn_run(kDnCols * H) +
+                                           dn_run(rows * H))
+                     : static_cast<size_t>(kDnCols + rows) * dn_ld(H));
+}
+
+// `n` floats from `src` (4-byte aligned) into shared memory at `flat`
+// (16-byte aligned): float k lands at flat[pad + k], pad being src's
+// offset in floats past 16 bytes, so that its 16-byte pieces land 16-byte
+// aligned; a piece wholly inside the run is one 16-byte cp.async, the
+// run's ends 4-byte ones. Returns pad.
+__device__ __forceinline__ int stage_run(float* flat, const float* src,
+                                         int n) {
+  const int pad =
+      static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const float* base = src - pad;
+  for (int k0 = 4 * threadIdx.x; k0 < pad + n; k0 += 4 * kDnThreads) {
+    if (k0 >= pad && k0 + 4 <= pad + n) {
+      cp_async<16>(flat + k0, base + k0, true);
+    } else {
+      for (int k = k0; k < k0 + 4; ++k)
+        if (k >= pad && k < pad + n) cp_async<4>(flat + k, base + k, true);
+    }
+  }
+  return pad;
+}
+
+// See the header. RR rows a thread: the CTA's tile is RR * kDnThreads /
+// kDnCols rows of kDnCols columns.
+template <int RR>
+__global__ void __launch_bounds__(kDnThreads)
 sage_dneigh_kernel(const float* __restrict__ d_out,
                    const float* __restrict__ w, float* __restrict__ d_neigh,
                    int64_t B, int F, int D, int H) {
-  __shared__ float g_s[kDnRows][kDnH + 1];
-  __shared__ float w_s[kDnH][kDnCols + 1];
+  constexpr int rows = RR * kDnThreads / kDnCols;
+  extern __shared__ __align__(16) float smem[];
+  // H odd and one chunk: w's rows d0 .. d0 + nc and d_out's rows b0 .. b0
+  // + nr are read as the runs of floats they are in memory
+  const bool run = dn_runs(H);
+  const int ld = dn_ld(H);
+  float* w_s = smem;   // w's run, or its rows [kDnCols][ld]
+  float* g_s = smem + (run ? dn_run(kDnCols * H) : kDnCols * ld);  // d_out's
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kDnRows;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int dl = tid % kDnCols;          // this thread's column
+  const int r0 = tid / kDnCols * RR;     // and its rows r0 .. r0 + RR - 1
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * rows;
   const int d0 = blockIdx.y * kDnCols;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int h0 = 0; h0 < H; h0 += kDnH) {
-    {
-      const int rr = tid / kDnH;
-      const int hh = tid % kDnH;
-      const int64_t b = b0 + rr;
-      g_s[rr][hh] = (b < B && h0 + hh < H) ? __ldg(d_out + b * H + h0 + hh)
-                                           : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kDnH * kDnCols / kThreads; ++i) {
-      const int t = tid + kThreads * i;
-      const int hh = t % kDnH;
-      const int c = t / kDnH;
-      w_s[hh][c] = (d0 + c < D && h0 + hh < H)
-                       ? __ldg(w + static_cast<int64_t>(d0 + c) * H + h0 + hh)
-                       : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int hh = 0; hh < kDnH; ++hh) {
-      const float g = g_s[ty][hh];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        acc[q] = fmaf(g, w_s[hh][tx + 16 * q], acc[q]);
-    }
-    __syncthreads();
-  }
-  const int64_t b = b0 + ty;
-  if (b >= B) return;
+  const int nr = static_cast<int>(B - b0 < rows ? B - b0 : rows);
+  const int nc = D - d0 < kDnCols ? D - d0 : kDnCols;
   const float f_div = static_cast<float>(F);
-  float v[4];
+
+  float acc[RR];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) v[q] = acc[q] / f_div;
-  float* dst = d_neigh + b * F * D;
-  for (int f = 0; f < F; ++f) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int d = d0 + tx + 16 * q;
-      if (d < D) dst[static_cast<int64_t>(f) * D + d] = v[q];
+  for (int i = 0; i < RR; ++i) acc[i] = 0.f;
+  for (int h0 = 0; h0 < H; h0 += kDnKH) {
+    const int kh = H - h0 < kDnKH ? H - h0 : kDnKH;
+    const int kp = (kh + 3) / 4 * 4;
+    int wp = 0, gp = 0;
+    if (run) {
+      wp = stage_run(w_s, w + static_cast<int64_t>(d0) * H, nc * H);
+      gp = stage_run(g_s, d_out + b0 * H, nr * H);
+    } else {
+      // rows d0 .. d0 + kDnCols of w, then rows b0 .. b0 + rows of d_out,
+      // values h0 .. h0 + kp, into rows of ld floats, a row a warp, 4
+      // bytes a copy; zeros past D, B or H
+      for (int r = warp; r < kDnCols + rows; r += kDnThreads / 32) {
+        const bool is_w = r < kDnCols;
+        const bool row_ok = is_w ? r < nc : r - kDnCols < nr;
+        const float* src = is_w ? w + static_cast<int64_t>(d0 + r) * H + h0
+                                : d_out + (b0 + r - kDnCols) * H + h0;
+        for (int h = lane; h < kp; h += 32) {
+          const bool ok = row_ok && h < kh;
+          cp_async<4>(w_s + r * ld + h, ok ? src + h : w, ok);
+        }
+      }
     }
+    cp_async_commit();
+    cp_async_wait(0);
+    __syncthreads();
+    // the product, h ascending
+    if (run) {
+      // a lane's row of w is H floats past its neighbour's, in 32
+      // different banks; d_out's rows are read as broadcasts
+      const float* wr = w_s + wp + dl * H;
+      const float* gr = g_s + gp + r0 * H;
+      for (int h = 0; h < H; ++h) {
+        const float wv = wr[h];
+#pragma unroll
+        for (int i = 0; i < RR; ++i)
+          acc[i] = fmaf(gr[i * H + h], wv, acc[i]);
+      }
+    } else {
+      const float* wr = w_s + dl * ld;
+      for (int h = 0; h < kp; h += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(wr + h);
+#pragma unroll
+        for (int i = 0; i < RR; ++i) {
+          const float4 g4 =
+              *reinterpret_cast<const float4*>(g_s + (r0 + i) * ld + h);
+          acc[i] = fmaf(g4.x, w4.x, acc[i]);
+          acc[i] = fmaf(g4.y, w4.y, acc[i]);
+          acc[i] = fmaf(g4.z, w4.z, acc[i]);
+          acc[i] = fmaf(g4.w, w4.w, acc[i]);
+        }
+      }
+    }
+    __syncthreads();   // the chunk is read; the next may overwrite it
+  }
+
+  // the stores, straight from registers: each (row, f) a warp's 32
+  // consecutive floats
+  if (dl >= nc) return;
+#pragma unroll
+  for (int i = 0; i < RR; ++i) {
+    if (r0 + i >= nr) break;
+    const float v = acc[i] / f_div;
+    float* dst = d_neigh + (b0 + r0 + i) * F * D + d0 + dl;
+    for (int f = 0; f < F; ++f)
+      dst[static_cast<int64_t>(f) * D] = v;
   }
 }
 
@@ -768,6 +892,18 @@ cudaError_t launch_fwd(dim3 grid, size_t smem, cudaStream_t s,
   sage_fwd_kernel<T, R, VEC, WVEC><<<grid, kLoaders + kMults, smem, s>>>(
       static_cast<const T*>(neigh), w, static_cast<T*>(out), agg, B, F, D, H,
       ld_agg, bufs, stages);
+  return cudaGetLastError();
+}
+
+// d_neigh's grid: a CTA a tile of RR * kDnThreads / kDnCols rows and
+// kDnCols columns
+template <int RR>
+cudaError_t launch_dneigh(cudaStream_t s, const float* d_out, const float* w,
+                          float* d_neigh, int64_t B, int F, int D, int H) {
+  constexpr int rows = RR * kDnThreads / kDnCols;
+  const dim3 grid(blocks(B, rows), blocks(D, kDnCols));
+  sage_dneigh_kernel<RR><<<grid, kDnThreads, dn_smem(rows, H), s>>>(
+      d_out, w, d_neigh, B, F, D, H);
   return cudaGetLastError();
 }
 
@@ -873,17 +1009,22 @@ extern "C" int sage_aggregate_fwd(const void* neigh, const float* w,
 // rows per 128 x 128 tile, in clusters of `cluster` (1, 2, 4 or 8);
 // `scratch` holds splits / cluster partial sums of (D, H) when that is
 // more than 1 (else it may be null). agg's rows are lda floats apart.
+// Without d_w, the split and scratch are not read.
 // d_neigh (B, F, D) = (d_out w^T) / F broadcast over f when `d_neigh` is
-// not null.
+// not null, `dn_rr` (1 or 2) rows of it a thread.
 extern "C" int sage_aggregate_bwd(const float* d_out, const float* w,
                                   const float* agg, int64_t lda, float* d_w,
                                   float* scratch, float* d_neigh, int64_t B,
                                   int32_t F, int32_t D, int32_t H,
                                   int32_t splits, int32_t cluster,
-                                  void* stream) {
-  if (F < 1 || D < 1 || splits < 1 || splits > 65535 || cluster < 1 ||
-      cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
-      splits % cluster != 0 || (splits > cluster && scratch == nullptr))
+                                  int32_t dn_rr, void* stream) {
+  if (F < 1 || D < 1 ||
+      (d_w != nullptr &&
+       (splits < 1 || splits > 65535 || cluster < 1 ||
+        cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
+        splits % cluster != 0 || (splits > cluster && scratch == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d_neigh != nullptr && dn_rr != 1 && dn_rr != 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d_w != nullptr && H > 0) {
@@ -904,10 +1045,9 @@ extern "C" int sage_aggregate_bwd(const float* d_out, const float* w,
           scratch, d_w, n, splits / cluster);
     }
   }
-  if (d_neigh != nullptr && B > 0) {
-    const dim3 grid(blocks(B, kDnRows), blocks(D, kDnCols));
-    sage_dneigh_kernel<<<grid, kThreads, 0, s>>>(d_out, w, d_neigh, B, F,
-                                                 D, H);
-  }
+  if (d_neigh != nullptr && B > 0)
+    return static_cast<int>(
+        dn_rr == 1 ? launch_dneigh<1>(s, d_out, w, d_neigh, B, F, D, H)
+                   : launch_dneigh<2>(s, d_out, w, d_neigh, B, F, D, H));
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,9 +13,10 @@ counted apart as `sage_widen_w`).
 The host side of each launch is a plan computed here, in plain Python
 that the CPU tests reach: `fwd_plan` (rows a tile and its buffers, persistent
 CTAs, slices of w in the ring, the width in bytes of the loads of neigh),
-`agg_stride` (the saved aggregate's padded rows) and `dw_plan` (the
+`agg_stride` (the saved aggregate's padded rows), `dw_plan` (the
 ranges of rows a d_w tile is split into, and their clusters; on the
-card it asks the occupancy query how many clusters fit).
+card it asks the occupancy query how many clusters fit) and
+`dneigh_plan` (the rows of d_neigh a CTA).
 
 Same wrapper contract as repro_torch.kernels.embedding_bag: CUDA tensors
 only (contiguous, except the saved aggregate, whose rows may be
@@ -48,6 +49,9 @@ _MIN_STAGES, _FEW_STAGES, _MAX_STAGES = 3, 2, 8
 # d_w: 128 x 128 tiles, at least 32 rows a range, clusters of up to 8
 _DW_TILE = 128
 _DW_MIN_ROWS = 32
+# d_neigh: CTAs of 128 threads over tiles of 32 columns, a column and `rr`
+# rows a thread; H staged 128 values at a time
+_DN_THREADS, _DN_COLS, _DN_KH = 128, 32, 128
 
 
 def _status(name: str, status: int):
@@ -184,6 +188,44 @@ def dw_active_clusters(device: torch.device, cluster: int) -> int:
     return _DW_ACTIVE[key]
 
 
+def dn_smem(rows: int, h: int) -> int:
+    """Bytes of shared memory of a d_neigh CTA (as csrc's dn_smem): where H
+    is odd and fits one chunk of 128, the runs of w's 32 rows and d_out's
+    `rows` rows as they are copied in (up to 3 floats before each, rounded
+    up to 16 bytes); else those rows of a chunk of H, each padded to 4 mod
+    8 floats."""
+    if h <= _DN_KH and h % 2:
+        return 4 * (_cdiv(_DN_COLS * h + 3, 4) + _cdiv(rows * h + 3, 4)) * 4
+    ld = _cdiv(min(h, _DN_KH), 4) * 4
+    ld += 4 if ld % 8 == 0 else 0
+    return 4 * (_DN_COLS + rows) * ld
+
+
+@dataclass(frozen=True)
+class DneighPlan:
+    rr: int           # rows a thread: 1 or 2
+
+    @property
+    def rows(self) -> int:
+        """Rows of d_neigh (values of b) a CTA."""
+        return self.rr * _DN_THREADS // _DN_COLS
+
+    def ctas(self, b: int, d: int) -> int:
+        return _cdiv(b, self.rows) * _cdiv(d, _DN_COLS)
+
+
+def dneigh_plan(b: int, f: int, d: int, h: int) -> DneighPlan:
+    """d_neigh (b, f, d) from d_out (b, h) and w (d, h): tiles of 8 rows
+    (2 a thread) and 32 columns, 4 rows where that puts fewer than two
+    CTAs on every SM. At h1 these measured fastest of the tiles and store
+    paths tried (PERF.md, `kernel_probes.py dneigh`). Any shape is
+    taken."""
+    if f < 1 or d < 1:
+        raise ValueError(f"d_neigh needs F >= 1 and D >= 1, got {f}, {d}")
+    plan = DneighPlan(2)
+    return plan if plan.ctas(b, d) >= 2 * SMS else DneighPlan(1)
+
+
 # the forward's input dtypes: the TPU kernel's f32 and bf16
 FWD_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -283,6 +325,7 @@ def sage_aggregate_bwd(d_out: torch.Tensor, w: torch.Tensor,
         d_neigh = torch.empty((b, f, d), dtype=torch.float32, device=dev)
     if d_w is None and d_neigh is None:
         return None, None
+    dn = dneigh_plan(b, f, d, h)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _status("sage_aggregate_bwd", LIBRARIES.get("sage_aggregate")
@@ -293,5 +336,5 @@ def sage_aggregate_bwd(d_out: torch.Tensor, w: torch.Tensor,
                     None if d_w is None else d_w.data_ptr(),
                     None if scratch is None else scratch.data_ptr(),
                     None if d_neigh is None else d_neigh.data_ptr(),
-                    b, f, d, h, plan.splits, plan.cluster, stream))
+                    b, f, d, h, plan.splits, plan.cluster, dn.rr, stream))
     return d_neigh, d_w

@@ -186,6 +186,14 @@ def test_cuda_dot_interact_bwd_matches_plain_version(f, d):
         assert buf[1:].data_ptr() % 16 == 4
 
 
+def _check_dneigh(d_neigh, want):
+    """d_neigh within rtol / atol 1e-5 of the plain version (f32 FMAs in
+    another order than cuBLAS's), and each of its F copies of a row
+    bitwise equal to copy 0."""
+    torch.testing.assert_close(d_neigh, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(d_neigh, d_neigh[:, :1].expand_as(d_neigh))
+
+
 def _check_sage(neigh, w, gen):
     """sage_aggregate_fwd and _bwd against their plain versions: the saved
     aggregate (rows padded to a multiple of 4 floats) bitwise, out rtol /
@@ -205,9 +213,11 @@ def _check_sage(neigh, w, gen):
     d_out = torch.randn((b, h), device="cuda", generator=gen)
     d_neigh, d_w = sa.sage_aggregate_bwd(d_out, w, agg, f, True)
     want_n, want_w = ref.sage_aggregate_bwd_ref(d_out, w, agg, f)
-    torch.testing.assert_close(d_neigh, want_n, rtol=1e-5, atol=1e-5)
+    _check_dneigh(d_neigh, want_n)
     torch.testing.assert_close(d_w, want_w, rtol=0,
                                atol=1e-5 * float(want_w.abs().max()))
+    again, d_w1 = sa.sage_aggregate_bwd(d_out, w, agg, f, True)
+    assert torch.equal(again, d_neigh) and torch.equal(d_w1, d_w)
     none, d_w2 = sa.sage_aggregate_bwd(d_out, w, agg, f, False)
     assert none is None and torch.equal(d_w2, d_w)
     # a contiguous aggregate (rows not padded) gives the same d_w
@@ -234,6 +244,44 @@ def test_cuda_sage_aggregate_matches_plain_version():
         neigh = torch.randn((b, f, d), device="cuda", generator=gen)
         w = torch.randn((d, h), device="cuda", generator=gen) * d ** -0.5
         _check_sage(neigh, w, gen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 5, 33, 602])
+def test_cuda_sage_dneigh_every_plan_gives_the_same_bits(d, monkeypatch):
+    """sage_dneigh_kernel alone (no aggregate, so no d_w) at h1's (1024,
+    15, d) from (1024, 47) x (d, 47)^T, D 128 and the ragged 5, 33 and
+    602, with d_out and w contiguous and each sliced 4 bytes off a 16-byte
+    boundary: under its plan and both tiles (8 and 4 rows), d_neigh within
+    1e-5 of the plain version, its F copies of a row bitwise equal, two
+    runs bitwise equal, and each tile bitwise equal to the plan's (each
+    sum's order is fixed by H alone)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    b, f, h = 1024, 15, 47
+    plan_fn = sa.dneigh_plan
+    for shift in (0, 1):
+        gbuf = torch.randn(b * h + shift, device="cuda", generator=gen)
+        wbuf = torch.randn(d * h + shift, device="cuda", generator=gen)
+        d_out = gbuf[shift:].view(b, h)
+        w = wbuf[shift:].view(d, h)
+        assert d_out.data_ptr() % 16 == w.data_ptr() % 16 == 4 * shift
+        want, _ = ref.sage_aggregate_bwd_ref(d_out, w, None, f)
+        first, _ = sa.sage_aggregate_bwd(d_out, w, None, f, True)
+        _check_dneigh(first, want)
+        for rr in (2, 1):
+            plan = sa.DneighPlan(rr)
+            monkeypatch.setattr(sa, "dneigh_plan", lambda *a, p=plan: p)
+            before = sa.LAUNCHES["sage_aggregate_bwd"]
+            got, none = sa.sage_aggregate_bwd(d_out, w, None, f, True)
+            assert sa.LAUNCHES["sage_aggregate_bwd"] == before + 1
+            assert none is None
+            assert torch.equal(got, first), plan
+            assert torch.equal(sa.sage_aggregate_bwd(
+                d_out, w, None, f, True)[0], got), plan
+            monkeypatch.setattr(sa, "dneigh_plan", plan_fn)
 
 
 @pytest.mark.gpu

@@ -437,6 +437,45 @@ def test_sage_fwd_plan_at_the_path_shapes():
     assert sa.agg_stride(5) == 8
 
 
+# the sage shapes chip_smoke.py holds the kernels at: the path, the ragged
+# ones above, and neigh slices whose base is 8 or 4 bytes off 16
+SAGE_CHIP = SAGE_PATH + SAGE_RAGGED + [(300, 15, 128, 47),
+                                       (300, 10, 602, 128),
+                                       (5000, 10, 602, 128)]
+
+
+@pytest.mark.parametrize("b,f,d,h", SAGE_CHIP)
+def test_sage_dneigh_plan_takes_every_chip_shape(b, f, d, h):
+    """No shape is refused; 8-row tiles exactly where they put at least
+    two CTAs on every SM, else 4-row ones; shared memory fits a CTA of
+    either tile."""
+    plan = sa.dneigh_plan(b, f, d, h)
+    assert plan.rr in (1, 2) and plan.rows == 4 * plan.rr
+    assert plan.ctas(b, d) * plan.rows * 32 >= b * d
+    assert (plan.rows == 8) == (sa.DneighPlan(2).ctas(b, d) >= 2 * sa.SMS)
+    for rr in (1, 2):
+        assert sa.dn_smem(sa.DneighPlan(rr).rows, h) <= sa.SMEM
+
+
+def test_sage_dneigh_plan_at_the_path_shapes():
+    # h1, the one call that writes d_neigh, (1024, 15, 128): 8 x 32 tiles,
+    # 512 CTAs, at least two on each of the 132 SMs
+    plan = sa.dneigh_plan(1024, 15, 128, 47)
+    assert plan == sa.DneighPlan(2) and plan.rows == 8
+    assert plan.ctas(1024, 128) == 512 >= 2 * sa.SMS
+    # its shared memory: the runs of w's 32 rows and d_out's 8 rows of 47
+    # floats as they are copied in (up to 3 floats before each, rounded
+    # up to 16 bytes)
+    assert sa.dn_smem(8, 47) == 4 * (1508 + 380)
+    # fewer rows: 4-row tiles; H even or above 128 is staged row by row,
+    # the rows of a chunk padded to 4 mod 8 floats
+    assert sa.dneigh_plan(300, 15, 128, 47) == sa.DneighPlan(1)
+    assert sa.dn_smem(4, 130) == 4 * 36 * 132
+    assert sa.dn_smem(4, 48) == 4 * 36 * 52
+    with pytest.raises(ValueError):
+        sa.dneigh_plan(4, 0, 5, 7)
+
+
 # (b, f, v, d): the wide-deep arms and the DLRM at small batches, every D
 # the card tests take, F not a multiple of the group, a feature group
 # holding every feature, B = 1; the even widths that are not multiples of
