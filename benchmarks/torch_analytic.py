@@ -12,12 +12,20 @@ simple closed forms from the configs.
 
 Hardware ceilings (NVIDIA H100 SXM data sheet, dense, at its 700 W
 limit): 989 TFLOP/s bf16 and 495 TF32 on the tensor cores, 67 TFLOP/s
-f32 outside them, 3.35 TB/s of HBM3. One device: no collective term.
+f32 outside them, 3.35 TB/s of HBM3. A measured step is one device's:
+no collective term. The dry run's plans (`plan_terms`) have one: a
+rank's collective bytes over NET_BW.
 """
 from __future__ import annotations
 
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 HBM_BW = 3.35e12
+# a GPU's share of the network between nodes: one 400 Gb/s ConnectX-7
+# port a GPU in an NVIDIA DGX H100 (eight ports for its eight GPUs; DGX
+# H100 user guide), in bytes a second. Each 16-rank axis of the production
+# meshes spans two or more nodes of 8, so its collectives cross that
+# network
+NET_BW = 400e9 / 8
 
 
 # ------------------------------------------------------------ LM family ----
@@ -181,3 +189,32 @@ def roofline_terms(model_flops: float, mem_bytes: float, measured_s: float,
             "model_flops": model_flops, "peak_flops": peak,
             "roofline_fraction": max(compute_s, memory_s) / measured_s,
             "mfu": model_flops / (peak * measured_s)}
+
+
+def plan_terms(model_flops: float, dot_flops: float, mem_bytes: float,
+               coll_bytes: float, chips: int, dtype: str) -> dict:
+    """The three terms of one rank's roofline for a dry-run plan (the
+    reference's `roofline_terms`, benchmarks/analytic.py:169-185):
+    compute (the plan's dot FLOPs a rank over the dtype's peak), memory
+    (the analytic bytes a rank over HBM), collective (the plan's operand
+    bytes a rank over NET_BW), the dominant one, useful_ratio = model
+    FLOPs a rank over the plan's dot FLOPs, and roofline_fraction = the
+    useful compute's seconds over the largest term."""
+    peak = PEAK_FLOPS[dtype]
+    compute_s = dot_flops / peak
+    memory_s = mem_bytes / HBM_BW
+    collective_s = coll_bytes / NET_BW
+    bound = max(compute_s, memory_s, collective_s, 1e-12)
+    dominant = ("compute" if bound == compute_s else
+                "memory" if bound == memory_s else "collective")
+    return {"compute_s": compute_s, "memory_s": memory_s,
+            "collective_s": collective_s, "dominant": dominant,
+            "model_flops": model_flops, "dot_flops": dot_flops,
+            "peak_flops": peak,
+            "useful_ratio": (model_flops / chips) / max(dot_flops, 1.0),
+            "roofline_fraction": model_flops / chips / peak / bound}
+
+
+def plan_dtype(arch) -> str:
+    """The dtype whose peak a plan's FLOPs take: the config's."""
+    return getattr(arch.model, "param_dtype", "float32")

@@ -19,8 +19,8 @@ Each row gives:
     product) in one PyTorch expression;
   - bound_ms: the larger of the bytes the function must move (each input
     read once, each output written once) over 3.35 TB/s and its f32
-    operations over 67 TFLOP/s (H100 SXM data sheet), with its share of
-    the kernel's time;
+    operations over 67 TFLOP/s (H100 SXM data sheet), both counted by
+    repro_torch.kernels.costs, with its share of the kernel's time;
   - max_abs_err: the kernel against its plain version, held as in
     chip_smoke.py's `kernels` phase (the bags bitwise, the others
     allclose); on the CPU the oracle against the plain version.
@@ -79,8 +79,9 @@ def time_ms(fn, device: torch.device, iters: int = 100,
 
 
 def cases(device: torch.device):
-    """(name, shape text, kernel or None, plain, oracle, bytes, flops) for
-    the reference's three shapes, inputs from a seed-0 RandomState."""
+    """(name, shape text, kernel or None, plain, oracle, cost) for the
+    reference's three shapes, inputs from a seed-0 RandomState."""
+    from repro_torch.kernels import costs
     from repro_torch.kernels import dot_interact as di
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import ref
@@ -93,28 +94,27 @@ def cases(device: torch.device):
     ids = put(rng.randint(0, 1 << 14, (256, 4)).astype(np.int32))
     tables, bags = table[None], ids[:, None, :]      # (1, V, D), (B, 1, 4)
     uniq = int(torch.unique(ids).numel())
-    bag_bytes = ids.numel() * 4 + uniq * 128 * 4 + 256 * 128 * 4
+    bag_cost = costs.bag_fwd(256, 1, 4, 1 << 14, 128, 4, uniq)
     oracle_bag = lambda: table[ids.long()].sum(1)
     # the port's functions take stacked tables: one feature, out (B, 1, D)
     yield ("embedding_bag", "16k x 128, B=256 bag=4",
            (lambda: eb.embedding_bag_fwd(tables, bags)[:, 0]) if on_cuda
            else None,
            lambda: ref.embedding_bag_ref(tables, bags)[:, 0], oracle_bag,
-           bag_bytes, 256 * 4 * 128)
+           bag_cost)
     yield ("embedding_bag_fused", "16k x 128, B=256 bag=4",
            (lambda: eb.embedding_bag_fused_fwd(tables, bags)[:, 0])
            if on_cuda else None,
            lambda: ref.embedding_bag_fused_ref(tables, bags)[:, 0],
-           oracle_bag, bag_bytes, 256 * 4 * 128)
+           oracle_bag, bag_cost)
 
     feats = put(rng.randn(512, 27, 128).astype(np.float32))
     ii, jj = ref.tril_pairs(27, device)
-    pairs = 27 * 26 // 2
     yield ("dot_interact", "B=512 F=27 D=128",
            (lambda: di.dot_interact_fwd(feats)) if on_cuda else None,
            lambda: ref.dot_interact_ref(feats),
            lambda: torch.einsum("bfd,bgd->bfg", feats, feats)[:, ii, jj],
-           feats.numel() * 4 + 512 * pairs * 4, 512 * pairs * 128 * 2)
+           costs.dot_fwd(512, 27, 128, 4))
 
     neigh = put(rng.randn(1024, 15, 602).astype(np.float32))
     w = put((rng.randn(602, 128) * 0.04).astype(np.float32))
@@ -122,8 +122,7 @@ def cases(device: torch.device):
            (lambda: sa.sage_aggregate_fwd(neigh, w)[0]) if on_cuda else None,
            lambda: ref.sage_aggregate_ref(neigh, w),
            lambda: neigh.mean(1) @ w,
-           4 * (neigh.numel() + w.numel() + 1024 * 128),
-           1024 * 15 * 602 + 2 * 1024 * 602 * 128)
+           costs.sage_fwd(1024, 15, 602, 128, 4, False))
 
 
 def _max_err(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -146,11 +145,11 @@ def run(device="cuda", quiet: bool = False) -> list:
         raise RuntimeError("torch_kernels_bench: no CUDA device (run with "
                            "--device cpu for the plain versions alone)")
     rows = []
-    for name, shape, kernel, plain, oracle, n_bytes, flops in cases(device):
+    for name, shape, kernel, plain, oracle, cost in cases(device):
         want = plain()
         err = (_max_err(name, kernel(), want, ATOL[name]) if kernel
                else _max_err(name, oracle(), want, ORACLE_ATOL))
-        bms, by = bound_ms(n_bytes, flops)
+        bms, by = bound_ms(cost.bytes, cost.ops)
         k_ms = time_ms(kernel, device) if kernel else None
         rows.append({
             "kernel": name, "shape": shape, "device": (

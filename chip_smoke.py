@@ -279,7 +279,11 @@ on gloo in the CPU tests:
               dlrm_driver phase's, the others within rtol 1e-3; the
               local-rows kernels and dot_interact's launched each step,
               the unsharded embedding kernels never; samples/s and peak
-              memory.
+              memory. Then, before the group ends, the placed retrieval
+              (slice 20): score_candidates(mesh=) of 1,000,000
+              candidates in 25 chunks through the row-sharded lookup,
+              against the unplaced scores of the same model within
+              dlrm_retrieval's 4 bf16 ulps of the largest score.
 
 xDeepFM, DIEN and BERT4Rec (slice 9) at their published widths through
 the generic driver at train_batch (65536), with the gradients of
@@ -406,6 +410,22 @@ The LM family on a mesh (slices 17 and 18), before kernels_bench:
               id at a tenth of the slots), checked at ranks 1 and 3 (the
               MASK row's), timed at rank 1. Last the byte plan of the
               training runs one card cannot hold on (16, 16).
+ 13b. dryrun  (slice 20) the dry run's plan against the card: `python -m
+              repro_torch.launch.dryrun --mesh 1,1` in two subprocesses
+              (fresh interpreters, each with its fake process group,
+              started after the last timed LM phase, so that no measured
+              phase shares the host's cores with them),
+              planning dist_dlrm's run (dlrm-criteo train_batch) and
+              lm_dist's (gemma2-2b train_4k, batch 4 in 4 microbatches)
+              on meta tensors, while the card, on an NCCL group of one,
+              builds the same placed programs (launch/programs.
+              build_program) and runs one step of each under the same
+              counters (launch/step_analysis). Held: the plan's parameter
+              and optimizer-state bytes equal to the sum of numel x
+              element_size over the card's placed model and optimizer
+              state, its dot FLOPs and kernel launches equal to the
+              card's step's, and its peak within DRYRUN_PEAK_BAND of the
+              step's torch.cuda.max_memory_allocated.
 
 Launch counts are set to 0 just before each main path (the DLRM loop,
 the held loop, the train-feed arms, the checkpoint round trip, the
@@ -523,6 +543,15 @@ def bound_ms(n_bytes: float, flops: float):
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def cost_bound(kernel: str, *args, **kw):
+    """bound_ms of a kernel's work by its formula in
+    repro_torch.kernels.costs (`kernel` names it), the one the dry run's
+    plans and step_analysis report: its bytes and its operations."""
+    from repro_torch.kernels import costs
+    c = getattr(costs, kernel)(*args, **kw)
+    return bound_ms(c.bytes, c.ops)
 
 
 # Late in a long process torch.profiler has recorded only 15 of 20
@@ -1108,8 +1137,8 @@ def phase_kernels(cfg) -> dict:
                   [()])
     out["embedding_bag_fwd"] = kernel_record(
         "embedding_bag_fwd", t, plain, lib,
-        bound_ms(ids.numel() * 4 + uniq * dim * 4 + b * n_f * dim * 4,
-                 b * n_f * bag * dim), errs["embedding_bag_fwd"])
+        cost_bound("bag_fwd", b, n_f, bag, rows, dim, 4, uniq),
+        errs["embedding_bag_fwd"])
 
     # embedding_bag_bwd: the kernel scatter-adds into a zeroed gradient;
     # the zero fill belongs to the gradient's allocation and is timed
@@ -1131,9 +1160,8 @@ def phase_kernels(cfg) -> dict:
     del grad_flat, upd
     out["embedding_bag_bwd"] = kernel_record(
         "embedding_bag_bwd", t, plain, lib,
-        bound_ms(d_out.numel() * 4 + ids.numel() * 4 + 2 * uniq * dim * 4,
-                 b * n_f * bag * dim), errs["embedding_bag_bwd"],
-        zero_fill_ms=zero_ms)
+        cost_bound("bag_bwd", b, n_f, bag, rows, dim, 4, uniq),
+        errs["embedding_bag_bwd"], zero_fill_ms=zero_ms)
     del d_out
     torch.cuda.empty_cache()
 
@@ -1153,8 +1181,7 @@ def phase_kernels(cfg) -> dict:
                 kernel="embedding_bag_fwd_kernel"),
         time_ms(lambda: ref.embedding_bag_ref(tables16, ids), [()]),
         time_ms(lambda: F.embedding_bag(flat, flat16, mode="sum"), [()]),
-        bound_ms(ids.numel() * 4 + uniq * dim * 2 + b * n_f * dim * 4,
-                 b * n_f * bag * dim), 0.0)
+        cost_bound("bag_fwd", b, n_f, bag, rows, dim, 2, uniq), 0.0)
     del tables16, flat16
     torch.cuda.empty_cache()
 
@@ -1170,8 +1197,7 @@ def phase_kernels(cfg) -> dict:
         time_ms(ref.dot_interact_ref, fs),
         time_ms(lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj],
                 fs),
-        bound_ms(b * (n_f + 1) * dim * 4 + b * n_pairs * 4,
-                 2 * b * n_pairs * dim), errs["dot_interact_fwd"])
+        cost_bound("dot_fwd", b, n_f + 1, dim, 4), errs["dot_interact_fwd"])
     # bf16 feats: bf16 out within 2 ulps of the plain version's
     fs16 = [(x.to(torch.bfloat16),) for (x,) in fs]
     err16 = max(_allclose("dot_interact_fwd bf16 main",
@@ -1185,8 +1211,7 @@ def phase_kernels(cfg) -> dict:
         time_ms(ref.dot_interact_ref, fs16),
         time_ms(lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj],
                 fs16),
-        bound_ms(b * (n_f + 1) * dim * 2 + b * n_pairs * 2,
-                 2 * b * n_pairs * dim), err16)
+        cost_bound("dot_fwd", b, n_f + 1, dim, 2), err16)
     out["dot_interact_fwd"]["bf16"]["max_abs_err"] = max(err16, dot16_err)
     del fs16
 
@@ -1202,8 +1227,7 @@ def phase_kernels(cfg) -> dict:
         time_ms(di.dot_interact_bwd, gs, kernel="dot_interact_bwd_kernel"),
         time_ms(ref.dot_interact_bwd_ref, gs),
         time_ms(torch.bmm, sym),
-        bound_ms(b * n_pairs * 4 + 2 * b * (n_f + 1) * dim * 4,
-                 2 * b * (n_f + 1) ** 2 * dim), errs["dot_interact_bwd"])
+        cost_bound("dot_bwd", b, n_f + 1, dim, 4), errs["dot_interact_bwd"])
     return out
 
 
@@ -1724,9 +1748,8 @@ def _quickstart_kernels(cfg, batch: int) -> dict:
         time_ms(lambda: ref.embedding_bag_ref(tables, ids), [()]),
         time_ms(lambda: F.embedding_bag(flat, table_flat, mode="sum"),
                 [()]),
-        bound_ms(ids.numel() * 4 + uniq * dim * 4 + b * n_f * dim * 4,
-                 b * n_f * bag * dim), errs["embedding_bag_fwd"],
-        shape=shape)
+        cost_bound("bag_fwd", b, n_f, bag, rows, dim, 4, uniq),
+        errs["embedding_bag_fwd"], shape=shape)
     d_out = torch.randn((b, n_f, dim), device=dev, generator=gen)
     grad = torch.zeros_like(tables)
     upd = d_out[:, :, None, :].expand(b, n_f, bag, dim).reshape(-1, dim) \
@@ -1739,9 +1762,8 @@ def _quickstart_kernels(cfg, batch: int) -> dict:
         time_ms(lambda: ref.embedding_bag_bwd_ref(d_out, ids, rows), [()]),
         time_ms(lambda: grad_flat.index_add_(0, flat.reshape(-1), upd),
                 [()]),
-        bound_ms(d_out.numel() * 4 + ids.numel() * 4 + 2 * uniq * dim * 4,
-                 b * n_f * bag * dim), errs["embedding_bag_bwd"],
-        shape=shape, zero_fill_ms=time_ms(lambda: grad.zero_(), [()]).ms)
+        cost_bound("bag_bwd", b, n_f, bag, rows, dim, 4, uniq),
+        errs["embedding_bag_bwd"], shape=shape, zero_fill_ms=time_ms(lambda: grad.zero_(), [()]).ms)
     n_pairs = (n_f + 1) * n_f // 2
     ii, jj = ref.tril_pairs(n_f + 1, dev)
     fs = [(feats,)]
@@ -1751,8 +1773,7 @@ def _quickstart_kernels(cfg, batch: int) -> dict:
         time_ms(di.dot_interact_fwd, fs, kernel="dot_interact_fwd_kernel"),
         time_ms(ref.dot_interact_ref, fs),
         time_ms(lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj], fs),
-        bound_ms(b * (n_f + 1) * dim * 4 + b * n_pairs * 4,
-                 2 * b * n_pairs * dim), errs["dot_interact_fwd"],
+        cost_bound("dot_fwd", b, n_f + 1, dim, 4), errs["dot_interact_fwd"],
         shape=shape)
     g = torch.randn((b, n_pairs), device=dev, generator=gen)
     s = torch.zeros((b, n_f + 1, n_f + 1), device=dev)
@@ -1763,8 +1784,7 @@ def _quickstart_kernels(cfg, batch: int) -> dict:
                 kernel="dot_interact_bwd_kernel"),
         time_ms(ref.dot_interact_bwd_ref, [(g, feats)]),
         time_ms(torch.bmm, [(s + s.transpose(1, 2), feats)]),
-        bound_ms(b * n_pairs * 4 + 2 * b * (n_f + 1) * dim * 4,
-                 2 * b * (n_f + 1) ** 2 * dim), errs["dot_interact_bwd"],
+        cost_bound("dot_bwd", b, n_f + 1, dim, 4), errs["dot_interact_bwd"],
         shape=shape)
     return out
 
@@ -2080,8 +2100,7 @@ def phase_sage_kernels(shape, cfg) -> dict:
                     kernel="sage_fwd_kernel")
         plain = time_ms(ref.sage_aggregate_ref, sets)
         lib = time_ms(lambda n, w: torch.einsum("bfd,dh->bh", n, w), sets)
-        bms, by = bound_ms(4 * (b * f * d + d * h + b * h + b * d),
-                           b * f * d + 2 * b * d * h)
+        bms, by = cost_bound("sage_fwd", b, f, d, h, 4, True)
         per["sage_aggregate_fwd"].append(
             {"shape": tag, "B": b, "F": f, "D": d, "H": h, "ms": t.ms,
              "wall_ms": t.wall, "events": t.events, "plain_ms": plain.ms,
@@ -2101,14 +2120,14 @@ def phase_sage_kernels(shape, cfg) -> dict:
                 time_ms(ref.sage_aggregate_ref, sets16),
                 time_ms(lambda n, w: torch.einsum("bfd,dh->bh", n, w),
                         sets16),
-                bound_ms(2 * (b * f * d + d * h + b * h) + 4 * b * d,
-                         b * f * d + 2 * b * d * h), err16)
+                cost_bound("sage_fwd", b, f, d, h, 2, True, w_elem=2),
+                err16)
             # the bf16 w's widening, a kernel of its own that the call
             # above launches first (its time is in the call's)
             wsets = [(w,) for _, w in sets16]
             wt = time_ms(sa.widen_w, wsets, kernel="widen_w_kernel")
             wl = time_ms(lambda x: x.float(), wsets)
-            wb, wby = bound_ms(d * h * (2 + 4), 0)
+            wb, wby = cost_bound("widen", d, h)
             bf16["widen_w"] = {"ms": wt.ms, "wall_ms": wt.wall,
                                "events": wt.events, "library_ms": wl.ms,
                                "library_events": wl.events, "bound_ms": wb,
@@ -2130,7 +2149,7 @@ def phase_sage_kernels(shape, cfg) -> dict:
             dn_ms, dn_events = named_kernel_ms(
                 lambda g, w, a: sa.sage_aggregate_bwd(g, w, a, f, True),
                 bsets, "sage_dneigh_kernel")
-            dn_bound = bound_ms(4 * (b * h + d * h + b * f * d), 2 * b * d * h)
+            dn_bound = cost_bound("sage_bwd", b, f, d, h, False, True)
             # its function alone: the plain version's d_neigh (no agg, so
             # no d_w) and one library expression, (d_out @ w^T / F)
             # expanded over the F neighbours and written out
@@ -2167,12 +2186,7 @@ def phase_sage_kernels(shape, cfg) -> dict:
                 .expand(b, f, d).contiguous()), bsets)
         else:
             lib = time_ms(lambda g, w, a: torch.mm(a.t(), g), bsets)
-        n_bytes = 4 * (b * h + b * d + d * h)
-        flops = 2 * b * d * h
-        if need_neigh:
-            n_bytes += 4 * (d * h + b * f * d)
-            flops += 2 * b * d * h
-        bms, by = bound_ms(n_bytes, flops)
+        bms, by = cost_bound("sage_bwd", b, f, d, h, True, need_neigh)
         per["sage_aggregate_bwd"].append(
             {"shape": tag, "B": b, "F": f, "D": d, "H": h,
              "d_neigh": need_neigh, "ms": t.ms, "wall_ms": t.wall,
@@ -2777,8 +2791,7 @@ def phase_recsys_kernels(cfg) -> dict:
             time_ms(lambda i: ref.embedding_bag_fused_ref(table, i), sets),
             time_ms(lambda x: F.embedding_bag(x, table.view(n_f * rows, 1),
                                               mode="sum"), flat_sets),
-            bound_ms(main.numel() * 4 + uniq * elem + b * n_f * 4,
-                     b * n_f * bag), 0.0,
+            cost_bound("bag_fwd", b, n_f, bag, rows, 1, elem, uniq), 0.0,
             embedding_bag_fwd_ms=time_ms(
                 lambda i: eb.embedding_bag_fwd(table, i), sets,
                 kernel="embedding_bag_fwd_kernel").ms,
@@ -2808,8 +2821,8 @@ def phase_recsys_kernels(cfg) -> dict:
                   [()])
     rec["embedding_bag_bwd_d1"] = kernel_record(
         "embedding_bag_bwd at D = 1 (wide arm)", t, plain, lib,
-        bound_ms(d_out.numel() * 4 + main.numel() * 4 + 2 * uniq * 4,
-                 b * n_f * bag), path_errs["embedding_bag_bwd"])
+        cost_bound("bag_bwd", b, n_f, bag, rows, 1, 4, uniq),
+        path_errs["embedding_bag_bwd"])
     del grad, upd
     torch.cuda.empty_cache()
 
@@ -2826,8 +2839,7 @@ def phase_recsys_kernels(cfg) -> dict:
         time_ms(lambda i: ref.embedding_bag_ref(deep, i), sets, iters=5),
         time_ms(lambda x: F.embedding_bag(x, deep_flat, mode="sum"),
                 flat_sets),
-        bound_ms(main.numel() * 4 + uniq * dim * 4 + b * n_f * dim * 4,
-                 b * n_f * bag * dim), 0.0)
+        cost_bound("bag_fwd", b, n_f, bag, rows, dim, 4, uniq), 0.0)
     # the deep tables in bf16 (the same values, rounded): bitwise to the
     # plain version; bound at 2-byte elements
     deep16 = deep.to(torch.bfloat16)
@@ -2843,8 +2855,7 @@ def phase_recsys_kernels(cfg) -> dict:
         time_ms(lambda i: ref.embedding_bag_ref(deep16, i), sets, iters=5),
         time_ms(lambda x: F.embedding_bag(x, deep16_flat, mode="sum"),
                 flat_sets),
-        bound_ms(main.numel() * 4 + uniq * dim * 2 + b * n_f * dim * 4,
-                 b * n_f * bag * dim), 0.0)
+        cost_bound("bag_fwd", b, n_f, bag, rows, dim, 2, uniq), 0.0)
     del deep16, deep16_flat
     d_out = torch.randn((b, n_f, dim), device=dev, generator=gen)
     grad = torch.zeros_like(deep)
@@ -2860,8 +2871,8 @@ def phase_recsys_kernels(cfg) -> dict:
         0, idx, upd), [()])
     rec["embedding_bag_bwd_d32"] = kernel_record(
         "embedding_bag_bwd at D = 32 (deep tables)", t, plain, lib,
-        bound_ms(d_out.numel() * 4 + main.numel() * 4 + 2 * uniq * dim * 4,
-                 b * n_f * bag * dim), path_errs["embedding_bag_bwd"])
+        cost_bound("bag_bwd", b, n_f, bag, rows, dim, 4, uniq),
+        path_errs["embedding_bag_bwd"])
     del grad, upd, d_out
     torch.cuda.empty_cache()
     return {"embedding_bag_fused_fwd": rec}, path_errs
@@ -3178,8 +3189,8 @@ def phase_dlrm_bf16_bwd(arch) -> dict:
         time_ms(lambda: ref.embedding_bag_ref(tables, ids), [()]),
         time_ms(lambda: F.embedding_bag(bags, table_flat, mode="sum"),
                 [()]),
-        bound_ms(ids.numel() * 4 + uniq * dim * 2 + b * n_f * dim * 4,
-                 b * n_f * bag * dim), 0.0, shape=[b, n_f, bag, rows, dim])}
+        cost_bound("bag_fwd", b, n_f, bag, rows, dim, 2, uniq), 0.0,
+        shape=[b, n_f, bag, rows, dim])}
     del table_flat
     grad = tables.zero_()
     del tables
@@ -3198,8 +3209,7 @@ def phase_dlrm_bf16_bwd(arch) -> dict:
     torch.cuda.empty_cache()
     recs["embedding_bag_bwd"] = kernel_record(
         "embedding_bag_bwd bf16", t, plain, lib,
-        bound_ms(d_out.numel() * 4 + ids.numel() * 4 + 2 * uniq * dim * 2,
-                 b * n_f * bag * dim), 0.0,
+        cost_bound("bag_bwd", b, n_f, bag, rows, dim, 2, uniq), 0.0,
         max_ulps=max(e_ulps, worst["scatter"][0]), zero_fill_ms=zero_ms,
         shape=[b, n_f, bag, rows, dim])
     del d_out, ids
@@ -3218,8 +3228,8 @@ def phase_dlrm_bf16_bwd(arch) -> dict:
         time_ms(di.dot_interact_fwd, fs, kernel="dot_interact_fwd_kernel"),
         time_ms(ref.dot_interact_ref, fs),
         time_ms(lambda x: torch.bmm(x, x.transpose(1, 2))[:, ii, jj], fs),
-        bound_ms(b * (n_f + 1) * dim * 2 + b * n_pairs * 2,
-                 2 * b * n_pairs * dim), err, shape=[b, n_f + 1, dim])
+        cost_bound("dot_fwd", b, n_f + 1, dim, 2), err,
+        shape=[b, n_f + 1, dim])
     gs = [(torch.randn((b, n_pairs), device=dev, generator=gen).to(bf16), x)
           for (x,) in fs]
     err, ulps = _check_dot_bf16(*gs[0], "main")
@@ -3236,8 +3246,7 @@ def phase_dlrm_bf16_bwd(arch) -> dict:
         time_ms(di.dot_interact_bwd, gs, kernel="dot_interact_bwd_kernel"),
         time_ms(ref.dot_interact_bwd_ref, gs),
         time_ms(torch.bmm, sym),
-        bound_ms(b * n_pairs * 2 + 2 * b * (n_f + 1) * dim * 2,
-                 2 * b * (n_f + 1) ** 2 * dim),
+        cost_bound("dot_bwd", b, n_f + 1, dim, 2),
         max(err, worst["dot"][0]), max_ulps=max(ulps, worst["dot"][1]),
         shape=[b, n_f + 1, dim])
     # the f32 kernel at the same shape, the path a bf16 input took before
@@ -3246,7 +3255,7 @@ def phase_dlrm_bf16_bwd(arch) -> dict:
     fs32 = [(g.float(), x.float()) for g, x in gs]
     f32 = time_ms(di.dot_interact_bwd, fs32, kernel="dot_interact_bwd_kernel")
     recs["dot_interact_bwd"]["f32_ms"] = f32.ms
-    f32_bound = bound_ms(b * n_pairs * 4 + 2 * b * (n_f + 1) * dim * 4, 0)[0]
+    f32_bound = cost_bound("dot_bwd", b, n_f + 1, dim, 4)[0]
     print(f"  dot_interact_bwd f32 at ({b}, {n_f + 1}, {dim}): {f32.ms:.4f} "
           f"ms on the card ({f32.events} events), bound {f32_bound:.4f} ms")
     return recs
@@ -3626,8 +3635,8 @@ def phase_dist_kernels(arch) -> dict:
             time_ms(lambda: F.embedding_bag(flat, table_flat, mode="sum",
                                             per_sample_weights=weight),
                     [()]),
-            bound_ms(ids.numel() * 4 + uniq * dim * 2 + b * n_f * dim * 4,
-                     slots * dim), 0.0, shape=[b, n_f, bag, v_loc, dim],
+            cost_bound("bag_fwd", b, n_f, bag, v_loc, dim, 2, uniq,
+                       inside=slots), 0.0, shape=[b, n_f, bag, v_loc, dim],
             row0=row0, in_shard_slots=slots, checks=chk)
         if tag == "shard1":
             # F.embedding of the same bag-of-one rows, the unsharded
@@ -3656,8 +3665,8 @@ def phase_dist_kernels(arch) -> dict:
                       [()])
         bwd = kernel_record(
             f"embedding_bag_bwd local bf16 {tag}", t, plain, lib,
-            bound_ms(bags_in * dim * 4 + ids.numel() * 4
-                     + 2 * uniq * dim * 2, slots * dim), 0.0,
+            cost_bound("bag_bwd", b, n_f, bag, v_loc, dim, 2, uniq,
+                       inside=slots, bags_in=bags_in), 0.0,
             shape=[b, n_f, bag, v_loc, dim], row0=row0,
             in_shard_slots=slots, in_shard_bags=bags_in)
         del grad, grad_flat, upd, d_out
@@ -3768,6 +3777,8 @@ def phase_dist_dlrm(arch, first_losses) -> dict:
         counts = {k: ops.launch_counts()[k] for k in DIST_KERNELS + (
             "dot_interact_fwd", "dot_interact_bwd", "embedding_bag_fwd",
             "embedding_bag_bwd")}
+        torch.cuda.empty_cache()
+        placed_retrieval(arch)
     finally:
         torch.distributed.destroy_process_group()
     losses, want = res["losses"], first_losses[:DIST_STEPS]
@@ -3795,6 +3806,60 @@ def phase_dist_dlrm(arch, first_losses) -> dict:
                       CARD_BYTES):
         raise AssertionError(f"dist_dlrm peak {peak / 1e9:.2f} GB")
     return counts
+
+
+def placed_retrieval(arch) -> dict:
+    """Slice 20: dlrm-criteo's placed retrieval program (launch/programs.
+    build_program at retrieval_cand on the (1, 1) mesh of the process
+    group the caller holds: 1,000,000 candidates in 25 chunks, the item
+    rows and the user's bags through tp_multifeature_bag), against the
+    unplaced score_candidates of the same model, user and candidates:
+    within 4 bf16 ulps of the largest score (dlrm_retrieval's), scores
+    finite, the local-rows forward launched for the user and each
+    chunk; host-clock seconds of each after a warm-up call."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.programs import build_program
+    from repro_torch.models import dlrm as dlrm_lib
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_lib.make_mesh(1, 1, dev, exchange_one_shard=True)
+    prog = build_program(arch, arch.shape("retrieval_cand"), mesh, dev)
+    user, cand = prog.inputs["user"], prog.inputs["cand_ids"]
+    prog.fn(*prog.args)                       # a warm-up call of each
+    dlrm_lib.score_candidates(prog.model, user, cand,
+                              chunks=RETRIEVAL_CHUNKS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    placed = prog.fn(*prog.args)
+    torch.cuda.synchronize()
+    placed_s = time.monotonic() - t0
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    t0 = time.monotonic()
+    plain = dlrm_lib.score_candidates(prog.model, user, cand,
+                                      chunks=RETRIEVAL_CHUNKS)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    err = float((placed.float() - plain.float()).abs().max())
+    ulp = float(_bf16_ulp(plain.float().abs().max()))
+    res = {"candidates": int(cand.numel()), "chunks": RETRIEVAL_CHUNKS,
+           "placed_s": placed_s, "unplaced_s": plain_s,
+           "max_abs_err": err, "max_ulps": err / ulp,
+           "bitwise": bool(torch.equal(placed, plain)), "launches": counts}
+    print("  dist_dlrm placed retrieval " + json.dumps(res), flush=True)
+    if placed.shape != plain.shape or placed.dtype != plain.dtype \
+            or not bool(torch.isfinite(placed).all()):
+        raise AssertionError(f"placed retrieval {placed.shape} "
+                             f"{placed.dtype} against {plain.shape}")
+    if not err <= 4 * ulp:
+        raise AssertionError(f"placed retrieval off the unplaced scores by "
+                             f"{err:.3e} ({err / ulp:.1f} bf16 ulps)")
+    if counts.get("embedding_bag_fwd_local") != 1 + RETRIEVAL_CHUNKS \
+            or counts.get("dot_interact_fwd") != RETRIEVAL_CHUNKS:
+        raise AssertionError(f"placed retrieval launches {counts}")
+    return res
 
 
 # ---- slice 9: xDeepFM, DIEN and BERT4Rec through the driver -----------
@@ -3936,8 +4001,8 @@ def phase_recsys_seq_kernels(archs, microbatches) -> dict:
                         iters=5),
                 time_ms(lambda x: F.embedding_bag(x, flat_table, mode="sum"),
                         flat),
-                bound_ms(ids.numel() * 4 + uniq * d * 4 + b * f * d * 4,
-                         b * f * d), 0.0, ids=list(ids.shape),
+                cost_bound("bag_fwd", *ids.shape, v, d, 4, uniq), 0.0,
+                ids=list(ids.shape),
                 table=list(shape), distinct_rows=uniq,
                 embedding_library_ms=gather.ms,
                 embedding_library_events=gather.events)
@@ -3958,8 +4023,7 @@ def phase_recsys_seq_kernels(archs, microbatches) -> dict:
                 0, idx, d_out.view(b * f, d)), [()])
             out["embedding_bag_bwd"][tag] = kernel_record(
                 f"embedding_bag_bwd {tag}", t, plain, lib,
-                bound_ms(d_out.numel() * 4 + ids.numel() * 4
-                         + 2 * uniq * d * 4, b * f * d), err,
+                cost_bound("bag_bwd", *ids.shape, v, d, 4, uniq), err,
                 ids=list(ids.shape), table=list(shape), distinct_rows=uniq)
             del grad, d_out, id_sets, flat, idx
             torch.cuda.empty_cache()
@@ -4740,7 +4804,7 @@ def _take_records(table, ids, row0, tag, chk) -> tuple:
         time_ms(lambda: ref.embedding_take_local_ref(table, ids, row0),
                 [()]),
         time_ms(lambda: F.embedding(flat, table), [()]),
-        bound_ms(n * 4 + uniq * d * e + n * d * e, 0), 0.0,
+        cost_bound("take_fwd", n, v_loc, d, e, uniq), 0.0,
         shape=[n, v_loc, d], row0=row0, dtype=str(table.dtype)[6:],
         unique_rows=uniq, in_shard_slots=inside, checks=chk)
     d_out = torch.rand((n, d), device=ids.device).to(table.dtype)
@@ -4753,7 +4817,7 @@ def _take_records(table, ids, row0, tag, chk) -> tuple:
     lib = time_ms(lambda: grad.index_add_(0, flat, upd), [()])
     bwd = kernel_record(
         f"embedding_take_bwd_local {tag}", t, plain, lib,
-        bound_ms(inside * d * e + n * 4 + uniq * d * e, inside * d), 0.0,
+        cost_bound("take_bwd", n, v_loc, d, e, uniq, inside), 0.0,
         shape=[n, v_loc, d], row0=row0, dtype=str(table.dtype)[6:],
         unique_rows=uniq, in_shard_slots=inside,
         plan=dict(vars(eb.take_bwd_plan(n, v_loc, d, e))))
@@ -4795,7 +4859,7 @@ def _lm_local_kernels(arch_id: str, b: int, seq: int) -> dict:
                 kernel="embedding_bag_fwd_kernel"),
         time_ms(lambda: ref.embedding_bag_local_ref(tables, ids, 0), [()]),
         time_ms(lambda: F.embedding(flat, tables[0]), [()]),
-        bound_ms(n * 4 + uniq * d * 2 + n * d * 4, n * d), 0.0,
+        cost_bound("bag_fwd", n, 1, 1, v, d, 2, uniq), 0.0,
         shape=[n, 1, 1, v, d], unique_rows=uniq, checks=chk)
     d_out = torch.randn((n, 1, d), device=dev, generator=gen) \
         .to(torch.bfloat16).float()
@@ -4808,7 +4872,7 @@ def _lm_local_kernels(arch_id: str, b: int, seq: int) -> dict:
     lib = time_ms(lambda: grad[0].index_add_(0, flat, upd), [()])
     bwd = kernel_record(
         f"embedding_bag_bwd local bf16 {tag}", t, plain, lib,
-        bound_ms(n * d * 4 + n * 4 + 2 * uniq * d * 2, n * d), 0.0,
+        cost_bound("bag_bwd", n, 1, 1, v, d, 2, uniq), 0.0,
         shape=[n, 1, 1, v, d], unique_rows=uniq)
     del grad, d_out, upd
     table = tables.view(v, d)
@@ -5071,6 +5135,163 @@ def phase_lm_dist(unplaced: dict, unplaced_device_ms: float) -> dict:
             {"one_device_bytes": train.lm_state_bytes(arch.model,
                                                       arch.optimizer),
              **plan}), flush=True)
+    return out
+
+
+# slice 20: the dry run's plans of dist_dlrm's and lm_dist's runs (a world
+# of one rank, --mesh 1,1) against the card. The peak band is stated in
+# PERF.md before the run that tests it: the plan's peak within 2% of the
+# card step's torch.cuda.max_memory_allocated, where both plans have read
+# within 0.12% (the plan counts each storage in 512-byte blocks as the
+# caching allocator does, but not the allocator's segments, cuBLAS'
+# workspaces or NCCL's buffers)
+DRYRUN_CELLS = {"dlrm-criteo": dict(shape="train_batch", batch=None,
+                                    microbatches=1),
+                "gemma2-2b": dict(shape="train_4k",
+                                  batch=LM_TRAIN["gemma2-2b"]["batch"],
+                                  microbatches=LM_TRAIN["gemma2-2b"]
+                                  ["microbatches"])}
+DRYRUN_PEAK_BAND = 0.02
+DRYRUN_DIR = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+
+
+def start_dryrun_plans() -> dict:
+    """One `python -m repro_torch.launch.dryrun --mesh 1,1` a cell of
+    DRYRUN_CELLS, each a fresh interpreter with a fake process group of
+    its own, started together; their records go under DRYRUN_DIR."""
+    import importlib.util
+    import shutil
+    if importlib.util.find_spec(
+            "torch.testing._internal.distributed.fake_pg") is None:
+        raise AssertionError("this torch has no fake process group "
+                             "(torch.testing._internal.distributed.fake_pg)"
+                             ": the dry run cannot plan on it")
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for arch_id, c in DRYRUN_CELLS.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch_id, "--shape", c["shape"], "--mesh", "1,1",
+               "--microbatches", str(c["microbatches"]), "--out",
+               DRYRUN_DIR]
+        if c["batch"]:
+            cmd += ["--batch", str(c["batch"])]
+        with open(os.path.join(DRYRUN_DIR, f"{arch_id}.log"), "w") as log:
+            procs[arch_id] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                              stdout=log,
+                                              stderr=subprocess.STDOUT)
+    return procs
+
+
+def _card_step(arch, c, mesh, dev) -> dict:
+    """The placed program of a DRYRUN_CELLS cell built on the card and one
+    step of it under launch/step_analysis: its resident bytes by the sum
+    of numel x element_size, the counters, and the step's
+    max_memory_allocated from the program's own bytes on."""
+    import torch
+    from repro_torch.launch.programs import build_program
+    from repro_torch.launch.step_analysis import analyze, tensors_of
+    prog = build_program(arch, arch.shape(c["shape"]), mesh, dev,
+                         batch=c["batch"], microbatches=c["microbatches"])
+    params = sum(p.numel() * p.element_size()
+                 for p in prog.model.parameters())
+    opt = sum(t.numel() * t.element_size()
+              for t in tensors_of(prog.opt_state))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    res = analyze(prog.fn, *prog.args)
+    torch.cuda.synchronize()
+    out = {"params": params, "opt_state": opt,
+           "resident_bytes": res["resident_bytes"],
+           "dot_flops": res["dot_flops"], "launches": res["launches"],
+           "collective_bytes": res["collective_bytes"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "step_s": time.monotonic() - t0,
+           "loss": float(res["out"][2]["loss"])}
+    del prog, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun() -> dict:
+    """Slice 20 (see DRYRUN_CELLS): the plans of start_dryrun_plans, which
+    run while the card takes its steps of the same programs, on an NCCL
+    group of one rank, held against those steps. Fails on a plan that
+    erred or was not written, resident or FLOP or launch counts that
+    differ, or a peak outside the band."""
+    procs = start_dryrun_plans()
+    try:
+        return _dryrun_against_card(procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def _dryrun_against_card(procs) -> dict:
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import mesh as mesh_lib
+
+    if os.path.exists(DIST_PG_FILE):
+        os.remove(DIST_PG_FILE)
+    dev = mesh_lib.init_distributed("cuda", rank=0, world_size=1,
+                                    init_method=f"file://{DIST_PG_FILE}")
+    card = {}
+    try:
+        mesh = mesh_lib.make_mesh(1, 1, dev, exchange_one_shard=True)
+        for arch_id, c in DRYRUN_CELLS.items():
+            card[arch_id] = _card_step(get_arch(arch_id), c, mesh, dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    out, bad = {"card": card_line()}, []
+    for arch_id, c in DRYRUN_CELLS.items():
+        procs[arch_id].wait(timeout=300)
+        path = os.path.join(DRYRUN_DIR, "mesh1x1",
+                            f"{arch_id}__{c['shape']}.json")
+        if procs[arch_id].returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(DRYRUN_DIR, f"{arch_id}.log")) as f:
+                log = f.read()
+            raise AssertionError(f"dryrun plan of {arch_id} failed "
+                                 f"({procs[arch_id].returncode}):\n"
+                                 f"{log[-3000:]}")
+        with open(path) as f:
+            plan = json.load(f)
+        mem, got = plan["memory"], card[arch_id]
+        row = {"plan_s": plan["plan_s"], "plan_params": mem["params"],
+               "card_params": got["params"],
+               "plan_opt_state": mem["opt_state"],
+               "card_opt_state": got["opt_state"],
+               "plan_resident": mem["resident_bytes"],
+               "card_resident": got["resident_bytes"],
+               "plan_dot_flops": plan["dot_flops"],
+               "card_dot_flops": got["dot_flops"],
+               "plan_launches": plan["launches"],
+               "card_launches": got["launches"],
+               "plan_collective_bytes": plan["collective_bytes"],
+               "card_collective_bytes": got["collective_bytes"],
+               "plan_peak": mem["peak_bytes"],
+               "card_max_memory_allocated": got["max_memory_allocated"],
+               "peak_ratio": mem["peak_bytes"] / got["max_memory_allocated"],
+               "card_step_s": got["step_s"], "card_loss": got["loss"]}
+        out[arch_id] = row
+        if (row["plan_params"], row["plan_opt_state"]) != \
+                (row["card_params"], row["card_opt_state"]):
+            bad.append(f"{arch_id} resident bytes")
+        if row["plan_dot_flops"] != row["card_dot_flops"] \
+                or row["plan_launches"] != row["card_launches"]:
+            bad.append(f"{arch_id} dot FLOPs or launches")
+        if not abs(row["peak_ratio"] - 1.0) <= DRYRUN_PEAK_BAND:
+            bad.append(f"{arch_id} peak ratio {row['peak_ratio']:.4f}")
+        if not math.isfinite(row["card_loss"]):
+            bad.append(f"{arch_id} loss {row['card_loss']}")
+    print("  dryrun " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError(f"dryrun plan against the card: {bad}")
     return out
 
 
@@ -5347,8 +5568,9 @@ def run_phases(agent_procs) -> int:
 def run_lm_phases() -> dict:
     """Slice 15's phases: the LM family unplaced (no kernel of the
     `kernels` line lies on its path), then slice 17's `lm_dist` (the
-    placed LM, whose lookup runs the take pair of slice 18), the kernel
-    benchmark and the roofline. Returns lm_dist's records."""
+    placed LM, whose lookup runs the take pair of slice 18), slice 20's
+    `dryrun`, the kernel benchmark and the roofline. Returns lm_dist's
+    records."""
     import torch
     with Phase("lm_attention"):
         phase_lm_attention()
@@ -5366,6 +5588,9 @@ def run_lm_phases() -> dict:
     with Phase("lm_dist"):
         dist_recs = phase_lm_dist(trained[LM_DIST["arch"]],
                                   device_ms[LM_DIST["arch"]])
+    torch.cuda.empty_cache()
+    with Phase("dryrun"):
+        phase_dryrun()
     torch.cuda.empty_cache()
     with Phase("kernels_bench"):
         phase_kernels_bench()

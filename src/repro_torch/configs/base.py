@@ -1,5 +1,6 @@
-"""Config dataclasses of the port (copied from repro.configs.base, with
-the skipped cells dropped; `TransformerConfig` keeps its
+"""Config dataclasses of the port (copied from repro.configs.base, the
+skipped cells with their reasons among them, which the dry run records;
+`TransformerConfig` keeps its
 `sharding_overrides` and `moe_impl` as data the port does not read yet,
 so that the five LM configs read as the JAX package's do; the recsys,
 DLRM and GNN sharding knobs are read by the driver on a mesh).
@@ -219,6 +220,8 @@ class ArchSpec:
     shapes: Tuple[object, ...]
     source: str = ""
     optimizer: str = "adam"
+    # cells skipped per assignment rules, with the reason
+    skipped_shapes: Tuple[Tuple[str, str], ...] = ()
 
     def shape(self, name: str):
         for s in self.shapes:
@@ -226,3 +229,9 @@ class ArchSpec:
                 return s
         raise KeyError(f"{self.arch_id} has no shape {name!r} "
                        f"(have {[s.name for s in self.shapes]})")
+
+    def is_skipped(self, shape_name: str) -> Optional[str]:
+        for name, reason in self.skipped_shapes:
+            if name == shape_name:
+                return reason
+        return None

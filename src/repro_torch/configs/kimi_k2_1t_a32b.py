@@ -23,4 +23,9 @@ MODEL = TransformerConfig(
 ARCH = ArchSpec(
     arch_id="kimi-k2-1t-a32b", family="lm", model=MODEL, shapes=LM_SHAPES,
     source="arXiv:2501.kimi2", optimizer="adafactor",
+    skipped_shapes=(
+        ("long_500k",
+         "pure full-attention arch; long_500k runs only for "
+         "sub-quadratic/hybrid attention per assignment"),
+    ),
 )

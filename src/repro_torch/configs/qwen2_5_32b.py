@@ -22,4 +22,9 @@ MODEL = TransformerConfig(
 ARCH = ArchSpec(
     arch_id="qwen2.5-32b", family="lm", model=MODEL, shapes=LM_SHAPES,
     source="hf:Qwen/Qwen2.5-0.5B (scaled per assignment)", optimizer="adam",
+    skipped_shapes=(
+        ("long_500k",
+         "pure full-attention arch; long_500k runs only for "
+         "sub-quadratic/hybrid attention per assignment"),
+    ),
 )

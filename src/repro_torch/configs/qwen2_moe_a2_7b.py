@@ -21,4 +21,9 @@ MODEL = TransformerConfig(
 ARCH = ArchSpec(
     arch_id="qwen2-moe-a2.7b", family="lm", model=MODEL, shapes=LM_SHAPES,
     source="hf:Qwen/Qwen1.5-MoE-A2.7B", optimizer="adam",
+    skipped_shapes=(
+        ("long_500k",
+         "pure full-attention arch; long_500k runs only for "
+         "sub-quadratic/hybrid attention per assignment"),
+    ),
 )

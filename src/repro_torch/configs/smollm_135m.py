@@ -19,4 +19,9 @@ MODEL = TransformerConfig(
 ARCH = ArchSpec(
     arch_id="smollm-135m", family="lm", model=MODEL, shapes=LM_SHAPES,
     source="hf:HuggingFaceTB/SmolLM-135M", optimizer="adam",
+    skipped_shapes=(
+        ("long_500k",
+         "pure full-attention arch; long_500k runs only for "
+         "sub-quadratic/hybrid attention per assignment"),
+    ),
 )

@@ -14,7 +14,8 @@ CTA, persistent CTAs, shared memory).
 
 Same wrapper contract as repro_torch.kernels.embedding_bag: CUDA
 contiguous tensors only, outputs from `torch.empty`, launch on the
-current stream, raise on a refused launch, count it in `LAUNCHES`.
+current stream, raise on a refused launch, count it in `LAUNCHES`;
+a meta tensor's launch counted and not made.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.build import LIBRARIES
-from repro_torch.kernels.embedding_bag import _check
+from repro_torch.kernels.embedding_bag import _check, planned
 from repro_torch.kernels.sage_aggregate import SMEM, SMS
 
 LAUNCHES = {"dot_interact_fwd": 0, "dot_interact_bwd": 0}
@@ -203,6 +204,8 @@ def dot_interact_fwd(feats: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     plan = fwd_plan(b, f, d, feats.element_size(), feats.data_ptr() % 16)
+    if planned(LAUNCHES, "dot_interact_fwd", out):
+        return out
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("dot_interact_fwd", LIBRARIES.get("dot_interact")
@@ -239,6 +242,8 @@ def dot_interact_bwd(d_out: torch.Tensor,
     # either pointer unaligned leaves their OR unaligned
     plan = bwd_plan(b, f, d, feats.data_ptr() | out.data_ptr(),
                     feats.element_size())
+    if planned(LAUNCHES, "dot_interact_bwd", out):
+        return out
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("dot_interact_bwd", LIBRARIES.get("dot_interact")

@@ -34,7 +34,11 @@ contiguity and raises on anything else, allocates its outputs with
 `torch.empty` / `torch.zeros`, launches on the current stream, raises if
 the launch was refused, and counts the launch in `LAUNCHES`. The CPU
 path lives in repro_torch.kernels.ops, which picks the plain version
-for CPU tensors.
+for CPU tensors. A meta tensor (the dry run's: shapes, no values) takes
+the same wrapper as far as the launch: the same checks, plans, outputs
+and scratch, and the launch counted (`planned`) but not made. The C
+entries' own refusals, of a plan that does not fit its call, are not
+asked there: the plans are the card's.
 """
 from __future__ import annotations
 
@@ -245,8 +249,9 @@ def fused_plan(b: int, f: int, v: int, d: int, bag: int, elem: int = 4,
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int):
-    """`dtype` is one dtype or a tuple of the dtypes taken."""
-    if t.device.type != "cuda":
+    """`dtype` is one dtype or a tuple of the dtypes taken; a meta tensor
+    passes as a CUDA one."""
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.dtype not in dtypes:
@@ -269,6 +274,16 @@ def _status(name: str, status: int):
     if status != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {status}")
     LAUNCHES[name] += 1
+
+
+def planned(launches: dict, name: str, t: torch.Tensor) -> bool:
+    """Whether `t`, a wrapper's output, is a meta tensor: then the launch
+    is counted in `launches` under `name` and not made, the outputs and
+    scratch the wrapper allocated being all it does there."""
+    if t.device.type != "meta":
+        return False
+    launches[name] += 1
+    return True
 
 
 # the forwards' table dtypes: the TPU kernels' "f32/bf16"
@@ -310,6 +325,8 @@ def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
     b, _, bag = ids.shape
     plan = fwd_plan(b, f, d, tables.element_size(),
                     (tables.data_ptr() | out.data_ptr()) % 16)
+    if planned(LAUNCHES, "embedding_bag_fwd" + suffix, out):
+        return out
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_bag_fwd" + suffix, LIBRARIES.get("embedding_bag")
@@ -325,8 +342,8 @@ def embedding_bag_fwd(tables: torch.Tensor, ids: torch.Tensor,
 def embedding_bag_fused_fwd(tables: torch.Tensor, ids: torch.Tensor,
                             combiner: str = "sum") -> torch.Tensor:
     """tables (F, V, D) f32 or bf16, ids (B, F, bag <= 16) int32 -> (B, F,
-    D) f32, bit-equal to `embedding_bag_fwd`. The kernel refuses (and
-    this raises) a walk of more than 2^31 - 1 threads or rows
+    D) f32, bit-equal to `embedding_bag_fwd`. This refuses a walk of
+    more than 2^31 - 1 threads, as the kernel does
     (csrc/embedding_bag_fused.cu)."""
     mean = _mean_flag(combiner)
     out = _check_lookup(tables, ids)
@@ -337,6 +354,11 @@ def embedding_bag_fused_fwd(tables: torch.Tensor, ids: torch.Tensor,
                          f"{FUSED_MAX_BAG} ids, got {bag}")
     plan = fused_plan(b, f, v, d, bag, tables.element_size(),
                       (tables.data_ptr() | out.data_ptr()) % 16)
+    if b * f > (2 ** 31 - 1) >> plan.lanes_log2:
+        raise ValueError(f"embedding_bag_fused_fwd walks at most 2^31 - 1 "
+                         f"threads, got {b * f} rows of {plan.lanes}")
+    if planned(LAUNCHES, "embedding_bag_fused_fwd", out):
+        return out
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_bag_fused_fwd",
@@ -370,6 +392,8 @@ def embedding_bag_scatter(d_out: torch.Tensor, ids: torch.Tensor,
                          f"do not match")
     plan = bwd_plan(b, f, v, d, (d_out.data_ptr() | grad.data_ptr()) % 16,
                     grad.element_size())
+    if planned(LAUNCHES, "embedding_bag_bwd" + suffix, grad):
+        return grad
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_bag_bwd" + suffix, LIBRARIES.get("embedding_bag")
@@ -533,6 +557,8 @@ def embedding_take_fwd_local(table: torch.Tensor, ids: torch.Tensor,
         return out
     plan = take_fwd_plan(n, row_bytes,
                          (table.data_ptr() | out.data_ptr()) % 16)
+    if planned(LAUNCHES, "embedding_take_fwd_local", out):
+        return out
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_take_fwd_local", LIBRARIES.get("embedding_take")
@@ -579,6 +605,8 @@ def embedding_take_scatter(d_out: torch.Tensor, ids: torch.Tensor,
         at += k
     keys_a, slots_a, keys_b, slots_b, counts, totals, pkeys_a, pkeys_b = ptrs
     part_a, part_b = floats.data_ptr(), floats.data_ptr() + 4 * plan.part_a * d
+    if planned(LAUNCHES, "embedding_take_bwd_local", grad):
+        return grad
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _status("embedding_take_bwd_local", LIBRARIES.get("embedding_take")

@@ -21,7 +21,9 @@ card it asks the occupancy query how many clusters fit) and
 Same wrapper contract as repro_torch.kernels.embedding_bag: CUDA tensors
 only (contiguous, except the saved aggregate, whose rows may be
 padded), outputs and scratch from `torch.empty`, launch on the current
-stream, raise on a refused launch, count it in `LAUNCHES`.
+stream, raise on a refused launch, count it in `LAUNCHES`; a meta
+tensor's launch counted and not made (d_w's split then takes the
+plan's default clusters).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import LIBRARIES
-from repro_torch.kernels.embedding_bag import _check
+from repro_torch.kernels.embedding_bag import _check, planned
 
 LAUNCHES = {"sage_aggregate_fwd": 0, "sage_aggregate_bwd": 0,
             "sage_widen_w": 0}
@@ -245,6 +247,8 @@ def widen_w(w: torch.Tensor) -> torch.Tensor:
     """w (D, H) bf16 -> the same values in f32, by the widening kernel."""
     _check(w, "w", torch.bfloat16, 2)
     w32 = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    if planned(LAUNCHES, "sage_widen_w", w32):
+        return w32
     with torch.cuda.device(w.device):
         _status("sage_widen_w", LIBRARIES.get("sage_aggregate").sage_widen_w(
             w.data_ptr(), w32.data_ptr(), w.numel(),
@@ -269,6 +273,8 @@ def sage_aggregate_fwd(neigh: torch.Tensor, w: torch.Tensor,
     ld = agg_stride(d)
     agg = (torch.empty((b, ld), dtype=torch.float32, device=neigh.device)
            if save_agg else None)
+    if planned(LAUNCHES, "sage_aggregate_fwd", out):
+        return out, None if agg is None else agg[:, :d]
     with torch.cuda.device(neigh.device):
         stream = torch.cuda.current_stream().cuda_stream
         _status("sage_aggregate_fwd", LIBRARIES.get("sage_aggregate")
@@ -314,7 +320,9 @@ def sage_aggregate_bwd(d_out: torch.Tensor, w: torch.Tensor,
     dev = d_out.device
     if agg is not None:
         _check_agg(agg, b, d, dev)
-    plan = dw_plan(b, d, h, lambda c: dw_active_clusters(dev, c))
+    # on meta the plan's default: the clusters an H100's SMs hold
+    plan = dw_plan(b, d, h) if dev.type == "meta" else \
+        dw_plan(b, d, h, lambda c: dw_active_clusters(dev, c))
     d_w = scratch = d_neigh = None
     if agg is not None:
         d_w = torch.empty((d, h), dtype=torch.float32, device=dev)
@@ -326,6 +334,8 @@ def sage_aggregate_bwd(d_out: torch.Tensor, w: torch.Tensor,
     if d_w is None and d_neigh is None:
         return None, None
     dn = dneigh_plan(b, f, d, h)
+    if planned(LAUNCHES, "sage_aggregate_bwd", d_out):
+        return d_neigh, d_w
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _status("sage_aggregate_bwd", LIBRARIES.get("sage_aggregate")

@@ -152,6 +152,46 @@ def make_mesh(dp: int, tp: int, device="cuda", *, pods: int = 1,
                 exchange_one_shard=exchange_one_shard)
 
 
+def make_plan_mesh(mesh_shape, rank: int = 0) -> Mesh:
+    """A mesh of `mesh_shape` ((data, model) or (pod, data, model), the
+    production (16, 16) or (2, 16, 16) among them) in this one process,
+    as rank `rank` sees it, over a process group whose collectives move
+    nothing: torch's `fake` backend (a private module of torch's tests,
+    imported here alone), as the default group of the process. From then
+    on `train.collectives` refuses every tensor that is not on the meta
+    device (`set_plan_only`), so that only a plan runs on it. The mesh's
+    subgroups are made once, here; a process makes one plan mesh, and
+    ends its group with `end_plan_mesh`."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.train import collectives as coll
+    shape = tuple(int(n) for n in mesh_shape)
+    names = ("data", "model") if len(shape) == 2 else AXIS_ORDER
+    if len(shape) not in (2, 3):
+        raise ValueError(f"a mesh is (data, model) or (pod, data, model), "
+                         f"got {shape}")
+    n = int(np.prod(shape))
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} is not in a mesh of {n} ranks")
+    if dist.is_initialized():
+        raise RuntimeError("a plan mesh makes the process group of its own, "
+                           "and this process already has one")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    coll.set_plan_only(True)
+    return Mesh(init_device_mesh("cpu", shape, mesh_dim_names=names),
+                exchange_one_shard=True)
+
+
+def end_plan_mesh() -> None:
+    """End the plan mesh's process group and take real tensors again."""
+    from repro_torch.train import collectives as coll
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    coll.set_plan_only(False)
+
+
 def make_host_mesh(device="cpu") -> Mesh:
     """The one-rank mesh with the same axis names (a world of one)."""
     return make_mesh(1, 1, device)

@@ -48,13 +48,17 @@ counterpart of the reference dry run's `memory_analysis`.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.common import shardlib
+from repro_torch.data.graphs import padded_edges, partition_sizes
 from repro_torch.launch.mesh import PRODUCTION_SHAPES
+from repro_torch.launch.step_analysis import storage_bytes
 from repro_torch.models.transformer import param_shapes
 from repro_torch.train import collectives as coll
 from repro_torch.train.elastic import local_slice
@@ -489,3 +493,375 @@ def rank_bytes(arch_id: str, shape, mesh_shape=PRODUCTION_SHAPES[1][0]
     arch = get_arch(arch_id)
     shape = arch.shape(shape) if isinstance(shape, str) else shape
     return plan_bytes(arch.model, arch.optimizer, shape, mesh_shape)
+
+
+# ---------------------------------------------------------- input specs ----
+class ArgSpec(NamedTuple):
+    """One input of a cell: its global shape, dtype and each dim's
+    logical axis (the reference's ShapeDtypeStruct and its logical
+    axes)."""
+    shape: tuple
+    dtype: torch.dtype
+    axes: tuple
+
+
+f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+
+
+def _arg(shape, dtype, axes) -> ArgSpec:
+    return ArgSpec(tuple(shape), dtype, tuple(axes))
+
+
+def lm_input_specs(arch, shape) -> dict:
+    """repro/launch/programs.py:109-129."""
+    cfg = arch.model
+    b, s = shape.batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": _arg((b, s), i32, ("batch", "seq")),
+                "labels": _arg((b, s), i32, ("batch", "seq"))}
+    if shape.kind == "prefill":
+        return {"tokens": _arg((b, s), i32, ("batch", "seq"))}
+    kv = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+    lg = shardlib.lm_cache_logical()
+    return {"cache": {"k": _arg(kv, bf16, lg), "v": _arg(kv, bf16, lg)},
+            "tokens": _arg((b,), i32, ("batch",)), "pos": _arg((), i32, ())}
+
+
+def gnn_input_specs(arch, shape) -> dict:
+    """repro/launch/programs.py:188-216 (`padded_edges` of
+    data/graphs.py)."""
+    if shape.kind == "full_graph":
+        e = padded_edges(shape.n_edges)
+        return {"x": _arg((shape.n_nodes, shape.d_feat), f32,
+                          ("nodes", None)),
+                "edge_src": _arg((e,), i32, ("edges",)),
+                "edge_dst": _arg((e,), i32, ("edges",)),
+                "labels": _arg((shape.n_nodes,), i32, ("nodes",))}
+    if shape.kind == "minibatch":
+        b, (f1, f2), d = shape.batch_nodes, shape.fanout, shape.d_feat
+        return {"x0": _arg((b, d), f32, ("batch", None)),
+                "neigh1": _arg((b, f1, d), f32, ("batch", None, None)),
+                "neigh2": _arg((b, f1, f2, d), f32,
+                               ("batch", None, None, None)),
+                "labels": _arg((b,), i32, ("batch",))}
+    g, n, e, d = shape.n_graphs, shape.n_nodes, shape.n_edges, shape.d_feat
+    return {"x": _arg((g, n, d), f32, ("batch", None, None)),
+            "edge_src": _arg((g, e), i32, ("batch", None)),
+            "edge_dst": _arg((g, e), i32, ("batch", None)),
+            "node_mask": _arg((g, n), f32, ("batch", None)),
+            "labels": _arg((g,), i32, ("batch",))}
+
+
+def _recsys_batch_spec(name: str, cfg, batch: int, with_label: bool
+                       ) -> dict:
+    """repro/launch/programs.py:278-309 (`name` "dlrm" for the DLRM's
+    batch, the CTR models')."""
+    if name in ("wide-deep", "xdeepfm", "dlrm"):
+        args = {"sparse_ids": _arg((batch, cfg.n_sparse, cfg.multi_hot), i32,
+                                   ("batch", None, None)),
+                "dense": _arg((batch, cfg.n_dense), f32, ("batch", None))}
+    elif name == "dien":
+        args = {"hist_ids": _arg((batch, cfg.seq_len), i32, ("batch", "seq")),
+                "hist_mask": _arg((batch, cfg.seq_len), f32,
+                                  ("batch", "seq")),
+                "target_id": _arg((batch,), i32, ("batch",)),
+                "dense": _arg((batch, cfg.n_dense), f32, ("batch", None))}
+    elif name == "bert4rec":
+        args = {"item_seq": _arg((batch, cfg.seq_len), i32,
+                                 ("batch", "seq"))}
+        if with_label:
+            m = (batch, cfg.n_mask)
+            args.update(
+                mask_pos=_arg(m, i32, ("batch", None)),
+                mask_labels=_arg(m, i32, ("batch", None)),
+                neg_ids=_arg(m + (cfg.n_negatives,), i32,
+                             ("batch", None, None)))
+        return args
+    else:
+        raise ValueError(name)
+    if with_label:
+        args["label"] = _arg((batch,), f32, ("batch",))
+    return args
+
+
+def recsys_input_specs(arch, shape) -> dict:
+    """repro/launch/programs.py:311-321 and :387-404 (the DLRM's are the
+    CTR models')."""
+    cfg = arch.model
+    name = "dlrm" if arch.family == "dlrm" else cfg.name
+    if shape.kind in ("train", "serve"):
+        return _recsys_batch_spec(name, cfg, shape.batch,
+                                  shape.kind == "train")
+    return {"user": _recsys_batch_spec(name, cfg, 1, False),
+            "cand_ids": _arg((shape.n_candidates,), i32, ("candidates",))}
+
+
+_INPUT_SPECS = {"lm": lm_input_specs, "gnn": gnn_input_specs,
+                "recsys": recsys_input_specs, "dlrm": recsys_input_specs}
+
+
+def input_specs(arch, shape_name: str) -> dict:
+    """The reference's `input_specs` (repro/launch/programs.py:461-467):
+    every input of the cell as an ArgSpec (global shape, dtype, logical
+    axes), in the reference's tree."""
+    return _INPUT_SPECS[arch.family](arch, arch.shape(shape_name))
+
+
+# ------------------------------------------------- the reference's specs ----
+def _reference_axes(model_name: str, name: str, ndim: int) -> tuple:
+    """The logical axes the reference gives a recsys, DLRM or GNN leaf
+    (its init functions' `logical` trees), by the port's parameter name,
+    in the port's layout (an `nn.Linear` weight (out, in) is the
+    reference's (in, out) `w` transposed)."""
+    parts = name.split(".")
+    key = parts[-1] if not parts[-1].isdigit() else parts[-2]
+    if key == "weight":
+        return ("mlp", "fsdp")
+    if key == "bias":
+        return ("mlp",)
+    table = {"tables": (None, "table_rows", "table_dim"),
+             "wide": (None, "table_rows"), "linear": (None, "table_rows"),
+             "items": ("table_rows", "table_dim"), "cin": ("mlp", None, None),
+             "w": ("fsdp", "mlp"), "u": ("fsdp", "mlp"),
+             "b": (None,) if model_name == "graphsage-reddit" else ("mlp",),
+             "w_self": ("fsdp", None), "w_neigh": ("fsdp", None),
+             "ffn_b": ("mlp",), "ffn_in": ("fsdp", "mlp"),
+             "ffn_out": ("mlp", "fsdp"), "ln1": ("embed",),
+             "ln2": ("embed",), "ln_f": ("embed",),
+             "wo": ("heads", "head_dim", "fsdp"),
+             "wqkv": ("fsdp", None, "heads", "head_dim"),
+             "pos": ("seq", "embed")}
+    axes = table.get(key, (None,) * ndim)
+    return axes if len(axes) == ndim else (None,) * ndim
+
+
+def replicated_leaves(placement: Placement, cfg, mesh) -> list:
+    """The parameters the port replicates where the reference's rules
+    (GSPMD's placement of the same logical axes) would shard them over
+    more than one rank: [(name, the reference's spec)]."""
+    rules = shardlib.make_rules(dict(getattr(cfg, "sharding_overrides",
+                                             ())))
+    out = []
+    for name, shape in placement.shapes.items():
+        if placement.specs.get(name) is not None:
+            continue
+        spec = shardlib.sanitized_pspec(
+            shape, _reference_axes(cfg.name, name, len(shape)), rules, mesh)
+        if any(shardlib.axes_prod(e, mesh) > 1 for e in spec):
+            out.append((name, spec))
+    return out
+
+
+# ---------------------------------------------------------------- programs --
+@dataclasses.dataclass
+class Program:
+    """One cell's placed step as rank `mesh.index` of `mesh` runs it (the
+    reference's Program): `fn(*args)` runs it once; `model`,
+    `opt_state` and `inputs` are this rank's, on the program's device.
+    `memory` is their bytes {"params", "opt_state", "inputs", "cache"};
+    `meta` holds the placement, the batch a rank and, for a recsys, DLRM
+    or GNN model, `replicated`: the leaves the port replicates where the
+    reference's rules would shard them."""
+    name: str
+    kind: str
+    fn: Callable
+    model: nn.Module
+    opt_state: Optional[dict]
+    inputs: dict
+    memory: dict
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def args(self) -> tuple:
+        if self.opt_state is None:
+            return (self.model, self.inputs)
+        return (self.model, self.opt_state, self.inputs)
+
+
+def _empty_inputs(specs, rows: dict, device) -> dict:
+    """Tensors of the specs' shapes on `device` (meta: no values), each
+    dim whose axis is in `rows` cut to that many."""
+    def make(node):
+        if isinstance(node, dict):
+            return {k: make(v) for k, v in node.items()}
+        shape = tuple(rows.get(a, n) for n, a in zip(node.shape, node.axes))
+        return torch.empty(shape, dtype=node.dtype, device=device)
+    return make(specs)
+
+
+def _meta_plan(n_pairs: int, n_segments: int, device):
+    """A SegmentPlan of `n_pairs` kept pairs and no NaN segment, from
+    shapes alone (the plan of a graph whose every edge is kept: the most
+    pairs a plan has)."""
+    from repro_torch.models.segment import SegmentPlan
+    ids = torch.empty((n_pairs,), dtype=torch.int64, device=device)
+    return SegmentPlan(ids, torch.empty_like(ids), n_segments,
+                       torch.empty((n_segments,), dtype=f32, device=device),
+                       torch.empty((0,), dtype=torch.int64, device=device))
+
+
+def _data_rows(batch: int, mesh, always: bool) -> int:
+    """A data rank's rows of a batch: its share over the data axes (a
+    train batch always splits; a serving batch where it divides)."""
+    dp = mesh.size(mesh.data_axes)
+    if always or batch % dp == 0:
+        if batch % dp:
+            raise ValueError(f"a batch of {batch} does not split over {dp} "
+                             f"data ranks")
+        return batch // dp
+    return batch
+
+
+def build_program(arch, shape, mesh, device="meta", *, cfg=None,
+                  batch: Optional[int] = None, microbatches: int = 1
+                  ) -> Program:
+    """The placed step of (arch, shape) on `mesh`, this rank's part (the
+    reference's `build_program`, repro/launch/programs.py:454-459): the
+    driver's placements and train step (launch/train.build_step) for
+    `train`; the LM's prefill and decode under `LMPlacement`; the recsys
+    and DLRM forward through the row-sharded lookups on this rank's rows
+    for `serve`; `score_candidates(mesh=)` for `retrieval`. `cfg`
+    replaces the arch's config (a reduced one in the tests), `batch` the
+    shape's batch (a run one card holds) and `microbatches` splits a
+    train step. On `device` "meta" (the dry run's) nothing is allocated:
+    the inputs are tensors of the reference's shapes (`input_specs`),
+    this data rank's rows; elsewhere a train step's inputs are the
+    driver's own batch (`make_batch_fn`) and a serving step's are drawn
+    from seed 0."""
+    from repro_torch.launch import train as train_lib
+    cfg = cfg or arch.model
+    if cfg is not arch.model:
+        arch = dataclasses.replace(arch, model=cfg)
+    if batch is not None and hasattr(shape, "batch"):
+        shape = dataclasses.replace(shape, batch=batch)
+    device = torch.device(device)
+    name = f"{arch.arch_id}/{shape.name}"
+    meta = {"mesh": dict(mesh.shape), "rank": mesh.index(mesh.axis_names),
+            "microbatches": microbatches}
+    kind = "train" if arch.family == "gnn" else shape.kind
+    if kind == "train":
+        model, opt_state, step_fn, placement, _ = train_lib.build_step(
+            arch, cfg, shape, device, mesh=mesh,
+            microbatches=microbatches)
+        inputs = _train_inputs(arch, cfg, shape, mesh, device, placement,
+                               microbatches)
+        fn = lambda m, o, b: step_fn(m, o, 0, b)
+        cache_bytes = 0
+    elif arch.family == "lm":
+        model, inputs, fn, placement = _lm_serving(cfg, shape, mesh, device)
+        opt_state = None
+        cache_bytes = storage_bytes(inputs.get("cache", {}))
+    else:
+        model = train_lib.init_params_for(arch, cfg, 0, shape=shape,
+                                          device=device)
+        placement = train_lib.model_placement(arch, cfg, shape, model, mesh)
+        inputs, fn = _recsys_serving(arch, cfg, shape, mesh, device)
+        opt_state, cache_bytes = None, 0
+    meta["placement"] = placement
+    if isinstance(placement, Placement):
+        meta["replicated"] = replicated_leaves(placement, cfg, mesh)
+    memory = {"params": storage_bytes(model),
+              "opt_state": storage_bytes(opt_state or {}),
+              "cache": cache_bytes}
+    memory["inputs"] = storage_bytes(inputs) - cache_bytes
+    return Program(name, kind, fn, model, opt_state, inputs, memory, meta)
+
+
+def _train_inputs(arch, cfg, shape, mesh, device, placement, microbatches):
+    from repro_torch.launch import train as train_lib
+    if device.type != "meta":
+        fn = train_lib.make_batch_fn(
+            arch, cfg, train_lib._batch_size(shape, None),
+            np.random.RandomState(0), shape=shape, device=device, mesh=mesh,
+            microbatches=microbatches,
+            partitioned=bool(placement and placement.partitioned))
+        return fn()
+    specs = _INPUT_SPECS[arch.family](arch, shape)
+    if arch.family == "gnn" and shape.kind == "full_graph":
+        # the dst-partitioned layout the driver makes on a mesh: every
+        # rank holds the whole graph and builds its own edges' plan
+        n_shards = mesh.size(mesh.axis_names)
+        n_pad, e_loc = partition_sizes(shape.n_nodes, shape.n_edges,
+                                       n_shards, cfg.partition_slack)
+        edges = (n_shards, e_loc)
+        return {"x": torch.empty((n_pad, shape.d_feat), dtype=f32,
+                                 device=device),
+                "edge_src": torch.empty(edges, dtype=i32, device=device),
+                "edge_dst": torch.empty(edges, dtype=i32, device=device),
+                "labels": torch.empty((n_pad,), dtype=i32, device=device),
+                "part_plan": _meta_plan(e_loc, n_pad // n_shards, device)}
+    batch = next(iter(specs.values())).shape[0]
+    inputs = _empty_inputs(specs, {"batch": _data_rows(batch, mesh, True)},
+                           device)
+    if arch.family == "gnn" and shape.kind == "batched_small":
+        g = inputs["x"].shape[0]
+        inputs["plan"] = _meta_plan(g * shape.n_edges, g * shape.n_nodes,
+                                    device)
+    return inputs
+
+
+def _lm_serving(cfg, shape, mesh, device):
+    """The LM's prefill or decode step on `mesh`: the model's blocks, the
+    prompt or the cache block and the tokens of this data rank."""
+    from repro_torch.models import transformer as tfm
+    b, s = shape.batch, shape.seq_len
+    pl = LMPlacement(mesh, cfg, kind=shape.kind, batch=b, cache_len=s)
+    model = tfm.init_params(cfg, seed=0, device=device, blocks=pl.blocks())
+    _, rows = pl.batch_rows(b)
+    gen = torch.Generator().manual_seed(0)
+
+    def tokens(shape_):
+        if device.type == "meta":
+            return torch.empty(shape_, dtype=i32, device=device)
+        return torch.randint(0, cfg.vocab_size, shape_, generator=gen,
+                             dtype=i32).to(device)
+    if shape.kind == "prefill":
+        fn = lambda m, inp: tfm.prefill(m, inp["tokens"], placement=pl)
+        return model, {"tokens": tokens((rows, s))}, fn, pl
+    spec = pl.cache_spec(b, s)
+    full = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+    block = tuple(n // pl.split(e) for n, e in zip(full, spec))
+    cache = {k: torch.zeros(block, dtype=bf16, device=device)
+             for k in ("k", "v")}
+    pos = s - 1
+    fn = lambda m, inp: tfm.decode_step(m, inp["cache"], inp["tokens"], pos,
+                                        placement=pl)
+    return model, {"cache": cache, "tokens": tokens((rows,))}, fn, pl
+
+
+def _recsys_serving(arch, cfg, shape, mesh, device):
+    """A recsys or DLRM model's serve (its forward through the row-sharded
+    lookups, this data rank's rows) or retrieval (`score_candidates` on
+    the mesh, 25 chunks as the reference's) step."""
+    from repro_torch.models import dlrm as dlrm_lib
+    from repro_torch.models import recsys as recsys_lib
+    ctx = shardlib.ShardCtx(mesh)
+    specs = _INPUT_SPECS[arch.family](arch, shape)
+    gen = torch.Generator().manual_seed(0)
+
+    def draw(node, rows=None):
+        if isinstance(node, dict):
+            return {k: draw(v, rows) for k, v in node.items()}
+        shp = tuple(rows if a == "batch" and rows else n
+                    for n, a in zip(node.shape, node.axes))
+        if device.type == "meta":
+            return torch.empty(shp, dtype=node.dtype, device=device)
+        if node.dtype == i32:
+            hi = cfg.n_items if cfg.name == "bert4rec" else cfg.vocab_sizes[0]
+            return torch.randint(0, hi, shp, generator=gen,
+                                 dtype=i32).to(device)
+        return torch.rand(shp, generator=gen).to(node.dtype).to(device)
+    if shape.kind == "serve":
+        inputs = draw(specs, _data_rows(shape.batch, mesh, False))
+        if cfg.name == "bert4rec":
+            fwd = lambda m, b: m.encode(b["item_seq"], ctx=ctx)
+        elif cfg.name == "dien":
+            fwd = lambda m, b: m(b)
+        else:
+            fwd = lambda m, b: m(b, ctx=ctx)
+        return inputs, torch.no_grad()(fwd)
+    inputs = draw(specs)
+    lib = dlrm_lib if arch.family == "dlrm" else recsys_lib
+    fn = lambda m, inp: lib.score_candidates(m, inp["user"], inp["cand_ids"],
+                                             chunks=25, mesh=mesh)
+    return inputs, fn

@@ -483,6 +483,55 @@ def record_step(path: str, rec: dict) -> None:
 
 
 # ---------------------------------------------------------------- driver ---
+def model_placement(arch: ArchSpec, cfg, shape, model, mesh) -> Placement:
+    """The recsys, DLRM or GNN model's placement on `mesh`, the model's
+    row-sharded parameters replaced by this rank's shards (a full graph
+    takes the dst-partitioned loss's)."""
+    placement = Placement(
+        mesh, "dlrm" if _family(arch) == "dlrm" else cfg.name, cfg,
+        {k: p.shape for k, p in model.named_parameters()},
+        partitioned=_family(arch) == "gnn" and shape.kind == "full_graph")
+    placement.shard_model(model)
+    return placement
+
+
+def build_step(arch: ArchSpec, cfg, shape, device, *, mesh=None,
+               lr: float = 1e-3, microbatches: int = 1,
+               compress: str = "none"):
+    """The driver's model (this rank's blocks or shards on `mesh`), its
+    optimizer state and its train step of `shape` (see `run`); returns
+    (model, opt_state, step_fn(model, opt_state, step, batch), placement
+    or None, the whole model's parameter count). The dry run's
+    programs (launch/programs.build_program) build their train steps
+    here too."""
+    family = _family(arch)
+    placement, opt_kw, grad_fn = None, {}, None
+    if mesh is not None and family == "lm":
+        # each rank draws its own blocks: no rank holds a whole tensor
+        placement = LMPlacement(mesh, cfg, optimizer=arch.optimizer)
+        model = tfm.init_params(cfg, seed=0, device=device,
+                                blocks=placement.blocks())
+        n_params = sum(math.prod(s) for s, _, _ in
+                       tfm.param_shapes(cfg).values())
+        if arch.optimizer == "adafactor":
+            opt_kw["shards"] = placement.adafactor_shards()
+    else:
+        model = init_params_for(arch, cfg, 0, shape=shape, device=device)
+        n_params = sum(p.numel() for p in model.parameters())
+        if mesh is not None:
+            placement = model_placement(arch, cfg, shape, model, mesh)
+            if arch.optimizer == "rowwise_adagrad":
+                opt_kw["global_numel"] = placement.global_numel()
+    if placement is not None:
+        opt_kw["norm_groups"] = placement.norm_groups()
+        grad_fn = lambda g: placement.reduce_grads(g, compress)
+    opt = make_optimizer(arch.optimizer, lr=lr, **opt_kw)
+    opt_state = opt.init(dict(model.named_parameters()))
+    step_fn = make_train_step(make_loss_fn(arch, cfg, shape, placement), opt,
+                              microbatches, grad_fn=grad_fn)
+    return model, opt_state, step_fn, placement, n_params
+
+
 def _batch_size(shape, batch: Optional[int]) -> int:
     """Seed nodes, graphs or samples a step: `batch`, else the shape's; a
     full graph is one batch of all its nodes."""
@@ -571,32 +620,9 @@ def _run(arch: ArchSpec, *, steps, batch, shape, full, lr, device,
     batch = _batch_size(shape, batch)
     rng = np.random.RandomState(0)
     lead = mesh is None or dist.get_rank() == 0
-    placement, opt_kw, grad_fn = None, {}, None
-    if lm_mesh:
-        # each rank draws its own blocks: no rank holds a whole tensor
-        placement = LMPlacement(mesh, cfg, optimizer=arch.optimizer)
-        model = tfm.init_params(cfg, seed=0, device=device,
-                                blocks=placement.blocks())
-        n_params = sum(math.prod(s) for s, _, _ in
-                       tfm.param_shapes(cfg).values())
-        opt_kw["norm_groups"] = placement.norm_groups()
-        if arch.optimizer == "adafactor":
-            opt_kw["shards"] = placement.adafactor_shards()
-        grad_fn = lambda g: placement.reduce_grads(g, compress)
-    else:
-        model = init_params_for(arch, cfg, 0, shape=shape, device=device)
-        n_params = sum(p.numel() for p in model.parameters())
-    if mesh is not None and not lm_mesh:
-        partitioned = family == "gnn" and shape.kind == "full_graph"
-        placement = Placement(
-            mesh, "dlrm" if family == "dlrm" else cfg.name, cfg,
-            {k: p.shape for k, p in model.named_parameters()},
-            partitioned=partitioned)
-        placement.shard_model(model)
-        opt_kw["norm_groups"] = placement.norm_groups()
-        if arch.optimizer == "rowwise_adagrad":
-            opt_kw["global_numel"] = placement.global_numel()
-        grad_fn = lambda g: placement.reduce_grads(g, compress)
+    model, opt_state, step_fn, placement, n_params = build_step(
+        arch, cfg, shape, device, mesh=mesh, lr=lr,
+        microbatches=microbatches, compress=compress)
     if lead:
         print(f"arch={arch_id} family={family} params={n_params/1e6:.2f}M "
               f"optimizer={arch.optimizer} shape={shape.name} batch={batch} "
@@ -604,10 +630,6 @@ def _run(arch: ArchSpec, *, steps, batch, shape, full, lr, device,
               + (f" mesh={dict(mesh.shape)} compress={compress}"
                  if mesh is not None else ""))
 
-    opt = make_optimizer(arch.optimizer, lr=lr, **opt_kw)
-    opt_state = opt.init(dict(model.named_parameters()))
-    step_fn = make_train_step(make_loss_fn(arch, cfg, shape, placement), opt,
-                              microbatches, grad_fn=grad_fn)
     batch_fn = make_batch_fn(arch, cfg, batch, rng, shape=shape,
                              device=device, sampler=sampler, graph=graph,
                              mesh=mesh, microbatches=microbatches,

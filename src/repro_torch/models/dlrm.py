@@ -9,7 +9,7 @@ in f32 and are rounded to bf16 for the interaction). On a mesh (a
 `ShardCtx` with `cfg.tp_lookup`) the tables are this rank's row shard
 and the lookup is `tp_multifeature_bag`, through the kernel's
 local-rows mode. `score_candidates`
-is the reference's retrieval scoring.
+is the reference's retrieval scoring, on a mesh too.
 
 Parameters cross between the packages as numpy in the JAX layout,
 `{"tables": (F, V, D), "bottom"/"top": ({"w": (in, out), "b": (out,)},
@@ -30,8 +30,10 @@ from repro_torch.configs.base import DLRMConfig
 from repro_torch.kernels import ops
 from repro_torch.models.embedding import (multifeature_bag,
                                           tp_multifeature_bag)
-from repro_torch.models.exchange import from_numpy, to_numpy, transpose
+from repro_torch.models.exchange import (from_numpy, generator, to_numpy,
+                                          transpose)
 from repro_torch.models.recsys import apply_mlp, bce_loss, init_mlp
+from repro_torch.train import collectives as coll
 
 
 class DLRM(nn.Module):
@@ -83,7 +85,7 @@ class DLRM(nn.Module):
 
 def init_params(cfg: DLRMConfig, *, seed: int = 0, device="cuda") -> DLRM:
     """A DLRM with random weights drawn on `device` from `seed`."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     return DLRM(cfg, device=device, generator=gen)
 
 
@@ -97,7 +99,8 @@ def loss_fn(model: DLRM, batch: Dict[str, torch.Tensor], **kw):
 def score_candidates(model: DLRM, user: Dict[str, torch.Tensor],
                      cand_ids: torch.Tensor, *, chunks: int = 25,
                      bag_fn: Optional[Callable] = None,
-                     interact_fn: Optional[Callable] = None) -> torch.Tensor:
+                     interact_fn: Optional[Callable] = None,
+                     mesh=None) -> torch.Tensor:
     """Retrieval scoring with the user side computed once (the reference's
     `score_candidates`): user dense (1, n_dense) and sparse_ids (1, F,
     hot), cand_ids (C,) -> scores (C,). Only feature 0, the item, varies
@@ -105,30 +108,50 @@ def score_candidates(model: DLRM, user: Dict[str, torch.Tensor],
     of `chunks` chunks of C gathers its candidates' item rows from table
     0 (ids mod V, a plain row gather as the reference's `jnp.take`) and
     runs the interaction and the top MLP. C must divide by `chunks`.
-    `bag_fn` / `interact_fn` replace the kernel ops, as in `forward`."""
+    `bag_fn` / `interact_fn` replace the kernel ops, as in `forward`.
+
+    On a `mesh` (the reference's retrieval program, which shards the
+    candidates over the data axes) each data rank scores its contiguous
+    slice of C in the same `chunks`, and the scores are all-gathered
+    over the data ranks in candidate order; with `cfg.tp_lookup` the
+    model's tables are this rank's row shard (launch/programs.Placement),
+    read by the row-sharded lookup that training uses
+    (`tp_multifeature_bag`: the user's bags, and each chunk's item rows as
+    bags of one of table 0, in the tables' dtype, bitwise the row
+    gather)."""
     cfg = model.cfg
     interact_fn = interact_fn or ops.dot_interact
+    cand_ids, group = coll.data_slice(cand_ids, chunks, mesh)
     c = cand_ids.shape[0]
-    if c % chunks:
-        raise ValueError(f"{c} candidates do not split into {chunks} chunks")
+    rows = cfg.vocab_sizes[0]
+    sharded = mesh is not None and cfg.tp_lookup and bag_fn is None
     dense_out = apply_mlp(model.bottom,
                           user["dense"].to(model.tables.dtype),
                           final_act=True)                         # (1, D)
-    user_emb = (bag_fn or multifeature_bag)(model.tables,
-                                            user["sparse_ids"]) \
-        .to(dense_out.dtype)                                      # (1, F, D)
+    if sharded:
+        user_emb = tp_multifeature_bag(model.tables, user["sparse_ids"],
+                                       mesh, rows=rows)
+    else:
+        user_emb = (bag_fn or multifeature_bag)(model.tables,
+                                                user["sparse_ids"])
+    user_emb = user_emb.to(dense_out.dtype)                       # (1, F, D)
     d = cfg.embed_dim
     out = []
     for ids in cand_ids.reshape(chunks, c // chunks):
         cc = ids.shape[0]
-        item = model.tables[0][ids.long() % cfg.vocab_sizes[0]]   # (cc, D)
+        if sharded:
+            item = tp_multifeature_bag(
+                model.tables[:1], (ids.long() % rows).to(torch.int32)
+                .reshape(cc, 1, 1), mesh, rows=rows)[:, 0]        # (cc, D)
+        else:
+            item = model.tables[0][ids.long() % rows]             # (cc, D)
         feats = torch.cat([dense_out.expand(cc, d)[:, None], item[:, None],
                            user_emb[:, 1:].expand(cc, cfg.n_sparse - 1, d)],
                           dim=1)                                # (cc, F+1, D)
         top_in = torch.cat([interact_fn(feats), dense_out.expand(cc, d)],
                            dim=-1)
         out.append(apply_mlp(model.top, top_in)[:, 0])
-    return torch.cat(out)
+    return coll.gather_slices(torch.cat(out), group)
 
 
 # ------------------------------------------------------ numpy exchange ---

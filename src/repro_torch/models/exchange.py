@@ -35,6 +35,14 @@ def from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def generator(device, seed: int):
+    """A generator on `device` seeded with `seed`; None on the meta
+    device, which holds shapes and no values (the dry run's)."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def transpose(x):
     """A 2-D torch tensor or numpy array, transposed and contiguous: an
     `nn.Linear` weight (out, in) to the JAX layout's `w` (in, out) and

@@ -47,6 +47,7 @@ from torch import nn
 from repro_torch.configs.base import GNNConfig
 from repro_torch.kernels import ops
 from repro_torch.models import segment
+from repro_torch.models.exchange import generator
 from repro_torch.train import collectives as coll
 
 _KEYS = ("w_self", "w_neigh", "b")
@@ -87,7 +88,7 @@ class GraphSAGE(nn.Module):
 def init_params(cfg: GNNConfig, d_feat: int, *, seed: int = 0,
                 device="cuda") -> GraphSAGE:
     """A GraphSAGE with random weights drawn on `device` from `seed`."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     return GraphSAGE(cfg, d_feat, device=device, generator=gen)
 
 
@@ -285,13 +286,15 @@ def batched_plan(edge_src: torch.Tensor, edge_dst: torch.Tensor,
 
 
 def batched_graphs_forward(model: GraphSAGE, x, edge_src, edge_dst,
-                           node_mask) -> torch.Tensor:
+                           node_mask, plan=None) -> torch.Tensor:
     """x: (G, N, d); edges (G, E) int, padded (pad edges 0 -> 0);
-    node_mask: (G, N). Returns graph-level logits (G, C): each graph's
-    masked mean of its nodes' logits."""
+    node_mask: (G, N); `plan`, where given, their `batched_plan` (the
+    dry run's, made from shapes). Returns graph-level logits (G, C):
+    each graph's masked mean of its nodes' logits."""
     g, n, d = x.shape
-    h = full_graph_forward(model, x.reshape(g * n, d),
-                           batched_plan(edge_src, edge_dst, n))
+    if plan is None:
+        plan = batched_plan(edge_src, edge_dst, n)
+    h = full_graph_forward(model, x.reshape(g * n, d), plan)
     h = h.reshape(g, n, -1)
     denom = torch.clamp(torch.sum(node_mask, dim=1), min=1.0)
     return torch.sum(h * node_mask[..., None], dim=1) / denom[:, None]
@@ -301,7 +304,8 @@ def batched_graphs_nll(model: GraphSAGE,
                        batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Per-graph negative log-likelihood (G,) f32."""
     logits = batched_graphs_forward(model, batch["x"], batch["edge_src"],
-                                    batch["edge_dst"], batch["node_mask"])
+                                    batch["edge_dst"], batch["node_mask"],
+                                    batch.get("plan"))
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(1, batch["labels"].long()[:, None])[:, 0]
 

@@ -93,10 +93,12 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched a @ b, (N, m, k) x (N, k, n), with an f32 result: the
     reference's `preferred_element_type=float32`. bf16 operands on a
     CUDA device go to cuBLAS as they are, accumulating in f32 and
-    writing f32; elsewhere, or with mixed dtypes (JAX promotes to f32),
+    writing f32 (and so on the meta device, whose dry run plans the
+    CUDA route); elsewhere, or with mixed dtypes (JAX promotes to f32),
     the operands are widened to f32 first, which the products of bf16
     values survive exactly."""
-    if a.dtype == b.dtype == torch.bfloat16 and a.is_cuda:
+    if a.dtype == b.dtype == torch.bfloat16 and a.device.type in (
+            "cuda", "meta"):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import activation
+from repro_torch.models.segment import counts_of
 from repro_torch.train import collectives as coll
 
 
@@ -97,7 +98,7 @@ def _aux_loss(probs: torch.Tensor, topi: torch.Tensor,
               n_experts: int) -> torch.Tensor:
     """Switch-style load-balance loss over the real (unpadded) experts."""
     t, k = topi.shape
-    hits = torch.bincount(topi.reshape(-1), minlength=probs.shape[-1]).float()
+    hits = counts_of(topi.reshape(-1), probs.shape[-1]).float()
     frac_routed = hits[:n_experts] / (t * k)
     frac_prob = probs[:, :n_experts].mean(0)
     return n_experts * (frac_routed * frac_prob).sum()
@@ -116,7 +117,7 @@ def _dispatch_local(x: torch.Tensor, flat_e: torch.Tensor,
                           flat_e - e_start,
                           torch.full_like(flat_e, e_loc))  # overflow bin
     order = torch.argsort(local_e, stable=True)           # groups experts
-    counts = torch.bincount(local_e, minlength=e_loc + 1)[:e_loc]
+    counts = counts_of(local_e, e_loc + 1)[:e_loc]
     starts = torch.cumsum(counts, 0) - counts            # exclusive
     slot_c = torch.arange(cap, device=dev)
     src = starts[:, None] + slot_c[None, :]               # (e_loc, cap)

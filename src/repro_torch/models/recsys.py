@@ -46,11 +46,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.common.shardlib import ShardCtx
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels import ops
 from repro_torch.models.embedding import (
     embedding_bag, local_rows_take, tp_embedding_lookup, tp_multifeature_bag)
-from repro_torch.models.exchange import transpose
+from repro_torch.models.exchange import generator, transpose
 from repro_torch.train import collectives as coll
 
 
@@ -475,7 +476,7 @@ def init_model(cfg: RecsysConfig, *, seed: int = 0,
                device="cuda") -> nn.Module:
     """The model of `cfg.name` with random weights drawn on `device` from
     `seed`, in the reference's shapes and scales."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     return MODELS[cfg.name](cfg, device=device, generator=gen)
 
 
@@ -523,7 +524,8 @@ def loss_fn(model: nn.Module, batch: Dict[str, torch.Tensor], **kw):
 @torch.no_grad()
 def score_candidates(model: nn.Module, user: Dict[str, torch.Tensor],
                      cand_ids: torch.Tensor, *, chunks: int = 1,
-                     bag_fn: Optional[Callable] = None) -> torch.Tensor:
+                     bag_fn: Optional[Callable] = None,
+                     mesh=None) -> torch.Tensor:
     """Retrieval: score ONE user against C candidates -> (C,) scores, in
     `chunks` sequential slabs of C (C must divide), which bound the live
     working set (a slab of 40,000 candidates of xDeepFM's CIN holds a
@@ -532,14 +534,29 @@ def score_candidates(model: nn.Module, user: Dict[str, torch.Tensor],
     candidate's row; DIEN's interest states are broadcast to the
     candidates, each the target; a CTR model's candidate replaces sparse
     feature 0 (ids mod V), the user's other embeddings gathered once.
-    `bag_fn` replaces the kernel ops, as in `forward`."""
+    `bag_fn` replaces the kernel ops, as in `forward`.
+
+    On a `mesh` each data rank scores its contiguous slice of C in the
+    same `chunks` and the scores are all-gathered over the data ranks in
+    candidate order (the reference's retrieval program shards the
+    candidates over the data axes); with `cfg.tp_lookup` the tables are
+    this rank's row shards, read by the row-sharded lookups training
+    uses: BERT4Rec's sequence and candidates through
+    `tp_embedding_lookup`, a CTR model's user bags and candidate rows
+    (bags of one of table 0) through `tp_multifeature_bag`, its forward
+    given the mesh (wide-deep's wide arm)."""
     cfg = model.cfg
-    c = cand_ids.shape[0]
-    if c % chunks:
-        raise ValueError(f"{c} candidates do not split into {chunks} chunks")
+    cand_ids, group = coll.data_slice(cand_ids, chunks, mesh)
+    ctx = ShardCtx(mesh) if mesh is not None and bag_fn is None else None
+    sharded = _sharded(cfg, ctx)
     if isinstance(model, BERT4Rec):
-        u = model.encode(user["item_seq"], bag_fn=bag_fn)[0, -1]    # (D,)
-        score = lambda ids: _take(model.items, ids, bag_fn) @ u
+        u = model.encode(user["item_seq"], bag_fn=bag_fn,
+                         ctx=ctx)[0, -1]                          # (D,)
+        if sharded:
+            score = lambda ids: tp_embedding_lookup(
+                model.items, ids, mesh, rows=model.vocab) @ u
+        else:
+            score = lambda ids: _take(model.items, ids, bag_fn) @ u
     elif isinstance(model, DIEN):
         states = model.interest_states(model.history(user, bag_fn))  # (1,S,H)
 
@@ -554,7 +571,8 @@ def score_candidates(model: nn.Module, user: Dict[str, torch.Tensor],
     else:
         rows = cfg.vocab_sizes[0]
         sparse = user["sparse_ids"]                               # (1, F, hot)
-        user_emb = (bag_fn or ops.embedding_bag)(model.tables, sparse)
+        user_emb = _ctr_tables_lookup(model.tables, sparse, cfg, ctx,
+                                      bag_fn or ops.embedding_bag)
 
         def score(ids):
             cc = ids.shape[0]
@@ -562,15 +580,21 @@ def score_candidates(model: nn.Module, user: Dict[str, torch.Tensor],
             sp = sparse.repeat(cc, 1, 1)
             sp[:, 0, :] = ids[:, None]
             # bag semantics: the candidate id repeated in each slot
-            cand = _take(model.tables[0], ids, bag_fn)            # (cc, D)
+            if sharded:
+                cand = tp_multifeature_bag(
+                    model.tables[:1], ids.to(torch.int32).reshape(cc, 1, 1),
+                    mesh, rows=rows)[:, 0]                        # (cc, D)
+            else:
+                cand = _take(model.tables[0], ids, bag_fn)        # (cc, D)
             if cfg.multi_hot > 1:
                 cand = cand * cfg.multi_hot
             emb = torch.cat([cand[:, None], user_emb[:, 1:].expand(
                 cc, cfg.n_sparse - 1, cfg.embed_dim)], dim=1)
             return model({"sparse_ids": sp,
                           "dense": user["dense"].expand(cc, -1)},
-                         bag_fn=bag_fn, emb=emb)
-    return torch.cat([score(ids) for ids in cand_ids.reshape(chunks, -1)])
+                         bag_fn=bag_fn, emb=emb, ctx=ctx)
+    out = torch.cat([score(ids) for ids in cand_ids.reshape(chunks, -1)])
+    return coll.gather_slices(out, group)
 
 
 # ------------------------------------------------------ numpy exchange ---

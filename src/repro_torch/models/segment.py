@@ -51,6 +51,14 @@ class SegmentPlan(NamedTuple):
     #                             reads no row
 
 
+def counts_of(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int64: how many of ids, each in [0, n), equal each value,
+    `torch.bincount(ids, minlength=n)` as an `index_add_` of ones, which
+    the meta device runs too (the dry run's)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids, dtype=torch.int64))
+
+
 def segment_plan(gather_ids: torch.Tensor, segment_ids: torch.Tensor,
                  n_segments: int, rows: int) -> SegmentPlan:
     """The pairs (gather_ids[i], segment_ids[i]) of a table of `rows`
@@ -58,7 +66,7 @@ def segment_plan(gather_ids: torch.Tensor, segment_ids: torch.Tensor,
     compaction waits for the device once."""
     keep = (segment_ids >= 0) & (segment_ids < n_segments)
     g, s = gather_ids[keep], segment_ids[keep]
-    count = torch.bincount(s, minlength=n_segments).float()
+    count = counts_of(s, n_segments).float()
     g = torch.where(g < 0, g + rows, g)
     bad = (g < 0) | (g >= rows)
     if not bool(bad.any()):

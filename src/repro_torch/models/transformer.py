@@ -162,7 +162,10 @@ def _draw(t: torch.Tensor, name: str, shape: tuple, block: tuple,
     `block` ((start, size) a dim) says, with that block of the whole
     parameter's normal draw scaled by fan_in ** -0.5: each unit
     (`_unit_dims`) that the block meets is drawn whole from a generator
-    of its own and cut to the block."""
+    of its own and cut to the block; a meta tensor (the dry run's)
+    draws nothing."""
+    if t.device.type == "meta":
+        return
     nu = _unit_dims(name)
     lead = block[:nu]
     inner = tuple(slice(a, a + n) for a, n in block[nu:])

@@ -35,11 +35,72 @@ parallelism's gather before a block and reduce-scatter after it are each
 other's gradients, and FSDP's weight gather over the data axes
 reduce-scatters the weight's gradient back into its shard.
 `torch.distributed`'s collectives have no gradients of their own.
+
+Every collective the port issues goes through `_collective`, which tells
+an active recorder (`set_recorder`: launch/step_analysis's) the op, the
+group's size, the operand and the call site; with none active it checks
+one global and moves on. A plan mesh (launch/mesh.make_plan_mesh) marks
+the process as planning (`set_plan_only`): its process group moves
+nothing, so `_collective` then refuses any tensor that is not on the
+meta device, and a real step cannot run on it.
 """
 from __future__ import annotations
 
+import os
+import sys
+from typing import Callable, Optional
+
 import torch
 import torch.distributed as dist
+
+# the active recorder: recorder(op, group size, operand, call site)
+_RECORDER: Optional[Callable] = None
+# set while the default process group is a plan mesh's (moves nothing)
+_PLAN_ONLY = False
+_HERE = os.path.abspath(__file__)
+_PKG = os.path.dirname(os.path.dirname(_HERE))
+
+
+def set_recorder(recorder: Optional[Callable]) -> Optional[Callable]:
+    """Make `recorder` the active one (None: none); returns the one it
+    replaces."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, recorder
+    return prev
+
+
+def set_plan_only(on: bool) -> None:
+    """Refuse (on) or take again (off) tensors off the meta device."""
+    global _PLAN_ONLY
+    _PLAN_ONLY = bool(on)
+
+
+def _call_site() -> str:
+    """file:line (function) of the first frame outside this module, the
+    file relative to the package's root."""
+    f = sys._getframe(2)
+    while f is not None and os.path.abspath(f.f_code.co_filename) == _HERE:
+        f = f.f_back
+    if f is None:
+        return "?"
+    path = os.path.abspath(f.f_code.co_filename)
+    if path.startswith(_PKG + os.sep):
+        path = os.path.relpath(path, os.path.dirname(_PKG))
+    return f"{path}:{f.f_lineno} ({f.f_code.co_name})"
+
+
+def _collective(kind: str, x: torch.Tensor, group, fn, *args, **kw
+                ) -> None:
+    """Issue fn(*args, group=group, **kw), the collective `kind`
+    ("all-reduce", "all-gather", "reduce-scatter" or "all-to-all") of
+    operand x over `group`, through the recorder (see the module
+    docstring)."""
+    if _PLAN_ONLY and x.device.type != "meta":
+        raise ValueError(f"a plan mesh moves nothing: {kind} of a tensor "
+                         f"on {x.device}, where only meta tensors may pass")
+    if _RECORDER is not None:
+        _RECORDER(kind, group_size(group), x, _call_site())
+    fn(*args, group=group, **kw)
 
 
 def ieee_div(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -70,7 +131,7 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     out = x.clone()
-    dist.all_reduce(out, group=group)
+    _collective("all-reduce", out, group, dist.all_reduce, out)
     return out
 
 
@@ -85,7 +146,8 @@ def all_gather(x: torch.Tensor, group, *, tiled: bool = True
     part = (x if tiled else x[None]).contiguous()
     out = torch.empty((n * part.shape[0],) + tuple(part.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, part, group=group)
+    _collective("all-gather", part, group, dist.all_gather_into_tensor, out,
+                part)
     return out
 
 
@@ -98,7 +160,8 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, x, group=group)
+    _collective("reduce-scatter", x, group, dist.reduce_scatter_tensor, out,
+                x)
     return out
 
 
@@ -134,6 +197,28 @@ def reduce_scatter_dim(x: torch.Tensor, group, dim: int = 0
 def slice_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """This rank's block of `dim` (no communication)."""
     return _along(_my_slice, x, group, dim)
+
+
+def data_slice(x: torch.Tensor, chunks: int, mesh):
+    """(this data rank's contiguous slice of x's rows, the data group to
+    gather its results over, None for none); x's rows must divide over
+    the data ranks and then into `chunks` (a retrieval's candidates)."""
+    c = x.shape[0]
+    dp = mesh.size(mesh.data_axes) if mesh is not None else 1
+    if c % (dp * chunks):
+        raise ValueError(f"{c} candidates do not split into {chunks} chunks "
+                         f"on each of {dp} data ranks")
+    if dp == 1:
+        return x, None
+    k, n = mesh.index(mesh.data_axes), c // dp
+    return x[k * n:(k + 1) * n], mesh.data_group
+
+
+def gather_slices(x: torch.Tensor, group) -> torch.Tensor:
+    """Each data rank's rows of `data_slice`'s results, in order."""
+    if group is None:
+        return x
+    return all_gather(x.contiguous(), group)
 
 
 class _PsumSame(torch.autograd.Function):
@@ -265,7 +350,8 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    _collective("all-reduce", out, group, dist.all_reduce, out,
+                op=dist.ReduceOp.MAX)
     return out
 
 

@@ -30,7 +30,6 @@ from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.train import collectives as coll
 
@@ -95,8 +94,7 @@ def global_norm(tensors, groups: Optional[dict] = None) -> torch.Tensor:
             sq = torch.linalg.vector_norm(sl, dtype=torch.float32).square()
             sq_t = sq if sq_t is None else sq_t + sq
         if groups and name in groups:
-            sq_t = sq_t.clone()
-            dist.all_reduce(sq_t, group=groups[name])
+            sq_t = coll.all_reduce(sq_t, groups[name])
         total = sq_t if total is None else total + sq_t
     return torch.sqrt(total)
 

@@ -3,7 +3,7 @@ reference of tests/test_torch_dist.py. Run in a process of its own
 (XLA_FLAGS must be set before jax is imported, and the test process's
 jax already has one device):
 
-    python tests/jax_sharded_ref.py WORKDIR [lm]
+    python tests/jax_sharded_ref.py WORKDIR [lm|dryrun]
 
 reads WORKDIR/inputs.npz and writes WORKDIR/ref.npz, each result under
 "<dp>x<tp>/<name>" for the (data, model) meshes (1, 2), (2, 1), (2, 2);
@@ -13,7 +13,15 @@ tests/torch_dist_ranks.LM_DIST_CASES through the reference's own
 `build_lm_program` on each mesh (tests/test_torch_lm_dist.py): the loss
 and gradients of its ShardCtx'd loss_fn under its in_shardings, one
 step of its train program, each leaf's shard shape, and its prefill and
-decode programs, each device's cache shard kept by its rank.
+decode programs, each device's cache shard kept by its rank. With
+`dryrun` it writes WORKDIR/dryrun_ref.json for tests/test_torch_dryrun.py:
+the reference's `build_program` of the driver's reduced LMs (DRYRUN_LMS)
+at DRYRUN_SHAPES on each mesh, lowered and compiled, with its
+`memory_analysis().argument_size_in_bytes` and each argument group's
+bytes a device; the reduced dlrm-criteo's per-device bytes of each
+parameter and optimizer-state leaf and its shard count; and the loop-aware
+dot FLOPs (`hlo_analysis.analyze`) of the reduced smollm-135m's train
+and prefill programs on one device.
 """
 import os
 import sys
@@ -289,8 +297,91 @@ def main(workdir):
     np.savez(os.path.join(workdir, "ref.npz"), **res)
 
 
+DRYRUN_LMS = ("smollm-135m", "qwen2-moe-a2.7b")
+# the reduced LM's cells: (name, kind, seq_len, batch)
+DRYRUN_SHAPES = (("t", "train", 64, 8), ("d", "decode", 64, 4),
+                 ("p", "prefill", 64, 8))
+
+
+def _shard_bytes(abstract, sharding) -> int:
+    n = int(np.prod(sharding.shard_shape(abstract.shape), dtype=np.int64))
+    return n * np.dtype(abstract.dtype).itemsize
+
+
+def _group_bytes(abstract, shardings) -> dict:
+    """{leaf path: (bytes a device, shards)} of an argument group."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(abstract)
+    shs = jax.tree_util.tree_leaves(
+        shardings, is_leaf=lambda x: hasattr(x, "shard_shape"))
+    if len(shs) == 1 and len(flat) > 1:
+        shs = shs * len(flat)
+    out = {}
+    for (path, leaf), sh in zip(flat, shs):
+        n = int(np.prod(leaf.shape, dtype=np.int64)) if leaf.shape else 1
+        per = _shard_bytes(leaf, sh)
+        out[jax.tree_util.keystr(path)] = (
+            per, n * np.dtype(leaf.dtype).itemsize // max(per, 1))
+    return out
+
+
+def main_dryrun(workdir):
+    import json
+    from repro.configs import get_arch
+    from repro.configs.base import LMShape
+    from repro.launch import hlo_analysis
+    from repro.launch.programs import build_program
+    from repro.launch.train import reduced_model
+    res = {"lm": {}, "dlrm": {}, "hlo": {}}
+    for dp, tp in ((1, 1),) + MESHES:
+        mesh = Mesh(np.array(jax.devices()[:dp * tp]).reshape(dp, tp),
+                    ("data", "model"))
+        for arch_id in DRYRUN_LMS:
+            arch = get_arch(arch_id)
+            arch = arch.__class__(**{**arch.__dict__,
+                                     "model": reduced_model(arch)})
+            for name, kind, seq, batch in DRYRUN_SHAPES:
+                if (dp, tp) == (1, 1) and (arch_id != "smollm-135m"
+                                           or kind == "decode"):
+                    continue
+                if (dp, tp) != (1, 1) and kind == "prefill":
+                    continue
+                prog = build_program(arch, LMShape(name, kind, seq, batch),
+                                     mesh)
+                with jax.set_mesh(mesh):
+                    compiled = jax.jit(
+                        prog.fn, in_shardings=prog.in_shardings,
+                        out_shardings=prog.out_shardings,
+                        donate_argnums=prog.donate_argnums).lower(
+                            *prog.abstract_args).compile()
+                if (dp, tp) == (1, 1):
+                    res["hlo"][kind] = hlo_analysis.analyze(
+                        compiled.as_text())["dot_flops"]
+                    continue
+                groups = [_group_bytes(a, s) for a, s in
+                          zip(prog.abstract_args, prog.in_shardings)]
+                res["lm"][f"{arch_id}/{kind}/{dp}x{tp}"] = {
+                    "argument_size_in_bytes": int(
+                        compiled.memory_analysis().argument_size_in_bytes),
+                    "groups": groups}
+        if (dp, tp) == (1, 1):
+            continue
+        arch = get_arch("dlrm-criteo")
+        arch = arch.__class__(**{**arch.__dict__,
+                                 "model": reduced_model(arch)})
+        prog = build_program(arch, arch.shape("train_batch"), mesh)
+        res["dlrm"][f"{dp}x{tp}"] = {
+            "params": _group_bytes(prog.abstract_args[0],
+                                   prog.in_shardings[0]),
+            "opt_state": _group_bytes(prog.abstract_args[1],
+                                      prog.in_shardings[1])}
+    with open(os.path.join(workdir, "dryrun_ref.json"), "w") as f:
+        json.dump(res, f)
+
+
 if __name__ == "__main__":
     if sys.argv[2:] == ["lm"]:
         main_lm(sys.argv[1])
+    elif sys.argv[2:] == ["dryrun"]:
+        main_dryrun(sys.argv[1])
     else:
         main(sys.argv[1])

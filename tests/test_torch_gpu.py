@@ -341,7 +341,9 @@ def test_cuda_embedding_bag_fused_matches_row_kernel_and_plain_version():
 def test_cuda_embedding_bag_fused_refuses_more_than_int32_threads():
     """The fused kernel walks its output with 32-bit indices: a call of
     more than 2^31 - 1 threads (B * F rows, 32 threads a row at D = 33)
-    is refused and raises, launching nothing; one row fewer fits."""
+    is refused and raises, launching nothing; one row fewer fits. The
+    wrapper refuses it before the launch (the kernel would too), so that
+    a meta tensor's plan is refused alike."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     lanes = 32
@@ -349,7 +351,7 @@ def test_cuda_embedding_bag_fused_refuses_more_than_int32_threads():
     tables = torch.ones((1, 1, 33), device="cuda")
     ids = torch.zeros((rows, 1, 1), dtype=torch.int32, device="cuda")
     before = eb.LAUNCHES["embedding_bag_fused_fwd"]
-    with pytest.raises(RuntimeError, match="CUDA error 1"):
+    with pytest.raises(ValueError, match="at most 2\\^31 - 1 threads"):
         eb.embedding_bag_fused_fwd(tables, ids)
     assert eb.LAUNCHES["embedding_bag_fused_fwd"] == before
     out = eb.embedding_bag_fused_fwd(tables, ids[1:])
@@ -1157,3 +1159,110 @@ def test_take_refused_launch_raises(monkeypatch):
         eb.embedding_take_bwd_local(torch.zeros((5000, 16), device="cuda"),
                                     ids, 0, 3000)
     assert eb.LAUNCHES == before
+
+
+# ------------------------------------------------------ slice 20: meta ---
+def _meta_like(x):
+    return torch.empty_like(x, device="meta")
+
+
+@pytest.mark.gpu
+def test_meta_route_gives_a_real_launch_output_shapes():
+    """Each op of kernels/ops at one shape, on the card and on meta
+    tensors of the same shapes: the same output shapes and dtypes (the
+    saved aggregate's padded rows too) and one launch counted under the
+    same name each way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    bf16 = torch.bfloat16
+    tables = torch.randn((3, 100, 16), device="cuda", generator=gen)
+    ids = torch.randint(0, 100, (37, 3, 2), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    d_bag = torch.randn((37, 3, 16), device="cuda", generator=gen)
+    feats = torch.randn((37, 27, 16), device="cuda", generator=gen)
+    d_dot = torch.randn((37, 351), device="cuda", generator=gen)
+    neigh = torch.randn((64, 5, 32), device="cuda", generator=gen)
+    w = torch.randn((32, 8), device="cuda", generator=gen)
+    table = torch.randn((100, 16), device="cuda", generator=gen).to(bf16)
+    flat = torch.randint(0, 200, (50,), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    calls = [
+        ("embedding_bag_fwd", lambda t, i: ops.embedding_bag(t, i),
+         (tables, ids)),
+        ("embedding_bag_fused_fwd", lambda t, i: ops.embedding_bag_fused(
+            t, i), (tables, ids)),
+        ("embedding_bag_fwd_local", lambda t, i: ops.embedding_bag_local(
+            t, i, 50), (tables, ids)),
+        ("embedding_bag_bwd_local", lambda g, i: ops.embedding_bag_local_bwd(
+            g, i, 50, 100, bf16), (d_bag, ids)),
+        ("embedding_take_fwd_local", lambda t, i: ops.local_take(t, i, 100),
+         (table, flat)),
+        ("embedding_take_bwd_local", lambda t, i: ops.local_take_bwd(
+            ops.local_take(t, i, 0), i, 0, 100), (table, flat)),
+        ("dot_interact_fwd", lambda f: ops.dot_interact(f), (feats,)),
+        ("dot_interact_bwd", lambda g, f: ops._DotInteract.backward(
+            type("C", (), {"saved_tensors": (f,)})(), g), (d_dot, feats)),
+        ("sage_aggregate_fwd", lambda n, w_: ops.sage_aggregate(n, w_),
+         (neigh, w)),
+        ("sage_widen_w", lambda n, w_: ops.sage_aggregate(n, w_.to(bf16)),
+         (neigh, w)),
+    ]
+    for name, fn, args in calls:
+        outs = []
+        for dev_args in (args, tuple(_meta_like(a) for a in args)):
+            before = ops.launch_counts()[name]
+            out = fn(*dev_args)
+            outs.append((out.shape, out.dtype,
+                         ops.launch_counts()[name] - before))
+        assert outs[0] == outs[1] and outs[0][2] >= 1, (name, outs)
+    # the backward pair: d_w, d_neigh and the embedding scatter
+    for dev in ("cuda", "meta"):
+        n = neigh if dev == "cuda" else _meta_like(neigh)
+        wt = (w if dev == "cuda" else _meta_like(w)).requires_grad_(True)
+        nt = n.clone().requires_grad_(True)
+        tb = (tables if dev == "cuda" else _meta_like(tables)) \
+            .requires_grad_(True)
+        i = ids if dev == "cuda" else _meta_like(ids)
+        before = ops.launch_counts()
+        (ops.sage_aggregate(nt, wt).sum()
+         + ops.embedding_bag(tb, i).sum()).backward()
+        after = ops.launch_counts()
+        got = (nt.grad.shape, wt.grad.shape, tb.grad.shape, tb.grad.dtype,
+               after["sage_aggregate_bwd"] - before["sage_aggregate_bwd"],
+               after["embedding_bag_bwd"] - before["embedding_bag_bwd"])
+        if dev == "cuda":
+            want = got
+    assert got == want and want[-2:] == (1, 1), (got, want)
+
+
+@pytest.mark.gpu
+def test_step_analysis_counts_a_cuda_step_as_its_meta_plan():
+    """One train step of the driver's reduced dlrm-criteo (bf16, through
+    the four DLRM kernels) on the card and planned on meta tensors of the
+    same shapes, each under launch/step_analysis: the same dot FLOPs
+    (aten ops and the kernels' own), launches and resident bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from repro_torch.configs.dlrm_criteo import ARCH
+    from repro_torch.launch import train
+    from repro_torch.launch.step_analysis import analyze
+    cfg = train.reduced_model(ARCH)
+    shape = train.RECSYS_DRIVER_SHAPE
+    res = {}
+    for dev in ("cuda", "meta"):
+        model, opt_state, step_fn, _, _ = train.build_step(
+            ARCH, cfg, shape, dev)
+        batch = train.make_batch_fn(ARCH, cfg, 32, np.random.RandomState(0),
+                                    shape=shape, device="cuda")()
+        if dev == "meta":
+            batch = {k: _meta_like(v) for k, v in batch.items()}
+        r = analyze(lambda m, o, b: step_fn(m, o, 0, b), model, opt_state,
+                    batch)
+        res[dev] = (r["dot_flops"], r["kernel_dot_flops"], r["launches"],
+                    r["resident_bytes"])
+    assert res["cuda"] == res["meta"], res
+    assert res["cuda"][2] == {"embedding_bag_fwd": 1, "embedding_bag_bwd": 1,
+                              "dot_interact_fwd": 1, "dot_interact_bwd": 1}

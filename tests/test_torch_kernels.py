@@ -743,9 +743,21 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                            "sage_widen_w"}
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that says it lies on a device with no route."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_other_devices_raise():
+    """A device that is neither CPU, CUDA nor meta (the dry run's, which
+    takes the CUDA wrappers up to the launch) raises."""
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        ops.dot_interact(torch.empty(2, 3, 4, device="meta"))
+        ops.dot_interact(torch.empty(2, 3, 4).as_subclass(_Elsewhere))
+    assert ops.dot_interact(torch.empty(2, 3, 4, device="meta")).shape == \
+        (2, 3)
 
 
 @pytest.mark.parametrize("call", [

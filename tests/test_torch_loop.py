@@ -101,6 +101,11 @@ def test_port_never_imports_jax_or_the_jax_package():
             PORT / "launch" / "programs.py",
             PORT / "train" / "collectives.py",
             PORT / "train" / "elastic.py"} <= set(files)
+    # slice 20's dry run and its benchmarks
+    assert {PORT / "launch" / "dryrun.py", PORT / "launch" /
+            "step_analysis.py", PORT / "kernels" / "costs.py",
+            ROOT / "benchmarks" / "torch_perf_probe.py",
+            ROOT / "benchmarks" / "torch_perf_hillclimb.py"} <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")
            or (m.startswith("benchmarks.")

@@ -551,3 +551,66 @@ def _lm_restore_check(mesh_shape, ckpt_dir):
             "restore_shards": np.array(shards),
             "restore_n_state": np.array(n_state),
             "table_local_shape": np.array(local["embed.table"].shape)}
+
+
+# ---------------------------------------------------------------- dry run ---
+# the placed steps whose collective schedule tests/test_torch_dryrun.py
+# holds against the dry run's plan: (arch, the reduced config's shape)
+DRYRUN_TRAIN = (("dlrm-criteo", "recsys", 32), ("gemma2-2b", "lm", 8))
+DRYRUN_RETRIEVAL = ("dlrm-criteo", "wide-deep")
+DRYRUN_CHUNKS = 2
+
+
+def dryrun_shape(kind: str, batch: int):
+    from repro_torch.configs.base import LMShape, RecsysShape
+    if kind == "lm":
+        return LMShape("t", "train", 64, batch)
+    return RecsysShape("t", "train", batch)
+
+
+def dryrun_ranks(rank, mesh_shape, workdir):
+    """One train step of each of DRYRUN_TRAIN's reduced configs, placed on
+    this mesh (launch/programs.build_program on the CPU), under
+    launch/step_analysis: its collective schedule (a JSON row a distinct
+    collective); and the placed retrieval (score_candidates(mesh=)) of
+    DRYRUN_RETRIEVAL's reduced models, from inputs.npz's parameters, user
+    and candidates, beside the unplaced scores of the same model."""
+    import copy
+    import json
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.programs import build_program
+    from repro_torch.launch.step_analysis import analyze
+    from repro_torch.models import dlrm, recsys
+    from repro_torch.models.exchange import from_numpy
+
+    mesh = make_mesh(*mesh_shape, "cpu", exchange_one_shard=True)
+    out = {}
+    for arch_id, kind, batch in DRYRUN_TRAIN:
+        arch = get_arch(arch_id)
+        prog = build_program(arch, dryrun_shape(kind, batch), mesh, "cpu",
+                             cfg=train.reduced_model(arch))
+        calls = analyze(prog.fn, *prog.args)["collective_calls"]
+        out[f"sched/{arch_id}"] = np.array(json.dumps(calls))
+    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    for arch_id in DRYRUN_RETRIEVAL:
+        arch = get_arch(arch_id)
+        cfg = train.reduced_model(arch)
+        lib = dlrm if arch_id == "dlrm-criteo" else recsys
+        model = train.init_params_for(arch, cfg, 1, device="cpu")
+        model.load_state_dict({k[len(arch_id) + 3:]: from_numpy(v)
+                               for k, v in inp.items()
+                               if k.startswith(f"{arch_id}/p/")})
+        placed = copy.deepcopy(model)
+        train.model_placement(arch, cfg, arch.shape("retrieval_cand"),
+                              placed, mesh)
+        user = {k[len(arch_id) + 3:]: torch.from_numpy(v)
+                for k, v in inp.items() if k.startswith(f"{arch_id}/u/")}
+        cand = torch.from_numpy(inp[f"{arch_id}/cand"])
+        out[f"placed/{arch_id}"] = _np(lib.score_candidates(
+            placed, user, cand, chunks=DRYRUN_CHUNKS, mesh=mesh))
+        out[f"unplaced/{arch_id}"] = _np(lib.score_candidates(
+            model, user, cand, chunks=DRYRUN_CHUNKS))
+        out[f"shard/{arch_id}"] = np.array(placed.tables.shape)
+    return out
