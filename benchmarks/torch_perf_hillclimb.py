@@ -11,13 +11,15 @@ build_program on meta tensors under launch/step_analysis), with its
 roofline terms (benchmarks/torch_analytic.plan_terms). Writes
 build/bench/torch_perf_iterations.json.
 
-The port places a parameter row-sharded or replicated, nothing else
-(launch/programs.py): a variant whose reference placement is GSPMD's
-implicit take has no counterpart, and is planned as the placement the
-port gives its knobs, the tables replicated (tp_lookup off), as its
-label says. A variant the port's code refuses is logged with the
-refusal, not planned in some other layout. The figures are plans from
-shapes run on the host, not device measurements.
+The port places every leaf at the reference's spec (launch/programs.
+Placement), so each variant's parameters and optimizer state are the
+reference's blocks. What it has no counterpart for is GSPMD's implicit
+take of a row-sharded table (`tp_lookup` off): there the port's
+row-sharded lookup over the axes the rows span stands in for it, or, for
+BERT4Rec's candidates, the items gathered whole, as the variant's label
+says. A variant the port's code refuses is logged with
+the refusal, not planned in some other layout. The figures are plans
+from shapes run on the host, not device measurements.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.launch.programs import build_program
 from repro_torch.launch.step_analysis import analyze
 
 OUT = os.path.join(torch_common.OUT_DIR, "torch_perf_iterations.json")
-PORT_TAKE = " [port: tables replicated, tp_lookup off]"
+PORT_TAKE = " [port: the row-sharded lookup stands for GSPMD's take]"
 
 
 def measure(arch, shape_name: str, mesh) -> dict:
@@ -87,22 +89,21 @@ def dlrm_variants():
 
 def bert4rec_variants():
     base = get_arch("bert4rec")
-    # the replicated items: the port's lookup reads a whole table with
-    # tp_lookup off
     v0 = _model(base, sharding_overrides=(("table_rows", None),),
                 tp_lookup=False)
-    v1 = _model(base, tp_lookup=True)
-    return [("iter0: replicated items (unscalable)" + PORT_TAKE, v0),
-            ("baseline: row-sharded + GSPMD take [port: the config, its "
-             "row-sharded lookup]", base),
-            ("iter1: shard_map lookup + sampled-logit psum", v1)]
+    v_take = _model(base, tp_lookup=False)
+    return [("iter0: replicated items (unscalable)", v0),
+            ("baseline: row-sharded + GSPMD take [port: the sequence "
+             "through the row-sharded lookup, the candidates from the items "
+             "gathered whole]", v_take),
+            ("iter1: shard_map lookup + sampled-logit psum", base)]
 
 
 def gnn_variants():
     base = get_arch("graphsage-reddit")
-    return [("baseline (edge-sharded, replicated nodes) [port: no such "
-             "program; its one layout, opt1's]", base),
-            ("opt1: dst-partitioned edges, node-sharded outputs", base)]
+    return [("baseline (edge-sharded, replicated nodes)", base),
+            ("opt1: dst-partitioned edges, node-sharded outputs",
+             _model(base, partitioned=True))]
 
 
 def wide_deep_variants():

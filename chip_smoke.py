@@ -280,7 +280,8 @@ on gloo in the CPU tests:
               local-rows kernels and dot_interact's launched each step,
               the unsharded embedding kernels never; samples/s and peak
               memory. Then, before the group ends, the placed retrieval
-              (slice 20): score_candidates(mesh=) of 1,000,000
+              (slice 20; its placement listing no replicated leaf,
+              slice 21): score_candidates(placement=) of 1,000,000
               candidates in 25 chunks through the row-sharded lookup,
               against the unplaced scores of the same model within
               dlrm_retrieval's 4 bf16 ulps of the largest score.
@@ -324,6 +325,16 @@ scatter embedding_bag_bwd as the backward of each:
               seed), through the kernels and through the plain versions:
               the scores finite and within rtol 1e-5 / atol 1e-5 of each
               other; host-clock seconds of each and peak memory.
+ 23a. dist_recsys  (slice 21) wide-deep, xDeepFM, DIEN and BERT4Rec
+              placed (launch/programs.Placement, the reference's specs),
+              --full --shape train_batch --dist --mesh 1,1 [--microbatches
+              k] on a world of one, 3 steps each at batch 65536: each loss
+              bit for bit recsys_loop's or <arch>_driver's at the same
+              seed; the tables through the local-rows pair
+              (wide-deep's over every axis, xDeepFM's and DIEN's over the
+              model axis) or BERT4Rec's take pair, twice a microbatch each
+              way, the unplaced embedding kernels never; samples/s and
+              peak memory.
 
 GraphSAGE's full-graph and batched-small-graph regimes (slice 12) at the
 published widths (2 layers, hidden 128, 47 classes, mean, adam): the
@@ -347,6 +358,14 @@ no kernel of the port runs on these paths:
               driver: loss finite and falling, labelled nodes/s, the
               step's seconds, peak device memory under one (E, 128) f32
               message tensor (31.67 GB); one train step profiled.
+9bb. dist_gnn  (slice 21) the reference's default full-graph program
+              placed, --full --shape ogb_products --dist --mesh 1,1 on a
+              world of one (the padded edges over the data axes, each
+              layer's partial aggregate summed over them, the weights
+              through the placed fetch) on gnn_full_graph's graph, 3
+              steps: each loss bit for bit that phase's at the same
+              seed, no kernel launched; nodes/s and
+              peak memory.
  9c. gnn_molecule  the generic driver at molecule for 20 steps: loss
               finite, graphs/s, peak memory.
 
@@ -2257,14 +2276,14 @@ def recording_combine(gnn, rec):
     import torch
     combine = gnn._sage_combine
 
-    def wrapped(h_self, proj, layer, *, final):
+    def wrapped(h_self, proj, w_self, b, *, final):
         if not final:
             with torch.no_grad():
-                pre = torch.matmul(h_self, layer.w_self) + proj + layer.b
+                pre = torch.matmul(h_self, w_self) + proj + b
                 rec.append(pre)
                 rec.append(torch.linalg.vector_norm(torch.relu(pre), dim=-1,
                                                     keepdim=True))
-        return combine(h_self, proj, layer, final=final)
+        return combine(h_self, proj, w_self, b, final=final)
     gnn._sage_combine = wrapped
     try:
         yield
@@ -2542,7 +2561,8 @@ def phase_gnn_full_graph(arch) -> dict:
     tensor, freed after) within rtol 1e-5 / atol 1e-6, atomics adding in
     another order; runs the generic driver for GNN_FULL_STEPS full-batch
     steps (loss finite and falling, peak device memory under one (E, 128)
-    f32 message tensor, no kernel launched); profiles one train step."""
+    f32 message tensor, no kernel launched); profiles one train step.
+    Returns (the driver's summary with its losses, the numpy graph)."""
     import numpy as np
     import torch
     from repro_torch.data.graphs import full_graph_batch
@@ -2614,6 +2634,7 @@ def phase_gnn_full_graph(arch) -> dict:
     summary.update(loss_first=losses[0], loss_last=losses[-1],
                    peak_gb=res["max_memory_allocated"] / 1e9)
     print("  gnn_full_graph " + json.dumps(summary))
+    summary["losses"] = losses
     torch.cuda.empty_cache()
 
     model = gnn.init_params(cfg, shape.d_feat, seed=0, device=dev)
@@ -2624,7 +2645,6 @@ def phase_gnn_full_graph(arch) -> dict:
     batch["plan"] = gnn.graph_plan(
         torch.from_numpy(graph["edge_src"]).to(dev),
         torch.from_numpy(graph["edge_dst"]).to(dev), n)
-    del graph
     step_fn(model, state, 0, batch)
     torch.cuda.synchronize()
     rows, wall_ms = profile_steps(
@@ -2634,7 +2654,7 @@ def phase_gnn_full_graph(arch) -> dict:
           f"{wall_ms:.3f} ms of host-clock time (profiled)")
     for name, ms in rows[:12]:
         print(f"    {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
-    return summary
+    return summary, graph
 
 
 def phase_gnn_molecule(arch) -> dict:
@@ -2964,7 +2984,7 @@ def phase_recsys_loop(arch) -> dict:
     summary["launches"] = counts
     print("  recsys_loop " + json.dumps(summary))
     torch.cuda.synchronize()
-    return counts
+    return counts, res["losses"]
 
 
 def phase_recsys_profile(arch):
@@ -3826,6 +3846,9 @@ def placed_retrieval(arch) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = mesh_lib.make_mesh(1, 1, dev, exchange_one_shard=True)
     prog = build_program(arch, arch.shape("retrieval_cand"), mesh, dev)
+    if prog.meta["replicated"]:
+        raise AssertionError(f"dist_dlrm's placement replicates "
+                             f"{prog.meta['replicated']}")
     user, cand = prog.inputs["user"], prog.inputs["cand_ids"]
     prog.fn(*prog.args)                       # a warm-up call of each
     dlrm_lib.score_candidates(prog.model, user, cand,
@@ -4161,7 +4184,7 @@ def phase_seq_driver(arch, microbatches: int) -> dict:
     summary.update(losses=res["losses"], launches=counts)
     print(f"  {arch.arch_id}_driver " + json.dumps(summary))
     torch.cuda.synchronize()
-    return counts
+    return counts, res["losses"]
 
 
 def phase_seq_profile(arch, microbatches: int) -> dict:
@@ -4264,6 +4287,127 @@ def phase_recsys_retrieval(archs) -> dict:
         del model, out, sk, sp, scores
         torch.cuda.empty_cache()
     return res
+
+
+# ---- slice 21: the recsys and GNN programs placed, a world of one ------
+
+# the placed driver's steps of each arch (their losses bit for bit the
+# first of the unplaced driver phase's, at the same seed: recsys_loop's
+# for wide-deep, <arch>_driver's for the others, gnn_full_graph's; at a
+# world of one every collective is a copy, the fetched weights and the
+# MLP's gathered columns are contiguous as on one device, and two card
+# runs of this slice read every loss bitwise), and each
+# path's kernel launches a microbatch: the tables of wide-deep (its deep
+# tables and wide arm over every axis), xDeepFM (its tables and linear
+# arm) and DIEN (its history and target) over the model axis through the
+# local-rows pair, BERT4Rec's sequence and candidates through the take
+# pair; none of the unplaced embedding kernels
+DIST_SEQ_STEPS = 3
+DIST_RECSYS_KERNELS = {
+    "wide-deep": {"embedding_bag_fwd_local": 2, "embedding_bag_bwd_local": 2},
+    "xdeepfm": {"embedding_bag_fwd_local": 2, "embedding_bag_bwd_local": 2},
+    "dien": {"embedding_bag_fwd_local": 2, "embedding_bag_bwd_local": 2},
+    "bert4rec": {"embedding_take_fwd_local": 2,
+                 "embedding_take_bwd_local": 2}}
+UNPLACED_BAGS = ("embedding_bag_fwd", "embedding_bag_fused_fwd",
+                 "embedding_bag_bwd")
+
+
+def _dist_run(arch_id: str, **kw) -> dict:
+    """train.run on a process group of one rank (NCCL, a file
+    rendezvous) and its (1, 1) mesh, which the call starts and ends."""
+    from repro_torch.launch import train
+    if os.path.exists(DIST_PG_FILE):
+        os.remove(DIST_PG_FILE)
+    return train.run(arch_id, steps=DIST_SEQ_STEPS, full=True,
+                     device="cuda", dist_run=True, mesh_shape=(1, 1),
+                     rank=0, world_size=1,
+                     init_method=f"file://{DIST_PG_FILE}", **kw)
+
+
+def _dist_losses(tag, losses, want):
+    if losses != list(want) or len(losses) != DIST_SEQ_STEPS \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag} losses {losses} are not the unplaced "
+                             f"driver's {want} bit for bit")
+
+
+def phase_dist_recsys(archs, unplaced_losses) -> dict:
+    """Slice 21: wide-deep, xDeepFM, DIEN and BERT4Rec placed
+    (launch/programs.Placement: every leaf at the reference's spec, the
+    dense layers through the placed fetch and the column split, the
+    tables through the row-sharded lookups) through the driver as
+    `--full --shape train_batch --dist --mesh 1,1 [--microbatches k]` runs
+    it, DIST_SEQ_STEPS steps each at batch 65536: each loss bit for bit
+    the unplaced driver phase's at the same seed; the
+    path's kernels (DIST_RECSYS_KERNELS) launched at least as often as
+    each microbatch needs, the unplaced embedding kernels never;
+    samples/s and peak memory. Returns {kernel: {arch: launches}}."""
+    import torch
+    from repro_torch.kernels import ops
+
+    out = {}
+    for arch in archs:
+        aid = arch.arch_id
+        k = SEQ_MICROBATCHES.get(aid, 1)
+        ops.reset_launch_counts()
+        res = _dist_run(aid, shape=arch.shape("train_batch"),
+                        microbatches=k, log_every=DIST_SEQ_STEPS)
+        counts = ops.launch_counts()
+        torch.cuda.empty_cache()
+        want = unplaced_losses[aid][:DIST_SEQ_STEPS]
+        path = DIST_RECSYS_KERNELS[aid]
+        launched = {n: counts[n] for n in tuple(path) + UNPLACED_BAGS}
+        summary = {key: res[key] for key in (
+            "samples_per_s", "loop_step_s", "train_step_s",
+            "max_memory_allocated", "microbatches", "mesh")}
+        summary.update(losses=res["losses"], unplaced_losses=want,
+                       launches=launched)
+        print(f"  dist_recsys {aid} " + json.dumps(summary), flush=True)
+        _dist_losses(f"dist_recsys {aid}", res["losses"], want)
+        short = {n: c for n, c in launched.items() if n in path
+                 and c < DIST_SEQ_STEPS * k * path[n]}
+        if short or any(launched[n] for n in UNPLACED_BAGS):
+            raise AssertionError(f"dist_recsys {aid} launches {launched}")
+        if not res["max_memory_allocated"] < CARD_BYTES:
+            raise AssertionError(f"dist_recsys {aid} peak "
+                                 f"{res['max_memory_allocated'] / 1e9:.2f} "
+                                 f"GB")
+        for n in path:
+            out.setdefault(n, {})[aid] = launched[n]
+    return out
+
+
+def phase_dist_gnn(arch, graph, unplaced_losses) -> dict:
+    """Slice 21: graphsage-reddit at ogb_products through the reference's
+    default full-graph program on a world of one (`--full --shape
+    ogb_products --dist --mesh 1,1`: the edges over the data axes, each
+    layer's partial aggregate summed over them, the weights through the
+    placed fetch), DIST_SEQ_STEPS steps on gnn_full_graph's graph: each
+    loss bit for bit that phase's at the same seed, no
+    kernel launched (the full graph's aggregate is PyTorch's, as on one
+    device); nodes/s and peak memory."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    res = _dist_run("graphsage-reddit", shape=arch.shape("ogb_products"),
+                    graph=graph, log_every=DIST_SEQ_STEPS)
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    want = unplaced_losses[:DIST_SEQ_STEPS]
+    summary = {k: res[k] for k in ("nodes_per_s", "loop_step_s",
+                                   "train_step_s", "max_memory_allocated",
+                                   "mesh")}
+    summary.update(losses=res["losses"], unplaced_losses=want,
+                   launches=counts)
+    print("  dist_gnn " + json.dumps(summary), flush=True)
+    _dist_losses("dist_gnn", res["losses"], want)
+    if counts:
+        raise AssertionError(f"a kernel ran on the full-graph path: "
+                             f"{counts}")
+    if res["max_memory_allocated"] >= MESSAGE_BYTES:
+        raise AssertionError(f"dist_gnn peak "
+                             f"{res['max_memory_allocated'] / 1e9:.2f} GB")
+    return summary
 
 
 # ------------------------------------------------ slice 15: the LM family ---
@@ -5456,7 +5600,11 @@ def run_phases(agent_procs) -> int:
         phase_gnn_full_model(GNN_ARCH)
     torch.cuda.empty_cache()
     with Phase("gnn_full_graph"):
-        phase_gnn_full_graph(GNN_ARCH)
+        full, graph = phase_gnn_full_graph(GNN_ARCH)
+    torch.cuda.empty_cache()
+    with Phase("dist_gnn"):
+        phase_dist_gnn(GNN_ARCH, graph, full["losses"])
+    del graph
     torch.cuda.empty_cache()
     with Phase("gnn_molecule"):
         phase_gnn_molecule(GNN_ARCH)
@@ -5469,7 +5617,8 @@ def run_phases(agent_procs) -> int:
         phase_recsys_model(WD_ARCH.model)
     torch.cuda.empty_cache()
     with Phase("recsys_loop"):
-        wd_launches = phase_recsys_loop(WD_ARCH)
+        wd_launches, unplaced_losses = phase_recsys_loop(WD_ARCH)
+    unplaced_losses = {"wide-deep": unplaced_losses}
     launches["embedding_bag_fused_fwd"] = wd_launches.pop(
         "embedding_bag_fused_fwd")
     for name, n in wd_launches.items():
@@ -5527,13 +5676,19 @@ def run_phases(agent_procs) -> int:
             phase_seq_model(arch, SEQ_MODEL_BATCH[arch.arch_id])
         torch.cuda.empty_cache()
         with Phase(f"{arch.arch_id}_driver"):
-            seq_launches[arch.arch_id] = phase_seq_driver(arch, k)
+            seq_launches[arch.arch_id], unplaced_losses[arch.arch_id] = \
+                phase_seq_driver(arch, k)
         torch.cuda.empty_cache()
         with Phase(f"{arch.arch_id}_profile"):
             seq_in_step[arch.arch_id] = phase_seq_profile(arch, k)
         torch.cuda.empty_cache()
     with Phase("recsys_retrieval"):
         phase_recsys_retrieval((WD_ARCH,) + seq_archs)
+    torch.cuda.empty_cache()
+    # slice 21: the four placed through the driver on a world of one
+    with Phase("dist_recsys"):
+        dist_recsys = phase_dist_recsys((WD_ARCH,) + seq_archs,
+                                        unplaced_losses)
     torch.cuda.empty_cache()
     # each embedding kernel at each lookup of the three models, with its
     # launches and time in the step on that model's driver path
@@ -5554,6 +5709,8 @@ def run_phases(agent_procs) -> int:
         else:
             recs[name].update(lm_dist_launches=lm_launches,
                               lm_serve_launches=serve, lm=by)
+    for name, by_arch in dist_recsys.items():
+        recs[name]["dist_recsys_launches"] = by_arch
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "launches": launches[name], **recs[name]}
                for name, (src, tpu) in SOURCES.items()]

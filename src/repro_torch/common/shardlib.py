@@ -14,12 +14,13 @@ build. `placements` turns a spec into the per-mesh-dimension layout of a
 torch `DeviceMesh` (`Shard(d)` / `Replicate()`).
 
 The LM's logical axes live here too (`lm_param_logical`,
-`lm_opt_logical`, `lm_cache_logical`, and `lm_rules`): those of the
-reference's transformer parameters (repro/models/transformer.py:45-117),
-its MoE's (repro/models/moe.py:47-66), its optimizer state's
-(repro/train/optim.py:312-342) and its KV cache's, so that the port's
-placement (launch/programs.LMPlacement) stores every leaf as the block
-the reference's `sanitized_pspec` gives it.
+`lm_cache_logical`, and `lm_rules`): those of the reference's
+transformer parameters (repro/models/transformer.py:45-117), its MoE's
+(repro/models/moe.py:47-66) and its KV cache's; and every optimizer's
+state's (`opt_logical`, `opt_shape`: repro/train/optim.py:312-342), so
+that the port's placements (launch/programs.Placement and LMPlacement)
+store every leaf as the block the reference's `sanitized_pspec` gives
+it.
 
 `compat_shard_map`, `pspec_tree`, `sharding_tree` and `constrain` are JAX
 plumbing and have no counterpart: the port's explicit collectives name
@@ -235,12 +236,28 @@ def adafactor_factored(shape, min_dim_factored: int = 128) -> bool:
         and shape[-2] >= min_dim_factored
 
 
-def lm_opt_logical(optimizer: str, logical: Sequence, shape) -> dict:
+# row-wise adagrad keeps one accumulator a row of a tensor of two or more
+# axes and more than this many elements (repro/train/optim.py)
+ROWWISE_MIN_ELEMS = 1 << 24
+
+
+def rowwise_rows(shape) -> bool:
+    """Whether row-wise adagrad keeps one accumulator a row (over the last
+    axis) of a parameter of global `shape`."""
+    n = 1
+    for s in shape:
+        n *= s
+    return len(shape) >= 2 and n > ROWWISE_MIN_ELEMS
+
+
+def opt_logical(optimizer: str, logical: Sequence, shape) -> dict:
     """{state key: logical axes} of one parameter's optimizer state
     (repro/train/optim.opt_logical_axes): adam's m and v take the
     parameter's axes; adafactor's row mean vr `lg[:-1]` and column mean
     vc `lg[:-2] + lg[-1:]` where it factors (a full v otherwise); sgd's
-    mu and adagrad's acc the parameter's."""
+    mu and adagrad's acc the parameter's; row-wise adagrad's acc
+    `lg[:-1]` where it keeps one a row (`rowwise_rows` of the global
+    shape), else the parameter's."""
     lg = tuple(logical)
     if optimizer == "adam":
         return {"m": lg, "v": lg}
@@ -248,19 +265,24 @@ def lm_opt_logical(optimizer: str, logical: Sequence, shape) -> dict:
         if adafactor_factored(shape):
             return {"vr": lg[:-1], "vc": lg[:-2] + lg[-1:]}
         return {"v": lg}
+    if optimizer == "rowwise_adagrad":
+        return {"acc": lg[:-1] if rowwise_rows(shape) else lg}
     if optimizer in ("sgd", "adagrad"):
         return {"mu" if optimizer == "sgd" else "acc": lg}
-    raise ValueError(f"no LM optimizer state for {optimizer!r}")
+    raise ValueError(f"no optimizer state for {optimizer!r}")
 
 
-def lm_opt_shape(key: str, shape) -> tuple:
+def opt_shape(optimizer: str, key: str, shape) -> tuple:
     """The global shape of optimizer-state tensor `key` of a parameter of
-    `shape`: vr drops the last dim, vc the one before it."""
+    `shape`: vr drops the last dim, vc the one before it, a row-wise
+    accumulator the last."""
     shape = tuple(shape)
     if key == "vr":
         return shape[:-1]
     if key == "vc":
         return shape[:-2] + shape[-1:]
+    if optimizer == "rowwise_adagrad" and rowwise_rows(shape):
+        return shape[:-1]
     return shape
 
 
@@ -281,8 +303,10 @@ def lm_rules(cfg, kind: str = "train", batch: Optional[int] = None) -> dict:
 
 
 class ShardCtx:
-    """Carries (mesh, rules) through the recsys, DLRM and GNN model code,
-    whose explicit collectives read `mesh`. A no-arg ShardCtx() runs
+    """Carries (mesh, rules, placement) through the recsys and DLRM model
+    code: `placement` (launch/programs.Placement, whose `mesh` it is)
+    holds each parameter's spec and the fetch of a weight's blocks, and
+    the model's explicit collectives read it. A no-arg ShardCtx() runs
     model code on one device unchanged.
 
     It has no `cs`: the reference's activation constraints are GSPMD's
@@ -291,6 +315,8 @@ class ShardCtx:
     (launch/programs.LMPlacement) in place of a ShardCtx, and its layers
     gather, reduce-scatter and all-reduce where the placement says."""
 
-    def __init__(self, mesh=None, rules: Optional[Mapping[str, Axis]] = None):
-        self.mesh = mesh
+    def __init__(self, mesh=None, rules: Optional[Mapping[str, Axis]] = None,
+                 placement=None):
+        self.mesh = placement.mesh if placement is not None else mesh
         self.rules = dict(rules) if rules else dict(DEFAULT_RULES)
+        self.placement = placement

@@ -126,11 +126,14 @@ class GNNConfig:
     aggregator: str = "mean"
     sample_sizes: Tuple[int, ...] = (25, 10)
     param_dtype: str = "float32"
-    # per-shard edge padding headroom for dst-partition skew (a full graph
-    # on a mesh, models/gnn.full_graph_partitioned_loss; the reference's
-    # `partitioned` knob, which chooses that layout over GSPMD's
-    # edge-sharded program, has no counterpart: the port has no other)
+    # a full graph on a mesh: the dst-partitioned program (True,
+    # models/gnn.full_graph_partitioned_loss), or the reference's default,
+    # the edges over the data axes and the nodes replicated (False,
+    # models/gnn.full_graph_edge_sharded_loss)
+    partitioned: bool = False
+    # per-shard edge padding headroom for dst-partition skew
     partition_slack: float = 1.25
+    sharding_overrides: Tuple[Tuple[str, Optional[str]], ...] = ()
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

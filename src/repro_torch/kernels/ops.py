@@ -221,7 +221,10 @@ def embedding_bag_fused(tables: torch.Tensor, ids: torch.Tensor, *,
     """`embedding_bag` through the fused kernel where `fused_fires` (one
     feature's table at most 8 MiB, bag at most 16), through the row
     kernel otherwise: tables (F, V, D), ids (B, F, bag) -> (B, F, D)
-    f32, bit-equal either way, differentiable in `tables`."""
+    f32, bit-equal either way, differentiable in `tables`. The fused
+    kernel has no local-rows mode: a row-sharded arm on a mesh (wide-deep's
+    wide table, xDeepFM's linear arm) goes through `embedding_bag_local`
+    and `embedding_bag_local_bwd` (models/embedding.tp_multifeature_bag)."""
     return _EmbeddingBagFused.apply(tables, ids, combiner)
 
 

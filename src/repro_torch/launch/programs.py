@@ -1,55 +1,66 @@
 """The driver's placements on a mesh: port of the per-arch parts of
 repro/launch/programs.py that the explicit collectives need
-(`build_dlrm_program` :407-455, `build_recsys_program` :324-385,
-`build_gnn_program` :242-275). XLA's lowering and GSPMD's implicit
-placements have no counterpart: each parameter here is either
-row-sharded or replicated.
+(`build_lm_program` :99-178, `build_gnn_program` :242-275,
+`build_recsys_program` :324-385, `build_dlrm_program` :407-455). XLA's
+lowering and GSPMD's implicit placements have no counterpart: every
+parameter and optimizer-state tensor is this rank's block of
+`sanitized_pspec(global shape, the reference's logical axes, its
+rules)`, so that per-rank shapes and bytes are the reference's leaf for
+leaf, and the model code moves activations and gradients itself, over
+`torch.distributed`.
 
-- Row-sharded: the tables the row-sharded lookups read, where the config
-  sets `tp_lookup` (`ROW_SHARDED`): the DLRM's and wide-deep's stacked
-  tables (and wide-deep's wide arm) over `table_rows`, which their
-  sharding overrides map to every axis; BERT4Rec's items over
-  `table_rows`, the model axis by the default rules. Each spec is
-  `sanitized_pspec` of the global shape, so a table whose rows do not
-  divide replicates, as the lookup then falls back.
-- Replicated: everything else.
+`Placement` is the recsys, DLRM and GNN programs': each leaf's logical
+axes are the reference's init functions', which each model declares by
+the port's parameter names (its `param_logical()`; an `nn.Linear`
+weight is the reference's `w` transposed), under
+`make_rules(cfg.sharding_overrides)`: the dense
+layers' `fsdp` over the data axes and `mlp` over the model axis, the
+tables' rows over `table_rows` (the model axis by default: xDeepFM's
+tables and linear arm, DIEN's and BERT4Rec's items; every axis where the
+config's overrides say so: the DLRM's and wide-deep's tables and wide
+arm), the CIN filters' `mlp`, BERT4Rec's heads over the model axis, and
+everything whose dim does not divide replicated. `LMPlacement` is the
+LM family's (its rules `lm_rules`, its KV cache's spec too).
 
-`Placement` holds the specs and does the rest: this rank's slices of
-the parameters (the same seed on every rank makes the same whole
-tensors), the gradient reduction (a replicated gradient, or one sharded
-off the data axes, is averaged over the data axes by `psum_tree`; one
-sharded over them already holds every data rank's share, summed by the
-lookup's all-gather, and is divided by their count; the partitioned
-graph's are summed over every rank), the groups over which a shard's
-norm is summed, and the gather of a sharded state to whole arrays for a
-checkpoint in the JAX layout.
+How activations move (the models' code): a weight's blocks over the data
+axes are all-gathered where it is used (FSDP: `fetch`, whose backward
+reduce-scatters the gradient into the block); a layer split over the
+model axis computes this rank's output columns or heads (the dense
+stacks gather the columns over the model axis before the next layer,
+BERT4Rec's attention and FFN sum their partial outputs over it); a
+row-sharded table is read by the row-sharded lookups
+(models/embedding.py); xDeepFM's CIN takes this model rank's rows of its
+data rank's batch (the reference's `act_all_batch`); the full graph's
+edges are split over the data axes (models/gnn.py).
 
-`LMPlacement` is the LM family's (`build_lm_program` :99-178): every
-parameter, optimizer-state tensor and KV-cache tensor is this rank's
-block of `sanitized_pspec(global shape, logical axes, _lm_rules(...))`,
-so that per-rank shapes and bytes are the reference's leaf for leaf
-(weights: fsdp over the data axes, heads, kv heads, mlp, vocab and
-experts over the model axis, head_dim where a config's overrides send it
-there; the cache over batch, kv heads or head_dim, and its positions over
-the data axes for a decode batch under 8). How activations move is the
-port's own (models/transformer.py): the weights' fsdp shards are
-all-gathered a layer at a time, whose backward reduce-scatters their
-gradients; the residual stream is split on seq over the model ranks.
-Gradients follow one convention: the global loss is the sum over the
-data ranks of each rank's share (its tokens' summed loss over the global
-count), so a gradient sharded over the data axes needs nothing more (its
-gather's backward summed it), one replicated over them is summed over
-them (`psum_tree`, `--compress`), and one replicated over the model axis
-is summed over it (each model rank holds its own part: its sequence
-slice's, its experts', or a 1 / tp share where every model rank computes
-the same thing). `rank_bytes` is the per-rank byte plan of the
-parameters, the optimizer state and the cache from shapes alone, the
-counterpart of the reference dry run's `memory_analysis`.
+Gradients follow one convention, the LM's, for every leaf: the global
+loss is the sum over the data ranks of each rank's share (a recsys or
+DLRM data rank's loss, the mean over its rows, divided by the data
+ranks' count; the LM's tokens' summed loss over the global count; the
+partitioned graph's loss, whose parts each rank already holds), and
+every model rank of a data rank computes that share alike. After the
+backward each rank's gradient of a leaf is its share of the global
+loss's: where every model rank uses a weight alike (a replicated weight
+read whole) its fetch scales its gradient by 1 / tp; where each model
+rank uses it for its own part of the work (its rows, its columns, its
+node range) the gradient is that part's. `reduce_grads` then sums a
+gradient over the ranks its leaf is replicated on: over the model axis
+(`all_reduce`) and over the data axes (`psum_tree`, `--compress`); one
+sharded over the data axes has had its sum from its gather's
+reduce-scatter, or from the row-sharded lookup's all-gather.
+
+On a mesh made with `exchange_one_shard` (the driver's), `Placement`
+takes its collectives at an axis of one rank too, where the reference's
+would move nothing: a world of one then runs the placed fetch, the
+row-sharded lookups and the edge-sharded sum (the card's one-rank
+phases). `rank_bytes` is the per-rank byte plan of an LM's parameters,
+optimizer state and cache from shapes alone, the counterpart of the
+reference dry run's `memory_analysis`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,14 +73,6 @@ from repro_torch.launch.step_analysis import storage_bytes
 from repro_torch.models.transformer import param_shapes
 from repro_torch.train import collectives as coll
 from repro_torch.train.elastic import local_slice
-
-# the logical axes of each row-sharded parameter, by model name
-ROW_SHARDED = {
-    "dlrm": {"tables": (None, "table_rows", "table_dim")},
-    "wide-deep": {"tables": (None, "table_rows", "table_dim"),
-                  "wide": (None, "table_rows")},
-    "bert4rec": {"items": ("table_rows", "table_dim")},
-}
 
 
 def axes_group(mesh, axes):
@@ -97,37 +100,78 @@ def gather_full(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     return x.contiguous()
 
 
-class Placement:
-    """The specs of one model's parameters on `mesh` (see the module
-    docstring). `specs[name]` is None for a replicated parameter."""
+def _entry_axes(entry) -> tuple:
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
 
-    def __init__(self, mesh, model_name: str, cfg, named_shapes: dict,
-                 *, partitioned: bool = False):
-        self.mesh = mesh
-        self.partitioned = partitioned
-        sharded = ROW_SHARDED.get(model_name, {}) \
-            if getattr(cfg, "tp_lookup", False) else {}
-        rules = shardlib.make_rules(dict(cfg.sharding_overrides)) \
-            if sharded else None
-        self.shapes = {k: tuple(s) for k, s in named_shapes.items()}
-        self.specs: Dict[str, Optional[tuple]] = {}
-        for name, shape in self.shapes.items():
-            spec = None
-            if name in sharded:
-                spec = shardlib.sanitized_pspec(shape, sharded[name], rules,
-                                                mesh)
-                if not shardlib.spec_axes(spec):
-                    spec = None
-            self.specs[name] = spec
+
+class _Placed:
+    """What the two placements share: the mesh's groups, each leaf's
+    block, the weight fetch, the gradient reduction of the module
+    docstring's convention, the norm groups and the gathers and specs
+    of a checkpoint. A subclass sets `mesh`, `shapes`, `logical`,
+    `specs` (each parameter's spec), `rules`, `optimizer` and `exchange`
+    (collectives at an axis of one rank too), then calls `_groups`."""
+
+    partitioned = False
+
+    def _groups(self) -> None:
+        mesh, names = self.mesh, self.mesh.axis_names
+        self.tp = mesh.shape["model"] if "model" in names else 1
         self.dp = mesh.size(mesh.data_axes)
+        self.m = mesh.index("model") if "model" in names else 0
+        self.d = mesh.index(mesh.data_axes)
+        self.tpg = mesh.group("model") if "model" in names and (
+            self.tp > 1 or self.exchange) else None
+        self.dpg = mesh.data_group if mesh.data_axes and (
+            self.dp > 1 or self.exchange) else None
+
+    # ---------------------------------------------------------- layout --
+    def split(self, entry) -> int:
+        """The number of blocks a spec entry cuts its dim into."""
+        return self.mesh.size(_entry_axes(entry)) if entry else 1
+
+    def group_of(self, entry):
+        """The process group of a spec entry's axes (None: one rank, where
+        the placement takes no collective there)."""
+        if not entry or (self.split(entry) == 1 and not self.exchange):
+            return None
+        return axes_group(self.mesh, _entry_axes(entry))
+
+    def on_model(self, spec, d: int) -> bool:
+        """Whether dim d of `spec` is split over the model axis (its
+        collectives taken: more than one rank, or `exchange`)."""
+        return self.tpg is not None and spec[d] == "model"
+
+    def state_spec(self, name: str, key: str) -> tuple:
+        """The spec of optimizer-state tensor `key` of parameter `name`."""
+        shape = self.shapes[name]
+        lg = shardlib.opt_logical(self.optimizer, self.logical[name],
+                                  shape)[key]
+        return shardlib.sanitized_pspec(
+            shardlib.opt_shape(self.optimizer, key, shape), lg, self.rules,
+            self.mesh)
+
+    def blocks(self) -> dict:
+        """{name: ((start, size) of each dim)} of this rank's block of
+        every parameter, for `transformer.init_params(blocks=)`, which
+        draws each block without the whole tensor."""
+        out = {}
+        for name, spec in self.specs.items():
+            dims = []
+            for n, entry in zip(self.shapes[name], spec):
+                k = self.split(entry)
+                size = n // k
+                dims.append((self.mesh.index(entry) * size if k > 1 else 0,
+                             size))
+            out[name] = tuple(dims)
+        return out
 
     def shard_model(self, model: nn.Module) -> None:
-        """Replace each row-sharded parameter by this rank's slice of it
-        (a copy, so the whole tensor is freed; a slice that is the whole
-        keeps its storage)."""
+        """Replace each parameter of a whole model by this rank's block of
+        it (a copy, so that the whole tensor is freed; a block that is the
+        whole keeps its storage)."""
         for name, spec in self.specs.items():
-            if spec is None:
-                continue
             *path, leaf = name.split(".")
             mod = model
             for part in path:
@@ -140,80 +184,149 @@ class Placement:
                                             requires_grad=whole.requires_grad))
             del whole
 
+    # ----------------------------------------------------- the weights --
+    def fetch(self, w: torch.Tensor, spec, use: str = "keep"
+              ) -> torch.Tensor:
+        """A weight block (a layer's slice of a stacked parameter with
+        `spec` its dims' entries) made whole over the data axes (FSDP:
+        the backward reduce-scatters its gradient); over the model axis
+        `use` "keep" leaves a model-split dim split, "parts" gathers it
+        for this rank's own part of the work (backward: reduce-scatter),
+        "same" gathers it for work every model rank does alike (backward:
+        its own slice), and a weight replicated over the model ranks used
+        alike takes a 1 / tp share of its gradient. A weight gathered
+        along a dim other than its first comes back contiguous: the GEMM
+        that reads it then takes the layout, and the rounding, it takes on
+        one device (a world of one matches the unplaced step bit for
+        bit)."""
+        on_model, moved = False, False
+        for d, entry in enumerate(spec):
+            group = self.group_of(entry)
+            if group is None:
+                continue
+            axes = _entry_axes(entry)
+            if axes == ("model",):
+                on_model = True
+                if use == "keep":
+                    continue
+                gather = coll.all_gather_sum if use == "parts" \
+                    else coll.all_gather_same
+            elif set(axes) <= set(self.mesh.data_axes):
+                gather = coll.all_gather_sum
+            else:
+                raise ValueError(f"no weight is fetched over {axes}")
+            w = gather(w, group, d)
+            moved |= d > 0
+        if use == "same" and not on_model and self.tp > 1:
+            w = coll.grad_scaled(w, 1.0 / self.tp)
+        return w.contiguous() if moved else w
+
+    def param(self, model: nn.Module, name: str, use: str = "same"
+              ) -> torch.Tensor:
+        """`fetch` of the model's parameter `name` (a dotted path) under
+        its own spec."""
+        w = model
+        for part in name.split("."):
+            w = getattr(w, part)
+        return self.fetch(w, self.specs[name], use)
+
+    # ------------------------------------------------------- gradients --
     def norm_groups(self) -> dict:
-        """{name: group} of the sharded parameters: the group over which
-        the squares of a gradient's shard add up to its whole."""
-        return {name: axes_group(self.mesh, shardlib.spec_axes(spec))
-                for name, spec in self.specs.items() if spec is not None}
+        """{name: group} of the parameters split over more than one rank:
+        the group over which the squares of a gradient's block add up to
+        its whole."""
+        out = {}
+        for name, spec in self.specs.items():
+            axes = tuple(a for e in spec for a in _entry_axes(e)
+                         if self.mesh.shape[a] > 1)
+            if axes:
+                out[name] = axes_group(self.mesh, axes)
+        return out
+
+    def reduce_grads(self, grads: dict, compress: str = "none") -> dict:
+        """Each rank's gradient blocks -> the global loss's (the module
+        docstring's convention): a gradient replicated over the model
+        ranks summed over them, one replicated over the data axes summed
+        over them by `psum_tree`."""
+        out, dense = {}, {}
+        for name, g in grads.items():
+            axes = shardlib.spec_axes(self.specs[name])
+            if self.tpg is not None and "model" not in axes:
+                g = coll.all_reduce(g, self.tpg)
+            if self.dpg is not None and not set(self.mesh.data_axes) & \
+                    set(axes):
+                dense[name] = g
+            else:
+                out[name] = g
+        if dense:
+            out.update(coll.psum_tree(dense, self.dpg, compress=compress,
+                                      mean=False))
+        return {k: out[k] for k in grads}
+
+    # ----------------------------------------------------- checkpoints --
+    def gather(self, named: dict) -> dict:
+        """{name: this rank's block} of parameters -> {name: whole}."""
+        return {k: gather_full(v, self.specs[k], self.mesh)
+                for k, v in named.items()}
+
+    def gather_state(self, name: str, x, key: Optional[str] = None):
+        """Optimizer state of parameter `name` made whole: a tensor of
+        state `key`, or adafactor's dict of vr / vc or v."""
+        if isinstance(x, dict):
+            return {k: gather_full(v, self.state_spec(name, k), self.mesh)
+                    for k, v in x.items()}
+        return gather_full(x, self.state_spec(name, key), self.mesh)
+
+    def restore_specs(self, key: str, name: str, x):
+        """The spec (or adafactor's dict of specs) of optimizer state
+        `key` of parameter `name`."""
+        if isinstance(x, dict):
+            return {k: self.state_spec(name, k) for k in x}
+        return self.state_spec(name, key)
+
+
+class Placement(_Placed):
+    """The recsys, DLRM and GNN programs' placement on `mesh` (see the
+    module docstring): every leaf of `named_shapes` ({name: global
+    shape}) and its `optimizer` state at the spec of its logical axes in
+    `logical` ({name: axes}, the model's `param_logical()`; a leaf it
+    does not name, or names at another rank, is refused) under `cfg`'s
+    rules; `partitioned` a full graph's dst-partitioned loss. The model
+    code reads `specs`, `shapes`, the groups (`tpg`, `dpg`: None where
+    the placement takes no collective) and `fetch`."""
+
+    def __init__(self, mesh, cfg, named_shapes: dict, logical: dict, *,
+                 optimizer: str = "adam", partitioned: bool = False):
+        self.mesh, self.optimizer = mesh, optimizer
+        self.partitioned = partitioned
+        self.exchange = bool(getattr(mesh, "exchange_one_shard", False))
+        self.rules = shardlib.make_rules(dict(cfg.sharding_overrides))
+        self.shapes = {k: tuple(s) for k, s in named_shapes.items()}
+        self.logical = {}
+        for k, s in self.shapes.items():
+            if k not in logical or len(logical[k]) != len(s):
+                raise ValueError(f"no logical axes of rank {len(s)} for "
+                                 f"{k}: {logical.get(k)}")
+            self.logical[k] = tuple(logical[k])
+        self.specs = {k: shardlib.sanitized_pspec(s, self.logical[k],
+                                                  self.rules, mesh)
+                      for k, s in self.shapes.items()}
+        self._groups()
 
     def global_numel(self) -> dict:
         return {name: int(torch.Size(shape).numel())
                 for name, shape in self.shapes.items()}
 
-    def reduce_grads(self, grads: dict, compress: str = "none") -> dict:
-        """The gradients of the global loss from this rank's (see the
-        module docstring)."""
-        mesh = self.mesh
-        if self.partitioned:
-            return coll.psum_tree(grads, mesh.all_group, compress=compress,
-                                  mean=False)
-        out, dense = {}, {}
-        for name, g in grads.items():
-            axes = shardlib.spec_axes(self.specs.get(name))
-            on_data = [a for a in mesh.data_axes if a in axes]
-            if not on_data:
-                dense[name] = g
-            elif len(on_data) == len(mesh.data_axes):
-                # in place: a table's gradient is as large as the table
-                out[name] = g if self.dp == 1 else coll.ieee_div_(g, self.dp)
-            else:
-                raise ValueError(f"{name} is sharded over part of the data "
-                                 f"axes ({axes})")
-        if dense:
-            out.update(coll.psum_tree(dense, mesh.data_group,
-                                      compress=compress, mean=True))
-        return {k: out[k] for k in grads}
-
-    def state_spec(self, name: str, shape) -> Optional[tuple]:
-        """The spec of an optimizer-state tensor of parameter `name` with
-        global `shape`: the parameter's where the shapes agree, its
-        leading dims' where the state drops trailing ones (row-wise
-        adagrad's accumulator), else replicated."""
-        spec, pshape = self.specs.get(name), self.shapes[name]
-        if spec is None:
-            return None
-        shape = tuple(shape)
-        if shape == pshape[:len(shape)]:
-            return spec[:len(shape)]
-        return None
-
-    def gather(self, named: dict) -> dict:
-        """{name: this rank's tensor} of parameters -> {name: whole}."""
-        return {k: gather_full(v, self.specs.get(k), self.mesh)
-                for k, v in named.items()}
-
-    def gather_state(self, name: str, x: torch.Tensor,
-                     key: Optional[str] = None) -> torch.Tensor:
-        """An optimizer-state tensor of parameter `name` made whole."""
-        spec = self.specs.get(name)
-        if spec is None:
-            return x
-        # a state of the parameter's leading dims: its spec's
-        return gather_full(x, spec[:x.dim()], self.mesh)
-
-    def restore_specs(self, key: str, name: str, x) -> Optional[tuple]:
-        """The spec of a whole optimizer-state tensor `x` of state `key`
-        and parameter `name` from a checkpoint."""
-        return self.state_spec(name, x.shape)
+    def rows_axes(self, name: str):
+        """The mesh axes table `name`'s rows (its `table_rows` dim) are
+        split over, None where they are not (the table then whole on
+        every rank)."""
+        entry = self.specs[name][self.logical[name].index("table_rows")]
+        return entry if self.group_of(entry) is not None else None
 
 
 # ------------------------------------------------------------------- LM ----
-def _entry_axes(entry) -> tuple:
-    return () if entry is None else (
-        (entry,) if isinstance(entry, str) else tuple(entry))
-
-
-class LMPlacement:
+class LMPlacement(_Placed):
     """The LM family's placement on `mesh` (see the module docstring):
     `kind` and `batch` are the shape's (a decode batch under 8 puts the
     cache's positions on the data axes), `optimizer` the arch's. The
@@ -226,30 +339,14 @@ class LMPlacement:
                  cache_len: Optional[int] = None):
         self.mesh, self.cfg, self.optimizer = mesh, cfg, optimizer
         self.kind, self.batch, self.cache_len = kind, batch, cache_len
-        self.partitioned = False
+        self.exchange = False
         self.rules = shardlib.lm_rules(cfg, kind, batch)
         self.shapes = {k: tuple(v[0]) for k, v in param_shapes(cfg).items()}
         self.logical = shardlib.lm_param_logical(cfg)
         self.specs = {k: shardlib.sanitized_pspec(s, self.logical[k],
                                                   self.rules, mesh)
                       for k, s in self.shapes.items()}
-        names = mesh.axis_names
-        self.tp = mesh.shape["model"] if "model" in names else 1
-        self.dp = mesh.size(mesh.data_axes)
-        self.m = mesh.index("model") if self.tp > 1 else 0
-        self.d = mesh.index(mesh.data_axes) if self.dp > 1 else 0
-        self.tpg = mesh.group("model") if self.tp > 1 else None
-        self.dpg = mesh.data_group if self.dp > 1 else None
-
-    # ---------------------------------------------------------- layout --
-    def split(self, entry) -> int:
-        """The number of blocks a spec entry cuts its dim into."""
-        return self.mesh.size(_entry_axes(entry)) if entry else 1
-
-    def on_model(self, spec, d: int) -> bool:
-        """Whether dim d of `spec` is split over more than one model
-        rank."""
-        return self.tp > 1 and spec[d] == "model"
+        self._groups()
 
     def seq_split(self, seq: int) -> bool:
         """Whether the residual stream of `seq` positions is split over
@@ -287,20 +384,6 @@ class LMPlacement:
             (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim),
             shardlib.lm_cache_logical(), self.rules, self.mesh)
 
-    def state_spec(self, name: str, key: str) -> tuple:
-        """The spec of optimizer-state tensor `key` of parameter `name`."""
-        shape = self.shapes[name]
-        lg = shardlib.lm_opt_logical(self.optimizer, self.logical[name],
-                                     shape)[key]
-        return shardlib.sanitized_pspec(shardlib.lm_opt_shape(key, shape),
-                                        lg, self.rules, self.mesh)
-
-    def group_of(self, entry):
-        """The process group of a spec entry's axes (None: one rank)."""
-        if self.split(entry) == 1:
-            return None
-        return axes_group(self.mesh, _entry_axes(entry))
-
     def dim_groups(self, name: str) -> tuple:
         """Each dim's group of parameter `name` (None: not split)."""
         return tuple(self.group_of(e) for e in self.specs[name])
@@ -322,122 +405,6 @@ class LMPlacement:
             out[name] = (self.shapes[name], self.dim_groups(name),
                          groups[name], vcg)
         return out
-
-    # ----------------------------------------------------- the weights --
-    def fetch(self, w: torch.Tensor, spec, use: str = "keep"
-              ) -> torch.Tensor:
-        """A weight block (a layer's slice of a stacked parameter with
-        `spec` its dims' entries) made whole over the data axes (FSDP:
-        the backward reduce-scatters its gradient); over the model axis
-        `use` "keep" leaves a model-split dim split, "parts" gathers it
-        for this rank's own part of the work (backward: reduce-scatter),
-        "same" gathers it for work every model rank does alike (backward:
-        its own slice), and a weight replicated over the model ranks used
-        alike takes a 1 / tp share of its gradient."""
-        on_model = False
-        for d, entry in enumerate(spec):
-            axes = _entry_axes(entry)
-            if not axes or self.split(entry) == 1:
-                continue
-            if axes == ("model",):
-                on_model = True
-                if use == "parts":
-                    w = coll.all_gather_sum(w, self.tpg, d)
-                elif use == "same":
-                    w = coll.all_gather_same(w, self.tpg, d)
-            elif set(axes) <= set(self.mesh.data_axes):
-                w = coll.all_gather_sum(w, self.group_of(entry), d)
-            else:
-                raise ValueError(f"no LM weight splits over {axes}")
-        if use == "same" and not on_model and self.tp > 1:
-            w = coll.grad_scaled(w, 1.0 / self.tp)
-        return w
-
-    def blocks(self) -> dict:
-        """{name: ((start, size) of each dim)} of this rank's block of
-        every parameter, for `transformer.init_params(blocks=)`, which
-        draws each block without the whole tensor."""
-        out = {}
-        for name, spec in self.specs.items():
-            dims = []
-            for n, entry in zip(self.shapes[name], spec):
-                k = self.split(entry)
-                size = n // k
-                dims.append((self.mesh.index(entry) * size if k > 1 else 0,
-                             size))
-            out[name] = tuple(dims)
-        return out
-
-    def shard_model(self, model: nn.Module) -> None:
-        """Replace each parameter of a whole model by this rank's block of
-        it (a copy, so that the whole tensor is freed; a block that is the
-        whole keeps its storage)."""
-        for name, spec in self.specs.items():
-            *path, leaf = name.split(".")
-            mod = model
-            for part in path:
-                mod = getattr(mod, part)
-            whole = getattr(mod, leaf)
-            part = local_slice(whole.detach(), spec, self.mesh)
-            if part.shape != whole.shape:
-                part = part.clone()
-            setattr(mod, leaf, nn.Parameter(part,
-                                            requires_grad=whole.requires_grad))
-            del whole
-
-    # ------------------------------------------------------- gradients --
-    def norm_groups(self) -> dict:
-        """{name: group} of the parameters split over more than one rank:
-        the group over which the squares of a gradient's block add up to
-        its whole."""
-        out = {}
-        for name, spec in self.specs.items():
-            axes = tuple(a for e in spec for a in _entry_axes(e)
-                         if self.mesh.shape[a] > 1)
-            if axes:
-                out[name] = axes_group(self.mesh, axes)
-        return out
-
-    def reduce_grads(self, grads: dict, compress: str = "none") -> dict:
-        """Each rank's gradient blocks -> the global loss's (the module
-        docstring's convention): a gradient replicated over the model
-        ranks summed over them, one replicated over the data axes summed
-        over them by `psum_tree`."""
-        out, dense = {}, {}
-        for name, g in grads.items():
-            axes = shardlib.spec_axes(self.specs[name])
-            if self.tp > 1 and "model" not in axes:
-                g = coll.all_reduce(g, self.tpg)
-            if self.dpg is not None and not set(self.mesh.data_axes) & \
-                    set(axes):
-                dense[name] = g
-            else:
-                out[name] = g
-        if dense:
-            out.update(coll.psum_tree(dense, self.dpg, compress=compress,
-                                      mean=False))
-        return {k: out[k] for k in grads}
-
-    # ----------------------------------------------------- checkpoints --
-    def gather(self, named: dict) -> dict:
-        """{name: this rank's block} of parameters -> {name: whole}."""
-        return {k: gather_full(v, self.specs[k], self.mesh)
-                for k, v in named.items()}
-
-    def gather_state(self, name: str, x, key: Optional[str] = None):
-        """Optimizer state of parameter `name` made whole: a tensor of
-        state `key`, or adafactor's dict of vr / vc or v."""
-        if isinstance(x, dict):
-            return {k: gather_full(v, self.state_spec(name, k), self.mesh)
-                    for k, v in x.items()}
-        return gather_full(x, self.state_spec(name, key), self.mesh)
-
-    def restore_specs(self, key: str, name: str, x):
-        """The spec (or adafactor's dict of specs) of optimizer state
-        `key` of parameter `name`."""
-        if isinstance(x, dict):
-            return {k: self.state_spec(name, k) for k in x}
-        return self.state_spec(name, key)
 
 
 class _ShapeMesh:
@@ -471,10 +438,10 @@ def plan_bytes(cfg, optimizer: str, shape, mesh_shape) -> dict:
         item = torch.empty((), dtype=dtype).element_size()
         out["params"] += block_bytes(gshape, logical[name], item)
         if shape.kind == "train":
-            for key, lg in shardlib.lm_opt_logical(
+            for key, lg in shardlib.opt_logical(
                     optimizer, logical[name], gshape).items():
                 out["opt_state"] += block_bytes(
-                    shardlib.lm_opt_shape(key, gshape), lg, 4)
+                    shardlib.opt_shape(optimizer, key, gshape), lg, 4)
     if shape.kind == "decode":
         cshape = (cfg.n_layers, shape.batch, shape.seq_len, cfg.n_kv_heads,
                   cfg.head_dim)
@@ -608,46 +575,19 @@ def input_specs(arch, shape_name: str) -> dict:
 
 
 # ------------------------------------------------- the reference's specs ----
-def _reference_axes(model_name: str, name: str, ndim: int) -> tuple:
-    """The logical axes the reference gives a recsys, DLRM or GNN leaf
-    (its init functions' `logical` trees), by the port's parameter name,
-    in the port's layout (an `nn.Linear` weight (out, in) is the
-    reference's (in, out) `w` transposed)."""
-    parts = name.split(".")
-    key = parts[-1] if not parts[-1].isdigit() else parts[-2]
-    if key == "weight":
-        return ("mlp", "fsdp")
-    if key == "bias":
-        return ("mlp",)
-    table = {"tables": (None, "table_rows", "table_dim"),
-             "wide": (None, "table_rows"), "linear": (None, "table_rows"),
-             "items": ("table_rows", "table_dim"), "cin": ("mlp", None, None),
-             "w": ("fsdp", "mlp"), "u": ("fsdp", "mlp"),
-             "b": (None,) if model_name == "graphsage-reddit" else ("mlp",),
-             "w_self": ("fsdp", None), "w_neigh": ("fsdp", None),
-             "ffn_b": ("mlp",), "ffn_in": ("fsdp", "mlp"),
-             "ffn_out": ("mlp", "fsdp"), "ln1": ("embed",),
-             "ln2": ("embed",), "ln_f": ("embed",),
-             "wo": ("heads", "head_dim", "fsdp"),
-             "wqkv": ("fsdp", None, "heads", "head_dim"),
-             "pos": ("seq", "embed")}
-    axes = table.get(key, (None,) * ndim)
-    return axes if len(axes) == ndim else (None,) * ndim
-
-
-def replicated_leaves(placement: Placement, cfg, mesh) -> list:
-    """The parameters the port replicates where the reference's rules
-    (GSPMD's placement of the same logical axes) would shard them over
-    more than one rank: [(name, the reference's spec)]."""
-    rules = shardlib.make_rules(dict(getattr(cfg, "sharding_overrides",
-                                             ())))
+def replicated_leaves(placement: Placement, model: nn.Module) -> list:
+    """The parameters of `model` whose local shape is not their block
+    under the placement's spec: [(name, spec)]. `shard_model` stores
+    every leaf as that block, so the list is empty; it stays as the check
+    that no leaf was left whole. (Whether the specs are the reference's
+    is what tests/test_torch_dryrun.py holds against the reference's own
+    logical trees and in_shardings.)"""
+    local = {k: tuple(p.shape) for k, p in model.named_parameters()}
     out = []
     for name, shape in placement.shapes.items():
-        if placement.specs.get(name) is not None:
-            continue
-        spec = shardlib.sanitized_pspec(
-            shape, _reference_axes(cfg.name, name, len(shape)), rules, mesh)
-        if any(shardlib.axes_prod(e, mesh) > 1 for e in spec):
+        spec = placement.specs[name]
+        block = tuple(n // placement.split(e) for n, e in zip(shape, spec))
+        if local[name] != block:
             out.append((name, spec))
     return out
 
@@ -660,8 +600,8 @@ class Program:
     `opt_state` and `inputs` are this rank's, on the program's device.
     `memory` is their bytes {"params", "opt_state", "inputs", "cache"};
     `meta` holds the placement, the batch a rank and, for a recsys, DLRM
-    or GNN model, `replicated`: the leaves the port replicates where the
-    reference's rules would shard them."""
+    or GNN model, `replicated`: the leaves not stored as their block
+    (`replicated_leaves`; none)."""
     name: str
     kind: str
     fn: Callable
@@ -719,8 +659,8 @@ def build_program(arch, shape, mesh, device="meta", *, cfg=None,
     reference's `build_program`, repro/launch/programs.py:454-459): the
     driver's placements and train step (launch/train.build_step) for
     `train`; the LM's prefill and decode under `LMPlacement`; the recsys
-    and DLRM forward through the row-sharded lookups on this rank's rows
-    for `serve`; `score_candidates(mesh=)` for `retrieval`. `cfg`
+    and DLRM placed forward on this rank's rows for `serve`;
+    `score_candidates(placement=)` for `retrieval`. `cfg`
     replaces the arch's config (a reduced one in the tests), `batch` the
     shape's batch (a run one card holds) and `microbatches` splits a
     train step. On `device` "meta" (the dry run's) nothing is allocated:
@@ -755,11 +695,11 @@ def build_program(arch, shape, mesh, device="meta", *, cfg=None,
         model = train_lib.init_params_for(arch, cfg, 0, shape=shape,
                                           device=device)
         placement = train_lib.model_placement(arch, cfg, shape, model, mesh)
-        inputs, fn = _recsys_serving(arch, cfg, shape, mesh, device)
+        inputs, fn = _recsys_serving(arch, cfg, shape, placement, device)
         opt_state, cache_bytes = None, 0
     meta["placement"] = placement
     if isinstance(placement, Placement):
-        meta["replicated"] = replicated_leaves(placement, cfg, mesh)
+        meta["replicated"] = replicated_leaves(placement, model)
     memory = {"params": storage_bytes(model),
               "opt_state": storage_bytes(opt_state or {}),
               "cache": cache_bytes}
@@ -777,6 +717,15 @@ def _train_inputs(arch, cfg, shape, mesh, device, placement, microbatches):
             partitioned=bool(placement and placement.partitioned))
         return fn()
     specs = _INPUT_SPECS[arch.family](arch, shape)
+    if arch.family == "gnn" and shape.kind == "full_graph" \
+            and not placement.partitioned:
+        # the edge-sharded layout: the nodes whole, this data rank's
+        # slice of the padded edges as its plan
+        e = specs["edge_src"].shape[0] // mesh.size(mesh.data_axes)
+        return {"x": torch.empty(specs["x"].shape, dtype=f32, device=device),
+                "labels": torch.empty(specs["labels"].shape, dtype=i32,
+                                      device=device),
+                "plan": _meta_plan(e, shape.n_nodes, device)}
     if arch.family == "gnn" and shape.kind == "full_graph":
         # the dst-partitioned layout the driver makes on a mesh: every
         # rank holds the whole graph and builds its own edges' plan
@@ -829,13 +778,14 @@ def _lm_serving(cfg, shape, mesh, device):
     return model, {"cache": cache, "tokens": tokens((rows,))}, fn, pl
 
 
-def _recsys_serving(arch, cfg, shape, mesh, device):
-    """A recsys or DLRM model's serve (its forward through the row-sharded
-    lookups, this data rank's rows) or retrieval (`score_candidates` on
-    the mesh, 25 chunks as the reference's) step."""
+def _recsys_serving(arch, cfg, shape, placement, device):
+    """A recsys or DLRM model's serve (its placed forward, this data
+    rank's rows) or retrieval (`score_candidates` under the placement,
+    25 chunks as the reference's) step."""
     from repro_torch.models import dlrm as dlrm_lib
     from repro_torch.models import recsys as recsys_lib
-    ctx = shardlib.ShardCtx(mesh)
+    mesh = placement.mesh
+    ctx = shardlib.ShardCtx(placement=placement)
     specs = _INPUT_SPECS[arch.family](arch, shape)
     gen = torch.Generator().manual_seed(0)
 
@@ -855,13 +805,11 @@ def _recsys_serving(arch, cfg, shape, mesh, device):
         inputs = draw(specs, _data_rows(shape.batch, mesh, False))
         if cfg.name == "bert4rec":
             fwd = lambda m, b: m.encode(b["item_seq"], ctx=ctx)
-        elif cfg.name == "dien":
-            fwd = lambda m, b: m(b)
         else:
             fwd = lambda m, b: m(b, ctx=ctx)
         return inputs, torch.no_grad()(fwd)
     inputs = draw(specs)
     lib = dlrm_lib if arch.family == "dlrm" else recsys_lib
     fn = lambda m, inp: lib.score_candidates(m, inp["user"], inp["cand_ids"],
-                                             chunks=25, mesh=mesh)
+                                             chunks=25, placement=placement)
     return inputs, fn

@@ -89,18 +89,24 @@ on either device (models/transformer.py).
 `--dist` joins the process group `torchrun` describes (RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT; NCCL on `cuda`, gloo
 on `cpu`, never one for the other) and trains on the (data, model) mesh
-`--mesh DP,TP` (default: every rank on the data axis). The parameters
-are placed by `launch/programs.Placement`: the tables of the row-sharded
-lookups (`tp_lookup`: the DLRM's and wide-deep's tables over every axis,
-BERT4Rec's items over the model axis) are this rank's row shards, their
-gradients and optimizer state stay local (row-wise adagrad on the
-shard), and everything else is replicated, its gradients averaged over
-the data axes by `psum_tree` (`--compress`). Each data rank takes its
-slice of the global batch, so the global batch is the shape's; the
-losses printed and returned are the global batch's. A full graph on a
-mesh takes the dst-partitioned loss (`full_graph_partitioned_loss`; the
-reference's `partitioned` knob chooses it over GSPMD's edge-sharded
-program, which the port does not have). A checkpoint is
+`--mesh DP,TP` (default: every rank on the data axis). A recsys, DLRM
+or GNN model is placed by `launch/programs.Placement`, the reference's
+build_recsys_program, build_dlrm_program and build_gnn_program: every
+parameter and optimizer-state tensor is this rank's block under the
+reference's rules (the dense layers' fsdp over the data axes and mlp over
+the model axis; the tables' rows over every axis for the DLRM and
+wide-deep, over the model axis for xDeepFM, DIEN and BERT4Rec, read by
+the row-sharded lookups; BERT4Rec's heads over the model axis; the
+GraphSAGE weights' fsdp over the data axes), and each rank's gradients
+are its share of the global loss's, summed where a leaf is replicated
+(`--compress` for the sum over the data axes; launch/programs.py states
+the convention). Each data rank takes its slice of the global batch, so
+the global batch is the shape's; the losses printed and returned are the
+global batch's. A full graph on a mesh is the reference's default
+program, its padded edges split over the data axes and the nodes
+replicated (`full_graph_edge_sharded_loss`), or with `--partitioned`
+(the reference's `partitioned` knob) the dst-partitioned one
+(`full_graph_partitioned_loss`). A checkpoint is
 gathered whole to rank 0 in the JAX layout and restored onto any mesh
 (`train/elastic.reshard`). The LM family is placed by
 `launch/programs.LMPlacement`, the reference's build_lm_program: every
@@ -281,9 +287,12 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
     wide-deep, xDeepFM), or DIEN's and BERT4Rec's synthetic sequences
     drawn from `rng`, as the JAX driver makes them. On a `mesh` every
     rank makes the global batch and keeps its data rank's rows
-    (`data_rows`: its slice of each of the `microbatches`), or with
-    `partitioned` (a full graph) the whole graph in the dst-partitioned
+    (`data_rows`: its slice of each of the `microbatches`); a full graph
+    the whole graph with its data rank's slice of the edges
+    (`_edge_sharded_fn`), or with `partitioned` in the dst-partitioned
     layout, with its own rank's edge plan."""
+    if mesh is not None and not partitioned and shape.kind == "full_graph":
+        return _edge_sharded_fn(cfg, shape, rng, device, graph, mesh)
     if mesh is not None and not partitioned:
         dp, k = mesh.size(mesh.data_axes), mesh.index(mesh.data_axes)
         whole_fn = make_batch_fn(arch, cfg, batch, rng, shape=shape,
@@ -337,6 +346,30 @@ def make_batch_fn(arch: ArchSpec, cfg, batch: int, rng: np.random.RandomState,
     return lambda: to_device(sampler.sample(batch))
 
 
+def _edge_sharded_fn(cfg, shape, rng, device, graph, mesh):
+    """The edge-sharded full graph's batch on `mesh` (the reference's
+    `gnn_input_specs` under its rules: the padded edges over the data
+    axes, the nodes, features and labels whole): x and labels on
+    `device` and this data rank's contiguous slice of the edges as a
+    SegmentPlan (`gnn.edge_shard_plan`) whose count is the whole graph's
+    in-degree; built once, the same tensors every call."""
+    g = graph if graph is not None \
+        else full_graph_batch(shape, cfg.n_classes, rng)
+    dp, k = mesh.size(mesh.data_axes), mesh.index(mesh.data_axes)
+    n, e = g["x"].shape[0], g["edge_src"].shape[0]
+    if e % dp:
+        raise ValueError(f"{e} edges do not split over {dp} data ranks")
+    lo, hi = k * (e // dp), (k + 1) * (e // dp)
+    dst = g["edge_dst"]
+    deg = np.bincount(dst[(dst >= 0) & (dst < n)], minlength=n)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    whole = {"x": to(g["x"]), "labels": to(g["labels"])}
+    whole["plan"] = gnn_lib.edge_shard_plan(
+        to(g["edge_src"][lo:hi]), to(dst[lo:hi]), n,
+        to(deg.astype(np.float32)))
+    return lambda: whole
+
+
 def data_rows(batch: int, dp: int, k: int, microbatches: int = 1):
     """The global batch's rows that data rank k of dp holds: its slice of
     each of the `microbatches` consecutive slices, in order, so that the
@@ -354,22 +387,44 @@ def data_rows(batch: int, dp: int, k: int, microbatches: int = 1):
 def make_loss_fn(arch: ArchSpec, cfg, shape=DRIVER_SHAPE,
                  placement: Optional[Placement] = None):
     """loss(model, batch) of the arch's family, and for the gnn family of
-    the shape's kind; on a mesh (`placement`) the row-sharded lookups',
-    the partitioned graph's and the placed LM's."""
-    if _family(arch) == "lm":
+    the shape's kind; on a mesh (`placement`) the placed model's, as this
+    rank's share of the global loss (launch/programs.py's convention: a
+    data rank's mean over its rows divided by the data ranks' count; the
+    partitioned graph's loss, whose gradients are already each rank's
+    part, as it is), the LM's its own."""
+    family = _family(arch)
+    if family == "lm":
         if placement is not None:
             return lambda model, b: tfm.loss_fn(model, b,
                                                 placement=placement)
         return tfm.loss_fn
-    ctx = ShardCtx(placement.mesh) if placement is not None else None
-    if _family(arch) == "recsys":
-        return lambda model, b: recsys_lib.loss_fn(model, b, ctx=ctx)
-    if _family(arch) == "dlrm":
-        return lambda model, b: dlrm_lib.loss_fn(model, b, ctx=ctx)
-    if placement is not None and placement.partitioned:
+    if placement is None:
+        if family == "recsys":
+            return recsys_lib.loss_fn
+        if family == "dlrm":
+            return dlrm_lib.loss_fn
+        return _GNN_LOSSES[shape.kind]
+    ctx = ShardCtx(placement=placement)
+    if family == "recsys":
+        fn = lambda model, b: recsys_lib.loss_fn(model, b, ctx=ctx)
+    elif family == "dlrm":
+        fn = lambda model, b: dlrm_lib.loss_fn(model, b, ctx=ctx)
+    elif placement.partitioned:
         return lambda model, b: gnn_lib.full_graph_partitioned_loss(
-            model, b, placement.mesh)
-    return _GNN_LOSSES[shape.kind]
+            model, b, placement.mesh, placement)
+    elif shape.kind == "full_graph":
+        fn = lambda model, b: gnn_lib.full_graph_edge_sharded_loss(
+            model, b, placement)
+    else:
+        fn = lambda model, b: _GNN_LOSSES[shape.kind](model, b,
+                                                      placement=placement)
+    if placement.dp == 1:
+        return fn
+
+    def share(model, b):
+        loss, metrics = fn(model, b)
+        return coll.ieee_div(loss, placement.dp), metrics
+    return share
 
 
 def init_params_for(arch: ArchSpec, cfg, seed: int, *,
@@ -484,13 +539,16 @@ def record_step(path: str, rec: dict) -> None:
 
 # ---------------------------------------------------------------- driver ---
 def model_placement(arch: ArchSpec, cfg, shape, model, mesh) -> Placement:
-    """The recsys, DLRM or GNN model's placement on `mesh`, the model's
-    row-sharded parameters replaced by this rank's shards (a full graph
-    takes the dst-partitioned loss's)."""
+    """The recsys, DLRM or GNN model's placement on `mesh` (the
+    reference's specs of every leaf and of its optimizer state), the
+    model's parameters replaced by this rank's blocks; a full graph
+    takes the dst-partitioned loss's where `cfg.partitioned`, else the
+    edge-sharded one's."""
     placement = Placement(
-        mesh, "dlrm" if _family(arch) == "dlrm" else cfg.name, cfg,
-        {k: p.shape for k, p in model.named_parameters()},
-        partitioned=_family(arch) == "gnn" and shape.kind == "full_graph")
+        mesh, cfg, {k: p.shape for k, p in model.named_parameters()},
+        model.param_logical(), optimizer=arch.optimizer,
+        partitioned=(_family(arch) == "gnn" and shape.kind == "full_graph"
+                     and cfg.partitioned))
     placement.shard_model(model)
     return placement
 
@@ -558,7 +616,8 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
         dist_run: bool = False, mesh_shape: Optional[tuple] = None,
         compress: str = "none", rank: Optional[int] = None,
         world_size: Optional[int] = None,
-        init_method: Optional[str] = None) -> dict:
+        init_method: Optional[str] = None, partitioned: bool = False
+        ) -> dict:
     """Train `steps` steps of `arch_id` on `shape`'s synthetic data (the
     family's driver shape if None) and return what the run measured.
     `sampler` is a prebuilt graph of a GNN minibatch `shape` and `graph`
@@ -571,7 +630,8 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
     docstring): `mesh_shape` (DP, TP), `compress` the replicated
     gradients' all-reduce, and `rank` / `world_size` / `init_method`
     where no `torchrun` environment gives them; a process group this
-    call starts it also ends."""
+    call starts it also ends. `partitioned` sets the gnn config's knob
+    (a full graph on a mesh then takes the dst-partitioned loss)."""
     arch = get_arch(arch_id)
     family = _family(arch)
     if not dist_run:
@@ -579,7 +639,7 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
                     lr=lr, device=device, ckpt_dir=ckpt_dir,
                     ckpt_every=ckpt_every, sampler=sampler, graph=graph,
                     log_every=log_every, microbatches=microbatches,
-                    steps_json=steps_json)
+                    steps_json=steps_json, partitioned=partitioned)
     started = not dist.is_initialized()
     dev = mesh_lib.init_distributed(device, rank=rank,
                                     world_size=world_size,
@@ -592,7 +652,8 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
                     lr=lr, device=dev, ckpt_dir=ckpt_dir,
                     ckpt_every=ckpt_every, sampler=sampler, graph=graph,
                     log_every=log_every, microbatches=microbatches,
-                    steps_json=steps_json, mesh=mesh, compress=compress)
+                    steps_json=steps_json, mesh=mesh, compress=compress,
+                    partitioned=partitioned)
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
@@ -600,7 +661,8 @@ def run(arch_id: str, *, steps: int, batch: Optional[int] = None,
 
 def _run(arch: ArchSpec, *, steps, batch, shape, full, lr, device,
          ckpt_dir, ckpt_every, sampler, graph, log_every, microbatches,
-         steps_json, mesh=None, compress: str = "none") -> dict:
+         steps_json, mesh=None, compress: str = "none",
+         partitioned: bool = False) -> dict:
     arch_id = arch.arch_id
     family = _family(arch)
     default_shape, _, lib = _FAMILIES[family]
@@ -610,6 +672,10 @@ def _run(arch: ArchSpec, *, steps, batch, shape, full, lr, device,
         raise ValueError("a full graph is one batch: it takes no "
                          "microbatches")
     cfg = arch.model if full else reduced_model(arch)
+    if partitioned:
+        if family != "gnn":
+            raise ValueError("--partitioned is the gnn family's knob")
+        cfg = cfg.replace(partitioned=True)
     lm_mesh = mesh is not None and family == "lm"
     if lm_mesh:
         check_fits_a_rank(arch, cfg, tuple(mesh.shape[a]
@@ -666,8 +732,8 @@ def _run(arch: ArchSpec, *, steps, batch, shape, full, lr, device,
         if isinstance(placement, LMPlacement):
             loss = metrics["global_loss"]     # every rank holds it
         elif placement is not None and not placement.partitioned:
-            # the global batch's: the mean of the data ranks' equal slices
-            loss = coll.psum_tree(loss.float(), mesh.data_group)
+            # the global batch's: the sum of the data ranks' shares
+            loss = coll.psum_tree(loss.float(), mesh.data_group, mean=False)
         losses.append(float(loss))                   # waits for the step
         t_c = time.monotonic()
         fetch_s += t_b - t_a
@@ -764,6 +830,10 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="DP,TP: the (data, model) mesh of --dist "
                          "(default: every rank on the data axis)")
+    ap.add_argument("--partitioned", action="store_true",
+                    help="a full graph under --dist: the dst-partitioned "
+                         "program (default: the reference's edge-sharded "
+                         "one)")
     ap.add_argument("--compress", default="none",
                     choices=("none", "bf16", "int8"),
                     help="the replicated gradients' all-reduce under "
@@ -784,7 +854,7 @@ def main(argv=None):
                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                microbatches=args.microbatches, steps_json=args.steps_json,
                dist_run=args.dist, mesh_shape=mesh_shape,
-               compress=args.compress)
+               compress=args.compress, partitioned=args.partitioned)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,12 @@ the embedding bags and the interaction both run through the
 hand-written kernels (repro_torch.kernels.ops), forward and backward,
 in f32 or, as the reference configuration has them, bf16 (the bags sum
 in f32 and are rounded to bf16 for the interaction). On a mesh (a
-`ShardCtx` with `cfg.tp_lookup`) the tables are this rank's row shard
-and the lookup is `tp_multifeature_bag`, through the kernel's
-local-rows mode. `score_candidates`
-is the reference's retrieval scoring, on a mesh too.
+`ShardCtx` carrying a `launch.programs.Placement`) every parameter is
+this rank's block of the reference's spec: the tables' row shard,
+read by `tp_multifeature_bag` through the kernel's local-rows mode, and
+the bottom and top MLPs' fsdp and mlp blocks (the placed
+`recsys.apply_mlp`). `score_candidates` is the reference's retrieval
+scoring, on a mesh too.
 
 Parameters cross between the packages as numpy in the JAX layout,
 `{"tables": (F, V, D), "bottom"/"top": ({"w": (in, out), "b": (out,)},
@@ -32,7 +34,8 @@ from repro_torch.models.embedding import (multifeature_bag,
                                           tp_multifeature_bag)
 from repro_torch.models.exchange import (from_numpy, generator, to_numpy,
                                           transpose)
-from repro_torch.models.recsys import apply_mlp, bce_loss, init_mlp
+from repro_torch.models.recsys import (apply_mlp, bce_loss, init_mlp,
+                                       mlp_logical, table_lookup)
 from repro_torch.train import collectives as coll
 
 
@@ -58,6 +61,13 @@ class DLRM(nn.Module):
         self.top = init_mlp((top_in,) + cfg.top_mlp, generator=generator,
                             device=device, dtype=dtype)
 
+    def param_logical(self) -> dict:
+        """{parameter name: the reference's logical axes} (its
+        `init_params`'s `logical` tree)."""
+        return {"tables": (None, "table_rows", "table_dim"),
+                **mlp_logical("bottom", self.bottom),
+                **mlp_logical("top", self.top)}
+
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 bag_fn: Optional[Callable] = None,
                 interact_fn: Optional[Callable] = None,
@@ -65,22 +75,20 @@ class DLRM(nn.Module):
         """batch: sparse_ids (B, F, hot) int32, dense (B, n_dense) ->
         logits (B,). `bag_fn` / `interact_fn` replace the kernel ops (a
         comparison against the plain versions on the card uses them);
-        `ctx` a ShardCtx (the row-sharded lookup)."""
+        `ctx` a ShardCtx (its placement: the row-sharded lookup, the
+        placed MLPs)."""
+        pl = ctx.placement if ctx is not None else None
         dense_out = apply_mlp(self.bottom,
                               batch["dense"].to(self.tables.dtype),
-                              final_act=True)
-        if self.cfg.tp_lookup and ctx is not None and bag_fn is None:
-            emb = tp_multifeature_bag(
-                self.tables, batch["sparse_ids"], ctx.mesh,
-                rows=self.cfg.vocab_sizes[0])
-        else:
-            emb = (bag_fn or multifeature_bag)(self.tables,
-                                               batch["sparse_ids"])
+                              final_act=True, placement=pl, prefix="bottom")
+        emb = table_lookup(self, "tables", batch["sparse_ids"], pl,
+                           bag_fn or multifeature_bag)
         feats = torch.cat([dense_out[:, None, :], emb.to(dense_out.dtype)],
                           dim=1)                            # (B, F+1, D)
         interact = (interact_fn or ops.dot_interact)(feats)
         top_in = torch.cat([interact, dense_out], dim=-1)
-        return apply_mlp(self.top, top_in)[:, 0]
+        return apply_mlp(self.top, top_in, placement=pl,
+                         prefix="top")[:, 0]
 
 
 def init_params(cfg: DLRMConfig, *, seed: int = 0, device="cuda") -> DLRM:
@@ -100,7 +108,7 @@ def score_candidates(model: DLRM, user: Dict[str, torch.Tensor],
                      cand_ids: torch.Tensor, *, chunks: int = 25,
                      bag_fn: Optional[Callable] = None,
                      interact_fn: Optional[Callable] = None,
-                     mesh=None) -> torch.Tensor:
+                     placement=None) -> torch.Tensor:
     """Retrieval scoring with the user side computed once (the reference's
     `score_candidates`): user dense (1, n_dense) and sparse_ids (1, F,
     hot), cand_ids (C,) -> scores (C,). Only feature 0, the item, varies
@@ -110,47 +118,49 @@ def score_candidates(model: DLRM, user: Dict[str, torch.Tensor],
     runs the interaction and the top MLP. C must divide by `chunks`.
     `bag_fn` / `interact_fn` replace the kernel ops, as in `forward`.
 
-    On a `mesh` (the reference's retrieval program, which shards the
-    candidates over the data axes) each data rank scores its contiguous
-    slice of C in the same `chunks`, and the scores are all-gathered
-    over the data ranks in candidate order; with `cfg.tp_lookup` the
-    model's tables are this rank's row shard (launch/programs.Placement),
-    read by the row-sharded lookup that training uses
-    (`tp_multifeature_bag`: the user's bags, and each chunk's item rows as
-    bags of one of table 0, in the tables' dtype, bitwise the row
-    gather)."""
+    Under a `placement` (the reference's retrieval program, which shards
+    the candidates over the data axes; the model's parameters its blocks)
+    each data rank scores its contiguous slice of C in the same `chunks`,
+    and the scores are all-gathered over the data ranks in candidate
+    order; the tables' rows are read by the row-sharded lookup that
+    training uses (`tp_multifeature_bag`: the user's bags, and each
+    chunk's item rows as bags of one of table 0, in the tables' dtype,
+    bitwise the row gather), and the MLPs are the placed ones."""
     cfg = model.cfg
+    pl = placement
     interact_fn = interact_fn or ops.dot_interact
-    cand_ids, group = coll.data_slice(cand_ids, chunks, mesh)
+    cand_ids, group = coll.data_slice(cand_ids, chunks,
+                                      pl.mesh if pl is not None else None)
     c = cand_ids.shape[0]
     rows = cfg.vocab_sizes[0]
-    sharded = mesh is not None and cfg.tp_lookup and bag_fn is None
+    axes = pl.rows_axes("tables") if pl is not None else None
     dense_out = apply_mlp(model.bottom,
                           user["dense"].to(model.tables.dtype),
-                          final_act=True)                         # (1, D)
-    if sharded:
-        user_emb = tp_multifeature_bag(model.tables, user["sparse_ids"],
-                                       mesh, rows=rows)
-    else:
-        user_emb = (bag_fn or multifeature_bag)(model.tables,
-                                                user["sparse_ids"])
+                          final_act=True, placement=pl,
+                          prefix="bottom")                        # (1, D)
+    user_emb = table_lookup(model, "tables", user["sparse_ids"], pl,
+                            bag_fn or multifeature_bag)
     user_emb = user_emb.to(dense_out.dtype)                       # (1, F, D)
+    tables = model.tables if pl is None or axes is not None \
+        else pl.param(model, "tables")
     d = cfg.embed_dim
     out = []
     for ids in cand_ids.reshape(chunks, c // chunks):
         cc = ids.shape[0]
-        if sharded:
+        if axes is not None:
             item = tp_multifeature_bag(
-                model.tables[:1], (ids.long() % rows).to(torch.int32)
-                .reshape(cc, 1, 1), mesh, rows=rows)[:, 0]        # (cc, D)
+                tables[:1], (ids.long() % rows).to(torch.int32)
+                .reshape(cc, 1, 1), pl.mesh, rows=rows,
+                axes=axes)[:, 0]                                  # (cc, D)
         else:
-            item = model.tables[0][ids.long() % rows]             # (cc, D)
+            item = tables[0][ids.long() % rows]                   # (cc, D)
         feats = torch.cat([dense_out.expand(cc, d)[:, None], item[:, None],
                            user_emb[:, 1:].expand(cc, cfg.n_sparse - 1, d)],
                           dim=1)                                # (cc, F+1, D)
         top_in = torch.cat([interact_fn(feats), dense_out.expand(cc, d)],
                            dim=-1)
-        out.append(apply_mlp(model.top, top_in)[:, 0])
+        out.append(apply_mlp(model.top, top_in, placement=pl,
+                             prefix="top")[:, 0])
     return coll.gather_slices(torch.cat(out), group)
 
 

@@ -20,7 +20,10 @@ the ids all-gathered over the data axes, the whole batch looked up in
 the local rows by the `embedding_bag` kernel's local-rows mode, a
 reduce-scatter over the data axes and a sum over the model axis; its
 backward all-gathers d_out in the table dtype and scatters locally, so
-the gradient stays sharded). Each takes `rows`, the tables' global row
+the gradient stays sharded; or over the model axis alone, the
+reference's default rules' placement of xDeepFM's and DIEN's tables,
+which GSPMD reads there: each model rank looks up its rows for its own
+data rank's batch, and one sum over the model axis finishes it). Each takes `rows`, the tables' global row
 count, with this rank's shard, and falls back to the unsharded lookup
 of whole tables exactly where the reference does: no mesh or no model
 axis, one shard, rows that do not divide over the shards, or no `rows`;
@@ -171,28 +174,40 @@ class _TpMultifeatureBag(torch.autograd.Function):
 
 
 def tp_multifeature_bag(tables: torch.Tensor, ids: torch.Tensor, mesh, *,
-                        combiner: str = "sum", rows: Optional[int] = None
-                        ) -> torch.Tensor:
-    """Fully row-sharded stacked-table lookup: tables (F, rows / n, D),
-    this rank's row shard of the (F, rows, D) tables split over every
-    mesh axis (n ranks, rows [k rows / n, (k + 1) rows / n) on the rank
-    at flat position k of (pod, data, model), major to minor); ids
-    (B_loc, F, hot), this data rank's slice of the batch -> (B_loc, F, D)
-    in the tables' dtype (see the module docstring for the exchange)."""
+                        combiner: str = "sum", rows: Optional[int] = None,
+                        axes=None) -> torch.Tensor:
+    """Row-sharded stacked-table lookup: tables (F, rows / n, D), this
+    rank's row shard of the (F, rows, D) tables split over `axes` (n
+    ranks, rows [k rows / n, (k + 1) rows / n) on the rank at flat
+    position k of those axes, major to minor); ids (B_loc, F, hot), this
+    data rank's slice of the batch -> (B_loc, F, D) in the tables' dtype.
+    `axes` is every mesh axis (None, the default: the exchange of the
+    module docstring) or the model axis alone (the reference's default
+    `table_rows -> model`): each model rank then looks up its rows for
+    its own data rank's batch, and one sum over the model axis finishes
+    it, with no exchange over the data axes (its backward scatters the
+    whole d_out into the local rows)."""
     if combiner not in ("sum", "mean"):
         raise ValueError(combiner)
     names = mesh.axis_names if mesh is not None else ()
     if "model" not in names or rows is None:
         return multifeature_bag(tables, ids, combiner=combiner)
-    n_shards = mesh.size(names)
+    axes = names if axes is None else (
+        (axes,) if isinstance(axes, str) else tuple(axes))
+    if set(axes) not in (set(names), {"model"}):
+        raise ValueError(f"rows over {axes}: the row-sharded lookup takes "
+                         f"every axis of {names} or the model axis alone")
+    n_shards = mesh.size(axes)
     if (n_shards == 1 and not mesh.exchange_one_shard) \
             or rows % n_shards != 0:
         return multifeature_bag(tables, ids, combiner=combiner)
     v_loc = rows // n_shards
     _check_shard(tables.shape[1], v_loc)
+    on_data = set(mesh.data_axes) <= set(axes)
     return _TpMultifeatureBag.apply(
-        tables, ids, mesh.data_group, mesh.group("model"),
-        mesh.index(names) * v_loc, mesh.size(mesh.data_axes), combiner)
+        tables, ids, mesh.data_group if on_data else None,
+        mesh.group("model"), mesh.index(axes) * v_loc,
+        mesh.size(mesh.data_axes) if on_data else 1, combiner)
 
 
 def ragged_embedding_bag(table: torch.Tensor, ids: torch.Tensor,

@@ -54,6 +54,12 @@ _KEYS = ("w_self", "w_neigh", "b")
 
 
 class SageLayer(nn.Module):
+    """`w_self`, `w_neigh` (d_in, d_out) and `b` (d_out,); `LOGICAL` their
+    logical axes (the reference's `init_params`)."""
+
+    LOGICAL = {"w_self": ("fsdp", None), "w_neigh": ("fsdp", None),
+               "b": (None,)}
+
     def __init__(self, d_in: int, d_out: int, *, dtype, device,
                  generator: Optional[torch.Generator]):
         super().__init__()
@@ -84,6 +90,11 @@ class GraphSAGE(nn.Module):
             SageLayer(dims[i], dims[i + 1], dtype=dtype, device=device,
                       generator=generator) for i in range(cfg.n_layers))
 
+    def param_logical(self) -> dict:
+        """{parameter name: the reference's logical axes}."""
+        return {f"layers.{l}.{k}": lg for l in range(len(self.layers))
+                for k, lg in SageLayer.LOGICAL.items()}
+
 
 def init_params(cfg: GNNConfig, d_feat: int, *, seed: int = 0,
                 device="cuda") -> GraphSAGE:
@@ -92,10 +103,21 @@ def init_params(cfg: GNNConfig, d_feat: int, *, seed: int = 0,
     return GraphSAGE(cfg, d_feat, device=device, generator=gen)
 
 
-def _sage_combine(h_self, h_neigh_proj, layer: SageLayer, *, final: bool):
+def _weights(model: GraphSAGE, l: int, pl=None, use: str = "same"):
+    """Layer l's (w_self, w_neigh, b): under a placement `pl` (launch/
+    programs.Placement) fetched whole, `use` "same" where every model
+    rank runs the layer alike, "parts" where each runs its own part (the
+    partitioned graph's node range)."""
+    layer = model.layers[l]
+    if pl is None:
+        return layer.w_self, layer.w_neigh, layer.b
+    return tuple(pl.param(model, f"layers.{l}.{k}", use) for k in _KEYS)
+
+
+def _sage_combine(h_self, h_neigh_proj, w_self, b, *, final: bool):
     """h_self @ w_self + (the neighbour term, already projected) + b, then
     ReLU and an L2 normalisation unless final."""
-    out = torch.matmul(h_self, layer.w_self) + h_neigh_proj + layer.b
+    out = torch.matmul(h_self, w_self) + h_neigh_proj + b
     if not final:
         out = torch.relu(out)
         norm = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
@@ -105,22 +127,25 @@ def _sage_combine(h_self, h_neigh_proj, layer: SageLayer, *, final: bool):
 
 
 def minibatch_forward(model: GraphSAGE, x0, neigh1, neigh2, *,
-                      agg_fn: Optional[Callable] = None):
+                      agg_fn: Optional[Callable] = None, placement=None):
     """Dense-fanout 2-layer GraphSAGE -> logits (B, C).
 
     x0 (B, d) seed features, neigh1 (B, F1, d), neigh2 (B, F1, F2, d).
     `agg_fn(neigh (N, F, d), w (d, h)) -> (N, h)` replaces the kernel op
-    (a comparison against the plain version on the card uses it)."""
+    (a comparison against the plain version on the card uses it). Under
+    a `placement` the rows are this data rank's and the weights are
+    fetched whole (`w_neigh` into the kernel as it is on one device)."""
     agg_fn = agg_fn or ops.sage_aggregate
-    l1, l2 = model.layers
+    (s1, n1, b1), (s2, n2w, b2) = (_weights(model, l, placement)
+                                   for l in range(2))
     b, f1, f2, d = neigh2.shape
     # layer 1 at the depth-1 frontier: aggregate 2-hop into 1-hop nodes
-    n2 = agg_fn(neigh2.reshape(b * f1, f2, d), l1.w_neigh).view(b, f1, -1)
-    h1 = _sage_combine(neigh1, n2, l1, final=False)
+    n2 = agg_fn(neigh2.reshape(b * f1, f2, d), n1).view(b, f1, -1)
+    h1 = _sage_combine(neigh1, n2, s1, b1, final=False)
     # layer 1 at the seeds themselves (aggregate 1-hop raw features)
-    h0 = _sage_combine(x0, agg_fn(neigh1, l1.w_neigh), l1, final=False)
+    h0 = _sage_combine(x0, agg_fn(neigh1, n1), s1, b1, final=False)
     # layer 2 at the seeds: aggregate 1-hop hidden into seeds
-    return _sage_combine(h0, agg_fn(h1, l2.w_neigh), l2, final=True)
+    return _sage_combine(h0, agg_fn(h1, n2w), s2, b2, final=True)
 
 
 def minibatch_nll(model: GraphSAGE, batch: Dict[str, torch.Tensor],
@@ -133,6 +158,7 @@ def minibatch_nll(model: GraphSAGE, batch: Dict[str, torch.Tensor],
 
 
 def minibatch_loss(model: GraphSAGE, batch: Dict[str, torch.Tensor], **kw):
+    """Mean NLL over the seeds (`kw`: minibatch_forward's)."""
     loss = minibatch_nll(model, batch, **kw).mean()
     return loss, {"xent": loss}
 
@@ -158,14 +184,17 @@ def _aggregate(h: torch.Tensor, plan: segment.SegmentPlan, aggregator: str):
 
 
 def full_graph_forward(model: GraphSAGE, x: torch.Tensor,
-                       plan: segment.SegmentPlan) -> torch.Tensor:
+                       plan: segment.SegmentPlan, placement=None
+                       ) -> torch.Tensor:
     """x: (N, d) node features; plan: `graph_plan` of the edges. Returns
-    (N, n_classes) logits."""
+    (N, n_classes) logits. Under a `placement` the weights are fetched
+    whole and every model rank runs the layers alike."""
     h = x
     n_layers = len(model.layers)
-    for l, layer in enumerate(model.layers):
+    for l in range(n_layers):
+        w_self, w_neigh, b = _weights(model, l, placement)
         agg = _aggregate(h, plan, model.cfg.aggregator)
-        h = _sage_combine(h, torch.matmul(agg, layer.w_neigh), layer,
+        h = _sage_combine(h, torch.matmul(agg, w_neigh), w_self, b,
                           final=(l == n_layers - 1))
     return h
 
@@ -177,24 +206,79 @@ def _plan_of(batch: Dict[str, torch.Tensor]) -> segment.SegmentPlan:
                       batch["x"].shape[0])
 
 
-def full_graph_nll(model: GraphSAGE, batch: Dict[str, torch.Tensor]):
+def _masked_nll(logits: torch.Tensor, labels: torch.Tensor):
     """Per-node negative log-likelihood (N,) f32 and its mask (N,) f32
-    (1 where the label is >= 0). batch: x (N, d), labels (N,) and either
-    edge_src / edge_dst (E,) or their `plan` (the driver builds it once
-    for the graph)."""
-    logits = full_graph_forward(model, batch["x"], _plan_of(batch))
-    labels = batch["labels"].long()
+    (1 where the label is >= 0)."""
+    labels = labels.long()
     mask = (labels >= 0).float()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(1, torch.clamp(labels, min=0)[:, None])[:, 0]
     return nll, mask
 
 
-def full_graph_loss(model: GraphSAGE, batch: Dict[str, torch.Tensor]):
-    """Mean NLL over the labelled nodes (labels < 0 masked out)."""
-    nll, mask = full_graph_nll(model, batch)
+def full_graph_nll(model: GraphSAGE, batch: Dict[str, torch.Tensor]):
+    """Per-node negative log-likelihood (N,) f32 and its mask (N,) f32
+    (1 where the label is >= 0). batch: x (N, d), labels (N,) and either
+    edge_src / edge_dst (E,) or their `plan` (the driver builds it once
+    for the graph)."""
+    logits = full_graph_forward(model, batch["x"], _plan_of(batch))
+    return _masked_nll(logits, batch["labels"])
+
+
+def _mean_nll(nll: torch.Tensor, mask: torch.Tensor):
     loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return loss, {"xent": loss}
+
+
+def full_graph_loss(model: GraphSAGE, batch: Dict[str, torch.Tensor]):
+    """Mean NLL over the labelled nodes (labels < 0 masked out)."""
+    return _mean_nll(*full_graph_nll(model, batch))
+
+
+# ------------------------------------------------ edge-sharded full graph ---
+def edge_shard_plan(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                    n_nodes: int, in_degree: torch.Tensor
+                    ) -> segment.SegmentPlan:
+    """One data rank's slice of a full graph's edges as a SegmentPlan over
+    all n_nodes (pad edges, dst == n_nodes, dropped), its `count` the
+    whole graph's in-degree (in_degree (N,) f32), which the mean divides
+    by."""
+    return graph_plan(edge_src, edge_dst, n_nodes)._replace(
+        count=in_degree.to(torch.float32))
+
+
+def full_graph_edge_sharded_loss(model: GraphSAGE,
+                                 batch: Dict[str, torch.Tensor], placement):
+    """The reference's default full-graph program (`partitioned` False:
+    GSPMD's `full_graph_loss` with the edges over the data axes and the
+    nodes, features and labels replicated), this rank's part.
+
+    batch: x (N, d) and labels (N,), whole on every rank; `plan`, this
+    data rank's slice of the edges as `edge_shard_plan` makes it (the
+    driver builds it once a graph). Each layer segment-sums this rank's
+    edges into a whole (N, d) partial, and one sum over the data axes
+    completes it (`psum_same`; the hidden state it reads is held alike
+    and read for this rank's part, so its gradient is summed over them,
+    `same_to_parts`); every model rank runs it alike. The loss is the
+    whole graph's masked NLL on every rank. As in the reference the mean
+    divides by the whole in-degree; "max" has no edge-sharded form
+    here."""
+    if model.cfg.aggregator not in ("mean", "sum"):
+        raise ValueError(f"the edge-sharded full graph sums its partial "
+                         f"aggregates; {model.cfg.aggregator!r} is not a "
+                         f"sum")
+    group, plan = placement.dpg, batch["plan"]
+    h = batch["x"]
+    n_layers = len(model.layers)
+    for l in range(n_layers):
+        w_self, w_neigh, b = _weights(model, l, placement)
+        part = segment.segment_sum(coll.same_to_parts(h, group), plan)
+        agg = coll.psum_same(part, group)
+        if model.cfg.aggregator == "mean":
+            agg = agg / torch.clamp(plan.count.to(agg.dtype), min=1.0)[:, None]
+        h = _sage_combine(h, torch.matmul(agg, w_neigh), w_self, b,
+                          final=(l == n_layers - 1))
+    return _mean_nll(*_masked_nll(h, batch["labels"]))
 
 
 # ------------------------------------------- dst-partitioned full graph ---
@@ -212,7 +296,8 @@ def partition_plan(edge_src: torch.Tensor, edge_dst: torch.Tensor,
 
 
 def full_graph_partitioned_loss(model: GraphSAGE,
-                                batch: Dict[str, torch.Tensor], mesh):
+                                batch: Dict[str, torch.Tensor], mesh,
+                                placement=None):
     """The reference's dst-partitioned message passing, this rank's part.
 
     Rank k (flat over (pod, data, model), major to minor) owns the nodes
@@ -230,7 +315,8 @@ def full_graph_partitioned_loss(model: GraphSAGE,
     each rank reading its row and slice; `part_plan`, where given, this
     rank's `partition_plan` (the driver builds it once a graph). The
     parameters' gradients are this rank's share: summed over every rank
-    they are the loss's."""
+    they are the loss's. Under a `placement` the weights are fetched
+    whole for this rank's part."""
     axes = mesh.axis_names
     n_shards = mesh.size(axes)
     x = batch["x"]
@@ -248,19 +334,17 @@ def full_graph_partitioned_loss(model: GraphSAGE,
     group = mesh.all_group
     h_full = x
     n_layers = len(model.layers)
-    for l, layer in enumerate(model.layers):
+    for l in range(n_layers):
+        w_self, w_neigh, b = _weights(model, l, placement, "parts")
         agg = segment.segment_sum(h_full, plan)
         if model.cfg.aggregator == "mean":
             agg = agg / torch.clamp(plan.count.to(agg.dtype), min=1.0)[:, None]
         h_loc = _sage_combine(h_full[node0:node0 + n_loc],
-                              torch.matmul(agg, layer.w_neigh), layer,
+                              torch.matmul(agg, w_neigh), w_self, b,
                               final=(l == n_layers - 1))
         if l < n_layers - 1:
             h_full = coll.all_gather_sum(h_loc, group)
-    logp = torch.log_softmax(h_loc.float(), dim=-1)
-    labels = batch["labels"][node0:node0 + n_loc].long()
-    mask = (labels >= 0).float()
-    nll = -logp.gather(1, torch.clamp(labels, min=0)[:, None])[:, 0]
+    nll, mask = _masked_nll(h_loc, batch["labels"][node0:node0 + n_loc])
     num = coll.psum_same(torch.sum(nll * mask), group)
     den = coll.psum_same(torch.sum(mask), group)
     loss = num / torch.clamp(den, min=1.0)
@@ -286,32 +370,35 @@ def batched_plan(edge_src: torch.Tensor, edge_dst: torch.Tensor,
 
 
 def batched_graphs_forward(model: GraphSAGE, x, edge_src, edge_dst,
-                           node_mask, plan=None) -> torch.Tensor:
+                           node_mask, plan=None, placement=None
+                           ) -> torch.Tensor:
     """x: (G, N, d); edges (G, E) int, padded (pad edges 0 -> 0);
     node_mask: (G, N); `plan`, where given, their `batched_plan` (the
     dry run's, made from shapes). Returns graph-level logits (G, C):
-    each graph's masked mean of its nodes' logits."""
+    each graph's masked mean of its nodes' logits. `placement`: as
+    `full_graph_forward`'s."""
     g, n, d = x.shape
     if plan is None:
         plan = batched_plan(edge_src, edge_dst, n)
-    h = full_graph_forward(model, x.reshape(g * n, d), plan)
+    h = full_graph_forward(model, x.reshape(g * n, d), plan, placement)
     h = h.reshape(g, n, -1)
     denom = torch.clamp(torch.sum(node_mask, dim=1), min=1.0)
     return torch.sum(h * node_mask[..., None], dim=1) / denom[:, None]
 
 
-def batched_graphs_nll(model: GraphSAGE,
-                       batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def batched_graphs_nll(model: GraphSAGE, batch: Dict[str, torch.Tensor],
+                       placement=None) -> torch.Tensor:
     """Per-graph negative log-likelihood (G,) f32."""
     logits = batched_graphs_forward(model, batch["x"], batch["edge_src"],
                                     batch["edge_dst"], batch["node_mask"],
-                                    batch.get("plan"))
+                                    batch.get("plan"), placement)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(1, batch["labels"].long()[:, None])[:, 0]
 
 
-def batched_graphs_loss(model: GraphSAGE, batch: Dict[str, torch.Tensor]):
-    loss = batched_graphs_nll(model, batch).mean()
+def batched_graphs_loss(model: GraphSAGE, batch: Dict[str, torch.Tensor],
+                        placement=None):
+    loss = batched_graphs_nll(model, batch, placement).mean()
     return loss, {"xent": loss}
 
 

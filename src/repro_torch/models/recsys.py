@@ -5,13 +5,23 @@ BERT4Rec (:250-420), the losses and the retrieval `score_candidates`
 (:394-488). Each model is an `nn.Module` whose `forward` is the
 reference's forward function; `init_model` draws one from a seed.
 
-On a mesh (a `ShardCtx` whose `mesh` is set, and `cfg.tp_lookup`), the
-row-sharded branches run on this rank's shards: wide-deep's and
-xDeepFM's tables through `tp_multifeature_bag` (`_ctr_tables_lookup`,
-wide-deep's wide arm too, its table sharded as its deep tables are),
-BERT4Rec's sequence through `tp_embedding_lookup` and its candidates
-through `tp_sampled_scores`, whose sum over the model axis moves the
-(B, M, C) logits, not gathered rows.
+On a mesh (a `ShardCtx` carrying a `launch.programs.Placement`) every
+parameter is this rank's block of the reference's spec, and the model
+runs the reference's sharded program with explicit collectives: the
+dense stacks through the placed `apply_mlp` (fsdp blocks gathered over
+the data axes, output columns split over the model axis); the tables
+whose rows split through the row-sharded lookups (`table_lookup`):
+wide-deep's tables and wide arm over every axis and xDeepFM's tables
+and linear arm and DIEN's items over the model axis alone through
+`tp_multifeature_bag`, BERT4Rec's sequence through `tp_embedding_lookup`
+and its candidates through `tp_sampled_scores` (`tp_lookup`), whose sum
+over the model axis moves the (B, M, C) logits, not gathered rows;
+xDeepFM's CIN on this model rank's rows of the batch (the reference's
+`act_all_batch`); DIEN's GRU weights fetched whole once a pass;
+BERT4Rec's heads and FFN columns over the model axis, their partial
+outputs summed over it. A weight every model rank uses alike is read
+through the placement's fetch (`_weight`), which takes a 1 / tp share of
+its gradient (launch/programs.py's convention).
 
 Every table lookup runs through the hand-written kernels
 (`repro_torch.kernels.ops`), forward and backward:
@@ -19,7 +29,9 @@ Every table lookup runs through the hand-written kernels
   (F, V) table viewed as (F, V, 1), through `ops.embedding_bag_fused`
   (the fused kernel where a feature's table is at most 8 MiB, the
   4 MiB arms at the published widths, the row kernel `embedding_bag_fwd`
-  otherwise);
+  otherwise); a row-sharded arm on a mesh through the local-rows pair
+  `embedding_bag_fwd_local` / `embedding_bag_bwd_local`, as the fused
+  kernel has no local-rows mode;
 - xDeepFM's tables through `ops.embedding_bag`;
 - DIEN's and BERT4Rec's item gathers (the reference's `jnp.take`) as
   bags of one through `models.embedding.embedding_bag`, bitwise a take;
@@ -71,13 +83,57 @@ def init_mlp(dims: Sequence[int], *, generator: Optional[torch.Generator],
     return layers
 
 
+def mlp_logical(prefix: str, layers: nn.ModuleList) -> dict:
+    """The reference's logical axes of a dense stack's leaves (its
+    `init_mlp`'s: `w` ("fsdp", "mlp"), `b` ("mlp",)) under the port's
+    names `<prefix>.<i>.weight` / `.bias`; an `nn.Linear` weight (out,
+    in) is `w` transposed."""
+    out = {}
+    for i in range(len(layers)):
+        out[f"{prefix}.{i}.weight"] = ("mlp", "fsdp")
+        out[f"{prefix}.{i}.bias"] = ("mlp",)
+    return out
+
+
 def apply_mlp(layers: nn.ModuleList, x: torch.Tensor,
-              act: Callable = torch.relu,
-              final_act: bool = False) -> torch.Tensor:
-    for i, lin in enumerate(layers):
-        x = lin(x)
-        if final_act or i < len(layers) - 1:
+              act: Callable = torch.relu, final_act: bool = False, *,
+              placement=None, prefix: Optional[str] = None) -> torch.Tensor:
+    """The dense stack on x. Under a `placement` (launch/programs.
+    Placement; `prefix` the stack's parameter name) each layer's weight
+    (out, in), the reference's (in, out) `w` on ("fsdp", "mlp"), is
+    gathered whole over the data axes, and a layer whose output dim is
+    split over the model axis computes this model rank's columns, which
+    are all-gathered over the model axis before the next layer: summed
+    by its backward's reduce-scatter where the next layer is split too
+    (its input's gradient is then each rank's part), kept as this rank's
+    slice where the next one runs alike on every model rank (an output
+    width that does not divide, the last layer's 1); the input of the
+    first split layer after an alike one sums its gradient over the
+    model ranks (`same_to_parts`). x is alike on every model rank."""
+    if placement is None:
+        for i, lin in enumerate(layers):
+            x = lin(x)
+            if final_act or i < len(layers) - 1:
+                x = act(x)
+        return x
+    pl, n = placement, len(layers)
+    names = [f"{prefix}.{i}" for i in range(n)]
+    split = [pl.on_model(pl.specs[f"{k}.weight"], 0) for k in names]
+    for i, k in enumerate(names):
+        use = "keep" if split[i] else "same"
+        w = pl.fetch(layers[i].weight, pl.specs[f"{k}.weight"], use)
+        b = pl.fetch(layers[i].bias, pl.specs[f"{k}.bias"], use)
+        if split[i] and (i == 0 or not split[i - 1]):
+            x = coll.same_to_parts(x, pl.tpg)
+        x = F.linear(x, w, b)
+        if final_act or i < n - 1:
             x = act(x)
+        if split[i]:
+            gather = coll.all_gather_sum if i + 1 < n and split[i + 1] \
+                else coll.all_gather_same
+            # contiguous both ways: the GEMMs on either side read their
+            # operands, and the gradients, as they do on one device
+            x = coll.contiguous(gather(coll.contiguous(x), pl.tpg, -1))
     return x
 
 
@@ -109,18 +165,45 @@ def _take(table: torch.Tensor, ids: torch.Tensor,
     return embedding_bag(table, ids[..., None], bag_fn=bag_fn)
 
 
-def _sharded(cfg, ctx) -> bool:
-    return bool(cfg.tp_lookup and ctx is not None and ctx.mesh is not None)
+def _placement(ctx):
+    """The placement a ShardCtx carries (None: the model is whole)."""
+    return None if ctx is None else getattr(ctx, "placement", None)
 
 
-def _ctr_tables_lookup(tables: torch.Tensor, ids: torch.Tensor, cfg, ctx,
-                       bag_fn: Callable) -> torch.Tensor:
-    """A CTR model's stacked-table lookup: row-sharded on a mesh, else
-    `bag_fn`. tables (F, V, D) (or this rank's row shard)."""
-    if _sharded(cfg, ctx):
-        return tp_multifeature_bag(tables, ids, ctx.mesh,
-                                   rows=cfg.vocab_sizes[0])
-    return bag_fn(tables, ids)
+def table_lookup(model: nn.Module, name: str, ids: torch.Tensor, pl,
+                  bag_fn: Callable, *,
+                  view: Callable = lambda t: t) -> torch.Tensor:
+    """The bag lookup of `model`'s table `name`, `view(table)` its (F, V,
+    D) form: under a placement `pl` whose spec splits its rows, this
+    rank's shard through `tp_multifeature_bag` over the axes they span;
+    else the whole table through `bag_fn` (under `pl` read alike on every
+    model rank)."""
+    table = getattr(model, name)
+    if pl is None:
+        return bag_fn(view(table), ids)
+    axes = pl.rows_axes(name)
+    if axes is None:
+        return bag_fn(view(pl.fetch(table, pl.specs[name], "same")), ids)
+    rows = pl.shapes[name][pl.logical[name].index("table_rows")]
+    return tp_multifeature_bag(view(table), ids, pl.mesh, rows=rows,
+                               axes=axes)
+
+
+def _item_take(model: nn.Module, ids: torch.Tensor, pl,
+               bag_fn: Optional[Callable]) -> torch.Tensor:
+    """The take of `model.items` (V, D) rows at ids (...) int32 -> (...,
+    D), as bags of one of a (1, V, D) table (`table_lookup`)."""
+    out = table_lookup(model, "items", ids.reshape(-1, 1, 1), pl,
+                       bag_fn or ops.embedding_bag, view=lambda t: t[None])
+    return out.reshape(*ids.shape, model.items.shape[-1])
+
+
+def _weight(model: nn.Module, name: str, pl) -> torch.Tensor:
+    """Parameter `name` of `model` used alike on every model rank:
+    fetched whole under a placement `pl`, itself without one."""
+    if pl is None:
+        return getattr(model, name)
+    return pl.param(model, name, "same")
 
 
 # =============================================================== wide-deep ==
@@ -147,6 +230,13 @@ class WideDeep(nn.Module):
         self.wide_dense = normal((cfg.n_dense, 1), 0.01)
         self.bias = nn.Parameter(torch.zeros((), dtype=dtype, device=device))
 
+    def param_logical(self) -> dict:
+        """{parameter name: the reference's logical axes} (its
+        `init_wide_deep`'s `logical` tree)."""
+        return {"tables": (None, "table_rows", "table_dim"),
+                "wide": (None, "table_rows"), "wide_dense": (None, None),
+                "bias": (), **mlp_logical("mlp", self.mlp)}
+
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 bag_fn: Optional[Callable] = None,
                 emb: Optional[torch.Tensor] = None, ctx=None) -> torch.Tensor:
@@ -154,23 +244,24 @@ class WideDeep(nn.Module):
         logits (B,). `bag_fn(tables, ids)` replaces the kernel op (a
         comparison against the plain version on the card uses it); `emb`
         (B, F, D), where given, replaces the deep tables' lookup (the
-        retrieval's); `ctx` a ShardCtx (the row-sharded lookups)."""
+        retrieval's); `ctx` a ShardCtx (its placement: the row-sharded
+        lookups, the placed deep MLP)."""
         bag_fn = bag_fn or ops.embedding_bag_fused
+        pl = _placement(ctx)
         ids = batch["sparse_ids"]
         if emb is None:
-            emb = _ctr_tables_lookup(self.tables, ids, self.cfg, ctx,
-                                     bag_fn)                    # (B, F, D)
+            emb = table_lookup(self, "tables", ids, pl, bag_fn)  # (B, F, D)
         dense = batch["dense"].to(emb.dtype)
         deep_in = torch.cat([emb.reshape(emb.shape[0], -1), dense], dim=-1)
-        deep_logit = apply_mlp(self.mlp, deep_in)[:, 0]
+        deep_logit = apply_mlp(self.mlp, deep_in, placement=pl,
+                               prefix="mlp")[:, 0]
         # wide arm: per-feature scalar weights, multi-hot summed (the bag
         # in the lookup, then the features)
-        wide_w = _ctr_tables_lookup(self.wide.unsqueeze(-1), ids, self.cfg,
-                                    ctx, bag_fn)                # (B, F, 1)
-        wide_logit = wide_w.sum(dim=(1, 2)) + (dense @ self.wide_dense)[:, 0]
-        return deep_logit + wide_logit + self.bias
-
-
+        wide_w = table_lookup(self, "wide", ids, pl, bag_fn,
+                               view=lambda t: t.unsqueeze(-1))  # (B, F, 1)
+        wide_logit = wide_w.sum(dim=(1, 2)) \
+            + (dense @ _weight(self, "wide_dense", pl))[:, 0]
+        return deep_logit + wide_logit + _weight(self, "bias", pl)
 
 
 # ================================================================= xdeepfm ==
@@ -204,17 +295,36 @@ class XDeepFM(nn.Module):
                                generator=generator, **kw)
         self.bias = _const((), 0.0, **kw)
 
+    def param_logical(self) -> dict:
+        """{parameter name: the reference's logical axes} (its
+        `init_xdeepfm`'s `logical` tree)."""
+        return {"tables": (None, "table_rows", "table_dim"),
+                "linear": (None, "table_rows"),
+                **{f"cin.{i}": ("mlp", None, None)
+                   for i in range(len(self.cin))},
+                **mlp_logical("dnn", self.dnn), "cin_out": (None, None),
+                "bias": ()}
+
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 bag_fn: Optional[Callable] = None,
                 emb: Optional[torch.Tensor] = None, ctx=None) -> torch.Tensor:
         """batch: sparse_ids (B, F, hot) int32, dense (B, n_dense) ->
         logits (B,). `bag_fn` replaces both kernel ops; `emb` (B, F, D),
         where given, replaces the tables' lookup (the retrieval's); `ctx`
-        a ShardCtx."""
+        a ShardCtx (its placement: the tables and the linear arm through
+        the row-sharded lookup over their rows' axes, the placed DNN, and
+        the CIN on this model rank's rows, the reference's
+        `act_all_batch`, where they divide over the model ranks)."""
+        pl = _placement(ctx)
         ids = batch["sparse_ids"]
-        x0 = emb if emb is not None else _ctr_tables_lookup(
-            self.tables, ids, self.cfg, ctx,
-            bag_fn or ops.embedding_bag)                          # (B, m, D)
+        x0 = emb if emb is not None else table_lookup(
+            self, "tables", ids, pl, bag_fn or ops.embedding_bag)  # (B,m,D)
+        # the CIN's batch over every axis: this model rank's rows of its
+        # data rank's, the filters whole (their gradients each rank's
+        # part, summed over the model ranks), the pooled maps gathered
+        split = pl is not None and pl.tpg is not None \
+            and x0.shape[0] % pl.tp == 0
+        x0c = coll.split_same(x0, pl.tpg, 0) if split else x0
         # x_k[b,h,d] = sum_{i,j} W[h,i,j] * x_{k-1}[b,i,d] * x0[b,j,d],
         # associated as the reference's (contract i, then j), with d kept
         # next to b: u (B, D, H, m) comes out of one GEMM and feeds a
@@ -222,25 +332,37 @@ class XDeepFM(nn.Module):
         # (B, H, m, D) layout would be copied into that order (and its
         # gradient out of it) in each direction, 20 GB a layer at
         # train_batch
-        x0t = x0.transpose(1, 2).contiguous()                     # (B, D, m)
+        x0t = x0c.transpose(1, 2).contiguous()                    # (B, D, m)
         xk, pooled = x0t, []
-        for w in self.cin:
+        for i, w in enumerate(self.cin):
+            if pl is not None:
+                w = pl.fetch(w, pl.specs[f"cin.{i}"],
+                             "parts" if split else "same")
             u = torch.einsum("bdi,hij->bdhj", xk, w)
             xk = torch.einsum("bdhj,bdj->bdh", u, x0t)            # (B, D, H_k)
             pooled.append(xk.sum(dim=1))                          # (B, H_k)
-        cin_logit = (torch.cat(pooled, dim=-1) @ self.cin_out)[:, 0]
+        pooled = torch.cat(pooled, dim=-1)
+        if split:
+            pooled = coll.all_gather_same(pooled, pl.tpg, 0)
+        cin_logit = (pooled @ _weight(self, "cin_out", pl))[:, 0]
         dnn_in = torch.cat([x0.reshape(x0.shape[0], -1),
                             batch["dense"].to(x0.dtype)], dim=-1)
-        dnn_logit = apply_mlp(self.dnn, dnn_in)[:, 0]
-        lin_w = (bag_fn or ops.embedding_bag_fused)(
-            self.linear.unsqueeze(-1), ids)                       # (B, m, 1)
-        return cin_logit + dnn_logit + lin_w.sum(dim=(1, 2)) + self.bias
+        dnn_logit = apply_mlp(self.dnn, dnn_in, placement=pl,
+                              prefix="dnn")[:, 0]
+        lin_w = table_lookup(self, "linear", ids, pl,
+                              bag_fn or ops.embedding_bag_fused,
+                              view=lambda t: t.unsqueeze(-1))     # (B, m, 1)
+        return cin_logit + dnn_logit + lin_w.sum(dim=(1, 2)) \
+            + _weight(self, "bias", pl)
 
 
 # ==================================================================== dien ==
 class GRUCell(nn.Module):
     """`w` (d_in, 3h), `u` (h, 3h), `b` (3h,), gates along 3h in the order
-    reset, update, candidate (the reference's `_gru_init`)."""
+    reset, update, candidate (the reference's `_gru_init`; `LOGICAL` its
+    leaves' logical axes)."""
+
+    LOGICAL = {"w": ("fsdp", "mlp"), "u": ("fsdp", "mlp"), "b": ("mlp",)}
 
     def __init__(self, d_in: int, d_h: int, *, dtype, device, generator):
         super().__init__()
@@ -251,15 +373,30 @@ class GRUCell(nn.Module):
                          **kw)
         self.b = _const((3 * d_h,), 0.0, **kw)
 
+    def weights(self, pl=None, prefix: str = "") -> tuple:
+        """(w, u, b): under a placement `pl` (`prefix` the cell's name)
+        fetched whole, over the data axes and, where the gates' dim is
+        split, over the model axis, once a pass: a model rank's columns
+        are not whole gates (3 x 108 = 324 splits over 2 ranks, not
+        whole ones), and every model rank then runs the cell alike, with
+        no collective a step."""
+        if pl is None:
+            return self.w, self.u, self.b
+        return tuple(pl.fetch(getattr(self, k), pl.specs[f"{prefix}.{k}"],
+                              "same") for k in ("w", "u", "b"))
+
     def forward(self, x: torch.Tensor, h: torch.Tensor,
-                a: Optional[torch.Tensor] = None) -> torch.Tensor:
+                a: Optional[torch.Tensor] = None,
+                weights: Optional[tuple] = None) -> torch.Tensor:
         """The reference's `_gru_cell`, written out (not `nn.GRU`, whose
         candidate bias sits inside the reset product): the bias on x @ w
         only, n = tanh(xw_n + r * hu_n); with `a` (B,), AUGRU: the update
-        gate scaled by a."""
+        gate scaled by a. `weights` (w, u, b), where given, are the
+        cell's fetched ones (`weights`)."""
+        w, u, b = weights or (self.w, self.u, self.b)
         d_h = h.shape[-1]
-        xw = x @ self.w + self.b
-        hu = h @ self.u
+        xw = x @ w + b
+        hu = h @ u
         r = torch.sigmoid(xw[..., :d_h] + hu[..., :d_h])
         z = torch.sigmoid(xw[..., d_h:2 * d_h] + hu[..., d_h:2 * d_h])
         n = torch.tanh(xw[..., 2 * d_h:] + r * hu[..., 2 * d_h:])
@@ -286,59 +423,78 @@ class DIEN(nn.Module):
         self.mlp = init_mlp((h + d + cfg.n_dense,) + cfg.mlp_dims + (1,),
                             generator=generator, **kw)
 
-    def interest_states(self, hist_emb: torch.Tensor) -> torch.Tensor:
+    def param_logical(self) -> dict:
+        """{parameter name: the reference's logical axes} (its
+        `init_dien`'s `logical` tree)."""
+        return {"items": ("table_rows", "table_dim"),
+                **{f"{c}.{k}": lg for c in ("gru1", "gru2")
+                   for k, lg in GRUCell.LOGICAL.items()},
+                "att_w": (None, None), **mlp_logical("mlp", self.mlp)}
+
+    def interest_states(self, hist_emb: torch.Tensor,
+                        pl=None) -> torch.Tensor:
         """The first GRU pass (target-independent), a step of the
         sequence at a time: (B, S, D) -> (B, S, H)."""
+        weights = self.gru1.weights(pl, "gru1")
         h = hist_emb.new_zeros((hist_emb.shape[0], self.cfg.gru_dim))
         states = []
         # unbind, not hist_emb[:, t]: the backward of S selects would
         # write S zero-filled (B, S, D) gradients and add them up
         for x_t in hist_emb.unbind(1):
-            h = self.gru1(x_t, h)
+            h = self.gru1(x_t, h, weights=weights)
             states.append(h)
         return torch.stack(states, dim=1)
 
     def evolve(self, states: torch.Tensor, target_emb: torch.Tensor,
-               hist_mask: torch.Tensor) -> torch.Tensor:
+               hist_mask: torch.Tensor, pl=None) -> torch.Tensor:
         """Attention over the states against the target, then the AUGRU
         pass; the final interest (B, H). The scores are the reference's
         einsum("bsh,hd,bd->bs"), contracted as (target @ att_w^T) first;
         the softmax is taken in f32 with masked positions at -1e30."""
+        weights = self.gru2.weights(pl, "gru2")
         scores = torch.einsum("bsh,bh->bs", states,
-                              target_emb @ self.att_w.t())
+                              target_emb @ _weight(self, "att_w", pl).t())
         scores = torch.where(hist_mask > 0, scores, -1e30)
         att = torch.softmax(scores.float(), dim=-1).to(states.dtype)
         h = states.new_zeros((states.shape[0], self.cfg.gru_dim))
         for s_t, a_t in zip(states.unbind(1), att.unbind(1)):
-            h = self.gru2(s_t, h, a=a_t)
+            h = self.gru2(s_t, h, a=a_t, weights=weights)
         return h
 
-    def history(self, batch, bag_fn=None) -> torch.Tensor:
+    def history(self, batch, bag_fn=None, pl=None) -> torch.Tensor:
         """The history's item rows (B, S, D), zero past its mask."""
-        hist = _take(self.items, batch["hist_ids"], bag_fn)
+        hist = _item_take(self, batch["hist_ids"], pl, bag_fn)
         return hist * batch["hist_mask"][..., None].to(hist.dtype)
 
-    def head(self, interest, target, dense) -> torch.Tensor:
+    def head(self, interest, target, dense, pl=None) -> torch.Tensor:
         feats = torch.cat([interest, target, dense.to(interest.dtype)], -1)
-        return apply_mlp(self.mlp, feats)[:, 0]
+        return apply_mlp(self.mlp, feats, placement=pl, prefix="mlp")[:, 0]
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 bag_fn: Optional[Callable] = None, ctx=None) -> torch.Tensor:
         """batch: hist_ids (B, S) int32, hist_mask (B, S), target_id (B,)
-        int32, dense (B, n_dense) -> logits (B,). DIEN has no sharded
-        branch (`ctx` is taken and not read), as in the reference."""
-        hist = self.history(batch, bag_fn)
-        target = _take(self.items, batch["target_id"], bag_fn)
-        states = self.interest_states(hist)
-        interest = self.evolve(states, target, batch["hist_mask"])
-        return self.head(interest, target, batch["dense"])
+        int32, dense (B, n_dense) -> logits (B,). `ctx` a ShardCtx (its
+        placement: the items through the row-sharded lookup over their
+        rows' axes, the GRU cells' weights fetched whole, the placed
+        MLP)."""
+        pl = _placement(ctx)
+        hist = self.history(batch, bag_fn, pl)
+        target = _item_take(self, batch["target_id"], pl, bag_fn)
+        states = self.interest_states(hist, pl)
+        interest = self.evolve(states, target, batch["hist_mask"], pl)
+        return self.head(interest, target, batch["dense"], pl)
 
 
 # ================================================================ bert4rec ==
 class Block(nn.Module):
     """One encoder block in the reference's layout: `wqkv` (d, 3, h, d/h),
     `wo` (h, d/h, d), `ln1`, `ln2` (d,), `ffn_in` (d, 4d), `ffn_b` (4d,),
-    `ffn_out` (4d, d)."""
+    `ffn_out` (4d, d); `LOGICAL` their logical axes."""
+
+    LOGICAL = {"wqkv": ("fsdp", None, "heads", "head_dim"),
+               "wo": ("heads", "head_dim", "fsdp"), "ln1": ("embed",),
+               "ln2": ("embed",), "ffn_in": ("fsdp", "mlp"),
+               "ffn_b": ("mlp",), "ffn_out": ("mlp", "fsdp")}
 
     def __init__(self, d: int, n_heads: int, *, dtype, device, generator):
         super().__init__()
@@ -352,21 +508,53 @@ class Block(nn.Module):
         self.ffn_b = _const((4 * d,), 0.0, **kw)
         self.ffn_out = _normal((4 * d, d), (4 * d) ** -0.5, **g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = _layer_norm(x, self.ln1)
-        qkv = torch.einsum("bsd,dthk->tbshk", h, self.wqkv)
+    def forward(self, x: torch.Tensor, pl=None,
+                prefix: str = "") -> torch.Tensor:
+        """x (B, S, d) -> (B, S, d). Under a placement `pl` (`prefix` the
+        block's name) the weights' fsdp blocks are gathered over the data
+        axes; where the heads (the FFN's 4d) split over the model ranks,
+        each rank runs its own heads (columns) on the normed stream, whose
+        gradient is summed over them (`same_to_parts`), and the partial
+        outputs are summed over them (`psum_same`); the norms and an
+        unsplit part run alike on every model rank."""
+        if pl is None:
+            w = {k: getattr(self, k) for k in _BLOCK_KEYS}
+            heads = ffn = None
+        else:
+            spec = {k: pl.specs[f"{prefix}.{k}"] for k in _BLOCK_KEYS}
+            heads = pl.tpg if pl.on_model(spec["wqkv"], 2) else None
+            ffn = pl.tpg if pl.on_model(spec["ffn_in"], 1) else None
+            split = {"wqkv": heads, "wo": heads, "ffn_in": ffn,
+                     "ffn_b": ffn, "ffn_out": ffn}
+            w = {k: pl.fetch(getattr(self, k), spec[k],
+                             "keep" if split.get(k) else "same")
+                 for k in _BLOCK_KEYS}
+        h = _layer_norm(x, w["ln1"])
+        if heads is not None:
+            h = coll.same_to_parts(h, heads)
+        qkv = torch.einsum("bsd,dthk->tbshk", h, w["wqkv"])
         q, k, v = qkv.unbind(0)
         # scores in f32, directly (S = 200 is small), as the reference
         sc = torch.einsum("bshk,bthk->bhst", q, k).float()
         sc = sc * (q.shape[-1] ** -0.5)
         p = torch.softmax(sc, dim=-1).to(v.dtype)
         o = torch.einsum("bhst,bthk->bshk", p, v)
-        x = x + torch.einsum("bshk,hkd->bsd", o, self.wo)
-        h2 = _layer_norm(x, self.ln2)
+        attn = torch.einsum("bshk,hkd->bsd", o, w["wo"])
+        if heads is not None:
+            attn = coll.psum_same(attn, heads)
+        x = x + attn
+        h2 = _layer_norm(x, w["ln2"])
+        if ffn is not None:
+            h2 = coll.same_to_parts(h2, ffn)
         # jax.nn.gelu's default is the tanh approximation
-        f = F.gelu(h2 @ self.ffn_in + self.ffn_b, approximate="tanh") \
-            @ self.ffn_out
+        f = F.gelu(h2 @ w["ffn_in"] + w["ffn_b"], approximate="tanh") \
+            @ w["ffn_out"]
+        if ffn is not None:
+            f = coll.psum_same(f, ffn)
         return x + f
+
+
+_BLOCK_KEYS = ("wqkv", "wo", "ln1", "ln2", "ffn_in", "ffn_b", "ffn_out")
 
 
 def _layer_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -399,18 +587,30 @@ class BERT4Rec(nn.Module):
             for _ in range(cfg.n_blocks))
         self.ln_f = _const((d,), 1.0, **kw)
 
+    def param_logical(self) -> dict:
+        """{parameter name: the reference's logical axes} (its
+        `init_bert4rec`'s `logical` tree)."""
+        return {"items": ("table_rows", "table_dim"), "pos": ("seq", "embed"),
+                **{f"blocks.{i}.{k}": lg for i in range(len(self.blocks))
+                   for k, lg in Block.LOGICAL.items()},
+                "ln_f": ("embed",)}
+
     def encode(self, item_seq: torch.Tensor, *,
                bag_fn: Optional[Callable] = None, ctx=None) -> torch.Tensor:
-        """item_seq (B, S) int32 -> hidden (B, S, D), bidirectional."""
-        if _sharded(self.cfg, ctx):
-            emb = tp_embedding_lookup(self.items, item_seq, ctx.mesh,
+        """item_seq (B, S) int32 -> hidden (B, S, D), bidirectional. `ctx`
+        a ShardCtx (its placement: the items through
+        `tp_embedding_lookup` where their rows split, the placed
+        blocks)."""
+        pl = _placement(ctx)
+        if pl is not None and pl.rows_axes("items") is not None:
+            emb = tp_embedding_lookup(self.items, item_seq, pl.mesh,
                                       rows=self.vocab)
         else:
-            emb = _take(self.items, item_seq, bag_fn)
-        x = emb + self.pos
-        for blk in self.blocks:
-            x = blk(x)
-        return _layer_norm(x, self.ln_f)
+            emb = _take(_weight(self, "items", pl), item_seq, bag_fn)
+        x = emb + _weight(self, "pos", pl)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, pl, f"blocks.{i}")
+        return _layer_norm(x, _weight(self, "ln_f", pl))
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 bag_fn: Optional[Callable] = None) -> torch.Tensor:
@@ -425,17 +625,22 @@ class BERT4Rec(nn.Module):
                        ctx=None) -> torch.Tensor:
         """Sampled-softmax cloze logits at the masked positions: batch
         item_seq (B, S), mask_pos (B, M), mask_labels (B, M), neg_ids (B,
-        M, N) -> (B, M, 1 + N), index 0 the true item."""
+        M, N) -> (B, M, 1 + N), index 0 the true item. Under a placement
+        whose items' rows split, with `tp_lookup` the reference's
+        `tp_sampled_scores` (the logits summed over the model axis); else
+        the candidates' rows taken from the table fetched whole."""
         hidden = self.encode(batch["item_seq"], bag_fn=bag_fn, ctx=ctx)
         h = torch.take_along_dim(hidden, batch["mask_pos"].long()[..., None],
                                  dim=1)                           # (B, M, D)
         cand = torch.cat([batch["mask_labels"][..., None], batch["neg_ids"]],
                          dim=-1)                                  # (B, M, 1+N)
-        if _sharded(self.cfg, ctx):
-            return tp_sampled_scores(self.items, h, cand, ctx.mesh,
+        pl = _placement(ctx)
+        if pl is not None and self.cfg.tp_lookup \
+                and pl.rows_axes("items") is not None:
+            return tp_sampled_scores(self.items, h, cand, pl.mesh,
                                      rows=self.vocab)
-        emb = _take(self.items, cand, bag_fn)                     # (B,M,1+N,D)
-        return torch.einsum("bmd,bmnd->bmn", h, emb)
+        emb = _take(_weight(self, "items", pl), cand, bag_fn)
+        return torch.einsum("bmd,bmnd->bmn", h, emb)               # (B,M,1+N)
 
 
 def tp_sampled_scores(items: torch.Tensor, h: torch.Tensor,
@@ -451,10 +656,12 @@ def tp_sampled_scores(items: torch.Tensor, h: torch.Tensor,
     the local shard, and h's, summed over the model axis, is whole on
     every model rank. Falls back to the whole table's scores where the
     reference does (no model axis, one shard, rows not divisible, no
-    `rows`)."""
+    `rows`), but at one shard of a mesh made with `exchange_one_shard`
+    (models/embedding.py)."""
     names = mesh.axis_names if mesh is not None else ()
     tp = mesh.shape["model"] if "model" in names else 1
-    if rows is None or tp == 1 or rows % tp != 0:
+    if rows is None or "model" not in names or rows % tp != 0 \
+            or (tp == 1 and not mesh.exchange_one_shard):
         return torch.einsum("bmd,bmnd->bmn", h, _take(items, cand, None))
     v_loc = rows // tp
     if items.shape[0] != v_loc:
@@ -525,7 +732,7 @@ def loss_fn(model: nn.Module, batch: Dict[str, torch.Tensor], **kw):
 def score_candidates(model: nn.Module, user: Dict[str, torch.Tensor],
                      cand_ids: torch.Tensor, *, chunks: int = 1,
                      bag_fn: Optional[Callable] = None,
-                     mesh=None) -> torch.Tensor:
+                     placement=None) -> torch.Tensor:
     """Retrieval: score ONE user against C candidates -> (C,) scores, in
     `chunks` sequential slabs of C (C must divide), which bound the live
     working set (a slab of 40,000 candidates of xDeepFM's CIN holds a
@@ -536,43 +743,47 @@ def score_candidates(model: nn.Module, user: Dict[str, torch.Tensor],
     feature 0 (ids mod V), the user's other embeddings gathered once.
     `bag_fn` replaces the kernel ops, as in `forward`.
 
-    On a `mesh` each data rank scores its contiguous slice of C in the
-    same `chunks` and the scores are all-gathered over the data ranks in
-    candidate order (the reference's retrieval program shards the
-    candidates over the data axes); with `cfg.tp_lookup` the tables are
-    this rank's row shards, read by the row-sharded lookups training
-    uses: BERT4Rec's sequence and candidates through
-    `tp_embedding_lookup`, a CTR model's user bags and candidate rows
-    (bags of one of table 0) through `tp_multifeature_bag`, its forward
-    given the mesh (wide-deep's wide arm)."""
+    Under a `placement` (the model's parameters its blocks) each data
+    rank scores its contiguous slice of C in the same `chunks` and the
+    scores are all-gathered over the data ranks in candidate order (the
+    reference's retrieval program shards the candidates over the data
+    axes); the tables are read by the row-sharded lookups training uses:
+    BERT4Rec's sequence and candidates through `tp_embedding_lookup`,
+    DIEN's items and a CTR model's user bags and candidate rows (bags of
+    one of table 0) through `tp_multifeature_bag`, and the dense layers
+    are the placed ones."""
     cfg = model.cfg
-    cand_ids, group = coll.data_slice(cand_ids, chunks, mesh)
-    ctx = ShardCtx(mesh) if mesh is not None and bag_fn is None else None
-    sharded = _sharded(cfg, ctx)
+    pl = placement
+    cand_ids, group = coll.data_slice(cand_ids, chunks,
+                                      pl.mesh if pl is not None else None)
+    ctx = ShardCtx(placement=pl) if pl is not None else None
     if isinstance(model, BERT4Rec):
         u = model.encode(user["item_seq"], bag_fn=bag_fn,
                          ctx=ctx)[0, -1]                          # (D,)
-        if sharded:
+        if pl is not None and pl.rows_axes("items") is not None:
             score = lambda ids: tp_embedding_lookup(
-                model.items, ids, mesh, rows=model.vocab) @ u
+                model.items, ids, pl.mesh, rows=model.vocab) @ u
         else:
-            score = lambda ids: _take(model.items, ids, bag_fn) @ u
+            items = _weight(model, "items", pl)
+            score = lambda ids: _take(items, ids, bag_fn) @ u
     elif isinstance(model, DIEN):
-        states = model.interest_states(model.history(user, bag_fn))  # (1,S,H)
+        states = model.interest_states(model.history(user, bag_fn, pl),
+                                       pl)                        # (1,S,H)
 
         def score(ids):
             cc = ids.shape[0]
-            target = _take(model.items, ids, bag_fn)
+            target = _item_take(model, ids, pl, bag_fn)
             interest = model.evolve(
                 states.expand(cc, *states.shape[1:]), target,
-                user["hist_mask"].expand(cc, states.shape[1]))
+                user["hist_mask"].expand(cc, states.shape[1]), pl)
             return model.head(interest, target,
-                              user["dense"].expand(cc, -1))
+                              user["dense"].expand(cc, -1), pl)
     else:
         rows = cfg.vocab_sizes[0]
         sparse = user["sparse_ids"]                               # (1, F, hot)
-        user_emb = _ctr_tables_lookup(model.tables, sparse, cfg, ctx,
-                                      bag_fn or ops.embedding_bag)
+        user_emb = table_lookup(model, "tables", sparse, pl,
+                                 bag_fn or ops.embedding_bag)
+        axes = pl.rows_axes("tables") if pl is not None else None
 
         def score(ids):
             cc = ids.shape[0]
@@ -580,12 +791,13 @@ def score_candidates(model: nn.Module, user: Dict[str, torch.Tensor],
             sp = sparse.repeat(cc, 1, 1)
             sp[:, 0, :] = ids[:, None]
             # bag semantics: the candidate id repeated in each slot
-            if sharded:
+            if axes is not None:
                 cand = tp_multifeature_bag(
                     model.tables[:1], ids.to(torch.int32).reshape(cc, 1, 1),
-                    mesh, rows=rows)[:, 0]                        # (cc, D)
+                    pl.mesh, rows=rows, axes=axes)[:, 0]          # (cc, D)
             else:
-                cand = _take(model.tables[0], ids, bag_fn)        # (cc, D)
+                cand = _take(_weight(model, "tables", pl)[0], ids,
+                             bag_fn)                              # (cc, D)
             if cfg.multi_hot > 1:
                 cand = cand * cfg.multi_hot
             emb = torch.cat([cand[:, None], user_emb[:, 1:].expand(

@@ -260,6 +260,23 @@ def grad_scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
     return _GradScaled.apply(x, scale)
 
 
+class _Contiguous(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def contiguous(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous, and its gradient too (the gradient a dim-wise
+    collective's backward leaves strided): a GEMM on either side then
+    reads the layout, and rounds as, it does on one device."""
+    return _Contiguous.apply(x)
+
+
 class _AllGatherSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):

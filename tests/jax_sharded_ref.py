@@ -3,7 +3,7 @@ reference of tests/test_torch_dist.py. Run in a process of its own
 (XLA_FLAGS must be set before jax is imported, and the test process's
 jax already has one device):
 
-    python tests/jax_sharded_ref.py WORKDIR [lm|dryrun]
+    python tests/jax_sharded_ref.py WORKDIR [lm|dryrun|placed]
 
 reads WORKDIR/inputs.npz and writes WORKDIR/ref.npz, each result under
 "<dp>x<tp>/<name>" for the (data, model) meshes (1, 2), (2, 1), (2, 2);
@@ -14,12 +14,18 @@ tests/torch_dist_ranks.LM_DIST_CASES through the reference's own
 and gradients of its ShardCtx'd loss_fn under its in_shardings, one
 step of its train program, each leaf's shard shape, and its prefill and
 decode programs, each device's cache shard kept by its rank. With
-`dryrun` it writes WORKDIR/dryrun_ref.json for tests/test_torch_dryrun.py:
+`placed` it runs the recsys, DLRM and GNN cases of
+tests/torch_dist_ranks.PLACED_CASES through the reference's own
+`build_program` on each mesh (tests/test_torch_placed.py): the loss and
+gradients of its loss under its in_shardings, one step of its train
+program and each parameter's and optimizer-state leaf's shard shape, by
+key path. With `dryrun` it writes WORKDIR/dryrun_ref.json for tests/test_torch_dryrun.py:
 the reference's `build_program` of the driver's reduced LMs (DRYRUN_LMS)
 at DRYRUN_SHAPES on each mesh, lowered and compiled, with its
 `memory_analysis().argument_size_in_bytes` and each argument group's
-bytes a device; the reduced dlrm-criteo's per-device bytes of each
-parameter and optimizer-state leaf and its shard count; and the loop-aware
+bytes a device; the reduced recsys, DLRM and GNN train programs'
+(tests/torch_dist_ranks.PLACED_ARCHS) per-device bytes of each parameter
+and optimizer-state leaf and its shard count; and the loop-aware
 dot FLOPs (`hlo_analysis.analyze`) of the reduced smollm-135m's train
 and prefill programs on one device.
 """
@@ -331,7 +337,8 @@ def main_dryrun(workdir):
     from repro.launch import hlo_analysis
     from repro.launch.programs import build_program
     from repro.launch.train import reduced_model
-    res = {"lm": {}, "dlrm": {}, "hlo": {}}
+    from torch_dist_ranks import PLACED_ARCHS
+    res = {"lm": {}, "placed": {}, "hlo": {}}
     for dp, tp in ((1, 1),) + MESHES:
         mesh = Mesh(np.array(jax.devices()[:dp * tp]).reshape(dp, tp),
                     ("data", "model"))
@@ -365,22 +372,117 @@ def main_dryrun(workdir):
                     "groups": groups}
         if (dp, tp) == (1, 1):
             continue
-        arch = get_arch("dlrm-criteo")
-        arch = arch.__class__(**{**arch.__dict__,
-                                 "model": reduced_model(arch)})
-        prog = build_program(arch, arch.shape("train_batch"), mesh)
-        res["dlrm"][f"{dp}x{tp}"] = {
-            "params": _group_bytes(prog.abstract_args[0],
-                                   prog.in_shardings[0]),
-            "opt_state": _group_bytes(prog.abstract_args[1],
-                                      prog.in_shardings[1])}
+        for arch_id, shape_name in PLACED_ARCHS:
+            arch = get_arch(arch_id)
+            arch = arch.__class__(**{**arch.__dict__,
+                                     "model": reduced_model(arch)})
+            prog = build_program(arch, arch.shape(shape_name), mesh)
+            res["placed"][f"{arch_id}/{dp}x{tp}"] = {
+                "params": _group_bytes(prog.abstract_args[0],
+                                       prog.in_shardings[0]),
+                "opt_state": _group_bytes(prog.abstract_args[1],
+                                          prog.in_shardings[1])}
     with open(os.path.join(workdir, "dryrun_ref.json"), "w") as f:
         json.dump(res, f)
+
+
+def _placed_loss(jarch, mesh, rules):
+    """The loss the reference's train program of `jarch` steps on
+    (repro/launch/programs.py: build_gnn_program :249-262,
+    build_recsys_program :330-342, build_dlrm_program :416-427)."""
+    from repro.models import dlrm as jdlrm
+    from repro.models import recsys as jrecsys
+    cfg, ctx = jarch.model, ShardCtx(mesh, rules)
+    if jarch.family == "gnn":
+        return None
+    if jarch.family == "dlrm":
+        return lambda p, b: jdlrm.loss_fn(p, cfg, b, ctx=ctx)
+    if cfg.name == "bert4rec":
+        return lambda p, b: jrecsys.bert4rec_loss(p, cfg, b, ctx=ctx)
+    fwd = jrecsys.FORWARD[cfg.name]
+    return lambda p, b: jrecsys.ctr_loss(p, cfg, b, fwd, ctx=ctx)
+
+
+def placed_case(inp, case, dp, tp):
+    """One case of torch_dist_ranks.PLACED_CASES through the reference's
+    `build_program` on the (dp, tp) mesh: the loss and gradients of its
+    loss under its in_shardings, one step of its train program, and each
+    parameter's and optimizer-state leaf's shard shape, by the leaves'
+    key paths."""
+    import dataclasses
+    from repro.configs import base as jbase
+    from repro.configs import get_arch
+    from repro.launch.programs import build_program
+    from repro.launch.train import reduced_model
+    from repro.train.optim import make_optimizer
+    from torch_dist_ranks import (PLACED_CASES, PLACED_STEP, placed_config,
+                                  placed_shape)
+    mesh = Mesh(np.array(jax.devices()[:dp * tp]).reshape(dp, tp),
+                ("data", "model"))
+    jarch = get_arch(PLACED_CASES[case][0])
+    jarch = dataclasses.replace(
+        jarch, model=placed_config(case, reduced_model(jarch)))
+    shape = placed_shape(case, jbase)
+    prog = build_program(jarch, shape, mesh)
+    p_shard, o_shard, _, a_shard = prog.in_shardings
+    flat, treedef = jax.tree_util.tree_flatten_with_path(
+        prog.abstract_args[0])
+    keys = [jax.tree_util.keystr(k) for k, _ in flat]
+    # np.savez keeps a bf16 leaf as 2-byte void elements
+    params = jax.tree_util.tree_unflatten(treedef, [
+        a.view(jnp.bfloat16) if a.dtype.kind == "V" else a
+        for a in (inp[f"{case}/j/{k}"] for k in keys)])
+    batch = {k: inp[f"{case}/b/{k}"] for k in prog.abstract_args[3]}
+    loss_fn = _placed_loss(jarch, mesh, prog.meta["rules"])
+    if loss_fn is None:
+        from repro.models import gnn as jgnn_
+        fn = {"full_graph": jgnn_.full_graph_loss,
+              "minibatch": jgnn_.minibatch_loss}[shape.kind]
+        loss_fn = lambda p, b: fn(p, jarch.model, b)
+    out = {}
+    with jax.set_mesh(mesh):
+        dev_p = jax.device_put(params, p_shard)
+        for k, v in zip(keys, jax.tree_util.tree_leaves(dev_p)):
+            out[f"shape/params/{k}"] = np.array(
+                v.addressable_shards[0].data.shape)
+        (loss, _), grads = jax.jit(
+            jax.value_and_grad(loss_fn, has_aux=True),
+            in_shardings=(p_shard, a_shard))(dev_p, batch)
+        out["loss"] = loss
+        for k, g in zip(keys, jax.tree_util.tree_leaves(grads)):
+            out[f"grad/{k}"] = g
+        opt = make_optimizer(jarch.optimizer)
+        state = jax.jit(opt.init, out_shardings=o_shard)(dev_p)
+        new_p, new_s, _ = jax.jit(
+            prog.fn, in_shardings=prog.in_shardings,
+            out_shardings=prog.out_shardings)(
+                dev_p, state, jnp.int32(PLACED_STEP), batch)
+        for k, v in zip(keys, jax.tree_util.tree_leaves(new_p)):
+            out[f"step/{k}"] = v
+        for path, v in jax.tree_util.tree_flatten_with_path(new_s)[0]:
+            out[f"shape/opt/{jax.tree_util.keystr(path)}"] = np.array(
+                v.addressable_shards[0].data.shape)
+    return out
+
+
+def main_placed(workdir):
+    from torch_dist_ranks import PLACED_CASES
+    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    res = {}
+    for dp, tp in MESHES:
+        for case in PLACED_CASES:
+            for k, v in placed_case(inp, case, dp, tp).items():
+                a = np.asarray(jnp.asarray(v).astype(f32)) \
+                    if np.asarray(v).dtype.kind in "fV" else np.asarray(v)
+                res[f"{dp}x{tp}/{case}/{k}"] = a
+    np.savez(os.path.join(workdir, "ref.npz"), **res)
 
 
 if __name__ == "__main__":
     if sys.argv[2:] == ["lm"]:
         main_lm(sys.argv[1])
+    elif sys.argv[2:] == ["placed"]:
+        main_placed(sys.argv[1])
     elif sys.argv[2:] == ["dryrun"]:
         main_dryrun(sys.argv[1])
     else:

@@ -32,7 +32,8 @@ import torch_dist_ranks as ranks  # noqa: E402
 
 MESH_IDS = [f"{dp}x{tp}" for dp, tp in ranks.MESHES]
 RTOL = {"dlrm-criteo": 1e-3, "bert4rec": 1e-4, "wide-deep": 1e-4,
-        "graphsage-reddit": 1e-4}
+        "graphsage-reddit": 1e-4, "graphsage-edges": 1e-4, "xdeepfm": 1e-4,
+        "dien": 1e-4}
 
 
 @pytest.fixture(scope="module")
@@ -53,19 +54,22 @@ def runs(tmp_path_factory):
             shutil.copytree(ckpt_dir, ckpt_dir + "_one")
     torch.set_num_threads(1)
     base = {}
-    for arch_id, shape in ranks.DRIVER_ARCHS:
+    for case, arch_id, shape, _ in ranks.DRIVER_ARCHS:
         shape = get_arch(arch_id).shape(shape) if shape else None
-        base[arch_id] = train.run(arch_id, steps=5, shape=shape,
-                                  device="cpu", log_every=100)["losses"]
+        base[case] = train.run(arch_id, steps=5, shape=shape,
+                               device="cpu", log_every=100)["losses"]
     base["resumed"] = train.run("dlrm-criteo", steps=5, device="cpu",
                                 ckpt_dir=ckpt_dir + "_one",
                                 log_every=100)["losses"]
     return out, base
 
 
-@pytest.mark.parametrize("arch_id", [a for a, _ in ranks.DRIVER_ARCHS])
+@pytest.mark.parametrize("arch_id", [c for c, *_ in ranks.DRIVER_ARCHS])
 @pytest.mark.parametrize("mesh_id", MESH_IDS)
 def test_driver_losses_match_one_device(runs, mesh_id, arch_id):
+    """`arch_id` is the case: graphsage-reddit's full graph partitioned
+    (`partitioned=True`), graphsage-edges the same graph edge-sharded
+    (the reference's default program)."""
     out, base = runs
     for r in out[mesh_id]:
         assert tuple(r[f"{arch_id}_mesh"]) == tuple(
@@ -83,10 +87,12 @@ def test_driver_compressed_gradients(runs, mode):
 
 
 def test_checkpoint_saved_at_2x2_restores_at_1x2_bitwise(runs):
-    """The (2, 2) run's checkpoint (tables sharded four ways, gathered to
-    rank 0) placed onto (1, 2) by `reshard`: each rank's tables are
-    half the rows, each shard the saved array's block, and gathered back
-    every parameter and accumulator is the saved one bit for bit; the
+    """The (2, 2) run's checkpoint (tables sharded four ways and the dense
+    layers' blocks, gathered to rank 0) placed onto (1, 2) by `reshard`:
+    each rank's tables are half the rows, the MLP weights whose output
+    dim divides split over the model axis, each shard (and each
+    accumulator's) the saved array's block, and gathered back every
+    parameter and accumulator is the saved one bit for bit; the
     resumed run's two steps are the one-device resume's of the same
     checkpoint (a resumed driver draws its batches from the stream's
     start, on one device as on a mesh)."""
@@ -94,6 +100,7 @@ def test_checkpoint_saved_at_2x2_restores_at_1x2_bitwise(runs):
     cfg = train.reduced_model(get_arch("dlrm-criteo"))
     for r in out["1x2"]:
         assert bool(r["restore_bitwise"]) and bool(r["restore_shards"])
+        assert int(r["dense_split"]) > 0
         assert tuple(r["tables_local_shape"]) == (
             cfg.n_sparse, cfg.vocab_sizes[0] // 2, cfg.embed_dim)
         assert len(r["resumed_losses"]) == 2

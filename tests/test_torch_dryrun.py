@@ -9,6 +9,7 @@ default process group): one subprocess plans every port cell below
 placed steps for real (tests/torch_dist_ranks.dryrun_ranks), all started
 together by the module's fixture.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -46,9 +47,11 @@ LM_ARCHS = ("smollm-135m", "qwen2-moe-a2.7b")
 MESHES = ranks.MESHES
 C = 40          # retrieval candidates: C / (data ranks x chunks) whole
 
-# the port's plans: the reduced LMs' bytes a rank, the reduced dlrm-criteo's
-# leaves, the collective schedules, the reduced smollm's dot FLOPs on one
-# device, smollm-135m's train_4k at full width on (16, 16), and the CLI
+# the port's plans: the reduced LMs' bytes a rank, the reduced recsys, DLRM
+# and GNN models' leaves, the collective schedules, the reduced smollm's
+# dot FLOPs on one device, each leaf's block shape of every recsys, DLRM
+# and GNN cell at full width on the production meshes, smollm-135m's train_4k
+# at full width on (16, 16), and the CLI
 PLANS = r"""
 import dataclasses, json, sys, warnings
 warnings.filterwarnings("ignore", category=FutureWarning)
@@ -59,8 +62,9 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.programs import build_program, rank_bytes
 from repro_torch.launch.step_analysis import analyze, tensors_of
 sys.path.insert(0, sys.argv[2])
-from torch_dist_ranks import DRYRUN_TRAIN, dryrun_shape
-out = {"lm": {}, "dlrm": {}, "sched": {}, "flops": {}}
+from torch_dist_ranks import DRYRUN_TRAIN, PLACED_ARCHS, dryrun_shape
+out = {"lm": {}, "placed": {}, "launches": {}, "sched": {}, "flops": {},
+       "production": {}}
 
 def reduced(arch_id):
     arch = get_arch(arch_id)
@@ -86,13 +90,34 @@ for dp, tp in ((1, 1), (1, 2), (2, 1), (2, 2)):
         r = analyze(p.fn, *p.args)
         out["sched"][f"{arch_id}/{tag}"] = r["collective_calls"]
         if arch_id == "dlrm-criteo":
-            out["dlrm"][tag] = {
-                "params": {k: t.numel() * t.element_size()
+            out["launches"][tag] = r["launches"]
+    for arch_id, shape_name in PLACED_ARCHS:
+        arch = reduced(arch_id)
+        p = build_program(arch, arch.shape(shape_name), mesh)
+        out["placed"][f"{arch_id}/{tag}"] = {
+            "params": {k: t.numel() * t.element_size()
+                       for k, t in p.model.named_parameters()},
+            "opt": {f"{key}/{k}": t.numel() * t.element_size()
+                    for key, per in p.opt_state.items()
+                    for k, t in per.items()},
+            "replicated": [n for n, _ in p.meta["replicated"]],
+            "memory": p.memory}
+    mesh_lib.end_plan_mesh()
+for mesh_shape in ((16, 16), (2, 16, 16)):
+    mesh = mesh_lib.make_plan_mesh(mesh_shape)
+    for arch_id, _ in PLACED_ARCHS:
+        arch = get_arch(arch_id)
+        for shape in arch.shapes:
+            if arch.is_skipped(shape.name):
+                continue
+            p = build_program(arch, shape, mesh)
+            out["production"][f"{arch_id}/{shape.name}/{mesh_shape}"] = {
+                "params": {k: list(t.shape)
                            for k, t in p.model.named_parameters()},
-                "acc": {k: t.numel() * t.element_size()
-                        for k, t in p.opt_state["acc"].items()},
-                "replicated": [n for n, _ in p.meta["replicated"]],
-                "memory": p.memory, "launches": r["launches"]}
+                "opt": {f"{key}/{k}": list(t.shape)
+                        for key, per in (p.opt_state or {}).items()
+                        for k, t in per.items()},
+                "replicated": [n for n, _ in p.meta["replicated"]]}
     mesh_lib.end_plan_mesh()
 arch = get_arch("smollm-135m")
 mesh = mesh_lib.make_plan_mesh((16, 16))
@@ -250,31 +275,130 @@ def test_lm_bytes_a_rank_equal_the_compiled_reference(runs, arch_id,
                 want["argument_size_in_bytes"] - tokens - pos
 
 
+def _keypath(name: str) -> str:
+    """The reference's key path of a port parameter name: numbered
+    children are tuple entries, an nn.Linear's weight / bias its w / b."""
+    parts = name.split(".")
+    if len(parts) >= 3 and parts[-2].isdigit() and \
+            parts[-1] in ("weight", "bias"):
+        parts[-1] = parts[-1][0]
+    return "".join(f"[{p}]" if p.isdigit() else f"['{p}']" for p in parts)
+
+
 @pytest.mark.parametrize("mesh_shape", MESHES)
-def test_dlrm_table_bytes_a_rank_equal_the_reference(runs, mesh_shape):
-    """The reduced dlrm-criteo with tp_lookup: its row-sharded tables and
-    their row-wise adagrad state a rank equal the reference's shards;
-    the dense layers, which the reference's rules shard over the model
-    axis (`mlp`) and the data axes (`fsdp`), are the leaves the port
-    replicates (Program.meta's `replicated`), and exactly those."""
+@pytest.mark.parametrize("arch_id", [a for a, _ in ranks.PLACED_ARCHS])
+def test_dlrm_table_bytes_a_rank_equal_the_reference(runs, arch_id,
+                                                     mesh_shape):
+    """The reduced recsys, DLRM and GNN models' train programs (the
+    placements of launch/programs.Placement): no leaf replicated where
+    the reference's rules shard it (Program.meta's `replicated` empty),
+    every parameter's and optimizer-state tensor's bytes a rank the
+    reference's leaf's (its in_shardings' shard), and the parameter and
+    optimizer-state bytes a rank the sums of the reference's argument
+    groups; the dlrm-criteo step's kernels as before (the local-rows
+    pair and the interaction, once each)."""
     tag = f"{mesh_shape[0]}x{mesh_shape[1]}"
-    plan, want = runs["plan"]["dlrm"][tag], runs["ref"]["dlrm"][tag]
-    assert plan["params"]["tables"] == want["params"]["['tables']"][0]
-    assert plan["acc"]["tables"] == \
-        want["opt_state"]["['acc']['tables']"][0]
-    assert want["params"]["['tables']"][1] == mesh_shape[0] * mesh_shape[1]
-    # the reference's leaves split over more than one rank, by the port's
-    # names (an nn.Linear's w transposed is its weight, b its bias)
-    sharded = set()
-    for path, (_, n) in want["params"].items():
-        if n > 1 and path != "['tables']":
-            part, i, leaf = path.strip("[]'").replace("']['", " ") \
-                .replace("'][", " ").replace("]['", " ").split()
-            sharded.add(f"{part}.{i}.{'weight' if leaf == 'w' else 'bias'}")
-    assert set(plan["replicated"]) == sharded
-    assert plan["launches"] == {"embedding_bag_fwd_local": 1,
-                                "embedding_bag_bwd_local": 1,
-                                "dot_interact_fwd": 1, "dot_interact_bwd": 1}
+    plan = runs["plan"]["placed"][f"{arch_id}/{tag}"]
+    want = runs["ref"]["placed"][f"{arch_id}/{tag}"]
+    assert plan["replicated"] == []
+    for name, b in plan["params"].items():
+        assert b == want["params"][_keypath(name)][0], name
+    for key_name, b in plan["opt"].items():
+        key, name = key_name.split("/", 1)
+        assert b == want["opt_state"][f"['{key}']{_keypath(name)}"][0], \
+            key_name
+    assert len(plan["params"]) == len(want["params"])
+    assert len(plan["opt"]) == len(want["opt_state"])
+    total = lambda g: sum(b for b, _ in g.values())
+    assert plan["memory"]["params"] == total(want["params"])
+    assert plan["memory"]["opt_state"] == total(want["opt_state"])
+    if arch_id == "dlrm-criteo":
+        assert want["params"]["['tables']"][1] == \
+            mesh_shape[0] * mesh_shape[1]
+        assert runs["plan"]["launches"][tag] == {
+            "embedding_bag_fwd_local": 1, "embedding_bag_bwd_local": 1,
+            "dot_interact_fwd": 1, "dot_interact_bwd": 1}
+
+
+def _reference_blocks(arch_id: str, shape, mesh_shape) -> dict:
+    """{"params"/"opt": {key path: block shape}} of every parameter and
+    optimizer-state leaf of the reference's program of (arch, shape) on a
+    mesh of `mesh_shape`, from shapes alone: sanitized_pspec of its own
+    logical trees (its init's, under `abstract_init`, and
+    `opt_logical_axes`') under its rules, on a mesh of sizes alone. The
+    reference's config takes the port's values (the same widths, but
+    where the port's config lists a cut in `reduced`: dlrm-criteo's
+    2^22 rows a table, for one card)."""
+    from repro.common import shardlib as jshard
+    from repro.models import gnn as jgnn
+    from repro.train import optim as joptim
+
+    class SizesMesh:
+        axis_names = ("data", "model") if len(mesh_shape) == 2 \
+            else ("pod", "data", "model")
+        shape = dict(zip(axis_names, mesh_shape))
+    jarch, port = j_get_arch(arch_id), get_arch(arch_id).model
+    cfg = dataclasses.replace(jarch.model, **{
+        f.name: getattr(port, f.name)
+        for f in dataclasses.fields(jarch.model) if hasattr(port, f.name)})
+    key = jax.random.PRNGKey(0)
+    init = {"dlrm": lambda: jdlrm.init_params(key, cfg),
+            "gnn": lambda: jgnn.init_params(key, cfg, d_feat=shape.d_feat)
+            }.get(jarch.family, lambda: jrecsys.INIT[cfg.name](key, cfg))
+    abs_p, p_lg = jprograms.abstract_init(init)
+    trees = {"params": (abs_p, p_lg)}
+    if shape.kind == "train" or jarch.family == "gnn":
+        abs_o = jax.eval_shape(
+            joptim.make_optimizer(jarch.optimizer, lr=1e-3).init, abs_p)
+        trees["opt"] = (abs_o, joptim.opt_logical_axes(
+            jarch.optimizer, p_lg, params=abs_p))
+    rules = jshard.make_rules(dict(cfg.sharding_overrides))
+    out = {}
+    for group, (tree, logical) in trees.items():
+        leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+        out[group] = {}
+        for (path, leaf), lg in zip(leaves, treedef.flatten_up_to(logical)):
+            spec = jshard.sanitized_pspec(leaf.shape, tuple(lg), rules,
+                                          SizesMesh)
+            out[group][jax.tree_util.keystr(path)] = [
+                n // jshard.axes_prod(e, SizesMesh)
+                for n, e in zip(leaf.shape, spec)]
+    return out
+
+
+def _port_blocks(port: dict) -> dict:
+    """The port's leaves' shapes by the reference's key paths, in the
+    reference's layout (an nn.Linear weight's transposed)."""
+    def ref_layout(name, shp):
+        return shp[::-1] if name.endswith(".weight") else shp
+    out = {"params": {_keypath(k): ref_layout(k, v)
+                      for k, v in port["params"].items()}}
+    if port["opt"]:
+        out["opt"] = {}
+        for key_name, v in port["opt"].items():
+            key, name = key_name.split("/", 1)
+            out["opt"][f"['{key}']{_keypath(name)}"] = ref_layout(name, v)
+    return out
+
+
+def test_production_meshes_replicate_no_leaf_the_reference_shards(runs):
+    """Every recsys, DLRM and GNN cell at its published widths, planned
+    on the (16, 16) and (2, 16, 16) production meshes: every parameter's
+    and optimizer-state tensor's block a rank is the one the reference
+    gives it there (sanitized_pspec of the reference's own logical trees
+    and rules, `_reference_blocks`), leaf for leaf, and Program.meta's
+    `replicated` is empty."""
+    prod = runs["plan"]["production"]
+    cells = [(a, s) for a, _ in ranks.PLACED_ARCHS
+             for s in get_arch(a).shapes if not get_arch(a).is_skipped(s.name)]
+    assert len(prod) == 2 * len(cells)
+    for arch_id, shape in cells:
+        for mesh_shape in ((16, 16), (2, 16, 16)):
+            port = prod[f"{arch_id}/{shape.name}/{mesh_shape}"]
+            assert port["replicated"] == [], (arch_id, shape.name)
+            want = _reference_blocks(arch_id, shape, mesh_shape)
+            assert _port_blocks(port) == want, (arch_id, shape.name,
+                                                mesh_shape)
 
 
 def test_full_width_smollm_plans_its_rank_bytes(runs):

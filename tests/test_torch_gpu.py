@@ -1266,3 +1266,92 @@ def test_step_analysis_counts_a_cuda_step_as_its_meta_plan():
     assert res["cuda"] == res["meta"], res
     assert res["cuda"][2] == {"embedding_bag_fwd": 1, "embedding_bag_bwd": 1,
                               "dot_interact_fwd": 1, "dot_interact_bwd": 1}
+
+
+def _one_rank_mesh(tmp_path):
+    """An NCCL process group of one rank (a file rendezvous) and its (1,
+    1) mesh, taking every collective at its one rank (the driver's)."""
+    from repro_torch.launch import mesh as mesh_lib
+    dev = mesh_lib.init_distributed("cuda", rank=0, world_size=1,
+                                    init_method=f"file://{tmp_path}/pg")
+    return mesh_lib.make_mesh(1, 1, dev, exchange_one_shard=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 10, 18])
+def test_model_axis_lookup_matches_plain_version(tmp_path, d):
+    """The row-sharded lookup over the model axis alone (xDeepFM's tables
+    and linear arm, DIEN's items) on a world of one: its forward, through
+    the local-rows kernel and a sum over the model group, bitwise the
+    plain version of the whole table's bag; its gradient, through the
+    local-rows scatter, within rtol 1e-5 / atol 1e-6 of the plain
+    scatter's; one launch each way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.models.embedding import tp_multifeature_bag
+    mesh = _one_rank_mesh(tmp_path)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        tables = torch.randn((5, 4096, d), device="cuda", generator=gen)
+        ids = torch.randint(0, 4096, (300, 5, 1), device="cuda",
+                            generator=gen, dtype=torch.int32)
+        t = tables.clone().requires_grad_(True)
+        before = ops.launch_counts()
+        out = tp_multifeature_bag(t, ids, mesh, rows=4096, axes="model")
+        g = torch.randn_like(out)
+        out.backward(g)
+        after = ops.launch_counts()
+        assert torch.equal(out, ref.embedding_bag_ref(tables, ids))
+        torch.testing.assert_close(
+            t.grad, ref.embedding_bag_bwd_ref(g, ids, 4096), rtol=1e-5,
+            atol=1e-6)
+        for k in ("embedding_bag_fwd_local", "embedding_bag_bwd_local"):
+            assert after[k] - before[k] == 1, k
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_placed_mlp_matches_the_unplaced_one(tmp_path):
+    """The placed dense stack (recsys.apply_mlp under a Placement: the
+    fsdp blocks gathered, the columns split and gathered over the model
+    axis, every collective on the world of one) against the same stack
+    unplaced on the card: the output and every gradient bitwise (a
+    gather over one rank is a copy), and the input's gradient too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.configs.wide_deep import ARCH
+    from repro_torch.launch.programs import Placement
+    from repro_torch.models import recsys
+    mesh = _one_rank_mesh(tmp_path)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        dims = (77, 64, 32, 1)
+        plain = recsys.init_mlp(dims, generator=gen, device="cuda")
+        placed = recsys.init_mlp(dims, generator=None, device="cuda")
+        placed.load_state_dict(plain.state_dict())
+        holder = torch.nn.Module()
+        holder.mlp = placed
+        pl = Placement(mesh, ARCH.model,
+                       {f"mlp.{k}": p.shape
+                        for k, p in placed.named_parameters()},
+                       recsys.mlp_logical("mlp", placed))
+        assert all(pl.on_model(pl.specs[f"mlp.{i}.weight"], 0)
+                   for i in range(2))
+        x = torch.randn((256, 77), device="cuda", generator=gen)
+        x1, x2 = x.clone().requires_grad_(True), x.clone().requires_grad_(
+            True)
+        want = recsys.apply_mlp(plain, x1)
+        got = recsys.apply_mlp(placed, x2, placement=pl, prefix="mlp")
+        g = torch.randn_like(want)
+        want.backward(g)
+        got.backward(g)
+        assert torch.equal(got, want)
+        assert torch.equal(x2.grad, x1.grad)
+        for (k, a), b in zip(plain.named_parameters(), placed.parameters()):
+            assert torch.equal(b.grad, a.grad), k
+    finally:
+        dist.destroy_process_group()

@@ -173,31 +173,75 @@ def test_local_slice_blocks():
             np.testing.assert_array_equal(blk, x[:, 2 * k:2 * k + 2])
 
 
+def _reference_logical(arch_id: str, name: str) -> tuple:
+    """The logical axes the reference's init function gives the leaf
+    that the port names `name` (its reduced config, from shapes alone:
+    `abstract_init`)."""
+    from repro.launch import programs as jprograms
+    from repro.launch.train import reduced_model
+    from repro.models import dlrm as jdlrm, gnn as jgnn, recsys as jrecsys
+    jarch = j_get_arch(arch_id)
+    cfg, key = reduced_model(jarch), jax.random.PRNGKey(0)
+    init = {"dlrm": lambda: jdlrm.init_params(key, cfg),
+            "gnn": lambda: jgnn.init_params(key, cfg, d_feat=8)}.get(
+        jarch.family, lambda: jrecsys.INIT[cfg.name](key, cfg))
+    _, node = jprograms.abstract_init(init)
+    parts = name.split(".")
+    if parts[-1] in ("weight", "bias") and parts[-2].isdigit():
+        parts[-1] = parts[-1][0]
+    for part in parts:
+        node = node[int(part)] if part.isdigit() else node[part]
+    return tuple(node)
+
+
 @pytest.mark.parametrize("arch_id,name,want", [
     ("dlrm-criteo", "tables", (None, ("data", "model"), None)),
+    ("dlrm-criteo", "top.0.weight", ("model", "data")),
     ("wide-deep", "tables", (None, ("data", "model"), None)),
     ("wide-deep", "wide", (None, ("data", "model"))),
     ("bert4rec", "items", ("model", None)),
-    ("xdeepfm", "tables", None)])
+    ("bert4rec", "blocks.0.wqkv", ("data", None, "model", None)),
+    ("xdeepfm", "tables", (None, "model", None)),
+    ("xdeepfm", "cin.0", ("model", None, None)),
+    ("dien", "gru1.w", ("data", "model")),
+    ("graphsage-reddit", "layers.0.w_self", ("data", None))])
 def test_row_sharded_placements(arch_id, name, want):
-    """The driver's row-sharded tables at (2, 2): the reference's own
-    sharding of them (sanitized_pspec with the config's overrides), and
-    replicated where the config has no row-sharded lookup."""
+    """The driver's placement at (2, 2): each leaf at the reference's own
+    spec of it (sanitized_pspec of the logical axes of the reference's
+    init, which the port's model declares in `param_logical()`, with the
+    config's overrides; an nn.Linear weight's transposed): the tables'
+    rows over every axis where the config's overrides say so, over the
+    model axis by the default rules (xDeepFM's, BERT4Rec's items), the
+    dense weights' fsdp over the data axis and mlp over the model axis."""
+    from repro_torch.launch import train
     arch, jarch = get_arch(arch_id), j_get_arch(arch_id)
     mesh = FakeMesh({"data": 2, "model": 2})
     mesh.data_axes = ("data",)
     mesh.size = lambda axes: 2 if isinstance(axes, str) else 4
-    shape = {"tables": (4, 512, 8), "wide": (4, 512),
-             "items": (528, 16)}[name]
-    placement = programs.Placement(
-        mesh, arch.model.name if arch.family != "dlrm" else "dlrm",
-        arch.model, {name: shape})
+    mesh.index = lambda axes: 0
+    mesh.group = lambda axis: None
+    mesh.data_group = mesh.all_group = None
+    shape = {"tables": (4, 512, 8), "wide": (4, 512), "items": (528, 16),
+             "top.0.weight": (64, 32), "blocks.0.wqkv": (16, 3, 2, 8),
+             "cin.0": (12, 8, 8), "gru1.w": (8, 48),
+             "layers.0.w_self": (32, 16)}[name]
+    model = train.init_params_for(arch, train.reduced_model(arch), 0,
+                                  device="meta")
+    logical = model.param_logical()
+    placement = programs.Placement(mesh, arch.model, {name: shape},
+                                   logical)
     assert placement.specs[name] == want
-    if want is not None:
-        logical = programs.ROW_SHARDED[
-            "dlrm" if arch.family == "dlrm" else arch.model.name][name]
-        jrules = jshard.make_rules(dict(jarch.model.sharding_overrides))
-        _same(want, jshard.sanitized_pspec(shape, logical, jrules, mesh))
+    weight = name.endswith(".weight")
+    jlogical = _reference_logical(arch_id, name)
+    assert logical[name] == (jlogical[::-1] if weight else jlogical)
+    jrules = jshard.make_rules(dict(jarch.model.sharding_overrides))
+    jshape = shape[::-1] if weight else shape
+    jspec = tuple(jshard.sanitized_pspec(jshape, jlogical, jrules, mesh))
+    _same(want, jspec[::-1] if weight else jspec)
+    with pytest.raises(ValueError, match="no logical axes"):
+        programs.Placement(mesh, arch.model, {name + "_x": shape}, logical)
+    with pytest.raises(ValueError, match="no logical axes"):
+        programs.Placement(mesh, arch.model, {name: shape + (2,)}, logical)
 
 
 def test_one_rank_mesh_and_backend_rules(tmp_path):

@@ -202,8 +202,18 @@ MOE_CFG = dict(name="moe-t", n_layers=1, d_model=32, n_heads=2,
 
 
 # ---------------------------------------------------------------- driver ---
-DRIVER_ARCHS = (("dlrm-criteo", None), ("bert4rec", None),
-                ("wide-deep", None), ("graphsage-reddit", "full_graph_sm"))
+# (case, arch, shape, the gnn's `partitioned` knob): graphsage-reddit's
+# full graph in the dst-partitioned layout and, as "graphsage-edges", in
+# the reference's default edge-sharded one
+DRIVER_ARCHS = (("dlrm-criteo", "dlrm-criteo", None, False),
+                ("bert4rec", "bert4rec", None, False),
+                ("wide-deep", "wide-deep", None, False),
+                ("graphsage-reddit", "graphsage-reddit", "full_graph_sm",
+                 True),
+                ("graphsage-edges", "graphsage-reddit", "full_graph_sm",
+                 False),
+                ("xdeepfm", "xdeepfm", None, False),
+                ("dien", "dien", None, False))
 
 
 def driver(rank, mesh_shape, workdir, save_dir="", restore_dir=""):
@@ -217,12 +227,13 @@ def driver(rank, mesh_shape, workdir, save_dir="", restore_dir=""):
     out = {}
     kw = dict(device="cpu", dist_run=True, mesh_shape=mesh_shape,
               log_every=100)
-    for arch_id, shape in DRIVER_ARCHS:
+    for case, arch_id, shape, partitioned in DRIVER_ARCHS:
         shape = get_arch(arch_id).shape(shape) if shape else None
-        r = train.run(arch_id, steps=5, shape=shape, **kw)
-        out[f"{arch_id}_losses"] = np.array(r["losses"])
-        out[f"{arch_id}_mesh"] = np.array([r["mesh"]["data"],
-                                           r["mesh"]["model"]])
+        r = train.run(arch_id, steps=5, shape=shape, partitioned=partitioned,
+                      **kw)
+        out[f"{case}_losses"] = np.array(r["losses"])
+        out[f"{case}_mesh"] = np.array([r["mesh"]["data"],
+                                        r["mesh"]["model"]])
     if tuple(mesh_shape) == (2, 2):
         for mode in ("bf16", "int8"):
             r = train.run("dlrm-criteo", steps=5, compress=mode, **kw)
@@ -256,23 +267,28 @@ def _restore_check(mesh_shape, ckpt_dir):
     tree, _ = ckpt.restore(ckpt_dir, device="cpu")
     named = dlrm.named_from_tree(tree["params"])
     opt = {k: dlrm.named_from_tree(v) for k, v in tree["opt_state"].items()}
-    placement = Placement(mesh, "dlrm", cfg,
-                          {k: v.shape for k, v in named.items()})
+    placement = Placement(mesh, cfg, {k: v.shape for k, v in named.items()},
+                          dlrm.init_params(cfg, device="meta")
+                          .param_logical(), optimizer=arch.optimizer)
     local, local_opt = train._restore_sharded(
         {"params": named, "opt_state": opt}, placement, "cpu")
-    ok, shards = True, True
+    ok, shards, n_split = True, True, 0
     for k, v in named.items():
         spec = placement.specs[k]
         shards &= bool(torch.equal(local[k], local_slice(v, spec, mesh)))
+        n_split += k != "tables" and local[k].shape != v.shape
         whole = placement.gather({k: local[k]})[k]
         ok &= bool(np.array_equal(to_numpy(whole).view(np.uint8),
                                   to_numpy(v).view(np.uint8)))
     for name, state in opt.items():
         for k, v in state.items():
-            whole = placement.gather_state(k, local_opt[name][k])
+            whole = placement.gather_state(k, local_opt[name][k], key=name)
             ok &= bool(torch.equal(whole, v))
+            shards &= bool(torch.equal(local_opt[name][k], local_slice(
+                v, placement.state_spec(k, name), mesh)))
     return {"restore_bitwise": np.array(ok), "restore_shards": np.array(
-        shards), "tables_local_shape": np.array(local["tables"].shape)}
+        shards), "tables_local_shape": np.array(local["tables"].shape),
+        "dense_split": np.array(n_split)}
 
 
 # ------------------------------------------------------------ LM on a mesh ---
@@ -558,6 +574,14 @@ def _lm_restore_check(mesh_shape, ckpt_dir):
 # holds against the dry run's plan: (arch, the reduced config's shape)
 DRYRUN_TRAIN = (("dlrm-criteo", "recsys", 32), ("gemma2-2b", "lm", 8))
 DRYRUN_RETRIEVAL = ("dlrm-criteo", "wide-deep")
+# the recsys, DLRM and GNN train programs whose bytes a rank
+# tests/test_torch_dryrun.py holds against the reference's in_shardings:
+# (arch, its train shape; ogb_products's 100 features divide both data
+# axes of the small meshes)
+PLACED_ARCHS = (("dlrm-criteo", "train_batch"), ("wide-deep", "train_batch"),
+                ("xdeepfm", "train_batch"), ("dien", "train_batch"),
+                ("bert4rec", "train_batch"),
+                ("graphsage-reddit", "ogb_products"))
 DRYRUN_CHUNKS = 2
 
 
@@ -572,7 +596,7 @@ def dryrun_ranks(rank, mesh_shape, workdir):
     """One train step of each of DRYRUN_TRAIN's reduced configs, placed on
     this mesh (launch/programs.build_program on the CPU), under
     launch/step_analysis: its collective schedule (a JSON row a distinct
-    collective); and the placed retrieval (score_candidates(mesh=)) of
+    collective); and the placed retrieval (score_candidates(placement=)) of
     DRYRUN_RETRIEVAL's reduced models, from inputs.npz's parameters, user
     and candidates, beside the unplaced scores of the same model."""
     import copy
@@ -603,14 +627,119 @@ def dryrun_ranks(rank, mesh_shape, workdir):
                                for k, v in inp.items()
                                if k.startswith(f"{arch_id}/p/")})
         placed = copy.deepcopy(model)
-        train.model_placement(arch, cfg, arch.shape("retrieval_cand"),
-                              placed, mesh)
+        pl = train.model_placement(arch, cfg, arch.shape("retrieval_cand"),
+                                   placed, mesh)
         user = {k[len(arch_id) + 3:]: torch.from_numpy(v)
                 for k, v in inp.items() if k.startswith(f"{arch_id}/u/")}
         cand = torch.from_numpy(inp[f"{arch_id}/cand"])
         out[f"placed/{arch_id}"] = _np(lib.score_candidates(
-            placed, user, cand, chunks=DRYRUN_CHUNKS, mesh=mesh))
+            placed, user, cand, chunks=DRYRUN_CHUNKS, placement=pl))
         out[f"unplaced/{arch_id}"] = _np(lib.score_candidates(
             model, user, cand, chunks=DRYRUN_CHUNKS))
         out[f"shard/{arch_id}"] = np.array(placed.tables.shape)
+    return out
+
+
+# ------------------------------------- recsys, DLRM and GNN placed on a mesh ---
+# the cases the reference's own sharded programs (build_dlrm_program,
+# build_recsys_program, build_gnn_program) hold the port's placement to:
+# {case: (arch, shape[, config fields])}, each at the drivers' reduced
+# config (its fields replaced by the third entry); a shape is ("train",
+# batch) or a GNNShape's fields
+PLACED_CASES = {
+    "dlrm-criteo": ("dlrm-criteo", ("train", 32)),
+    "dlrm-criteo-f32": ("dlrm-criteo", ("train", 32),
+                        {"param_dtype": "float32"}),
+    "wide-deep": ("wide-deep", ("train", 32)),
+    "xdeepfm": ("xdeepfm", ("train", 32)),
+    "dien": ("dien", ("train", 32)),
+    "bert4rec": ("bert4rec", ("train", 32)),
+    "graphsage-full": ("graphsage-reddit",
+                       dict(name="g", kind="full_graph", n_nodes=256,
+                            n_edges=2000, d_feat=32)),
+    "graphsage-mini": ("graphsage-reddit",
+                       dict(name="m", kind="minibatch", n_nodes=512,
+                            n_edges=4096, d_feat=32, batch_nodes=32,
+                            fanout=(5, 3))),
+}
+# the train step's step number (the warm-up's learning rate is 0 at 0)
+# and the reference programs' learning rates, by family
+PLACED_STEP = 50
+PLACED_LR = {"recsys": 1e-2, "dlrm": 1e-2, "gnn": 1e-3}
+
+
+def placed_config(case, reduced):
+    """The case's config: `reduced` (either package's reduced_model of
+    its arch) with the case's fields replaced."""
+    fields = PLACED_CASES[case][2] if len(PLACED_CASES[case]) > 2 else {}
+    return reduced.replace(**fields)
+
+
+def placed_shape(case, base):
+    """The case's shape, built by the configs module `base` (either
+    package's)."""
+    spec = PLACED_CASES[case][1]
+    if isinstance(spec, dict):
+        return base.GNNShape(**spec)
+    return base.RecsysShape("t", spec[0], spec[1])
+
+
+def placed_functions(rank, mesh_shape, workdir):
+    """Each case of PLACED_CASES on this rank's blocks (the driver's
+    `build_step` on the mesh, its parameters the case's numpy ones
+    through `_restore_sharded`): the global loss, the gradients
+    (reduced, gathered whole), each parameter's and optimizer-state
+    tensor's local shape, and one train step's parameters gathered
+    whole."""
+    from repro_torch.configs import base
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.exchange import from_numpy
+    from repro_torch.train import collectives as coll
+
+    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    mesh = make_mesh(*mesh_shape, "cpu", exchange_one_shard=True)
+    dp, k = mesh.size(mesh.data_axes), mesh.index(mesh.data_axes)
+    out = {}
+    for case, (arch_id, *_) in PLACED_CASES.items():
+        arch = get_arch(arch_id)
+        cfg = placed_config(case, train.reduced_model(arch))
+        arch = arch.__class__(**{**arch.__dict__, "model": cfg})
+        shape = placed_shape(case, base)
+        model, state, step_fn, pl, _ = train.build_step(
+            arch, cfg, shape, "cpu", mesh=mesh, lr=PLACED_LR[arch.family])
+        pre = f"{case}/t/"
+        named = {n[len(pre):]: from_numpy(v) for n, v in inp.items()
+                 if n.startswith(pre)}
+        local, _ = train._restore_sharded({"params": named,
+                                           "opt_state": {}}, pl, "cpu")
+        model.load_state_dict(local)
+        pre = f"{case}/b/"
+        whole = {n[len(pre):]: v for n, v in inp.items()
+                 if n.startswith(pre)}
+        if shape.kind == "full_graph":
+            batch = train._edge_sharded_fn(cfg, shape, None, "cpu", whole,
+                                           mesh)()
+        else:
+            rows = train.data_rows(next(iter(whole.values())).shape[0], dp,
+                                   k)
+            batch = {n: torch.from_numpy(v[rows]) for n, v in whole.items()}
+        loss, _ = train.make_loss_fn(arch, cfg, shape, pl)(model, batch)
+        params = dict(model.named_parameters())
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        out[f"{case}/loss"] = _np(coll.psum_tree(
+            loss.detach().float(), mesh.data_group, mean=False))
+        for n, g in pl.gather(pl.reduce_grads(grads)).items():
+            out[f"{case}/grad/{n}"] = _np(g)
+        for n, p in params.items():
+            out[f"{case}/shape/params/{n}"] = np.array(p.shape)
+        for key, per in state.items():
+            for n, t in per.items():
+                out[f"{case}/shape/opt/{key}/{n}"] = np.array(t.shape)
+        step_fn(model, state, PLACED_STEP, batch)
+        for n, p in pl.gather({n: p.detach() for n, p in
+                               model.named_parameters()}).items():
+            out[f"{case}/step/{n}"] = _np(p)
     return out
