@@ -27,6 +27,8 @@ from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
+from repro_torch.common.spans import span
+
 
 class ShardError(ValueError):
     """A global batch cannot be split evenly across hosts."""
@@ -157,6 +159,8 @@ class MeteredFeed:
     `counters()` returns monotonically increasing totals
     (`batches`, `stall_s`, plus a `time` timestamp); consumers
     (FeedBackend.measure) difference two snapshots to get a window.
+    The wait `stall_s` counts runs in the span `feed.wait`
+    (`common/spans`).
     """
 
     def __init__(self, it: Iterator):
@@ -168,11 +172,12 @@ class MeteredFeed:
         return self
 
     def __next__(self):
-        t0 = time.monotonic()
-        try:
-            out = next(self._it)
-        finally:
-            self.stall_s += time.monotonic() - t0
+        with span("feed.wait"):
+            t0 = time.monotonic()
+            try:
+                out = next(self._it)
+            finally:
+                self.stall_s += time.monotonic() - t0
         self.batches += 1
         return out
 

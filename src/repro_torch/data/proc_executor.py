@@ -512,7 +512,7 @@ def _send_stop(stop_sent, out_qs, hard, gate):
 
 
 def _worker_main(fn, in_qs, out_qs, soft, hard, stop_sent, gather_lock,
-                 serial_lock, nworkers, counter, gate, dropped=None):
+                 serial_lock, nworkers, counter, gate, dropped, busy):
     """One stage worker process. Soft stop (resize-down / teardown)
     delivers the in-flight item if it can COMMIT it within a short
     grace; an uncommitted item is dropped (counted in `dropped`) so the
@@ -535,7 +535,7 @@ def _worker_main(fn, in_qs, out_qs, soft, hard, stop_sent, gather_lock,
         fn.bind(serial_lock, nworkers)
     try:
         _worker_loop(fn, in_qs, out_qs, soft, hard, stop_sent, gather_lock,
-                     counter, gate, dropped)
+                     counter, gate, dropped, busy)
     finally:
         if hasattr(fn, "release"):
             fn.release()
@@ -549,13 +549,23 @@ def _worker_main(fn, in_qs, out_qs, soft, hard, stop_sent, gather_lock,
     # frees the ballast first so the ghost holds no pipeline memory.
 
 
+def _add(value, x: float):
+    with value.get_lock():
+        value.value += x
+
+
 def _worker_loop(fn, in_qs, out_qs, soft, hard, stop_sent, gather_lock,
-                 counter, gate, dropped):
+                 counter, gate, dropped, busy):
+    """Serve items until stopped. `busy` gains the wall seconds spent
+    inside `fn` (skipped and filtered items too): the stage's service
+    time, with no queue wait in it."""
     while not soft.is_set() and not hard.is_set():
         if not in_qs:                       # source stage
             if stop_sent.is_set():          # a sibling hit EOS
                 return
+            t0 = time.monotonic()
             out = fn()
+            _add(busy, time.monotonic() - t0)
             if isinstance(out, _Skip):      # rate-limited: no arrival yet
                 continue
             if out is None:
@@ -570,7 +580,9 @@ def _worker_loop(fn, in_qs, out_qs, soft, hard, stop_sent, gather_lock,
             if isinstance(got, _Stop):
                 _send_stop(stop_sent, out_qs, hard, gate)
                 return
+            t0 = time.monotonic()
             out = fn(*got)
+            _add(busy, time.monotonic() - t0)
             if out is None:                 # filtered item
                 continue
         delivered = True
@@ -581,16 +593,13 @@ def _worker_loop(fn, in_qs, out_qs, soft, hard, stop_sent, gather_lock,
             ok = _q_put(q, out, hard, gate, deadline=grace)
             if not ok and grace is not None and not hard.is_set():
                 # retiring, and the item landed nowhere: drop it and go
-                if dropped is not None:
-                    with dropped.get_lock():
-                        dropped.value += 1
+                _add(dropped, 1)
                 break
             committed = committed or ok
             delivered = ok and delivered
         else:
             if delivered:
-                with counter.get_lock():
-                    counter.value += 1
+                _add(counter, 1)
             continue
         return
 
@@ -612,6 +621,7 @@ class _ProcStagePool:
         self.stop_sent = ctx.Event()
         self.counter = ctx.Value("L", 0)            # delivered items
         self.dropped_ct = ctx.Value("L", 0)         # fast-retire drops
+        self.busy = ctx.Value("d", 0.0)             # s inside the stage fn
         self.nworkers_val = ctx.Value("i", 1, lock=False)
         self.serial_lock = ctx.Lock()
         self.gather_lock = ctx.Lock() if len(self.in_qs) > 1 else None
@@ -633,7 +643,7 @@ class _ProcStagePool:
                 args=(self.fn, self.in_qs, self.out_qs, soft, self._hard,
                       self.stop_sent, self.gather_lock, self.serial_lock,
                       self.nworkers_val, self.counter, self.out_gate,
-                      self.dropped_ct),
+                      self.dropped_ct, self.busy),
                 daemon=True)
             p.start()
             if self._on_spawn is not None:
@@ -659,6 +669,11 @@ class _ProcStagePool:
         """Items dropped by retiring workers that could not commit
         their in-flight delivery within the fast-retire grace."""
         return int(self.dropped_ct.value)
+
+    def busy_s(self) -> float:
+        """Wall seconds the pool's workers have spent inside the stage
+        function, summed over workers (`_worker_loop`)."""
+        return float(self.busy.value)
 
     def sync_meter(self):
         """Feed the shared-counter delta into the EWMA meter (decays on
@@ -974,11 +989,16 @@ class ProcessPipeline:
     def counters(self) -> dict:
         """Monotonic batch counters + timestamp (ThreadedPipeline's
         measured-window contract; `delivered` reads the sink pool's
-        shared cross-process counter)."""
+        shared cross-process counter). `stage_busy_s` is each stage's
+        summed service time (`_ProcStagePool.busy_s`), in `spec.stages`
+        order, and `workers` the pools' sizes: over a window, a stage is
+        busy delta(stage_busy_s) / (workers x delta(time)) of the time."""
         return {"delivered": self.pools[self.spec.sink].delivered(),
                 "consumed": self.out_meter.count,
                 "time": time.monotonic(),
-                "last_resize_at": self._last_resize_at}
+                "last_resize_at": self._last_resize_at,
+                "stage_busy_s": [p.busy_s() for p in self.pools],
+                "workers": self.worker_counts()}
 
     window_rate = staticmethod(ThreadedPipeline.window_rate)
 

@@ -13,6 +13,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from repro_torch.common.spans import span
 from repro_torch.train.optim import Optimizer
 
 
@@ -42,10 +43,24 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     waits for the step). With microbatches > 1, the batch's leading axis
     is split, each slice's gradients are added as `g.float() /
     microbatches` into f32 zeros in slice order, and the loss and the
-    metrics are the slices' means, as in the reference's scan."""
-    def grads_of(model, params, batch):
-        loss, metrics = loss_fn(model, batch)
-        return loss, metrics, torch.autograd.grad(loss, list(params.values()))
+    metrics are the slices' means, as in the reference's scan.
+
+    Each microbatch's loss runs in the span `step.forward` and its
+    gradients (and their sum into the accumulator) in `step.backward`;
+    the update runs in `step.optim` (`common/spans`). `grad_fn` runs
+    in none."""
+    def grads_of(model, params, batch, acc=None):
+        """(loss, metrics, gradients); with `acc`, the gradients are
+        added into it as a microbatch's share and not returned."""
+        with span("step.forward"):
+            loss, metrics = loss_fn(model, batch)
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
+            if acc is not None:
+                for a, g in zip(acc.values(), grads):
+                    a.add_(g.float() / microbatches)
+                grads = None
+        return loss, metrics, grads
 
     def train_step(model: nn.Module, opt_state, step: int, batch):
         params = dict(model.named_parameters())
@@ -58,18 +73,16 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                      for k, p in params.items()}
             loss, parts = 0.0, []
             for mb in _split(batch, microbatches):
-                mb_loss, mb_metrics, mb_grads = grads_of(model, params, mb)
-                for acc, g in zip(grads.values(), mb_grads):
-                    acc.add_(g.float() / microbatches)
-                del mb_grads
+                mb_loss, mb_metrics, _ = grads_of(model, params, mb, grads)
                 loss = loss + mb_loss.detach() / microbatches
                 parts.append(mb_metrics)
             metrics = {k: torch.stack([m[k].detach() for m in parts]).mean()
                        for k in parts[0]}
         if grad_fn is not None:
             grads = grad_fn(grads)
-        _, opt_state, stats = optimizer.update(grads, opt_state, params,
-                                               step)
+        with span("step.optim"):
+            _, opt_state, stats = optimizer.update(grads, opt_state, params,
+                                                   step)
         out = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
         out.update(stats)

@@ -1355,3 +1355,49 @@ def test_placed_mlp_matches_the_unplaced_one(tmp_path):
             assert torch.equal(b.grad, a.grad), k
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_spans_put_nothing_on_the_device_timeline():
+    """On the card, under a CPU and CUDA profile: a train step opens its
+    three spans in order, no device-side event carries a span's name
+    (they are CPU ranges, not user annotations), and every kernel, copy
+    and fill of the step has a recorded launch that it starts after (the
+    host and device share the profile's clock)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.common.spans import SPANS
+    from repro_torch.train.optim import constant_lr, sgd
+    from repro_torch.train.train_step import make_train_step
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.ReLU(),
+                                torch.nn.Linear(256, 1)).cuda()
+
+    def loss_fn(m, b):
+        return ((m(b["x"]) - b["y"]) ** 2).mean(), {}
+    opt = sgd(constant_lr(0.01))
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(loss_fn, opt)
+    batch = {"x": torch.randn(1024, 64, device="cuda"),
+             "y": torch.randn(1024, 1, device="cuda")}
+    step(model, state, 0, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(model, state, 1, batch)
+        torch.cuda.synchronize()
+    evs = list(prof.events())
+    device = [e for e in evs if e.device_type.name == "CUDA"]
+    assert device and not {e.name for e in device} & set(SPANS)
+    opened = sorted((e for e in evs if e.name in SPANS),
+                    key=lambda e: e.time_range.start)
+    assert [e.name for e in opened] == ["step.forward", "step.backward",
+                                        "step.optim"]
+    launches = {e.id: e for e in evs if e.device_type.name == "CPU"
+                and e.name.startswith("cu")}
+    for k in device:
+        assert k.id in launches, k.name
+        assert k.time_range.start >= launches[k.id].time_range.start, k.name
